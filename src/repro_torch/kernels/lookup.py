@@ -1,0 +1,384 @@
+"""Fused learned-index lookup: host-side table packing, the three kernel
+wrappers (K1-K3) and each kernel's plain PyTorch version.
+
+Each lookup runs four stages per query: root routing, leaf predict from
+the packed tables, the error-bound window clamped to [0, n_keys), and a
+branchless search of that window at a static depth.  The CUDA kernels are
+in ``csrc/lookup.cu``; on a CUDA tensor a wrapper launches its kernel (or
+raises), on a CPU tensor it runs the plain version, which computes the
+same f32 arithmetic in the same order, so the two agree bit for bit.
+
+Packed tables (the reference's row meaning, ``repro/kernels/lookup.py``):
+
+  root (8, 128) f32    linear root: [0,0] = a, [3,0] = b
+                       (mlp root: rows 0/1/2 = w1/b1/w2 over H lanes,
+                       [3,0] = b2 -- not built by this slice)
+  mat  (3H, Lp) f32    rows [0, H) w1, [H, 2H) b1, [2H, 3H) w2; a linear
+                       leaf rides in w1[0] (its slope)
+  vec  (8, Lp)  f32    row 0 b2 / intercept, row 1 err_lo, row 2 err_hi
+
+with leaves on the last axis, padded to Lp (a multiple of 128).  Padded
+lanes are never read: buckets are clipped to n_leaves - 1.
+
+Semantics kept from the reference: f32 key space; +inf capacity padding;
+left boundaries (``kv < q``) and right boundaries (``kv <= q``); the
+static search depth from :func:`search_iters`; float->int32 conversions
+that saturate (NaN -> 0); window clamps at ``n_keys - 1`` and ``n_keys``
+rounded to f32 (at ``n_keys = 2**28`` both are 2**28).  The TPU's query
+tiling and per-key-tile min-merge are not copied: the search runs once
+over the global key array.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..core.bounds import clamped_depth, window_widths
+from . import build
+
+H = 4              # the paper's hidden width
+ROOT_ROWS = 8      # packed root block rows
+ROOT_LANES = 128   # packed root block lanes
+
+# Launches of each CUDA kernel; incremented only where a kernel launches.
+LAUNCHES = {"lookup": 0, "dynamic_lookup": 0, "dynamic_range": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def search_iters(err_lo, err_hi, n_keys: int) -> int:
+    """Static search depth for an index with the given leaf bounds (§4):
+    ceil(log2(widest live window)) + 1, not ceil(log2(n_keys)) + 1."""
+    return clamped_depth(window_widths(err_lo, err_hi), n_keys)
+
+
+def full_iters(n_keys: int) -> int:
+    """Unclamped depth: the classic ceil(log2(n)) + 1."""
+    return int(math.ceil(math.log2(max(n_keys, 2)))) + 1
+
+
+def pack_root(root_kind: str, params, route_scale: float = 1.0
+              ) -> torch.Tensor:
+    """(ROOT_ROWS, ROOT_LANES) f32 block holding the root model, with a
+    routing rescale folded in (``route_scale``, f64 product then f32)."""
+    if root_kind != "linear":
+        raise NotImplementedError(
+            "MLP roots arrive with the pool-reuse slice (ROADMAP queue 1 "
+            "item 6)")
+    blk = torch.zeros((ROOT_ROWS, ROOT_LANES), dtype=torch.float32,
+                      device=params.a.device)
+    blk[0, 0] = (params.a.to(torch.float64) * route_scale).to(torch.float32)
+    blk[3, 0] = (params.b.to(torch.float64) * route_scale).to(torch.float32)
+    return blk
+
+
+def pack_leaves(w1, b1, w2, b2, err_lo, err_hi):
+    """Lane-major leaf tables: (3H, Lp) params + (8, Lp) scalars, Lp the
+    128-multiple pad of L.  w1/b1/w2: (L, H); b2/err_lo/err_hi: (L,)."""
+    L = w1.shape[0]
+    lp = -(-L // 128) * 128
+    dev = w1.device
+    mat = torch.zeros((3 * H, lp), dtype=torch.float32, device=dev)
+    for i, a in enumerate((w1, b1, w2)):
+        mat[i * H:(i + 1) * H, :L] = a.to(torch.float32).T
+    vec = torch.zeros((8, lp), dtype=torch.float32, device=dev)
+    for row, a in ((0, b2), (1, err_lo), (2, err_hi)):
+        vec[row, :L] = a.to(torch.float32)
+    return mat, vec
+
+
+def pad_packed_leaves(mat, vec, n_live: int, lp_to: int):
+    """Re-pad packed leaf tables to ``lp_to`` lanes, replicating the last
+    live leaf into every lane past ``n_live - 1`` (an overshot routing
+    bucket then sees exactly the window of the last leaf)."""
+    lane = torch.clamp(torch.arange(lp_to, device=mat.device),
+                       max=max(n_live - 1, 0))
+    return mat[..., lane], vec[..., lane]
+
+
+def _pow2ceil(v: int) -> int:
+    return 1 << max(int(v) - 1, 1).bit_length()
+
+
+def capacity_class(n: int, floor: int = 128) -> int:
+    """Pow2 capacity bucket of a tier holding ``n`` finite entries (floor:
+    one 128-entry lane tile); tier shapes change only on pow2 crossings."""
+    return max(_pow2ceil(max(int(n), 1)), floor)
+
+
+def pad_capacity(keys: torch.Tensor, cap: int) -> torch.Tensor:
+    """+inf-pad a sorted tier to its capacity class."""
+    pad = torch.full((cap - keys.shape[0],), math.inf, dtype=keys.dtype,
+                     device=keys.device)
+    return torch.cat([keys, pad])
+
+
+def pad_delta(delta_keys: torch.Tensor,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """+inf-pad the delta tier to a 128-multiple (floor 128), in ``dtype``."""
+    nd = delta_keys.shape[0]
+    ndp = max(-(-max(nd, 1) // 128) * 128, 128)
+    pad = torch.full((ndp - nd,), math.inf, dtype=dtype,
+                     device=delta_keys.device)
+    return torch.cat([delta_keys.to(dtype), pad])
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions of the kernel stages (same f32 ops, same order).
+# ---------------------------------------------------------------------------
+def trunc_clip(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``clip(x.astype(int32), lo, hi)`` with XLA's saturating conversion
+    (NaN -> 0, out-of-range -> INT32 extremes).  Torch's own conversion
+    does not saturate (+inf -> INT32_MIN on the CPU), so clamp in floating
+    point to [lo - 1, hi + 1] first; the integer clip makes that
+    equivalent."""
+    x = torch.where(torch.isnan(x), torch.zeros_like(x),
+                    x.clamp(lo - 1, hi + 1))
+    return x.to(torch.int32).clamp(lo, hi)
+
+
+def clip_to_i32(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi).astype(int32)`` for window bounds: NaN
+    propagates through the clip and converts to 0."""
+    x = x.clamp(lo, hi)
+    return torch.where(torch.isnan(x), torch.zeros_like(x), x).to(torch.int32)
+
+
+def _f32(v: float) -> float:
+    """A Python float rounded to f32, as JAX rounds a weakly typed scalar
+    meeting an f32 array."""
+    return float(np.float32(v))
+
+
+def route_bucket(q, root, *, n_leaves: int, route_n: int):
+    """Stage 1 (linear root): each query's leaf, int32 in [0, n_leaves)."""
+    rpred = root[0, 0] * q + root[3, 0]
+    return trunc_clip(rpred * _f32(n_leaves / route_n), 0, n_leaves - 1)
+
+
+def route_window(q, root, mat, vec, *, n_keys: int, n_leaves: int,
+                 route_n: int):
+    """Stages 1-3 (linear root, linear leaves): (lo, hi) int32 windows."""
+    lp = mat.shape[1]
+    b = route_bucket(q, root, n_leaves=n_leaves, route_n=route_n).long()
+    flat_mat = mat.reshape(-1)
+    flat_vec = vec.reshape(-1)
+    pred = flat_mat[b] * q + flat_vec[b]
+    lo = clip_to_i32(torch.floor(pred + flat_vec[b + lp]), 0.0,
+                     _f32(n_keys - 1))
+    hi = clip_to_i32(torch.ceil(pred + flat_vec[b + 2 * lp]) + 1.0, 1.0,
+                     _f32(n_keys))
+    return lo, hi
+
+
+def window_search(keys, q, lo, hi, iters: int, right: bool = False):
+    """Branchless search of ``keys[lo:hi)`` at static depth ``iters``:
+    the left boundary (first key >= q) or, with ``right``, the right
+    boundary (first key > q).  Positions at or past ``len(keys)`` read as
+    +inf.  Returns the raw converged ``lo`` (callers apply their own
+    window-miss convention)."""
+    n = keys.shape[0]
+    inf = torch.tensor(math.inf, dtype=keys.dtype, device=keys.device)
+    l, h = lo, hi
+    for _ in range(iters):
+        active = h > l
+        mid = torch.div(l + h, 2, rounding_mode="floor")
+        kv = torch.where(mid < n, keys[mid.clamp(0, n - 1).long()], inf)
+        below = kv <= q if right else kv < q
+        l = torch.where(active & below, mid + 1, l)
+        h = torch.where(active & ~below, mid, h)
+    return l
+
+
+def _window_result(l, hi, n_keys: int):
+    """A window miss returns min(hi, n_keys), as the reference's merge."""
+    return torch.where(l < hi, l, torch.clamp(hi, max=n_keys))
+
+
+def full_probe(dk, q, right: bool = False):
+    """Full-depth search of the +inf-padded delta tier ``dk``."""
+    nd = dk.shape[0]
+    lo = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
+    hi = torch.full(q.shape, nd, dtype=torch.int32, device=q.device)
+    return window_search(dk, q, lo, hi, full_iters(nd), right=right)
+
+
+def lookup_plain(queries, root, mat, vec, keys, *, n_leaves: int,
+                 route_n: int | None = None, iters: int | None = None):
+    """Plain version of K1: window-clamped left boundaries (Q,) int32."""
+    S = keys.shape[0]
+    iters = full_iters(S) if iters is None else iters
+    lo, hi = route_window(queries, root, mat, vec, n_keys=S,
+                          n_leaves=n_leaves, route_n=route_n or S)
+    return _window_result(window_search(keys, queries, lo, hi, iters), hi, S)
+
+
+def dynamic_lookup_plain(queries, root, mat, vec, keys, delta_keys, *,
+                         n_leaves: int, route_n: int | None = None,
+                         iters: int | None = None):
+    """Plain version of K2: (base_pos, delta_pos)."""
+    base = lookup_plain(queries, root, mat, vec, keys, n_leaves=n_leaves,
+                        route_n=route_n, iters=iters)
+    return base, full_probe(delta_keys, queries)
+
+
+def dynamic_range_plain(q_lo, q_hi, root, mat, vec, keys, delta_keys, *,
+                        n_leaves: int, route_n: int | None = None,
+                        iters: int | None = None):
+    """Plain version of K3: (base_lo, base_hi, delta_lo, delta_hi) -- left
+    boundaries of ``q_lo``, right boundaries of ``q_hi``, both tiers."""
+    S = keys.shape[0]
+    iters = full_iters(S) if iters is None else iters
+    win = dict(n_keys=S, n_leaves=n_leaves, route_n=route_n or S)
+    lo, hi = route_window(q_lo, root, mat, vec, **win)
+    blo = _window_result(window_search(keys, q_lo, lo, hi, iters), hi, S)
+    lo, hi = route_window(q_hi, root, mat, vec, **win)
+    bhi = _window_result(window_search(keys, q_hi, lo, hi, iters, right=True),
+                         hi, S)
+    return (blo, bhi, full_probe(delta_keys, q_lo),
+            full_probe(delta_keys, q_hi, right=True))
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: kernel on CUDA tensors, plain version on CPU tensors.
+# ---------------------------------------------------------------------------
+def _prepare(tensors: dict, *, n_leaves: int, route_n, iters, root_kind,
+             leaf_kind):
+    """Validate what the kernels take.  Returns (on_cuda, route_n, iters)
+    with the defaults filled in: ``route_n`` the key count, ``iters`` the
+    full search depth."""
+    if root_kind != "linear" or leaf_kind != "linear":
+        raise NotImplementedError(
+            "the kernels serve linear roots and leaves; MLP models arrive "
+            "with the pool-reuse slice (ROADMAP queue 1 item 6)")
+    devs = {t.device for t in tensors.values()}
+    if len(devs) != 1:
+        raise ValueError(f"lookup inputs on several devices: {devs}")
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    root, mat, vec, keys = (tensors[k] for k in ("root", "mat", "vec",
+                                                  "keys"))
+    if tuple(root.shape) != (ROOT_ROWS, ROOT_LANES):
+        raise ValueError(f"root must be {(ROOT_ROWS, ROOT_LANES)}, got "
+                         f"{tuple(root.shape)}")
+    if mat.dim() != 2 or mat.shape[0] != 3 * H or vec.dim() != 2 \
+            or vec.shape[0] != 8 or vec.shape[1] != mat.shape[1]:
+        raise ValueError("mat/vec must be packed (3H, Lp)/(8, Lp) tables")
+    if not 1 <= n_leaves <= mat.shape[1]:
+        raise ValueError(f"n_leaves={n_leaves} outside [1, {mat.shape[1]}]")
+    if keys.dim() != 1 or not 0 < keys.shape[0] < 2 ** 31 - 1:
+        raise ValueError("keys must be a non-empty 1-D tensor with int32 "
+                         "positions")
+    S = keys.shape[0]
+    return (next(iter(devs)).type == "cuda", route_n or S,
+            full_iters(S) if iters is None else iters)
+
+
+def _table_args(root, mat, vec, keys, *, n_leaves, route_n, iters):
+    S = keys.shape[0]
+    return (root.data_ptr(), mat.data_ptr(), vec.data_ptr(), mat.shape[1],
+            n_leaves, _f32(n_leaves / route_n), keys.data_ptr(), S,
+            _f32(S - 1), _f32(S), iters)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def lookup(queries, root, mat, vec, keys, *, n_leaves: int,
+           route_n: int | None = None, iters: int | None = None,
+           root_kind: str = "linear", leaf_kind: str = "linear"):
+    """K1 (replaces ``repro.kernels.lookup.lookup_pallas``): window-clamped
+    left boundaries of f32 ``queries`` in sorted f32 ``keys``, (Q,) int32.
+    ``iters`` is the static window search depth (:func:`search_iters`);
+    ``route_n`` the routing scale (defaults to ``len(keys)``)."""
+    on_cuda, route_n, iters = _prepare(
+        dict(queries=queries, root=root, mat=mat, vec=vec, keys=keys),
+        n_leaves=n_leaves, route_n=route_n, iters=iters, root_kind=root_kind,
+        leaf_kind=leaf_kind)
+    if not on_cuda:
+        return lookup_plain(queries, root, mat, vec, keys, n_leaves=n_leaves,
+                            route_n=route_n, iters=iters)
+    out = torch.empty(queries.shape, dtype=torch.int32, device=queries.device)
+    nq = queries.shape[0]
+    if nq:
+        rc = build.library("lookup").repro_lookup(
+            queries.data_ptr(), nq,
+            *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
+                         route_n=route_n, iters=iters),
+            out.data_ptr(), _stream(queries))
+        build.check(rc, "lookup")
+        LAUNCHES["lookup"] += 1
+    return out
+
+
+def dynamic_lookup(queries, root, mat, vec, keys, delta_keys, *,
+                   n_leaves: int, route_n: int | None = None,
+                   iters: int | None = None, root_kind: str = "linear",
+                   leaf_kind: str = "linear"):
+    """K2 (replaces ``dynamic_lookup_pallas``): (base_pos, delta_pos) --
+    K1 over the base tier at the frozen ``route_n`` plus a full-depth left
+    boundary probe of the +inf-padded f32 delta tier."""
+    on_cuda, route_n, iters = _prepare(
+        dict(queries=queries, root=root, mat=mat, vec=vec, keys=keys,
+             delta_keys=delta_keys),
+        n_leaves=n_leaves, route_n=route_n, iters=iters, root_kind=root_kind,
+        leaf_kind=leaf_kind)
+    if not on_cuda:
+        return dynamic_lookup_plain(queries, root, mat, vec, keys, delta_keys,
+                                    n_leaves=n_leaves, route_n=route_n,
+                                    iters=iters)
+    out = torch.empty(queries.shape, dtype=torch.int32, device=queries.device)
+    dout = torch.empty_like(out)
+    nq, nd = queries.shape[0], delta_keys.shape[0]
+    if nq:
+        rc = build.library("lookup").repro_dynamic_lookup(
+            queries.data_ptr(), nq,
+            *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
+                         route_n=route_n, iters=iters),
+            delta_keys.data_ptr(), nd, full_iters(nd), out.data_ptr(),
+            dout.data_ptr(), _stream(queries))
+        build.check(rc, "dynamic_lookup")
+        LAUNCHES["dynamic_lookup"] += 1
+    return out, dout
+
+
+def dynamic_range(q_lo, q_hi, root, mat, vec, keys, delta_keys, *,
+                  n_leaves: int, route_n: int | None = None,
+                  iters: int | None = None, root_kind: str = "linear",
+                  leaf_kind: str = "linear"):
+    """K3 (replaces ``dynamic_range_pallas``): (base_lo, base_hi, delta_lo,
+    delta_hi) of endpoint pairs in one pass -- left boundaries of ``q_lo``,
+    right boundaries of ``q_hi``, on both tiers."""
+    if q_lo.shape != q_hi.shape:
+        raise ValueError("endpoint arrays must pair up")
+    on_cuda, route_n, iters = _prepare(
+        dict(q_lo=q_lo, q_hi=q_hi, root=root, mat=mat, vec=vec, keys=keys,
+             delta_keys=delta_keys),
+        n_leaves=n_leaves, route_n=route_n, iters=iters, root_kind=root_kind,
+        leaf_kind=leaf_kind)
+    if not on_cuda:
+        return dynamic_range_plain(q_lo, q_hi, root, mat, vec, keys,
+                                   delta_keys, n_leaves=n_leaves,
+                                   route_n=route_n, iters=iters)
+    outs = [torch.empty(q_lo.shape, dtype=torch.int32, device=q_lo.device)
+            for _ in range(4)]
+    nq, nd = q_lo.shape[0], delta_keys.shape[0]
+    if nq:
+        rc = build.library("lookup").repro_dynamic_range(
+            q_lo.data_ptr(), q_hi.data_ptr(), nq,
+            *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
+                         route_n=route_n, iters=iters),
+            delta_keys.data_ptr(), nd, full_iters(nd),
+            *(o.data_ptr() for o in outs), _stream(q_lo))
+        build.check(rc, "dynamic_range")
+        LAUNCHES["dynamic_range"] += 1
+    return tuple(outs)
