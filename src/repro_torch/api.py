@@ -14,8 +14,10 @@
 
 ``find``/``find_range`` return tensors on the index's device; ``gather``,
 ``gather_range`` and ``live_keys`` return host numpy, as in the reference.
-Sharding (``mesh=``), pool reuse, drift maintenance and snapshots are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+``pool=`` (a ``core.reuse.ModelPool`` on the index's device) serves
+Algorithm-1 reuse at build and on every rebuild of an MLP leaf.  Sharding
+(``mesh=``), drift maintenance and snapshots are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ class Index:
               **kwargs) -> "Index":
         """Build over sorted ``keys`` on ``device`` (CUDA unless
         ``device="cpu"``); ``kwargs`` go to ``DynamicRMI.build``
-        (``n_leaves``, ``eps``, ...)."""
+        (``n_leaves``, ``kind``, ``eps``, ``reuse_on_rebuild``, ...)."""
         if mesh is not None:
             raise not_ported("the sharded index (mesh=)", "11")
         return cls(DynamicRMI.build(keys, pool=pool, device=device, **kwargs))

@@ -1,21 +1,37 @@
-"""Carry an index's weights and state across into the port.
+"""Carry an index's weights and state -- or a model pool -- across into the
+port.
 
-Both functions take a dict of numpy arrays and scalars, so any producer
+Every function takes a dict of numpy arrays and scalars, so any producer
 (the reference package, a file) can hand its tables over without this
 package importing it.  With the same arrays, both packages answer from
 identical tables.
 
+Model parameters (``_params``): ``<prefix>_a``/``<prefix>_b`` for a linear
+model, ``<prefix>_w1``/``_b1``/``_w2``/``_b2`` for the 1x4 MLP, with the
+kind under ``<prefix>_kind`` (default "linear").
+
 Static index (:func:`rmi_from_arrays`):
-  ``keys`` (sorted, possibly +inf padded), ``root_a``, ``root_b``,
-  ``leaf_a``, ``leaf_b``, ``err_lo``, ``err_hi``, ``reused``,
+  ``keys`` (sorted, possibly +inf padded), root params under ``root``,
+  leaf params under ``leaf``, ``err_lo``, ``err_hi``, ``reused``,
   ``leaf_sim``, ``n_leaves``, and optionally ``iters`` (the search depth;
   derived from the bounds when absent).
 
 Dynamic index (:func:`dynamic_from_arrays`), in addition:
   ``route_n``, ``base_n``, ``base_dead``, ``delta_keys``, ``delta_leaf``,
   ``delta_dead``, ``n_inserts``, ``budget``, ``win`` (per-leaf window
-  widths), optionally ``eps`` (default 0.9).  Tombstone prefix sums and
-  the live/dead counters are recomputed.
+  widths), optionally ``eps`` (default 0.9) and ``reuse_on_rebuild``; the
+  pool is passed separately.  Tombstone prefix sums and the live/dead
+  counters are recomputed.
+
+Pool (:func:`pool_from_arrays`):
+  ``eps``, ``m``, ``kind``, ``hists``, params under ``p``, ``err_lo``,
+  ``err_hi``, ``x_start``, ``x_end``, ``y_start``, ``y_end``; the f32
+  selection tables are recomputed with the pinned prefix order.
+
+RMRT (:func:`rmrt_from_arrays`):
+  ``keys``, ``kind``, params under ``p``, ``is_leaf``, ``child_base``,
+  ``y_start``, ``y_end``, ``err_lo``, ``err_hi``, ``node_sim``,
+  ``reused``, ``fanout``, ``leaf_cap``, ``depth``.
 """
 from __future__ import annotations
 
@@ -24,24 +40,42 @@ import torch
 
 from . import resolve_device
 from .core import models
+from .core.adapt import DomainSpec
+from .core.reuse import ModelPool
 from .core.rmi import RMIIndex
+from .core.rmrt import RMRTIndex
 from .core.updates import DynamicRMI, _psum
 
 _F64 = torch.float64
 
 
+def _tensor(arrays: dict, dev):
+    return lambda k, dt=_F64: torch.as_tensor(np.array(arrays[k]), dtype=dt,
+                                              device=dev)
+
+
+def _params(arrays: dict, prefix: str, dev, scalar: bool = False):
+    """(kind, params) stored under ``prefix``; ``scalar`` drops a leading
+    axis of length one (a root stored as (1,) arrays)."""
+    t = _tensor(arrays, dev)
+    kind = str(arrays.get(f"{prefix}_kind", "linear"))
+    fields = ("a", "b") if kind == "linear" else ("w1", "b1", "w2", "b2")
+    vals = [t(f"{prefix}_{f}") for f in fields]
+    if scalar and kind == "linear":
+        vals = [v.reshape(()) for v in vals]
+    cls = models.LinearParams if kind == "linear" else models.MLPParams
+    return kind, cls(*vals)
+
+
 def rmi_from_arrays(arrays: dict, *, device=None) -> RMIIndex:
-    """The port's ``RMIIndex`` over the given tables (linear/linear)."""
+    """The port's ``RMIIndex`` over the given tables (either model kind)."""
     dev = resolve_device(device)
-    t = lambda k, dt=_F64: torch.as_tensor(np.array(arrays[k]), dtype=dt,
-                                           device=dev)
+    t = _tensor(arrays, dev)
+    root_kind, root = _params(arrays, "root", dev, scalar=True)
+    leaf_kind, leaves = _params(arrays, "leaf", dev)
     idx = RMIIndex(
-        keys=t("keys"), root_kind="linear",
-        root=models.LinearParams(a=t("root_a").reshape(()),
-                                 b=t("root_b").reshape(())),
-        leaf_kind="linear",
-        leaves=models.LinearParams(a=t("leaf_a"), b=t("leaf_b")),
-        err_lo=t("err_lo"), err_hi=t("err_hi"),
+        keys=t("keys"), root_kind=root_kind, root=root, leaf_kind=leaf_kind,
+        leaves=leaves, err_lo=t("err_lo"), err_hi=t("err_hi"),
         n_leaves=int(arrays["n_leaves"]),
         reused_mask=t("reused", torch.bool), leaf_sim=t("leaf_sim"))
     if "iters" in arrays:
@@ -49,17 +83,17 @@ def rmi_from_arrays(arrays: dict, *, device=None) -> RMIIndex:
     return idx
 
 
-def dynamic_from_arrays(arrays: dict, *, device=None) -> DynamicRMI:
+def dynamic_from_arrays(arrays: dict, *, pool: ModelPool | None = None,
+                        device=None) -> DynamicRMI:
     """The port's ``DynamicRMI`` over the given tiers and tables."""
     idx = rmi_from_arrays(arrays, device=device)
     dev = idx.device
-    t = lambda k, dt: torch.as_tensor(np.array(arrays[k]), dtype=dt,
-                                      device=dev)
+    t = _tensor(arrays, dev)
     base_dead = t("base_dead", torch.bool)
-    dk = t("delta_keys", _F64)
+    dk = t("delta_keys")
     ddead = t("delta_dead", torch.bool)
     return DynamicRMI(
-        index=idx, eps=float(arrays.get("eps", 0.9)),
+        index=idx, eps=float(arrays.get("eps", 0.9)), pool=pool,
         route_n=int(arrays["route_n"]),
         delta_keys=dk, delta_leaf=t("delta_leaf", torch.int32),
         delta_dead=ddead, delta_psum=_psum(ddead),
@@ -69,4 +103,39 @@ def dynamic_from_arrays(arrays: dict, *, device=None) -> DynamicRMI:
         base_psum=_psum(base_dead), base_dead_count=int(base_dead.sum()),
         n_inserts=np.array(arrays["n_inserts"], np.int64),
         budget=np.array(arrays["budget"], np.float64),
+        reuse_on_rebuild=arrays.get("reuse_on_rebuild"),
+        build_kwargs=dict(arrays.get("build_kwargs", {})),
         _win=np.array(arrays["win"], np.float64))
+
+
+def pool_from_arrays(arrays: dict, *, device=None) -> ModelPool:
+    """The port's ``ModelPool`` over the given stacked models; the f32
+    selection tables are recomputed here."""
+    dev = resolve_device(device)
+    t = _tensor(arrays, dev)
+    arrays = dict(arrays, p_kind=str(arrays["kind"]))
+    kind, params = _params(arrays, "p", dev)
+    pool = ModelPool(
+        eps=float(arrays["eps"]), m=int(arrays["m"]), kind=kind,
+        hists=t("hists"), params=params, err_lo=t("err_lo"),
+        err_hi=t("err_hi"),
+        domains=DomainSpec(t("x_start"), t("x_end"), t("y_start"),
+                           t("y_end")))
+    pool._refresh_tables()
+    return pool
+
+
+def rmrt_from_arrays(arrays: dict, *, device=None) -> RMRTIndex:
+    """The port's ``RMRTIndex`` over the given flat node tables."""
+    dev = resolve_device(device)
+    t = _tensor(arrays, dev)
+    arrays = dict(arrays, p_kind=str(arrays["kind"]))
+    kind, params = _params(arrays, "p", dev)
+    return RMRTIndex(
+        keys=t("keys"), kind=kind, params=params,
+        is_leaf=t("is_leaf", torch.bool),
+        child_base=t("child_base", torch.int32), y_start=t("y_start"),
+        y_end=t("y_end"), err_lo=t("err_lo"), err_hi=t("err_hi"),
+        node_sim=t("node_sim"), reused_mask=t("reused", torch.bool),
+        fanout=int(arrays["fanout"]), leaf_cap=int(arrays["leaf_cap"]),
+        depth=int(arrays["depth"]))

@@ -1,12 +1,25 @@
-"""Error-bound algebra (counterpart of ``repro.core.bounds``): Lemma 4.1's
-insertion budget and the search-window accounting that sets the static
-search depth of every lookup kernel."""
+"""Error-bound algebra (counterpart of ``repro.core.bounds``): Theorem 3.3's
+reuse bounds, Lemma 4.1's insertion budget and the search-window
+accounting that sets the static search depth of every lookup kernel."""
 from __future__ import annotations
 
 import math
 
 import numpy as np
 import torch
+
+
+def reuse_err_bounds(err_lo, err_hi, dist, n_t, s_dy):
+    """Theorem 3.3: bounds of a reused model on the target dataset,
+    ``(-dist * n_T + err_lo * S_dy, dist * n_T + err_hi * S_dy)``; sound
+    for the Algorithm-2 upper bound dist_h too (Eq. 3)."""
+    return -dist * n_t + err_lo * s_dy, dist * n_t + err_hi * s_dy
+
+
+def widen_for_inserts(err_lo, err_hi, n_inserts):
+    """§4: a leaf whose CDF is untouched by i inserts only needs its bounds
+    widened by i (positions after the insertion point shift by <= i)."""
+    return err_lo - n_inserts, err_hi + n_inserts
 
 
 def insertion_budget(sim: torch.Tensor, eps: float,

@@ -16,10 +16,12 @@ rank arithmetic.
                  tiers.  On CUDA the search is kernel K2 (``kernels.ops``).
   find_range     (rank_lo, rank_hi) of inclusive ranges; kernel K3 on CUDA.
   rebuild        Lemma 4.1 budget exhaustion merges the affected leaves'
-                 delta entries into the base and refits those leaves;
-                 untouched leaves take an exact intercept shift (the root
-                 is monotone) and the clamped search depth is recomputed
-                 from a per-leaf window-width vector.
+                 delta entries into the base and re-indexes those leaves
+                 (Algorithm-1 pool reuse first, refit on a miss; by default
+                 reuse runs for MLP leaves only); untouched leaves take an
+                 exact intercept shift (linear, monotone root) or a sound
+                 +-m widen (MLP root), and the clamped search depth is
+                 recomputed from a per-leaf window-width vector.
 
 Routing is frozen at build time (``route_n``), so base merges never move
 keys between leaves and insert-time routing matches find-time routing.
@@ -30,9 +32,9 @@ says so: ``bincount(length=)`` drops positions past the end (here they are
 masked first), and ``.at[].set(mode="drop")`` drops out-of-bounds writes
 (here they go to one extra slot that is sliced off).
 
-Pool reuse, drift monitoring and hot swaps (``pool=``, ``drift_bins``,
-``swap_on_drift``) wait for ROADMAP queue 1 items 6 and 7; ``shed_*``,
-``clone`` and ``shrink_capacity`` for the sharding and persistence items.
+Drift monitoring and hot swaps (``drift_bins``, ``swap_on_drift``,
+``maybe_swap``) wait for ROADMAP queue 1 item 7; ``shed_*``, ``clone`` and
+``shrink_capacity`` for the sharding and persistence items.
 """
 from __future__ import annotations
 
@@ -42,13 +44,14 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
-from .. import not_ported
+from .. import not_ported, resolve_device
 from ..kernels.lookup import capacity_class, pad_capacity
 from . import models
 from . import rmi as rmi_mod
 from .bounds import (clamped_depth, insertion_budget, insertion_headroom,
                      window_widths)
 from .paths import resolve_path
+from .reuse import ModelPool
 
 _F64 = torch.float64
 _I32 = torch.int32
@@ -226,8 +229,8 @@ def two_tier_range_answer(base_keys, base_psum, dk, dpsum, q_lo, q_hi, lo,
 def _routed_window(idx: rmi_mod.RMIIndex, q, route_n: int):
     b = rmi_mod.root_buckets(idx.root_kind, idx.root, q, idx.n_leaves,
                              route_n)
-    return rmi_mod.leaf_window(idx.leaves, idx.err_lo, idx.err_hi, b, q,
-                               idx.n)
+    return rmi_mod.leaf_window(idx.leaf_kind, idx.leaves, idx.err_lo,
+                               idx.err_hi, b, q, idx.n)
 
 
 def _find(idx: rmi_mod.RMIIndex, base_psum, dk, dpsum, q, route_n: int):
@@ -265,15 +268,19 @@ def _gather_moved(dk, dleaf, ddead, rmask):
 
 
 def _compose_rebuild(old: rmi_mod.RMIIndex, fit: rmi_mod.LeafFit, rmask,
-                     shift, eps: float):
-    """Post-rebuild leaf state: refit rows where ``rmask``, exact intercept
-    shift elsewhere, and the full Lemma 4.1 budget vector."""
-    leaves = models.LinearParams(
-        a=torch.where(rmask, fit.leaves.a, old.leaves.a),
-        b=torch.where(rmask, fit.leaves.b, old.leaves.b + shift))
+                     shift, widen: float, eps: float):
+    """Post-rebuild leaf state: refit rows where ``rmask``; elsewhere the
+    exact intercept shift (``b`` of a linear leaf, ``b2`` of an MLP) and
+    the bounds widened by ``widen``; and the full Lemma 4.1 budget
+    vector."""
+    if old.leaf_kind == "linear":
+        shifted = old.leaves._replace(b=old.leaves.b + shift)
+    else:
+        shifted = old.leaves._replace(b2=old.leaves.b2 + shift)
+    leaves = models.where_rows(rmask, fit.leaves, shifted)
     return (leaves,
-            torch.where(rmask, fit.err_lo, old.err_lo),
-            torch.where(rmask, fit.err_hi, old.err_hi),
+            torch.where(rmask, fit.err_lo, old.err_lo - widen),
+            torch.where(rmask, fit.err_hi, old.err_hi + widen),
             torch.where(rmask, fit.reused, old.reused_mask),
             torch.where(rmask, fit.sim, old.leaf_sim),
             insertion_budget(fit.sim, eps, fit.count))
@@ -312,6 +319,7 @@ class DynamicRMI:
     depth bookkeeping."""
     index: rmi_mod.RMIIndex
     eps: float
+    pool: ModelPool | None = None       # Algorithm-1 pool for rebuilds
     route_n: int = 0                    # frozen key->leaf routing scale
     # delta tier (pow2 capacity, +inf padded, sorted ascending)
     delta_keys: torch.Tensor = None     # (cap,) f64
@@ -335,6 +343,11 @@ class DynamicRMI:
     budget: np.ndarray = None
     rebuilds: int = 0
     deleted: int = 0
+    # Rebuild re-indexing policy: None runs Algorithm-1 pool selection only
+    # where a refit needs training (MLP leaves); the closed-form linear
+    # refit is optimal and earns the full Lemma 4.1 budget.  True forces
+    # selection (Algorithm 1 verbatim), False disables it.
+    reuse_on_rebuild: bool | None = None
     build_kwargs: dict = field(default_factory=dict)
     _win: np.ndarray = None             # per-leaf window widths
     _delta_f32: bool | None = None      # delta tier round-trips through f32
@@ -342,18 +355,22 @@ class DynamicRMI:
     _kroot: torch.Tensor = None         # packed root with route scale
 
     @classmethod
-    def build(cls, keys, pool=None, eps: float = 0.9,
+    def build(cls, keys, pool: ModelPool | None = None, eps: float = 0.9,
+              reuse_on_rebuild: bool | None = None,
               compact_dead_ratio: float | None = _COMPACT_RATIO,
               drift_bins: int = 0, swap_on_drift: bool = False, *,
               device=None, **rmi_kwargs):
         """Build over sorted ``keys`` on ``device`` (CUDA unless
-        ``device="cpu"``); ``rmi_kwargs`` go to ``rmi.build_rmi``."""
-        if pool is not None:
-            raise not_ported("pool reuse (pool=)", "6")
+        ``device="cpu"``); ``rmi_kwargs`` go to ``rmi.build_rmi``.  The
+        ``pool`` serves the build and every later rebuild."""
         if drift_bins or swap_on_drift:
             raise not_ported(
                 "drift monitoring (drift_bins=, swap_on_drift=)", "7")
-        idx = rmi_mod.build_rmi(keys, device=device, **rmi_kwargs)
+        if pool is not None and pool.device.type != resolve_device(
+                device).type:
+            raise ValueError(f"the pool lies on {pool.device}, the index "
+                             f"on {resolve_device(device)}")
+        idx = rmi_mod.build_rmi(keys, pool=pool, device=device, **rmi_kwargs)
         dev = idx.device
         n = idx.n
         # Floor at 1 so an empty build keeps a well-defined key->leaf hash.
@@ -366,7 +383,8 @@ class DynamicRMI:
         cap = _capacity(n)
         idx = replace(idx, keys=pad_capacity(idx.keys, cap), _f32_exact=None,
                       _packed=None, _kf32=None)
-        d = cls(index=idx, eps=eps, route_n=route_n, base_n=n,
+        d = cls(index=idx, eps=eps, pool=pool, route_n=route_n, base_n=n,
+                reuse_on_rebuild=reuse_on_rebuild,
                 compact_dead_ratio=compact_dead_ratio,
                 delta_keys=torch.full((_MIN_CAP,), math.inf, dtype=_F64,
                                       device=dev),
@@ -424,7 +442,10 @@ class DynamicRMI:
         self.delta_psum = torch.zeros((cap + 1,), dtype=_I32, device=dev)
         self.delta_live += k.shape[0]
         self._delta_changed()
-        self.n_inserts += _batch_counts_sorted(lv, idx.n_leaves).cpu().numpy()
+        cnt = _batch_counts_sorted(lv, idx.n_leaves) \
+            if idx.root_kind == "linear" \
+            else torch.bincount(lv.long(), minlength=idx.n_leaves)
+        self.n_inserts += cnt.cpu().numpy()
         over = np.flatnonzero(self.n_inserts > self.budget)
         if over.size:
             self._rebuild_leaves(over)
@@ -515,7 +536,7 @@ class DynamicRMI:
 
         cap = self.delta_keys.shape[0]
         no_new = (_empty(_F64, dev), _empty(_I32, dev), cap)
-        if self.delta_dead_count == 0:
+        if self.delta_dead_count == 0 and idx.root_kind == "linear":
             # Monotone routing + no tombstones: per-leaf counts are run
             # lengths of the sorted routed-leaf table.
             mcnt = _moved_counts_sorted(self.delta_leaf, rmask).cpu().numpy()
@@ -559,21 +580,31 @@ class DynamicRMI:
         buckets = _routed_buckets(idx.root_kind, idx.root, new_base, L,
                                   self.route_n)
         sl = min(cap_new, -(-self.base_n // 8192) * 8192)
-        fit = rmi_mod.fit_leaves(new_base[:sl], buckets[:sl], L,
-                                 kind=idx.leaf_kind, refit_mask=rmask)
+        want_reuse = self.reuse_on_rebuild \
+            if self.reuse_on_rebuild is not None \
+            else idx.leaf_kind != "linear"
+        fit = rmi_mod.fit_leaves(
+            new_base[:sl], buckets[:sl], L, kind=idx.leaf_kind,
+            pool=self.pool if want_reuse else None,
+            train_steps=self.build_kwargs.get("train_steps", 300),
+            refit_mask=rmask, sorted_buckets=idx.root_kind == "linear")
         del buckets
 
-        # The root is monotone: every base key right of a rebuilt leaf
-        # shifts by exactly the number of keys merged left of it.
+        # A linear root is monotone: every base key right of a rebuilt leaf
+        # shifts by exactly the number of keys merged left of it.  An MLP
+        # root only bounds the shift by m, so its leaves widen instead.
         shift = torch.as_tensor(np.concatenate([[0.0], np.cumsum(mcnt)[:-1]]),
                                 dtype=_F64, device=dev)
+        widen = 0.0 if idx.root_kind == "linear" else float(m)
         leaves, err_lo, err_hi, reused, sim, budget = _compose_rebuild(
-            idx, fit, rmask, shift, self.eps)
+            idx, fit, rmask, shift, widen, self.eps)
         self.index = replace(
             idx, keys=new_base, leaves=leaves, err_lo=err_lo, err_hi=err_hi,
             reused_mask=reused, leaf_sim=sim,
             _iters=None, _packed=None, _f32_exact=None, _kf32=None)
 
+        if widen:
+            self._win[~rmask_np] += 2.0 * widen
         err_np = torch.stack([fit.err_lo, fit.err_hi]).cpu().numpy()
         self._win[leaf_ids] = window_widths(err_np[0, leaf_ids],
                                             err_np[1, leaf_ids])
@@ -618,7 +649,8 @@ class DynamicRMI:
                 q.to(torch.float32), root, mat, vec, idx.keys_f32,
                 self.base_psum, self.delta_keys_f32, self.delta_psum,
                 n_leaves=idx.n_leaves, route_n=self.route_n,
-                iters=idx.search_iters)
+                iters=idx.search_iters, root_kind=idx.root_kind,
+                leaf_kind=idx.leaf_kind)
         found, rank, _ = _find(idx, self.base_psum, self.delta_keys,
                                self.delta_psum, q, self.route_n)
         return found, rank
@@ -637,7 +669,8 @@ class DynamicRMI:
                 ql.to(torch.float32), qh.to(torch.float32), root, mat, vec,
                 idx.keys_f32, self.base_psum, self.delta_keys_f32,
                 self.delta_psum, n_leaves=idx.n_leaves, route_n=self.route_n,
-                iters=idx.search_iters)
+                iters=idx.search_iters, root_kind=idx.root_kind,
+                leaf_kind=idx.leaf_kind)
         return _range_find(idx, self.base_psum, self.delta_keys,
                            self.delta_psum, ql, qh, self.route_n)
 

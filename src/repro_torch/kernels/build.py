@@ -30,11 +30,15 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point, by library
 SIGNATURES = {
     "lookup": {
-        "repro_lookup": (P, I, P, P, P, I, I, F, P, I, F, F, I, P, P),
+        "repro_lookup": (P, I, P, P, P, I, I, F, P, I, F, F, I, I, I, P, P),
         "repro_dynamic_lookup": (P, I, P, P, P, I, I, F, P, I, F, F, I,
-                                 P, I, I, P, P, P),
+                                 I, I, P, I, I, P, P, P),
         "repro_dynamic_range": (P, P, I, P, P, P, I, I, F, P, I, F, F, I,
-                                P, I, I, P, P, P, P, P),
+                                I, I, P, I, I, P, P, P, P, P),
+        "repro_rmrt_lookup": (P, I, P, P, I, I, I, I, P, I, F, F, I, P, P),
+    },
+    "ksdist": {
+        "repro_ksdist": (P, P, I, P, P, I, I, P, P),
     },
 }
 

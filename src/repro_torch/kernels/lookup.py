@@ -1,5 +1,5 @@
-"""Fused learned-index lookup: host-side table packing, the three kernel
-wrappers (K1-K3) and each kernel's plain PyTorch version.
+"""Fused learned-index lookup: host-side table packing, the four kernel
+wrappers (K1-K4) and each kernel's plain PyTorch version.
 
 Each lookup runs four stages per query: root routing, leaf predict from
 the packed tables, the error-bound window clamped to [0, n_keys), and a
@@ -11,14 +11,22 @@ same f32 arithmetic in the same order, so the two agree bit for bit.
 Packed tables (the reference's row meaning, ``repro/kernels/lookup.py``):
 
   root (8, 128) f32    linear root: [0,0] = a, [3,0] = b
-                       (mlp root: rows 0/1/2 = w1/b1/w2 over H lanes,
-                       [3,0] = b2 -- not built by this slice)
+                       mlp root: rows 0/1/2 = w1/b1/w2 over H lanes,
+                       [3,0] = b2
   mat  (3H, Lp) f32    rows [0, H) w1, [H, 2H) b1, [2H, 3H) w2; a linear
                        leaf rides in w1[0] (its slope)
   vec  (8, Lp)  f32    row 0 b2 / intercept, row 1 err_lo, row 2 err_hi
 
 with leaves on the last axis, padded to Lp (a multiple of 128).  Padded
-lanes are never read: buckets are clipped to n_leaves - 1.
+lanes are never read: buckets are clipped to n_leaves - 1.  RMRT node
+tables (:func:`pack_rmrt`) use the same layout with nodes on the last
+axis, plus vec rows 3 y_start, 4 y_end, 5 child_base (f32-exact: fewer
+than 2**24 nodes) and 6 is_leaf (0.0 / 1.0).
+
+An MLP predicts ``b2 + relu(q*w1_0 + b1_0)*w2_0 + ... + relu(...)*w2_3``
+in that order (the reference's leaf order); the MLP root sums its four
+terms sequentially from 0 and adds b2 last, the order XLA:CPU uses for
+the eager oracle's ``jnp.sum`` (:func:`mlp_root_predict`).
 
 Semantics kept from the reference: f32 key space; +inf capacity padding;
 left boundaries (``kv < q``) and right boundaries (``kv <= q``); the
@@ -42,8 +50,11 @@ H = 4              # the paper's hidden width
 ROOT_ROWS = 8      # packed root block rows
 ROOT_LANES = 128   # packed root block lanes
 
+KINDS = ("linear", "mlp")
+
 # Launches of each CUDA kernel; incremented only where a kernel launches.
-LAUNCHES = {"lookup": 0, "dynamic_lookup": 0, "dynamic_range": 0}
+LAUNCHES = {"lookup": 0, "dynamic_lookup": 0, "dynamic_range": 0,
+            "rmrt_lookup": 0}
 
 
 def reset_launches() -> None:
@@ -65,15 +76,21 @@ def full_iters(n_keys: int) -> int:
 def pack_root(root_kind: str, params, route_scale: float = 1.0
               ) -> torch.Tensor:
     """(ROOT_ROWS, ROOT_LANES) f32 block holding the root model, with a
-    routing rescale folded in (``route_scale``, f64 product then f32)."""
-    if root_kind != "linear":
-        raise NotImplementedError(
-            "MLP roots arrive with the pool-reuse slice (ROADMAP queue 1 "
-            "item 6)")
-    blk = torch.zeros((ROOT_ROWS, ROOT_LANES), dtype=torch.float32,
-                      device=params.a.device)
-    blk[0, 0] = (params.a.to(torch.float64) * route_scale).to(torch.float32)
-    blk[3, 0] = (params.b.to(torch.float64) * route_scale).to(torch.float32)
+    routing rescale folded in (``route_scale``, f64 product then f32; the
+    output layer of an MLP root)."""
+    f64, f32 = torch.float64, torch.float32
+    if root_kind == "linear":
+        blk = torch.zeros((ROOT_ROWS, ROOT_LANES), dtype=f32,
+                          device=params.a.device)
+        blk[0, 0] = (params.a.to(f64) * route_scale).to(f32)
+        blk[3, 0] = (params.b.to(f64) * route_scale).to(f32)
+        return blk
+    blk = torch.zeros((ROOT_ROWS, ROOT_LANES), dtype=f32,
+                      device=params.w1.device)
+    blk[0, :H] = params.w1.to(f32)
+    blk[1, :H] = params.b1.to(f32)
+    blk[2, :H] = (params.w2.to(f64) * route_scale).to(f32)
+    blk[3, 0] = (params.b2.to(f64) * route_scale).to(f32)
     return blk
 
 
@@ -155,25 +172,64 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def route_bucket(q, root, *, n_leaves: int, route_n: int):
-    """Stage 1 (linear root): each query's leaf, int32 in [0, n_leaves)."""
-    rpred = root[0, 0] * q + root[3, 0]
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(x, 0)``: NaN propagates."""
+    return torch.where(x < 0, torch.zeros_like(x), x)
+
+
+def mlp_root_predict(q, root):
+    """The MLP root's f32 prediction from the packed block: the four
+    hidden terms summed sequentially from 0, then + b2 -- XLA:CPU's order
+    for the reference oracle's ``jnp.sum(h * w2, axis=1) + b2``."""
+    s = torch.zeros_like(q)
+    for k in range(H):
+        s = s + relu(q * root[0, k] + root[1, k]) * root[2, k]
+    return s + root[3, 0]
+
+
+def route_bucket(q, root, *, n_leaves: int, route_n: int,
+                 root_kind: str = "linear"):
+    """Stage 1: each query's leaf, int32 in [0, n_leaves)."""
+    if root_kind == "linear":
+        rpred = root[0, 0] * q + root[3, 0]
+    else:
+        rpred = mlp_root_predict(q, root)
     return trunc_clip(rpred * _f32(n_leaves / route_n), 0, n_leaves - 1)
 
 
-def route_window(q, root, mat, vec, *, n_keys: int, n_leaves: int,
-                 route_n: int):
-    """Stages 1-3 (linear root, linear leaves): (lo, hi) int32 windows."""
+def lane_predict(q, mat, vec, j, kind: str):
+    """Model predict of lanes ``j`` (int64, one per query) of packed
+    (3H, lp) / (8, lp) tables, f32 in the kernels' order."""
     lp = mat.shape[1]
-    b = route_bucket(q, root, n_leaves=n_leaves, route_n=route_n).long()
-    flat_mat = mat.reshape(-1)
-    flat_vec = vec.reshape(-1)
-    pred = flat_mat[b] * q + flat_vec[b]
-    lo = clip_to_i32(torch.floor(pred + flat_vec[b + lp]), 0.0,
-                     _f32(n_keys - 1))
-    hi = clip_to_i32(torch.ceil(pred + flat_vec[b + 2 * lp]) + 1.0, 1.0,
+    fm, fv = mat.reshape(-1), vec.reshape(-1)
+    if kind == "linear":
+        return fm[j] * q + fv[j]
+    pred = fv[j]
+    for k in range(H):
+        h = relu(q * fm[j + k * lp] + fm[j + (H + k) * lp])
+        pred = pred + h * fm[j + (2 * H + k) * lp]
+    return pred
+
+
+def lane_window(pred, vec, j, n_keys: int):
+    """Stage 3: the error-bound window of lanes ``j`` around ``pred``,
+    clamped to [0, n_keys) with f32-rounded clamps: (lo, hi) int32."""
+    lp = vec.shape[1]
+    fv = vec.reshape(-1)
+    lo = clip_to_i32(torch.floor(pred + fv[j + lp]), 0.0, _f32(n_keys - 1))
+    hi = clip_to_i32(torch.ceil(pred + fv[j + 2 * lp]) + 1.0, 1.0,
                      _f32(n_keys))
     return lo, hi
+
+
+def route_window(q, root, mat, vec, *, n_keys: int, n_leaves: int,
+                 route_n: int, root_kind: str = "linear",
+                 leaf_kind: str = "linear"):
+    """Stages 1-3: (lo, hi) int32 windows."""
+    b = route_bucket(q, root, n_leaves=n_leaves, route_n=route_n,
+                     root_kind=root_kind).long()
+    return lane_window(lane_predict(q, mat, vec, b, leaf_kind), vec, b,
+                       n_keys)
 
 
 def window_search(keys, q, lo, hi, iters: int, right: bool = False):
@@ -209,32 +265,38 @@ def full_probe(dk, q, right: bool = False):
 
 
 def lookup_plain(queries, root, mat, vec, keys, *, n_leaves: int,
-                 route_n: int | None = None, iters: int | None = None):
+                 route_n: int | None = None, iters: int | None = None,
+                 root_kind: str = "linear", leaf_kind: str = "linear"):
     """Plain version of K1: window-clamped left boundaries (Q,) int32."""
     S = keys.shape[0]
     iters = full_iters(S) if iters is None else iters
     lo, hi = route_window(queries, root, mat, vec, n_keys=S,
-                          n_leaves=n_leaves, route_n=route_n or S)
+                          n_leaves=n_leaves, route_n=route_n or S,
+                          root_kind=root_kind, leaf_kind=leaf_kind)
     return _window_result(window_search(keys, queries, lo, hi, iters), hi, S)
 
 
 def dynamic_lookup_plain(queries, root, mat, vec, keys, delta_keys, *,
                          n_leaves: int, route_n: int | None = None,
-                         iters: int | None = None):
+                         iters: int | None = None, root_kind: str = "linear",
+                         leaf_kind: str = "linear"):
     """Plain version of K2: (base_pos, delta_pos)."""
     base = lookup_plain(queries, root, mat, vec, keys, n_leaves=n_leaves,
-                        route_n=route_n, iters=iters)
+                        route_n=route_n, iters=iters, root_kind=root_kind,
+                        leaf_kind=leaf_kind)
     return base, full_probe(delta_keys, queries)
 
 
 def dynamic_range_plain(q_lo, q_hi, root, mat, vec, keys, delta_keys, *,
                         n_leaves: int, route_n: int | None = None,
-                        iters: int | None = None):
+                        iters: int | None = None, root_kind: str = "linear",
+                        leaf_kind: str = "linear"):
     """Plain version of K3: (base_lo, base_hi, delta_lo, delta_hi) -- left
     boundaries of ``q_lo``, right boundaries of ``q_hi``, both tiers."""
     S = keys.shape[0]
     iters = full_iters(S) if iters is None else iters
-    win = dict(n_keys=S, n_leaves=n_leaves, route_n=route_n or S)
+    win = dict(n_keys=S, n_leaves=n_leaves, route_n=route_n or S,
+               root_kind=root_kind, leaf_kind=leaf_kind)
     lo, hi = route_window(q_lo, root, mat, vec, **win)
     blo = _window_result(window_search(keys, q_lo, lo, hi, iters), hi, S)
     lo, hi = route_window(q_hi, root, mat, vec, **win)
@@ -252,10 +314,9 @@ def _prepare(tensors: dict, *, n_leaves: int, route_n, iters, root_kind,
     """Validate what the kernels take.  Returns (on_cuda, route_n, iters)
     with the defaults filled in: ``route_n`` the key count, ``iters`` the
     full search depth."""
-    if root_kind != "linear" or leaf_kind != "linear":
-        raise NotImplementedError(
-            "the kernels serve linear roots and leaves; MLP models arrive "
-            "with the pool-reuse slice (ROADMAP queue 1 item 6)")
+    if root_kind not in KINDS or leaf_kind not in KINDS:
+        raise ValueError(f"model kinds must be in {KINDS}, got "
+                         f"{root_kind!r}/{leaf_kind!r}")
     devs = {t.device for t in tensors.values()}
     if len(devs) != 1:
         raise ValueError(f"lookup inputs on several devices: {devs}")
@@ -282,11 +343,13 @@ def _prepare(tensors: dict, *, n_leaves: int, route_n, iters, root_kind,
             full_iters(S) if iters is None else iters)
 
 
-def _table_args(root, mat, vec, keys, *, n_leaves, route_n, iters):
+def _table_args(root, mat, vec, keys, *, n_leaves, route_n, iters,
+                root_kind, leaf_kind):
     S = keys.shape[0]
     return (root.data_ptr(), mat.data_ptr(), vec.data_ptr(), mat.shape[1],
             n_leaves, _f32(n_leaves / route_n), keys.data_ptr(), S,
-            _f32(S - 1), _f32(S), iters)
+            _f32(S - 1), _f32(S), iters, int(root_kind == "mlp"),
+            int(leaf_kind == "mlp"))
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -304,16 +367,17 @@ def lookup(queries, root, mat, vec, keys, *, n_leaves: int,
         dict(queries=queries, root=root, mat=mat, vec=vec, keys=keys),
         n_leaves=n_leaves, route_n=route_n, iters=iters, root_kind=root_kind,
         leaf_kind=leaf_kind)
+    kinds = dict(root_kind=root_kind, leaf_kind=leaf_kind)
     if not on_cuda:
         return lookup_plain(queries, root, mat, vec, keys, n_leaves=n_leaves,
-                            route_n=route_n, iters=iters)
+                            route_n=route_n, iters=iters, **kinds)
     out = torch.empty(queries.shape, dtype=torch.int32, device=queries.device)
     nq = queries.shape[0]
     if nq:
         rc = build.library("lookup").repro_lookup(
             queries.data_ptr(), nq,
             *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
-                         route_n=route_n, iters=iters),
+                         route_n=route_n, iters=iters, **kinds),
             out.data_ptr(), _stream(queries))
         build.check(rc, "lookup")
         LAUNCHES["lookup"] += 1
@@ -332,10 +396,11 @@ def dynamic_lookup(queries, root, mat, vec, keys, delta_keys, *,
              delta_keys=delta_keys),
         n_leaves=n_leaves, route_n=route_n, iters=iters, root_kind=root_kind,
         leaf_kind=leaf_kind)
+    kinds = dict(root_kind=root_kind, leaf_kind=leaf_kind)
     if not on_cuda:
         return dynamic_lookup_plain(queries, root, mat, vec, keys, delta_keys,
                                     n_leaves=n_leaves, route_n=route_n,
-                                    iters=iters)
+                                    iters=iters, **kinds)
     out = torch.empty(queries.shape, dtype=torch.int32, device=queries.device)
     dout = torch.empty_like(out)
     nq, nd = queries.shape[0], delta_keys.shape[0]
@@ -343,7 +408,7 @@ def dynamic_lookup(queries, root, mat, vec, keys, delta_keys, *,
         rc = build.library("lookup").repro_dynamic_lookup(
             queries.data_ptr(), nq,
             *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
-                         route_n=route_n, iters=iters),
+                         route_n=route_n, iters=iters, **kinds),
             delta_keys.data_ptr(), nd, full_iters(nd), out.data_ptr(),
             dout.data_ptr(), _stream(queries))
         build.check(rc, "dynamic_lookup")
@@ -365,10 +430,11 @@ def dynamic_range(q_lo, q_hi, root, mat, vec, keys, delta_keys, *,
              delta_keys=delta_keys),
         n_leaves=n_leaves, route_n=route_n, iters=iters, root_kind=root_kind,
         leaf_kind=leaf_kind)
+    kinds = dict(root_kind=root_kind, leaf_kind=leaf_kind)
     if not on_cuda:
         return dynamic_range_plain(q_lo, q_hi, root, mat, vec, keys,
                                    delta_keys, n_leaves=n_leaves,
-                                   route_n=route_n, iters=iters)
+                                   route_n=route_n, iters=iters, **kinds)
     outs = [torch.empty(q_lo.shape, dtype=torch.int32, device=q_lo.device)
             for _ in range(4)]
     nq, nd = q_lo.shape[0], delta_keys.shape[0]
@@ -376,9 +442,107 @@ def dynamic_range(q_lo, q_hi, root, mat, vec, keys, delta_keys, *,
         rc = build.library("lookup").repro_dynamic_range(
             q_lo.data_ptr(), q_hi.data_ptr(), nq,
             *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
-                         route_n=route_n, iters=iters),
+                         route_n=route_n, iters=iters, **kinds),
             delta_keys.data_ptr(), nd, full_iters(nd),
             *(o.data_ptr() for o in outs), _stream(q_lo))
         build.check(rc, "dynamic_range")
         LAUNCHES["dynamic_range"] += 1
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# K4: the RMRT lookup over packed node tables.
+# ---------------------------------------------------------------------------
+def pack_rmrt(kind: str, params, is_leaf, child_base, y_start, y_end,
+              err_lo, err_hi):
+    """Lane-major RMRT node tables: (3H, Np) params + (8, Np) scalars, Np
+    the 128-multiple pad of the node count N (row meaning at the top of
+    this module).  ``child_base`` rides in f32, so N must stay below
+    2**24."""
+    N = int(is_leaf.shape[0])
+    if N >= 1 << 24:        # raise (not assert): must survive python -O
+        raise ValueError(
+            f"RMRT node count {N} exceeds f32 integer resolution (2^24): "
+            "child_base pointers in the packed f32 tables would be rounded "
+            "silently -- raise leaf_cap or shard the tree")
+    dev = is_leaf.device
+    if kind == "linear":
+        w1 = torch.zeros((N, H), dtype=torch.float32, device=dev)
+        w1[:, 0] = params.a.to(torch.float32)
+        zeros = torch.zeros_like(w1)
+        b1, w2, b2 = zeros, zeros, params.b
+    else:
+        w1, b1, w2, b2 = params.w1, params.b1, params.w2, params.b2
+    mat, vec = pack_leaves(w1, b1, w2, b2, err_lo, err_hi)
+    for r, a in ((3, y_start), (4, y_end), (5, child_base), (6, is_leaf)):
+        vec[r, :N] = a.to(torch.float32)
+    return mat, vec
+
+
+def rmrt_route_window(q, mat, vec, *, n_keys: int, fanout: int, depth: int,
+                      kind: str = "linear"):
+    """Stages 1-3 of K4: the depth-``depth`` masked descent over the node
+    tables (per level: predict, re-bucket by ``fanout`` over [y_start,
+    y_end], stop at ``is_leaf``), then the leaf's window: (lo, hi)."""
+    npad = mat.shape[1]
+    fv = vec.reshape(-1)
+    node = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
+    ffan = float(fanout)
+    for _ in range(depth):
+        pred = lane_predict(q, mat, vec, node, kind)
+        ys = fv[node + 3 * npad]
+        span = fv[node + 4 * npad] - ys
+        child = trunc_clip((pred - ys) * ffan / span, 0, fanout - 1)
+        nxt = fv[node + 5 * npad].long() + child     # f32-exact ints
+        node = torch.where(fv[node + 6 * npad] > 0.5, node, nxt)
+    return lane_window(lane_predict(q, mat, vec, node, kind), vec, node,
+                       n_keys)
+
+
+def rmrt_lookup_plain(queries, mat, vec, keys, *, fanout: int, depth: int,
+                      kind: str = "linear", iters: int | None = None):
+    """Plain version of K4: window-clamped left boundaries (Q,) int32."""
+    S = keys.shape[0]
+    iters = full_iters(S) if iters is None else iters
+    lo, hi = rmrt_route_window(queries, mat, vec, n_keys=S, fanout=fanout,
+                               depth=depth, kind=kind)
+    return _window_result(window_search(keys, queries, lo, hi, iters), hi, S)
+
+
+def rmrt_lookup(queries, mat, vec, keys, *, fanout: int, depth: int,
+                kind: str = "linear", iters: int | None = None):
+    """K4 (replaces ``repro.kernels.lookup.rmrt_lookup_pallas``): the RMRT
+    descent over ``pack_rmrt`` tables and the window-clamped left-boundary
+    search of f32 ``queries`` in sorted f32 ``keys``, (Q,) int32."""
+    tensors = dict(queries=queries, mat=mat, vec=vec, keys=keys)
+    devs = {t.device for t in tensors.values()}
+    if len(devs) != 1:
+        raise ValueError(f"rmrt_lookup inputs on several devices: {devs}")
+    for name, t in tensors.items():
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous float32")
+    if kind not in KINDS:
+        raise ValueError(f"kind must be in {KINDS}, got {kind!r}")
+    if mat.dim() != 2 or mat.shape[0] != 3 * H or vec.dim() != 2 \
+            or vec.shape[0] != 8 or vec.shape[1] != mat.shape[1]:
+        raise ValueError("mat/vec must be packed (3H, Np)/(8, Np) tables")
+    if keys.dim() != 1 or not 0 < keys.shape[0] < 2 ** 31 - 1:
+        raise ValueError("keys must be a non-empty 1-D tensor with int32 "
+                         "positions")
+    if fanout < 1 or depth < 1:
+        raise ValueError("fanout and depth must be positive")
+    S = keys.shape[0]
+    iters = full_iters(S) if iters is None else iters
+    if next(iter(devs)).type != "cuda":
+        return rmrt_lookup_plain(queries, mat, vec, keys, fanout=fanout,
+                                 depth=depth, kind=kind, iters=iters)
+    out = torch.empty(queries.shape, dtype=torch.int32, device=queries.device)
+    nq = queries.shape[0]
+    if nq:
+        rc = build.library("lookup").repro_rmrt_lookup(
+            queries.data_ptr(), nq, mat.data_ptr(), vec.data_ptr(),
+            mat.shape[1], fanout, depth, int(kind == "mlp"), keys.data_ptr(),
+            S, _f32(S - 1), _f32(S), iters, out.data_ptr(), _stream(queries))
+        build.check(rc, "rmrt_lookup")
+        LAUNCHES["rmrt_lookup"] += 1
+    return out

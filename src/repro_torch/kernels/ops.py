@@ -1,5 +1,6 @@
-"""Serving wrappers around the lookup kernels: each kernel call followed by
-its epilogue (counterpart of ``repro.kernels.ops``).
+"""Serving wrappers around the kernels: each lookup kernel call followed by
+its epilogue, and the K7 distance matrix (counterpart of
+``repro.kernels.ops``).
 
 The epilogues are plain torch ops: the seam verification that re-searches
 the rare window misses, the tombstone hit test and the two-tier live-rank
@@ -52,6 +53,7 @@ def _seam_fix(r, kf, qf, seam_budget: int = 1024, right: bool = False):
 
 
 def index_lookup(queries, root, mat, vec, keys, *, n_leaves: int,
+                 root_kind: str = "linear", leaf_kind: str = "linear",
                  iters: int | None = None, seam_budget: int = 1024):
     """Static serving lookup (K1 + seam fix): left boundaries of f32
     ``queries`` in the f32 ``keys``.  ``iters`` None derives the clamped
@@ -60,8 +62,28 @@ def index_lookup(queries, root, mat, vec, keys, *, n_leaves: int,
         iters = _lookup.search_iters(vec[1, :n_leaves], vec[2, :n_leaves],
                                      keys.shape[0])
     r = _lookup.lookup(queries, root, mat, vec, keys, n_leaves=n_leaves,
-                       iters=iters)
+                       iters=iters, root_kind=root_kind, leaf_kind=leaf_kind)
     return _seam_fix(r, keys, queries, seam_budget)
+
+
+def rmrt_lookup(queries, mat, vec, keys, *, fanout: int, depth: int,
+                kind: str = "linear", iters: int | None = None,
+                seam_budget: int = 1024):
+    """RMRT serving lookup (K4 + seam fix) over ``pack_rmrt`` tables.
+    ``iters`` None derives the clamped depth from the bound rows of
+    ``vec`` (internal nodes carry zero-width rows; sentinel windows of
+    empty leaves are excluded, as for the RMI)."""
+    if iters is None:
+        iters = _lookup.search_iters(vec[1], vec[2], keys.shape[0])
+    r = _lookup.rmrt_lookup(queries, mat, vec, keys, fanout=fanout,
+                            depth=depth, kind=kind, iters=iters)
+    return _seam_fix(r, keys, queries, seam_budget)
+
+
+def ksdist_matrix(tgt_hists, pool_a, pool_ps):
+    """(L, P) Algorithm-2 distance matrix, targets x pool (K7)."""
+    from .ksdist import ksdist
+    return ksdist(tgt_hists, pool_a, pool_ps)
 
 
 def _edge_pad(psum, n: int):
@@ -74,7 +96,8 @@ def _edge_pad(psum, n: int):
 
 def dynamic_index_lookup(queries, root, mat, vec, keys, base_psum,
                          delta_keys, delta_psum, *, n_leaves: int,
-                         route_n: int, iters: int, seam_budget: int = 1024):
+                         route_n: int, iters: int, root_kind: str = "linear",
+                         leaf_kind: str = "linear", seam_budget: int = 1024):
     """Two-tier serving find: K2, then the seam fix of the base positions
     and the tombstone / live-rank algebra.  ``delta_keys`` is the sorted
     +inf-padded f32 delta tier; ``*_psum`` the exclusive tombstone prefix
@@ -84,7 +107,8 @@ def dynamic_index_lookup(queries, root, mat, vec, keys, base_psum,
     df = _lookup.pad_delta(delta_keys)
     pos, dpos = _lookup.dynamic_lookup(queries, root, mat, vec, keys, df,
                                        n_leaves=n_leaves, route_n=route_n,
-                                       iters=iters)
+                                       iters=iters, root_kind=root_kind,
+                                       leaf_kind=leaf_kind)
     # The delta probe ran at full depth, so only the base needs the seam
     # pass.  A hit is a live entry in the equal-key run [left, right).
     pos = _seam_fix(pos, keys, queries, seam_budget)
@@ -108,6 +132,7 @@ def dynamic_find(queries, root, mat, vec, keys, base_psum, delta_keys,
 
 def range_lookup(q_lo, q_hi, root, mat, vec, keys, base_psum, delta_keys,
                  delta_psum, *, n_leaves: int, route_n: int, iters: int,
+                 root_kind: str = "linear", leaf_kind: str = "linear",
                  seam_budget: int = 1024):
     """Two-tier range answer (K3 + epilogue): (rank_lo, rank_hi) live ranks
     of the inclusive ranges [q_lo, q_hi] -- rank_lo counts live keys <
@@ -116,7 +141,8 @@ def range_lookup(q_lo, q_hi, root, mat, vec, keys, base_psum, delta_keys,
     df = _lookup.pad_delta(delta_keys)
     blo, bhi, dlo, dhi = _lookup.dynamic_range(
         q_lo, q_hi, root, mat, vec, keys, df, n_leaves=n_leaves,
-        route_n=route_n, iters=iters)
+        route_n=route_n, iters=iters, root_kind=root_kind,
+        leaf_kind=leaf_kind)
     blo = _seam_fix(blo, keys, q_lo, seam_budget)
     bhi = _seam_fix(bhi, keys, q_hi, seam_budget, right=True)
     dpsum = _edge_pad(delta_psum, df.shape[0] + 1)

@@ -200,11 +200,13 @@ def test_unported_options_raise():
     keys = np.arange(64, dtype=np.float64)
     with pytest.raises(NotImplementedError, match="item 11"):
         Index.build(keys, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Index.build(keys, pool=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         Index.build(keys, drift_bins=16, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        Index.build(keys, swap_on_drift=True, device="cpu")
     ix = Index.build(keys, n_leaves=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ix.maybe_swap()
     with pytest.raises(NotImplementedError, match="item 10"):
         ix.snapshot("unused")
 
@@ -216,7 +218,10 @@ def test_port_imports_neither_jax_nor_repro():
         "import importlib.util, sys\n"
         "import repro_torch, repro_torch.api, repro_torch.convert\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
-        "import repro_torch.kernels.build\n"
+        "import repro_torch.kernels.build, repro_torch.kernels.ksdist\n"
+        "import repro_torch.core.rmrt, repro_torch.core.reuse\n"
+        "import repro_torch.core.synth, repro_torch.core.cdf\n"
+        "import repro_torch.core.adapt, repro_torch.time_segments\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         "sys.argv[1])\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

@@ -40,22 +40,57 @@ def gen_queries(rng, keys: np.ndarray, q: int) -> np.ndarray:
     return out.astype(np.float32).astype(np.float64)
 
 
+def export_params(prefix: str, kind: str, params) -> dict:
+    """Model parameters (a NamedTuple of arrays) under ``prefix``."""
+    out = {f"{prefix}_{f}": np.asarray(getattr(params, f))
+           for f in params._fields}
+    out[f"{prefix}_kind"] = kind
+    return out
+
+
 def export_rmi(idx) -> dict:
-    """A reference ``RMIIndex`` (linear/linear) as numpy arrays."""
+    """A reference ``RMIIndex`` (either model kind) as numpy arrays."""
     g = lambda a: np.asarray(a)
-    return dict(keys=g(idx.keys), root_a=g(idx.root.a), root_b=g(idx.root.b),
-                leaf_a=g(idx.leaves.a), leaf_b=g(idx.leaves.b),
+    return dict(keys=g(idx.keys), **export_params("root", idx.root_kind,
+                                                  idx.root),
+                **export_params("leaf", idx.leaf_kind, idx.leaves),
                 err_lo=g(idx.err_lo), err_hi=g(idx.err_hi),
                 reused=g(idx.reused_mask), leaf_sim=g(idx.leaf_sim),
                 n_leaves=idx.n_leaves, iters=idx.search_iters)
 
 
 def export_dynamic(d) -> dict:
-    """A reference ``DynamicRMI`` as numpy arrays and scalars."""
+    """A reference ``DynamicRMI`` as numpy arrays and scalars (its pool is
+    carried across separately, by :func:`export_pool`)."""
     out = export_rmi(d.index)
     g = lambda a: np.asarray(a)
     out.update(route_n=d.route_n, base_n=d.base_n, base_dead=g(d.base_dead),
                delta_keys=g(d.delta_keys), delta_leaf=g(d.delta_leaf),
                delta_dead=g(d.delta_dead), n_inserts=d.n_inserts.copy(),
-               budget=d.budget.copy(), win=d._win.copy(), eps=d.eps)
+               budget=d.budget.copy(), win=d._win.copy(), eps=d.eps,
+               reuse_on_rebuild=d.reuse_on_rebuild,
+               build_kwargs=dict(d.build_kwargs))
     return out
+
+
+def export_pool(pool) -> dict:
+    """A reference ``ModelPool`` as numpy arrays and scalars."""
+    g = lambda a: np.asarray(a)
+    dom = pool.domains
+    return dict(eps=pool.eps, m=pool.m, kind=pool.kind, hists=g(pool.hists),
+                **export_params("p", pool.kind, pool.params),
+                err_lo=g(pool.err_lo), err_hi=g(pool.err_hi),
+                x_start=g(dom.x_start), x_end=g(dom.x_end),
+                y_start=g(dom.y_start), y_end=g(dom.y_end))
+
+
+def export_rmrt(t) -> dict:
+    """A reference ``RMRTIndex`` as numpy arrays and scalars."""
+    g = lambda a: np.asarray(a)
+    return dict(keys=g(t.keys), kind=t.kind,
+                **export_params("p", t.kind, t.params),
+                is_leaf=g(t.is_leaf), child_base=g(t.child_base),
+                y_start=g(t.y_start), y_end=g(t.y_end), err_lo=g(t.err_lo),
+                err_hi=g(t.err_hi), node_sim=g(t.node_sim),
+                reused=g(t.reused_mask), fanout=t.fanout,
+                leaf_cap=t.leaf_cap, depth=t.depth)
