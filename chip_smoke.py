@@ -32,14 +32,51 @@ Phases (any failure exits non-zero; nothing is caught):
    bit, and timed; K7 is checked on all of the pooled build's leaf
    histograms and timed on ``SELECT_CHUNK`` of them, the shape of one of
    its launches in ``select_from_pool_batch``.
+6. Path C, drift-adaptive serving, counted the same way, with the
+   reference drift benchmark's settings (``benchmarks/bench_updates.py``
+   ``bench_drift``): a linear pool from ``generate_pool(0.65)`` (m_sim 64);
+   ``Index.build(keys, pool=..., eps=0.65, drift_bins=64, drift_hi=0.02,
+   drift_lo=0.01, swap_on_drift=True)`` (linear root and leaves) takes the reference
+   benchmark's three-phase ingest (stationary lognormal(0, 1), shifted
+   lognormal(1.8, 0.9), zipf-hot over 64 base-rank slots), 8 batches of
+   n / 100 keys a phase, with the idle-window
+   maintenance after every batch (``Index.maybe_swap()``, then
+   ``flush_delta`` past a quarter of the base); then the same ingest into a
+   refit-only index (no pool, no monitor), after the first is freed.  Per
+   phase and mode: insert times, scores and latch, swaps, rebuilds inline
+   and in maintenance, the swap pass's time, K7 launches, peak memory; at
+   each phase's end every find and range against the truth, the cached
+   packed tables against a fresh packing of the current leaves, and K2 and
+   K3 against their plain versions on those tables and queries, bit for
+   bit; after the swap mode, K7 against its plain version on every swap
+   pass's histograms, bit for bit.  The shifted phase must latch and commit
+   swaps, and no commit may change the search depth or the packed tables'
+   shapes.
+7. K6 and K5 through the public kernel API on path C's keys:
+   ``ops.histogram(keys, 64, keys[0], keys[-1])`` over the keys randomly
+   permuted and over one drift batch, ``ops.segment_linfit(keys,
+   positions, leaf buckets, --n-leaves)``, counted; then K6 against its
+   plain version bit for bit and against an exact count, K5's raw
+   sums against its plain version within one f32 ulp of each sum's
+   magnitude (the sum of the terms' absolute values), and slopes against
+   the f64 ``segment_linear_fit_sorted``: ``segment_linfit``'s within 5e-3
+   plus the error its first pass's f32 means allow, and those of the same
+   two passes with pass 1 in f64 (pass 2 through K5) within 5e-3; both
+   timed.  K6's exact count comes from the sorted keys, binned in f64 with
+   a rounding to f32 after each step and counted by searching the sorted
+   bin ids.
 
-Every answer of both paths is held against a ``torch.searchsorted`` truth
+Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
 each kernel timed in two turns around its plain version and the one
-PyTorch call computing the same function (``torch.searchsorted``; none for
-K7), beside the least time the card could take (``bound_ms``) for the
-bytes and f32 operations this run's inputs need.  Keys are lognormal
-float32 values drawn on the card from ``--seed`` and sorted there.  The
+PyTorch call computing the same function (``torch.searchsorted``; an f32
+``index_add_`` of the stacked features for K5; none for K7, nor for K6,
+whose bins ``torch.histc`` closes on the other side), beside the least
+time the card could take (``bound_ms``) for the bytes and f32 operations
+this run's inputs need.  A row's ``launches`` add up every path that
+launches that instantiation (K2/K3 linear: paths A and C; K7: B and C).
+Keys are lognormal float32 values drawn on the card from ``--seed`` and
+sorted there.  Every answer of path C is held against the truth too.  The
 last lines printed are the kernels' JSON line (K1-K3 a row per
 instantiation: path A launches the linear-leaf one, path B the MLP-leaf
 one), the card's ``name, power.limit`` from nvidia-smi, and the result
@@ -49,6 +86,9 @@ present or when run outside a checkout of the repo.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
+import gc
 import json
 import subprocess
 import sys
@@ -57,6 +97,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
+DRIFT_EPS = 0.65               # path C's reuse threshold (bench_drift's)
+DRIFT_BATCHES = 8              # batches a drift phase (bench_drift's)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 # Rows of the kernels line: K1-K3 once per instantiation the main paths
 # launch (linear leaves on path A, MLP leaves on path B), K4, K7.
@@ -70,6 +112,8 @@ SOURCES = {
     "dynamic_range_mlp": _LOOKUP_CU,
     "rmrt_lookup": _LOOKUP_CU,
     "ksdist": "src/repro_torch/kernels/csrc/ksdist.cu",
+    "hist": "src/repro_torch/kernels/csrc/hist.cu",
+    "linfit": "src/repro_torch/kernels/csrc/linfit.cu",
 }
 REPLACES = {
     "lookup": "src/repro/kernels/lookup.py:274",
@@ -80,6 +124,8 @@ REPLACES = {
     "dynamic_range_mlp": "src/repro/kernels/lookup.py:516",
     "rmrt_lookup": "src/repro/kernels/lookup.py:681",
     "ksdist": "src/repro/kernels/ksdist.py:36",
+    "hist": "src/repro/kernels/hist.py:44",
+    "linfit": "src/repro/kernels/linfit.py:52",
 }
 
 
@@ -266,6 +312,86 @@ class _Stages:
               f"(total {total:.6f} s)")
 
 
+def _pass1_bound(ops, trmi, keys, pos, buckets, n_leaves, a64):
+    """Per leaf, (whether it holds two distinct keys or more, the relative
+    slope error that the f32 rounding of ``ops.segment_linfit``'s first
+    pass allows).  Pass 1 sums f32-rounded
+    standardised coordinates, so a leaf's means are off by at most one
+    f32 ulp (u_x, u_y at the leaf's largest coordinate); pass 2 centres on
+    those means, so with n keys the standardised slope a* becomes (S_xy + n
+    e_x e_y) / (S_xx + n e_x^2), off by at most n u_x (u_y + |a*| u_x) /
+    S_xx.  A leaf whose keys or positions span few ulps (sparse tail
+    leaves at 2e8 keys, where an f32 ulp of a standardised position is
+    about 7 positions) cannot meet a fixed tolerance."""
+    import torch
+    xn, _, sd_x = ops.standardize(keys)
+    yn, _, sd_y = ops.standardize(pos)
+    b = buckets.long()
+    cnt = torch.bincount(b, minlength=n_leaves).to(torch.float64)
+    zeros = torch.zeros(n_leaves, dtype=torch.float64, device=keys.device)
+    mx = zeros.index_add(0, b, xn) / cnt.clamp(min=1.0)
+    sxx = zeros.index_add(0, b, (xn - mx[b]) ** 2)
+    start, end = trmi._bucket_bounds(buckets, n_leaves)
+    lo, hi = start.clamp(max=keys.shape[0] - 1).long(), \
+        (end - 1).clamp(min=0).long()
+
+    def ulp(v):
+        f = v.abs().to(torch.float32)
+        return (torch.nextafter(f, torch.full_like(f, float("inf")))
+                - f).to(torch.float64)
+
+    u_x = torch.maximum(ulp(xn[lo]), ulp(xn[hi]))
+    u_y = torch.maximum(ulp(yn[lo]), ulp(yn[hi]))
+    a_s = (a64 * sd_x / sd_y).abs()
+    distinct = keys[lo] < keys[hi]
+    return distinct, cnt * u_x * (u_y / a_s + u_x) / sxx
+
+
+def _slopes_f64_pass1(ops, tlinfit, x, y, buckets, n_buckets):
+    """``ops.segment_linfit``'s slopes with its first pass kept in f64
+    (per-bucket means of the f64 standardised coordinates from f64 sums)
+    and its second pass through K5 as before: isolates what pass 1's f32
+    rounding costs."""
+    import torch
+    f64 = torch.float64
+    xn, _, sd_x = ops.standardize(x)
+    yn, _, sd_y = ops.standardize(y)
+    b = buckets.long()
+    cnt = torch.bincount(b, minlength=n_buckets).to(f64).clamp(min=1.0)
+    zeros = torch.zeros(n_buckets, dtype=f64, device=x.device)
+    mx = zeros.index_add(0, b, xn) / cnt
+    my = zeros.index_add(0, b, yn) / cnt
+    s2 = tlinfit.linfit_sums((xn - mx[b]).to(torch.float32),
+                             (yn - my[b]).to(torch.float32), buckets,
+                             n_buckets).to(f64)
+    sxy, sxx = s2[:, 3], s2[:, 4]
+    a_s = torch.where(sxx > 1e-20, sxy / sxx, torch.zeros_like(sxy))
+    return a_s * sd_y / sd_x
+
+
+def _exact_counts(thist, sorted_keys, m, lo, hi):
+    """K6's exact (m,) counts of finite sorted f32 keys inside [lo, hi],
+    independent of the kernel and of ``hist_plain``: each step of the bin
+    formula in f64, where it is exact (its operands are f32 values whose
+    exponents differ by less than 29), rounded once to f32 as the f32
+    operation rounds; the non-decreasing bin ids of the sorted keys are
+    counted by a search, not by a histogram."""
+    import torch
+    f32, f64 = torch.float32, torch.float64
+    lo32, inv_span, _ = thist.hist_params(m, lo, hi, sorted_keys.shape[0])
+    k = sorted_keys.to(f64)
+    if not (bool(torch.isfinite(k).all()) and float(k[0]) >= lo32
+            and float(k[-1]) <= hi):
+        raise AssertionError("the exact count takes finite keys in [lo, hi]")
+    x = ((k - lo32).to(f32).to(f64) * inv_span).to(f32).to(f64)
+    c = torch.ceil((x * float(m)).to(f32).to(f64))
+    bins = (c.to(torch.int64) - 1).clamp(0, m - 1)
+    if not bool((bins[1:] >= bins[:-1]).all()):
+        raise AssertionError("bin ids of sorted keys are not non-decreasing")
+    edges = torch.searchsorted(bins, torch.arange(m + 1, device=k.device))
+    return edges[1:] - edges[:-1]
+
+
 def _compare(name, kern, plain):
     """Kernel and plain outputs equal bit for bit; returns max |diff|."""
     import torch
@@ -280,6 +406,7 @@ def _compare(name, kern, plain):
 
 def main(argv=None) -> int:
     args = _args(argv)
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -290,6 +417,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.api import Index
+    from repro_torch.core import drift as tdrift
     from repro_torch.core import reuse as treuse
     from repro_torch.core import rmi as trmi
     from repro_torch.core import rmrt as trmrt
@@ -297,6 +425,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import ksdist as tks
     from repro_torch.kernels import lookup as tlk
+    from repro_torch.kernels import hist as thist
+    from repro_torch.kernels import linfit as tlinfit
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda")
@@ -318,11 +448,23 @@ def main(argv=None) -> int:
                 print(f"  ptxas[{name}] {line.strip()}")
 
     def counters():
-        return {**tlk.LAUNCHES, **tks.LAUNCHES}
+        return {**tlk.LAUNCHES, **tks.LAUNCHES, **thist.LAUNCHES,
+                **tlinfit.LAUNCHES}
 
     def reset_counters():
-        tlk.reset_launches()
-        tks.reset_launches()
+        for mod in (tlk, tks, thist, tlinfit):
+            mod.reset_launches()
+
+    def uncounted(fn):
+        """``fn()`` with the launch counts put back afterwards: launches
+        that compare a kernel with its plain version inside a counted run
+        do not count."""
+        saved = [(mod, dict(mod.LAUNCHES)) for mod in (tlk, tks, thist,
+                                                       tlinfit)]
+        out = fn()
+        for mod, counts in saved:
+            mod.LAUNCHES.update(counts)
+        return out
 
     # ---- inputs -----------------------------------------------------------
     g = torch.Generator(device=dev)
@@ -610,7 +752,9 @@ def main(argv=None) -> int:
           f"{int(tree.is_leaf.sum())}, reuse_fraction "
           f"{tree.reuse_fraction:.6f}, search_iters {tree.search_iters}")
     launches_b = counters()
-    if min(launches_b.values()) <= 0:
+    if min(launches_b[k] for k in ("lookup", "dynamic_lookup",
+                                   "dynamic_range", "rmrt_lookup",
+                                   "ksdist")) <= 0:
         raise AssertionError(f"a kernel of path B never launched: "
                              f"{launches_b}")
     print(f"phase 4: path B (lazy) ok; n={n}; launches {launches_b}")
@@ -714,6 +858,330 @@ def main(argv=None) -> int:
           f"{tree.depth} rmrt nodes={tree.num_nodes}")
     print(f"  peak memory allocated (path B + checks): "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; wall "
+          f"{time.perf_counter() - t_start:.1f} s")
+    del ix, d, live, tree, keys, keys32, corpus, mlp_pool, lin_pool
+    del q_static, q_rmrt, pos, sm_tabs, d_tabs, qf, lo, hi, lof, hif, dk
+    del dkf, qs, t_mat, t_vec, tkf, qr, sel_a, sel_ps, hists, hc, calls_b
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: path C (drift-adaptive serving), counted -----------------
+    keys32 = lognormal_keys(n)
+    keys = keys32.to(torch.float64)
+    edges = edges_of(keys32)
+    steps = {}
+    dcorpus, steps["generate_pool (drift eps)"] = _sync_time(
+        lambda: tsynth.generate_pool(DRIFT_EPS))
+    dpool, steps["build_pool (linear, m_sim 64)"] = _sync_time(
+        lambda: treuse.build_pool(dcorpus, kind="linear", m_sim=64,
+                                  device=dev))
+    print_steps(steps)
+    print(f"  drift pool: {dpool.size} linear models, m={dpool.m}")
+    batch = n // 100                    # 2M at 200M keys
+
+    def drift_phases():
+        """The reference benchmark's three phases, drawn anew from the same
+        seeds for each mode (byte-identical batches)."""
+        gd = torch.Generator(device=dev)
+        gd.manual_seed(args.seed + 101)
+        rng = np.random.default_rng(args.seed + 101)
+        slots = rng.permutation(64)
+
+        def lognormal(mu, sigma):
+            return lambda: torch.empty(batch, dtype=torch.float32,
+                                       device=dev).log_normal_(
+                mu, sigma, generator=gd).to(torch.float64)
+
+        def zipf_hot():
+            # hot CDF slots: zipf over 64 base-rank slots, keys interpolated
+            # between neighbouring base keys inside the slot
+            r = torch.from_numpy(slots[(rng.zipf(1.2, batch) - 1) % 64]) \
+                .to(dev)
+            at = (r + torch.rand(batch, dtype=torch.float64, device=dev,
+                                 generator=gd)) * ((n - 1) / 64.0)
+            i = at.long()
+            frac = at - i
+            k = keys[i] * (1.0 - frac) + keys[(i + 1).clamp(max=n - 1)] * frac
+            return k.to(torch.float32).to(torch.float64)
+
+        return [("stationary", lognormal(0.0, 1.0)),
+                ("shifted", lognormal(1.8, 0.9)), ("zipf-hot", zipf_hot)]
+
+    class SwapProbe:
+        """Stands in for one index's ``maybe_swap``: times each explicit
+        swap pass (the O(n) one) and checks that a commit changes neither
+        the search depth nor the packed tables' shapes."""
+
+        def __init__(self, d):
+            self.d, self.fn = d, d.maybe_swap
+            self.calls, self.secs = 0, 0.0
+            d.maybe_swap = self
+
+        def __call__(self, leaf_ids=None):
+            if leaf_ids is None:
+                return self.fn()        # re-enters here for the swap pass
+            d = self.d
+            iters = d.index.search_iters
+            shapes = [tuple(t.shape) for t in d.index.packed_tables()]
+            nc, dt = _sync_time(lambda: self.fn(leaf_ids))
+            self.calls += 1
+            self.secs += dt
+            after = [tuple(t.shape) for t in d.index.packed_tables()]
+            if d.index.search_iters != iters or after != shapes:
+                raise AssertionError(
+                    f"a swap commit changed the search depth ({iters} -> "
+                    f"{d.index.search_iters}) or the table shapes")
+            return nc
+
+    def compare_c(d, q, lo, hi, tag):
+        """K2 and K3 against their plain versions on path C's tables as
+        the phase left them (rewritten by swaps and repairs) and on its
+        queries; first the cached packed tables against a fresh packing of
+        the current leaves, so that stale tables would show."""
+        tabs = d.index.packed_tables()
+        fresh = dataclasses.replace(d.index, _packed=None).packed_tables()
+        for i, (a, b) in enumerate(zip(tabs, fresh, strict=True)):
+            _check_equal(f"path C {tag}: packed table [{i}] vs a fresh "
+                         f"packing", a, b)
+        dk = tlk.pad_delta(d.delta_keys_f32)
+        dkf = d.index.keys_f32
+        kw = dict(n_leaves=L, route_n=d.route_n, iters=d.index.search_iters,
+                  root_kind=d.index.root_kind, leaf_kind=d.index.leaf_kind)
+        qf, lof, hif = (t.to(torch.float32) for t in (q, lo, hi))
+        return {
+            "dynamic_lookup": _compare(
+                f"dynamic_lookup (path C {tag})",
+                lambda: tlk.dynamic_lookup(qf, *tabs, dkf, dk, **kw),
+                lambda: tlk.dynamic_lookup_plain(qf, *tabs, dkf, dk, **kw)),
+            "dynamic_range": _compare(
+                f"dynamic_range (path C {tag})",
+                lambda: tlk.dynamic_range(lof, hif, *tabs, dkf, dk, **kw),
+                lambda: tlk.dynamic_range_plain(lof, hif, *tabs, dkf, dk,
+                                                **kw))}
+
+    def compare_k7_c(selections):
+        """K7 against its plain version on each swap pass's (rows, m)
+        histograms and the pool's tables; times it at the largest pass."""
+        if not selections:
+            raise AssertionError("the swap mode ran no swap pass")
+        err = 0
+        for i, (a, ps, h) in enumerate(selections):
+            err = max(err, _compare(f"ksdist (path C swap pass {i})",
+                                    lambda: (tks.ksdist(h, a, ps),),
+                                    lambda: (tks.ksdist_plain(h, a, ps),)))
+        a, ps, h = max(selections, key=lambda s: s[2].shape[0])
+        h = h[:treuse.SELECT_CHUNK]            # one launch's rows
+        k_ms = _event_ms(lambda: tks.ksdist(h, a, ps), 50)
+        p_ms = _event_ms(lambda: tks.ksdist_plain(h, a, ps), 5, warmup=1)
+        print(f"  K7 on path C's swap passes: {len(selections)} passes, rows "
+              f"{[s[2].shape[0] for s in selections]}, P={a.shape[0]}, "
+              f"m={a.shape[1]}; at {h.shape[0]} rows kernel {k_ms:.6f} ms, "
+              f"plain {p_ms:.6f} ms")
+        return err
+
+    real_select = tdrift.select_from_pool_batch
+    selections = []         # (sel_a, sel_ps, histograms) of each swap pass
+
+    def capture_select(sel_a, sel_ps, hists, eps):
+        selections.append((sel_a, sel_ps, hists.clone()))
+        return real_select(sel_a, sel_ps, hists, eps)
+
+    errs_c = {"dynamic_lookup": 0, "dynamic_range": 0, "ksdist": 0}
+    reset_counters()
+    ops.reset_seam()
+    for mode in ("swap", "refit-only"):
+        kw = dict(pool=dpool, drift_bins=64, drift_hi=0.02, drift_lo=0.01,
+                  swap_on_drift=True) if mode == "swap" else {}
+        torch.cuda.reset_peak_memory_stats()
+        ix, t_build = _sync_time(functools.partial(
+            Index.build, keys, n_leaves=L, eps=DRIFT_EPS, kind="linear",
+            **kw))
+        d = ix.backend
+        probe = SwapProbe(d)
+        if mode == "swap":
+            tdrift.select_from_pool_batch = capture_select
+        print(f"phase 6: path C {mode}: Index.build {t_build:.6f} s; "
+              f"reuse_fraction {d.index.reuse_fraction:.6f}; search_iters "
+              f"{d.index.search_iters}; batches of {batch} keys")
+        for phase, make_batch in drift_phases():
+            ts, scores, latches = [], [], []
+            rb_in = rb_mnt = flushes = 0
+            t_mnt = 0.0
+            sw0, rj0 = d.swaps_committed, d.swap_rejects
+            c0, s0, k7_0 = probe.calls, probe.secs, tks.LAUNCHES["ksdist"]
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(DRIFT_BATCHES):
+                b = make_batch()
+                r0 = d.rebuilds
+                _, dt = _sync_time(functools.partial(ix.insert, b))
+                ts.append(dt)
+                rb_in += d.rebuilds - r0
+                row = ix.drift_scores()[0]
+                scores.append(float(row[0]))
+                latches.append(bool(row[1]))
+                r1 = d.rebuilds
+                _, dt = _sync_time(ix.maybe_swap)
+                t_mnt += dt
+                if d.delta_live > d.base_n // 4:
+                    _, dt = _sync_time(d.flush_delta)
+                    t_mnt += dt
+                    flushes += 1
+                rb_mnt += d.rebuilds - r1
+            live = d.live_keys_tensor()
+            q = find_queries(live, edges)
+            check_find(ix, q, f"{mode}/{phase}")
+            lo, hi = range_pairs(live)
+            check_range(ix, lo, hi, f"{mode}/{phase}")
+            for k, e in uncounted(functools.partial(
+                    compare_c, d, q, lo, hi, f"{mode}/{phase}")).items():
+                errs_c[k] = max(errs_c[k], e)
+            ms = np.asarray(ts) * 1e3
+            swaps = d.swaps_committed - sw0
+            ns_key = ms.sum() / (len(ts) * batch) * 1e6
+            print(f"  {mode} {phase}: insert ms p50 {np.median(ms):.6f} "
+                  f"max {ms.max():.6f} ({ns_key:.3f} ns/key); scores "
+                  f"{' '.join(f'{v:.6f}' for v in scores)}; latch "
+                  f"{''.join('1' if v else '0' for v in latches)}; swaps "
+                  f"{swaps} rejects {d.swap_rejects - rj0}; rebuilds inline "
+                  f"{rb_in} maintenance {rb_mnt}; flushes {flushes}; "
+                  f"maintenance {t_mnt:.6f} s of which swap passes "
+                  f"{probe.secs - s0:.6f} s in {probe.calls - c0}; K7 "
+                  f"launches {tks.LAUNCHES['ksdist'] - k7_0}; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+                  f"search_iters {d.index.search_iters}; live "
+                  f"{d.live_count}")
+            if mode == "swap" and phase == "shifted" and not (
+                    any(latches) and swaps > 0):
+                raise AssertionError("the shifted phase did not latch and "
+                                     "commit swaps")
+        if d.live_count != n + 3 * DRIFT_BATCHES * batch:
+            raise AssertionError(f"path C {mode}: live count {d.live_count}")
+        if mode == "swap":
+            tdrift.select_from_pool_batch = real_select
+            errs_c["ksdist"] = uncounted(functools.partial(
+                compare_k7_c, selections))
+            selections.clear()
+        del d.maybe_swap                # break the probe's cycle
+        del ix, d, probe, live, q, lo, hi
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches_c = counters()
+    for k in ("dynamic_lookup", "dynamic_range", "ksdist"):
+        if launches_c[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on path C: "
+                                 f"{launches_c}")
+        rows[k]["launches"] += launches_c[k]
+        rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], errs_c[k])
+    print(f"  path C launches {launches_c}; K2, K3 (every phase's end, both "
+          f"modes) and K7 (every swap pass) equal their plain versions on "
+          f"path C's inputs bit for bit (tolerance 0): {errs_c}")
+    print_seam()
+
+    # ---- phase 7: K6 and K5 through ops on path C's keys, counted ----------
+    perm = keys32[torch.randperm(n, device=dev, generator=g)]
+    dbatch = torch.empty(batch, dtype=torch.float32, device=dev) \
+        .log_normal_(1.8, 0.9, generator=g)
+    lo_k, hi_k = float(keys32[0]), float(keys32[-1])
+    posn = torch.arange(n, dtype=torch.float64, device=dev)
+    buckets = trmi.root_buckets("linear", trmi.models.linear_fit(keys, posn),
+                                keys, L, n)
+    reset_counters()
+    steps = {}
+    h_all, steps["ops.histogram (all keys, permuted)"] = _sync_time(
+        lambda: ops.histogram(perm, 64, lo_k, hi_k))
+    h_batch, steps["ops.histogram (one drift batch)"] = _sync_time(
+        lambda: ops.histogram(dbatch, 64, lo_k, hi_k))
+    fit, steps["ops.segment_linfit"] = _sync_time(
+        lambda: ops.segment_linfit(keys, posn, buckets, L))
+    launches_7 = counters()
+    if launches_7["hist"] != 2 or launches_7["linfit"] != 2:
+        raise AssertionError(f"K5/K6 launches on phase 7: {launches_7}")
+    print_steps(steps)
+
+    errs = {"hist": max(
+        _compare("hist", lambda: (thist.hist(perm, 64, lo_k, hi_k),),
+                 lambda: (thist.hist_plain(perm, 64, lo_k, hi_k),)),
+        _compare("hist (drift batch)",
+                 lambda: (thist.hist(dbatch, 64, lo_k, hi_k),),
+                 lambda: (thist.hist_plain(dbatch, 64, lo_k, hi_k),)))}
+    exact = _exact_counts(thist, keys32, 64, lo_k, hi_k)
+    inv_n = thist.hist_params(64, lo_k, hi_k, n)[2]
+    _check_equal("hist vs the exact count", h_all, exact.to(torch.float32)
+                 * torch.tensor(inv_n, dtype=torch.float32, device=dev))
+    print(f"  K6 hot bin: {int(exact[0])} of {n} keys in bin 0 (an f32 "
+          f"accumulator is exact to 2^24 = {2**24}); drift batch bin 0 "
+          f"{float(h_batch[0]):.6f}")
+    xs = ops.standardize(keys)[0].to(torch.float32)
+    ys = ops.standardize(posn)[0].to(torch.float32)
+    got = tlinfit.linfit_sums(xs, ys, buckets, L)
+    want = tlinfit.linfit_sums_plain(xs, ys, buckets, L)
+    mag = tlinfit.linfit_sums_plain(xs.abs(), ys.abs(), buckets, L)
+    torch.cuda.synchronize()
+    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    diff = (got - want).abs()
+    if not bool((diff <= ulp).all()):
+        raise AssertionError(f"K5 sums beyond one f32 ulp of their magnitude"
+                             f" at {int((diff > ulp).sum())} entries")
+    errs["linfit"] = float(diff.max())
+    del got, want, mag, ulp, diff
+    p64 = trmi.segment_linear_fit_sorted(keys, buckets, L)
+    cmp, bound = _pass1_bound(ops, trmi, keys, posn, buckets, L, p64.a)
+    rel = ((fit[:, 0] - p64.a).abs() / p64.a.abs())[cmp]
+    lim = 5e-3 + bound[cmp]
+    if not bool((rel <= lim).all()):
+        raise AssertionError(
+            f"segment_linfit slopes beyond 5e-3 plus the pass-1 bound on "
+            f"{int((rel > lim).sum())} leaves (max rel {float(rel.max())})")
+    over = rel > 5e-3
+    a_w = _slopes_f64_pass1(ops, tlinfit, keys, posn, buckets, L)
+    rel_w = ((a_w - p64.a).abs() / p64.a.abs())[cmp]
+    if not bool((rel_w <= 5e-3).all()):
+        raise AssertionError(
+            f"with pass 1 in f64 the slopes are beyond rtol 5e-3 on "
+            f"{int((rel_w > 5e-3).sum())} leaves (max rel "
+            f"{float(rel_w.max())})")
+    print(f"  slopes of the same two passes with pass 1 in f64 (pass 2 "
+          f"through K5): all {int(cmp.sum())} leaves within rtol 5e-3 of "
+          f"the f64 fit (max rel {float(rel_w.max()):.6e}; on the "
+          f"{int(over.sum())} leaves beyond it above, max rel "
+          f"{float(rel_w[over].max()) if bool(over.any()) else 0.0:.6e})")
+    del a_w, rel_w
+    print(f"phase 7: K6 equals its plain version bit for bit (tolerance 0) "
+          f"and the exact count; K5 sums within one f32 ulp of each sum's"
+          f" magnitude (max |diff| {errs['linfit']:.6e}); segment_linfit "
+          f"slopes on {int(cmp.sum())} leaves with two distinct keys or more"
+          f": {int((~over).sum())} within rtol 5e-3 of the f64 fit, "
+          f"{int(over.sum())} beyond it (max rel {float(rel.max()):.6e}) and"
+          f" within 5e-3 plus the bound of pass 1's f32 coordinates (max "
+          f"rel / limit {float((rel / lim).max()):.6f}); launches "
+          f"{launches_7}")
+    if bool(over.any()):
+        lid = torch.nonzero(cmp).squeeze(1)[over]
+        cnt = torch.bincount(buckets.long(), minlength=L)[lid]
+        start, _ = trmi._bucket_bounds(buckets, L)
+        print(f"  leaves beyond 5e-3: keys a leaf {int(cnt.min())}.."
+              f"{int(cnt.max())} (median {int(cnt.median())}), first keys "
+              f"{float(keys[start[lid].long()].min()):.6f}.."
+              f"{float(keys[start[lid].long()].max()):.6f}")
+    histc_ms = _event_ms(lambda: torch.histc(perm, 64, lo_k, hi_k), 20)
+    print(f"  torch.histc over the same keys (bins closed on the left, a "
+          f"different binning, for scale only): {histc_ms:.6f} ms")
+    rows["hist"] = _time_row(
+        "hist", lambda: (thist.hist(perm, 64, lo_k, hi_k),),
+        lambda: (thist.hist_plain(perm, 64, lo_k, hi_k),), None,
+        [(n * 4 + 64 * 4, n * 5)], launches_7["hist"], errs["hist"],
+        reps=20, plain_reps=3)
+    bl = buckets.long()
+    feats = torch.stack([torch.ones_like(xs), xs, ys, xs * ys, xs * xs], 1)
+    rows["linfit"] = _time_row(
+        "linfit", lambda: (tlinfit.linfit_sums(xs, ys, buckets, L),),
+        lambda: (tlinfit.linfit_sums_plain(xs, ys, buckets, L),),
+        lambda: torch.zeros((L, 5), dtype=torch.float32,
+                            device=dev).index_add_(0, bl, feats),
+        [(n * 12 + L * 5 * 4, n * 12)], launches_7["linfit"],
+        errs["linfit"], reps=20, plain_reps=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  shapes: K6 n={n} m=64, drift batch {batch}; K5 n={n} buckets="
+          f"{L}; peak memory allocated {peak:.3f} GiB; wall "
           f"{time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(

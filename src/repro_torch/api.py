@@ -10,13 +10,16 @@
   delete         ``backend.delete_batch(keys)``
   gather         ``backend.live_keys()[ranks]``
   gather_range   ``backend.gather_range(rank_lo, rank_hi)``
+  maybe_swap     ``backend.maybe_swap()`` (drift maintenance)
+  drift_scores   ``core.drift.state_row(backend.drift)`` as a (1, 2) row
   =============  ====================================================
 
 ``find``/``find_range`` return tensors on the index's device; ``gather``,
 ``gather_range`` and ``live_keys`` return host numpy, as in the reference.
 ``pool=`` (a ``core.reuse.ModelPool`` on the index's device) serves
-Algorithm-1 reuse at build and on every rebuild of an MLP leaf.  Sharding
-(``mesh=``), drift maintenance and snapshots are not ported yet and raise
+Algorithm-1 reuse at build, on every rebuild of an MLP leaf and in the
+drift hot-swaps (``drift_bins=``, ``swap_on_drift=``).  Sharding
+(``mesh=``) and snapshots are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -26,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from . import not_ported
+from .core import drift as drift_mod
 from .core.updates import DynamicRMI, _host_ints
 
 __all__ = ["Index"]
@@ -41,7 +45,9 @@ class Index:
               **kwargs) -> "Index":
         """Build over sorted ``keys`` on ``device`` (CUDA unless
         ``device="cpu"``); ``kwargs`` go to ``DynamicRMI.build``
-        (``n_leaves``, ``kind``, ``eps``, ``reuse_on_rebuild``, ...)."""
+        (``n_leaves``, ``kind``, ``eps``, ``reuse_on_rebuild``,
+        ``drift_bins``, ``drift_hi``, ``drift_lo``, ``swap_on_drift``,
+        ...)."""
         if mesh is not None:
             raise not_ported("the sharded index (mesh=)", "11")
         return cls(DynamicRMI.build(keys, pool=pool, device=device, **kwargs))
@@ -80,13 +86,20 @@ class Index:
     def live_count(self) -> int:
         return int(self.backend.live_count)
 
-    # -- not yet ported ----------------------------------------------------
+    # -- drift maintenance -------------------------------------------------
     def maybe_swap(self) -> int:
-        raise not_ported("drift maintenance (maybe_swap)", "7")
+        """One drift-maintenance pass: bound-checked pool hot-swaps while
+        the drift latch is set, then the deferred refits (a no-op without
+        ``drift_bins``).  Returns the number of leaves swapped."""
+        return self.backend.maybe_swap()
 
     def drift_scores(self) -> np.ndarray:
-        raise not_ported("drift monitoring (drift_scores)", "7")
+        """(1, 2) [KS score, drifted latch] (host numpy); all zero when
+        drift monitoring is off."""
+        row = drift_mod.state_row(self.backend.drift, self.backend.device)
+        return row.cpu().numpy()[None]
 
+    # -- not yet ported ----------------------------------------------------
     def snapshot(self, store, step: int = 0, **kwargs) -> None:
         raise not_ported("snapshots", "10")
 

@@ -19,9 +19,14 @@ Static index (:func:`rmi_from_arrays`):
 Dynamic index (:func:`dynamic_from_arrays`), in addition:
   ``route_n``, ``base_n``, ``base_dead``, ``delta_keys``, ``delta_leaf``,
   ``delta_dead``, ``n_inserts``, ``budget``, ``win`` (per-leaf window
-  widths), optionally ``eps`` (default 0.9) and ``reuse_on_rebuild``; the
-  pool is passed separately.  Tombstone prefix sums and the live/dead
-  counters are recomputed.
+  widths), optionally ``eps`` (default 0.9), ``reuse_on_rebuild``,
+  ``swap_on_drift``, ``swaps_committed`` and ``swap_rejects``; the pool and
+  the drift monitor are passed separately.  Tombstone prefix sums and the
+  live/dead counters are recomputed.
+
+Drift monitor (:func:`drift_from_arrays`):
+  ``m``, ``lo``, ``hi``, ``thresh_hi``, ``thresh_lo``, ``ref``, ``acc``,
+  ``score``, ``drifted``, ``updates``, ``rebaselines``.
 
 Pool (:func:`pool_from_arrays`):
   ``eps``, ``m``, ``kind``, ``hists``, params under ``p``, ``err_lo``,
@@ -41,6 +46,7 @@ import torch
 from . import resolve_device
 from .core import models
 from .core.adapt import DomainSpec
+from .core.drift import DriftState
 from .core.reuse import ModelPool
 from .core.rmi import RMIIndex
 from .core.rmrt import RMRTIndex
@@ -84,8 +90,10 @@ def rmi_from_arrays(arrays: dict, *, device=None) -> RMIIndex:
 
 
 def dynamic_from_arrays(arrays: dict, *, pool: ModelPool | None = None,
+                        drift: DriftState | None = None,
                         device=None) -> DynamicRMI:
-    """The port's ``DynamicRMI`` over the given tiers and tables."""
+    """The port's ``DynamicRMI`` over the given tiers and tables, with an
+    optional pool and drift monitor (on the same device)."""
     idx = rmi_from_arrays(arrays, device=device)
     dev = idx.device
     t = _tensor(arrays, dev)
@@ -105,7 +113,23 @@ def dynamic_from_arrays(arrays: dict, *, pool: ModelPool | None = None,
         budget=np.array(arrays["budget"], np.float64),
         reuse_on_rebuild=arrays.get("reuse_on_rebuild"),
         build_kwargs=dict(arrays.get("build_kwargs", {})),
+        drift=drift, swap_on_drift=bool(arrays.get("swap_on_drift", False)),
+        swaps_committed=int(arrays.get("swaps_committed", 0)),
+        swap_rejects=int(arrays.get("swap_rejects", 0)),
         _win=np.array(arrays["win"], np.float64))
+
+
+def drift_from_arrays(arrays: dict, *, device=None) -> DriftState:
+    """The port's ``DriftState`` over the given histograms and latch."""
+    dev = resolve_device(device)
+    t = _tensor(arrays, dev)
+    return DriftState(
+        m=int(arrays["m"]), lo=float(arrays["lo"]), hi=float(arrays["hi"]),
+        thresh_hi=float(arrays["thresh_hi"]),
+        thresh_lo=float(arrays["thresh_lo"]), ref=t("ref"), acc=t("acc"),
+        score=t("score"), drifted=t("drifted", torch.bool),
+        updates=int(arrays.get("updates", 0)),
+        rebaselines=int(arrays.get("rebaselines", 0)))
 
 
 def pool_from_arrays(arrays: dict, *, device=None) -> ModelPool:

@@ -12,7 +12,8 @@ not sequentially and not in ``torch.cumsum``'s order: a one-ulp difference
 in an f32 prefix table moves a distance across the reuse threshold
 ``1 - eps`` and changes which pool entry a leaf selects.  Likewise, a
 division by a dataset's (static) length is a multiplication by its
-reciprocal, as XLA rewrites it inside the reference's jitted functions.
+reciprocal, as XLA rewrites it inside the reference's jitted functions,
+and per-leaf bin edges are a fused multiply-add (:func:`bin_edges`).
 """
 from __future__ import annotations
 
@@ -122,8 +123,79 @@ def hist_distance_pool(pool_hists: torch.Tensor, ht: torch.Tensor):
     return hist_distance(pool_hists, ht[None, :])
 
 
+def ceil_to_bin(c: torch.Tensor, m: int) -> torch.Tensor:
+    """``clip(int32(c) - 1, 0, m - 1)`` of integral floats ``c`` with XLA's
+    integer semantics (saturating conversion, NaN -> 0, wrapping
+    subtraction), int64."""
+    c = c.to(torch.float64)
+    c = torch.where(torch.isnan(c), torch.zeros_like(c),
+                    c.clamp(-2.0 ** 31, 2.0 ** 31 - 1))
+    v = c.to(torch.int64) - 1
+    v = torch.where(v < -2 ** 31, v + 2 ** 32, v)      # int32 wrap
+    return v.clamp(0, m - 1)
+
+
 def normalize_keys(keys: torch.Tensor):
     """Map keys to [0, 1]: (normalized, lo, hi)."""
     lo, hi = keys.min(), keys.max()
     span = (hi - lo).clamp(min=torch.finfo(_F64).tiny)
     return (keys - lo) / span, lo, hi
+
+
+# ---------------------------------------------------------------------------
+# A correctly rounded f64 fused multiply-add, and the bin edges built on it.
+# ---------------------------------------------------------------------------
+_SPLIT = 134217729.0        # 2**27 + 1: Veltkamp's splitter for f64
+
+
+def _two_sum(a, b):
+    """(s, e) with s = fl(a + b) and s + e = a + b exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a, b):
+    """(p, e) with p = fl(a * b) and p + e = a * b exactly (Dekker), barring
+    overflow of the split and underflow of the error term."""
+    def split(v):
+        c = _SPLIT * v
+        hi = c - (c - v)
+        return hi, v - hi
+    p = a * b
+    ah, al = split(a)
+    bh, bl = split(b)
+    return p, (((ah * bh - p) + ah * bl) + al * bh) + al * bl
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once, in f64, by error-free transformations
+    and a sum rounded to odd (Boldo and Melquiond, "Emulation of FMA and
+    correctly rounded sums: proved algorithms using rounding to odd", IEEE
+    Trans. Computers 57(4), 2008).  Torch has no fused multiply-add of its
+    own that is fused on every device; this one gives the same bits on the
+    CPU and on a card.  Exact for finite operands whose product neither
+    overflows the split (|a|, |b| < 1e300) nor underflows (|a*b| >
+    2**-960)."""
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    v, e = _two_sum(tl, ul)
+    # round v to odd: an inexact sum with an even significand moves one
+    # ulp toward the exact value
+    even = (v.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.full_like(v, torch.inf),
+                         torch.full_like(v, -torch.inf))
+    v = torch.where((e != 0) & even, torch.nextafter(v, toward), v)
+    return th + v
+
+
+def bin_edges(kmin: torch.Tensor, span: torch.Tensor, m: int) -> torch.Tensor:
+    """(R, m - 1) interior bin edges ``kmin + span * (j / m)`` of R f64
+    ranges, as the reference's jitted functions compute them: XLA turns
+    ``j / m`` into ``j * (1 / m)`` and contracts the multiply-add into one
+    rounding.  An edge one ulp off moves a key across a bin and can change
+    an Algorithm-2 distance and a pool selection."""
+    frac = torch.arange(1, m, dtype=_F64, device=kmin.device) * (1.0 / m)
+    shape = (kmin.shape[0], m - 1)
+    return fma(span[:, None].expand(shape), frac[None, :].expand(shape),
+               kmin[:, None].expand(shape))

@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from .. import resolve_device
-from . import models
+from . import cdf, models
 from .adapt import DomainSpec, adapt_linear, adapt_mlp
 from .bounds import reuse_err_bounds
 from .paths import resolve_path
@@ -195,8 +195,7 @@ def leaf_histograms_ranges(keys, buckets, rid, m: int, kmin, kmax):
     start = torch.searchsorted(buckets, lid)
     end = torch.searchsorted(buckets, lid, right=True)
     span = (kmax - kmin).clamp(min=torch.finfo(_F64).tiny)
-    frac = torch.arange(1, m, dtype=_F64, device=keys.device) / m
-    edges = kmin[:, None] + span[:, None] * frac[None, :]
+    edges = cdf.bin_edges(kmin, span, m)
     pos = torch.searchsorted(keys, edges.reshape(-1), right=True) \
         .reshape(rid.shape[0], m - 1)
     pos = torch.minimum(torch.maximum(pos, start[:, None]), end[:, None])

@@ -22,6 +22,15 @@ rank arithmetic.
                  exact intercept shift (linear, monotone root) or a sound
                  +-m widen (MLP root), and the clamped search depth is
                  recomputed from a per-leaf window-width vector.
+  maybe_swap     drift-adaptive maintenance (``core.drift``): with
+                 ``drift_bins`` an online KS score over the build-time CDF
+                 drives a ``drift_hi``/``drift_lo`` hysteresis latch; while
+                 it is set, leaves near their Lemma 4.1 budget take a
+                 bound-checked Algorithm-1 pool hot-swap (masked row writes
+                 into the leaf tables: shapes and search depth unchanged),
+                 and leaves still over budget take the ordinary refit.  In
+                 swap mode (``swap_on_drift=True``) ``insert_batch`` defers
+                 every repair to this idle-window pass.
 
 Routing is frozen at build time (``route_n``), so base merges never move
 keys between leaves and insert-time routing matches find-time routing.
@@ -32,9 +41,8 @@ says so: ``bincount(length=)`` drops positions past the end (here they are
 masked first), and ``.at[].set(mode="drop")`` drops out-of-bounds writes
 (here they go to one extra slot that is sliced off).
 
-Drift monitoring and hot swaps (``drift_bins``, ``swap_on_drift``,
-``maybe_swap``) wait for ROADMAP queue 1 item 7; ``shed_*``, ``clone`` and
-``shrink_capacity`` for the sharding and persistence items.
+``shed_*``, ``clone`` and ``shrink_capacity`` wait for the sharding and
+persistence items.
 """
 from __future__ import annotations
 
@@ -44,8 +52,9 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
-from .. import not_ported, resolve_device
+from .. import resolve_device
 from ..kernels.lookup import capacity_class, pad_capacity
+from . import drift as drift_mod
 from . import models
 from . import rmi as rmi_mod
 from .bounds import (clamped_depth, insertion_budget, insertion_headroom,
@@ -349,7 +358,15 @@ class DynamicRMI:
     # selection (Algorithm 1 verbatim), False disables it.
     reuse_on_rebuild: bool | None = None
     build_kwargs: dict = field(default_factory=dict)
+    # Online drift monitor (``core.drift``; None = off) and hot swaps.
+    drift: drift_mod.DriftState | None = None
+    swap_on_drift: bool = False         # defer repairs to maybe_swap
+    swaps_committed: int = 0            # leaves hot-swapped (bound held)
+    swap_rejects: int = 0               # swap attempts that fell back
     _win: np.ndarray = None             # per-leaf window widths
+    # maybe_swap's routing cache (keys tensor, slice length, base slice,
+    # buckets): valid while the base keys tensor is the same object
+    _swap_route: tuple | None = None
     _delta_f32: bool | None = None      # delta tier round-trips through f32
     _dkf32: torch.Tensor = None         # f32 copy of the delta tier
     _kroot: torch.Tensor = None         # packed root with route scale
@@ -358,14 +375,15 @@ class DynamicRMI:
     def build(cls, keys, pool: ModelPool | None = None, eps: float = 0.9,
               reuse_on_rebuild: bool | None = None,
               compact_dead_ratio: float | None = _COMPACT_RATIO,
-              drift_bins: int = 0, swap_on_drift: bool = False, *,
+              drift_bins: int = 0, drift_hi: float = 0.15,
+              drift_lo: float = 0.05, swap_on_drift: bool = False, *,
               device=None, **rmi_kwargs):
         """Build over sorted ``keys`` on ``device`` (CUDA unless
         ``device="cpu"``); ``rmi_kwargs`` go to ``rmi.build_rmi``.  The
-        ``pool`` serves the build and every later rebuild."""
-        if drift_bins or swap_on_drift:
-            raise not_ported(
-                "drift monitoring (drift_bins=, swap_on_drift=)", "7")
+        ``pool`` serves the build and every later rebuild.  ``drift_bins >
+        0`` turns on the online drift monitor at that resolution with the
+        [drift_lo, drift_hi] hysteresis band; ``swap_on_drift`` defers the
+        repairs of budget-exhausted leaves to :meth:`maybe_swap`."""
         if pool is not None and pool.device.type != resolve_device(
                 device).type:
             raise ValueError(f"the pool lies on {pool.device}, the index "
@@ -380,12 +398,17 @@ class DynamicRMI:
                                  idx.n_leaves, route_n).long(),
             minlength=idx.n_leaves)
         budget = insertion_budget(idx.leaf_sim, eps, counts).cpu().numpy()
+        drift = drift_mod.init_drift(idx.keys, m=drift_bins,
+                                     thresh_hi=drift_hi,
+                                     thresh_lo=drift_lo) \
+            if drift_bins else None
         cap = _capacity(n)
         idx = replace(idx, keys=pad_capacity(idx.keys, cap), _f32_exact=None,
                       _packed=None, _kf32=None)
         d = cls(index=idx, eps=eps, pool=pool, route_n=route_n, base_n=n,
                 reuse_on_rebuild=reuse_on_rebuild,
                 compact_dead_ratio=compact_dead_ratio,
+                drift=drift, swap_on_drift=swap_on_drift,
                 delta_keys=torch.full((_MIN_CAP,), math.inf, dtype=_F64,
                                       device=dev),
                 delta_leaf=torch.full((_MIN_CAP,), -1, dtype=_I32,
@@ -442,11 +465,19 @@ class DynamicRMI:
         self.delta_psum = torch.zeros((cap + 1,), dtype=_I32, device=dev)
         self.delta_live += k.shape[0]
         self._delta_changed()
+        if self.drift is not None:
+            self.drift = drift_mod.update_drift(self.drift, k)
         cnt = _batch_counts_sorted(lv, idx.n_leaves) \
             if idx.root_kind == "linear" \
             else torch.bincount(lv.long(), minlength=idx.n_leaves)
         self.n_inserts += cnt.cpu().numpy()
         over = np.flatnonzero(self.n_inserts > self.budget)
+        if over.size and self.swap_on_drift and self.drift is not None \
+                and self.pool is not None:
+            # Swap mode: the repair waits for the idle-window maintenance
+            # pass (maybe_swap); answers stay exact meanwhile, since the
+            # buffered keys are searched in the delta tier.
+            return
         if over.size:
             self._rebuild_leaves(over)
 
@@ -501,6 +532,11 @@ class DynamicRMI:
         lid = np.flatnonzero(cnt.cpu().numpy())
         if lid.size:
             self._rebuild_leaves(lid)
+        # A full merge: every buffered insert is in the base tier and its
+        # leaves were refitted, so the drift baseline absorbs them and the
+        # latch clears (partial rebuilds do not rebaseline).
+        if self.drift is not None:
+            self.drift = drift_mod.rebaseline(self.drift)
 
     @property
     def insertion_headroom(self) -> float:
@@ -615,6 +651,81 @@ class DynamicRMI:
             if self.base_dead_count == 0 else _psum(new_bdead)
         self.budget[leaf_ids] = budget.cpu().numpy()[leaf_ids]
         self.n_inserts[leaf_ids] = 0
+
+    # -- drift-triggered hot swap ------------------------------------------
+    def maybe_swap(self, leaf_ids=None) -> int:
+        """Algorithm-1 pool hot-swaps of ``leaf_ids``, bound-checked and
+        committed per leaf (``core.drift.swap_leaves``); returns the number
+        of leaves swapped.  Without ``leaf_ids`` it is the idle-window
+        maintenance pass: swaps for the leaves near their budget while the
+        drift latch is set, then the ordinary refit of every leaf still
+        over budget.  A no-op without a drift monitor, a pool of the
+        leaves' kind, or a linear root."""
+        idx = self.index
+        if (self.drift is None or self.pool is None
+                or self.pool.kind != idx.leaf_kind
+                or idx.root_kind != "linear"):
+            return 0
+        if leaf_ids is None:
+            swaps = 0
+            if bool(self.drift.drifted):
+                # At-risk leaves only (within a quarter budget of a merge):
+                # swapping others would only shrink budgets, since a pool
+                # model's sim is below a fresh fit's.
+                at_risk = np.flatnonzero(
+                    self.n_inserts >= np.maximum(self.budget * 0.25, 1.0))
+                if at_risk.size:
+                    swaps = self.maybe_swap(at_risk)
+            over = np.flatnonzero(self.n_inserts > self.budget)
+            if over.size:
+                self._rebuild_leaves(over)
+            return swaps
+        leaf_ids = np.asarray(leaf_ids, np.int64).ravel()
+        if leaf_ids.size == 0:
+            return 0
+        sel_a, sel_ps = self.pool.tables()
+        rp = 1 << max(int(leaf_ids.size) - 1, 0).bit_length()
+        pad_ids = np.concatenate(
+            [leaf_ids, np.full(rp - leaf_ids.size, leaf_ids[0])])
+        sl = min(idx.keys.shape[0], -(-self.base_n // 8192) * 8192)
+        rc = self._swap_route
+        if rc is None or rc[0] is not idx.keys or rc[1] != sl:
+            base = idx.keys[:sl]
+            rc = (idx.keys, sl, base,
+                  _routed_buckets(idx.root_kind, idx.root, base,
+                                  idx.n_leaves, self.route_n))
+            self._swap_route = rc
+        dev = self.device
+        out = drift_mod.swap_leaves(
+            rc[2], rc[3], self.delta_keys, self.delta_leaf,
+            torch.as_tensor(pad_ids, dtype=_I32, device=dev), idx.leaves,
+            idx.err_lo, idx.err_hi, idx.leaf_sim, idx.reused_mask, sel_a,
+            sel_ps, self.pool.params, self.pool.domains,
+            torch.as_tensor(self.n_inserts[pad_ids], dtype=_F64, device=dev),
+            float(self._win.max()), self.eps, leaf_kind=idx.leaf_kind,
+            m=self.pool.m, n_leaves=idx.n_leaves)
+        leaves, err_lo, err_hi, sim, reused, commit, nbud, nw, _ = out
+        # The maintenance path's one read of the verdicts.
+        commit_np = commit.cpu().numpy()[:leaf_ids.size]
+        nc = int(commit_np.sum())
+        self.swap_rejects += int(leaf_ids.size) - nc
+        if nc == 0:
+            return 0
+        # New leaf rows: the packed kernel tables go stale.  The keys are
+        # unchanged (their f32 copy stays), and the commit gate keeps every
+        # window under the width cap, so the search depth stays too.
+        self.index = replace(idx, leaves=leaves, err_lo=err_lo,
+                             err_hi=err_hi, leaf_sim=sim, reused_mask=reused,
+                             _packed=None)
+        cid = leaf_ids[commit_np]
+        self.budget[cid] = nbud.cpu().numpy()[:leaf_ids.size][commit_np]
+        self._win[cid] = nw.cpu().numpy()[:leaf_ids.size][commit_np]
+        # The committed window covers the leaf's buffered inserts, so the
+        # swap starts a fresh budget epoch.
+        self.n_inserts[cid] = 0
+        self.swaps_committed += nc
+        self.pool.reuse_count += nc
+        return nc
 
     # -- queries -----------------------------------------------------------
     @property

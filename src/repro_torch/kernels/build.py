@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LL = ctypes.c_longlong
 # argtypes of every C entry point, by library
 SIGNATURES = {
     "lookup": {
@@ -39,6 +40,12 @@ SIGNATURES = {
     },
     "ksdist": {
         "repro_ksdist": (P, P, I, P, P, I, I, P, P),
+    },
+    "hist": {
+        "repro_hist": (P, LL, I, F, F, F, I, P, P, P),
+    },
+    "linfit": {
+        "repro_linfit_sums": (P, P, P, LL, I, P, P, P),
     },
 }
 

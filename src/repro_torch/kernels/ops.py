@@ -1,6 +1,6 @@
-"""Serving wrappers around the kernels: each lookup kernel call followed by
-its epilogue, and the K7 distance matrix (counterpart of
-``repro.kernels.ops``).
+"""Public wrappers around the kernels: each lookup kernel call followed by
+its epilogue, the K7 distance matrix, the K6 histogram and the K5
+least-squares fit (counterpart of ``repro.kernels.ops``).
 
 The epilogues are plain torch ops: the seam verification that re-searches
 the rare window misses, the tombstone hit test and the two-tier live-rank
@@ -84,6 +84,54 @@ def ksdist_matrix(tgt_hists, pool_a, pool_ps):
     """(L, P) Algorithm-2 distance matrix, targets x pool (K7)."""
     from .ksdist import ksdist
     return ksdist(tgt_hists, pool_a, pool_ps)
+
+
+def histogram(keys, m: int, lo, hi):
+    """Streaming m-bin relative-frequency histogram of unsorted keys (K6):
+    (m,) f32, right-closed bins over [lo, hi]."""
+    from .hist import hist
+    return hist(keys, m, lo, hi)
+
+
+def standardize(v):
+    """(f64 (v - mean) / std, mean, std) with the population std of
+    ``jnp.std`` (``correction=0``), floored at 1e-30: the coordinates of
+    :func:`segment_linfit`'s first K5 pass."""
+    v64 = v.to(torch.float64)
+    mu = v64.mean()
+    sd = v64.std(correction=0).clamp(min=1e-30)
+    return (v64 - mu) / sd, mu, sd
+
+
+def segment_linfit(x, y, buckets, n_buckets: int):
+    """Per-bucket least-squares (slope, intercept) of y on x: (n_buckets, 2)
+    f64, from two K5 passes.  Pass 1 sums globally standardised f32
+    coordinates for the per-bucket means; the inputs are then centred per
+    bucket in f64 (a bucket's own dynamic range is small, so pass 2's f32
+    moments are exact enough) and pass 2 sums the centred cross moments.
+    Global standardisation alone would cancel catastrophically when buckets
+    are narrow slices of the key range."""
+    from .linfit import linfit_sums
+    f64 = torch.float64
+    xn, mu_x, sd_x = standardize(x)
+    yn, mu_y, sd_y = standardize(y)
+    s1 = linfit_sums(xn.to(torch.float32), yn.to(torch.float32), buckets,
+                     n_buckets)
+    n = s1[:, 0].to(f64)
+    nn = n.clamp(min=1.0)
+    bmu_x = s1[:, 1].to(f64) / nn            # in standardised coordinates
+    bmu_y = s1[:, 2].to(f64) / nn
+    # JAX's gather: a negative id counts from the end, then ids clamp into
+    # range (such keys add nothing to the sums either way).
+    b = torch.where(buckets < 0, buckets + n_buckets, buckets) \
+        .clamp(0, max(n_buckets - 1, 0)).long()
+    s2 = linfit_sums((xn - bmu_x[b]).to(torch.float32),
+                     (yn - bmu_y[b]).to(torch.float32), buckets, n_buckets)
+    sxy, sxx = s2[:, 3].to(f64), s2[:, 4].to(f64)
+    a_s = torch.where(sxx > 1e-20, sxy / sxx, torch.zeros_like(sxy))
+    a = a_s * sd_y / sd_x
+    b0 = (bmu_y * sd_y + mu_y) - a * (bmu_x * sd_x + mu_x)
+    return torch.stack([a, torch.where(n > 0, b0, torch.zeros_like(b0))], 1)
 
 
 def _edge_pad(psum, n: int):

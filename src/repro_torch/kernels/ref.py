@@ -1,11 +1,12 @@
-"""searchsorted truths for the two-tier answers (counterpart of the
-``dynamic_find_ref`` / ``dynamic_range_find_ref`` oracles of
-``repro.kernels.ref``): the same f32 tombstone / live-rank algebra as
-``ops``, with exact boundaries in place of the kernel positions."""
+"""Oracles (counterpart of ``repro.kernels.ref``): searchsorted truths for
+the two-tier answers -- the same f32 tombstone / live-rank algebra as
+``ops``, with exact boundaries in place of the kernel positions -- and the
+eager oracles of the K5 and K6 kernels."""
 from __future__ import annotations
 
 import torch
 
+from ..core.cdf import ceil_to_bin
 from . import lookup as _lookup
 from .ops import _edge_pad
 
@@ -41,3 +42,30 @@ def dynamic_range_find_ref(q_lo, q_hi, keys, base_psum, delta_keys,
     rank_lo = (blo - base_psum[blo.long()]) + (dlo - dpsum[dlo.long()])
     rank_hi = (bhi - base_psum[bhi.long()]) + (dhi - dpsum[dhi.long()])
     return rank_lo, torch.maximum(rank_hi, rank_lo)
+
+
+def hist_ref(keys, m: int, lo, hi):
+    """The reference's oracle for K6 (``repro.kernels.ref.hist_ref``): f32,
+    right-closed bins, dividing by the span and by n where the kernel
+    multiplies by reciprocals."""
+    k = keys.to(torch.float32)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=k.device)
+    x = (k - f32(lo)) / (f32(hi) - f32(lo))
+    b = ceil_to_bin(torch.ceil(x * f32(float(m))), m)
+    counts = torch.zeros((m,), dtype=torch.float32, device=k.device)
+    counts.index_add_(0, b, torch.ones_like(k))
+    return counts / f32(float(keys.shape[0]))
+
+
+def linfit_sums_ref(x, y, buckets, n_buckets: int):
+    """The reference's oracle for K5 (``repro.kernels.ref.linfit_sums_ref``):
+    f32 segment sums; out-of-range buckets drop."""
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    ok = (buckets >= 0) & (buckets < n_buckets)
+    idx = torch.where(ok, buckets, n_buckets).long()
+    out = torch.zeros((n_buckets + 1, 5), dtype=torch.float32,
+                      device=x.device)
+    out.index_add_(0, idx, torch.stack([torch.ones_like(x), x, y, x * y,
+                                        x * x], 1))
+    return out[:n_buckets]

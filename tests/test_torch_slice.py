@@ -200,15 +200,11 @@ def test_unported_options_raise():
     keys = np.arange(64, dtype=np.float64)
     with pytest.raises(NotImplementedError, match="item 11"):
         Index.build(keys, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Index.build(keys, drift_bins=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Index.build(keys, swap_on_drift=True, device="cpu")
     ix = Index.build(keys, n_leaves=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ix.maybe_swap()
     with pytest.raises(NotImplementedError, match="item 10"):
         ix.snapshot("unused")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        Index.restore("unused")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -222,6 +218,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.core.rmrt, repro_torch.core.reuse\n"
         "import repro_torch.core.synth, repro_torch.core.cdf\n"
         "import repro_torch.core.adapt, repro_torch.time_segments\n"
+        "import repro_torch.core.drift, repro_torch.kernels.hist\n"
+        "import repro_torch.kernels.linfit\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         "sys.argv[1])\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

@@ -60,8 +60,9 @@ def export_rmi(idx) -> dict:
 
 
 def export_dynamic(d) -> dict:
-    """A reference ``DynamicRMI`` as numpy arrays and scalars (its pool is
-    carried across separately, by :func:`export_pool`)."""
+    """A reference ``DynamicRMI`` as numpy arrays and scalars (its pool and
+    drift monitor are carried across separately, by :func:`export_pool` and
+    :func:`export_drift`)."""
     out = export_rmi(d.index)
     g = lambda a: np.asarray(a)
     out.update(route_n=d.route_n, base_n=d.base_n, base_dead=g(d.base_dead),
@@ -69,8 +70,20 @@ def export_dynamic(d) -> dict:
                delta_dead=g(d.delta_dead), n_inserts=d.n_inserts.copy(),
                budget=d.budget.copy(), win=d._win.copy(), eps=d.eps,
                reuse_on_rebuild=d.reuse_on_rebuild,
-               build_kwargs=dict(d.build_kwargs))
+               build_kwargs=dict(d.build_kwargs),
+               swap_on_drift=d.swap_on_drift,
+               swaps_committed=d.swaps_committed,
+               swap_rejects=d.swap_rejects)
     return out
+
+
+def export_drift(st) -> dict:
+    """A reference ``DriftState`` as numpy arrays and scalars."""
+    g = lambda a: np.asarray(a)
+    return dict(m=st.m, lo=st.lo, hi=st.hi, thresh_hi=st.thresh_hi,
+                thresh_lo=st.thresh_lo, ref=g(st.ref), acc=g(st.acc),
+                score=g(st.score), drifted=g(st.drifted),
+                updates=st.updates, rebaselines=st.rebaselines)
 
 
 def export_pool(pool) -> dict:
