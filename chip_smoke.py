@@ -65,21 +65,53 @@ Phases (any failure exits non-zero; nothing is caught):
    timed.  K6's exact count comes from the sorted keys, binned in f64 with
    a rounding to f32 after each step and counted by searching the sorted
    bin ids.
+8. Path D, LM serving, counted: ``launch.serve.serve("qwen3-4b",
+   reduced=False, requests=4, prompt_len=2048, new_tokens=32)``, the
+   one-card form (``configs.single_card``: 36 layers, d_model 2560, 32
+   query and 8 KV heads, dh 128, 4.41e9 random bf16 parameters from
+   ``--seed``) at full width and depth: prefill into a 4 x 2,080-token KV
+   cache, 32 greedy decode steps, the learned page table over the paged
+   KV bookkeeping.  K8 must launch 36 times at the prefill tile and 36 x
+   32 times at the decode tile, K1 at least once (the page table).  On the
+   attention inputs of the first and last layer in prefill and in the last
+   decode step, K8 is held against its plain version and a dense f64
+   softmax, within one bf16 ulp of the magnitude (the attention of |v|),
+   with each difference printed in ulps of the magnitude beside SDPA's
+   (which is not held to it) and beside the reading against one ulp of
+   the plain version's own value; on layer 0, faults planted through
+   K8's arguments (a 64-key tile skipped, the causal mask one key late)
+   must fail that check, and one more (a decode row's last key dropped)
+   is reported.  K1 is held against its plain
+   version on the page table's keys, bit for bit.  K8 is timed at both
+   shapes against ``scaled_dot_product_attention(enable_gqa=True)``
+   (``is_causal`` for prefill, a boolean mask for decode).  The same
+   serve() call runs again under ``torch.profiler`` (trace in
+   ``build/path_d_trace.json``), prefill and each decode step under a
+   user annotation: wall, device busy time, idle share and device time by
+   kind (K8, GEMMs, the rest) of each.  Then the serving run is repeated
+   with the plain attention put in place of K8 by this script, and the
+   prefill logits must agree within ``LM_LOGIT_TOL`` and the first greedy
+   tokens wherever the margin allows.  Prints prefill seconds, decode
+   tokens/s, peak memory and K8's share of each.
 
 Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
 each kernel timed in two turns around its plain version and the one
 PyTorch call computing the same function (``torch.searchsorted``; an f32
-``index_add_`` of the stacked features for K5; none for K7, nor for K6,
-whose bins ``torch.histc`` closes on the other side), beside the least
-time the card could take (``bound_ms``) for the bytes and f32 operations
-this run's inputs need.  A row's ``launches`` add up every path that
-launches that instantiation (K2/K3 linear: paths A and C; K7: B and C).
+``index_add_`` of the stacked features for K5; SDPA for K8; none for K7,
+nor for K6, whose bins ``torch.histc`` closes on the other side), beside
+the least time the card could take (``bound_ms``) for the bytes and f32
+operations this run's inputs need.  A row's ``launches`` add up every path
+that launches that instantiation (K1 linear: paths A and D; K2/K3 linear:
+A and C; K7: B and C).
 Keys are lognormal float32 values drawn on the card from ``--seed`` and
 sorted there.  Every answer of path C is held against the truth too.  The
 last lines printed are the kernels' JSON line (K1-K3 a row per
 instantiation: path A launches the linear-leaf one, path B the MLP-leaf
-one), the card's ``name, power.limit`` from nvidia-smi, and the result
+one; K8 a row per tile: ``flash`` at the prefill shape, ``flash_decode``
+at the decode shape, each with ``bound_tc_ms``, the bound on the bf16
+tensor cores, beside ``bound_ms`` on the f32 rate the kernel computes at),
+the card's ``name, power.limit`` from nvidia-smi, and the result
 line.  Exits non-zero without printing a result when no CUDA device is
 present or when run outside a checkout of the repo.
 """
@@ -114,6 +146,8 @@ SOURCES = {
     "ksdist": "src/repro_torch/kernels/csrc/ksdist.cu",
     "hist": "src/repro_torch/kernels/csrc/hist.cu",
     "linfit": "src/repro_torch/kernels/csrc/linfit.cu",
+    "flash": "src/repro_torch/kernels/csrc/flash.cu",
+    "flash_decode": "src/repro_torch/kernels/csrc/flash.cu",
 }
 REPLACES = {
     "lookup": "src/repro/kernels/lookup.py:274",
@@ -126,7 +160,18 @@ REPLACES = {
     "ksdist": "src/repro/kernels/ksdist.py:36",
     "hist": "src/repro/kernels/hist.py:44",
     "linfit": "src/repro/kernels/linfit.py:52",
+    "flash": "src/repro/kernels/flash.py:73",
+    "flash_decode": "src/repro/kernels/flash.py:73",
 }
+BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+LM_ARCH = "qwen3-4b"           # path D's model, in its one-card form
+LM_REQUESTS = 4                # packed page keys below 2^24: K1 serves them
+LM_PROMPT_LEN = 2048           # prompt tokens a request
+LM_NEW_TOKENS = 32             # greedy tokens a request
+# Path D's kernel-vs-plain prefill logits: 4x the 0.058 that f32-level
+# attention differences (the plain version's key blocks of 1,024 against
+# 128) move the logits of a 36-layer qwen3 cut to d_model 512 on the CPU.
+LM_LOGIT_TOL = 0.25
 
 
 def _args(argv):
@@ -404,6 +449,398 @@ def _compare(name, kern, plain):
     return int(err) if float(err).is_integer() else err
 
 
+def _flash_work(q, k, q_offset: int, kv_valid: int) -> tuple:
+    """(bytes, f32 operations) of one K8 launch on these inputs: q read and
+    the output written, the K and V rows of the keys the mask keeps (the
+    first min(kv_valid, q_offset + Sq) positions), 4 dh operations a
+    (query, valid key) pair (the QK and PV products)."""
+    import numpy as np
+    B, Sq, H, dh = q.shape
+    keys = max(0, min(kv_valid, q_offset + Sq))
+    el = q.element_size()
+    nbytes = 2 * q.numel() * el + 2 * B * keys * k.shape[2] * dh * el
+    per_row = np.clip(np.minimum(kv_valid, q_offset + np.arange(Sq) + 1), 0,
+                      None)
+    return nbytes, 4 * dh * B * H * int(per_row.sum())
+
+
+def _bf16_ulp(mag):
+    """One bf16 ulp at each magnitude (8 significant bits)."""
+    import torch
+    m = mag.abs().to(torch.float64).clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def _dense_f64(q, k, v, q_offset: int, kv_valid: int):
+    """Attention by a dense f64 softmax, one batch row at a time: an oracle
+    independent of the online softmax."""
+    import math
+    import torch
+    B, Sq, H, dh = q.shape
+    G = H // k.shape[2]
+    qp = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    keep = (kp <= qp) & (kp < kv_valid)
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for b in range(B):
+        kb = k[b].double().repeat_interleave(G, 1)
+        vb = v[b].double().repeat_interleave(G, 1)
+        s = torch.einsum("qhd,khd->hqk", q[b].double(), kb) / math.sqrt(dh)
+        s = s.masked_fill(~keep, float("-inf"))
+        out[b] = torch.einsum("hqk,khd->qhd", torch.softmax(s, -1), vb)
+    return out
+
+
+def _sdpa_call(q, k, v, q_offset: int, kv_valid: int):
+    """``scaled_dot_product_attention(enable_gqa=True)`` on K8's inputs,
+    set up once and returned as a call giving (B, H, Sq, dh):
+    ``is_causal`` over the first ``kv_valid`` keys where the queries are
+    positions 0 .. kv_valid - 1 (prefill), a boolean mask otherwise."""
+    import torch
+    import torch.nn.functional as F
+    Sq = q.shape[1]
+    if q_offset == 0 and kv_valid == Sq:
+        qs, ks, vs = (t.transpose(1, 2).contiguous()
+                      for t in (q, k[:, :kv_valid], v[:, :kv_valid]))
+        return lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kp = torch.arange(k.shape[1], device=q.device)
+    keep = ((kp <= q_offset + torch.arange(Sq, device=q.device)[:, None])
+            & (kp < kv_valid))[None, None]
+    return lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=keep, enable_gqa=True)
+
+
+def _kind(name: str) -> str:
+    """A device event of path D's trace: K8, a GEMM, or the rest."""
+    low = name.lower()
+    if "flash_kernel" in low:
+        return "K8"
+    if any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma",
+                              "sm90_")):
+        return "GEMM"
+    return "other"
+
+
+def _trace_windows(path, tags) -> dict:
+    """Read a ``torch.profiler`` chrome trace.  Per user annotation in
+    ``tags``: the window from its first start to its last end on the host
+    clock, the device events launched inside it (matched to their launch
+    by the correlation id), and from these the wall time (the window,
+    extended to its last device event's end), the device busy time (the
+    union of the events' intervals), the device time by kind and the
+    number of device events."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    launch, spans, dev = {}, {t: [] for t in tags}, []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, a = e.get("cat", ""), e.get("args") or {}
+        t0 = float(e["ts"])
+        t1 = t0 + float(e.get("dur", 0))
+        if cat in ("cuda_runtime", "cuda_driver") and "correlation" in a:
+            launch[a["correlation"]] = t0
+        elif cat == "user_annotation" and e.get("name") in spans:
+            spans[e["name"]].append((t0, t1))
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            dev.append((t0, t1, e.get("name", ""), a.get("correlation")))
+    out = {}
+    for tag, sp in spans.items():
+        if not sp:
+            raise AssertionError(f"path D trace: no '{tag}' annotation")
+        lo, hi = min(a for a, _ in sp), max(b for _, b in sp)
+        mine = sorted((t0, t1, n) for t0, t1, n, c in dev
+                      if lo <= launch.get(c, t0) <= hi)
+        if not mine:
+            raise AssertionError(f"path D trace: no device event in '{tag}'")
+        busy, end, kinds = 0.0, lo, {}
+        for t0, t1, n in mine:
+            busy += max(0.0, t1 - max(t0, end))
+            end = max(end, t1)
+            kinds[_kind(n)] = kinds.get(_kind(n), 0.0) + (t1 - t0) / 1e6
+        out[tag] = dict(wall=(max(hi, end) - lo) / 1e6, busy=busy / 1e6,
+                        kinds=kinds, events=len(mine))
+    return out
+
+
+def _path_d(args, dev, rows, counters, reset_counters, uncounted) -> None:
+    """Phase 8, path D: qwen3-4b served at full width and depth through
+    ``launch.serve.serve``, counted; K8 against its plain version and an
+    f64 oracle on the attention inputs of the first and last layer in
+    prefill and in the last decode step, K1 against its plain version on
+    the page table's keys; the same serving run with the plain attention,
+    end to end; K8 timed at both shapes against SDPA.  Adds the K8 rows to
+    ``rows`` and path D's K1 launches to the ``lookup`` row."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, single_card
+    from repro_torch.core import rmi as trmi
+    from repro_torch.kernels import flash as tflash
+    from repro_torch.kernels import lookup as tlk
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import layers as tlayers
+
+    cfg = single_card(get_arch(LM_ARCH))
+    P, T, L = LM_PROMPT_LEN, LM_NEW_TOKENS, cfg.n_layers
+    real_flash = tlayers.flash_attention
+    real_make_prefill = tserve.serve_step.make_prefill
+    real_page_table = tserve.learned_page_table
+    captured, logits, tables = {}, {}, []
+    calls = [0]
+
+    def recording(q, k, v, *, q_offset, kv_valid=None, **kw):
+        """K8 as the model calls it, keeping copies of the first and last
+        layer's inputs in prefill and in the last decode step."""
+        step, layer = divmod(calls[0], L)
+        calls[0] += 1
+        if layer in (0, L - 1) and step in (0, T):
+            captured[("prefill" if step == 0 else "decode", layer)] = (
+                q.clone(), k.clone(), v.clone(), int(q_offset),
+                int(kv_valid))
+        return real_flash(q, k, v, q_offset=q_offset, kv_valid=kv_valid,
+                          **kw)
+
+    def plain(q, k, v, *, q_offset, kv_valid=None, **kw):
+        return tflash.flash_attention_plain(q, k, v, q_offset=q_offset,
+                                            kv_valid=kv_valid)
+
+    def keep_logits(tag):
+        def make(c):
+            fn = real_make_prefill(c)
+
+            def prefill(*a):
+                out = fn(*a)
+                logits[tag] = out[0].clone()
+                return out
+            return prefill
+        return make
+
+    def keep_table(table, **kw):
+        tables.append(dict(table))
+        return real_page_table(table, **kw)
+
+    def serve_with(attn, tag):
+        tlayers.flash_attention = attn
+        tserve.serve_step.make_prefill = keep_logits(tag)
+        tserve.learned_page_table = keep_table
+        res = tserve.serve(LM_ARCH, reduced=False, requests=LM_REQUESTS,
+                           prompt_len=P, new_tokens=T, seed=args.seed)
+        tlayers.flash_attention = real_flash
+        tserve.serve_step.make_prefill = real_make_prefill
+        tserve.learned_page_table = real_page_table
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    res, t_all = _sync_time(lambda: serve_with(recording, "kernel"))
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"flash": L, "flash_decode": L * T}
+    if {k: launches[k] for k in want} != want or launches["lookup"] <= 0:
+        raise AssertionError(f"path D launches {launches}, want {want} and "
+                             f"K1 at least once")
+    toks = res.tokens
+    if toks.shape != (LM_REQUESTS, T + 1) or toks.dtype != np.int32 or \
+            toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"path D tokens {toks.shape} {toks.dtype}")
+    lk = logits["kernel"]
+    if lk.shape != (LM_REQUESTS, cfg.vocab_padded) or \
+            not bool(torch.isfinite(lk).all()):
+        raise AssertionError("path D prefill logits not finite or misshapen")
+    print(f"phase 8: path D ({LM_ARCH}, single card: {L} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query / {cfg.n_kv_heads} KV heads, "
+          f"dh {cfg.head_dim}, {cfg.param_count()} parameters) ok; "
+          f"{LM_REQUESTS} requests x {P} prompt + {T} new tokens; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    print(f"  prefill {res.prefill_s:.6f} s; decode {res.decode_s:.6f} s "
+          f"for {T} steps ({res.decode_tok_s:.3f} tokens/s); serve() "
+          f"{t_all:.6f} s with weight init; peak memory allocated "
+          f"{peak:.3f} GiB; page table over {res.pages} pages")
+    print(f"  greedy tokens (first 8 of each request): "
+          f"{toks[:, :8].tolist()}")
+
+    errs = {"flash": 0.0, "flash_decode": 0.0}
+    # faults planted through K8's arguments on layer 0's inputs, and
+    # whether the check below must see them: a skipped key tile and an
+    # off-by-one causal mask must fail it; one key of 2,080 dropped from a
+    # decode row moves the output by about its softmax weight and is only
+    # reported
+    faults = {"prefill": (("one 64-key tile skipped, kv_valid - 64", 0, -64,
+                           True),
+                          ("the causal mask one key late, q_offset + 1", 1,
+                           0, True)),
+              "decode": (("one 64-key tile skipped, kv_valid - 64", 0, -64,
+                          True),
+                         ("the last key dropped, kv_valid - 1", 0, -1,
+                          False))}
+    for (phase, layer), (q, k, v, qo, kvv) in sorted(captured.items()):
+        name = "flash" if phase == "prefill" else "flash_decode"
+        got = uncounted(functools.partial(
+            tflash.flash_attention, q, k, v, q_offset=qo, kv_valid=kvv))
+        ref = tflash.flash_attention_plain(q, k, v, q_offset=qo,
+                                           kv_valid=kvv)
+        mag = tflash.flash_attention_plain(q.float(), k.float(),
+                                           v.float().abs(), q_offset=qo,
+                                           kv_valid=kvv)
+        exact = _dense_f64(q, k, v, qo, kvv)
+        sdpa = _sdpa_call(q, k, v, qo, kvv)().transpose(1, 2)
+        torch.cuda.synchronize()
+        tol = _bf16_ulp(mag)
+        d_plain = (got.double() - ref.double()).abs()
+        d_k, d_p = (got.double() - exact).abs(), (ref.double() - exact).abs()
+        d_s = (sdpa.double() - exact).abs()
+        for what, d in (("plain", d_plain), ("f64 oracle", d_k),
+                        ("plain vs f64 oracle", d_p)):
+            if not bool((d <= tol).all()):
+                raise AssertionError(
+                    f"K8 {phase} layer {layer} vs {what}: "
+                    f"{int((d > tol).sum())} entries beyond one bf16 ulp of "
+                    f"the magnitude (max {float(d.max())})")
+        errs[name] = max(errs[name], float(d_plain.max()))
+        ulps = [float((d / tol).max()) for d in (d_plain, d_k, d_p, d_s)]
+        own = d_plain / _bf16_ulp(ref)
+        print(f"  K8 {phase} layer {layer} (q {tuple(q.shape)}, k/v "
+              f"{tuple(k.shape)}, q_offset {qo}, kv_valid {kvv}): within one "
+              f"bf16 ulp of the magnitude of the plain version and the f64 "
+              f"oracle; max |kernel - plain| {float(d_plain.max()):.6e}, max "
+              f"|kernel - f64| {float(d_k.max()):.6e}, max |plain - f64| "
+              f"{float(d_p.max()):.6e}, entries differing from plain "
+              f"{int((d_plain > 0).sum())} of {d_plain.numel()}; in ulps of "
+              f"the magnitude: kernel - plain {ulps[0]:.6f}, kernel - f64 "
+              f"{ulps[1]:.6f}, plain - f64 {ulps[2]:.6f}; in ulps of the "
+              f"plain version's own value: kernel - plain max "
+              f"{float(own.max()):.6f}, {int((own > 1).sum())} entries "
+              f"beyond one")
+        print(f"    SDPA (bf16, the library yardstick) vs the f64 oracle: "
+              f"max {ulps[3]:.6f} ulps of the magnitude, "
+              f"{int((d_s > tol).sum())} entries beyond one "
+              f"({'passes' if ulps[3] <= 1 else 'fails'} K8's check)")
+        for what, dq, dk, must in faults[phase] if layer == 0 else ():
+            bad = uncounted(functools.partial(
+                tflash.flash_attention, q, k, v, q_offset=qo + dq,
+                kv_valid=kvv + dk))
+            d = (bad.double() - exact).abs()
+            beyond = int((d > tol).sum())
+            if must and not beyond:
+                raise AssertionError(f"K8 {phase}: the planted fault "
+                                     f"({what}) passes the check")
+            print(f"    planted fault ({what}): {beyond} entries beyond one "
+                  f"bf16 ulp of the magnitude, max "
+                  f"{float((d / tol).max()):.6f} ulps")
+
+    # K1 on the page table's keys (the packed (request << 22) | block keys
+    # and the gaps after each request's blocks), as the table builds it
+    keys = torch.tensor(sorted(float((r << 22) | b) for r, b in tables[0]),
+                        dtype=torch.float64, device=dev)
+    pidx = trmi.build_rmi(keys, n_leaves=max(keys.numel() // 64, 1),
+                          kind="linear", device=dev)
+    gaps = torch.tensor([float((r << 22) + (1 << 20))
+                         for r in range(LM_REQUESTS)], dtype=torch.float64,
+                        device=dev)
+    qk = torch.cat([keys, gaps]).to(torch.float32)
+    kw = dict(n_leaves=pidx.n_leaves, iters=pidx.search_iters)
+    e1 = _compare("lookup (path D page table)", lambda: uncounted(
+        lambda: (tlk.lookup(qk, *pidx.packed_tables(), pidx.keys_f32,
+                            **kw),)),
+        lambda: (tlk.lookup_plain(qk, *pidx.packed_tables(), pidx.keys_f32,
+                                  **kw),))
+    rows["lookup"]["launches"] += launches["lookup"]
+    rows["lookup"]["max_abs_err"] = max(rows["lookup"]["max_abs_err"], e1)
+    print(f"  K1 on the page table's {keys.numel()} keys and {gaps.numel()} "
+          f"gaps equals its plain version bit for bit (tolerance 0); path D "
+          f"K1 launches {launches['lookup']}")
+
+    for name, key in (("flash", ("prefill", 0)), ("flash_decode",
+                                                  ("decode", 0))):
+        q, k, v, qo, kvv = captured[key]
+        work = _flash_work(q, k, qo, kvv)
+        rows[name] = _time_row(
+            name, lambda q=q, k=k, v=v, qo=qo, kvv=kvv: tflash.flash_attention(
+                q, k, v, q_offset=qo, kv_valid=kvv),
+            lambda q=q, k=k, v=v, qo=qo, kvv=kvv: tflash.flash_attention_plain(
+                q, k, v, q_offset=qo, kv_valid=kvv),
+            _sdpa_call(q, k, v, qo, kvv), [work], launches[name], errs[name],
+            reps=20 if name == "flash" else 100,
+            plain_reps=5 if name == "flash" else 20)
+        rows[name]["bound_tc_ms"] = work[1] / BF16_TC_OPS_PER_S * 1e3
+        print(f"    {work[0]} bytes, {work[1]} f32 operations; bf16 "
+              f"tensor-core bound (bound_tc_ms) "
+              f"{rows[name]['bound_tc_ms']:.6f} ms")
+    share_p = L * rows["flash"]["ms"] / 1e3 / res.prefill_s
+    share_d = L * T * rows["flash_decode"]["ms"] / 1e3 / res.decode_s
+    print(f"  K8's share (launches x ms): prefill {share_p:.3%}, decode "
+          f"{share_d:.3%}")
+    del captured
+
+    # one serve() call traced with torch.profiler, prefill and each decode
+    # step under a user annotation: where path D's time goes
+    def annotated(make, tag):
+        def make_annotated(c):
+            fn = make(c)
+
+            def run(*a):
+                with torch.profiler.record_function(tag):
+                    return fn(*a)
+            return run
+        return make_annotated
+
+    real_make_decode = tserve.serve_step.make_decode_step
+    tserve.serve_step.make_prefill = annotated(real_make_prefill,
+                                               "path D prefill")
+    tserve.serve_step.make_decode_step = annotated(real_make_decode,
+                                                   "path D decode")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        res_t = tserve.serve(LM_ARCH, reduced=False, requests=LM_REQUESTS,
+                             prompt_len=P, new_tokens=T, seed=args.seed)
+    tserve.serve_step.make_prefill = real_make_prefill
+    tserve.serve_step.make_decode_step = real_make_decode
+    trace = ROOT / "build" / "path_d_trace.json"
+    prof.export_chrome_trace(str(trace))
+    del prof
+    split = _trace_windows(trace, ("path D prefill", "path D decode"))
+    for (tag, w), plain_s in zip(split.items(), (res.prefill_s,
+                                                 res.decode_s)):
+        kinds = ", ".join(f"{k} {v:.6f} s ({v / w['wall']:.3%})" for k, v in
+                          sorted(w["kinds"].items(), key=lambda kv: -kv[1]))
+        print(f"  traced {tag}: wall {w['wall']:.6f} s (serve() untraced "
+              f"{plain_s:.6f} s), device busy {w['busy']:.6f} s, idle share "
+              f"{1 - w['busy'] / w['wall']:.6f}; {w['events']} device "
+              f"events; by kind {kinds}")
+    print(f"  the trace ({trace.relative_to(ROOT)}): serve() reported "
+          f"prefill {res_t.prefill_s:.6f} s and {res_t.decode_tok_s:.3f} "
+          f"tokens/s under the profiler, against {res.prefill_s:.6f} s and "
+          f"{res.decode_tok_s:.3f} tokens/s untraced; greedy tokens equal "
+          f"to the untraced run's {int((res_t.tokens == toks).sum())} of "
+          f"{toks.size}")
+
+    res_p = serve_with(plain, "plain")
+    lp = logits["plain"]
+    dl = float((lk - lp).abs().max())
+    v_ = cfg.vocab_size
+    top2 = torch.topk(lp[:, :v_], 2).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    first_k = lk[:, :v_].argmax(-1).cpu().numpy()
+    first_p = lp[:, :v_].argmax(-1).cpu().numpy()
+    sure = margin > 2 * LM_LOGIT_TOL
+    if dl > LM_LOGIT_TOL or not (first_k[sure] == first_p[sure]).all() or \
+            not (first_k == toks[:, 0]).all():
+        raise AssertionError(f"path D kernel vs plain prefill logits: max "
+                             f"|diff| {dl} (tolerance {LM_LOGIT_TOL}), first "
+                             f"tokens {first_k} / {first_p} / {toks[:, 0]}")
+    agree = (res_p.tokens == toks)
+    lead = [int(np.argmin(np.append(a, False))) for a in agree]
+    print(f"  end to end with the plain attention: prefill logits max |kernel"
+          f" - plain| {dl:.6e} (tolerance {LM_LOGIT_TOL}; logits max "
+          f"{float(lp.abs().max()):.6f}); top-2 margins "
+          f"{np.round(margin, 6).tolist()}; greedy tokens equal "
+          f"{int(agree.sum())} of {agree.size}, leading run per request "
+          f"{lead}; plain prefill {res_p.prefill_s:.6f} s, decode "
+          f"{res_p.decode_tok_s:.3f} tokens/s")
+
+
 def main(argv=None) -> int:
     args = _args(argv)
     import numpy as np
@@ -427,6 +864,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import lookup as tlk
     from repro_torch.kernels import hist as thist
     from repro_torch.kernels import linfit as tlinfit
+    from repro_torch.kernels import flash as tflash
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda")
@@ -447,20 +885,20 @@ def main(argv=None) -> int:
                                        "spill", "smem")):
                 print(f"  ptxas[{name}] {line.strip()}")
 
+    counted = (tlk, tks, thist, tlinfit, tflash)
+
     def counters():
-        return {**tlk.LAUNCHES, **tks.LAUNCHES, **thist.LAUNCHES,
-                **tlinfit.LAUNCHES}
+        return {k: v for mod in counted for k, v in mod.LAUNCHES.items()}
 
     def reset_counters():
-        for mod in (tlk, tks, thist, tlinfit):
+        for mod in counted:
             mod.reset_launches()
 
     def uncounted(fn):
         """``fn()`` with the launch counts put back afterwards: launches
         that compare a kernel with its plain version inside a counted run
         do not count."""
-        saved = [(mod, dict(mod.LAUNCHES)) for mod in (tlk, tks, thist,
-                                                       tlinfit)]
+        saved = [(mod, dict(mod.LAUNCHES)) for mod in counted]
         out = fn()
         for mod, counts in saved:
             mod.LAUNCHES.update(counts)
@@ -1183,6 +1621,16 @@ def main(argv=None) -> int:
     print(f"  shapes: K6 n={n} m=64, drift batch {batch}; K5 n={n} buckets="
           f"{L}; peak memory allocated {peak:.3f} GiB; wall "
           f"{time.perf_counter() - t_start:.1f} s")
+
+    del keys32, keys, perm, dbatch, posn, buckets, xs, ys, fit, p64, cmp
+    del bound, rel, lim, over, feats, bl, h_all, h_batch, exact, dcorpus
+    del dpool, edges
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: path D (LM serving), counted ----------------------------
+    _path_d(args, dev, rows, counters, reset_counters, uncounted)
+    print(f"  wall {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -33,6 +33,12 @@ Pool (:func:`pool_from_arrays`):
   ``err_hi``, ``x_start``, ``x_end``, ``y_start``, ``y_end``; the f32
   selection tables are recomputed with the pinned prefix order.
 
+LM parameters (:func:`lm_params_from_arrays`): the reference's parameter
+  tree as nested dicts of numpy arrays (a NamedTuple's fields by name,
+  absent leaves left out), superblock leaves stacked on axis 0; bf16
+  arrives as ``ml_dtypes.bfloat16`` and is carried across as its 16-bit
+  words, never through f32.
+
 RMRT (:func:`rmrt_from_arrays`):
   ``keys``, ``kind``, params under ``p``, ``is_leaf``, ``child_base``,
   ``y_start``, ``y_end``, ``err_lo``, ``err_hi``, ``node_sim``,
@@ -163,3 +169,41 @@ def rmrt_from_arrays(arrays: dict, *, device=None) -> RMRTIndex:
         node_sim=t("node_sim"), reused_mask=t("reused", torch.bool),
         fanout=int(arrays["fanout"]), leaf_cap=int(arrays["leaf_cap"]),
         depth=int(arrays["depth"]))
+
+
+def _lm_leaf(a, dev) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype; bf16 through its
+    16-bit words."""
+    a = np.array(a)                     # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def lm_params_from_arrays(tree: dict, cfg, *, device=None) -> dict:
+    """The port's LM parameter tree (``models.model``) from the reference's
+    as numpy arrays, bit for bit; every leaf's shape is checked against
+    ``build_tree(cfg)``."""
+    from .models import model as M
+    dev = resolve_device(device)
+
+    def carry(desc, node, stacked, path):
+        if desc is None:
+            return None
+        if isinstance(desc, dict):
+            return {k: carry(v, node[k], stacked, f"{path}/{k}")
+                    for k, v in desc.items()}
+        if isinstance(desc, M.Leaf):
+            want = ((cfg.n_sb,) if stacked else ()) + desc.shape
+            if tuple(np.shape(node)) != want:
+                raise ValueError(f"{path}: shape {np.shape(node)}, the "
+                                 f"config wants {want}")
+            return _lm_leaf(node, dev)
+        return type(desc)(*(carry(getattr(desc, f), node.get(f), stacked,
+                                  f"{path}/{f}") for f in desc._fields))
+
+    desc = M.build_tree(cfg)
+    out = {k: carry(v, tree[k], False, k) for k, v in desc.items()
+           if k != "sb"}
+    out["sb"] = carry(desc["sb"], tree["sb"], True, "sb")
+    return out

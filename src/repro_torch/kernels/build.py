@@ -47,6 +47,9 @@ SIGNATURES = {
     "linfit": {
         "repro_linfit_sums": (P, P, P, LL, I, P, P, P),
     },
+    "flash": {
+        "repro_flash": (P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -107,3 +107,16 @@ def export_rmrt(t) -> dict:
                 err_hi=g(t.err_hi), node_sim=g(t.node_sim),
                 reused=g(t.reused_mask), fanout=t.fanout,
                 leaf_cap=t.leaf_cap, depth=t.depth)
+
+
+def export_lm_params(params) -> dict:
+    """A reference LM parameter tree as nested dicts of numpy arrays (a
+    NamedTuple's fields by name, ``None`` leaves left out), as
+    ``convert.lm_params_from_arrays`` takes it; bf16 stays
+    ``ml_dtypes.bfloat16``."""
+    if isinstance(params, dict):
+        return {k: export_lm_params(v) for k, v in params.items()}
+    if hasattr(params, "_fields"):
+        return {f: export_lm_params(getattr(params, f))
+                for f in params._fields if getattr(params, f) is not None}
+    return np.asarray(params)
