@@ -71,11 +71,16 @@ Phases (any failure exits non-zero; nothing is caught):
    query and 8 KV heads, dh 128, 4.41e9 random bf16 parameters from
    ``--seed``) at full width and depth: prefill into a 4 x 2,080-token KV
    cache, 32 greedy decode steps, the learned page table over the paged
-   KV bookkeeping.  K8 must launch 36 times at the prefill tile and 36 x
-   32 times at the decode tile, K1 at least once (the page table).  On the
+   KV bookkeeping.  K8 must launch 36 times on the tensor-core prefill
+   tile and 36 x 32 times on the split-KV decode tile (with as many
+   combine passes), never on the CUDA-core tile, and K1 at least once (the
+   page table).  On the
    attention inputs of the first and last layer in prefill and in the last
    decode step, K8 is held against its plain version and a dense f64
    softmax, within one bf16 ulp of the magnitude (the attention of |v|),
+   the decode tile also against its split-KV plain version
+   (``flash_decode_split_plain``) at the same number of runs, and the
+   CUDA-core tile against its plain version on the same inputs in f32,
    with each difference printed in ulps of the magnitude beside SDPA's
    (which is not held to it) and beside the reading against one ulp of
    the plain version's own value; on layer 0, faults planted through
@@ -100,20 +105,24 @@ each kernel timed in two turns around its plain version and the one
 PyTorch call computing the same function (``torch.searchsorted``; an f32
 ``index_add_`` of the stacked features for K5; SDPA for K8; none for K7,
 nor for K6, whose bins ``torch.histc`` closes on the other side), beside
-the least time the card could take (``bound_ms``) for the bytes and f32
-operations this run's inputs need.  A row's ``launches`` add up every path
-that launches that instantiation (K1 linear: paths A and D; K2/K3 linear:
-A and C; K7: B and C).
+the least time the card could take (``bound_ms``) for the bytes and
+operations this run's inputs need, the operations at the f32 rate (at the
+bf16 tensor-core rate for K8's prefill tile).  A row's ``launches`` add
+up every path that launches that instantiation (K1 linear: paths A and
+D; K2/K3 linear: A and C; K7: B and C).
 Keys are lognormal float32 values drawn on the card from ``--seed`` and
 sorted there.  Every answer of path C is held against the truth too.  The
 last lines printed are the kernels' JSON line (K1-K3 a row per
 instantiation: path A launches the linear-leaf one, path B the MLP-leaf
-one; K8 a row per tile: ``flash`` at the prefill shape, ``flash_decode``
-at the decode shape, each with ``bound_tc_ms``, the bound on the bf16
-tensor cores, beside ``bound_ms`` on the f32 rate the kernel computes at),
-the card's ``name, power.limit`` from nvidia-smi, and the result
-line.  Exits non-zero without printing a result when no CUDA device is
-present or when run outside a checkout of the repo.
+one; K8 a row per tile: ``flash`` at the prefill shape, its ``bound_ms``
+on the bf16 tensor cores it computes on and ``bound_f32_ms`` on the f32
+rate, ``flash_decode`` at the decode shape with its ``n_split`` and
+``combine_launches``), the card's ``name, power.limit`` from nvidia-smi,
+and the result line.  Phase 1 also prints the flash library's ptxas
+report and the number of ``HGMMA`` instructions ``cuobjdump -sass`` finds
+in it, and fails if there are none.  Exits non-zero without printing a
+result when no CUDA device is present or when run outside a checkout of
+the repo.
 """
 from __future__ import annotations
 
@@ -450,7 +459,7 @@ def _compare(name, kern, plain):
 
 
 def _flash_work(q, k, q_offset: int, kv_valid: int) -> tuple:
-    """(bytes, f32 operations) of one K8 launch on these inputs: q read and
+    """(bytes, operations) of one K8 launch on these inputs: q read and
     the output written, the K and V rows of the keys the mask keeps (the
     first min(kv_valid, q_offset + Sq) positions), 4 dh operations a
     (query, valid key) pair (the QK and PV products)."""
@@ -512,10 +521,15 @@ def _sdpa_call(q, k, v, q_offset: int, kv_valid: int):
         qs, ks, vs, attn_mask=keep, enable_gqa=True)
 
 
+K8_KERNELS = ("flash_tc_kernel", "flash_split_kernel", "flash_combine_kernel",
+              "flash_cc_kernel")
+
+
 def _kind(name: str) -> str:
-    """A device event of path D's trace: K8, a GEMM, or the rest."""
+    """A device event of path D's trace: K8 (any of its tiles, and the
+    split-KV tile's combine pass), a GEMM, or the rest."""
     low = name.lower()
-    if "flash_kernel" in low:
+    if any(k in low for k in K8_KERNELS):
         return "K8"
     if any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma",
                               "sm90_")):
@@ -636,7 +650,10 @@ def _path_d(args, dev, rows, counters, reset_counters, uncounted) -> None:
     res, t_all = _sync_time(lambda: serve_with(recording, "kernel"))
     launches = counters()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = {"flash": L, "flash_decode": L * T}
+    # prefill on the tensor-core tile, decode on the split-KV tile and its
+    # combine pass, nothing on the CUDA-core tile
+    want = {"flash": L, "flash_decode": L * T, "flash_combine": L * T,
+            "flash_cc": 0}
     if {k: launches[k] for k in want} != want or launches["lookup"] <= 0:
         raise AssertionError(f"path D launches {launches}, want {want} and "
                              f"K1 at least once")
@@ -685,18 +702,41 @@ def _path_d(args, dev, rows, counters, reset_counters, uncounted) -> None:
                                            kv_valid=kvv)
         exact = _dense_f64(q, k, v, qo, kvv)
         sdpa = _sdpa_call(q, k, v, qo, kvv)().transpose(1, 2)
+        # the CUDA-core tile (f32 inputs) on the same inputs
+        qf, kf, vf = q.float(), k.float(), v.float()
+        got_cc = uncounted(functools.partial(
+            tflash.flash_attention, qf, kf, vf, q_offset=qo, kv_valid=kvv))
+        ref_cc = tflash.flash_attention_plain(qf, kf, vf, q_offset=qo,
+                                              kv_valid=kvv)
+        # (what, got, want, printed here): the last two are read below
+        checks = [("plain", got, ref, False),
+                  ("f64 oracle", got, exact, False),
+                  ("plain vs f64 oracle", ref, exact, False),
+                  ("the CUDA-core tile (f32) vs its plain version", got_cc,
+                   ref_cc, True)]
+        if phase == "decode":
+            n_split, per = tflash.decode_plan(q, k, q_offset=qo,
+                                              kv_valid=kvv)
+            checks.append((f"its split-KV plain version ({n_split} runs of "
+                           f"{per} tiles)", got,
+                           tflash.flash_decode_split_plain(
+                               q, k, v, q_offset=qo, kv_valid=kvv,
+                               n_split=n_split), True))
         torch.cuda.synchronize()
         tol = _bf16_ulp(mag)
         d_plain = (got.double() - ref.double()).abs()
         d_k, d_p = (got.double() - exact).abs(), (ref.double() - exact).abs()
         d_s = (sdpa.double() - exact).abs()
-        for what, d in (("plain", d_plain), ("f64 oracle", d_k),
-                        ("plain vs f64 oracle", d_p)):
+        for what, a, b, show in checks:
+            d = (a.double() - b.double()).abs()
             if not bool((d <= tol).all()):
                 raise AssertionError(
                     f"K8 {phase} layer {layer} vs {what}: "
                     f"{int((d > tol).sum())} entries beyond one bf16 ulp of "
                     f"the magnitude (max {float(d.max())})")
+            if show:
+                print(f"    {phase} layer {layer}: K8 vs {what}: max "
+                      f"{float((d / tol).max()):.6f} ulps of the magnitude")
         errs[name] = max(errs[name], float(d_plain.max()))
         ulps = [float((d / tol).max()) for d in (d_plain, d_k, d_p, d_s)]
         own = d_plain / _bf16_ulp(ref)
@@ -763,10 +803,25 @@ def _path_d(args, dev, rows, counters, reset_counters, uncounted) -> None:
             _sdpa_call(q, k, v, qo, kvv), [work], launches[name], errs[name],
             reps=20 if name == "flash" else 100,
             plain_reps=5 if name == "flash" else 20)
-        rows[name]["bound_tc_ms"] = work[1] / BF16_TC_OPS_PER_S * 1e3
-        print(f"    {work[0]} bytes, {work[1]} f32 operations; bf16 "
-              f"tensor-core bound (bound_tc_ms) "
-              f"{rows[name]['bound_tc_ms']:.6f} ms")
+        if name == "flash":
+            # the prefill tile computes on the bf16 tensor cores: its bound
+            # is the same operations at their rate, the f32 one kept beside
+            t_ops = work[1] / BF16_TC_OPS_PER_S * 1e3
+            t_bytes = work[0] / HBM_BYTES_PER_S * 1e3
+            rows[name]["bound_f32_ms"] = rows[name]["bound_ms"]
+            rows[name]["bound_ms"], rows[name]["bound_by"] = (
+                (t_ops, "operations") if t_ops >= t_bytes
+                else (t_bytes, "bytes"))
+        else:
+            rows[name]["n_split"], rows[name]["tiles_per_split"] = (
+                tflash.decode_plan(q, k, q_offset=qo, kv_valid=kvv))
+            rows[name]["combine_launches"] = launches["flash_combine"]
+        extra = {k: v_ for k, v_ in rows[name].items()
+                 if k in ("bound_f32_ms", "n_split", "tiles_per_split",
+                          "combine_launches")}
+        print(f"    {work[0]} bytes, {work[1]} operations; bound_ms "
+              f"{rows[name]['bound_ms']:.6f} ({rows[name]['bound_by']}); "
+              f"{extra}")
     share_p = L * rows["flash"]["ms"] / 1e3 / res.prefill_s
     share_d = L * T * rows["flash_decode"]["ms"] / 1e3 / res.decode_s
     print(f"  K8's share (launches x ms): prefill {share_p:.3%}, decode "
@@ -882,8 +937,18 @@ def main(argv=None) -> int:
     for name, report in reports.items():
         for line in report.splitlines():
             if any(w in line for w in ("Compiling entry", "registers",
-                                       "spill", "smem")):
+                                       "spill", "smem", "arning",
+                                       "Performance")):
                 print(f"  ptxas[{name}] {line.strip()}")
+    # K8's prefill tile must run on the tensor cores: HGMMA in the SASS
+    sass = build.sass("flash")
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"  flash library: {hgmma} HGMMA instructions in its SASS "
+          f"(cuobjdump -sass); ptxas report above"
+          f"{'' if 'flash' in reports else ' (not rebuilt now)'}")
+    if hgmma == 0:
+        raise AssertionError("the flash library's SASS holds no HGMMA: the "
+                             "prefill tile does not use the tensor cores")
 
     counted = (tlk, tks, thist, tlinfit, tflash)
 

@@ -48,7 +48,10 @@ SIGNATURES = {
         "repro_linfit_sums": (P, P, P, LL, I, P, P, P),
     },
     "flash": {
-        "repro_flash": (P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P),
+        "repro_flash_cc": (P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P),
+        "repro_flash_tc": (P, P, P, P, I, I, I, I, I, I, I, I, F, P),
+        "repro_flash_decode": (P, P, P, P, P, I, I, I, I, I, I, I, I, F, I,
+                               I, P),
     },
 }
 
@@ -104,6 +107,15 @@ def build_all(names=tuple(SIGNATURES)) -> dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the built library ``name`` (built first if
+    needed): the instructions the card runs."""
+    build_all((name,))
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def library(name: str) -> ctypes.CDLL:

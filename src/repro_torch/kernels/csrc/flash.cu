@@ -1,6 +1,6 @@
 // K8: blockwise causal flash attention (forward) for Hopper (sm_90a), with a
 // plain C interface loaded through ctypes (see kernels/build.py).  Its
-// wrapper and plain PyTorch version are in kernels/flash.py.
+// wrapper, dispatch and plain PyTorch versions are in kernels/flash.py.
 //
 // Replaces repro/kernels/flash.py flash_attention_pallas (_flash_kernel), in
 // the general form the LM layers call (repro/models/layers.py
@@ -16,42 +16,75 @@
 //
 // A masked entry has s = -inf and contributes exactly 0, as in the jnp
 // reference.  Key tiles past min(kv_valid, q_offset + last row + 1) are
-// skipped: a fully masked tile leaves m, l and acc unchanged.  expf (not
-// __expf) and -fmad=false keep the softmax arithmetic as the reference
-// writes it; the two dot products accumulate with explicit fmaf in key and
-// feature order, so they round differently from XLA's dot (within the
-// tolerances stated in the tests).
+// skipped: a fully masked tile leaves m, l and acc unchanged.  The library
+// is built with -fmad=false; every fused multiply-add below is an explicit
+// __fmaf_rn.
 //
-// Design.  The H / Hkv = G query heads that share a KV head are put on the
-// rows of one tile: row r of a block is query position r / G, head
-// hkv * G + r % G.  So one K/V tile in shared memory serves G heads, and a
-// decode step (Sq = 1) fills G rows of an 8-row tile instead of one row of
-// a 64-row tile.  One block of 128 threads (8 row groups x 16 lanes) per
-// (row tile, KV head, batch):
-//   * the Q tile (q * scale, f32) is staged once, transposed ([D][rows]);
-//   * each 64-key tile of K (transposed, [D][64]) and V ([64][D]) is staged
-//     in f32 through shared memory;
-//   * S = Q K^T in registers, a thread owning RPT rows x 4 keys;
-//   * the online softmax per row in registers, the row max and sum reduced
-//     over the row's 16 lanes by shuffles;
-//   * acc += P V, a thread owning RPT rows x D/16 columns; P moves between
-//     lanes by shuffles, never through memory.
-// Only the output returns to device memory.  Row tiles are issued heaviest
-// first (causal rows near the end see the most keys).
+// Every tile puts the G = H / Hkv query heads that share a KV head on the
+// rows of one tile: row r is query position r / G, head hkv * G + r % G, so
+// one K/V tile serves G heads.  Three tiles, chosen by the wrapper from the
+// dtype, D and the rows Sq * G (it raises where none applies):
 //
-// What bounds it: for prefill, f32 operations on the CUDA cores (4 D per
-// (query, valid key) pair: the QK and PV products); for decode, the bytes
-// of the KV cache.  This first design uses no tensor cores, no TMA and no
-// asynchronous copies: loads and compute of a tile alternate, with two
-// blocks on an SM overlapping each other.  wgmma with bf16 operands is the
-// redesign that the tensor-core bound in PERF.md points to.
+// 1. flash_tc_kernel: bf16, D in {64, 128}, Sq * G > 8 (prefill).  What
+//    bounds it is the operations (4 D a (query, valid key) pair), so it
+//    runs them on the tensor cores.  A block of two consumer warpgroups
+//    (64 rows each, 128 rows a block) and one producer warp; row tiles are
+//    issued heaviest first over the whole grid.  Q stays in shared memory
+//    as bf16 (128-byte swizzle); 64-key K and V tiles arrive by TMA
+//    (cp.async.bulk.tensor, zero fill past Skv) into a 3-stage ring that
+//    mbarriers guard, so the next tiles load while this one computes (and
+//    the first ones while the consumers load Q).  A warpgroup issues S of
+//    tile t and P.V of tile t - 1 as one group, then the softmax of S(t);
+//    the two warpgroups run unsynchronised, so one's softmax overlaps the
+//    other's MMAs.
+//      S = Q K^T: wgmma m64n64k16, Q and K from shared memory, f32
+//        accumulators.  The scale goes on the f32 S, after the product:
+//        bf16(q * scale) would carry 2^-9 relative error into s, while the
+//        reference's f32(q) * scale . k and scale * (q . k) differ by f32
+//        rounding only (the bf16 products are exact in f32).
+//      Softmax in the accumulator's registers (a row lives in the 4 lanes
+//        of a quad): the mask only on tiles that cross the diagonal or
+//        kv_valid; p = exp2(fma(S, scale * log2(e), -m * log2(e))) by
+//        ex2.approx.ftz (relative error about 2^-22; a p below 2^-126,
+//        against the row maximum's 1, flushes to 0).  The folded exponent
+//        carries an absolute error of a few 2^-24 |s| (the roundings of
+//        scale * log2(e), m * log2(e) and the fma), a relative error of p
+//        below 1e-5 for |s| < 50, far under the bf16 ulp of the output.
+//      P.V with P kept above bf16: P = P_hi + P_lo, each bf16 (P_lo =
+//        bf16(P - P_hi), the subtraction exact), two register-A wgmma
+//        m64nDk16 against the same V tile, V read MN-major through the
+//        descriptor's transpose bit.  P_hi + P_lo is within 2^-16 of P
+//        (P rounded once to bf16: 2^-8, which is how SDPA misses the
+//        one-ulp check); the cost is 1.5x the MMA work.  The split keeps
+//        the k16 register-A layout that S's accumulator converts into.
+// 2. flash_split_kernel + flash_combine_kernel: bf16, D in {64, 128},
+//    Sq * G <= 8 (decode).  What bounds it is the bytes of the KV cache,
+//    and B * Hkv blocks cannot fill the card, so the valid keys [0, kend)
+//    are cut into n_split runs of whole 64-key tiles (the wrapper picks
+//    n_split so that B * Hkv * n_split >= 2 x the SM count).  A block of 4
+//    warps streams its run through a 2-stage cp.async ring of bf16 tiles
+//    (16-byte vectors, masked keys never read), each warp with its own
+//    online softmax over 16 keys of every tile on the CUDA cores (q * scale
+//    staged in f32, as the reference rounds it), merged across the warps
+//    at the end; it writes a partial (m, l, acc) in f32.  The combine
+//    kernel: M = max m_i, out = sum acc_i e^(m_i - M) / max(sum l_i
+//    e^(m_i - M), 1e-30).  A run whose keys are all masked has m = -1e30,
+//    l = 0, acc = 0 and weighs 0; kv_valid = 0 gives 0.
+// 3. flash_cc_kernel: f32 inputs, and D in {16, 32}: the first design,
+//    on the CUDA cores, an f32 staging of Q, K and V in shared memory and
+//    explicit fmaf loops; a 64-row tile, or an 8-row one for Sq * G <= 8.
+//    expf and f32 dots in key and feature order.
+//
+// The kernels sum their dot products in other orders than XLA's dot, so
+// they agree with the reference to f32 rounding (within the tolerances
+// stated in the tests), not bit for bit.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 128;   // 8 row groups x 16 lanes
-constexpr int kBK = 64;         // keys per tile
 constexpr float kFloor = -1e30f;
 
 __device__ __forceinline__ void load_chunk(const float* p, float* o) {
@@ -75,6 +108,18 @@ __device__ __forceinline__ void store_val(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+// ===========================================================================
+// 3. The CUDA-core tile (f32, D in {16, 32})
+// ===========================================================================
+// One block of 128 threads (8 row groups x 16 lanes) per (row tile, KV
+// head, batch): the Q tile (q * scale, f32) staged once, transposed; each
+// 64-key tile of K (transposed) and V staged in f32; S = Q K^T in
+// registers, a thread owning RPT rows x 4 keys; the online softmax per row,
+// reduced over the row's 16 lanes by shuffles; acc += P V, a thread owning
+// RPT rows x D/16 columns, P moving between lanes by shuffles.
+constexpr int kCcThreads = 128;
+constexpr int kCcBK = 64;
+
 // Column `cc` of the COLS = D / 16 output columns lane `tx` owns: float4
 // groups 64 apart for D >= 64, a contiguous run below.
 template <int D>
@@ -85,11 +130,13 @@ __device__ __forceinline__ int col_of(int tx, int cc) {
 }
 
 template <typename T, int D, int RPT>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
-             int H, int Hkv, int G, int q_offset, int kv_valid,
-             float scale) {
+__global__ void __launch_bounds__(kCcThreads)
+flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, T* __restrict__ out, int Sq,
+                int Skv, int H, int Hkv, int G, int q_offset, int kv_valid,
+                float scale) {
+  constexpr int kBK = kCcBK;
+  constexpr int kThreads = kCcThreads;
   constexpr int BR = 8 * RPT;              // rows a block
   constexpr int VEC = 16 / sizeof(T);      // values a 16-byte load
   constexpr int NCH = D / VEC;             // 16-byte chunks a row
@@ -278,62 +325,894 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D, int RPT>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int H, int Hkv, int q_offset, int kv_valid,
-           float scale, cudaStream_t stream) {
+int launch_cc(const void* q, const void* k, const void* v, void* out, int B,
+              int Sq, int Skv, int H, int Hkv, int q_offset, int kv_valid,
+              float scale, cudaStream_t stream) {
   constexpr int BR = 8 * RPT;
-  const int smem = static_cast<int>((D * BR + 2 * D * kBK) * sizeof(float));
-  auto kern = flash_kernel<T, D, RPT>;
+  const int smem = static_cast<int>((D * BR + 2 * D * kCcBK) * sizeof(float));
+  auto kern = flash_cc_kernel<T, D, RPT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int G = H / Hkv;
   const dim3 grid((Sq * G + BR - 1) / BR, Hkv, B);
-  kern<<<grid, kThreads, smem, stream>>>(
+  kern<<<grid, kCcThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, Hkv, G,
       q_offset, kv_valid, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// D in {16, 32, 64, 128} for f32, {16, 32} for bf16 (the bf16 tiles take
+// 64 and 128).
 template <typename T, int RPT>
-int by_dim(int D, const void* q, const void* k, const void* v, void* out,
-           int B, int Sq, int Skv, int H, int Hkv, int q_offset, int kv_valid,
-           float scale, cudaStream_t st) {
+int cc_by_dim(int D, const void* q, const void* k, const void* v, void* out,
+              int B, int Sq, int Skv, int H, int Hkv, int q_offset,
+              int kv_valid, float scale, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16, RPT>(q, k, v, out, B, Sq, Skv, H, Hkv,
-                                       q_offset, kv_valid, scale, st);
-    case 32: return launch<T, 32, RPT>(q, k, v, out, B, Sq, Skv, H, Hkv,
-                                       q_offset, kv_valid, scale, st);
-    case 64: return launch<T, 64, RPT>(q, k, v, out, B, Sq, Skv, H, Hkv,
-                                       q_offset, kv_valid, scale, st);
-    case 128: return launch<T, 128, RPT>(q, k, v, out, B, Sq, Skv, H, Hkv,
-                                         q_offset, kv_valid, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch_cc<T, 16, RPT>(q, k, v, out, B, Sq, Skv, H, Hkv,
+                                          q_offset, kv_valid, scale, st);
+    case 32: return launch_cc<T, 32, RPT>(q, k, v, out, B, Sq, Skv, H, Hkv,
+                                          q_offset, kv_valid, scale, st);
+    default: break;
   }
+  if constexpr (sizeof(T) == 4) {
+    switch (D) {
+      case 64: return launch_cc<T, 64, RPT>(q, k, v, out, B, Sq, Skv, H, Hkv,
+                                            q_offset, kv_valid, scale, st);
+      case 128: return launch_cc<T, 128, RPT>(q, k, v, out, B, Sq, Skv, H,
+                                              Hkv, q_offset, kv_valid, scale,
+                                              st);
+      default: break;
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ===========================================================================
+// Hopper pieces: mbarriers, TMA, wgmma (inline PTX)
+// ===========================================================================
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 4-d tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand (layout
+// type 1): start address, leading and stride byte offsets, all >> 4.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Named barrier 1 over the two consumer warpgroups (256 threads).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+// Pin registers that an asynchronous wgmma reads or writes: no access to
+// them moves across this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+#define K8_F8(d, i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),                \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define K8_F32(d) K8_F8(d, 0), K8_F8(d, 8), K8_F8(d, 16), K8_F8(d, 24)
+#define K8_R32                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d (64 x 64, f32) = [d +] A (64 x 16) B (16 x 64): A and B bf16 in shared
+// memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " K8_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}"
+      : K8_F32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 in registers) B (16 x 64): B bf16 in
+// shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " K8_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : K8_F32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The same at N = 128.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
+      : K8_F32(d), K8_F8(d, 32), K8_F8(d, 40), K8_F8(d, 48), K8_F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t* a, uint64_t db) {
+  if constexpr (D == 64) wgmma_rs_n64(o, a, db);
+  else wgmma_rs_n128(o, a, db);
+}
+
+// 2^x by the special function unit (ex2.approx.ftz.f32: relative error
+// about 2^-22, results below 2^-126 flushed to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x, y -> (hi, lo): bf16x2 words with x = hi.x + lo.x and y = hi.y + lo.y
+// to within 2^-16 relative (the lower-indexed value in the low half).
+__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(__fsub_rn(x, hf.x), __fsub_rn(y, hf.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// ===========================================================================
+// 1. The tensor-core prefill tile (bf16, D in {64, 128}, Sq * G > 8)
+// ===========================================================================
+constexpr int kTcBM = 64;                 // rows a consumer warpgroup
+constexpr int kTcWG = 2;                  // consumer warpgroups a block
+constexpr int kTcBR = kTcBM * kTcWG;      // rows a block
+constexpr int kTcBK = 64;                 // keys a tile
+constexpr int kTcStages = 3;              // K/V ring
+constexpr int kTcThreads = kTcWG * 128 + 32;   // + the producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct TcSmem {
+  static constexpr int kQ = kTcBR * D * 2;   // the Q tile, bytes
+  static constexpr int kKV = kTcBK * D * 2;  // one K or V tile, bytes
+  // + 1,024 to align the base for the 128-byte swizzle
+  static constexpr int kBytes = kQ + kTcStages * 2 * kKV + 1024;
+};
+
+// Shared memory layout: every operand is cut into D / 64 column blocks of
+// 64 bf16 (128 bytes a row), row-major in a block, each 16-byte chunk c of
+// row r at chunk c ^ (r % 8) (TMA's and wgmma's 128-byte swizzle):
+//   sQ [D/64][kTcBR rows][128 B], sK and sV [stage][D/64][kTcBK keys][128 B].
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_tc_kernel(__grid_constant__ const CUtensorMap kmap,
+                __grid_constant__ const CUtensorMap vmap,
+                const __nv_bfloat16* __restrict__ q,
+                __nv_bfloat16* __restrict__ out, int B, int Sq, int H,
+                int Hkv, int G, int q_offset, int kv_valid, float scale) {
+  using S = TcSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[kTcStages], empty[kTcStages];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* sQ = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint8_t* sK = sQ + S::kQ;
+  uint8_t* sV = sK + kTcStages * S::kKV;
+
+  const int tid = threadIdx.x;
+  const int groups = Hkv * B;
+  const int ntx = gridDim.x / groups;
+  const int r0 = (ntx - 1 - static_cast<int>(blockIdx.x) / groups) * kTcBR;
+  const int hkv = (blockIdx.x % groups) % Hkv;
+  const int b = (blockIdx.x % groups) / Hkv;
+  const int rows = Sq * G;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kTcWG * 4);      // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int i_last = (min(r0 + kTcBR, rows) - 1) / G;
+  const int kend = max(0, min(kv_valid, q_offset + i_last + 1));
+  const int ntiles = (kend + kTcBK - 1) / kTcBK;
+
+  if (tid >= kTcWG * 128) {
+    // producer: one thread keeps the ring full
+    if (tid == kTcWG * 128) {
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % kTcStages;
+        if (t >= kTcStages) mbar_wait(&empty[s], ((t / kTcStages) + 1) & 1);
+        mbar_expect_tx(&full[s], 2 * S::kKV);
+#pragma unroll
+        for (int h = 0; h < D / 64; ++h) {
+          tma_load_4d(sK + s * S::kKV + h * kTcBK * 128, &kmap, &full[s],
+                      h * 64, hkv, t * kTcBK, b);
+          tma_load_4d(sV + s * S::kKV + h * kTcBK * 128, &vmap, &full[s],
+                      h * 64, hkv, t * kTcBK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the Q tile (zero past the last row) while the first K/V tiles load:
+  // every load issued before any store
+  {
+    constexpr int NCH = D / 8;
+    constexpr int PER = kTcBR * NCH / (kTcWG * 128);
+    uint4 val[PER];
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int idx = tid + u * kTcWG * 128;
+      const int r = idx / NCH, c = idx % NCH, rr = r0 + r;
+      val[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (rr < rows) {
+        const int i = rr / G, g = rr % G;
+        val[u] = *reinterpret_cast<const uint4*>(
+            q + ((static_cast<size_t>(b) * Sq + i) * H + hkv * G + g) * D +
+            c * 8);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int idx = tid + u * kTcWG * 128;
+      const int r = idx / NCH, c = idx % NCH;
+      *reinterpret_cast<uint4*>(sQ + (c / 8) * (kTcBR * 128) + r * 128 +
+                                (((c % 8) ^ (r & 7)) << 4)) = val[u];
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  consumers_sync();
+
+  // consumers: warpgroup wg owns rows wg * 64 .. + 63 of the block; a
+  // thread owns rows rA and rB = rA + 8, and of every 8 columns of an
+  // accumulator the two at 2 * t4
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int rA = wg * kTcBM + warp * 16 + g8, rB = rA + 8;
+  const int posA = q_offset + (r0 + rA) / G;
+  const int posB = q_offset + (r0 + rB) / G;
+  const int pos_lo = q_offset + (r0 + wg * kTcBM) / G;
+  const float c2 = __fmul_rn(scale, kLog2e);
+  const uint32_t q_addr = smem_u32(sQ) + wg * kTcBM * 128;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float mA = kFloor, mB = kFloor, lA = 0.0f, lB = 0.0f;
+  uint32_t ph[16], pl[16];     // the previous tile's P, bf16 hi and lo
+  float sc[32];                // this tile's S, then P
+
+  // S(t) = Q K_t^T, unscaled, f32
+  auto issue_s = [&](int t) {
+    const uint32_t k_addr = smem_u32(sK + (t % kTcStages) * S::kKV);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = desc_sw128(
+          q_addr + (kk / 4) * (kTcBR * 128) + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = desc_sw128(
+          k_addr + (kk / 4) * (kTcBK * 128) + (kk % 4) * 32, 16, 1024);
+      wgmma_ss_n64(sc, da, db, kk > 0);
+    }
+  };
+  // O += P_hi(t) V_t + P_lo(t) V_t
+  auto issue_pv = [&](int t) {
+    const uint32_t v_addr = smem_u32(sV + (t % kTcStages) * S::kKV);
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk) {
+      const uint64_t dv = desc_sw128(v_addr + kk * 16 * 128, kTcBK * 128,
+                                     1024);
+      wgmma_pv<D>(o, ph + 4 * kk, dv);
+      wgmma_pv<D>(o, pl + 4 * kk, dv);
+    }
+  };
+  // mask and online softmax of S(t); O rescaled; P(t) into ph, pl
+  auto softmax = [&](int t) {
+    const int k0 = t * kTcBK;
+    if (k0 + kTcBK - 1 > pos_lo || k0 + kTcBK > kv_valid) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + 2 * t4 + e;
+          if (!(key <= posA && key < kv_valid)) sc[4 * j + e] = -INFINITY;
+          if (!(key <= posB && key < kv_valid)) sc[4 * j + 2 + e] = -INFINITY;
+        }
+    }
+    // m in the reference's units (scale * S)
+    float xA = -INFINITY, xB = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      xA = fmaxf(xA, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      xB = fmaxf(xB, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, o_));
+      xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, o_));
+    }
+    const float nA = fmaxf(fmaxf(mA, __fmul_rn(xA, scale)), kFloor);
+    const float nB = fmaxf(fmaxf(mB, __fmul_rn(xB, scale)), kFloor);
+    const float corrA = ex2(__fmul_rn(__fsub_rn(mA, nA), kLog2e));
+    const float corrB = ex2(__fmul_rn(__fsub_rn(mB, nB), kLog2e));
+    const float bA = -__fmul_rn(nA, kLog2e), bB = -__fmul_rn(nB, kLog2e);
+    mA = nA;
+    mB = nB;
+    float sumA = 0.0f, sumB = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = ex2(__fmaf_rn(sc[4 * j + e], c2, bA));
+        sc[4 * j + 2 + e] = ex2(__fmaf_rn(sc[4 * j + 2 + e], c2, bB));
+        sumA = __fadd_rn(sumA, sc[4 * j + e]);
+        sumB = __fadd_rn(sumB, sc[4 * j + 2 + e]);
+      }
+    }
+    lA = __fadd_rn(__fmul_rn(lA, corrA), sumA);
+    lB = __fadd_rn(__fmul_rn(lB, corrB), sumB);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] = __fmul_rn(o[4 * j], corrA);
+      o[4 * j + 1] = __fmul_rn(o[4 * j + 1], corrA);
+      o[4 * j + 2] = __fmul_rn(o[4 * j + 2], corrB);
+      o[4 * j + 3] = __fmul_rn(o[4 * j + 3], corrB);
+    }
+    // k-step kk (keys 16 kk .. + 15) takes a0..a3 = (rA, 2 t4), (rB, 2 t4),
+    // (rA, 8 + 2 t4), (rB, 8 + 2 t4): S's accumulator pairs 8 kk + 2 i, + 1
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      split_bf16x2(sc[2 * i], sc[2 * i + 1], ph[i], pl[i]);
+  };
+
+  // Phase t issues S(t) and P(t-1) V_(t-1) as one group, then (both
+  // complete) the softmax of S(t): phase 0 only S(0), phase ntiles only
+  // the last P V, so that no wgmma sits on a divergent path (ptxas would
+  // serialise them).
+  if (ntiles > 0) {
+    mbar_wait(&full[0], 0);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sc);
+    softmax(0);
+    for (int t = 1; t < ntiles; ++t) {
+      mbar_wait(&full[t % kTcStages], (t / kTcStages) & 1);
+      fence_regs(o);
+      wgmma_fence();
+      issue_s(t);
+      issue_pv(t - 1);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(&empty[(t - 1) % kTcStages]);
+      softmax(t);
+    }
+    fence_regs(o);
+    wgmma_fence();
+    issue_pv(ntiles - 1);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(o);
+  }
+
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    lA = __fadd_rn(lA, __shfl_xor_sync(0xffffffffu, lA, o_));
+    lB = __fadd_rn(lB, __shfl_xor_sync(0xffffffffu, lB, o_));
+  }
+  const float dA = fmaxf(lA, 1e-30f), dB = fmaxf(lB, 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int rr = r0 + (half ? rB : rA);
+    if (rr >= rows) continue;
+    const float den = half ? dB : dA;
+    const int i = rr / G, g = rr % G;
+    __nv_bfloat16* dst =
+        out + ((static_cast<size_t>(b) * Sq + i) * H + hkv * G + g) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(__fdiv_rn(o[4 * j + 2 * half], den),
+                                __fdiv_rn(o[4 * j + 2 * half + 1], den));
+  }
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of k or v (B, Skv, Hkv, D) bf16: boxes of 64 features x
+// one head x kTcBK keys x one batch row, 128-byte swizzle, zero past Skv.
+int kv_map(CUtensorMap* map, const void* base, int B, int Skv, int Hkv,
+           int D) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(Hkv),
+                              static_cast<cuuint64_t>(Skv),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(Hkv) * D * 2,
+                                 static_cast<cuuint64_t>(Skv) * Hkv * D * 2};
+  const cuuint32_t box[4] = {64, 1, kTcBK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
+              int Sq, int Skv, int H, int Hkv, int q_offset, int kv_valid,
+              float scale, cudaStream_t stream) {
+  CUtensorMap kmap, vmap;
+  int rc = kv_map(&kmap, k, B, Skv, Hkv, D);
+  if (rc == 0) rc = kv_map(&vmap, v, B, Skv, Hkv, D);
+  if (rc != 0) return rc;
+  auto kern = flash_tc_kernel<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TcSmem<D>::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = H / Hkv;
+  const int ntx = (Sq * G + kTcBR - 1) / kTcBR;
+  kern<<<ntx * Hkv * B, kTcThreads, TcSmem<D>::kBytes, stream>>>(
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q),
+      static_cast<__nv_bfloat16*>(out), B, Sq, H, Hkv, G, q_offset, kv_valid,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ===========================================================================
+// 2. The split-KV decode tile (bf16, D in {64, 128}, Sq * G <= 8)
+// ===========================================================================
+constexpr int kSkThreads = 128;           // 4 warps
+constexpr int kSkBK = 64;                 // keys a tile, 16 a warp
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+template <int D, int R>
+struct SkSmem {
+  // sq [R][D] f32, sp [4 warps][R][16] f32, sK and sV [2][kSkBK][D] bf16
+  static constexpr int kFloats = R * D + 4 * R * 16;
+  static constexpr int kBytes = kFloats * 4 + 2 * 2 * kSkBK * D * 2;
+};
+
+// Block (split, hkv, b) covers the 64-key tiles split * tiles_per .. +
+// tiles_per - 1 of [0, kend) and writes the partial of rows 0 .. rows - 1
+// at ((b * Hkv + hkv) * n_split + split) * rows + r.  R >= rows (4 or 8).
+template <int D, int R>
+__global__ void __launch_bounds__(kSkThreads)
+flash_split_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   float* __restrict__ m_part, float* __restrict__ l_part,
+                   float* __restrict__ acc_part, int Sq, int Skv, int H,
+                   int Hkv, int G, int q_offset, int kv_valid, float scale,
+                   int tiles_per) {
+  constexpr int NCH = D / 8;          // 16-byte chunks a row
+  constexpr int HC = NCH / 2;         // chunks a half row
+  constexpr int COLS = D / 32;        // output columns a lane
+  extern __shared__ float4 smem4[];
+  float* sq = reinterpret_cast<float*>(smem4);
+  float* sp = sq + R * D;
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(sp + 4 * R * 16);
+  __nv_bfloat16* sV = sK + 2 * kSkBK * D;
+
+  const int split = blockIdx.x, hkv = blockIdx.y, b = blockIdx.z;
+  const int n_split = gridDim.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rows = Sq * G;
+  const int kend = max(0, min(kv_valid, q_offset + Sq));
+  const int t0 = split * tiles_per;
+  const int t1 = min(t0 + tiles_per, (kend + kSkBK - 1) / kSkBK);
+
+  for (int idx = tid; idx < R * D; idx += kSkThreads) {
+    const int r = idx / D, d = idx % D;
+    float x = 0.0f;
+    if (r < rows)
+      x = __fmul_rn(__bfloat162float(
+                        q[((static_cast<size_t>(b) * Sq + r / G) * H +
+                           hkv * G + r % G) * D + d]),
+                    scale);
+    sq[idx] = x;
+  }
+
+  const size_t kv_row = static_cast<size_t>(Hkv) * D;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * Skv * kv_row +
+                            hkv * D;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Skv * kv_row +
+                            hkv * D;
+  // K rows keep chunk cg at cg ^ (key % 8): the S loop's 8 lanes of a
+  // quarter-warp read 8 keys' same chunk from 8 distinct bank groups
+  auto load = [&](int t, int st) {
+    for (int idx = tid; idx < kSkBK * NCH; idx += kSkThreads) {
+      const int j = idx / NCH, cg = idx % NCH, key = t * kSkBK + j;
+      const bool ok = key < kend;
+      const size_t off = ok ? key * kv_row + cg * 8 : 0;
+      cp_async16(sK + (st * kSkBK + j) * D + ((cg ^ (j & 7)) * 8), kb + off,
+                 ok);
+      cp_async16(sV + (st * kSkBK + j) * D + cg * 8, vb + off, ok);
+    }
+    cp_async_commit();
+  };
+
+  float m[R], l[R], acc[R][COLS];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = kFloor;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) acc[r][c] = 0.0f;
+  }
+  const int jl = lane & 15, h = lane >> 4, j = warp * 16 + jl;
+
+  if (t0 < t1) load(t0, 0);
+  for (int t = t0; t < t1; ++t) {
+    const int st = (t - t0) & 1;
+    if (t + 1 < t1) {
+      load(t + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // s = (q * scale) . k for key j: lane half h sums features h * D/2 ..
+    const __nv_bfloat16* krow = sK + (st * kSkBK + j) * D;
+    float s[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < HC; ++c) {
+      const int cg = h * HC + c;
+      float kf[8];
+      load_chunk(krow + ((cg ^ (j & 7)) * 8), kf);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 qa = *reinterpret_cast<const float4*>(sq + r * D +
+                                                           cg * 8);
+        const float4 qb = *reinterpret_cast<const float4*>(sq + r * D +
+                                                           cg * 8 + 4);
+        const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s[r] = __fmaf_rn(qv[e], kf[e], s[r]);
+      }
+    }
+    const int key = t * kSkBK + j;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      s[r] = __fadd_rn(s[r], __shfl_xor_sync(0xffffffffu, s[r], 16));
+      if (!(key <= q_offset + r / G && key < kv_valid)) s[r] = -INFINITY;
+      float mx = s[r];
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(fmaxf(m[r], mx), kFloor);
+      const float corr = expf(__fsub_rn(m[r], m_new));
+      const float p = expf(__fsub_rn(s[r], m_new));     // -inf -> 0
+      float ps = p;
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, o));
+      l[r] = __fadd_rn(__fmul_rn(l[r], corr), ps);
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) acc[r][c] = __fmul_rn(acc[r][c], corr);
+      if (lane < 16) sp[(warp * R + r) * 16 + jl] = p;
+    }
+    __syncwarp();
+
+    // acc += P V over the warp's 16 keys; lane owns columns COLS * lane ..
+#pragma unroll
+    for (int j4 = 0; j4 < 4; ++j4) {
+      float4 pr[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        pr[r] = *reinterpret_cast<const float4*>(sp + (warp * R + r) * 16 +
+                                                 4 * j4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat16* vrow =
+            sV + (st * kSkBK + warp * 16 + 4 * j4 + e) * D + lane * COLS;
+        float vv[COLS];
+        if constexpr (COLS == 4) {
+          const uint2 w = *reinterpret_cast<const uint2*>(vrow);
+          vv[0] = __uint_as_float(w.x << 16);
+          vv[1] = __uint_as_float(w.x & 0xffff0000u);
+          vv[2] = __uint_as_float(w.y << 16);
+          vv[3] = __uint_as_float(w.y & 0xffff0000u);
+        } else {
+          const unsigned w = *reinterpret_cast<const unsigned*>(vrow);
+          vv[0] = __uint_as_float(w << 16);
+          vv[1] = __uint_as_float(w & 0xffff0000u);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float pe = e == 0 ? pr[r].x : e == 1 ? pr[r].y
+                         : e == 2 ? pr[r].z : pr[r].w;
+#pragma unroll
+          for (int c = 0; c < COLS; ++c)
+            acc[r][c] = __fmaf_rn(pe, vv[c], acc[r][c]);
+        }
+      }
+    }
+    __syncthreads();       // stage st and sp are free for the next tile
+  }
+
+  // merge the four warps' states into the block's partial
+  float* mw = reinterpret_cast<float*>(sK);     // [4][R]
+  float* lw = mw + 4 * R;                       // [4][R]
+  float* aw = lw + 4 * R;                       // [4][R][D]
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (lane == 0) {
+      mw[warp * R + r] = m[r];
+      lw[warp * R + r] = l[r];
+    }
+#pragma unroll
+    for (int c = 0; c < COLS; ++c)
+      aw[(warp * R + r) * D + lane * COLS + c] = acc[r][c];
+  }
+  __syncthreads();
+  const size_t pbase =
+      ((static_cast<size_t>(b) * Hkv + hkv) * n_split + split) * rows;
+  for (int idx = tid; idx < rows * D; idx += kSkThreads) {
+    const int r = idx / D, d = idx % D;
+    float M = mw[r];
+#pragma unroll
+    for (int w = 1; w < 4; ++w) M = fmaxf(M, mw[w * R + r]);
+    float L = 0.0f, A = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float e = expf(__fsub_rn(mw[w * R + r], M));
+      L = __fadd_rn(L, __fmul_rn(lw[w * R + r], e));
+      A = __fadd_rn(A, __fmul_rn(aw[(w * R + r) * D + d], e));
+    }
+    acc_part[(pbase + r) * D + d] = A;
+    if (d == 0) {
+      m_part[pbase + r] = M;
+      l_part[pbase + r] = L;
+    }
+  }
+}
+
+// out[b, r / G, hkv * G + r % G, d] = sum_i acc_i e^(m_i - M) /
+// max(sum_i l_i e^(m_i - M), 1e-30), M = max_i m_i over the n_split
+// partials of (b, hkv, r): block (hkv, b, r), thread d.
+__global__ void __launch_bounds__(128)
+flash_combine_kernel(const float* __restrict__ m_part,
+                     const float* __restrict__ l_part,
+                     const float* __restrict__ acc_part,
+                     __nv_bfloat16* __restrict__ out, int Sq, int H, int Hkv,
+                     int G, int D, int n_split) {
+  const int hkv = blockIdx.x, b = blockIdx.y, r = blockIdx.z;
+  const int rows = Sq * G;
+  const size_t base =
+      (static_cast<size_t>(b) * Hkv + hkv) * n_split * rows + r;
+  float M = kFloor;
+  for (int i = 0; i < n_split; ++i)
+    M = fmaxf(M, m_part[base + static_cast<size_t>(i) * rows]);
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float L = 0.0f, A = 0.0f;
+    for (int i = 0; i < n_split; ++i) {
+      const size_t p = base + static_cast<size_t>(i) * rows;
+      const float e = expf(__fsub_rn(m_part[p], M));
+      L = __fadd_rn(L, __fmul_rn(l_part[p], e));
+      A = __fadd_rn(A, __fmul_rn(acc_part[p * D + d], e));
+    }
+    out[((static_cast<size_t>(b) * Sq + r / G) * H + hkv * G + r % G) * D +
+        d] = __float2bfloat16_rn(__fdiv_rn(A, fmaxf(L, 1e-30f)));
+  }
+}
+
+template <int D, int R>
+int launch_split(const void* q, const void* k, const void* v, void* m_part,
+                 void* l_part, void* acc_part, int B, int Sq, int Skv, int H,
+                 int Hkv, int q_offset, int kv_valid, float scale,
+                 int n_split, int tiles_per, cudaStream_t stream) {
+  constexpr int smem = SkSmem<D, R>::kBytes;
+  auto kern = flash_split_kernel<D, R>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(n_split, Hkv, B);
+  kern<<<grid, kSkThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<float*>(m_part),
+      static_cast<float*>(l_part), static_cast<float*>(acc_part), Sq, Skv, H,
+      Hkv, H / Hkv, q_offset, kv_valid, scale, tiles_per);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// One launch over contiguous q (B, Sq, H, D), k/v (B, Skv, Hkv, D) and out
-// (B, Sq, H, D), all f32 (bf16 = 0) or all bf16 (bf16 = 1), 16-byte
-// aligned, D in {16, 32, 64, 128}; `decode` picks the 8-row tile (for
-// Sq * H / Hkv <= 8) over the 64-row one.  Returns the first CUDA error.
-extern "C" int repro_flash(const void* q, const void* k, const void* v,
-                           void* out, int B, int Sq, int Skv, int H, int Hkv,
-                           int D, int q_offset, int kv_valid, int bf16,
-                           int decode, float scale, void* stream) {
+// All entry points take contiguous q (B, Sq, H, D), k/v (B, Skv, Hkv, D)
+// and out (B, Sq, H, D), 16-byte aligned, and return the first CUDA error
+// (0 when the launch went through).
+
+// The CUDA-core tile: all f32 (bf16 = 0) with D in {16, 32, 64, 128}, or all
+// bf16 (bf16 = 1) with D in {16, 32}; `decode` picks the 8-row tile (Sq * H
+// / Hkv <= 8).
+extern "C" int repro_flash_cc(const void* q, const void* k, const void* v,
+                              void* out, int B, int Sq, int Skv, int H,
+                              int Hkv, int D, int q_offset, int kv_valid,
+                              int bf16, int decode, float scale,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return decode ? by_dim<__nv_bfloat16, 1>(D, q, k, v, out, B, Sq, Skv, H,
-                                             Hkv, q_offset, kv_valid, scale,
-                                             st)
-                  : by_dim<__nv_bfloat16, 8>(D, q, k, v, out, B, Sq, Skv, H,
-                                             Hkv, q_offset, kv_valid, scale,
-                                             st);
+    return decode ? cc_by_dim<__nv_bfloat16, 1>(D, q, k, v, out, B, Sq, Skv,
+                                                H, Hkv, q_offset, kv_valid,
+                                                scale, st)
+                  : cc_by_dim<__nv_bfloat16, 8>(D, q, k, v, out, B, Sq, Skv,
+                                                H, Hkv, q_offset, kv_valid,
+                                                scale, st);
   }
-  return decode ? by_dim<float, 1>(D, q, k, v, out, B, Sq, Skv, H, Hkv,
-                                   q_offset, kv_valid, scale, st)
-                : by_dim<float, 8>(D, q, k, v, out, B, Sq, Skv, H, Hkv,
-                                   q_offset, kv_valid, scale, st);
+  return decode ? cc_by_dim<float, 1>(D, q, k, v, out, B, Sq, Skv, H, Hkv,
+                                      q_offset, kv_valid, scale, st)
+                : cc_by_dim<float, 8>(D, q, k, v, out, B, Sq, Skv, H, Hkv,
+                                      q_offset, kv_valid, scale, st);
+}
+
+// The tensor-core prefill tile: bf16, D in {64, 128}.
+extern "C" int repro_flash_tc(const void* q, const void* k, const void* v,
+                              void* out, int B, int Sq, int Skv, int H,
+                              int Hkv, int D, int q_offset, int kv_valid,
+                              float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch_tc<64>(q, k, v, out, B, Sq, Skv, H, Hkv, q_offset,
+                                  kv_valid, scale, st);
+    case 128: return launch_tc<128>(q, k, v, out, B, Sq, Skv, H, Hkv,
+                                    q_offset, kv_valid, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The split-KV decode tile and its combine pass, two launches: bf16, D in
+// {64, 128}, Sq * H / Hkv <= 8.  `part` is f32 scratch of B * Hkv *
+// n_split * rows * (D + 2) values: the partials m, l (B, Hkv, n_split,
+// rows) and acc (B, Hkv, n_split, rows, D), block `split` of the first
+// launch covering key tiles split * tiles_per .. + tiles_per - 1.
+extern "C" int repro_flash_decode(const void* q, const void* k,
+                                  const void* v, void* part, void* out,
+                                  int B, int Sq, int Skv, int H, int Hkv,
+                                  int D, int q_offset, int kv_valid,
+                                  float scale, int n_split, int tiles_per,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = Sq * (H / Hkv);
+  if (rows > 8 || n_split < 1 || (D != 64 && D != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* m_part = static_cast<float*>(part);
+  float* l_part = m_part + static_cast<size_t>(B) * Hkv * n_split * rows;
+  float* acc_part = l_part + static_cast<size_t>(B) * Hkv * n_split * rows;
+  int rc;
+  if (D == 64) {
+    rc = rows <= 4
+        ? launch_split<64, 4>(q, k, v, m_part, l_part, acc_part, B, Sq, Skv,
+                              H, Hkv, q_offset, kv_valid, scale, n_split,
+                              tiles_per, st)
+        : launch_split<64, 8>(q, k, v, m_part, l_part, acc_part, B, Sq, Skv,
+                              H, Hkv, q_offset, kv_valid, scale, n_split,
+                              tiles_per, st);
+  } else {
+    rc = rows <= 4
+        ? launch_split<128, 4>(q, k, v, m_part, l_part, acc_part, B, Sq, Skv,
+                               H, Hkv, q_offset, kv_valid, scale, n_split,
+                               tiles_per, st)
+        : launch_split<128, 8>(q, k, v, m_part, l_part, acc_part, B, Sq, Skv,
+                               H, Hkv, q_offset, kv_valid, scale, n_split,
+                               tiles_per, st);
+  }
+  if (rc != 0) return rc;
+  flash_combine_kernel<<<dim3(Hkv, B, rows), 128, 0, st>>>(
+      m_part, l_part, acc_part, static_cast<__nv_bfloat16*>(out), Sq, H, Hkv,
+      H / Hkv, D, n_split);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -15,21 +15,42 @@ query head h reading KV head ``h // (H // Hkv)``:
 
 ``flash_attention_plain`` is the reference's blockwise jnp algorithm in
 torch (``kv_block = min(1024, ceil(Skv / 128) * 128)``).  The tests and the
-CPU path use it; nothing on the CUDA path calls it.  The kernel sums its
-dot products in another order and over 64-key tiles, so the two agree to
+CPU path use it; nothing on the CUDA path calls it.  The kernels sum their
+dot products in other orders and over 64-key tiles, so the two agree to
 f32 rounding, not bit for bit.
+
+On a CUDA tensor ``flash_attention`` launches one of three tiles of
+``csrc/flash.cu``, by dtype, head dim and rows ``Sq * G`` (G = H // Hkv):
+
+* bf16, dh 64 or 128, ``Sq * G > 8`` (prefill): the tensor-core tile
+  (``wgmma``, TMA-fed K/V), counted in ``LAUNCHES["flash"]``;
+* bf16, dh 64 or 128, ``Sq * G <= 8`` (decode): the split-KV tile, the
+  valid keys cut into ``split_plan``'s runs of whole 64-key tiles, one
+  block each writing f32 partials, then a combine pass; counted in
+  ``LAUNCHES["flash_decode"]``, its combine pass beside it in
+  ``LAUNCHES["flash_combine"]``;
+* f32, or dh 16 or 32: the CUDA-core tile, counted in
+  ``LAUNCHES["flash_cc"]``.
+
+``flash_decode_split_plain`` is the split-KV tile's partials and combine
+in plain torch, for the tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from . import build
 
-LAUNCHES = {"flash": 0, "flash_decode": 0}
+LAUNCHES = {"flash": 0, "flash_decode": 0, "flash_combine": 0,
+            "flash_cc": 0}
 
-DIMS = (16, 32, 64, 128)         # head dims the kernel is instantiated for
-DECODE_ROWS = 8                   # rows of the decode tile (Sq * G <= 8)
+DIMS = (16, 32, 64, 128)         # head dims the kernels are instantiated for
+TC_DIMS = (64, 128)               # head dims of the bf16 tiles
+DECODE_ROWS = 8                   # rows of the decode tiles (Sq * G <= 8)
+KEY_TILE = 64                     # keys a tile of every kernel
 
 
 def reset_launches() -> None:
@@ -99,6 +120,93 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def split_plan(blocks: int, kend: int, sms: int) -> tuple[int, int]:
+    """(n_split, tiles_per) of the split-KV decode tile: the ``kend`` valid
+    keys cut into runs of ``tiles_per`` whole 64-key tiles, enough runs
+    that ``blocks * n_split`` (blocks = B * Hkv) reaches twice the SM count
+    while every run holds at least one tile; one empty run when ``kend``
+    is 0."""
+    tiles = -(-kend // KEY_TILE)
+    if tiles == 0:
+        return 1, 0
+    per = max(1, tiles // min(-(-2 * sms // blocks), tiles))
+    return -(-tiles // per), per
+
+
+def decode_kend(q_offset: int, kv_valid: int, Sq: int) -> int:
+    """Keys any row of a decode call can see: min(kv_valid, q_offset +
+    Sq), at least 0."""
+    return max(0, min(kv_valid, q_offset + Sq))
+
+
+def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, q_offset: int,
+                             kv_valid: int | None = None,
+                             n_split: int) -> torch.Tensor:
+    """Plain version of the split-KV decode tile's arithmetic: the valid
+    keys [0, kend) cut into ``n_split`` runs of ``ceil(tiles / n_split)``
+    whole 64-key tiles (trailing runs may be empty); per run the masked
+    scores ``(f32(q) * scale) . k``, m = max(rowmax, -1e30), l = sum p,
+    acc = p . v with p = exp(s - m); then M = max m_i and out = sum acc_i
+    e^(m_i - M) / max(sum l_i e^(m_i - M), 1e-30), rounded once to q's
+    dtype.  An empty run has m = -1e30, l = 0, acc = 0."""
+    _check(q, k, v)
+    B, Sq, H, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    kv_valid = Skv if kv_valid is None else int(kv_valid)
+    f32, dev = torch.float32, q.device
+    kend = decode_kend(int(q_offset), kv_valid, Sq)
+    tiles = -(-kend // KEY_TILE)
+    span = -(-tiles // n_split) * KEY_TILE        # keys a run
+    qf = q.to(f32) * torch.tensor(softmax_scale(dh), dtype=f32, device=dev)
+    q_pos = int(q_offset) + torch.arange(Sq, device=dev)
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        lo, hi = min(i * span, kend), min((i + 1) * span, kend)
+        kb = k[:, lo:hi].repeat_interleave(G, dim=2).to(f32)
+        vb = v[:, lo:hi].repeat_interleave(G, dim=2).to(f32)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
+        kv_pos = lo + torch.arange(hi - lo, device=dev)
+        mask = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos < kv_valid)
+        s = torch.where(mask[None, None], s, float("-inf"))
+        m = s.amax(-1).clamp_min(-1e30) if hi > lo else torch.full(
+            (B, H, Sq), -1e30, dtype=f32, device=dev)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhqk,bkhd->bhqd", p, vb))
+    m = torch.stack(ms)
+    M = m.amax(0)
+    w = torch.exp(m - M)
+    den = (torch.stack(ls) * w).sum(0).clamp_min(1e-30)
+    out = (torch.stack(accs) * w[..., None]).sum(0) / den[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_plan(q: torch.Tensor, k: torch.Tensor, *, q_offset: int,
+                kv_valid: int) -> tuple[int, int]:
+    """``split_plan`` of a split-KV decode launch on these CUDA tensors."""
+    return split_plan(q.shape[0] * k.shape[2],
+                      decode_kend(q_offset, kv_valid, q.shape[1]),
+                      _sm_count(q.device.index or 0))
+
+
+def tile_of(dtype: torch.dtype, dh: int, rows: int) -> str:
+    """The ``LAUNCHES`` key of the tile that serves f32 or bf16 inputs on a
+    card (rows = Sq * G); raises for a head dim no tile takes."""
+    if dh not in DIMS:
+        raise ValueError(f"the kernels take head dims {DIMS}, got {dh}")
+    if dtype == torch.bfloat16 and dh in TC_DIMS:
+        return "flash_decode" if rows <= DECODE_ROWS else "flash"
+    return "flash_cc"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int, kv_valid: int | None = None
                     ) -> torch.Tensor:
@@ -106,7 +214,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     general form of ``repro.models.layers.flash_attention``): causal GQA
     attention of q (B, Sq, H, dh) over k, v (B, Skv, Hkv, dh) at query
     positions ``q_offset + i``, keys at positions ``>= kv_valid`` masked.
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    CUDA tensors launch a kernel (``tile_of``); CPU tensors take the plain
+    version."""
     _check(q, k, v)
     q_offset = int(q_offset)
     Skv = k.shape[1]
@@ -117,20 +226,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, q_offset=q_offset,
                                      kv_valid=kv_valid)
     B, Sq, H, dh = q.shape
-    if dh not in DIMS:
-        raise ValueError(f"the kernel takes head dims {DIMS}, got {dh}")
+    Hkv = k.shape[2]
+    tile = tile_of(q.dtype, dh, Sq * (H // Hkv))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention needs 16-byte aligned tensors")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    decode = Sq * (H // k.shape[2]) <= DECODE_ROWS
-    rc = build.library("flash").repro_flash(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
-        H, k.shape[2], dh, q_offset, kv_valid,
-        int(q.dtype == torch.bfloat16), int(decode), softmax_scale(dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(rc, "flash")
-    LAUNCHES["flash_decode" if decode else "flash"] += 1
+    lib = build.library("flash")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scale = softmax_scale(dh)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if tile == "flash":
+        rc = lib.repro_flash_tc(*ptrs, out.data_ptr(), B, Sq, Skv, H, Hkv,
+                                dh, q_offset, kv_valid, scale, stream)
+        build.check(rc, "flash (tensor-core tile)")
+    elif tile == "flash_decode":
+        n_split, per = decode_plan(q, k, q_offset=q_offset,
+                                   kv_valid=kv_valid)
+        # f32 partials m, l and acc of every run, one buffer
+        part = torch.empty(B * Hkv * n_split * Sq * (H // Hkv) * (dh + 2),
+                           dtype=torch.float32, device=q.device)
+        rc = lib.repro_flash_decode(*ptrs, part.data_ptr(), out.data_ptr(),
+                                    B, Sq, Skv, H, Hkv, dh, q_offset,
+                                    kv_valid, scale, n_split, per, stream)
+        build.check(rc, "flash (split-KV decode tile and combine)")
+        LAUNCHES["flash_combine"] += 1
+    else:
+        rc = lib.repro_flash_cc(
+            *ptrs, out.data_ptr(), B, Sq, Skv, H, Hkv, dh, q_offset,
+            kv_valid, int(q.dtype == torch.bfloat16),
+            int(Sq * (H // Hkv) <= DECODE_ROWS), scale, stream)
+        build.check(rc, "flash (CUDA-core tile)")
+    LAUNCHES[tile] += 1
     return out

@@ -13,9 +13,22 @@ small sizes.
   two round nearly equal f32 values once.
 * Both against a dense f64 softmax, an oracle independent of the online
   softmax, at atol 2e-6 (f32 inputs, outputs of order one).
-* On a card (``gpu`` marker): the CUDA kernel against its plain version on
-  dh 16, 64 and 128, both dtypes, prefill and decode shapes, f32 within
-  atol 1e-5 and bf16 within one bf16 ulp of the magnitude.
+* ``flash_decode_split_plain`` (the split-KV decode tile's partials and
+  combine) against ``flash_attention_pallas`` in interpret mode (atol
+  1e-5, as above) and against ``layers.flash_attention`` on decode shapes
+  (f32, atol 2e-6: the same f32 rounding as the blockwise plain version,
+  the splits only regroup the sums), for n_split 1, 3 and 7, kv_valid 0,
+  1, 63, 64, 65 and Skv, and G 1 and 4.
+* The tensor-core prefill tile's arithmetic emulated in plain torch (bf16
+  Q, K in an f32 product, the scale after it, exp2 with log2(e) folded, P
+  split into bf16 hi + lo, P.V in f32) is within one bf16 ulp of the
+  magnitude of the dense f64 oracle on seeded inputs; with P rounded once
+  to bf16 (SDPA's scheme) it goes beyond on the same inputs.
+* On a card (``gpu`` marker): each tile against its plain version and the
+  dense f64 oracle -- the tensor-core tile (bf16, dh 64 and 128, Sq * G >
+  8), the split-KV decode tile (bf16, dh 64 and 128, Sq * G <= 8) and the
+  CUDA-core tile (f32; bf16 at dh 16) -- bf16 within one bf16 ulp of the
+  magnitude, f32 within atol 1e-5, with the launch counters per tile.
 """
 from __future__ import annotations
 
@@ -123,9 +136,11 @@ def _dense_f64(q, k, v, q_offset, kv_valid):
     s = np.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(q.shape[-1])
     qp = q_offset + np.arange(q.shape[1])[:, None]
     kp = np.arange(k.shape[1])[None, :]
-    s = np.where((kp <= qp) & (kp < kv_valid), s, -np.inf)
-    p = np.exp(s - s.max(-1, keepdims=True))
-    p /= p.sum(-1, keepdims=True)
+    keep = (kp <= qp) & (kp < kv_valid)
+    s = np.where(keep, s, -np.inf)
+    # a row with no valid key attends to nothing: 0, as the reference gives
+    p = np.exp(s - np.where(keep.any(-1), s.max(-1), 0.0)[..., None])
+    p /= np.maximum(p.sum(-1, keepdims=True), 1e-300)
     return np.einsum("bhqk,bkhd->bqhd", p, v)
 
 
@@ -168,34 +183,207 @@ def test_flash_rules():
         tlayers.flash_attention(q, k, v, q_offset=0, return_partial=True)
 
 
+# (B, Sq, Skv, H, Hkv, dh, q_offset) decode shapes, Sq * G <= 8; kv_valid
+# and n_split are crossed with them
+_SPLIT = [(2, 1, 150, 4, 4, 64, 149), (2, 2, 150, 8, 2, 32, 148)]
+
+
+@pytest.mark.parametrize("case", _SPLIT)
+@pytest.mark.parametrize("kv_valid", [0, 1, 63, 64, 65, 150])
+@pytest.mark.parametrize("n_split", [1, 3, 7])
+def test_split_plain_matches_layers_flash(case, kv_valid, n_split):
+    B, Sq, Skv, H, Hkv, dh, qo = case
+    (q, k, v), (jq, jk, jv) = _inputs(Skv + H + kv_valid, B, Sq, Skv, H,
+                                      Hkv, dh, "float32")
+    want = np.asarray(jlayers.flash_attention(
+        jq, jk, jv, q_offset=jnp.asarray(qo, jnp.int32),
+        kv_valid=jnp.asarray(kv_valid, jnp.int32)), np.float32)
+    got = tflash.flash_decode_split_plain(q, k, v, q_offset=qo,
+                                          kv_valid=kv_valid, n_split=n_split)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=2e-6)
+    if kv_valid == 0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("n_split", [1, 3, 7])
+def test_split_plain_matches_pallas(n_split):
+    (q, k, v), (jq, jk, jv) = _inputs(n_split, 2, 200, 200, 2, 2, 64,
+                                      "float32")
+    want = np.asarray(flash_attention_pallas(jq, jk, jv, causal=True),
+                      np.float32)
+    got = tflash.flash_decode_split_plain(q, k, v, q_offset=0,
+                                          n_split=n_split)
+    np.testing.assert_allclose(_np(got), want, atol=1e-5)
+
+
+def test_split_plan():
+    """Enough runs for twice the SM count, each at least one 64-key tile;
+    path D's decode shape (B 4, Hkv 8, 2,049-2,080 keys) gets 11 runs of 3
+    tiles on 132 SMs."""
+    assert tflash.split_plan(32, 2049, 132) == (11, 3)
+    assert tflash.split_plan(32, 2080, 132) == (11, 3)
+    assert tflash.split_plan(2, 129, 132) == (3, 1)
+    assert tflash.split_plan(512, 5000, 132) == (1, 79)
+    assert tflash.split_plan(8, 0, 132) == (1, 0)
+    for blocks, kend in ((1, 1), (4, 64), (4, 65), (32, 2048), (3, 700)):
+        n, per = tflash.split_plan(blocks, kend, 132)
+        tiles = -(-kend // 64)
+        assert (n - 1) * per < tiles <= n * per
+        assert blocks * n >= min(264, blocks * tiles)
+
+
+@pytest.mark.parametrize("dtype,dh,rows,tile", [
+    (torch.bfloat16, 128, 9, "flash"), (torch.bfloat16, 64, 8192, "flash"),
+    (torch.bfloat16, 128, 8, "flash_decode"),
+    (torch.bfloat16, 64, 1, "flash_decode"),
+    (torch.float32, 128, 8192, "flash_cc"),
+    (torch.float32, 64, 4, "flash_cc"),
+    (torch.bfloat16, 16, 8192, "flash_cc"),
+    (torch.bfloat16, 32, 1, "flash_cc")])
+def test_tile_dispatch(dtype, dh, rows, tile):
+    """bf16 at dh 64/128 takes the tensor-core tile above 8 rows and the
+    split-KV tile at 8 or fewer; f32 and dh 16/32 take the CUDA-core tile;
+    another head dim raises."""
+    assert tflash.tile_of(dtype, dh, rows) == tile
+    with pytest.raises(ValueError):
+        tflash.tile_of(dtype, 256, rows)
+
+
+_LOG2E = np.float32(1.4426950408889634)
+
+
+def _tc_emulation(q, k, v, q_offset, kv_valid, split):
+    """The tensor-core prefill tile's arithmetic in plain torch: over
+    64-key tiles, S = f32(q) . f32(k) (the bf16 products are exact in f32,
+    as in wgmma), m = max(m, scale * rowmax(S)) floored at -1e30, p =
+    exp2(S * scale * log2(e) - m * log2(e)) (torch rounds the product and
+    the difference apart where the kernel fuses them), P.V with P split
+    into bf16 hi + lo (``split``) or rounded once to bf16, f32 sums."""
+    B, Sq, H, dh = q.shape
+    G = H // k.shape[2]
+    f32 = torch.float32
+    scale = torch.tensor(tflash.softmax_scale(dh), dtype=f32)
+    log2e = torch.tensor(_LOG2E)
+    q_pos = q_offset + torch.arange(Sq)
+    m = torch.full((B, H, Sq), -1e30)
+    l = torch.zeros((B, H, Sq))
+    acc = torch.zeros((B, H, Sq, dh))
+    kend = max(0, min(kv_valid, q_offset + Sq))
+    for k0 in range(0, kend, 64):
+        kb = k[:, k0:k0 + 64].repeat_interleave(G, 2).to(f32)
+        vb = v[:, k0:k0 + 64].repeat_interleave(G, 2).to(f32)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), kb)
+        kp = k0 + torch.arange(kb.shape[1])
+        keep = (kp[None] <= q_pos[:, None]) & (kp < kv_valid)[None]
+        s = torch.where(keep[None, None], s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1) * scale).clamp_min(-1e30)
+        corr = torch.exp2((m - m_new) * log2e)
+        p = torch.exp2(s * (scale * log2e) - (m_new * log2e)[..., None])
+        l = l * corr + p.sum(-1)
+        hi = p.to(torch.bfloat16).to(f32)
+        pv = torch.einsum("bhqk,bkhd->bhqd", hi, vb)
+        if split:
+            lo = (p - hi).to(torch.bfloat16).to(f32)
+            pv = pv + torch.einsum("bhqk,bkhd->bhqd", lo, vb)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+# (seed, B, Sq, Skv, H, Hkv, dh, q_offset, kv_valid): q drawn at 3x the
+# spread of k and v, so that some rows' softmax rests on a few keys and P's
+# rounding shows in the output
+_EMULATED = [(1, 2, 200, 200, 8, 2, 64, 0, 200),
+             (1, 1, 192, 224, 8, 2, 128, 32, 210)]
+
+
+@pytest.mark.parametrize("case", _EMULATED)
+@pytest.mark.parametrize("split,within", [(True, True), (False, False)])
+def test_tc_arithmetic_needs_p_above_bf16(case, split, within):
+    """P split into bf16 hi + lo keeps the prefill tile within one bf16 ulp
+    of the magnitude of the f64 oracle; P rounded once to bf16 (SDPA's
+    scheme) does not, on the same inputs."""
+    seed, B, Sq, Skv, H, Hkv, dh, qo, kvv = case
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(0, 3, (B, Sq, H, dh)).astype(
+        np.float32)).to(torch.bfloat16)
+    k, v = (torch.from_numpy(rng.normal(0, 1, (B, Skv, Hkv, dh)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2))
+    got = _tc_emulation(q, k, v, qo, kvv, split)
+    diff = np.abs(_np(got) - _dense_f64(q, k, v, qo, kvv))
+    tol = bf16_ulp(magnitude(q, k, v, qo, kvv))
+    assert bool((diff <= tol).all()) == within, (diff / tol).max()
+
+
+# (tile, dtype, dh, B, Sq, Skv, H, Hkv, q_offset, kv_valid): each tile's
+# cases, with the tile the dispatch must pick
+_CUDA = [
+    # tensor-core tile: Sq not a multiple of 64, chunked prefill, kv_valid
+    # < Skv, G 1 / 3 / 4 / 8, Sq * G = 9 just past the decode line
+    ("flash", "bfloat16", 128, 2, 200, 230, 8, 2, 0, 200),
+    ("flash", "bfloat16", 128, 2, 37, 300, 8, 2, 100, 137),
+    ("flash", "bfloat16", 64, 2, 130, 130, 4, 4, 0, 130),
+    ("flash", "bfloat16", 64, 2, 70, 260, 8, 8, 190, 250),
+    ("flash", "bfloat16", 128, 1, 100, 180, 8, 1, 60, 150),
+    ("flash", "bfloat16", 64, 1, 9, 80, 2, 2, 50, 59),
+    ("flash", "bfloat16", 128, 3, 3, 70, 6, 2, 60, 63),
+    # more 128-row tiles (252) than SMs
+    ("flash", "bfloat16", 64, 2, 1000, 1100, 16, 2, 50, 1040),
+    # split-KV decode tile: Sq * G = 8 and below, kv_valid < Skv, a run
+    # that holds only keys masked for row 0 (kend 129: the third run is
+    # key 128 alone, after row 0's position 127), kv_valid = 0
+    ("flash_decode", "bfloat16", 128, 3, 1, 300, 8, 2, 150, 151),
+    ("flash_decode", "bfloat16", 64, 1, 1, 64, 4, 1, 63, 64),
+    ("flash_decode", "bfloat16", 128, 2, 1, 2080, 8, 1, 2060, 2061),
+    ("flash_decode", "bfloat16", 128, 2, 2, 200, 8, 2, 127, 200),
+    ("flash_decode", "bfloat16", 64, 4, 8, 90, 2, 2, 70, 75),
+    ("flash_decode", "bfloat16", 128, 2, 1, 100, 4, 4, 80, 0),
+    # CUDA-core tile: f32 at every head dim, bf16 at dh 16
+    ("flash_cc", "float32", 128, 2, 200, 230, 8, 2, 0, 200),
+    ("flash_cc", "float32", 64, 3, 1, 300, 8, 2, 150, 151),
+    ("flash_cc", "float32", 16, 2, 70, 260, 8, 8, 190, 250),
+    ("flash_cc", "bfloat16", 16, 2, 37, 300, 8, 2, 100, 137),
+    ("flash_cc", "bfloat16", 16, 1, 1, 64, 4, 1, 63, 64),
+]
+
+
 @pytest.mark.gpu
 def test_cuda_flash_matches_plain():
-    """K8 on the card against its plain version: dh 16/64/128, f32 and
-    bf16, prefill (64-row tiles) and decode (8-row tiles) shapes, with
-    offsets, under-filled caches and GQA."""
+    """K8 on the card, every tile, against its plain version and the dense
+    f64 oracle: bf16 within one bf16 ulp of the magnitude, f32 within atol
+    1e-5; each case through the tile the dispatch names, by counter."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    cases = [(2, 200, 230, 8, 2, 0, 200), (2, 37, 300, 8, 2, 100, 137),
-             (3, 1, 300, 8, 2, 150, 151), (2, 130, 130, 4, 4, 0, 130),
-             (1, 1, 64, 4, 1, 63, 64), (2, 70, 260, 8, 8, 190, 250)]
-    launches = dict(tflash.LAUNCHES)
-    n = 0
-    for dh in (16, 64, 128):
-        for dtype in ("float32", "bfloat16"):
-            for B, Sq, Skv, H, Hkv, qo, kvv in cases:
-                (q, k, v), _ = _inputs(n, B, Sq, Skv, H, Hkv, dh, dtype)
-                q, k, v = q.cuda(), k.cuda(), v.cuda()
-                got = tflash.flash_attention(q, k, v, q_offset=qo,
-                                             kv_valid=kvv)
-                want = tflash.flash_attention_plain(q, k, v, q_offset=qo,
-                                                    kv_valid=kvv)
-                torch.cuda.synchronize()
-                diff = np.abs(_np(got) - _np(want))
-                if dtype == "float32":
-                    assert diff.max() <= 1e-5, (dh, B, Sq, Skv)
-                else:
-                    tol = bf16_ulp(magnitude(q, k, v, qo, kvv))
-                    assert (diff <= tol).all(), (dh, B, Sq, Skv)
-                n += 1
-    done = {k: tflash.LAUNCHES[k] - launches[k] for k in launches}
-    assert done == {"flash": 24, "flash_decode": 12}, done
+    for n, (tile, dtype, dh, B, Sq, Skv, H, Hkv, qo, kvv) in enumerate(_CUDA):
+        (q, k, v), _ = _inputs(n, B, Sq, Skv, H, Hkv, dh, dtype)
+        q, k, v = q.cuda(), k.cuda(), v.cuda()
+        before = dict(tflash.LAUNCHES)
+        got = tflash.flash_attention(q, k, v, q_offset=qo, kv_valid=kvv)
+        want = tflash.flash_attention_plain(q, k, v, q_offset=qo,
+                                            kv_valid=kvv)
+        torch.cuda.synchronize()
+        done = {key: tflash.LAUNCHES[key] - before[key] for key in before}
+        expect = {key: 0 for key in before}
+        expect[tile] = 1
+        if tile == "flash_decode":
+            expect["flash_combine"] = 1
+        assert done == expect, (n, done)
+        oracle = _dense_f64(q.cpu(), k.cpu(), v.cpu(), qo, kvv)
+        for what, ref in (("plain", _np(want)), ("f64 oracle", oracle)):
+            diff = np.abs(_np(got) - ref)
+            if dtype == "float32":
+                assert diff.max() <= 1e-5, (n, what, diff.max())
+            else:
+                tol = bf16_ulp(magnitude(q, k, v, qo, kvv))
+                assert (diff <= tol).all(), (n, what, (diff / tol).max())
+        if kvv == 0:
+            assert not got.any()
+        if tile == "flash_decode":
+            n_split, _ = tflash.decode_plan(q, k, q_offset=qo,
+                                            kv_valid=kvv)
+            split = tflash.flash_decode_split_plain(
+                q, k, v, q_offset=qo, kv_valid=kvv, n_split=n_split)
+            diff = np.abs(_np(got) - _np(split))
+            assert (diff <= bf16_ulp(magnitude(q, k, v, qo, kvv))).all(), n

@@ -584,8 +584,9 @@ def test_cli_reaches_full_width(monkeypatch):
 
 @pytest.mark.gpu
 def test_cuda_serve_reduced_runs_the_kernels():
-    """On a card the reduced serving entry point goes through K8 (prefill and
-    decode tiles) and, for the page table, K1."""
+    """On a card the reduced serving entry point goes through K8 (its head
+    dim 16 takes the CUDA-core tile, in prefill and in every decode step)
+    and, for the page table, K1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import lookup as tlk
@@ -594,5 +595,6 @@ def test_cuda_serve_reduced_runs_the_kernels():
     res = tserve.serve("qwen3-4b", reduced=True, requests=4, prompt_len=40,
                        new_tokens=6)
     assert res.tokens.shape == (4, 7)
-    assert tflash.LAUNCHES == {"flash": 1, "flash_decode": 6}
+    assert tflash.LAUNCHES == {"flash": 0, "flash_decode": 0,
+                               "flash_combine": 0, "flash_cc": 7}
     assert tlk.LAUNCHES["lookup"] >= 1
