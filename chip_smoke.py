@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. Build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc, one
    process per source, and print what ``-Xptxas -v`` reports (registers,
-   shared memory, spills) per entry point.
+   shared memory, spills) per entry point; fail on any spill in K5's or
+   K7's library.
 2. Path A, the single-host dynamic index with linear models, through the
    entry points a user calls, with every launch counter set to 0 just
    before and read just after: a static ``build_rmi`` + ``rmi.lookup``
@@ -29,9 +30,15 @@ Phases (any failure exits non-zero; nothing is caught):
    narrow insert's rebuilds re-select from the pool through K7) -> RMRT
    (``build_rmrt(kind="linear", pool=...)``) + ``rmrt.lookup`` (K4).
 5. K1-K3 (MLP leaves), K4 and K7 against their plain versions, bit for
-   bit, and timed; K7 is checked on all of the pooled build's leaf
-   histograms and timed on ``SELECT_CHUNK`` of them, the shape of one of
-   its launches in ``select_from_pool_batch``.
+   bit, and timed; K7 is checked on all of the pooled build's (f64) leaf
+   histograms, on the same rows in f32 and with NaN in a target row and
+   two pool rows (NaN in the same places), and timed on ``SELECT_CHUNK``
+   of them, the shape of one call in ``select_from_pool_batch``: the
+   wrapper call (its table kernel and its distance kernel, a row each in
+   the kernels line), and each launch alone through the library on
+   prepared buffers (``distance_ms``, ``tables_ms``; ``distance_f32_ms``
+   with a NaN in every 128-row target tile, so that every block takes the
+   f32 path instead of the integer one).
 6. Path C, drift-adaptive serving, counted the same way, with the
    reference drift benchmark's settings (``benchmarks/bench_updates.py``
    ``bench_drift``): a linear pool from ``generate_pool(0.65)`` (m_sim 64);
@@ -48,8 +55,9 @@ Phases (any failure exits non-zero; nothing is caught):
    each phase's end every find and range against the truth, the cached
    packed tables against a fresh packing of the current leaves, and K2 and
    K3 against their plain versions on those tables and queries, bit for
-   bit; after the swap mode, K7 against its plain version on every swap
-   pass's histograms, bit for bit.  The shifted phase must latch and commit
+   bit; after the swap mode, K7 and its table kernel against their plain
+   versions on every swap pass's histograms, bit for bit, and K7 timed at
+   the pool's P = 306 as in phase 5 (``path_c_*`` keys of its row).  The shifted phase must latch and commit
    swaps, and no commit may change the search depth or the packed tables'
    shapes.
 7. K6 and K5 through the public kernel API on path C's keys:
@@ -58,7 +66,10 @@ Phases (any failure exits non-zero; nothing is caught):
    positions, leaf buckets, --n-leaves)``, counted; then K6 against its
    plain version bit for bit and against an exact count, K5's raw
    sums against its plain version within one f32 ulp of each sum's
-   magnitude (the sum of the terms' absolute values), and slopes against
+   magnitude (the sum of the terms' absolute values), counts exact, on the
+   leaf buckets and on three other layouts of the same keys (all in one
+   bucket, buckets permuted, a run across every 4,096-key block edge of
+   the kernel), each timed, and slopes against
    the f64 ``segment_linear_fit_sorted``: ``segment_linfit``'s within 5e-3
    plus the error its first pass's f32 means allow, and those of the same
    two passes with pass 1 in f64 (pass 2 through K5) within 5e-3; both
@@ -109,7 +120,9 @@ the least time the card could take (``bound_ms``) for the bytes and
 operations this run's inputs need, the operations at the f32 rate (at the
 bf16 tensor-core rate for K8's prefill tile).  A row's ``launches`` add
 up every path that launches that instantiation (K1 linear: paths A and
-D; K2/K3 linear: A and C; K7: B and C).
+D; K2/K3 linear: A and C; K7 and its table kernel: B and C).  K5's and
+K7's rows are printed beside their previous designs' times from
+``PERF.md`` (not re-run).
 Keys are lognormal float32 values drawn on the card from ``--seed`` and
 sorted there.  Every answer of path C is held against the truth too.  The
 last lines printed are the kernels' JSON line (K1-K3 a row per
@@ -153,6 +166,7 @@ SOURCES = {
     "dynamic_range_mlp": _LOOKUP_CU,
     "rmrt_lookup": _LOOKUP_CU,
     "ksdist": "src/repro_torch/kernels/csrc/ksdist.cu",
+    "ksdist_tables": "src/repro_torch/kernels/csrc/ksdist.cu",
     "hist": "src/repro_torch/kernels/csrc/hist.cu",
     "linfit": "src/repro_torch/kernels/csrc/linfit.cu",
     "flash": "src/repro_torch/kernels/csrc/flash.cu",
@@ -167,12 +181,18 @@ REPLACES = {
     "dynamic_range_mlp": "src/repro/kernels/lookup.py:516",
     "rmrt_lookup": "src/repro/kernels/lookup.py:681",
     "ksdist": "src/repro/kernels/ksdist.py:36",
+    "ksdist_tables": "src/repro/kernels/ksdist.py:36",
     "hist": "src/repro/kernels/hist.py:44",
     "linfit": "src/repro/kernels/linfit.py:52",
     "flash": "src/repro/kernels/flash.py:73",
     "flash_decode": "src/repro/kernels/flash.py:73",
 }
 BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+# The previous designs of K5 and K7 (PERF.md section 6, NVIDIA H100 80GB
+# HBM3, 700 W), printed beside this run's times, not re-run: K5 at 2e8 keys,
+# K7's wrapper call at 16,384 rows and P = 1,221 (path B) or 306 (path C)
+K5_PREVIOUS_MS = 3.642910
+K7_PREVIOUS_MS = {1221: 0.684313, 306: 0.501372}
 LM_ARCH = "qwen3-4b"           # path D's model, in its one-card form
 LM_REQUESTS = 4                # packed page keys below 2^24: K1 serves them
 LM_PROMPT_LEN = 2048           # prompt tokens a request
@@ -444,6 +464,68 @@ def _exact_counts(thist, sorted_keys, m, lo, hi):
         raise AssertionError("bin ids of sorted keys are not non-decreasing")
     edges = torch.searchsorted(bins, torch.arange(m + 1, device=k.device))
     return edges[1:] - edges[:-1]
+
+
+def _equal_nan(what, got, want):
+    """Equal where not NaN and NaN in the same places; returns the number
+    of NaN entries."""
+    import torch
+    nan = got.isnan()
+    _check_equal(f"{what}: NaN places", nan, want.isnan())
+    _check_equal(what, torch.where(nan, 0.0, got), torch.where(nan, 0.0, want))
+    return int(nan.sum())
+
+
+def _k7_parts_ms(build, tks, h, a, ps, reps=50):
+    """(distance launch alone on prepared tables, the same on its f32
+    path, table launch alone) in ms: each kernel straight through the
+    library, uncounted, on buffers allocated once.  The f32 path is timed
+    on the tables with a NaN in the first row of every 128-row target
+    tile, so that no block takes the integer path."""
+    import torch
+    lib = build.library("ksdist")
+    stream = torch.cuda.current_stream().cuda_stream
+    L, m = h.shape
+    P = a.shape[0]
+    hc = h.contiguous()
+    ta, pt = tks.target_tables(hc)
+    ta, pt = ta.contiguous(), pt.contiguous()
+    ta2, pt2 = torch.empty_like(ta), torch.empty_like(pt)
+    out = torch.empty((L, P), dtype=torch.float32, device=h.device)
+    is64 = int(hc.dtype == torch.float64)
+    dist = lambda: build.check(lib.repro_ksdist(  # noqa: E731
+        ta.data_ptr(), pt.data_ptr(), L, a.data_ptr(), ps.data_ptr(), P, m,
+        out.data_ptr(), stream), "ksdist")
+    tab = lambda: build.check(lib.repro_ksdist_tables(  # noqa: E731
+        hc.data_ptr(), is64, L, m, ta2.data_ptr(), pt2.data_ptr(), stream),
+        "ksdist_tables")
+    tn = ta.clone()
+    tn[::128, 0] = float("nan")
+    f32 = lambda: build.check(lib.repro_ksdist(  # noqa: E731
+        tn.data_ptr(), pt.data_ptr(), L, a.data_ptr(), ps.data_ptr(), P, m,
+        out.data_ptr(), stream), "ksdist")
+    f_ms = _event_ms(f32, reps)
+    _equal_nan("ksdist (library call, f32 path)", out,
+               tks.distance_plain(tn, pt, a, ps))
+    d_ms, t_ms = _event_ms(dist, reps), _event_ms(tab, reps)
+    torch.cuda.synchronize()
+    _check_equal("ksdist (library call on prepared tables)", out,
+                 tks.distance_plain(ta, pt, a, ps))
+    _check_equal("ksdist_tables (library call) A_T", ta2, ta)
+    _check_equal("ksdist_tables (library call) P_T", pt2, pt)
+    return d_ms, f_ms, t_ms
+
+
+def _spills(report: str) -> list:
+    """The ptxas lines of a build report that spill."""
+    import re
+    bad = []
+    for line in report.splitlines():
+        mm = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       line)
+        if mm and (int(mm[1]) or int(mm[2])):
+            bad.append(line.strip())
+    return bad
 
 
 def _compare(name, kern, plain):
@@ -940,6 +1022,14 @@ def main(argv=None) -> int:
                                        "spill", "smem", "arning",
                                        "Performance")):
                 print(f"  ptxas[{name}] {line.strip()}")
+    # K5 and K7 were designed to keep their register blocks out of local
+    # memory: no spills
+    for name in ("ksdist", "linfit"):
+        if name not in reports:
+            print(f"  {name}: not rebuilt now, spills not checked")
+        elif _spills(reports[name]):
+            raise AssertionError(f"ptxas spills in {name}: "
+                                 f"{_spills(reports[name])}")
     # K8's prefill tile must run on the tensor cores: HGMMA in the SASS
     sass = build.sass("flash")
     hgmma = sum("HGMMA" in line for line in sass.splitlines())
@@ -1257,7 +1347,7 @@ def main(argv=None) -> int:
     launches_b = counters()
     if min(launches_b[k] for k in ("lookup", "dynamic_lookup",
                                    "dynamic_range", "rmrt_lookup",
-                                   "ksdist")) <= 0:
+                                   "ksdist", "ksdist_tables")) <= 0:
         raise AssertionError(f"a kernel of path B never launched: "
                              f"{launches_b}")
     print(f"phase 4: path B (lazy) ok; n={n}; launches {launches_b}")
@@ -1337,23 +1427,60 @@ def main(argv=None) -> int:
             lambda: (tks.ksdist(hc, sel_a, sel_ps),),
             lambda: (tks.ksdist_plain(hc, sel_a, sel_ps),),
             None,
-            lambda: [(hc.numel() * 8 + 2 * sel_a.numel() * 4
+            lambda: [(hc.numel() * hc.element_size()
+                      + 2 * sel_a.numel() * 4
                       + hc.shape[0] * sel_a.shape[0] * 4,
                       4 * hc.numel() * sel_a.shape[0]
                       + hc.shape[0] * sel_a.shape[0] + hc.numel())]),
+        # the table kernel alone: the histograms in, A_T and P_T out, about
+        # two adds a bin
+        "ksdist_tables": (
+            lambda: tks.tables(hc),
+            lambda: tks.target_tables(hc),
+            None,
+            lambda: [(hc.numel() * hc.element_size() + 2 * hc.numel() * 4,
+                      2 * hc.numel())]),
     }
     errs = {nm: _compare(nm, k, p) for nm, (k, p, _, _) in calls_b.items()}
     errs["ksdist"] = max(errs["ksdist"], _compare(
         "ksdist (full L)", lambda: (tks.ksdist(hists, sel_a, sel_ps),),
         lambda: (tks.ksdist_plain(hists, sel_a, sel_ps),)))
+    # the leaf histograms are f64; the same rows in f32, and NaN in a
+    # target row and in a pool row
+    errs["ksdist"] = max(errs["ksdist"], _compare(
+        "ksdist (f32 targets)",
+        lambda: (tks.ksdist(hc.float(), sel_a, sel_ps),),
+        lambda: (tks.ksdist_plain(hc.float(), sel_a, sel_ps),)))
+    hn, an, pn = hc[:4096].clone(), sel_a.clone(), sel_ps.clone()
+    hn[3, 10] = float("nan")
+    an[5, 7] = float("nan")
+    pn[9, 20] = float("nan")
+    nan_k7 = _equal_nan("ksdist (NaN in a target and two pool rows)",
+                        tks.ksdist(hn, an, pn), tks.ksdist_plain(hn, an, pn))
+    if nan_k7 != hn.shape[0] * 2 + an.shape[0] - 2:
+        raise AssertionError(f"ksdist: {nan_k7} NaN entries, not one row "
+                             f"and two columns")
+    del hn, an, pn
     print(f"phase 5: K1-K3 (MLP leaves), K4 and K7 equal their plain "
           f"versions bit for bit (tolerance 0; K7 at full L={L} and timed "
-          f"at L={hc.shape[0]}, P={sel_a.shape[0]}, m={sel_a.shape[1]}): "
-          f"{errs}")
+          f"at L={hc.shape[0]}, P={sel_a.shape[0]}, m={sel_a.shape[1]}, "
+          f"{hc.dtype} histograms; also f32 histograms and NaN rows, {nan_k7}"
+          f" NaN entries in the same places): {errs}")
     for nm, (k, p, lib, work) in calls_b.items():
         row = nm + "_mlp" if nm in rows else nm    # K1-K3: MLP leaves
         rows[row] = _time_row(row, k, p, lib, work(), launches_b[nm],
                               errs[nm])
+    d_ms, f_ms, t_ms = _k7_parts_ms(build, tks, hc, sel_a, sel_ps)
+    P_b = sel_a.shape[0]
+    rows["ksdist"].update(P=P_b, distance_ms=d_ms, distance_f32_ms=f_ms,
+                          tables_ms=t_ms)
+    print(f"  K7 at L={hc.shape[0]}, P={P_b}: wrapper call (tables + "
+          f"distances) {rows['ksdist']['ms']:.6f} ms (previous design "
+          f"{K7_PREVIOUS_MS.get(P_b, float('nan')):.6f} ms, PERF.md); "
+          f"distance launch alone on prepared tables {d_ms:.6f} ms (on its "
+          f"f32 path {f_ms:.6f} ms), table launch alone {t_ms:.6f} ms; "
+          f"bound "
+          f"{rows['ksdist']['bound_ms']:.6f} ms")
     print(f"  shapes: n={n} leaves={L} queries={nq} range pairs={lo.numel()} "
           f"base capacity={d.index.keys.shape[0]} delta capacity="
           f"{dk.shape[0]} iters static={sm_iters} dynamic="
@@ -1462,24 +1589,39 @@ def main(argv=None) -> int:
                                                 **kw))}
 
     def compare_k7_c(selections):
-        """K7 against its plain version on each swap pass's (rows, m)
-        histograms and the pool's tables; times it at the largest pass."""
+        """K7 and its table kernel against their plain versions on each
+        swap pass's (rows, m) histograms and the pool's tables; times them
+        at the largest pass, at one launch's rows."""
         if not selections:
             raise AssertionError("the swap mode ran no swap pass")
-        err = 0
+        err = t_err = 0
         for i, (a, ps, h) in enumerate(selections):
             err = max(err, _compare(f"ksdist (path C swap pass {i})",
                                     lambda: (tks.ksdist(h, a, ps),),
                                     lambda: (tks.ksdist_plain(h, a, ps),)))
+            t_err = max(t_err, _compare(
+                f"ksdist_tables (path C swap pass {i})",
+                lambda: tks.tables(h), lambda: tks.target_tables(h)))
         a, ps, h = max(selections, key=lambda s: s[2].shape[0])
         h = h[:treuse.SELECT_CHUNK]            # one launch's rows
         k_ms = _event_ms(lambda: tks.ksdist(h, a, ps), 50)
         p_ms = _event_ms(lambda: tks.ksdist_plain(h, a, ps), 5, warmup=1)
+        d_ms, f_ms, t_ms = _k7_parts_ms(build, tks, h, a, ps)
+        P_c = a.shape[0]
         print(f"  K7 on path C's swap passes: {len(selections)} passes, rows "
-              f"{[s[2].shape[0] for s in selections]}, P={a.shape[0]}, "
-              f"m={a.shape[1]}; at {h.shape[0]} rows kernel {k_ms:.6f} ms, "
-              f"plain {p_ms:.6f} ms")
-        return err
+              f"{[s[2].shape[0] for s in selections]}, P={P_c}, "
+              f"m={a.shape[1]}; at {h.shape[0]} rows wrapper call {k_ms:.6f}"
+              f" ms (previous design "
+              f"{K7_PREVIOUS_MS.get(P_c, float('nan')):.6f} ms, PERF.md; at "
+              f"P={rows['ksdist'].get('P', 0)} this run "
+              f"{rows['ksdist']['ms']:.6f} ms), distance launch alone "
+              f"{d_ms:.6f} ms (on its f32 path {f_ms:.6f} ms), table launch "
+              f"alone {t_ms:.6f} ms, plain {p_ms:.6f} ms")
+        rows["ksdist"].update(path_c_P=P_c, path_c_ms=k_ms,
+                              path_c_distance_ms=d_ms,
+                              path_c_distance_f32_ms=f_ms,
+                              path_c_tables_ms=t_ms)
+        return err, t_err
 
     real_select = tdrift.select_from_pool_batch
     selections = []         # (sel_a, sel_ps, histograms) of each swap pass
@@ -1488,7 +1630,8 @@ def main(argv=None) -> int:
         selections.append((sel_a, sel_ps, hists.clone()))
         return real_select(sel_a, sel_ps, hists, eps)
 
-    errs_c = {"dynamic_lookup": 0, "dynamic_range": 0, "ksdist": 0}
+    errs_c = {"dynamic_lookup": 0, "dynamic_range": 0, "ksdist": 0,
+              "ksdist_tables": 0}
     reset_counters()
     ops.reset_seam()
     for mode in ("swap", "refit-only"):
@@ -1560,15 +1703,15 @@ def main(argv=None) -> int:
             raise AssertionError(f"path C {mode}: live count {d.live_count}")
         if mode == "swap":
             tdrift.select_from_pool_batch = real_select
-            errs_c["ksdist"] = uncounted(functools.partial(
-                compare_k7_c, selections))
+            errs_c["ksdist"], errs_c["ksdist_tables"] = uncounted(
+                functools.partial(compare_k7_c, selections))
             selections.clear()
         del d.maybe_swap                # break the probe's cycle
         del ix, d, probe, live, q, lo, hi
         gc.collect()
         torch.cuda.empty_cache()
     launches_c = counters()
-    for k in ("dynamic_lookup", "dynamic_range", "ksdist"):
+    for k in ("dynamic_lookup", "dynamic_range", "ksdist", "ksdist_tables"):
         if launches_c[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on path C: "
                                  f"{launches_c}")
@@ -1576,7 +1719,8 @@ def main(argv=None) -> int:
         rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], errs_c[k])
     print(f"  path C launches {launches_c}; K2, K3 (every phase's end, both "
           f"modes) and K7 (every swap pass) equal their plain versions on "
-          f"path C's inputs bit for bit (tolerance 0): {errs_c}")
+          f"path C's inputs bit for bit (tolerance 0; K7's table kernel "
+          f"too): {errs_c}")
     print_seam()
 
     # ---- phase 7: K6 and K5 through ops on path C's keys, counted ----------
@@ -1615,17 +1759,43 @@ def main(argv=None) -> int:
           f"{float(h_batch[0]):.6f}")
     xs = ops.standardize(keys)[0].to(torch.float32)
     ys = ops.standardize(posn)[0].to(torch.float32)
-    got = tlinfit.linfit_sums(xs, ys, buckets, L)
-    want = tlinfit.linfit_sums_plain(xs, ys, buckets, L)
-    mag = tlinfit.linfit_sums_plain(xs.abs(), ys.abs(), buckets, L)
-    torch.cuda.synchronize()
-    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
-    diff = (got - want).abs()
-    if not bool((diff <= ulp).all()):
-        raise AssertionError(f"K5 sums beyond one f32 ulp of their magnitude"
-                             f" at {int((diff > ulp).sum())} entries")
-    errs["linfit"] = float(diff.max())
-    del got, want, mag, ulp, diff
+
+    def check_k5(bk, what):
+        """K5's sums within one f32 ulp of each sum's magnitude (counts
+        exact); returns max |diff| and the kernel's ms."""
+        got = tlinfit.linfit_sums(xs, ys, bk, L)
+        want = tlinfit.linfit_sums_plain(xs, ys, bk, L)
+        mag = tlinfit.linfit_sums_plain(xs.abs(), ys.abs(), bk, L)
+        torch.cuda.synchronize()
+        ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+        diff = (got - want).abs()
+        if not bool((diff <= ulp).all()):
+            raise AssertionError(f"K5 ({what}) sums beyond one f32 ulp of "
+                                 f"their magnitude at "
+                                 f"{int((diff > ulp).sum())} entries")
+        _check_equal(f"K5 ({what}) counts", got[:, 0], want[:, 0])
+        return float(diff.max()), _event_ms(
+            lambda: tlinfit.linfit_sums(xs, ys, bk, L), 3, warmup=1)
+
+    errs["linfit"], _ = check_k5(buckets, "the RMI's leaf buckets")
+    # the worst contention, every key a run of its own, and a run across
+    # every edge of the kernel's 4,096-key blocks
+    ar = torch.arange(n, device=dev)
+    k5_cases = {
+        "all keys in one bucket": torch.zeros_like(buckets),
+        "buckets permuted": buckets[torch.randperm(n, device=dev,
+                                                   generator=g)],
+        "runs across every block edge": ((ar + 2048) // 4096 % L).to(
+            torch.int32)}
+    del ar
+    k5_ms = {}
+    for what, bk in k5_cases.items():
+        e, k5_ms[what] = check_k5(bk, what)
+        errs["linfit"] = max(errs["linfit"], e)
+    del k5_cases, bk
+    print(f"  K5 on the other bucket layouts, within one f32 ulp of the "
+          f"magnitude, counts exact; kernel ms: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in k5_ms.items()))
     p64 = trmi.segment_linear_fit_sorted(keys, buckets, L)
     cmp, bound = _pass1_bound(ops, trmi, keys, posn, buckets, L, p64.a)
     rel = ((fit[:, 0] - p64.a).abs() / p64.a.abs())[cmp]
@@ -1682,6 +1852,9 @@ def main(argv=None) -> int:
                             device=dev).index_add_(0, bl, feats),
         [(n * 12 + L * 5 * 4, n * 12)], launches_7["linfit"],
         errs["linfit"], reps=20, plain_reps=3)
+    print(f"  K5 at n={n}: {rows['linfit']['ms']:.6f} ms (previous design "
+          f"{K5_PREVIOUS_MS:.6f} ms, PERF.md; not re-run), bound "
+          f"{rows['linfit']['bound_ms']:.6f} ms")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  shapes: K6 n={n} m=64, drift batch {batch}; K5 n={n} buckets="
           f"{L}; peak memory allocated {peak:.3f} GiB; wall "

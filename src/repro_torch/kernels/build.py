@@ -39,6 +39,7 @@ SIGNATURES = {
         "repro_rmrt_lookup": (P, I, P, P, I, I, I, I, P, I, F, F, I, P, P),
     },
     "ksdist": {
+        "repro_ksdist_tables": (P, I, I, I, P, P, P),
         "repro_ksdist": (P, P, I, P, P, I, I, P, P),
     },
     "hist": {

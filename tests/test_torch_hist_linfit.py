@@ -156,8 +156,10 @@ def test_segment_linfit_empty_bucket():
 @pytest.mark.gpu
 def test_cuda_k5_k6_match_plain():
     """K6 bit for bit and K5 within one f32 ulp of each sum's magnitude
-    against their plain versions on the card, sorted and unsorted buckets
-    (the full-size check is chip_smoke.py)."""
+    (counts exact) against their plain versions on the card: sorted,
+    unsorted and one-bucket keys, runs across the kernel's block edges,
+    misaligned slices and no keys (the full-size check is
+    chip_smoke.py)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(8)
@@ -171,17 +173,37 @@ def test_cuda_k5_k6_match_plain():
         assert torch.equal(got.cpu(), thist.hist_plain(k, m, 0.5, 20.0))
     assert thist.LAUNCHES["hist"] == h0 + 4
     x, y, b = _linfit_inputs(200_003, 777, seed=9)
-    cases = [(b, "sorted")]
-    cases.append((rng.permutation(b), "unsorted"))
+    n = b.shape[0]
     xs = torch.from_numpy(x.astype(np.float32)).cuda()
     ys = torch.from_numpy((y / y.max()).astype(np.float32)).cuda()
+    # (x, y, buckets, what): n = 200,003 is not a multiple of 4; runs of
+    # 4,096 keys straddle every block edge of the kernel's 4,096-key blocks;
+    # x[1:] with y and buckets sliced alike takes the 128-bit loads one key
+    # later, with them copied (another alignment) the scalar loads
+    edges = ((np.arange(n) + 2048) // 4096 % 777).astype(np.int32)
+    cases = [(xs, ys, b, "sorted"), (xs, ys, rng.permutation(b), "unsorted"),
+             (xs, ys, np.zeros(n, np.int32), "one bucket"),
+             (xs, ys, edges, "runs across block edges")]
     l0 = tlinfit.LAUNCHES["linfit"]
-    for bb, what in cases:
+    for xc, yc, bb, what in cases:
         bt = torch.from_numpy(bb).cuda()
-        got = tlinfit.linfit_sums(xs, ys, bt, 777)
-        want = tlinfit.linfit_sums_plain(xs, ys, bt, 777)
-        mag = tlinfit.linfit_sums_plain(xs.abs(), ys.abs(), bt, 777)
-        torch.cuda.synchronize()
-        ulp = torch.nextafter(mag, torch.full_like(mag, np.inf)) - mag
-        assert bool(((got - want).abs() <= ulp).all()), what
-    assert tlinfit.LAUNCHES["linfit"] == l0 + 2
+        _assert_k5_within_ulp(xc, yc, bt, what)
+        _assert_k5_within_ulp(xc[1:], yc[1:], bt[1:], what + ", x[1:]")
+        _assert_k5_within_ulp(xc[1:], yc[1:].clone(), bt[1:].clone(),
+                              what + ", x[1:] alone misaligned")
+    assert tlinfit.LAUNCHES["linfit"] == l0 + 3 * len(cases)
+    empty = torch.zeros(0, dtype=torch.float32, device="cuda")
+    got = tlinfit.linfit_sums(empty, empty, empty.int(), 777)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), torch.zeros((777, 5)))
+    assert tlinfit.LAUNCHES["linfit"] == l0 + 3 * len(cases)
+
+
+def _assert_k5_within_ulp(xs, ys, bt, what):
+    got = tlinfit.linfit_sums(xs, ys, bt, 777)
+    want = tlinfit.linfit_sums_plain(xs, ys, bt, 777)
+    mag = tlinfit.linfit_sums_plain(xs.abs(), ys.abs(), bt, 777)
+    torch.cuda.synchronize()
+    ulp = torch.nextafter(mag, torch.full_like(mag, np.inf)) - mag
+    assert bool(((got - want).abs() <= ulp).all()), what
+    assert torch.equal(got[:, 0], want[:, 0]), what

@@ -309,3 +309,44 @@ def test_cuda_mlp_kernels_and_k7_match_plain():
     assert all(tlk.LAUNCHES[k] == before[k] + 1 for k in
                ("lookup", "dynamic_lookup", "dynamic_range"))
     assert tks.LAUNCHES["ksdist"] == k7 + 1
+    # K7 over bin counts on either side of a 16-bin block and of the 64
+    # bins a pass stages, L and P not multiples of the 128 x 64 tile, P = 1,
+    # f32 and f64 targets, NaN in a target row and in a pool row (the f32
+    # path), an empty target and pool row (an output of +0, recomputed on
+    # the integer path), a negated row and an infinite one; each call is
+    # one table and one distance launch
+    for m in (1, 17, 64, 257):
+        for L, P in ((1000, 300), (1, 1), (129, 65), (300, 1)):
+            ph = torch.tensor(rng.random((P, m)) ** 3).cuda()
+            ph /= ph.sum(1, keepdim=True)
+            th = torch.tensor(rng.random((L, m)) ** 3).cuda()
+            th /= th.sum(1, keepdim=True)
+            edge = th.clone()
+            edge[0] = 0.0
+            if L > 3 and P > 2 and m > 5:
+                th[3, 5] = float("nan")
+                ph[2, m - 1] = float("nan")
+                edge[1] *= -1.0
+                edge[2, 1] = float("inf")
+            pa, pps = treuse.pool_prefix_tables(ph)
+            if P > 1:
+                pa[0], pps[0] = 0.0, 0.0
+            for h in (th, th.float(), edge):
+                before = dict(tks.LAUNCHES)
+                got = tks.ksdist(h, pa, pps)
+                assert tks.LAUNCHES["ksdist"] == before["ksdist"] + 1
+                assert tks.LAUNCHES["ksdist_tables"] == \
+                    before["ksdist_tables"] + 1
+                want = tks.ksdist_plain(h, pa, pps)
+                ta, pt = tks.tables(h)
+                wa, wp = tks.target_tables(h)
+                torch.cuda.synchronize()
+                what = (m, L, P, h.dtype)
+                assert torch.equal(got.isnan(), want.isnan()), what
+                assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0)), \
+                    what
+                for g, w in ((ta, wa), (pt, wp)):
+                    assert torch.equal(g.isnan(), w.isnan()), what
+                    assert torch.equal(g.nan_to_num(0.0).view(torch.int32),
+                                       w.nan_to_num(0.0).view(torch.int32)), \
+                        what
