@@ -11,8 +11,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. Build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc, one
    process per source, and print what ``-Xptxas -v`` reports (registers,
-   shared memory, spills) per entry point; fail on any spill in K5's or
-   K7's library.
+   shared memory, spills) per entry point; fail on any spill in the
+   lookup library (K1-K4), K5's or K7's.
 2. Path A, the single-host dynamic index with linear models, through the
    entry points a user calls, with every launch counter set to 0 just
    before and read just after: a static ``build_rmi`` + ``rmi.lookup``
@@ -21,7 +21,13 @@ Phases (any failure exits non-zero; nothing is caught):
    that a Lemma 4.1 rebuild runs) -> ``delete`` (1M) -> ``find`` ->
    ``find_range``.
 3. K1-K3 (linear) against their plain versions, bit for bit after
-   ``torch.cuda.synchronize()``, and timed.
+   ``torch.cuda.synchronize()``, and timed; K2 and K3 also on planted edges
+   beside the path's queries (``_k23_edges``): queries routed to leaves
+   given an empty leaf's sentinel full-array window, the search depth cut
+   by 8, delta tiers of 128, 1,152, 4,095, 4,224 and 2^21 entries with
+   duplicates across the keys of the delta probe's first 12 levels,
+   queries equal to those keys, +-0, +-inf and NaN, and both tiers as
+   views that start inside a 32-byte sector.
 4. Path B, the paper's lazy path, counted the same way: ``generate_pool``
    (1,221 datasets at eps 0.9) -> ``build_pool`` (MLP and linear, on the
    card) -> RMI-NN-MR (``build_rmi(kind="mlp", pool=...)``, pool selection
@@ -30,7 +36,8 @@ Phases (any failure exits non-zero; nothing is caught):
    narrow insert's rebuilds re-select from the pool through K7) -> RMRT
    (``build_rmrt(kind="linear", pool=...)``) + ``rmrt.lookup`` (K4).
 5. K1-K3 (MLP leaves), K4 and K7 against their plain versions, bit for
-   bit, and timed; K7 is checked on all of the pooled build's (f64) leaf
+   bit, and timed (K2 and K3 also on phase 3's planted edges); K7 is
+   checked on all of the pooled build's (f64) leaf
    histograms, on the same rows in f32 and with NaN in a target row and
    two pool rows (NaN in the same places), and timed on ``SELECT_CHUNK``
    of them, the shape of one call in ``select_from_pool_batch``: the
@@ -118,11 +125,13 @@ PyTorch call computing the same function (``torch.searchsorted``; an f32
 nor for K6, whose bins ``torch.histc`` closes on the other side), beside
 the least time the card could take (``bound_ms``) for the bytes and
 operations this run's inputs need, the operations at the f32 rate (at the
-bf16 tensor-core rate for K8's prefill tile).  A row's ``launches`` add
+bf16 tensor-core rate for K8's prefill tile); K1-K4 rows add
+``bound_sector_ms``, the same bound with the bytes counted as the distinct
+32-byte sectors the searches and table gathers touch.  A row's ``launches`` add
 up every path that launches that instantiation (K1 linear: paths A and
-D; K2/K3 linear: A and C; K7 and its table kernel: B and C).  K5's and
-K7's rows are printed beside their previous designs' times from
-``PERF.md`` (not re-run).
+D; K2/K3 linear: A and C; K7 and its table kernel: B and C).  K2's, K3's,
+K5's and K7's rows are printed beside their previous designs' times from
+``PERF.md`` (not re-run; not in the JSON line).
 Keys are lognormal float32 values drawn on the card from ``--seed`` and
 sorted there.  Every answer of path C is held against the truth too.  The
 last lines printed are the kernels' JSON line (K1-K3 a row per
@@ -143,6 +152,7 @@ import argparse
 import dataclasses
 import functools
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -188,11 +198,22 @@ REPLACES = {
     "flash_decode": "src/repro/kernels/flash.py:73",
 }
 BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
-# The previous designs of K5 and K7 (PERF.md section 6, NVIDIA H100 80GB
-# HBM3, 700 W), printed beside this run's times, not re-run: K5 at 2e8 keys,
-# K7's wrapper call at 16,384 rows and P = 1,221 (path B) or 306 (path C)
+# The previous designs of K2, K3, K5 and K7 (PERF.md section 6, NVIDIA H100
+# 80GB HBM3, 700 W), printed beside this run's times, not re-run: K5 at 2e8
+# keys, K7's wrapper call at 16,384 rows and P = 1,221 (path B) or 306
+# (path C)
 K5_PREVIOUS_MS = 3.642910
 K7_PREVIOUS_MS = {1221: 0.684313, 306: 0.501372}
+# K2 and K3 at 2^20 queries / 2^18 pairs over 200M keys, linear and MLP
+# leaves (their rows of the kernels line)
+K2_PREVIOUS_MS = {"dynamic_lookup": 0.193015, "dynamic_lookup_mlp": 0.303149}
+K3_PREVIOUS_MS = {"dynamic_range": 0.101724, "dynamic_range_mlp": 0.154133}
+# The planted K2/K3 edges: delta tiers of these sizes (the first levels of
+# the delta probe's implicit tree hold 2^12 - 1 keys), queries equal to the
+# keys those levels visit, and the search depth cut by this many trips
+EDGE_DELTA_SIZES = (128, 1152, 4095, 4224, 1 << 21)
+EDGE_TREE_LEVELS = 12
+EDGE_ITERS_CUT = 8
 LM_ARCH = "qwen3-4b"           # path D's model, in its one-card form
 LM_REQUESTS = 4                # packed page keys below 2^24: K1 serves them
 LM_PROMPT_LEN = 2048           # prompt tokens a request
@@ -250,8 +271,9 @@ def _check_equal(what, got, want):
 
 
 def _probe_bytes(keys, q, lo, hi, iters: int, right: bool) -> tuple:
-    """Distinct key positions a window search of these queries reads, and
-    its active iterations (the data-dependent work of this run)."""
+    """Bytes of the distinct key positions a window search of these queries
+    reads, its active iterations (the data-dependent work of this run), and
+    the bytes of the distinct 32-byte sectors holding those positions."""
     import torch
     n = keys.shape[0]
     l, h = lo.clone(), hi.clone()
@@ -266,7 +288,9 @@ def _probe_bytes(keys, q, lo, hi, iters: int, right: bool) -> tuple:
         below = kv <= q if right else kv < q
         l = torch.where(active & below, mid + 1, l)
         h = torch.where(active & ~below, mid, h)
-    return int(torch.unique(torch.cat(seen)).numel()) * 4, steps
+    pos = torch.unique(torch.cat(seen))
+    sectors = torch.unique((pos + keys.data_ptr() // 4) >> 3)
+    return int(pos.numel()) * 4, steps, int(sectors.numel()) * 32
 
 
 def _bound(parts) -> tuple:
@@ -278,6 +302,13 @@ def _bound(parts) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _sector_bound(parts) -> float:
+    """The bound with each part's bytes counted as whole 32-byte sectors
+    (the third entry of a part): the memory system moves sectors, and a
+    search reads one scattered sector for each 4-byte key it compares."""
+    return _bound([(p[2], p[1]) for p in parts])[0]
+
+
 def _search_work(tlk, tables, keys, q, *, n_leaves, route_n, iters, right,
                  root_kind="linear", leaf_kind="linear"):
     """Bytes and operations one endpoint's base search needs: the query in,
@@ -287,24 +318,28 @@ def _search_work(tlk, tables, keys, q, *, n_leaves, route_n, iters, right,
     lo, hi = tlk.route_window(q, root, mat, vec, n_keys=keys.shape[0],
                               n_leaves=n_leaves, route_n=route_n,
                               root_kind=root_kind, leaf_kind=leaf_kind)
-    kb, steps = _probe_bytes(keys, q, lo, hi, iters, right)
+    kb, steps, ks = _probe_bytes(keys, q, lo, hi, iters, right)
     b = tlk.route_bucket(q, root, n_leaves=n_leaves, route_n=route_n,
                          root_kind=root_kind)
-    # bytes read per leaf: a, b, err_lo, err_hi; or w1, b1, w2 (H each),
-    # b2, err_lo, err_hi
-    row = 4 * (4 if leaf_kind == "linear" else 3 * tlk.H + 3)
-    rows = int(torch.unique(b).numel()) * row
+    # words read per leaf: a, b, err_lo, err_hi; or w1, b1, w2 (H each),
+    # b2, err_lo, err_hi -- each in a lane-major row of its own, so a leaf
+    # touches one sector of each row
+    words = 4 if leaf_kind == "linear" else 3 * tlk.H + 3
+    rows = int(torch.unique(b).numel()) * words * 4
+    row_sectors = int(torch.unique(b >> 3).numel()) * words * 32
     nq = q.shape[0]
     flops = 12 if leaf_kind == "linear" else 40
-    return nq * 8 + rows + kb + 8, nq * flops + 2 * steps
+    return (nq * 8 + rows + kb + 8, nq * flops + 2 * steps,
+            nq * 8 + row_sectors + ks + 32)
 
 
 def _delta_work(tlk, dk, q, right):
     import torch
     lo = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
     hi = torch.full(q.shape, dk.shape[0], dtype=torch.int32, device=q.device)
-    kb, steps = _probe_bytes(dk, q, lo, hi, tlk.full_iters(dk.shape[0]), right)
-    return q.shape[0] * 4 + kb, 2 * steps
+    kb, steps, ks = _probe_bytes(dk, q, lo, hi, tlk.full_iters(dk.shape[0]),
+                                 right)
+    return q.shape[0] * 4 + kb, 2 * steps, q.shape[0] * 4 + ks
 
 
 def _rmrt_work(tlk, tree, q):
@@ -330,10 +365,13 @@ def _rmrt_work(tlk, tree, q):
     lo, hi = tlk.rmrt_route_window(q, mat, vec, n_keys=tree.n,
                                    fanout=tree.fanout, depth=tree.depth,
                                    kind=tree.kind)
-    kb, steps = _probe_bytes(tree.keys_f32, q, lo, hi, tree.search_iters,
-                             False)
+    kb, steps, ks = _probe_bytes(tree.keys_f32, q, lo, hi, tree.search_iters,
+                                 False)
     nq = q.shape[0]
-    return nq * 8 + nodes * 32 + kb, nq * 8 * (tree.depth + 1) + 2 * steps
+    # 8 lane-major rows of node words: one sector of each row a node group
+    node_sectors = int(torch.unique(torch.cat(seen) >> 3).numel()) * 8 * 32
+    return (nq * 8 + nodes * 32 + kb, nq * 8 * (tree.depth + 1) + 2 * steps,
+            nq * 8 + node_sectors + ks)
 
 
 def _time_row(name, kern, plain, lib, parts, launches, err, reps=50,
@@ -341,18 +379,27 @@ def _time_row(name, kern, plain, lib, parts, launches, err, reps=50,
     """Kernel, plain, library, kernel: the two kernel turns bracket the
     others on the same card.  Returns the JSON row."""
     bound_ms, bound_by = _bound(parts)
+    sector_ms = _sector_bound(parts) if len(parts[0]) > 2 else None
     k1 = _event_ms(kern, reps)
     p_ms = _event_ms(plain, plain_reps, warmup=1)
     l_ms = _event_ms(lib, reps) if lib is not None else None
     k2 = _event_ms(kern, reps)
     lib_txt = f"{l_ms:.6f} ms" if l_ms is not None else "none"
+    prev = {**K2_PREVIOUS_MS, **K3_PREVIOUS_MS}.get(name)
     print(f"  {name}: kernel {k1:.6f} / {k2:.6f} ms, plain {p_ms:.6f} ms, "
-          f"library {lib_txt}, bound {bound_ms:.6f} ms ({bound_by}); "
-          f"launches on the main paths {launches}")
-    return dict(name=name, route="cuda", source=SOURCES[name],
-                replaces=REPLACES[name], launches=launches, max_abs_err=err,
-                ms=(k1 + k2) / 2, plain_ms=p_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=l_ms)
+          f"library {lib_txt}, bound {bound_ms:.6f} ms ({bound_by})"
+          + (f", bound over whole sectors {sector_ms:.6f} ms"
+             if sector_ms is not None else "")
+          + (f"; previous design {prev:.6f} ms (PERF.md, not re-run)"
+             if prev is not None else "")
+          + f"; launches on the main paths {launches}")
+    row = dict(name=name, route="cuda", source=SOURCES[name],
+               replaces=REPLACES[name], launches=launches, max_abs_err=err,
+               ms=(k1 + k2) / 2, plain_ms=p_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=l_ms)
+    if sector_ms is not None:
+        row["bound_sector_ms"] = sector_ms
+    return row
 
 
 class _Stages:
@@ -538,6 +585,92 @@ def _compare(name, kern, plain):
         err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
         _check_equal(f"{name} kernel vs plain [{i}]", a, b)
     return int(err) if float(err).is_integer() else err
+
+
+def _tree_positions(n: int, levels: int) -> list:
+    """Positions the first ``levels`` levels of a full-depth binary search
+    of ``n`` entries visit: its implicit tree, in level order."""
+    pos, frontier = [], [(0, n)]
+    for _ in range(levels):
+        nxt = []
+        for lo, hi in frontier:
+            if hi > lo:
+                mid = (lo + hi) >> 1
+                pos.append(mid)
+                nxt += [(lo, mid), (mid + 1, hi)]
+        frontier = nxt
+    return pos
+
+
+def _k23_edges(tlk, tabs, keys, live, qf, lof, hif, kw, g, what):
+    """K2 and K3 against their plain versions, bit for bit, on planted
+    edges at full size: queries routed to empty leaves (the leaves of 64
+    queries get the sentinel bounds +-n of an empty leaf in a copy of the
+    tables, a full-array window the static depth does not converge), the
+    depth cut by EDGE_ITERS_CUT, delta tiers of EDGE_DELTA_SIZES entries (a
+    sorted draw of live keys, each key of the probe's first EDGE_TREE_LEVELS
+    levels repeated at the next position, the last eighth +inf), queries
+    equal to those keys, +-0, +-inf and NaN, and the largest tier also with
+    both tiers as views that start inside a 32-byte sector; every case
+    beside the path's own 2^20 queries and 2^18 pairs.  Returns the largest
+    |kernel - plain|."""
+    import torch
+    dev = qf.device
+    root, mat, vec = tabs
+    live = live.to(torch.float32)
+    head = qf[:4096]
+    leaf = tlk.route_bucket(head, root, n_leaves=kw["n_leaves"],
+                            route_n=kw["route_n"],
+                            root_kind=kw.get("root_kind", "linear"))
+    empty = torch.unique(leaf[:64])
+    vec = vec.clone()
+    vec[1, empty.long()] = -float(live.numel())
+    vec[2, empty.long()] = float(live.numel())
+    tabs = (root, mat, vec)
+    q_empty = head[torch.isin(leaf, empty)]
+    specials = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                             float("nan")], device=dev)
+    err, cases = 0, 0
+    for size in EDGE_DELTA_SIZES:
+        nf = size - size // 8
+        x = torch.sort(live[torch.randint(0, live.numel(), (nf,), device=dev,
+                                          generator=g)]).values
+        pos = torch.tensor(_tree_positions(size, EDGE_TREE_LEVELS),
+                           device=dev)
+        dup = pos[pos + 1 < nf]
+        x[dup + 1] = x[dup]
+        dk = torch.cat([x, torch.full((size - nf,), float("inf"),
+                                      device=dev)])
+        planted = torch.cat([q_empty, dk[pos], specials])
+        q = torch.cat([qf, planted])
+        lo, hi = torch.cat([lof, planted]), torch.cat([hif, planted])
+        # the largest tier also as views that start inside a 32-byte
+        # sector and end in a tail that is not a whole sector
+        tiers = [(keys, dk)] + ([(keys[1:], dk[3:])]
+                                if size == EDGE_DELTA_SIZES[-1] else [])
+        for (kt, dt), cut in itertools.product(tiers, (0, EDGE_ITERS_CUT)):
+            kwc = dict(kw, iters=kw["iters"] - cut)
+            for name, kern, plain in (
+                    ("K2", lambda: tlk.dynamic_lookup(q, *tabs, kt, dt,
+                                                      **kwc),
+                     lambda: tlk.dynamic_lookup_plain(q, *tabs, kt, dt,
+                                                      **kwc)),
+                    ("K3", lambda: tlk.dynamic_range(lo, hi, *tabs, kt, dt,
+                                                     **kwc),
+                     lambda: tlk.dynamic_range_plain(lo, hi, *tabs, kt, dt,
+                                                     **kwc))):
+                err = max(err, _compare(
+                    f"{name} {what} (delta {dt.shape[0]}, keys "
+                    f"{kt.shape[0]}, iters {kwc['iters']})", kern, plain))
+                cases += 1
+    print(f"  K2/K3 ({what}) equal their plain versions bit for bit on "
+          f"{cases} planted cases: {q_empty.numel()} queries routed to "
+          f"empty leaves, iters {kw['iters']} and "
+          f"{kw['iters'] - EDGE_ITERS_CUT}, delta tiers of "
+          f"{list(EDGE_DELTA_SIZES)} entries with queries equal to the keys "
+          f"of their first {EDGE_TREE_LEVELS} probe levels, +-0, +-inf, NaN;"
+          f" the largest also with both tiers as unaligned views")
+    return err
 
 
 def _flash_work(q, k, q_offset: int, kv_valid: int) -> tuple:
@@ -1022,9 +1155,9 @@ def main(argv=None) -> int:
                                        "spill", "smem", "arning",
                                        "Performance")):
                 print(f"  ptxas[{name}] {line.strip()}")
-    # K5 and K7 were designed to keep their register blocks out of local
-    # memory: no spills
-    for name in ("ksdist", "linfit"):
+    # K2/K3, K5 and K7 were designed to keep their register state (chains
+    # and sectors, register blocks) out of local memory: no spills
+    for name in ("lookup", "ksdist", "linfit"):
         if name not in reports:
             print(f"  {name}: not rebuilt now, spills not checked")
         elif _spills(reports[name]):
@@ -1253,6 +1386,9 @@ def main(argv=None) -> int:
                      _delta_work(tlk, dk, hif, right=True)]),
     }
     errs = {n: _compare(n, k, p) for n, (k, p, _, _) in calls_a.items()}
+    e = _k23_edges(tlk, d_tabs, dkf, live, qf, lof, hif, dkw, g, "linear")
+    for nm in ("dynamic_lookup", "dynamic_range"):
+        errs[nm] = max(errs[nm], e)
     print(f"phase 3: K1-K3 (linear) equal their plain versions bit for bit "
           f"(tolerance 0): {errs}")
     for nm, (k, p, lib, work) in calls_a.items():
@@ -1442,6 +1578,10 @@ def main(argv=None) -> int:
                       2 * hc.numel())]),
     }
     errs = {nm: _compare(nm, k, p) for nm, (k, p, _, _) in calls_b.items()}
+    e = _k23_edges(tlk, d_tabs, dkf, live, qf, lof, hif, dkw, g,
+                   "MLP leaves")
+    for nm in ("dynamic_lookup", "dynamic_range"):
+        errs[nm] = max(errs[nm], e)
     errs["ksdist"] = max(errs["ksdist"], _compare(
         "ksdist (full L)", lambda: (tks.ksdist(hists, sel_a, sel_ps),),
         lambda: (tks.ksdist_plain(hists, sel_a, sel_ps),)))

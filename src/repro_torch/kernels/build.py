@@ -33,7 +33,7 @@ SIGNATURES = {
     "lookup": {
         "repro_lookup": (P, I, P, P, P, I, I, F, P, I, F, F, I, I, I, P, P),
         "repro_dynamic_lookup": (P, I, P, P, P, I, I, F, P, I, F, F, I,
-                                 I, I, P, I, I, P, P, P),
+                                 I, I, P, P, I, I, P, P, P),
         "repro_dynamic_range": (P, P, I, P, P, P, I, I, F, P, I, F, F, I,
                                 I, I, P, I, I, P, P, P, P, P),
         "repro_rmrt_lookup": (P, I, P, P, I, I, I, I, P, I, F, F, I, P, P),
@@ -70,21 +70,39 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def _target(name: str, src: Path | None = None) -> Path:
+    src = CSRC / f"{name}.cu" if src is None else Path(src)
+    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                         ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
-def _start(name: str, nvcc: str):
-    """Start one nvcc build into a temporary file beside the target."""
+def _start(src: Path, nvcc: str):
+    """Start one nvcc build of ``src`` into a temporary file in BUILD_DIR."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     proc = subprocess.Popen(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+        [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp
+
+
+def _finish(jobs: dict) -> dict[str, str]:
+    """Wait for ``{key: ((proc, tmp), target)}``; move each build to its
+    target; raise if any failed.  Returns nvcc's output per key."""
+    failed, reports = [], {}
+    for key, ((proc, tmp), target) in jobs.items():
+        out, _ = proc.communicate()
+        reports[key] = out
+        if proc.returncode != 0:
+            failed.append(f"{key}:\n{out}")
+            Path(tmp).unlink(missing_ok=True)
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return reports
 
 
 def build_all(names=tuple(SIGNATURES)) -> dict[str, str]:
@@ -95,19 +113,20 @@ def build_all(names=tuple(SIGNATURES)) -> dict[str, str]:
     if not todo:
         return {}
     nvcc = _nvcc()
-    jobs = {n: _start(n, nvcc) for n in todo}
-    failed, reports = [], {}
-    for n, (proc, tmp) in jobs.items():
-        out, _ = proc.communicate()
-        reports[n] = out
-        if proc.returncode != 0:
-            failed.append(f"{n}:\n{out}")
-            Path(tmp).unlink(missing_ok=True)
-        else:
-            os.replace(tmp, _target(n))
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return reports
+    return _finish({n: (_start(CSRC / f"{n}.cu", nvcc), _target(n))
+                    for n in todo})
+
+
+def build_sources(name: str, sources: dict) -> dict:
+    """Build other sources of library ``name`` side by side, for
+    measurements (an earlier design, say): ``{key: path}`` -> ``{key:
+    (library, nvcc's report)}``, each bound with ``name``'s signatures, so
+    each source must have ``name``'s C interface."""
+    nvcc = _nvcc()
+    reports = _finish({key: (_start(Path(src), nvcc), _target(name, src))
+                       for key, src in sources.items()})
+    return {key: (_bind(ctypes.CDLL(str(_target(name, src))), name),
+                  reports[key]) for key, src in sources.items()}
 
 
 def sass(name: str) -> str:
@@ -125,12 +144,16 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn, argtypes in SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
-        _LIBS[name] = lib
+        lib = _LIBS[name] = _bind(ctypes.CDLL(str(_target(name))), name)
+    return lib
+
+
+def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Set argtypes and restype on every entry point of library ``name``."""
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
     return lib
 
 

@@ -352,6 +352,16 @@ def _table_args(root, mat, vec, keys, *, n_leaves, route_n, iters,
             int(leaf_kind == "mlp"))
 
 
+def leaf_rows(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+    """Leaf-major copy of packed MLP leaf tables for K2: (Lp, 16) f32, one
+    64-byte row a leaf holding w1, b1, w2 (H each), b2, err_lo, err_hi and
+    a zero pad, in a fresh (so 16-byte aligned) allocation.  Built at each
+    call: the kernel then reads a leaf's 15 parameters from two 32-byte
+    sectors instead of 15."""
+    return torch.cat([mat.T, vec[:3].T, torch.zeros_like(vec[:1].T)],
+                     1).contiguous()
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -405,10 +415,13 @@ def dynamic_lookup(queries, root, mat, vec, keys, delta_keys, *,
     dout = torch.empty_like(out)
     nq, nd = queries.shape[0], delta_keys.shape[0]
     if nq:
+        # MLP leaves are read from leaf-major rows, linear ones lane-major
+        rows = leaf_rows(mat, vec) if leaf_kind == "mlp" else None
         rc = build.library("lookup").repro_dynamic_lookup(
             queries.data_ptr(), nq,
             *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
                          route_n=route_n, iters=iters, **kinds),
+            None if rows is None else rows.data_ptr(),
             delta_keys.data_ptr(), nd, full_iters(nd), out.data_ptr(),
             dout.data_ptr(), _stream(queries))
         build.check(rc, "dynamic_lookup")

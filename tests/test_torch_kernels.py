@@ -192,7 +192,10 @@ def test_window_clamp_rounds_to_f32():
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain():
     """Each CUDA kernel against its plain version on the card, bit for
-    bit, at a small size (the full-size check is chip_smoke.py)."""
+    bit, at a small size (the full-size check is chip_smoke.py); K2 and K3
+    also with the search depth cut by 3 and by 8 (windows that do not
+    converge) and on a second delta tier of 4,224 entries (more than the
+    delta probe's first 12 levels visit, not a power of two)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     d, q = _churned("lognormal", seed=5)
@@ -212,9 +215,73 @@ def test_cuda_kernels_match_plain():
         (tlk.dynamic_range(cuda(q), cuda(hi), *tabs, kf, dk, **kw),
          tlk.dynamic_range_plain(cuda(q), cuda(hi), *tabs, kf, dk, **kw)),
     ]
+    rng = np.random.default_rng(6)
+    dk2 = tlk.pad_delta(torch.sort(cuda(rng.choice(idx.keys[:4096], 4100)))
+                        .values)
+    assert dk2.shape[0] == 4224
+    cut = [dict(kw, iters=idx.search_iters - c) for c in (3, 8)]
+    for dkx, kwx in ((dk, cut[0]), (dk, cut[1]), (dk2, kw), (dk2, cut[0])):
+        pairs += [
+            (tlk.dynamic_lookup(cuda(q), *tabs, kf, dkx, **kwx),
+             tlk.dynamic_lookup_plain(cuda(q), *tabs, kf, dkx, **kwx)),
+            (tlk.dynamic_range(cuda(q), cuda(hi), *tabs, kf, dkx, **kwx),
+             tlk.dynamic_range_plain(cuda(q), cuda(hi), *tabs, kf, dkx,
+                                     **kwx))]
     torch.cuda.synchronize()
     for got, want in pairs:
         for g, w in zip(got, want, strict=True):
             assert torch.equal(g, w)
-    assert all(tlk.LAUNCHES[k] == before[k] + 1
-               for k in ("lookup", "dynamic_lookup", "dynamic_range"))
+    assert tlk.LAUNCHES["lookup"] == before["lookup"] + 1
+    assert all(tlk.LAUNCHES[k] == before[k] + 5
+               for k in ("dynamic_lookup", "dynamic_range"))
+
+
+@pytest.mark.gpu
+def test_cuda_k2_k3_on_unaligned_views():
+    """K2 and K3 against their plain versions on the card, bit for bit, when
+    both key tiers are views that start inside a 32-byte sector and end in
+    a tail that is not a whole sector (a window's sector is loaded whole
+    only when it lies inside the tier), with linear and with MLP leaves
+    (K2 reads those from leaf-major rows), at full and at cut depth."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d, q = _churned("uniform", seed=7)
+    idx = d.index
+    root, mat, vec = idx.packed_tables()
+    cuda = lambda a: _t32(a).cuda()
+    kf, dk = cuda(idx.keys), tlk.pad_delta(cuda(d.delta_keys))
+    # MLP leaves predicting the position from the key span, with windows of
+    # 2 to 40 keys and every fifth leaf given an empty leaf's +-S window
+    rng = np.random.default_rng(8)
+    S, k0 = kf.shape[0], float(idx.keys[0])
+    span = float(idx.keys[-1]) - k0
+    ones = torch.ones(N_LEAVES, tlk.H)
+    err = torch.from_numpy(rng.integers(2, 40, N_LEAVES).astype(np.float32))
+    err[::5] = S
+    mlp = tlk.pack_leaves(ones, ones * -k0, ones * (S / span / tlk.H),
+                          torch.zeros(N_LEAVES), -err, err)
+    leaves = {"linear": (cuda(mat), cuda(vec)),
+              "mlp": tuple(a.cuda() for a in mlp)}
+    hi = cuda(q[::-1].copy())
+    checked = 0
+    for keys, delta in ((kf[1:], dk[3:]), (kf[5:-2], dk[1:-6])):
+        assert keys.shape[0] % 8 and delta.shape[0] % 8
+        for kind, (m, v) in leaves.items():
+            for cut in (0, 8):
+                kw = dict(n_leaves=N_LEAVES, route_n=d.route_n,
+                          iters=idx.search_iters - cut, leaf_kind=kind)
+                tabs = (cuda(root), m, v)
+                for got, want in (
+                        (tlk.dynamic_lookup(cuda(q), *tabs, keys, delta,
+                                            **kw),
+                         tlk.dynamic_lookup_plain(cuda(q), *tabs, keys,
+                                                  delta, **kw)),
+                        (tlk.dynamic_range(cuda(q), hi, *tabs, keys, delta,
+                                           **kw),
+                         tlk.dynamic_range_plain(cuda(q), hi, *tabs, keys,
+                                                 delta, **kw))):
+                    torch.cuda.synchronize()
+                    for g, w in zip(got, want, strict=True):
+                        assert torch.equal(g, w)
+                    checked += 1
+    assert checked == 16
