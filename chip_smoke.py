@@ -21,13 +21,18 @@ Phases (any failure exits non-zero; nothing is caught):
    that a Lemma 4.1 rebuild runs) -> ``delete`` (1M) -> ``find`` ->
    ``find_range``.
 3. K1-K3 (linear) against their plain versions, bit for bit after
-   ``torch.cuda.synchronize()``, and timed; K2 and K3 also on planted edges
-   beside the path's queries (``_k23_edges``): queries routed to leaves
-   given an empty leaf's sentinel full-array window, the search depth cut
-   by 8, delta tiers of 128, 1,152, 4,095, 4,224 and 2^21 entries with
-   duplicates across the keys of the delta probe's first 12 levels,
-   queries equal to those keys, +-0, +-inf and NaN, and both tiers as
-   views that start inside a 32-byte sector.
+   ``torch.cuda.synchronize()``, and timed, K1 and K2 with the rows and
+   fence the index caches (as the main path calls them); K2 and K3 also on
+   planted edges beside the path's queries (``_k23_edges``): queries routed
+   to leaves given an empty leaf's sentinel full-array window, the search
+   depth cut by 8, delta tiers of 128, 1,152, 4,095, 4,224 and 2^21
+   entries with duplicates across the keys of the delta probe's first 12
+   levels, queries equal to those keys, +-0, +-inf and NaN, and both tiers
+   as views that start inside a 32-byte sector; K1 on its own
+   (``_k1_k4_edges``): sentinel leaves, the depth cut by 8 and at full
+   depth (whole-array windows through the fence), the keys as a view that
+   starts inside a 32-byte sector, +-0, +-inf, NaN and the first and last
+   keys.
 4. Path B, the paper's lazy path, counted the same way: ``generate_pool``
    (1,221 datasets at eps 0.9) -> ``build_pool`` (MLP and linear, on the
    card) -> RMI-NN-MR (``build_rmi(kind="mlp", pool=...)``, pool selection
@@ -36,7 +41,9 @@ Phases (any failure exits non-zero; nothing is caught):
    narrow insert's rebuilds re-select from the pool through K7) -> RMRT
    (``build_rmrt(kind="linear", pool=...)``) + ``rmrt.lookup`` (K4).
 5. K1-K3 (MLP leaves), K4 and K7 against their plain versions, bit for
-   bit, and timed (K2 and K3 also on phase 3's planted edges); K7 is
+   bit, and timed (K1, K2 and K4 with the cached rows and fence; K2 and K3
+   also on phase 3's planted edges, K1 and K4 on theirs, K4 also on an
+   RMRT with MLP nodes built over every 100th key); K7 is
    checked on all of the pooled build's (f64) leaf
    histograms, on the same rows in f32 and with NaN in a target row and
    two pool rows (NaN in the same places), and timed on ``SELECT_CHUNK``
@@ -127,11 +134,13 @@ the least time the card could take (``bound_ms``) for the bytes and
 operations this run's inputs need, the operations at the f32 rate (at the
 bf16 tensor-core rate for K8's prefill tile); K1-K4 rows add
 ``bound_sector_ms``, the same bound with the bytes counted as the distinct
-32-byte sectors the searches and table gathers touch.  A row's ``launches`` add
-up every path that launches that instantiation (K1 linear: paths A and
-D; K2/K3 linear: A and C; K7 and its table kernel: B and C).  K2's, K3's,
-K5's and K7's rows are printed beside their previous designs' times from
-``PERF.md`` (not re-run; not in the JSON line).
+32-byte sectors the kernel's layout touches (leaf or node rows or
+lane-major table rows, the fence's and the keys' probes).  A row's
+``launches`` add up every path that launches that instantiation (K1
+linear: paths A and D; K2/K3 linear: A and C; K7 and its table kernel: B
+and C).  K1's, K2's, K3's, K4's, K5's and K7's rows are printed beside
+their previous designs' times from ``PERF.md`` (not re-run; not in the
+JSON line).
 Keys are lognormal float32 values drawn on the card from ``--seed`` and
 sorted there.  Every answer of path C is held against the truth too.  The
 last lines printed are the kernels' JSON line (K1-K3 a row per
@@ -198,7 +207,7 @@ REPLACES = {
     "flash_decode": "src/repro/kernels/flash.py:73",
 }
 BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
-# The previous designs of K2, K3, K5 and K7 (PERF.md section 6, NVIDIA H100
+# The previous designs of K1-K5 and K7 (PERF.md section 6, NVIDIA H100
 # 80GB HBM3, 700 W), printed beside this run's times, not re-run: K5 at 2e8
 # keys, K7's wrapper call at 16,384 rows and P = 1,221 (path B) or 306
 # (path C)
@@ -208,6 +217,9 @@ K7_PREVIOUS_MS = {1221: 0.684313, 306: 0.501372}
 # leaves (their rows of the kernels line)
 K2_PREVIOUS_MS = {"dynamic_lookup": 0.193015, "dynamic_lookup_mlp": 0.303149}
 K3_PREVIOUS_MS = {"dynamic_range": 0.101724, "dynamic_range_mlp": 0.154133}
+# K1 (linear and MLP leaves) and K4 on the same inputs
+K1_PREVIOUS_MS = {"lookup": 0.131648, "lookup_mlp": 0.217389}
+K4_PREVIOUS_MS = {"rmrt_lookup": 0.313521}
 # The planted K2/K3 edges: delta tiers of these sizes (the first levels of
 # the delta probe's implicit tree hold 2^12 - 1 keys), queries equal to the
 # keys those levels visit, and the search depth cut by this many trips
@@ -270,27 +282,76 @@ def _check_equal(what, got, want):
                              f"({int((got != want).sum())} entries)")
 
 
-def _probe_bytes(keys, q, lo, hi, iters: int, right: bool) -> tuple:
-    """Bytes of the distinct key positions a window search of these queries
-    reads, its active iterations (the data-dependent work of this run), and
-    the bytes of the distinct 32-byte sectors holding those positions."""
+def _walk(keys, q, lo, hi, iters: int, right: bool = False) -> tuple:
+    """The static search loop of these queries: (the key positions it
+    reads, its live trips, where each query ends)."""
     import torch
     n = keys.shape[0]
-    l, h = lo.clone(), hi.clone()
-    seen, steps = [], 0
+    l, h = lo.long(), hi.long()
+    seen, steps = [l[:0]], 0
     for _ in range(iters):
         active = h > l
         mid = torch.div(l + h, 2, rounding_mode="floor")
         seen.append(mid[active & (mid < n)])
         steps += int(active.sum())
-        kv = keys[mid.clamp(0, n - 1).long()]
+        kv = keys[mid.clamp(0, n - 1)]
         kv = torch.where(mid < n, kv, torch.full_like(kv, float("inf")))
         below = kv <= q if right else kv < q
         l = torch.where(active & below, mid + 1, l)
         h = torch.where(active & ~below, mid, h)
-    pos = torch.unique(torch.cat(seen))
-    sectors = torch.unique((pos + keys.data_ptr() // 4) >> 3)
-    return int(pos.numel()) * 4, steps, int(sectors.numel()) * 32
+    return torch.cat(seen), steps, l
+
+
+def _sectors(keys, pos) -> int:
+    """Bytes of the distinct 32-byte sectors holding ``keys[pos]``."""
+    import torch
+    return int(torch.unique((pos + keys.data_ptr() // 4) >> 3).numel()) * 32
+
+
+def _probe_bytes(keys, q, lo, hi, iters: int, right: bool) -> tuple:
+    """Bytes of the distinct key positions a window search of these queries
+    reads, its active iterations (the data-dependent work of this run), and
+    the bytes of the distinct 32-byte sectors holding those positions."""
+    import torch
+    pos, steps, _ = _walk(keys, q, lo, hi, iters, right)
+    pos = torch.unique(pos)
+    return int(pos.numel()) * 4, steps, _sectors(keys, pos)
+
+
+def _fenced_sectors(tlk, keys, fence, q, lo, hi, iters: int) -> int:
+    """Bytes of the distinct 32-byte sectors the fenced search (K1, K4)
+    reads: for a window the static depth converges, the fence's probes and
+    those of the 64-key interval of the keys they lead to; for another
+    window, the static loop's."""
+    import torch
+    lo, hi = lo.long(), hi.long()
+    w = hi - lo
+    if iters >= 31:
+        conv = torch.ones_like(w, dtype=torch.bool)
+    else:
+        conv = (w >= 0) & (w < (1 << iters)) & (iters > 0)
+    nf = fence.shape[0]
+    jl = (lo + tlk.FENCE - 1) // tlk.FENCE
+    jh = torch.maximum(torch.clamp((hi + tlk.FENCE - 1) // tlk.FENCE,
+                                   max=nf), jl)
+    qc, jl, jh = q[conv], jl[conv], jh[conv]
+    fpos, _, j = _walk(fence, qc, jl, jh, 32)
+    a = torch.where(j > jl, (j - 1) * tlk.FENCE + 1, lo[conv])
+    b = torch.where(j < jh, j * tlk.FENCE, hi[conv])
+    kpos, _, _ = _walk(keys, qc, a, b, 32)
+    upos, _, _ = _walk(keys, q[~conv], lo[~conv], hi[~conv], iters)
+    return (_sectors(fence, torch.unique(fpos))
+            + _sectors(keys, torch.unique(torch.cat([kpos, upos]))))
+
+
+def _row_sectors(ids, row_bytes: int) -> int:
+    """Bytes of the distinct 32-byte sectors the 16-byte loads of rows
+    ``ids`` of ``row_bytes`` bytes each touch (a fresh allocation: the
+    table starts a sector)."""
+    import torch
+    ids = torch.unique(ids).long()
+    secs = [(ids * row_bytes + o) >> 5 for o in range(0, row_bytes, 16)]
+    return int(torch.unique(torch.cat(secs)).numel()) * 32
 
 
 def _bound(parts) -> tuple:
@@ -310,27 +371,36 @@ def _sector_bound(parts) -> float:
 
 
 def _search_work(tlk, tables, keys, q, *, n_leaves, route_n, iters, right,
-                 root_kind="linear", leaf_kind="linear"):
+                 root_kind="linear", leaf_kind="linear", rows=False,
+                 fence=None):
     """Bytes and operations one endpoint's base search needs: the query in,
-    the position out, the distinct leaf rows and key positions it reads."""
+    the position out, the distinct leaf words and key positions it reads;
+    and the sectors the kernel's layout touches: leaf rows (``rows``: K1,
+    K2 with MLP leaves) or one sector of each lane-major table row (K2 with
+    linear leaves, K3), and the fence's and keys' probes (``fence``: K1)
+    or the static loop's."""
     import torch
     root, mat, vec = tables
     lo, hi = tlk.route_window(q, root, mat, vec, n_keys=keys.shape[0],
                               n_leaves=n_leaves, route_n=route_n,
                               root_kind=root_kind, leaf_kind=leaf_kind)
     kb, steps, ks = _probe_bytes(keys, q, lo, hi, iters, right)
+    if fence is not None:
+        ks = _fenced_sectors(tlk, keys, fence, q, lo, hi, iters)
     b = tlk.route_bucket(q, root, n_leaves=n_leaves, route_n=route_n,
                          root_kind=root_kind)
     # words read per leaf: a, b, err_lo, err_hi; or w1, b1, w2 (H each),
-    # b2, err_lo, err_hi -- each in a lane-major row of its own, so a leaf
-    # touches one sector of each row
+    # b2, err_lo, err_hi
     words = 4 if leaf_kind == "linear" else 3 * tlk.H + 3
-    rows = int(torch.unique(b).numel()) * words * 4
-    row_sectors = int(torch.unique(b >> 3).numel()) * words * 32
+    table = int(torch.unique(b).numel()) * words * 4
+    if rows:            # one row a leaf: 16 bytes linear, 64 MLP
+        table_sectors = _row_sectors(b, 16 if leaf_kind == "linear" else 64)
+    else:               # a lane-major row each word: one sector of each
+        table_sectors = int(torch.unique(b >> 3).numel()) * words * 32
     nq = q.shape[0]
     flops = 12 if leaf_kind == "linear" else 40
-    return (nq * 8 + rows + kb + 8, nq * flops + 2 * steps,
-            nq * 8 + row_sectors + ks + 32)
+    return (nq * 8 + table + kb + 8, nq * flops + 2 * steps,
+            nq * 8 + table_sectors + ks + 32)
 
 
 def _delta_work(tlk, dk, q, right):
@@ -345,7 +415,9 @@ def _delta_work(tlk, dk, q, right):
 def _rmrt_work(tlk, tree, q):
     """Bytes and operations of K4 on ``q``: the query in, the position out,
     the distinct node rows the descent reads (8 f32 words a linear node),
-    the distinct key positions the window search reads."""
+    the distinct key positions the window search reads; and the sectors of
+    K4's layout: a node row each node visited (one sector a linear node)
+    and the fenced search's probes."""
     import torch
     mat, vec = tree.packed_tables()
     npad = mat.shape[1]
@@ -361,17 +433,19 @@ def _rmrt_work(tlk, tree, q):
         nxt = fv[node + 5 * npad].long() + child
         node = torch.where(fv[node + 6 * npad] > 0.5, node, nxt)
         seen.append(node)
-    nodes = int(torch.unique(torch.cat(seen)).numel())
+    seen = torch.cat(seen)
+    nodes = int(torch.unique(seen).numel())
     lo, hi = tlk.rmrt_route_window(q, mat, vec, n_keys=tree.n,
                                    fanout=tree.fanout, depth=tree.depth,
                                    kind=tree.kind)
-    kb, steps, ks = _probe_bytes(tree.keys_f32, q, lo, hi, tree.search_iters,
-                                 False)
+    kf = tree.keys_f32
+    kb, steps, _ = _probe_bytes(kf, q, lo, hi, tree.search_iters, False)
+    ks = _fenced_sectors(tlk, kf, tree.key_fence, q, lo, hi,
+                         tree.search_iters)
     nq = q.shape[0]
-    # 8 lane-major rows of node words: one sector of each row a node group
-    node_sectors = int(torch.unique(torch.cat(seen) >> 3).numel()) * 8 * 32
+    row_bytes = 4 * tree.node_rows().shape[1]
     return (nq * 8 + nodes * 32 + kb, nq * 8 * (tree.depth + 1) + 2 * steps,
-            nq * 8 + node_sectors + ks)
+            nq * 8 + _row_sectors(seen, row_bytes) + ks)
 
 
 def _time_row(name, kern, plain, lib, parts, launches, err, reps=50,
@@ -385,7 +459,8 @@ def _time_row(name, kern, plain, lib, parts, launches, err, reps=50,
     l_ms = _event_ms(lib, reps) if lib is not None else None
     k2 = _event_ms(kern, reps)
     lib_txt = f"{l_ms:.6f} ms" if l_ms is not None else "none"
-    prev = {**K2_PREVIOUS_MS, **K3_PREVIOUS_MS}.get(name)
+    prev = {**K1_PREVIOUS_MS, **K2_PREVIOUS_MS, **K3_PREVIOUS_MS,
+            **K4_PREVIOUS_MS}.get(name)
     print(f"  {name}: kernel {k1:.6f} / {k2:.6f} ms, plain {p_ms:.6f} ms, "
           f"library {lib_txt}, bound {bound_ms:.6f} ms ({bound_by})"
           + (f", bound over whole sectors {sector_ms:.6f} ms"
@@ -671,6 +746,35 @@ def _k23_edges(tlk, tabs, keys, live, qf, lof, hif, kw, g, what):
           f"of their first {EDGE_TREE_LEVELS} probe levels, +-0, +-inf, NaN;"
           f" the largest also with both tiers as unaligned views")
     return err
+
+
+def _k1_k4_edges(tlk, name, kern, plain, vec, empty, n_live, keys, q,
+                 iters):
+    """A K1 or K4 call (``kern(q, vec, keys, iters)``) against its plain
+    version, bit for bit, on planted edges at full size: the leaves (nodes)
+    ``empty`` given an empty leaf's sentinel window +-n_live (not converged
+    at the clamped depth; converged at full depth, where the fence searches
+    the whole array), the depth cut by EDGE_ITERS_CUT and at full depth,
+    the keys also as a view that starts inside a 32-byte sector; queries:
+    the path's own, +-0, +-inf, NaN and the first and last keys.  The
+    wrappers build the rows and fence of the planted tables and views.
+    Returns (largest |kernel - plain|, cases)."""
+    import torch
+    specials = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                             float("nan")], device=q.device)
+    q = torch.cat([q, specials, keys[:4], keys[-4:]])
+    planted = vec.clone()
+    planted[1, empty.long()] = -float(n_live)
+    planted[2, empty.long()] = float(n_live)
+    err, cases = 0, 0
+    for v, kt in itertools.product((vec, planted), (keys, keys[1:])):
+        for it in (iters, iters - EDGE_ITERS_CUT, tlk.full_iters(kt.shape[0])):
+            err = max(err, _compare(
+                f"{name} (keys {kt.shape[0]}, iters {it}, "
+                f"{'sentinel leaves' if v is planted else 'leaves'})",
+                lambda: (kern(q, v, kt, it),), lambda: (plain(q, v, kt, it),)))
+            cases += 1
+    return err, cases
 
 
 def _flash_work(q, k, q_offset: int, kv_valid: int) -> tuple:
@@ -1342,8 +1446,9 @@ def main(argv=None) -> int:
     print_seam()
 
     # ---- phase 3: K1-K3 (linear) against their plain versions, timed -------
-    s_tabs = sidx.packed_tables()
-    d_tabs = d.index.packed_tables()
+    s_tabs, s_rows, s_fence = (sidx.packed_tables(), sidx.leaf_rows(),
+                               sidx.key_fence)
+    d_tabs, d_rows = d.index.packed_tables(), d.index.leaf_rows()
     qf = find_queries(live, edges).to(torch.float32)
     lo, hi = range_pairs(live)
     lof, hif = lo.to(torch.float32), hi.to(torch.float32)
@@ -1353,14 +1458,16 @@ def main(argv=None) -> int:
     skf, dkf = sidx.keys_f32, d.index.keys_f32
     calls_a = {
         "lookup": (
-            lambda: (tlk.lookup(qf, *s_tabs, skf, **skw),),
+            lambda: (tlk.lookup(qf, *s_tabs, skf, rows=s_rows, fence=s_fence,
+                                **skw),),
             lambda: (tlk.lookup_plain(qf, *s_tabs, skf, **skw),),
             lambda: torch.searchsorted(skf, qf),
             lambda: [_search_work(tlk, s_tabs, skf, qf, n_leaves=L,
                                   route_n=sidx.n, iters=sidx.search_iters,
-                                  right=False)]),
+                                  right=False, rows=True, fence=s_fence)]),
         "dynamic_lookup": (
-            lambda: tlk.dynamic_lookup(qf, *d_tabs, dkf, dk, **dkw),
+            lambda: tlk.dynamic_lookup(qf, *d_tabs, dkf, dk, rows=d_rows,
+                                       **dkw),
             lambda: tlk.dynamic_lookup_plain(qf, *d_tabs, dkf, dk, **dkw),
             lambda: (torch.searchsorted(dkf, qf),
                      torch.searchsorted(dk, qf)),
@@ -1389,6 +1496,20 @@ def main(argv=None) -> int:
     e = _k23_edges(tlk, d_tabs, dkf, live, qf, lof, hif, dkw, g, "linear")
     for nm in ("dynamic_lookup", "dynamic_range"):
         errs[nm] = max(errs[nm], e)
+    leaf = tlk.route_bucket(qf[:4096], s_tabs[0], n_leaves=L, route_n=sidx.n)
+    e, k1_cases = _k1_k4_edges(
+        tlk, "lookup",
+        lambda q, v, kt, it: tlk.lookup(q, *s_tabs[:2], v, kt, n_leaves=L,
+                                        iters=it),
+        lambda q, v, kt, it: tlk.lookup_plain(q, *s_tabs[:2], v, kt,
+                                              n_leaves=L, iters=it),
+        s_tabs[2], torch.unique(leaf[:64]), sidx.n, skf, qf,
+        sidx.search_iters)
+    errs["lookup"] = max(errs["lookup"], e)
+    print(f"  K1 (linear) equals its plain version bit for bit on {k1_cases} "
+          f"planted cases (sentinel leaves, iters {sidx.search_iters}, "
+          f"{sidx.search_iters - EDGE_ITERS_CUT} and full, keys as an "
+          f"unaligned view, +-0, +-inf, NaN, the first and last keys)")
     print(f"phase 3: K1-K3 (linear) equal their plain versions bit for bit "
           f"(tolerance 0): {errs}")
     for nm, (k, p, lib, work) in calls_a.items():
@@ -1400,7 +1521,8 @@ def main(argv=None) -> int:
           f"{tlk.full_iters(dk.shape[0])}")
     print(f"  peak memory allocated (path A): "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    del sidx, ix, d, s_tabs, d_tabs, dk, skf, dkf, live, calls_a, q_static
+    del sidx, ix, d, s_tabs, s_rows, s_fence, d_tabs, d_rows, dk, skf, dkf
+    del live, calls_a, q_static, leaf
     del pos, keys, keys32, qf, lo, hi, lof, hif
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1443,6 +1565,7 @@ def main(argv=None) -> int:
                  torch.searchsorted(keys32, q_static.to(torch.float32))
                  .to(torch.int32))
     sm_tabs, sm_iters = smlp.packed_tables(), smlp.search_iters
+    sm_rows, sm_fence = smlp.leaf_rows(), smlp.key_fence
     print(f"  RMI-NN-MR: reuse_fraction {reuse_rmi:.6f}, fresh leaves "
           f"{fresh} of {L}, search_iters {sm_iters}")
     del smlp, pos
@@ -1493,7 +1616,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
     # ---- phase 5: K1-K3 (MLP), K4, K7 against plain versions, timed -------
-    d_tabs = d.index.packed_tables()
+    d_tabs, d_rows = d.index.packed_tables(), d.index.leaf_rows()
     qf = find_queries(live, edges).to(torch.float32)
     lo, hi = range_pairs(live)
     lof, hif = lo.to(torch.float32), hi.to(torch.float32)
@@ -1505,6 +1628,7 @@ def main(argv=None) -> int:
     dkf = d.index.keys_f32
     qs = q_static.to(torch.float32)
     t_mat, t_vec = tree.packed_tables()
+    t_rows, t_fence = tree.node_rows(), tree.key_fence
     tkw = dict(fanout=tree.fanout, depth=tree.depth, kind=tree.kind,
                iters=tree.search_iters)
     tkf = tree.keys_f32
@@ -1520,21 +1644,23 @@ def main(argv=None) -> int:
     hc = hists[:treuse.SELECT_CHUNK]
     calls_b = {
         "lookup": (
-            lambda: (tlk.lookup(qs, *sm_tabs, keys32, **skw),),
+            lambda: (tlk.lookup(qs, *sm_tabs, keys32, rows=sm_rows,
+                                fence=sm_fence, **skw),),
             lambda: (tlk.lookup_plain(qs, *sm_tabs, keys32, **skw),),
             lambda: torch.searchsorted(keys32, qs),
             lambda: [_search_work(tlk, sm_tabs, keys32, qs, n_leaves=L,
                                   route_n=n, iters=sm_iters, right=False,
-                                  **mk)]),
+                                  rows=True, fence=sm_fence, **mk)]),
         "dynamic_lookup": (
-            lambda: tlk.dynamic_lookup(qf, *d_tabs, dkf, dk, **dkw),
+            lambda: tlk.dynamic_lookup(qf, *d_tabs, dkf, dk, rows=d_rows,
+                                       **dkw),
             lambda: tlk.dynamic_lookup_plain(qf, *d_tabs, dkf, dk, **dkw),
             lambda: (torch.searchsorted(dkf, qf),
                      torch.searchsorted(dk, qf)),
             lambda: [_search_work(tlk, d_tabs, dkf, qf, n_leaves=L,
                                   route_n=d.route_n,
                                   iters=d.index.search_iters, right=False,
-                                  **mk),
+                                  rows=True, **mk),
                      _delta_work(tlk, dk, qf, right=False)]),
         "dynamic_range": (
             lambda: tlk.dynamic_range(lof, hif, *d_tabs, dkf, dk, **dkw),
@@ -1555,7 +1681,8 @@ def main(argv=None) -> int:
                      _delta_work(tlk, dk, lof, right=False),
                      _delta_work(tlk, dk, hif, right=True)]),
         "rmrt_lookup": (
-            lambda: (tlk.rmrt_lookup(qr, t_mat, t_vec, tkf, **tkw),),
+            lambda: (tlk.rmrt_lookup(qr, t_mat, t_vec, tkf, rows=t_rows,
+                                     fence=t_fence, **tkw),),
             lambda: (tlk.rmrt_lookup_plain(qr, t_mat, t_vec, tkf, **tkw),),
             lambda: torch.searchsorted(tkf, qr),
             lambda: [_rmrt_work(tlk, tree, qr)]),
@@ -1582,6 +1709,53 @@ def main(argv=None) -> int:
                    "MLP leaves")
     for nm in ("dynamic_lookup", "dynamic_range"):
         errs[nm] = max(errs[nm], e)
+    leaf = tlk.route_bucket(qs[:4096], sm_tabs[0], n_leaves=L, route_n=n)
+    e, k1_cases = _k1_k4_edges(
+        tlk, "lookup (MLP leaves)",
+        lambda q, v, kt, it: tlk.lookup(q, *sm_tabs[:2], v, kt, n_leaves=L,
+                                        iters=it, **mk),
+        lambda q, v, kt, it: tlk.lookup_plain(q, *sm_tabs[:2], v, kt,
+                                              n_leaves=L, iters=it, **mk),
+        sm_tabs[2], torch.unique(leaf[:64]), n, keys32, qs, sm_iters)
+    errs["lookup"] = max(errs["lookup"], e)
+    # K4 on path B's RMRT and on an RMRT with MLP nodes over every 100th
+    # key (no path builds one: the planted cases hold its instantiation)
+    sub_keys = keys[::100].contiguous()
+    mtree = trmrt.build_rmrt(sub_keys, leaf_cap=max(args.rmrt_leaf_cap // 100,
+                                                    64),
+                             fanout=args.fanout, kind="mlp", pool=mlp_pool,
+                             train_steps=args.leaf_steps, device=dev)
+    k4_cases = 0
+    for what, tr, qt in (("linear nodes", tree, qr),
+                         ("MLP nodes", mtree, sub_keys[torch.randint(
+                             0, sub_keys.shape[0], (nq // 8,), device=dev,
+                             generator=g)].to(torch.float32))):
+        mt, vt = tr.packed_tables()
+        kw4 = dict(fanout=tr.fanout, depth=tr.depth, kind=tr.kind)
+        errs["rmrt_lookup"] = max(errs["rmrt_lookup"], _compare(
+            f"rmrt_lookup ({what}, cached rows and fence)",
+            lambda: (tlk.rmrt_lookup(qt, mt, vt, tr.keys_f32,
+                                     rows=tr.node_rows(), fence=tr.key_fence,
+                                     iters=tr.search_iters, **kw4),),
+            lambda: (tlk.rmrt_lookup_plain(qt, mt, vt, tr.keys_f32,
+                                           iters=tr.search_iters, **kw4),)))
+        e, c = _k1_k4_edges(
+            tlk, f"rmrt_lookup ({what})",
+            lambda q, v, kt, it: tlk.rmrt_lookup(q, mt, v, kt, iters=it,
+                                                 **kw4),
+            lambda q, v, kt, it: tlk.rmrt_lookup_plain(q, mt, v, kt,
+                                                       iters=it, **kw4),
+            vt, torch.nonzero(tr.is_leaf).squeeze(1)[::7], tr.n,
+            tr.keys_f32, qt, tr.search_iters)
+        errs["rmrt_lookup"] = max(errs["rmrt_lookup"], e)
+        k4_cases += c + 1
+    print(f"  K1 (MLP leaves) and K4 equal their plain versions bit for bit "
+          f"on {k1_cases} and {k4_cases} planted cases (sentinel leaves, "
+          f"iters cut by {EDGE_ITERS_CUT} and full, keys as an unaligned "
+          f"view, +-0, +-inf, NaN, the first and last keys; K4 also on an "
+          f"RMRT with MLP nodes over {sub_keys.shape[0]} keys: depth "
+          f"{mtree.depth}, {mtree.num_nodes} nodes)")
+    del mtree, sub_keys, leaf
     errs["ksdist"] = max(errs["ksdist"], _compare(
         "ksdist (full L)", lambda: (tks.ksdist(hists, sel_a, sel_ps),),
         lambda: (tks.ksdist_plain(hists, sel_a, sel_ps),)))
@@ -1632,6 +1806,7 @@ def main(argv=None) -> int:
     del ix, d, live, tree, keys, keys32, corpus, mlp_pool, lin_pool
     del q_static, q_rmrt, pos, sm_tabs, d_tabs, qf, lo, hi, lof, hif, dk
     del dkf, qs, t_mat, t_vec, tkf, qr, sel_a, sel_ps, hists, hc, calls_b
+    del sm_rows, sm_fence, d_rows, t_rows, t_fence
     torch.cuda.empty_cache()
 
     # ---- phase 6: path C (drift-adaptive serving), counted -----------------
@@ -1707,11 +1882,13 @@ def main(argv=None) -> int:
         the phase left them (rewritten by swaps and repairs) and on its
         queries; first the cached packed tables against a fresh packing of
         the current leaves, so that stale tables would show."""
-        tabs = d.index.packed_tables()
-        fresh = dataclasses.replace(d.index, _packed=None).packed_tables()
-        for i, (a, b) in enumerate(zip(tabs, fresh, strict=True)):
-            _check_equal(f"path C {tag}: packed table [{i}] vs a fresh "
-                         f"packing", a, b)
+        tabs, rows = d.index.packed_tables(), d.index.leaf_rows()
+        cold = dataclasses.replace(d.index, _packed=None)
+        for i, (a, b) in enumerate(zip(tabs + (rows,),
+                                       cold.packed_tables()
+                                       + (cold.leaf_rows(),), strict=True)):
+            _check_equal(f"path C {tag}: packed table [{i}] (3: leaf rows) "
+                         f"vs a fresh packing", a, b)
         dk = tlk.pad_delta(d.delta_keys_f32)
         dkf = d.index.keys_f32
         kw = dict(n_leaves=L, route_n=d.route_n, iters=d.index.search_iters,
@@ -1720,7 +1897,8 @@ def main(argv=None) -> int:
         return {
             "dynamic_lookup": _compare(
                 f"dynamic_lookup (path C {tag})",
-                lambda: tlk.dynamic_lookup(qf, *tabs, dkf, dk, **kw),
+                lambda: tlk.dynamic_lookup(qf, *tabs, dkf, dk, rows=rows,
+                                           **kw),
                 lambda: tlk.dynamic_lookup_plain(qf, *tabs, dkf, dk, **kw)),
             "dynamic_range": _compare(
                 f"dynamic_range (path C {tag})",

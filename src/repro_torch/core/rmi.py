@@ -302,9 +302,10 @@ class RMIIndex:
     leaf_sim: torch.Tensor           # (L,) f64 (Lemma 4.1 input)
     # lazily derived serving state
     _iters: int | None = None        # error-window search depth
-    _packed: tuple | None = None     # (root, mat, vec) kernel tables
+    _packed: tuple | None = None     # ((root, mat, vec), leaf rows) kernel
+                                     #   tables
     _f32_exact: bool | None = None   # keys round-trip through f32
-    _kf32: torch.Tensor | None = None  # f32 copy of keys (kernel key space)
+    _kf32: tuple | None = None       # (f32 copy of keys, its key fence)
 
     @property
     def n(self) -> int:
@@ -329,12 +330,23 @@ class RMIIndex:
             self._iters = search_iters(self.err_lo, self.err_hi, self.n)
         return self._iters
 
+    def _key_space(self) -> tuple:
+        if self._kf32 is None:
+            from ..kernels.lookup import key_fence
+            kf = self.keys.to(torch.float32)
+            self._kf32 = (kf, key_fence(kf))
+        return self._kf32
+
     @property
     def keys_f32(self) -> torch.Tensor:
         """The keys in the kernel's f32 key space (cached)."""
-        if self._kf32 is None:
-            self._kf32 = self.keys.to(torch.float32)
-        return self._kf32
+        return self._key_space()[0]
+
+    @property
+    def key_fence(self) -> torch.Tensor:
+        """Every 64th key of ``keys_f32``, cached with it: the fence K1
+        searches first (``kernels.lookup.key_fence``)."""
+        return self._key_space()[1]
 
     @property
     def f32_exact(self) -> bool:
@@ -345,8 +357,7 @@ class RMIIndex:
                 (self.keys_f32.to(_F64) == self.keys).all())
         return self._f32_exact
 
-    def packed_tables(self) -> tuple:
-        """(root, mat, vec) packed f32 tables for the lookup kernels."""
+    def _pack(self) -> tuple:
         if self._packed is None:
             from ..kernels import lookup as _lk
             root = _lk.pack_root(self.root_kind, self.root)
@@ -354,8 +365,18 @@ class RMIIndex:
                                                 self.n_leaves)
             mat, vec = _lk.pack_leaves(w1, b1, w2, b2, self.err_lo,
                                        self.err_hi)
-            self._packed = (root, mat, vec)
+            self._packed = ((root, mat, vec),
+                            _lk.leaf_rows(mat, vec, self.leaf_kind))
         return self._packed
+
+    def packed_tables(self) -> tuple:
+        """(root, mat, vec) packed f32 tables for the lookup kernels."""
+        return self._pack()[0]
+
+    def leaf_rows(self) -> torch.Tensor:
+        """The leaf-major rows K1 (and K2, for MLP leaves) read, cached with
+        the packed tables: dropping ``_packed`` drops both."""
+        return self._pack()[1]
 
 
 def _leaf_table_arrays(kind: str, leaves, n_leaves: int):
@@ -716,5 +737,6 @@ def lookup(index: RMIIndex, queries, *, path: str = "auto",
             q.to(torch.float32), root, mat, vec, index.keys_f32,
             n_leaves=index.n_leaves, root_kind=index.root_kind,
             leaf_kind=index.leaf_kind,
-            iters=iters if iters is not None else full_iters(index.n))
+            iters=iters if iters is not None else full_iters(index.n),
+            rows=index.leaf_rows(), fence=index.key_fence)
     return rmi_lookup(index, q, iters=iters)

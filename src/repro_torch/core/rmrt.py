@@ -54,9 +54,9 @@ class RMRTIndex:
     leaf_cap: int
     depth: int
     _iters: int | None = None        # cached error-window search depth
-    _packed: tuple | None = None     # (mat, vec) kernel node tables
+    _packed: tuple | None = None     # ((mat, vec), node rows) kernel tables
     _f32_exact: bool | None = None   # keys round-trip through f32
-    _kf32: torch.Tensor | None = None
+    _kf32: tuple | None = None       # (f32 copy of keys, its key fence)
 
     @property
     def n(self) -> int:
@@ -85,11 +85,23 @@ class RMRTIndex:
         m = self.reused_mask
         return float(m.sum()) * (1.0 / max(m.shape[0], 1))
 
+    def _key_space(self) -> tuple:
+        if self._kf32 is None:
+            from ..kernels.lookup import key_fence
+            kf = self.keys.to(torch.float32)
+            self._kf32 = (kf, key_fence(kf))
+        return self._kf32
+
     @property
     def keys_f32(self) -> torch.Tensor:
-        if self._kf32 is None:
-            self._kf32 = self.keys.to(torch.float32)
-        return self._kf32
+        """The keys in the kernel's f32 key space (cached)."""
+        return self._key_space()[0]
+
+    @property
+    def key_fence(self) -> torch.Tensor:
+        """Every 64th key of ``keys_f32``, cached with it: the fence K4
+        searches first (``kernels.lookup.key_fence``)."""
+        return self._key_space()[1]
 
     @property
     def f32_exact(self) -> bool:
@@ -100,14 +112,22 @@ class RMRTIndex:
                 (self.keys_f32.to(_F64) == self.keys).all())
         return self._f32_exact
 
-    def packed_tables(self) -> tuple:
-        """(mat, vec) node tables for kernel K4."""
+    def _pack(self) -> tuple:
         if self._packed is None:
-            from ..kernels.lookup import pack_rmrt
-            self._packed = pack_rmrt(
+            from ..kernels.lookup import node_rows, pack_rmrt
+            mat, vec = pack_rmrt(
                 self.kind, self.params, self.is_leaf, self.child_base,
                 self.y_start, self.y_end, self.err_lo, self.err_hi)
+            self._packed = ((mat, vec), node_rows(mat, vec, self.kind))
         return self._packed
+
+    def packed_tables(self) -> tuple:
+        """(mat, vec) node tables for kernel K4."""
+        return self._pack()[0]
+
+    def node_rows(self) -> torch.Tensor:
+        """The node-major rows K4 reads, cached with the packed tables."""
+        return self._pack()[1]
 
 
 def _fit_level(keys, slots, n_slots, kind, pool, train_steps, seed,
@@ -264,7 +284,9 @@ def lookup(index: RMRTIndex, queries, *, path: str = "auto",
         mat, vec = index.packed_tables()
         return ops.rmrt_lookup(q.to(torch.float32), mat, vec, index.keys_f32,
                                fanout=index.fanout, depth=index.depth,
-                               kind=index.kind, iters=iters)
+                               kind=index.kind, iters=iters,
+                               rows=index.node_rows(),
+                               fence=index.key_fence)
     return _rmrt_lookup(index, q,
                         index.search_iters if clamp_iters else None)
 

@@ -711,9 +711,10 @@ class DynamicRMI:
         self.swap_rejects += int(leaf_ids.size) - nc
         if nc == 0:
             return 0
-        # New leaf rows: the packed kernel tables go stale.  The keys are
-        # unchanged (their f32 copy stays), and the commit gate keeps every
-        # window under the width cap, so the search depth stays too.
+        # New leaf models: the packed kernel tables and the leaf rows cached
+        # with them (both in _packed) go stale.  The keys are unchanged
+        # (their f32 copy stays), and the commit gate keeps every window
+        # under the width cap, so the search depth stays too.
         self.index = replace(idx, leaves=leaves, err_lo=err_lo,
                              err_hi=err_hi, leaf_sim=sim, reused_mask=reused,
                              _packed=None)
@@ -761,7 +762,7 @@ class DynamicRMI:
                 self.base_psum, self.delta_keys_f32, self.delta_psum,
                 n_leaves=idx.n_leaves, route_n=self.route_n,
                 iters=idx.search_iters, root_kind=idx.root_kind,
-                leaf_kind=idx.leaf_kind)
+                leaf_kind=idx.leaf_kind, rows=idx.leaf_rows())
         found, rank, _ = _find(idx, self.base_psum, self.delta_keys,
                                self.delta_psum, q, self.route_n)
         return found, rank

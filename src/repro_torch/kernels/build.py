@@ -31,12 +31,14 @@ LL = ctypes.c_longlong
 # argtypes of every C entry point, by library
 SIGNATURES = {
     "lookup": {
-        "repro_lookup": (P, I, P, P, P, I, I, F, P, I, F, F, I, I, I, P, P),
+        "repro_lookup": (P, I, P, P, P, I, I, F, P, I, F, F, I, I, I, P, P,
+                         P, P),
         "repro_dynamic_lookup": (P, I, P, P, P, I, I, F, P, I, F, F, I,
                                  I, I, P, P, I, I, P, P, P),
         "repro_dynamic_range": (P, P, I, P, P, P, I, I, F, P, I, F, F, I,
                                 I, I, P, I, I, P, P, P, P, P),
-        "repro_rmrt_lookup": (P, I, P, P, I, I, I, I, P, I, F, F, I, P, P),
+        "repro_rmrt_lookup": (P, I, P, P, I, P, P, I, I, I, P, I, F, F, I,
+                              P, P),
     },
     "ksdist": {
         "repro_ksdist_tables": (P, I, I, I, P, P, P),

@@ -12,20 +12,17 @@
 //                                                     _rmrt_route_window)
 //
 // K1-K3 are templated on the root kind and the leaf kind (linear or the
-// paper's 1x4 MLP), K4 on the node model kind; the linear/linear
-// instantiation is the kernel the linear-only port had.
+// paper's 1x4 MLP), K4 on the node model kind.
 //
-// What bounds them on the card: each query is a chain of dependent 4-byte
-// gathers -- the root, one leaf row (one node row per RMRT level), then
-// `iters` window probes (plus `d_iters` delta probes for K2/K3) -- each in
-// a 32-byte sector of its own, far below both the memory and the
-// arithmetic roofline.  K1 and K4 answer that with one thread per query
-// and enough queries in flight to cover the latency: tables and keys are
-// read straight from global memory through the read-only path (__ldg) and
-// L2, and the window search runs once over the global key array with the
-// reference's static depth.  K2 and K3 were redesigned for Hopper (their
-// section below).  The TPU's per-tile min-merge (lookup.py
-// _tile_search_merge) existed to fit VMEM and is not copied.
+// What bounds them on the card: each query reads a chain of scattered
+// 32-byte sectors -- the root, one leaf row (one node row per RMRT level),
+// then the window probes (plus the delta probes of K2/K3) -- far below both
+// the memory and the arithmetic roofline, at the rate the memory system
+// serves scattered sectors.  Only fewer sectors, or better overlap, make
+// them faster.  All four kernels were redesigned for Hopper around that
+// (sections below); the TPU's per-tile min-merge (lookup.py
+// _tile_search_merge) existed to fit VMEM and is not copied: the search
+// runs once over the global key array.
 //
 // Numerics mirror the reference's f32 arithmetic exactly:
 //   * products, sums and the RMRT re-bucket quotient use explicit
@@ -39,7 +36,9 @@
 //     as XLA's convert does (a key beyond the root's range lands in leaf
 //     L-1, never in leaf 0);
 //   * jnp.clip propagates NaN, so clip_nan does too before the conversion;
-//   * the window clamps n_keys - 1 and n_keys arrive pre-rounded to f32.
+//   * the window clamps n_keys - 1 and n_keys arrive pre-rounded to f32;
+//   * K4's re-bucket divides by the node's own span (__fdiv_rn), never by a
+//     reciprocal.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,15 +47,16 @@ namespace {
 
 constexpr int kRootLanes = 128;  // packed root block is (8, 128) row-major
 constexpr int kH = 4;            // the paper's hidden width
-constexpr int kThreads = 256;
+constexpr int kTileThreads = 128;  // four warp tiles of 32 work items
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kFenceShift = 6;   // a fence entry every 64 keys
 
 struct Tables {
   const float* root;   // (8, 128): linear [0,0] = a, [3,0] = b; MLP rows
                        //   0/1/2 = w1/b1/w2 over H lanes, [3,0] = b2
   const float* mat;    // (3H, lp): rows w1, b1, w2 (a linear slope in row 0)
   const float* vec;    // (8, lp):  row 0 = b2 / intercept, 1 = err_lo,
-                       //   2 = err_hi (RMRT nodes: 3 y_start, 4 y_end,
-                       //   5 child_base, 6 is_leaf)
+                       //   2 = err_hi
   int lp;
   int n_leaves;
   float ratio;         // f32(n_leaves / route_n)
@@ -65,6 +65,8 @@ struct Tables {
   float lo_max;        // f32(n_keys - 1)
   float hi_max;        // f32(n_keys)
   int iters;
+  const float* fence;  // (nf,) keys[0], keys[64], ... (K1 and K4 only)
+  int nf;              // ceil(n_keys / 64)
 };
 
 __device__ __forceinline__ float clip_nan(float x, float lo, float hi) {
@@ -93,7 +95,23 @@ __device__ __forceinline__ float predict(const float* mat, const float* vec,
   return pred;
 }
 
-// Stage 1: the root's prediction for q.
+// The same MLP predict from a row's registers.
+__device__ __forceinline__ float mlp_predict(float b2, const float4& w1,
+                                             const float4& b1,
+                                             const float4& w2, float q) {
+  const float w1k[kH] = {w1.x, w1.y, w1.z, w1.w};
+  const float b1k[kH] = {b1.x, b1.y, b1.z, b1.w};
+  const float w2k[kH] = {w2.x, w2.y, w2.z, w2.w};
+  float pred = b2;
+#pragma unroll
+  for (int k = 0; k < kH; ++k) {
+    const float h = relu_nan(__fadd_rn(__fmul_rn(q, w1k[k]), b1k[k]));
+    pred = __fadd_rn(pred, __fmul_rn(h, w2k[k]));
+  }
+  return pred;
+}
+
+// Stage 1: the root's prediction for q, and the leaf it routes q to.
 template <bool kMlpRoot>
 __device__ __forceinline__ float root_predict(const float* root, float q) {
   if (!kMlpRoot)
@@ -108,97 +126,101 @@ __device__ __forceinline__ float root_predict(const float* root, float q) {
   return __fadd_rn(s, __ldg(root + 3 * kRootLanes));
 }
 
-// Stage 3: the error-bound window of lane j around pred.
-__device__ __forceinline__ void window(const Tables& t, int j, float pred,
-                                       int& lo, int& hi) {
-  float flo = floorf(__fadd_rn(pred, __ldg(t.vec + t.lp + j)));
-  float fhi = __fadd_rn(ceilf(__fadd_rn(pred, __ldg(t.vec + 2 * t.lp + j))),
-                        1.0f);
+template <bool kMlpRoot>
+__device__ __forceinline__ int route_bucket(const Tables& t, float q) {
+  const int b = __float2int_rz(__fmul_rn(root_predict<kMlpRoot>(t.root, q),
+                                         t.ratio));
+  return min(max(b, 0), t.n_leaves - 1);
+}
+
+// Stage 3: the error-bound window around pred, clamped to [0, n_keys).
+__device__ __forceinline__ void bounds(const Tables& t, float pred,
+                                       float err_lo, float err_hi, int& lo,
+                                       int& hi) {
+  const float flo = floorf(__fadd_rn(pred, err_lo));
+  const float fhi = __fadd_rn(ceilf(__fadd_rn(pred, err_hi)), 1.0f);
   lo = __float2int_rz(clip_nan(flo, 0.0f, t.lo_max));
   hi = __float2int_rz(clip_nan(fhi, 1.0f, t.hi_max));
 }
 
-// Stages 1-3: root routing, leaf predict, error-bound window.
+// Stages 1-3 from the lane-major tables: root routing, leaf predict,
+// error-bound window (K2 with linear leaves, K3).
 template <bool kMlpRoot, bool kMlpLeaf>
 __device__ __forceinline__ void route_window(const Tables& t, float q,
                                              int& lo, int& hi) {
-  float rpred = root_predict<kMlpRoot>(t.root, q);
-  int b = __float2int_rz(__fmul_rn(rpred, t.ratio));
-  b = min(max(b, 0), t.n_leaves - 1);
-  window(t, b, predict<kMlpLeaf>(t.mat, t.vec, t.lp, b, q), lo, hi);
-}
-
-// Stage 4: branchless search of [lo, hi) at static depth.  Left boundary
-// (first key >= q) or, with kRight, right boundary (first key > q).
-// Positions at or past n_keys read as +inf, as the reference's padding does.
-template <bool kRight>
-__device__ __forceinline__ int window_search(const Tables& t, float q,
-                                             int lo, int hi) {
-  int l = lo, h = hi;
-  for (int it = 0; it < t.iters; ++it) {
-    if (h > l) {
-      int mid = (l + h) >> 1;
-      float kv = mid < t.n_keys ? __ldg(t.keys + mid) : __int_as_float(0x7f800000);
-      bool below = kRight ? (kv <= q) : (kv < q);
-      if (below) l = mid + 1; else h = mid;
-    }
-  }
-  return l < hi ? l : min(hi, t.n_keys);
-}
-
-template <bool kMlpRoot, bool kMlpLeaf>
-__global__ void __launch_bounds__(kThreads)
-lookup_kernel(Tables t, const float* __restrict__ q, int nq,
-              int* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nq) return;
-  float x = q[i];
-  int lo, hi;
-  route_window<kMlpRoot, kMlpLeaf>(t, x, lo, hi);
-  out[i] = window_search<false>(t, x, lo, hi);
+  const int b = route_bucket<kMlpRoot>(t, q);
+  bounds(t, predict<kMlpLeaf>(t.mat, t.vec, t.lp, b, q),
+         __ldg(t.vec + t.lp + b), __ldg(t.vec + 2 * t.lp + b), lo, hi);
 }
 
 // ---------------------------------------------------------------------------
-// K2 and K3, redesigned for Hopper.
+// Leaf-major and node-major rows (kernels/lookup.py leaf_rows / node_rows,
+// cached in the index beside its packed tables, never built per call on the
+// index paths): a leaf's or a node's words side by side, read with 16-byte
+// loads issued together instead of one 4-byte gather -- one sector -- from
+// each lane-major table row.
+//   linear leaf (K1):     1 float4   (a, b, err_lo, err_hi)
+//   MLP leaf (K1, K2):    4 float4s  w1, b1, w2 (H each), (b2, err_lo,
+//                                    err_hi, 0)
+//   linear node (K4):     2 float4s  (a, b, err_lo, err_hi), (y_start,
+//                                    y_end, child_base, is_leaf): a sector
+//   MLP node (K4):        5 float4s  (0, b2, err_lo, err_hi), (y_start,
+//                                    y_end, child_base, is_leaf), w1, b1, w2
+// The predicts and windows run the lane-major tables' f32 steps in the same
+// order, so the rows change which bytes are read, not what is computed.
+
+// Stages 1-3 from leaf rows.
+template <bool kMlpRoot, bool kMlpLeaf>
+__device__ __forceinline__ void route_window_rows(const Tables& t,
+                                                  const float4* rows,
+                                                  float q, int& lo, int& hi) {
+  const int b = route_bucket<kMlpRoot>(t, q);
+  if (!kMlpLeaf) {
+    const float4 r = __ldg(rows + b);
+    bounds(t, __fadd_rn(__fmul_rn(r.x, q), r.y), r.z, r.w, lo, hi);
+    return;
+  }
+  const float4* r = rows + 4 * b;
+  const float4 w1 = __ldg(r), b1 = __ldg(r + 1), w2 = __ldg(r + 2),
+               v = __ldg(r + 3);
+  bounds(t, mlp_predict(v.x, w1, b1, w2, q), v.y, v.z, lo, hi);
+}
+
+// ---------------------------------------------------------------------------
+// The window search: the reference's static loop -- mid = (l + h) >> 1 on
+// [lo, hi), positions at or past n reading +inf, `iters` trips, a no-op once
+// the window is empty -- run so that it ends where that loop ends, for any
+// trip count and any window, converged or not.
 //
-// An endpoint (a query of K2, either end of a K3 pair) runs two independent
-// searches ("chains"): the window search of the base tier (`iters` trips)
-// and the full-depth probe of the delta tier (`d_iters` trips).  Each chain
-// is the reference's static loop -- mid = (l + h) >> 1, a no-op once the
-// window is empty -- and ends where that loop ends, for any trip count and
-// any window, converged or not.
-//
-// What bounds them: every trip of every lane reads its own 32-byte sector,
-// the base tier's from HBM (800 MB of keys), the delta tier's from L2, so
-// the kernels run at the rate the memory system serves scattered sectors,
-// and only fewer sectors or better overlap make them faster.  The design:
-//   * interleaved chains: one loop advances both chains of a lane by one
-//     trip, both loads issued before either is used; a warp leaves the loop
-//     once no lane has a live chain (__any_sync), never later than the
-//     static loop's last trip;
+// What bounds it: every trip of every lane reads its own 32-byte sector of
+// an 800 MB key array.  So:
+//   * a warp leaves the loop once no lane has a live window (__any_sync),
+//     never later than the static loop's last trip;
 //   * sector finish: once a live window lies in one aligned 32-byte sector
 //     that lies wholly in [0, n) of its tier, the chain loads that sector
 //     (two 16-byte loads) and runs its remaining trips -- the same
 //     midpoints, at most four, since a window of at most 8 keys empties in
 //     at most 4 -- on the register copy.  A window whose sector reaches
 //     past either end of the tier takes binary trips, so no load leaves the
-//     tier.  Both of K2's chains finish so; K3's base chain takes binary
-//     trips to its end (measured faster there: its last probes hit lines
-//     the earlier ones brought in);
-//   * K3 puts a pair's left and right endpoints in neighbouring lanes, so
-//     the two searches' common sectors are fetched once;
-//   * K2 with MLP leaves reads a leaf's 15 parameters from a leaf-major
-//     64-byte row (`rows`, built by the wrapper at each call from the
-//     packed tables: kernels/lookup.py leaf_rows) in four 16-byte loads
-//     instead of 15 lane-major gathers;
-//   * 128-thread blocks, one warp tile of 32 endpoints each.
-// Tried on the card and dropped (PERF.md section 6): a 12-level delta fence
-// in shared memory, a persistent grid with static or atomic-counter tiles,
-// four chains a thread for K3, leaf-major rows for linear leaves and for
-// K3, a register cap.
-
-constexpr int kK23Threads = 128;
-constexpr unsigned kFull = 0xffffffffu;
+//     tier.
+// Both replay the static loop's own midpoints, so they are exact on every
+// window, also one that the static depth does not converge (an empty
+// leaf's sentinel full-array window, or `iters` cut).
+//
+// K1 and K4 add a fence: every 64th key of the base tier (positions 0, 64,
+// ...: 12.5 MB at 200M keys, a quarter of the 50 MB L2), cached beside the
+// f32 keys (kernels/lookup.py key_fence).  A window the static loop
+// converges (hi - lo < 2^iters) is searched on the fence first, then within
+// one 64-key interval of the keys, so that its first probes hit L2 instead
+// of scattered HBM sectors.  Exact because, when it converges, the static
+// loop ends on the first position in [lo, hi) whose key is not below q
+// (positions >= n read +inf), or on hi -- as any exact lower-bound search
+// of a sorted array does, for NaN and +-inf too (no key is below NaN: the
+// answer is lo).  If J is the first fence entry in the window that is not
+// below q (jl <= J <= jh, the entries ceil(lo / 64) .. ceil(hi / 64) - 1
+// below nf), that position lies in (64 (J - 1), 64 J] (clipped to
+// [lo, hi]): keys[64 (J - 1)] is below q, keys[64 J] is not.  A window the
+// static depth does not converge replays the static loop's midpoints.
 
 // One static search loop: window [l, h), trips left r.
 struct Chain {
@@ -293,33 +315,93 @@ __device__ __forceinline__ void retire(Chain& c, const Probe& p, float q,
   }
 }
 
-// Stages 1-3 for MLP leaves from leaf-major rows (w1, b1, w2 over H lanes,
-// b2, err_lo, err_hi, pad: 64 bytes a leaf): the four loads issued
-// together, then predict<true> and window() in the same f32 order.
-template <bool kMlpRoot>
-__device__ __forceinline__ void route_window_rows(const Tables& t,
-                                                  const float4* rows,
-                                                  float q, int& lo, int& hi) {
-  float rpred = root_predict<kMlpRoot>(t.root, q);
-  int b = __float2int_rz(__fmul_rn(rpred, t.ratio));
-  b = min(max(b, 0), t.n_leaves - 1);
-  const float4* r = rows + 4 * b;
-  const float4 w1 = __ldg(r), b1 = __ldg(r + 1), w2 = __ldg(r + 2),
-               v = __ldg(r + 3);
-  const float w1k[kH] = {w1.x, w1.y, w1.z, w1.w};
-  const float b1k[kH] = {b1.x, b1.y, b1.z, b1.w};
-  const float w2k[kH] = {w2.x, w2.y, w2.z, w2.w};
-  float pred = v.x;
-#pragma unroll
-  for (int k = 0; k < kH; ++k) {
-    const float h = relu_nan(__fadd_rn(__fmul_rn(q, w1k[k]), b1k[k]));
-    pred = __fadd_rn(pred, __fmul_rn(h, w2k[k]));
+// The window-clamped left boundary of x in the base tier's [lo, hi):
+// K1's and K4's search, one chain a lane -- with kFence on the fence and
+// then on the keys for a converged window, on the keys alone for another;
+// with kSector finishing from sectors.  Called by every lane of the warp
+// (`valid` false past the end of the work).
+template <bool kFence, bool kSector>
+__device__ __forceinline__ int leaf_search(const Tables& t, float x,
+                                           bool valid, int lo, int hi) {
+  const Tier keys = tier_of(t.keys, t.n_keys), fence = tier_of(t.fence, t.nf);
+  constexpr int kAll = 32;               // trips enough for any window
+  bool on_fence = kFence && valid && (t.iters >= 31 ||
+                            (t.iters > 0 && static_cast<unsigned>(hi - lo) <
+                                                (1u << t.iters)));
+  const int jl = static_cast<int>((static_cast<unsigned>(lo) + 63u) >>
+                                  kFenceShift);
+  const int jh = max(min(static_cast<int>((static_cast<unsigned>(hi) + 63u) >>
+                                          kFenceShift),
+                         t.nf),
+                     jl);
+  Chain c = on_fence ? Chain{jl, jh, kAll}
+                     : Chain{lo, hi, valid ? t.iters : 0};
+  while (__any_sync(kFull, c.live() || on_fence)) {
+    if (on_fence && !c.live()) {         // the fence's interval of the keys
+      const int j = c.l;
+      c = Chain{j > jl ? ((j - 1) << kFenceShift) + 1 : lo,
+                j < jh ? j << kFenceShift : hi, kAll};
+      on_fence = false;
+    }
+    // the tier picked field by field: a reference to either Tier would
+    // put both in local memory
+    const Tier tier{on_fence ? fence.keys : keys.keys,
+                    on_fence ? fence.n : keys.n, on_fence ? fence.a8 : keys.a8};
+    retire(c, issue<kSector>(c, tier), x, false);
   }
-  const float flo = floorf(__fadd_rn(pred, v.y));
-  const float fhi = __fadd_rn(ceilf(__fadd_rn(pred, v.z)), 1.0f);
-  lo = __float2int_rz(clip_nan(flo, 0.0f, t.lo_max));
-  hi = __float2int_rz(clip_nan(fhi, 1.0f, t.hi_max));
+  return c.l < hi ? c.l : min(hi, t.n_keys);
 }
+
+// The first of the 32 work items of this thread's warp.
+__device__ __forceinline__ long long warp_tile() {
+  return (static_cast<long long>(blockIdx.x) * (kTileThreads / 32) +
+          (threadIdx.x >> 5)) * 32;
+}
+
+// ---------------------------------------------------------------------------
+// K1, redesigned for Hopper: the leaf from its row (one 16-byte load for a
+// linear leaf instead of 4 gathers, four for an MLP leaf instead of 15),
+// then leaf_search from the fence in binary trips.  Measured at 200M
+// lognormal keys (PERF.md section 6, PR 18): the fence cuts K1 by 10%
+// (linear leaves) and 24% (MLP leaves); the sector finish slows it by
+// 0.5-6%.
+template <bool kMlpRoot, bool kMlpLeaf>
+__global__ void __launch_bounds__(kTileThreads)
+lookup_kernel(Tables t, const float4* __restrict__ rows,
+              const float* __restrict__ q, int nq, int* __restrict__ out) {
+  const long long w = warp_tile();
+  if (w >= nq) return;                  // whole warps only
+  const int i = static_cast<int>(w) + (threadIdx.x & 31);
+  const bool valid = i < nq;
+  const float x = valid ? q[i] : 0.0f;
+  int lo = 0, hi = 0;
+  if (valid) route_window_rows<kMlpRoot, kMlpLeaf>(t, rows, x, lo, hi);
+  const int pos = leaf_search<true, false>(t, x, valid, lo, hi);
+  if (valid) out[i] = pos;
+}
+
+// ---------------------------------------------------------------------------
+// K2 and K3, redesigned for Hopper.
+//
+// An endpoint (a query of K2, either end of a K3 pair) runs two independent
+// chains: the window search of the base tier (`iters` trips) and the
+// full-depth probe of the delta tier (`d_iters` trips), the base tier's
+// sectors from HBM (800 MB of keys), the delta tier's from L2.  The design:
+//   * interleaved chains: one loop advances both chains of a lane by one
+//     trip, both loads issued before either is used; a warp leaves the loop
+//     once no lane has a live chain, never later than the static loop's
+//     last trip;
+//   * the sector finish on both of K2's chains; K3's base chain takes
+//     binary trips to its end (measured faster there: its last probes hit
+//     lines the earlier ones brought in);
+//   * K3 puts a pair's left and right endpoints in neighbouring lanes, so
+//     the two searches' common sectors are fetched once;
+//   * K2 with MLP leaves reads them from leaf rows (route_window_rows);
+//     with linear leaves, and K3 with either, from the lane-major tables.
+// Tried on the card and dropped (PERF.md section 6): a 12-level delta fence
+// in shared memory, a persistent grid with static or atomic-counter tiles,
+// four chains a thread for K3, leaf rows for linear leaves of K2 and for
+// K3 (built per call), a register cap.
 
 // One endpoint's two chains, interleaved: the window search of x over the
 // base tier's [lo, hi) and the delta probe, left (kv < x) or right
@@ -343,15 +425,9 @@ __device__ __forceinline__ void endpoint(const Tables& t, const float* dk,
   dpos = d.l;
 }
 
-// The first of the 32 work items of this thread's warp.
-__device__ __forceinline__ long long warp_tile() {
-  return (static_cast<long long>(blockIdx.x) * (kK23Threads / 32) +
-          (threadIdx.x >> 5)) * 32;
-}
-
 // K2.  kMlpLeaf reads the leaves from `rows`, not from t.mat / t.vec.
 template <bool kMlpRoot, bool kMlpLeaf>
-__global__ void __launch_bounds__(kK23Threads)
+__global__ void __launch_bounds__(kTileThreads)
 dynamic_lookup_kernel(Tables t, const float4* __restrict__ rows,
                       const float* __restrict__ q, int nq,
                       const float* __restrict__ dk, int nd, int d_iters,
@@ -363,7 +439,7 @@ dynamic_lookup_kernel(Tables t, const float4* __restrict__ rows,
   const float x = valid ? q[i] : 0.0f;
   int lo = 0, hi = 0, bpos, dpos;
   if (valid) {
-    if (kMlpLeaf) route_window_rows<kMlpRoot>(t, rows, x, lo, hi);
+    if (kMlpLeaf) route_window_rows<kMlpRoot, true>(t, rows, x, lo, hi);
     else route_window<kMlpRoot, false>(t, x, lo, hi);
   }
   endpoint<true>(t, dk, nd, d_iters, x, false, valid, lo, hi, bpos, dpos);
@@ -376,7 +452,7 @@ dynamic_lookup_kernel(Tables t, const float4* __restrict__ rows,
 // K3: work item 2p is the left boundary of qlo[p], 2p + 1 the right
 // boundary of qhi[p].
 template <bool kMlpRoot, bool kMlpLeaf>
-__global__ void __launch_bounds__(kK23Threads)
+__global__ void __launch_bounds__(kTileThreads)
 dynamic_range_kernel(Tables t, const float* __restrict__ qlo,
                      const float* __restrict__ qhi, int nq,
                      const float* __restrict__ dk, int nd, int d_iters,
@@ -397,46 +473,76 @@ dynamic_range_kernel(Tables t, const float* __restrict__ qlo,
   }
 }
 
-// Launch a K2/K3 kernel over `items` work items, one a thread.
-template <typename Kernel, typename... Args>
-int launch_k23(Kernel kernel, long long items, void* stream, Args... args) {
-  const unsigned grid =
-      static_cast<unsigned>((items + kK23Threads - 1) / kK23Threads);
-  kernel<<<grid, kK23Threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      args...);
-  return static_cast<int>(cudaGetLastError());
+// ---------------------------------------------------------------------------
+// K4, redesigned for Hopper: the RMRT descent over node rows (per level:
+// node predict, re-bucket by fanout over [y_start, y_end], stay at
+// is_leaf), then the leaf's error window and leaf_search from the fence,
+// finishing from sectors.  The search is most of K4's time: its windows
+// span about 2^12 keys at 200M keys (a leaf holds up to 10^6), and the
+// fence takes K4 from 0.31 to 0.12 ms there (PERF.md section 6, PR 18).
+//
+// A level is one node row: two 16-byte loads of one sector for a linear
+// node instead of 6 gathers; the row the descent ends on also gives the
+// window.  Every lane runs the reference's `depth` levels, a lane at its
+// leaf re-reading that row from L1: a descent that stopped at the leaf
+// (a warp vote a level) measured 0.7-1.1% slower at 200M keys, where every
+// warp walks both levels of the tree.
+
+// A node row in registers (w1, b1, w2 only for MLP nodes).
+struct NodeRow {
+  float4 m;            // (a, b, err_lo, err_hi) / (0, b2, err_lo, err_hi)
+  float4 r;            // (y_start, y_end, child_base, is_leaf)
+  float4 w1, b1, w2;
+};
+
+template <bool kMlp>
+__device__ __forceinline__ void load_node(const float4* rows, int node,
+                                          NodeRow& n) {
+  const float4* p = rows + (kMlp ? 5 : 2) * static_cast<long long>(node);
+  n.m = __ldg(p);
+  n.r = __ldg(p + 1);
+  if (kMlp) {
+    n.w1 = __ldg(p + 2);
+    n.b1 = __ldg(p + 3);
+    n.w2 = __ldg(p + 4);
+  }
 }
 
-// K4: fixed-depth masked descent over the packed RMRT node tables (per
-// level: node predict, re-bucket by fanout over [y_start, y_end], stop at
-// is_leaf), then the leaf's error window and K1's window search.
 template <bool kMlp>
-__global__ void __launch_bounds__(kThreads)
-rmrt_lookup_kernel(Tables t, int fanout, int depth,
-                   const float* __restrict__ q, int nq,
+__device__ __forceinline__ float node_predict(const NodeRow& n, float q) {
+  return kMlp ? mlp_predict(n.m.y, n.w1, n.b1, n.w2, q)
+              : __fadd_rn(__fmul_rn(n.m.x, q), n.m.y);
+}
+
+template <bool kMlp>
+__global__ void __launch_bounds__(kTileThreads)
+rmrt_lookup_kernel(Tables t, const float4* __restrict__ rows, int fanout,
+                   int depth, const float* __restrict__ q, int nq,
                    int* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nq) return;
-  const float x = q[i];
+  const long long w = warp_tile();
+  if (w >= nq) return;                  // whole warps only
+  const int i = static_cast<int>(w) + (threadIdx.x & 31);
+  const bool valid = i < nq;
+  const float x = valid ? q[i] : 0.0f;
   const float ffan = static_cast<float>(fanout);
-  const float* ys_row = t.vec + 3 * t.lp;
-  const float* ye_row = t.vec + 4 * t.lp;
-  const float* cb_row = t.vec + 5 * t.lp;
-  const float* leaf_row = t.vec + 6 * t.lp;
-  int node = 0;
-  for (int d = 0; d < depth; ++d) {
-    float pred = predict<kMlp>(t.mat, t.vec, t.lp, node, x);
-    float ys = __ldg(ys_row + node);
-    float span = __fsub_rn(__ldg(ye_row + node), ys);
-    int child = __float2int_rz(
-        __fdiv_rn(__fmul_rn(__fsub_rn(pred, ys), ffan), span));
-    child = min(max(child, 0), fanout - 1);
-    int nxt = __float2int_rz(__ldg(cb_row + node)) + child;
-    if (!(__ldg(leaf_row + node) > 0.5f)) node = nxt;
+  int lo = 0, hi = 0;
+  if (valid) {
+    NodeRow n;
+    load_node<kMlp>(rows, 0, n);
+    int node = 0;
+    for (int d = 0; d < depth; ++d) {
+      const float ys = n.r.x;
+      const float span = __fsub_rn(n.r.y, ys);
+      int child = __float2int_rz(__fdiv_rn(
+          __fmul_rn(__fsub_rn(node_predict<kMlp>(n, x), ys), ffan), span));
+      child = min(max(child, 0), fanout - 1);
+      if (!(n.r.w > 0.5f)) node = __float2int_rz(n.r.z) + child;
+      load_node<kMlp>(rows, node, n);
+    }
+    bounds(t, node_predict<kMlp>(n, x), n.m.z, n.m.w, lo, hi);
   }
-  int lo, hi;
-  window(t, node, predict<kMlp>(t.mat, t.vec, t.lp, node, x), lo, hi);
-  out[i] = window_search<false>(t, x, lo, hi);
+  const int pos = leaf_search<true, true>(t, x, valid, lo, hi);
+  if (valid) out[i] = pos;
 }
 
 Tables make_tables(const void* root, const void* mat, const void* vec, int lp,
@@ -454,42 +560,57 @@ Tables make_tables(const void* root, const void* mat, const void* vec, int lp,
   t.lo_max = lo_max;
   t.hi_max = hi_max;
   t.iters = iters;
+  t.fence = nullptr;
+  t.nf = 0;
   return t;
 }
 
-inline int blocks(int nq) { return (nq + kThreads - 1) / kThreads; }
+// The fence of n_keys keys (kernels/lookup.py key_fence): ceil(n / 64)
+// entries.
+void set_fence(Tables& t, const void* fence) {
+  t.fence = static_cast<const float*>(fence);
+  t.nf = static_cast<int>((static_cast<long long>(t.n_keys) + 63) >>
+                          kFenceShift);
+}
+
+// Launch a kernel over `items` work items, one a thread, in warp tiles.
+template <typename Kernel, typename... Args>
+int launch_tiles(Kernel kernel, long long items, void* stream,
+                 Args... args) {
+  const unsigned grid =
+      static_cast<unsigned>((items + kTileThreads - 1) / kTileThreads);
+  kernel<<<grid, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      args...);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
 // Each entry point launches on the caller's stream, allocates nothing, does
-// not synchronise, and returns cudaGetLastError() after the launch.
-// root_mlp / leaf_mlp (0 or 1) pick the template instantiation.
-#define REPRO_DISPATCH(KERNEL, ...)                                        \
-  do {                                                                     \
-    dim3 g(blocks(nq)), b(kThreads);                                       \
-    cudaStream_t s = static_cast<cudaStream_t>(stream);                    \
-    if (root_mlp && leaf_mlp) KERNEL<true, true><<<g, b, 0, s>>>(__VA_ARGS__);   \
-    else if (root_mlp) KERNEL<true, false><<<g, b, 0, s>>>(__VA_ARGS__);         \
-    else if (leaf_mlp) KERNEL<false, true><<<g, b, 0, s>>>(__VA_ARGS__);         \
-    else KERNEL<false, false><<<g, b, 0, s>>>(__VA_ARGS__);                      \
-  } while (0)
-
-// The instantiation of a K2/K3 kernel for root_mlp / leaf_mlp.
+// not synchronise, and returns cudaGetLastError() after the launch (or
+// cudaErrorInvalidValue, without launching, when rows it must read are
+// missing).  root_mlp / leaf_mlp (0 or 1) pick the template instantiation.
 #define REPRO_PICK(KERNEL)                                                 \
   (root_mlp ? (leaf_mlp ? KERNEL<true, true> : KERNEL<true, false>)        \
             : (leaf_mlp ? KERNEL<false, true> : KERNEL<false, false>))
 
+// K1.  The leaves are read from `rows` alone (kernels/lookup.py leaf_rows of
+// the leaf kind), mat / vec are not read; `fence` is key_fence(keys).
 extern "C" int repro_lookup(const void* q, int nq, const void* root,
                             const void* mat, const void* vec, int lp,
                             int n_leaves, float ratio, const void* keys,
                             int n_keys, float lo_max, float hi_max, int iters,
-                            int root_mlp, int leaf_mlp, void* out,
-                            void* stream) {
+                            int root_mlp, int leaf_mlp, const void* rows,
+                            const void* fence, void* out, void* stream) {
+  if (rows == nullptr || fence == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   Tables t = make_tables(root, mat, vec, lp, n_leaves, ratio, keys, n_keys,
                          lo_max, hi_max, iters);
-  REPRO_DISPATCH(lookup_kernel, t, static_cast<const float*>(q), nq,
-                 static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  set_fence(t, fence);
+  return launch_tiles(REPRO_PICK(lookup_kernel), nq, stream, t,
+                      static_cast<const float4*>(rows),
+                      static_cast<const float*>(q), nq,
+                      static_cast<int*>(out));
 }
 
 // K2.  With leaf_mlp the leaves are read from `rows` alone (leaf-major,
@@ -507,11 +628,11 @@ extern "C" int repro_dynamic_lookup(const void* q, int nq, const void* root,
     return static_cast<int>(cudaErrorInvalidValue);
   Tables t = make_tables(root, mat, vec, lp, n_leaves, ratio, keys, n_keys,
                          lo_max, hi_max, iters);
-  return launch_k23(REPRO_PICK(dynamic_lookup_kernel), nq, stream, t,
-                    static_cast<const float4*>(rows),
-                    static_cast<const float*>(q), nq,
-                    static_cast<const float*>(dk), nd, d_iters,
-                    static_cast<int*>(out), static_cast<int*>(dout));
+  return launch_tiles(REPRO_PICK(dynamic_lookup_kernel), nq, stream, t,
+                      static_cast<const float4*>(rows),
+                      static_cast<const float*>(q), nq,
+                      static_cast<const float*>(dk), nd, d_iters,
+                      static_cast<int*>(out), static_cast<int*>(dout));
 }
 
 extern "C" int repro_dynamic_range(const void* qlo, const void* qhi, int nq,
@@ -524,31 +645,32 @@ extern "C" int repro_dynamic_range(const void* qlo, const void* qhi, int nq,
                                    void* dlo, void* dhi, void* stream) {
   Tables t = make_tables(root, mat, vec, lp, n_leaves, ratio, keys, n_keys,
                          lo_max, hi_max, iters);
-  return launch_k23(REPRO_PICK(dynamic_range_kernel), 2LL * nq, stream, t,
-                    static_cast<const float*>(qlo),
-                    static_cast<const float*>(qhi), nq,
-                    static_cast<const float*>(dk), nd, d_iters,
-                    static_cast<int*>(blo), static_cast<int*>(bhi),
-                    static_cast<int*>(dlo), static_cast<int*>(dhi));
+  return launch_tiles(REPRO_PICK(dynamic_range_kernel), 2LL * nq, stream, t,
+                      static_cast<const float*>(qlo),
+                      static_cast<const float*>(qhi), nq,
+                      static_cast<const float*>(dk), nd, d_iters,
+                      static_cast<int*>(blo), static_cast<int*>(bhi),
+                      static_cast<int*>(dlo), static_cast<int*>(dhi));
 }
 
-// K4.  mat (3H, npad) / vec (8, npad) are pack_rmrt's node tables.
+// K4.  The nodes are read from `rows` alone (kernels/lookup.py node_rows of
+// the node kind, mlp 0 or 1: 8 floats a linear node, 20 an MLP node),
+// pack_rmrt's lane-major mat (3H, npad) / vec (8, npad) are not read;
+// `fence` is key_fence(keys).
 extern "C" int repro_rmrt_lookup(const void* q, int nq, const void* mat,
-                                 const void* vec, int npad, int fanout,
-                                 int depth, int mlp, const void* keys,
-                                 int n_keys, float lo_max, float hi_max,
-                                 int iters, void* out, void* stream) {
+                                 const void* vec, int npad, const void* rows,
+                                 const void* fence, int fanout, int depth,
+                                 int mlp, const void* keys, int n_keys,
+                                 float lo_max, float hi_max, int iters,
+                                 void* out, void* stream) {
+  if (rows == nullptr || fence == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   Tables t = make_tables(nullptr, mat, vec, npad, 0, 0.0f, keys, n_keys,
                          lo_max, hi_max, iters);
-  dim3 g(blocks(nq)), b(kThreads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mlp)
-    rmrt_lookup_kernel<true><<<g, b, 0, s>>>(
-        t, fanout, depth, static_cast<const float*>(q), nq,
-        static_cast<int*>(out));
-  else
-    rmrt_lookup_kernel<false><<<g, b, 0, s>>>(
-        t, fanout, depth, static_cast<const float*>(q), nq,
-        static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  set_fence(t, fence);
+  return launch_tiles(mlp ? rmrt_lookup_kernel<true>
+                          : rmrt_lookup_kernel<false>,
+                      nq, stream, t, static_cast<const float4*>(rows), fanout,
+                      depth, static_cast<const float*>(q), nq,
+                      static_cast<int*>(out));
 }

@@ -23,6 +23,14 @@ tables (:func:`pack_rmrt`) use the same layout with nodes on the last
 axis, plus vec rows 3 y_start, 4 y_end, 5 child_base (f32-exact: fewer
 than 2**24 nodes) and 6 is_leaf (0.0 / 1.0).
 
+The kernels read leaves and nodes from row-major copies of these tables
+(:func:`leaf_rows`, :func:`node_rows`: a leaf's or node's words side by
+side, so that they come in one or two 32-byte sectors) and K1 and K4
+search a window first on :func:`key_fence`, every 64th key; the
+indexes cache all three beside their packed tables and f32 keys.  The
+plain versions read the packed tables: the rows change what the kernels
+load, not what they compute.
+
 An MLP predicts ``b2 + relu(q*w1_0 + b1_0)*w2_0 + ... + relu(...)*w2_3``
 in that order (the reference's leaf order); the MLP root sums its four
 terms sequentially from 0 and adds b2 last, the order XLA:CPU uses for
@@ -51,6 +59,7 @@ ROOT_ROWS = 8      # packed root block rows
 ROOT_LANES = 128   # packed root block lanes
 
 KINDS = ("linear", "mlp")
+FENCE = 64         # keys a fence entry stands for (csrc/lookup.cu kFenceShift)
 
 # Launches of each CUDA kernel; incremented only where a kernel launches.
 LAUNCHES = {"lookup": 0, "dynamic_lookup": 0, "dynamic_range": 0,
@@ -352,14 +361,75 @@ def _table_args(root, mat, vec, keys, *, n_leaves, route_n, iters,
             int(leaf_kind == "mlp"))
 
 
-def leaf_rows(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
-    """Leaf-major copy of packed MLP leaf tables for K2: (Lp, 16) f32, one
-    64-byte row a leaf holding w1, b1, w2 (H each), b2, err_lo, err_hi and
-    a zero pad, in a fresh (so 16-byte aligned) allocation.  Built at each
-    call: the kernel then reads a leaf's 15 parameters from two 32-byte
-    sectors instead of 15."""
+def leaf_rows(mat: torch.Tensor, vec: torch.Tensor,
+              kind: str = "mlp") -> torch.Tensor:
+    """Leaf-major copy of packed leaf tables, one row a leaf, in a fresh
+    (so 16-byte aligned) allocation: linear leaves (Lp, 4) f32, 16 bytes
+    holding a, b, err_lo, err_hi; MLP leaves (Lp, 16), 64 bytes holding w1,
+    b1, w2 (H each), b2, err_lo, err_hi and a zero pad.  K1 reads a leaf
+    with one 16-byte load (four for an MLP leaf) instead of 4 (15)
+    lane-major gathers, K2 its MLP leaves.  The index caches them beside
+    its packed tables (``RMIIndex.leaf_rows``)."""
+    if kind == "linear":
+        return torch.stack([mat[0], vec[0], vec[1], vec[2]], 1).contiguous()
     return torch.cat([mat.T, vec[:3].T, torch.zeros_like(vec[:1].T)],
                      1).contiguous()
+
+
+def node_rows(mat: torch.Tensor, vec: torch.Tensor,
+              kind: str) -> torch.Tensor:
+    """Node-major copy of ``pack_rmrt`` tables for K4, one row a node, in a
+    fresh allocation: linear nodes (Np, 8) f32, 32 bytes -- one sector --
+    holding a, b, err_lo, err_hi, y_start, y_end, child_base, is_leaf; MLP
+    nodes (Np, 20), 80 bytes holding 0, b2, err_lo, err_hi, y_start, y_end,
+    child_base, is_leaf, then w1, b1, w2 (H each).  The RMRT caches them
+    beside its packed tables (``RMRTIndex.node_rows``)."""
+    head = mat[0] if kind == "linear" else torch.zeros_like(mat[0])
+    cols = [head, *vec[:7]]
+    if kind != "linear":
+        cols += list(mat)
+    return torch.stack(cols, 1).contiguous()
+
+
+def key_fence(keys: torch.Tensor) -> torch.Tensor:
+    """Every FENCE-th key of sorted f32 ``keys`` (positions 0, 64, ...):
+    (ceil(S / 64),) f32 in a fresh allocation, 12.5 MB at 200M keys.  K1
+    and K4 search a converged window on it first, so that the window's
+    first probes hit L2.  The index caches it beside its f32 keys."""
+    return keys[::FENCE].contiguous()
+
+
+def _row_words(kind: str, nodes: bool) -> int:
+    if nodes:
+        return 8 if kind == "linear" else 8 + 3 * H
+    return 4 if kind == "linear" else 4 * H
+
+
+def _check_rows(rows, mat, kind: str, nodes: bool = False) -> None:
+    """Raise unless ``rows`` is what :func:`leaf_rows` (:func:`node_rows`)
+    gives for these tables: shape, dtype, contiguity, device, and the
+    16-byte alignment of the kernels' vector loads."""
+    want = (mat.shape[1], _row_words(kind, nodes))
+    if tuple(rows.shape) != want or rows.dtype != torch.float32:
+        raise ValueError(f"rows must be {want} float32 ({kind} "
+                         f"{'nodes' if nodes else 'leaves'}), got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    if not rows.is_contiguous() or rows.data_ptr() % 16:
+        raise ValueError("rows must be contiguous and 16-byte aligned")
+    if rows.device != mat.device:
+        raise ValueError(f"rows on {rows.device}, tables on {mat.device}")
+
+
+def _check_fence(fence, keys) -> None:
+    """Raise unless ``fence`` has the shape, dtype and device of
+    :func:`key_fence` of ``keys`` and is contiguous."""
+    want = (-(-keys.shape[0] // FENCE),)
+    if tuple(fence.shape) != want or fence.dtype != torch.float32 \
+            or not fence.is_contiguous() or fence.device != keys.device:
+        raise ValueError(f"fence must be a contiguous {want} float32 tensor "
+                         f"on {keys.device} (key_fence of the keys), got "
+                         f"{tuple(fence.shape)} {fence.dtype} on "
+                         f"{fence.device}")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -368,15 +438,23 @@ def _stream(t: torch.Tensor) -> int:
 
 def lookup(queries, root, mat, vec, keys, *, n_leaves: int,
            route_n: int | None = None, iters: int | None = None,
-           root_kind: str = "linear", leaf_kind: str = "linear"):
+           root_kind: str = "linear", leaf_kind: str = "linear", rows=None,
+           fence=None):
     """K1 (replaces ``repro.kernels.lookup.lookup_pallas``): window-clamped
     left boundaries of f32 ``queries`` in sorted f32 ``keys``, (Q,) int32.
     ``iters`` is the static window search depth (:func:`search_iters`);
-    ``route_n`` the routing scale (defaults to ``len(keys)``)."""
+    ``route_n`` the routing scale (defaults to ``len(keys)``).  The kernel
+    reads the leaves from ``rows`` (:func:`leaf_rows` of these tables) and
+    searches ``fence`` (:func:`key_fence` of ``keys``) first, as the index
+    caches them; the wrapper builds what it is not given."""
     on_cuda, route_n, iters = _prepare(
         dict(queries=queries, root=root, mat=mat, vec=vec, keys=keys),
         n_leaves=n_leaves, route_n=route_n, iters=iters, root_kind=root_kind,
         leaf_kind=leaf_kind)
+    if rows is not None:
+        _check_rows(rows, mat, leaf_kind)
+    if fence is not None:
+        _check_fence(fence, keys)
     kinds = dict(root_kind=root_kind, leaf_kind=leaf_kind)
     if not on_cuda:
         return lookup_plain(queries, root, mat, vec, keys, n_leaves=n_leaves,
@@ -384,11 +462,16 @@ def lookup(queries, root, mat, vec, keys, *, n_leaves: int,
     out = torch.empty(queries.shape, dtype=torch.int32, device=queries.device)
     nq = queries.shape[0]
     if nq:
+        if rows is None:
+            rows = leaf_rows(mat, vec, leaf_kind)
+        if fence is None:
+            fence = key_fence(keys)
         rc = build.library("lookup").repro_lookup(
             queries.data_ptr(), nq,
             *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
                          route_n=route_n, iters=iters, **kinds),
-            out.data_ptr(), _stream(queries))
+            rows.data_ptr(), fence.data_ptr(), out.data_ptr(),
+            _stream(queries))
         build.check(rc, "lookup")
         LAUNCHES["lookup"] += 1
     return out
@@ -397,15 +480,19 @@ def lookup(queries, root, mat, vec, keys, *, n_leaves: int,
 def dynamic_lookup(queries, root, mat, vec, keys, delta_keys, *,
                    n_leaves: int, route_n: int | None = None,
                    iters: int | None = None, root_kind: str = "linear",
-                   leaf_kind: str = "linear"):
+                   leaf_kind: str = "linear", rows=None):
     """K2 (replaces ``dynamic_lookup_pallas``): (base_pos, delta_pos) --
     K1 over the base tier at the frozen ``route_n`` plus a full-depth left
-    boundary probe of the +inf-padded f32 delta tier."""
+    boundary probe of the +inf-padded f32 delta tier.  MLP leaves are read
+    from ``rows`` (:func:`leaf_rows`, built here when not given), linear
+    ones from the lane-major tables."""
     on_cuda, route_n, iters = _prepare(
         dict(queries=queries, root=root, mat=mat, vec=vec, keys=keys,
              delta_keys=delta_keys),
         n_leaves=n_leaves, route_n=route_n, iters=iters, root_kind=root_kind,
         leaf_kind=leaf_kind)
+    if rows is not None:
+        _check_rows(rows, mat, leaf_kind)
     kinds = dict(root_kind=root_kind, leaf_kind=leaf_kind)
     if not on_cuda:
         return dynamic_lookup_plain(queries, root, mat, vec, keys, delta_keys,
@@ -415,8 +502,10 @@ def dynamic_lookup(queries, root, mat, vec, keys, delta_keys, *,
     dout = torch.empty_like(out)
     nq, nd = queries.shape[0], delta_keys.shape[0]
     if nq:
-        # MLP leaves are read from leaf-major rows, linear ones lane-major
-        rows = leaf_rows(mat, vec) if leaf_kind == "mlp" else None
+        if leaf_kind == "linear":
+            rows = None
+        elif rows is None:
+            rows = leaf_rows(mat, vec)
         rc = build.library("lookup").repro_dynamic_lookup(
             queries.data_ptr(), nq,
             *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
@@ -523,10 +612,14 @@ def rmrt_lookup_plain(queries, mat, vec, keys, *, fanout: int, depth: int,
 
 
 def rmrt_lookup(queries, mat, vec, keys, *, fanout: int, depth: int,
-                kind: str = "linear", iters: int | None = None):
+                kind: str = "linear", iters: int | None = None, rows=None,
+                fence=None):
     """K4 (replaces ``repro.kernels.lookup.rmrt_lookup_pallas``): the RMRT
     descent over ``pack_rmrt`` tables and the window-clamped left-boundary
-    search of f32 ``queries`` in sorted f32 ``keys``, (Q,) int32."""
+    search of f32 ``queries`` in sorted f32 ``keys``, (Q,) int32.  The
+    kernel reads the nodes from ``rows`` (:func:`node_rows` of these
+    tables) and searches ``fence`` (:func:`key_fence` of ``keys``), as the
+    RMRT caches them; the wrapper builds what it is not given."""
     tensors = dict(queries=queries, mat=mat, vec=vec, keys=keys)
     devs = {t.device for t in tensors.values()}
     if len(devs) != 1:
@@ -544,6 +637,10 @@ def rmrt_lookup(queries, mat, vec, keys, *, fanout: int, depth: int,
                          "positions")
     if fanout < 1 or depth < 1:
         raise ValueError("fanout and depth must be positive")
+    if rows is not None:
+        _check_rows(rows, mat, kind, nodes=True)
+    if fence is not None:
+        _check_fence(fence, keys)
     S = keys.shape[0]
     iters = full_iters(S) if iters is None else iters
     if next(iter(devs)).type != "cuda":
@@ -552,10 +649,16 @@ def rmrt_lookup(queries, mat, vec, keys, *, fanout: int, depth: int,
     out = torch.empty(queries.shape, dtype=torch.int32, device=queries.device)
     nq = queries.shape[0]
     if nq:
+        if rows is None:
+            rows = node_rows(mat, vec, kind)
+        if fence is None:
+            fence = key_fence(keys)
         rc = build.library("lookup").repro_rmrt_lookup(
             queries.data_ptr(), nq, mat.data_ptr(), vec.data_ptr(),
-            mat.shape[1], fanout, depth, int(kind == "mlp"), keys.data_ptr(),
-            S, _f32(S - 1), _f32(S), iters, out.data_ptr(), _stream(queries))
+            mat.shape[1], rows.data_ptr(), fence.data_ptr(), fanout, depth,
+            int(kind == "mlp"),
+            keys.data_ptr(), S, _f32(S - 1), _f32(S), iters, out.data_ptr(),
+            _stream(queries))
         build.check(rc, "rmrt_lookup")
         LAUNCHES["rmrt_lookup"] += 1
     return out

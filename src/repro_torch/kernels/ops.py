@@ -54,29 +54,34 @@ def _seam_fix(r, kf, qf, seam_budget: int = 1024, right: bool = False):
 
 def index_lookup(queries, root, mat, vec, keys, *, n_leaves: int,
                  root_kind: str = "linear", leaf_kind: str = "linear",
-                 iters: int | None = None, seam_budget: int = 1024):
+                 iters: int | None = None, seam_budget: int = 1024,
+                 rows=None, fence=None):
     """Static serving lookup (K1 + seam fix): left boundaries of f32
     ``queries`` in the f32 ``keys``.  ``iters`` None derives the clamped
-    depth from the bound rows of ``vec``."""
+    depth from the bound rows of ``vec``; ``rows`` and ``fence`` the
+    index's cached leaf rows and key fence."""
     if iters is None:
         iters = _lookup.search_iters(vec[1, :n_leaves], vec[2, :n_leaves],
                                      keys.shape[0])
     r = _lookup.lookup(queries, root, mat, vec, keys, n_leaves=n_leaves,
-                       iters=iters, root_kind=root_kind, leaf_kind=leaf_kind)
+                       iters=iters, root_kind=root_kind, leaf_kind=leaf_kind,
+                       rows=rows, fence=fence)
     return _seam_fix(r, keys, queries, seam_budget)
 
 
 def rmrt_lookup(queries, mat, vec, keys, *, fanout: int, depth: int,
                 kind: str = "linear", iters: int | None = None,
-                seam_budget: int = 1024):
+                seam_budget: int = 1024, rows=None, fence=None):
     """RMRT serving lookup (K4 + seam fix) over ``pack_rmrt`` tables.
     ``iters`` None derives the clamped depth from the bound rows of
     ``vec`` (internal nodes carry zero-width rows; sentinel windows of
-    empty leaves are excluded, as for the RMI)."""
+    empty leaves are excluded, as for the RMI); ``rows`` and ``fence`` the
+    RMRT's cached node rows and key fence."""
     if iters is None:
         iters = _lookup.search_iters(vec[1], vec[2], keys.shape[0])
     r = _lookup.rmrt_lookup(queries, mat, vec, keys, fanout=fanout,
-                            depth=depth, kind=kind, iters=iters)
+                            depth=depth, kind=kind, iters=iters, rows=rows,
+                            fence=fence)
     return _seam_fix(r, keys, queries, seam_budget)
 
 
@@ -145,18 +150,19 @@ def _edge_pad(psum, n: int):
 def dynamic_index_lookup(queries, root, mat, vec, keys, base_psum,
                          delta_keys, delta_psum, *, n_leaves: int,
                          route_n: int, iters: int, root_kind: str = "linear",
-                         leaf_kind: str = "linear", seam_budget: int = 1024):
+                         leaf_kind: str = "linear", seam_budget: int = 1024,
+                         rows=None):
     """Two-tier serving find: K2, then the seam fix of the base positions
     and the tombstone / live-rank algebra.  ``delta_keys`` is the sorted
     +inf-padded f32 delta tier; ``*_psum`` the exclusive tombstone prefix
-    sums (length n + 1).  Returns (found, rank, base_pos, delta_pos):
-    ``found`` iff a live copy of q is in either tier, ``rank`` the live
-    keys < q over both tiers."""
+    sums (length n + 1); ``rows`` the index's cached leaf rows.  Returns
+    (found, rank, base_pos, delta_pos): ``found`` iff a live copy of q is
+    in either tier, ``rank`` the live keys < q over both tiers."""
     df = _lookup.pad_delta(delta_keys)
     pos, dpos = _lookup.dynamic_lookup(queries, root, mat, vec, keys, df,
                                        n_leaves=n_leaves, route_n=route_n,
                                        iters=iters, root_kind=root_kind,
-                                       leaf_kind=leaf_kind)
+                                       leaf_kind=leaf_kind, rows=rows)
     # The delta probe ran at full depth, so only the base needs the seam
     # pass.  A hit is a live entry in the equal-key run [left, right).
     pos = _seam_fix(pos, keys, queries, seam_budget)

@@ -16,6 +16,8 @@
 """
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -195,7 +197,12 @@ def test_cuda_kernels_match_plain():
     bit, at a small size (the full-size check is chip_smoke.py); K2 and K3
     also with the search depth cut by 3 and by 8 (windows that do not
     converge) and on a second delta tier of 4,224 entries (more than the
-    delta probe's first 12 levels visit, not a power of two)."""
+    delta probe's first 12 levels visit, not a power of two); K1 with
+    linear and MLP leaves, with rows and fence given and built, on leaves
+    given an empty leaf's sentinel window, at the depth cut by 3 and 8 and
+    at full depth (the fence then searches whole-array windows), on keys
+    as a view that starts inside a 32-byte sector, with +-0, +-inf and NaN
+    queries."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     d, q = _churned("lognormal", seed=5)
@@ -227,11 +234,37 @@ def test_cuda_kernels_match_plain():
             (tlk.dynamic_range(cuda(q), cuda(hi), *tabs, kf, dkx, **kwx),
              tlk.dynamic_range_plain(cuda(q), cuda(hi), *tabs, kf, dkx,
                                      **kwx))]
+    # K1 on its edges
+    S, k0 = kf.shape[0], float(idx.keys[0])
+    span = float(idx.keys[-1]) - k0
+    ones = torch.ones(N_LEAVES, tlk.H)
+    err = torch.from_numpy(rng.integers(2, 300, N_LEAVES).astype(np.float32))
+    mlp = tlk.pack_leaves(ones, ones * -k0, ones * (S / span / tlk.H),
+                          torch.zeros(N_LEAVES), -err, err)
+    specials = cuda(np.array([0.0, -0.0, np.inf, -np.inf, np.nan]))
+    qk = torch.cat([cuda(q), specials, kf[:3], kf[-3:]])
+    k1 = 0
+    for kind, (m, v) in (("linear", tabs[1:]),
+                         ("mlp", tuple(a.cuda() for a in mlp))):
+        planted = v.clone()
+        planted[1, ::5], planted[2, ::5] = -float(S), float(S)
+        for vv, keys, it in itertools.product(
+                (v, planted), (kf, kf[1:]),
+                (idx.search_iters, idx.search_iters - 3,
+                 idx.search_iters - 8, tlk.full_iters(S))):
+            k1kw = dict(n_leaves=N_LEAVES, iters=it, leaf_kind=kind)
+            t1 = (tabs[0], m, vv)
+            want = tlk.lookup_plain(qk, *t1, keys, **k1kw)
+            pairs.append(((tlk.lookup(qk, *t1, keys, **k1kw),), (want,)))
+            pairs.append(((tlk.lookup(
+                qk, *t1, keys, rows=tlk.leaf_rows(m, vv, kind),
+                fence=tlk.key_fence(keys), **k1kw),), (want,)))
+            k1 += 2
     torch.cuda.synchronize()
     for got, want in pairs:
         for g, w in zip(got, want, strict=True):
             assert torch.equal(g, w)
-    assert tlk.LAUNCHES["lookup"] == before["lookup"] + 1
+    assert tlk.LAUNCHES["lookup"] == before["lookup"] + 1 + k1
     assert all(tlk.LAUNCHES[k] == before[k] + 5
                for k in ("dynamic_lookup", "dynamic_range"))
 

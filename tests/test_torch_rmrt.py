@@ -17,6 +17,8 @@ at small sizes.
 """
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -177,21 +179,45 @@ def test_pack_rmrt_refuses_2_24_nodes():
 @pytest.mark.gpu
 def test_cuda_k4_matches_plain(pools):
     """K4 against its plain version on the card, bit for bit, both node
-    kinds (the full-size check is chip_smoke.py)."""
+    kinds (the full-size check is chip_smoke.py): with the node rows and
+    key fence the RMRT caches and with rows and fence the wrapper builds,
+    on nodes given an empty leaf's sentinel window, at the clamped depth,
+    cut by 3 and 8 and at full depth (the fence then searches whole-array
+    windows), on keys as a view that starts inside a 32-byte sector, with
+    +-0, +-inf and NaN queries."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     keys = gen_keys(np.random.default_rng(6), "lognormal", 5000)
+    specials = torch.tensor([0.0, -0.0, np.inf, -np.inf, np.nan]).cuda()
     for kind in ("linear", "mlp"):
         j = jrmrt.build_rmrt(jnp.asarray(keys), leaf_cap=256, fanout=8,
                              kind=kind, train_steps=STEPS)
+        t = rmrt_from_arrays(export_rmrt(j), device="cuda")
         mat, vec = (_t32(a).cuda() for a in j.packed_tables())
-        q = _t32(gen_queries(np.random.default_rng(7), keys, Q)).cuda()
+        assert torch.equal(mat, t.packed_tables()[0])
         kf = _t32(keys).cuda()
-        kw = dict(fanout=j.fanout, depth=j.depth, kind=kind,
-                  iters=j.search_iters)
+        q = torch.cat([_t32(gen_queries(np.random.default_rng(7), keys,
+                                        Q)).cuda(), specials, kf[:3],
+                       kf[-3:]])
+        kw = dict(fanout=j.fanout, depth=j.depth, kind=kind)
         before = tlk.LAUNCHES["rmrt_lookup"]
-        got = tlk.rmrt_lookup(q, mat, vec, kf, **kw)
-        want = tlk.rmrt_lookup_plain(q, mat, vec, kf, **kw)
+        got = tlk.rmrt_lookup(q, mat, vec, kf, iters=j.search_iters,
+                              rows=t.node_rows(), fence=t.key_fence, **kw)
+        want = tlk.rmrt_lookup_plain(q, mat, vec, kf, iters=j.search_iters,
+                                     **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
-        assert tlk.LAUNCHES["rmrt_lookup"] == before + 1
+        planted = vec.clone()
+        leaves = torch.nonzero(t.is_leaf).squeeze(1)[::5]
+        planted[1, leaves], planted[2, leaves] = -5000.0, 5000.0
+        launches = 1
+        for v, keys_, it in itertools.product(
+                (vec, planted), (kf, kf[1:]),
+                (j.search_iters, j.search_iters - 3, j.search_iters - 8,
+                 tlk.full_iters(5000))):
+            got = tlk.rmrt_lookup(q, mat, v, keys_, iters=it, **kw)
+            want = tlk.rmrt_lookup_plain(q, mat, v, keys_, iters=it, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (kind, it, keys_.shape[0])
+            launches += 1
+        assert tlk.LAUNCHES["rmrt_lookup"] == before + launches
