@@ -123,6 +123,24 @@ Phases (any failure exits non-zero; nothing is caught):
    prefill logits must agree within ``LM_LOGIT_TOL`` and the first greedy
    tokens wherever the margin allows.  Prints prefill seconds, decode
    tokens/s, peak memory and K8's share of each.
+9. Path E, counted, on fresh keys: the paper's baselines (B+tree at
+   ``BTREE_FANOUT`` over every key on the card; PGM at ``PGM_EPS`` and
+   RadixSpline at ``RS_EPS``/``RS_RADIX_BITS`` built on the host over
+   ``PGM_RS_SAMPLE`` keys at evenly spaced ranks) beside ``rmi.lookup``
+   (K1), each against ``torch.searchsorted``, with build seconds, lookup
+   ms (not counted), shape and index bytes; then ``Index.build`` and path
+   A's churn, a blocking ``snapshot`` and an async one into a temporary
+   store under ``build/`` (the free disk space printed first, removed at
+   the end), ``Index.restore`` (answers, cached tables, rows, fence and
+   depth equal to the live index's; K2/K3 against their plain versions on
+   the restored tables), a flipped byte in step 2 (``restore`` serves
+   step 1's recorded answers; ``step=2`` and ``on_corrupt="raise"``
+   raise), a pooled drift index at path C's settings over 2M keys round
+   tripped (scores, histograms, answers); then an ``IndexedDataset`` of
+   ``DATASET_SHARDS`` shards over disjoint key ranges with a linear pool
+   (K7 in every build): ``locate`` of ``--queries`` keys and
+   ``locate_range`` of a quarter as many pairs, against a per-shard truth,
+   before and after ``append_to_shard`` and ``delete_samples``.
 
 Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
@@ -137,9 +155,10 @@ bf16 tensor-core rate for K8's prefill tile); K1-K4 rows add
 32-byte sectors the kernel's layout touches (leaf or node rows or
 lane-major table rows, the fence's and the keys' probes).  A row's
 ``launches`` add up every path that launches that instantiation (K1
-linear: paths A and D; K2/K3 linear: A and C; K7 and its table kernel: B
-and C).  K1's, K2's, K3's, K4's, K5's and K7's rows are printed beside
-their previous designs' times from ``PERF.md`` (not re-run; not in the
+linear: paths A, D and E; K2/K3 linear: A, C and E; K7 and its table
+kernel: B, C and E).  K1's, K2's, K3's, K4's, K5's and K7's rows are
+printed beside their previous designs' times from ``PERF.md`` (not
+re-run; not in the
 JSON line).
 Keys are lognormal float32 values drawn on the card from ``--seed`` and
 sorted there.  Every answer of path C is held against the truth too.  The
@@ -163,9 +182,11 @@ import functools
 import gc
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -234,6 +255,14 @@ LM_NEW_TOKENS = 32             # greedy tokens a request
 # attention differences (the plain version's key blocks of 1,024 against
 # 128) move the logits of a 36-layer qwen3 cut to d_model 512 on the CPU.
 LM_LOGIT_TOL = 0.25
+# Path E: the reference benchmark's baseline settings
+# (benchmarks/bench_lookup.py), PGM's and RadixSpline's host builds over a
+# sample of this many keys, and the indexed dataset's shards
+BTREE_FANOUT = 16
+PGM_EPS = 64
+RS_EPS, RS_RADIX_BITS = 32, 12
+PGM_RS_SAMPLE = 1 << 22
+DATASET_SHARDS = 8
 
 
 def _args(argv):
@@ -1215,6 +1244,355 @@ def _path_d(args, dev, rows, counters, reset_counters, uncounted) -> None:
           f"{res_p.decode_tok_s:.3f} tokens/s")
 
 
+def _slice_ranks(pieces, lo, hi, live_of) -> int:
+    """Check every (shard, keys) piece of ``locate_range``'s answer against
+    a per-shard truth: the piece is a slice of that shard's live keys (its
+    offset read from the view), and its ends are the shard's ranks of the
+    range clamped to the shard's live span.  Returns the number of keys
+    the ranges hold."""
+    import numpy as np
+    seen, total = set(), 0
+    for r, got in enumerate(pieces):
+        for sid, piece in got:
+            live, want = piece.base, live_of[sid]
+            if id(live) not in seen:        # a shard's live keys, once
+                if not (isinstance(live, np.ndarray)
+                        and np.array_equal(live, want)):
+                    raise AssertionError(f"range {r}: the piece of shard "
+                                         f"{sid} is not a slice of its live "
+                                         f"keys")
+                seen.add(id(live))
+            a = (piece.ctypes.data - live.ctypes.data) // 8
+            wa = int(np.searchsorted(want, max(lo[r], want[0]), "left"))
+            wb = int(np.searchsorted(want, min(hi[r], want[-1]), "right"))
+            if (a, a + piece.size) != (wa, wb):
+                raise AssertionError(f"range {r} shard {sid}: [{a}, "
+                                     f"{a + piece.size}) != [{wa}, {wb})")
+            total += piece.size
+    return total
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _path_e(args, dev, rows, h) -> None:
+    """Phase 9, path E, counted: the paper's baselines (B+tree over every
+    key on the card, PGM and RadixSpline over a 2^22-key sample built on
+    the host) beside ``rmi.lookup`` (K1); ``Index`` snapshots (blocking and
+    async), restore, a flipped byte's fallback and a pooled drift index's
+    round trip; an 8-shard ``IndexedDataset`` (K7 in each pooled build, K2
+    ``locate``, K3 ``locate_range``) under appends and deletes.  Every
+    answer is held against a ``torch.searchsorted`` truth.  Adds path E's
+    launches to the rows of the kernels it launched."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.api import Index
+    from repro_torch.core import btree as tbtree
+    from repro_torch.core import persist as tpersist
+    from repro_torch.core import pgm as tpgm
+    from repro_torch.core import radix_spline as trs
+    from repro_torch.core import reuse as treuse
+    from repro_torch.core import rmi as trmi
+    from repro_torch.core import synth as tsynth
+    from repro_torch.data.indexed_dataset import IndexedDataset
+    from repro_torch.kernels import lookup as tlk
+    from repro_torch.kernels import ops
+
+    f32, f64, i32 = torch.float32, torch.float64, torch.int32
+    n, L, nq = args.n, args.n_leaves, args.queries
+    keys32 = h.lognormal_keys(n)
+    keys = keys32.to(f64)
+    edges = h.edges_of(keys32)
+    h.reset_counters()
+    ops.reset_seam()
+    steps, times = {}, {}
+
+    def fq(live):
+        # f32-exact queries: the f32 truth (K1-K3) and the f64 one agree
+        return h.find_queries(live, edges).to(f32).to(f64)
+
+    # ---- 1. baselines beside the RMI --------------------------------------
+    q = fq(keys)
+    truth = torch.searchsorted(keys, q).to(i32)
+    build_s = {}
+    bt, build_s["B+tree"] = _sync_time(
+        lambda: tbtree.build_btree(keys, BTREE_FANOUT, device=dev))
+    _check_equal("B+tree lookup", tbtree.lookup(bt, q), truth)
+    # PGM and RadixSpline build in a host loop a key: a sample at evenly
+    # spaced ranks
+    m = min(PGM_RS_SAMPLE, n)
+    sample = keys[torch.arange(m, device=dev) * n // m].contiguous()
+    pg, build_s["PGM"] = _sync_time(
+        lambda: tpgm.build_pgm(sample, PGM_EPS, device=dev))
+    rsx, build_s["RadixSpline"] = _sync_time(
+        lambda: trs.build_rs(sample, RS_EPS, RS_RADIX_BITS, device=dev))
+    qs = fq(sample)
+    truth_s = torch.searchsorted(sample, qs).to(i32)
+    _check_equal("PGM lookup", tpgm.lookup(pg, qs), truth_s)
+    _check_equal("RadixSpline lookup", trs.lookup(rsx, qs), truth_s)
+    sidx, build_s["RMI"] = _sync_time(
+        lambda: trmi.build_rmi(keys, n_leaves=L, device=dev))
+    pos, _ = h.seam("lookup/path E", nq, lambda: trmi.lookup(sidx, q))
+    _check_equal("RMI lookup (K1)", pos, truth)
+    idx_bytes = {
+        "B+tree": sum(t.numel() * 8 for t in bt.levels),
+        "PGM": sum(t.numel() * 8 for lv in (pg.seg_keys, pg.seg_slope,
+                                            pg.seg_icept) for t in lv),
+        "RadixSpline": rsx.size_bytes,
+        "RMI": sum(t.numel() * t.element_size() for t in
+                   (*sidx.root, *sidx.leaves, sidx.err_lo, sidx.err_hi))}
+    shape = {"B+tree": f"height {bt.height}",
+             "PGM": f"{pg.n_segments} segments, {len(pg.seg_keys)} levels",
+             "RadixSpline": f"{rsx.spline_x.numel()} spline points",
+             "RMI": f"{L} leaves, search_iters {sidx.search_iters}"}
+    look_ms = h.uncounted(lambda: {
+        "B+tree": _event_ms(lambda: tbtree.lookup(bt, q), 20),
+        "PGM": _event_ms(lambda: tpgm.lookup(pg, qs), 20),
+        "RadixSpline": _event_ms(lambda: trs.lookup(rsx, qs), 20),
+        "RMI": _event_ms(lambda: trmi.lookup(sidx, q), 20)})
+    lib_ms = _event_ms(lambda: torch.searchsorted(keys, q), 20)
+    base_txt = [f"  {k}: build {build_s[k]:.6f} s, lookup {v:.6f} ms "
+                f"({nq} queries over {n if k in ('B+tree', 'RMI') else m} "
+                f"keys), {shape[k]}, {idx_bytes[k]} index bytes"
+                for k, v in look_ms.items()]
+    del bt, pg, rsx, sidx, sample, qs, truth_s, pos
+
+    # ---- 2. snapshots and restore ------------------------------------------
+    ix, steps["Index.build"] = _sync_time(lambda: Index.build(keys,
+                                                              n_leaves=L))
+    live, _, _ = h.churn(ix, keys, steps, " (path E)", edges)
+    store_dir = ROOT / "build"
+    store_dir.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="path_e_store_", dir=store_dir)
+    free = shutil.disk_usage(tmp).free
+    print(f"  snapshot store {Path(tmp).relative_to(ROOT)}: "
+          f"{free / 2**30:.3f} GiB free")
+    try:
+        store = tpersist.SnapshotStore(tmp)
+        _, times["snapshot step 1 (blocking)"] = _sync_time(
+            lambda: ix.snapshot(store, 1))
+        q1 = fq(live)
+        lo1, hi1 = h.range_pairs(live)
+        ans1 = ix.find(q1) + ix.find_range(lo1, hi1)
+        ix.insert(h.draw(min(2_000_000, n // 100)))
+        t0 = time.perf_counter()
+        ix.snapshot(store, 2, blocking=False)
+        times["snapshot step 2 (async): return"] = time.perf_counter() - t0
+        store.wait()
+        times["snapshot step 2 (async): until written"] = \
+            time.perf_counter() - t0
+        step_bytes = {s: _dir_bytes(store._step_dir(s))
+                      for s in store.steps()}
+        rix, times["Index.restore (step 2)"] = _sync_time(
+            lambda: Index.restore(store))
+        d, r = ix.backend, rix.backend
+        if r.live_count != d.live_count or r.rebuilds != d.rebuilds:
+            raise AssertionError(f"restore did not give step 2: live "
+                                 f"{r.live_count} vs {d.live_count}")
+        live2 = d.live_keys_tensor()
+        q2 = fq(live2)
+        lo2, hi2 = h.range_pairs(live2)
+        h.check_find(rix, q2, "restored")
+        h.check_range(rix, lo2, hi2, "restored")
+        for what, a, b in (("find", rix.find(q2), ix.find(q2)),
+                           ("find_range", rix.find_range(lo2, hi2),
+                            ix.find_range(lo2, hi2))):
+            for i, (x, y) in enumerate(zip(a, b, strict=True)):
+                _check_equal(f"restored {what} [{i}] vs the live index",
+                             x, y)
+        for i, (x, y) in enumerate(zip(
+                r.index.packed_tables() + (r.index.leaf_rows(),
+                                           r.index.keys_f32,
+                                           r.index.key_fence, r.base_psum,
+                                           r.delta_psum),
+                d.index.packed_tables() + (d.index.leaf_rows(),
+                                           d.index.keys_f32,
+                                           d.index.key_fence, d.base_psum,
+                                           d.delta_psum), strict=True)):
+            _check_equal(f"restored cache [{i}] (root, mat, vec, leaf rows, "
+                         f"f32 keys, fence, psums) vs the live index", x, y)
+        if r.index.search_iters != d.index.search_iters:
+            raise AssertionError("restored search depth differs")
+        # K2/K3 against their plain versions on the restored tables
+        tabs, dk = r.index.packed_tables(), tlk.pad_delta(r.delta_keys_f32)
+        kw = dict(n_leaves=L, route_n=r.route_n, iters=r.index.search_iters)
+        qf, lof, hif = (t.to(f32) for t in (q2, lo2, hi2))
+        errs = h.uncounted(lambda: {
+            "dynamic_lookup": _compare(
+                "dynamic_lookup (restored)",
+                lambda: tlk.dynamic_lookup(qf, *tabs, r.index.keys_f32, dk,
+                                           rows=r.index.leaf_rows(), **kw),
+                lambda: tlk.dynamic_lookup_plain(qf, *tabs, r.index.keys_f32,
+                                                 dk, **kw)),
+            "dynamic_range": _compare(
+                "dynamic_range (restored)",
+                lambda: tlk.dynamic_range(lof, hif, *tabs, r.index.keys_f32,
+                                          dk, **kw),
+                lambda: tlk.dynamic_range_plain(lof, hif, *tabs,
+                                                r.index.keys_f32, dk, **kw))})
+        del rix, r, tabs, dk, qf, lof, hif
+        # a flipped byte in step 2's shard file: fall back to step 1
+        path = os.path.join(store._step_dir(2), "shard_00000.npz")
+        with open(path, "r+b") as fh:
+            fh.seek(os.path.getsize(path) // 2)
+            b = fh.read(1)
+            fh.seek(-1, os.SEEK_CUR)
+            fh.write(bytes([b[0] ^ 0xFF]))
+        fb, times["Index.restore (step 2 damaged -> step 1)"] = _sync_time(
+            lambda: Index.restore(store))
+        got1 = fb.find(q1) + fb.find_range(lo1, hi1)
+        for i, (x, y) in enumerate(zip(got1, ans1, strict=True)):
+            _check_equal(f"fallback restore [{i}] vs step 1's answers", x, y)
+        del fb, got1
+        for what, kw in (("step=2", dict(step=2)),
+                         ("on_corrupt='raise'", dict(on_corrupt="raise"))):
+            t0 = time.perf_counter()
+            try:
+                tpersist.restore_dynamic(store, **kw)
+            except tpersist.SnapshotCorruption as e:
+                times[f"restore_dynamic({what}) raises"] = \
+                    time.perf_counter() - t0
+                print(f"  restore_dynamic({what}): {e}")
+            else:
+                raise AssertionError(f"restore_dynamic({what}) accepted a "
+                                     f"damaged snapshot")
+        del ix, d, live, live2, q, truth, q1, lo1, hi1, ans1, q2, lo2, hi2
+        torch.cuda.empty_cache()
+
+        # a pooled, drift-monitored index at path C's settings
+        md = min(2_000_000, n)
+        dpool = treuse.build_pool(tsynth.generate_pool(DRIFT_EPS),
+                                  kind="linear", m_sim=64, device=dev)
+        dix = Index.build(h.lognormal_keys(md).to(f64),
+                          n_leaves=max(L * md // n, 64), pool=dpool,
+                          eps=DRIFT_EPS, kind="linear", drift_bins=64,
+                          drift_hi=0.02, drift_lo=0.01, swap_on_drift=True)
+        for _ in range(4):
+            dix.insert(torch.empty(md // 100, dtype=f32, device=dev)
+                       .log_normal_(1.8, 0.9, generator=h.g).to(f64))
+            dix.maybe_swap()
+        dix.snapshot(store, 3)
+        rdix, times["Index.restore (pooled drift index, 2M keys)"] = \
+            _sync_time(lambda: Index.restore(store))
+        dd, rd = dix.backend, rdix.backend
+        if not np.array_equal(rdix.drift_scores(), dix.drift_scores()) \
+                or not bool(dd.drift.drifted):
+            raise AssertionError(f"drift scores {rdix.drift_scores()} vs "
+                                 f"{dix.drift_scores()} (must latch)")
+        for nm in ("ref", "acc"):
+            _check_equal(f"restored drift {nm}", getattr(rd.drift, nm),
+                         getattr(dd.drift, nm))
+        dlive = dd.live_keys_tensor()
+        dq = fq(dlive)
+        dlo, dhi = h.range_pairs(dlive)
+        h.check_find(rdix, dq, "restored drift index")
+        h.check_range(rdix, dlo, dhi, "restored drift index")
+        for i, (x, y) in enumerate(zip(rdix.find(dq) + rdix.find_range(
+                dlo, dhi), dix.find(dq) + dix.find_range(dlo, dhi),
+                strict=True)):
+            _check_equal(f"restored drift index [{i}] vs the live one", x, y)
+        drift_txt = (f"score {float(dd.drift.score):.6f}, latch "
+                     f"{bool(dd.drift.drifted)}, swaps {dd.swaps_committed},"
+                     f" rebuilds {dd.rebuilds}, step 3 "
+                     f"{_dir_bytes(store._step_dir(3))} bytes")
+        del dix, rdix, dd, rd, dlive, dq, dlo, dhi, dpool
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- 3. the indexed dataset --------------------------------------------
+    lpool = treuse.build_pool(tsynth.generate_pool(0.9), kind="linear",
+                              device=dev)
+    ds = IndexedDataset.create(pool=lpool, eps=0.9,
+                               n_leaves=max(L // DATASET_SHARDS, 64))
+    # disjoint key ranges: cut at the start of a run of equal keys
+    cuts = [0] + [int(torch.searchsorted(keys, keys[s * n // DATASET_SHARDS]))
+                  for s in range(1, DATASET_SHARDS)] + [n]
+    t0 = time.perf_counter()
+    for s in range(DATASET_SHARDS):
+        ds.add_shard(keys[cuts[s]:cuts[s + 1]])
+    torch.cuda.synchronize()
+    times["IndexedDataset: 8 x add_shard"] = time.perf_counter() - t0
+
+    def check_dataset(tag):
+        lk = [torch.as_tensor(s.keys, device=dev) for s in ds.shards]
+        allk = torch.cat(lk)
+        qd = h.pick(allk, nq)
+        (sid, off), times[f"locate ({tag})"] = _sync_time(
+            lambda: ds.locate(qd))
+        bounds = torch.tensor(ds.boundaries, dtype=f64, device=dev)
+        want_sid = torch.searchsorted(bounds, qd).clamp(max=len(lk) - 1)
+        _check_equal(f"locate ({tag}) shard ids", torch.as_tensor(
+            sid, device=dev), want_sid)
+        offt = torch.as_tensor(off, device=dev)
+        for s, k in enumerate(lk):
+            mk = want_sid == s
+            _check_equal(f"locate ({tag}) offsets in shard {s}", offt[mk],
+                         torch.searchsorted(k, qd[mk]))
+        lo, hi = h.range_pairs(allk)
+        lo_h, hi_h = lo.cpu().numpy(), hi.cpu().numpy()
+        pieces, times[f"locate_range ({tag})"] = _sync_time(
+            lambda: ds.locate_range(lo_h, hi_h))
+        got = _slice_ranks(pieces, lo_h, hi_h, [s.keys for s in ds.shards])
+        want = int((torch.searchsorted(allk, hi, right=True)
+                    - torch.searchsorted(allk, lo)).clamp(min=0).sum())
+        if got != want:
+            raise AssertionError(f"locate_range ({tag}): {got} keys, the "
+                                 f"truth {want}")
+        return got
+
+    in_ranges = check_dataset("built")
+    n_app = min(2_000_000, n // 100) // DATASET_SHARDS
+    t_app = t_del = 0.0
+    for s, info in enumerate(ds.shards):
+        k0, k1 = float(info.keys[0]), float(info.keys[-1])
+        app = (k0 + (k1 - k0) * torch.rand(n_app, dtype=f64, device=dev,
+                                            generator=h.g)).to(f32).to(f64)
+        _, dt = _sync_time(functools.partial(ds.append_to_shard, s, app))
+        t_app += dt
+        dels = h.pick(torch.as_tensor(info.keys, device=dev), n_app // 2)
+        _, dt = _sync_time(functools.partial(ds.delete_samples, s, dels))
+        t_del += dt
+    times[f"append_to_shard x8 ({n_app} keys each)"] = t_app
+    times[f"delete_samples x8 ({n_app // 2} keys each)"] = t_del
+    in_ranges2 = check_dataset("after appends and deletes")
+    launches = h.counters()
+    for k in ("lookup", "dynamic_lookup", "dynamic_range", "ksdist",
+              "ksdist_tables"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on path E: "
+                                 f"{launches}")
+    for k, v in launches.items():
+        if v and k in rows:
+            rows[k]["launches"] += v
+    for k, e in errs.items():
+        rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], e)
+    rebuilt = sum(s.dyn.rebuilds for s in ds.shards)
+
+    print(f"phase 9: path E (baselines, snapshots, indexed dataset) ok; "
+          f"n={n}; launches {launches}; K2/K3 on the restored tables equal "
+          f"their plain versions bit for bit (tolerance 0): {errs}")
+    print("\n".join(base_txt))
+    print(f"  torch.searchsorted over the {n} keys: {lib_ms:.6f} ms")
+    h.print_steps(steps)
+    for k, v in times.items():
+        print(f"  {k}: {v:.6f} s")
+    print(f"  snapshot bytes a step: {step_bytes}")
+    print(f"  pooled drift index round trip: {drift_txt}")
+    print(f"  IndexedDataset: {DATASET_SHARDS} shards, "
+          f"{ds.shards[0].index.n_leaves} leaves each, mean_reuse "
+          f"{ds.mean_reuse:.6f}, rebuilds {rebuilt}; live keys in the "
+          f"{nq // 4} ranges {in_ranges} / {in_ranges2}")
+    h.print_seam()
+    print(f"  peak memory allocated (path E): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+
 def main(argv=None) -> int:
     args = _args(argv)
     import numpy as np
@@ -2186,6 +2564,19 @@ def main(argv=None) -> int:
 
     # ---- phase 8: path D (LM serving), counted ----------------------------
     _path_d(args, dev, rows, counters, reset_counters, uncounted)
+    print(f"  wall {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- phase 9: path E (baselines, snapshots, dataset), counted ---------
+    _path_e(args, dev, rows, types.SimpleNamespace(
+        lognormal_keys=lognormal_keys, edges_of=edges_of, draw=draw,
+        pick=pick, find_queries=find_queries, range_pairs=range_pairs,
+        churn=churn, check_find=check_find, check_range=check_range,
+        seam=seam, print_steps=print_steps, print_seam=print_seam,
+        counters=counters, reset_counters=reset_counters,
+        uncounted=uncounted, g=g))
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(

@@ -1,11 +1,12 @@
 """repro_torch — the PyTorch/CUDA port of ``repro``, the lazy learned index.
 
-Laid out like the JAX package (``core/``, ``kernels/``, ``api.py``) so each
-module has a counterpart there.  It imports torch and numpy only: never
-jax, never anything of ``repro``.
+Laid out like the JAX package (``core/``, ``kernels/``, ``data/``,
+``api.py``) so each module has a counterpart there.  It imports torch and
+numpy only: never jax, never anything of ``repro``.
 
-Device policy: every entry point (``api.Index.build``,
-``core.updates.DynamicRMI.build``, ``core.rmi.build_rmi``) runs on
+Device policy: every entry point (``api.Index.build`` / ``restore``,
+``core.updates.DynamicRMI.build``, ``core.rmi.build_rmi``, the baselines'
+builds, ``data.indexed_dataset.IndexedDataset.create``) runs on
 ``cuda`` unless the caller passes ``device="cpu"``, and raises when no
 card is present.  There is no silent fallback to the CPU.  Dtypes are
 explicit everywhere (keys and model parameters f64, kernel tables and the

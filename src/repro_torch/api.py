@@ -12,27 +12,38 @@
   gather_range   ``backend.gather_range(rank_lo, rank_hi)``
   maybe_swap     ``backend.maybe_swap()`` (drift maintenance)
   drift_scores   ``core.drift.state_row(backend.drift)`` as a (1, 2) row
+  snapshot       ``core.persist.snapshot_dynamic``
+  restore        ``core.persist.restore_dynamic``
   =============  ====================================================
 
 ``find``/``find_range`` return tensors on the index's device; ``gather``,
 ``gather_range`` and ``live_keys`` return host numpy, as in the reference.
 ``pool=`` (a ``core.reuse.ModelPool`` on the index's device) serves
 Algorithm-1 reuse at build, on every rebuild of an MLP leaf and in the
-drift hot-swaps (``drift_bins=``, ``swap_on_drift=``).  Sharding
-(``mesh=``) and snapshots are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+drift hot-swaps (``drift_bins=``, ``swap_on_drift=``).  A snapshot is in
+the reference's file format, so either package restores the other's.
+Sharding (``mesh=``) is not ported yet and raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
 
 from . import not_ported
 from .core import drift as drift_mod
+from .core import persist as persist_mod
 from .core.updates import DynamicRMI, _host_ints
 
-__all__ = ["Index"]
+__all__ = ["Index", "build_index"]
+
+
+def _as_store(src) -> persist_mod.SnapshotStore:
+    if isinstance(src, persist_mod.SnapshotStore):
+        return src
+    return persist_mod.SnapshotStore(str(src))
 
 
 @dataclass
@@ -99,10 +110,30 @@ class Index:
         row = drift_mod.state_row(self.backend.drift, self.backend.device)
         return row.cpu().numpy()[None]
 
-    # -- not yet ported ----------------------------------------------------
-    def snapshot(self, store, step: int = 0, **kwargs) -> None:
-        raise not_ported("snapshots", "10")
+    # -- durability --------------------------------------------------------
+    def snapshot(self, store, step: int = 0, *, blocking: bool = True,
+                 include_pool: bool = True) -> None:
+        """Write one checksummed, atomically committed snapshot into
+        ``store`` (a ``core.persist.SnapshotStore`` or a directory path).
+        The drift monitor's state rides the snapshot."""
+        persist_mod.snapshot_dynamic(_as_store(store), step, self.backend,
+                                     blocking=blocking,
+                                     include_pool=include_pool)
 
     @classmethod
-    def restore(cls, store, **kwargs) -> "Index":
-        raise not_ported("restore", "10")
+    def restore(cls, store, *, mesh=None, step: int | None = None,
+                device=None) -> "Index":
+        """Restore from the newest verifiable snapshot in ``store`` (or
+        exactly ``step``) onto ``device`` (CUDA unless ``device="cpu"``)."""
+        if mesh is not None:
+            raise not_ported("the sharded index (mesh=)", "11")
+        backend, _ = persist_mod.restore_dynamic(_as_store(store), step=step,
+                                                 device=device)
+        return cls(backend)
+
+
+def build_index(keys, **kwargs) -> Index:
+    """Deprecated alias of :meth:`Index.build`."""
+    warnings.warn("build_index() is deprecated; use Index.build()",
+                  DeprecationWarning, stacklevel=2)
+    return Index.build(keys, **kwargs)

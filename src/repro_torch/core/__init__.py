@@ -1,2 +1,30 @@
-"""Core of the port: model math, error-bound algebra, the static RMI and the
-two-tier dynamic index (counterparts of ``repro.core``)."""
+"""Core of the port (counterparts of ``repro.core``).
+
+  synth.generate_pool(eps)            synthetic corpus (Table 2 enumeration)
+  reuse.build_pool(corpus, kind)      batched pool pre-training (Q_MP)
+  rmi.build_rmi / rmi.lookup          RMI, RMI-MR, RMI-NN, RMI-NN-MR
+  rmrt.build_rmrt / rmrt.lookup       the paper's RMRT
+  updates.DynamicRMI                  §4 insert handling (Lemma 4.1)
+  drift                               online KS drift monitoring and
+                                      bound-checked pool hot-swaps
+  paths.resolve_path                  the path="auto"|"kernel"|"jnp" policy
+  persist                             single-host snapshots and restore
+  btree / pgm / radix_spline          baselines from the paper's roster
+
+The front door over the dynamic index is ``repro_torch.api.Index``.
+
+The modules load on first access: ``kernels`` imports ``core.bounds`` and
+``core.cdf`` while ``core.updates`` imports ``kernels.lookup``, so loading
+every module here would make the two packages import each other.
+"""
+import importlib
+
+__all__ = ["adapt", "bounds", "btree", "cdf", "drift", "models", "paths",
+           "persist", "pgm", "radix_spline", "reuse", "rmi", "rmrt", "synth",
+           "updates"]
+
+
+def __getattr__(name: str):
+    if name in __all__:
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -56,6 +56,7 @@ def clamped_depth(widths, n_keys: int) -> int:
     """Static branchless-search depth covering the widest *live* window
     (sentinel full-array windows on empty leaves are excluded; queries
     routed there are caught by the seam verification)."""
+    # tracelint: ok[hot-sync](widths is the host-side np width mirror)
     w = np.asarray(widths, np.float64)
     live = w < n_keys
     wmax = float(w[live].max()) if live.any() else float(max(n_keys, 2))

@@ -41,8 +41,9 @@ says so: ``bincount(length=)`` drops positions past the end (here they are
 masked first), and ``.at[].set(mode="drop")`` drops out-of-bounds writes
 (here they go to one extra slot that is sliced off).
 
-``shed_*``, ``clone`` and ``shrink_capacity`` wait for the sharding and
-persistence items.
+``clone`` gives an independent handle over the same tensors;
+``shrink_capacity`` steps a tier's capacity class back down.  ``shed_*``
+(cutting a shard at a boundary) waits for the sharded index.
 """
 from __future__ import annotations
 
@@ -352,6 +353,7 @@ class DynamicRMI:
     budget: np.ndarray = None
     rebuilds: int = 0
     deleted: int = 0
+    capacity_shrinks: int = 0           # tier capacity step-downs taken
     # Rebuild re-indexing policy: None runs Algorithm-1 pool selection only
     # where a refit needs training (MLP leaves); the closed-form linear
     # refit is optimal and earns the full Lemma 4.1 budget.  True forces
@@ -517,6 +519,66 @@ class DynamicRMI:
         self.delta_dead_count = 0
         self.delta_compactions += 1
         self._delta_changed()
+
+    def clone(self) -> "DynamicRMI":
+        """An independent handle over the same tensors.  Mutating methods
+        rebind tensor fields (no tensor the index has published is written
+        in place) and mutate the host numpy counters in place, so a clone
+        needs fresh host containers and a fresh ``RMIIndex`` wrapper (whose
+        ``_iters`` a rebuild assigns), nothing deeper."""
+        d = replace(self, index=replace(self.index),
+                    n_inserts=self.n_inserts.copy(),
+                    budget=self.budget.copy(),
+                    build_kwargs=dict(self.build_kwargs))
+        if self.drift is not None:
+            # updates rebind a fresh DriftState, so a shallow copy fully
+            # decouples the clones
+            d.drift = replace(self.drift)
+        d._win = self._win.copy()
+        return d
+
+    def shrink_capacity(self, hysteresis: int = 4) -> bool:
+        """Step either tier's capacity class back down, the inverse of the
+        grow-only policy of ``insert_batch`` / ``_rebuild_leaves``.  A tier
+        shrinks only when its capacity is at least ``hysteresis`` times the
+        smallest class that fits, and steps down to ``hysteresis // 2``
+        times that class, so a shrink leaves a doubling of headroom and
+        regrowing needs two.  Finite entries occupy each tier's prefix, so
+        a shrink keeps a copy of the prefix: positions, models, error
+        bounds, the packed tables and leaf rows stay; the f32 keys and
+        their fence, cached with the keys, go; the clamped search depth is
+        recomputed for the smaller capacity.  Returns True if a tier
+        shrank."""
+        hold = max(hysteresis // 2, 1)
+        shrank = False
+        idx = self.index
+        cap_b = idx.keys.shape[0]
+        want_b = _capacity(self.base_n) * hold
+        if cap_b >= hysteresis * _capacity(self.base_n) and cap_b > want_b:
+            # copies, so that the larger storage is freed
+            self.base_dead = self.base_dead[:want_b].clone()
+            self.base_psum = torch.zeros((want_b + 1,), dtype=_I32,
+                                         device=self.device) \
+                if self.base_dead_count == 0 else _psum(self.base_dead)
+            self.index = replace(idx, keys=idx.keys[:want_b].clone(),
+                                 _kf32=None)
+            self.index._iters = clamped_depth(self._win, want_b)
+            self.capacity_shrinks += 1
+            shrank = True
+        cap_d = self.delta_keys.shape[0]
+        nf_d = self.delta_live + self.delta_dead_count
+        want_d = _capacity(nf_d) * hold
+        if cap_d >= hysteresis * _capacity(nf_d) and cap_d > want_d:
+            self.delta_keys = self.delta_keys[:want_d].clone()
+            self.delta_leaf = self.delta_leaf[:want_d].clone()
+            self.delta_dead = self.delta_dead[:want_d].clone()
+            self.delta_psum = torch.zeros((want_d + 1,), dtype=_I32,
+                                          device=self.device) \
+                if self.delta_dead_count == 0 else _psum(self.delta_dead)
+            self._delta_changed()
+            self.capacity_shrinks += 1
+            shrank = True
+        return shrank
 
     def flush_delta(self) -> None:
         """Merge every live delta entry into the base now, refitting only

@@ -196,15 +196,21 @@ def test_kernel_path_requires_f32_exact_keys():
     np.testing.assert_array_equal(_np(rank), np.arange(10))
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """``mesh=`` (the sharded index) still raises; ``snapshot`` and
+    ``restore`` round-trip a 64-key index on the CPU."""
     keys = np.arange(64, dtype=np.float64)
     with pytest.raises(NotImplementedError, match="item 11"):
         Index.build(keys, mesh=object(), device="cpu")
     ix = Index.build(keys, n_leaves=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ix.snapshot("unused")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Index.restore("unused")
+    ix.snapshot(tmp_path)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        Index.restore(tmp_path, mesh=object(), device="cpu")
+    back = Index.restore(tmp_path, device="cpu")
+    np.testing.assert_array_equal(back.live_keys(), keys)
+    q = np.asarray([-1.0, 0.0, 10.5, 63.0, 64.0])
+    for got, want in zip(back.find(q), ix.find(q), strict=True):
+        assert torch.equal(got, want)
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -220,6 +226,9 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.core.adapt, repro_torch.time_segments\n"
         "import repro_torch.core.drift, repro_torch.kernels.hist\n"
         "import repro_torch.kernels.linfit\n"
+        "import repro_torch.core.btree, repro_torch.core.pgm\n"
+        "import repro_torch.core.radix_spline, repro_torch.core.persist\n"
+        "import repro_torch.data.indexed_dataset\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         "sys.argv[1])\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
