@@ -186,7 +186,6 @@ import os
 import subprocess
 import sys
 import time
-import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -926,7 +925,162 @@ def _trace_windows(path, tags) -> dict:
     return out
 
 
-def _path_d(args, dev, rows, counters, reset_counters, uncounted) -> None:
+class _Harness:
+    """What the counted paths share: draws from one seeded generator on the
+    card, the kernels' launch counters, ``find`` / ``find_range`` checked
+    against a ``torch.searchsorted`` truth, path A's churn and the log of
+    seam misses."""
+
+    def __init__(self, dev, seed: int, nq: int):
+        import torch
+        from repro_torch.kernels import flash, hist, ksdist, linfit, lookup
+        self.dev, self.nq = dev, nq
+        self.g = torch.Generator(device=dev)
+        self.g.manual_seed(seed)
+        self.counted = (lookup, ksdist, hist, linfit, flash)
+        self.seam_log = []
+
+    def counters(self):
+        return {k: v for mod in self.counted for k, v in mod.LAUNCHES.items()}
+
+    def reset_counters(self):
+        for mod in self.counted:
+            mod.reset_launches()
+
+    def uncounted(self, fn):
+        """``fn()`` with the launch counts put back afterwards: launches
+        that compare a kernel with its plain version inside a counted run
+        do not count."""
+        saved = [(mod, dict(mod.LAUNCHES)) for mod in self.counted]
+        out = fn()
+        for mod, counts in saved:
+            mod.LAUNCHES.update(counts)
+        return out
+
+    def lognormal_keys(self, m):
+        import torch
+        return torch.sort(torch.empty(m, dtype=torch.float32, device=self.dev)
+                          .log_normal_(0.0, 1.0, generator=self.g)).values
+
+    def draw(self, m):
+        import torch
+        return torch.empty(m, dtype=torch.float32, device=self.dev) \
+            .log_normal_(0.0, 1.0, generator=self.g).to(torch.float64)
+
+    def pick(self, live, m):
+        import torch
+        i = torch.randint(0, live.shape[0], (m,), device=self.dev,
+                          generator=self.g)
+        return live[i]
+
+    def edges_of(self, k32):
+        import torch
+        return torch.tensor([0.0, -1.0, 1e-30, float(k32[0]), 1e30, -1e30,
+                             3e38, float(k32[-1]) * 2.0],
+                            dtype=torch.float64, device=self.dev)
+
+    def find_queries(self, live, edges):
+        import torch
+        half = self.nq // 2
+        return torch.cat([self.pick(live, half),
+                          self.draw(self.nq - half - edges.numel()), edges])
+
+    def range_pairs(self, live):
+        import torch
+        m = self.nq // 4
+        lo = torch.cat([self.pick(live, m // 2), self.draw(m - m // 2)])
+        width = torch.empty(m, dtype=torch.float64, device=self.dev) \
+            .exponential_(1.0 / 0.002, generator=self.g)
+        hi = (lo + width).to(torch.float32).to(torch.float64)
+        hi[: m // 64] = lo[: m // 64] - 0.5            # degenerate lo > hi
+        return lo, hi
+
+    def seam(self, tag, m, fn):
+        from repro_torch.kernels import ops
+        s0 = ops.SEAM["misses"]
+        out, dt = _sync_time(fn)
+        self.seam_log.append((tag, ops.SEAM["misses"] - s0, m))
+        return out, dt
+
+    def check_find(self, ix, q, tag):
+        import torch
+        live = ix.backend.live_keys_tensor().to(torch.float32)
+        (found, rank), dt = self.seam(f"find/{tag}", q.numel(),
+                                      lambda: ix.find(q))
+        qf = q.to(torch.float32)
+        want = torch.searchsorted(live, qf).to(torch.int32)
+        _check_equal(f"find/{tag} rank", rank, want)
+        _check_equal(f"find/{tag} found", found,
+                     torch.searchsorted(live, qf, right=True) > want)
+        return dt
+
+    def check_range(self, ix, lo, hi, tag):
+        import torch
+        live = ix.backend.live_keys_tensor().to(torch.float32)
+        (rl, rh), dt = self.seam(f"find_range/{tag}", 2 * lo.numel(),
+                                 lambda: ix.find_range(lo, hi))
+        want_lo = torch.searchsorted(live, lo.to(torch.float32)) \
+            .to(torch.int32)
+        want_hi = torch.maximum(torch.searchsorted(
+            live, hi.to(torch.float32), right=True).to(torch.int32), want_lo)
+        _check_equal(f"find_range/{tag} rank_lo", rl, want_lo)
+        _check_equal(f"find_range/{tag} rank_hi", rh, want_hi)
+        return dt
+
+    def churn(self, ix, keys, steps, tag, edges):
+        """Path A's churn on a dynamic index: find, find_range, a spread
+        and a narrow insert (the narrow one must rebuild), a delete, find
+        and find_range again, every answer against the truth."""
+        import torch
+        from repro_torch.kernels import ksdist as tks
+        n = keys.shape[0]
+        steps[f"find (built{tag})"] = self.check_find(
+            ix, self.find_queries(keys, edges), "built" + tag)
+        lo, hi = self.range_pairs(keys)
+        steps[f"find_range (built{tag})"] = self.check_range(
+            ix, lo, hi, "built" + tag)
+        n_ins = min(2_000_000, n // 100)      # 2M / 100k / 1M at 200M keys
+        narrow = n_ins // 20
+        _, steps[f"insert (spread{tag})"] = _sync_time(
+            lambda: ix.insert(self.draw(n_ins - narrow)))
+        rebuilds0 = ix.backend.rebuilds
+        k7_0 = tks.LAUNCHES["ksdist"]
+        narrow_keys = (1.0 + 1e-4 * torch.rand(
+            narrow, dtype=torch.float64, device=self.dev,
+            generator=self.g)).to(torch.float32).to(torch.float64)
+        _, steps[f"insert (narrow{tag})"] = _sync_time(
+            lambda: ix.insert(narrow_keys))
+        rebuilt = ix.backend.rebuilds - rebuilds0
+        if rebuilt <= 0:
+            raise AssertionError("the narrow insert batch ran no rebuild")
+        live = ix.backend.live_keys_tensor()
+        dels = self.pick(live, n_ins // 2)
+        _, steps[f"delete{tag}"] = _sync_time(lambda: ix.delete(dels))
+        live = ix.backend.live_keys_tensor()
+        steps[f"find (churned{tag})"] = self.check_find(
+            ix, self.find_queries(live, edges), "churned" + tag)
+        lo, hi = self.range_pairs(live)
+        steps[f"find_range (churned{tag})"] = self.check_range(
+            ix, lo, hi, "churned" + tag)
+        d = ix.backend
+        expected = n + n_ins - d.deleted
+        if d.live_count != expected or live.numel() != expected:
+            raise AssertionError(f"live count {d.live_count} / "
+                                 f"{live.numel()} != {expected}")
+        return live, rebuilt, tks.LAUNCHES["ksdist"] - k7_0
+
+    @staticmethod
+    def print_steps(steps):
+        for k, v in steps.items():
+            print(f"  {k}: {v:.6f} s")
+
+    def print_seam(self):
+        for tag, miss, m in self.seam_log:
+            print(f"  seam_misses {tag}: {miss} of {m} ({miss / m:.6%})")
+        self.seam_log.clear()
+
+
+def _path_d(args, dev, rows, h) -> None:
     """Phase 8, path D: qwen3-4b served at full width and depth through
     ``launch.serve.serve``, counted; K8 against its plain version and an
     f64 oracle on the attention inputs of the first and last layer in
@@ -994,9 +1148,9 @@ def _path_d(args, dev, rows, counters, reset_counters, uncounted) -> None:
         return res
 
     torch.cuda.reset_peak_memory_stats()
-    reset_counters()
+    h.reset_counters()
     res, t_all = _sync_time(lambda: serve_with(recording, "kernel"))
-    launches = counters()
+    launches = h.counters()
     peak = torch.cuda.max_memory_allocated() / 2**30
     # prefill on the tensor-core tile, decode on the split-KV tile and its
     # combine pass, nothing on the CUDA-core tile
@@ -1041,7 +1195,7 @@ def _path_d(args, dev, rows, counters, reset_counters, uncounted) -> None:
                           False))}
     for (phase, layer), (q, k, v, qo, kvv) in sorted(captured.items()):
         name = "flash" if phase == "prefill" else "flash_decode"
-        got = uncounted(functools.partial(
+        got = h.uncounted(functools.partial(
             tflash.flash_attention, q, k, v, q_offset=qo, kv_valid=kvv))
         ref = tflash.flash_attention_plain(q, k, v, q_offset=qo,
                                            kv_valid=kvv)
@@ -1052,7 +1206,7 @@ def _path_d(args, dev, rows, counters, reset_counters, uncounted) -> None:
         sdpa = _sdpa_call(q, k, v, qo, kvv)().transpose(1, 2)
         # the CUDA-core tile (f32 inputs) on the same inputs
         qf, kf, vf = q.float(), k.float(), v.float()
-        got_cc = uncounted(functools.partial(
+        got_cc = h.uncounted(functools.partial(
             tflash.flash_attention, qf, kf, vf, q_offset=qo, kv_valid=kvv))
         ref_cc = tflash.flash_attention_plain(qf, kf, vf, q_offset=qo,
                                               kv_valid=kvv)
@@ -1105,7 +1259,7 @@ def _path_d(args, dev, rows, counters, reset_counters, uncounted) -> None:
               f"{int((d_s > tol).sum())} entries beyond one "
               f"({'passes' if ulps[3] <= 1 else 'fails'} K8's check)")
         for what, dq, dk, must in faults[phase] if layer == 0 else ():
-            bad = uncounted(functools.partial(
+            bad = h.uncounted(functools.partial(
                 tflash.flash_attention, q, k, v, q_offset=qo + dq,
                 kv_valid=kvv + dk))
             d = (bad.double() - exact).abs()
@@ -1128,7 +1282,7 @@ def _path_d(args, dev, rows, counters, reset_counters, uncounted) -> None:
                         device=dev)
     qk = torch.cat([keys, gaps]).to(torch.float32)
     kw = dict(n_leaves=pidx.n_leaves, iters=pidx.search_iters)
-    e1 = _compare("lookup (path D page table)", lambda: uncounted(
+    e1 = _compare("lookup (path D page table)", lambda: h.uncounted(
         lambda: (tlk.lookup(qk, *pidx.packed_tables(), pidx.keys_f32,
                             **kw),)),
         lambda: (tlk.lookup_plain(qk, *pidx.packed_tables(), pidx.keys_f32,
@@ -1272,6 +1426,32 @@ def _slice_ranks(pieces, lo, hi, live_of) -> int:
     return total
 
 
+def _k23_vs_plain(dyn, q, lo, hi, what) -> dict:
+    """K2 and K3 against their plain versions on a dynamic index's own
+    tables, rows and delta tier, with the arguments its ``find`` and
+    ``find_range`` pass them; returns each kernel's max |diff|."""
+    import torch
+    from repro_torch.kernels import lookup as tlk
+    idx = dyn.index
+    tabs, keys, dk = idx.packed_tables(), idx.keys_f32, \
+        tlk.pad_delta(dyn.delta_keys_f32)
+    kw = dict(n_leaves=idx.n_leaves, route_n=dyn.route_n,
+              iters=idx.search_iters, root_kind=idx.root_kind,
+              leaf_kind=idx.leaf_kind)
+    qf, lof, hif = (t.to(torch.float32) for t in (q, lo, hi))
+    return {
+        "dynamic_lookup": _compare(
+            f"dynamic_lookup ({what})",
+            lambda: tlk.dynamic_lookup(qf, *tabs, keys, dk,
+                                       rows=idx.leaf_rows(), **kw),
+            lambda: tlk.dynamic_lookup_plain(qf, *tabs, keys, dk, **kw)),
+        "dynamic_range": _compare(
+            f"dynamic_range ({what})",
+            lambda: tlk.dynamic_range(lof, hif, *tabs, keys, dk, **kw),
+            lambda: tlk.dynamic_range_plain(lof, hif, *tabs, keys, dk,
+                                            **kw))}
+
+
 def _dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(path, f))
                for f in os.listdir(path))
@@ -1300,7 +1480,6 @@ def _path_e(args, dev, rows, h) -> None:
     from repro_torch.core import rmi as trmi
     from repro_torch.core import synth as tsynth
     from repro_torch.data.indexed_dataset import IndexedDataset
-    from repro_torch.kernels import lookup as tlk
     from repro_torch.kernels import ops
 
     f32, f64, i32 = torch.float32, torch.float64, torch.int32
@@ -1419,23 +1598,9 @@ def _path_e(args, dev, rows, h) -> None:
         if r.index.search_iters != d.index.search_iters:
             raise AssertionError("restored search depth differs")
         # K2/K3 against their plain versions on the restored tables
-        tabs, dk = r.index.packed_tables(), tlk.pad_delta(r.delta_keys_f32)
-        kw = dict(n_leaves=L, route_n=r.route_n, iters=r.index.search_iters)
-        qf, lof, hif = (t.to(f32) for t in (q2, lo2, hi2))
-        errs = h.uncounted(lambda: {
-            "dynamic_lookup": _compare(
-                "dynamic_lookup (restored)",
-                lambda: tlk.dynamic_lookup(qf, *tabs, r.index.keys_f32, dk,
-                                           rows=r.index.leaf_rows(), **kw),
-                lambda: tlk.dynamic_lookup_plain(qf, *tabs, r.index.keys_f32,
-                                                 dk, **kw)),
-            "dynamic_range": _compare(
-                "dynamic_range (restored)",
-                lambda: tlk.dynamic_range(lof, hif, *tabs, r.index.keys_f32,
-                                          dk, **kw),
-                lambda: tlk.dynamic_range_plain(lof, hif, *tabs,
-                                                r.index.keys_f32, dk, **kw))})
-        del rix, r, tabs, dk, qf, lof, hif
+        errs = h.uncounted(lambda: _k23_vs_plain(r, q2, lo2, hi2,
+                                                 "restored"))
+        del rix, r
         # a flipped byte in step 2's shard file: fall back to step 1
         path = os.path.join(store._step_dir(2), "shard_00000.npz")
         with open(path, "r+b") as fh:
@@ -1544,6 +1709,20 @@ def _path_e(args, dev, rows, h) -> None:
         if got != want:
             raise AssertionError(f"locate_range ({tag}): {got} keys, the "
                                  f"truth {want}")
+        # K2 / K3 against their plain versions on every shard's tables, with
+        # the queries and the clamped ranges locate / locate_range gave it
+        last = len(lk) - 1
+        s_lo = torch.searchsorted(bounds, lo).clamp(max=last)
+        s_hi = torch.maximum(torch.searchsorted(bounds, hi).clamp(max=last),
+                             s_lo)
+        for s, k in enumerate(lk):
+            rid = (s_lo <= s) & (s <= s_hi)
+            ql = torch.where(s_lo[rid] == s, lo[rid], k[0])
+            qh = torch.where(s_hi[rid] == s, hi[rid], k[-1])
+            for kern, e in h.uncounted(functools.partial(
+                    _k23_vs_plain, ds.shards[s].dyn, qd[want_sid == s], ql,
+                    qh, f"shard {s}, {tag}")).items():
+                errs[kern] = max(errs[kern], e)
         return got
 
     in_ranges = check_dataset("built")
@@ -1575,8 +1754,9 @@ def _path_e(args, dev, rows, h) -> None:
     rebuilt = sum(s.dyn.rebuilds for s in ds.shards)
 
     print(f"phase 9: path E (baselines, snapshots, indexed dataset) ok; "
-          f"n={n}; launches {launches}; K2/K3 on the restored tables equal "
-          f"their plain versions bit for bit (tolerance 0): {errs}")
+          f"n={n}; launches {launches}; K2/K3 on the restored tables and "
+          f"on every dataset shard's (built, and after appends and deletes) "
+          f"equal their plain versions bit for bit (tolerance 0): {errs}")
     print("\n".join(base_txt))
     print(f"  torch.searchsorted over the {n} keys: {lib_ms:.6f} ms")
     h.print_steps(steps)
@@ -1616,7 +1796,6 @@ def main(argv=None) -> int:
     from repro_torch.kernels import lookup as tlk
     from repro_torch.kernels import hist as thist
     from repro_torch.kernels import linfit as tlinfit
-    from repro_torch.kernels import flash as tflash
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda")
@@ -1655,162 +1834,31 @@ def main(argv=None) -> int:
         raise AssertionError("the flash library's SASS holds no HGMMA: the "
                              "prefill tile does not use the tensor cores")
 
-    counted = (tlk, tks, thist, tlinfit, tflash)
-
-    def counters():
-        return {k: v for mod in counted for k, v in mod.LAUNCHES.items()}
-
-    def reset_counters():
-        for mod in counted:
-            mod.reset_launches()
-
-    def uncounted(fn):
-        """``fn()`` with the launch counts put back afterwards: launches
-        that compare a kernel with its plain version inside a counted run
-        do not count."""
-        saved = [(mod, dict(mod.LAUNCHES)) for mod in counted]
-        out = fn()
-        for mod, counts in saved:
-            mod.LAUNCHES.update(counts)
-        return out
-
-    # ---- inputs -----------------------------------------------------------
-    g = torch.Generator(device=dev)
-    g.manual_seed(args.seed)
-    L, nq = args.n_leaves, args.queries
-
-    def lognormal_keys(m):
-        return torch.sort(torch.empty(m, dtype=torch.float32, device=dev)
-                          .log_normal_(0.0, 1.0, generator=g)).values
-
-    def draw(m):
-        return torch.empty(m, dtype=torch.float32, device=dev) \
-            .log_normal_(0.0, 1.0, generator=g).to(torch.float64)
-
-    def pick(live, m):
-        i = torch.randint(0, live.shape[0], (m,), device=dev, generator=g)
-        return live[i]
-
-    def edges_of(k32):
-        return torch.tensor([0.0, -1.0, 1e-30, float(k32[0]), 1e30, -1e30,
-                             3e38, float(k32[-1]) * 2.0],
-                            dtype=torch.float64, device=dev)
-
-    def find_queries(live, edges):
-        half = nq // 2
-        return torch.cat([pick(live, half), draw(nq - half - edges.numel()),
-                          edges])
-
-    def range_pairs(live):
-        m = nq // 4
-        lo = torch.cat([pick(live, m // 2), draw(m - m // 2)])
-        width = torch.empty(m, dtype=torch.float64, device=dev) \
-            .exponential_(1.0 / 0.002, generator=g)
-        hi = (lo + width).to(torch.float32).to(torch.float64)
-        hi[: m // 64] = lo[: m // 64] - 0.5            # degenerate lo > hi
-        return lo, hi
-
-    seam_log = []
-
-    def seam(tag, m, fn):
-        s0 = ops.SEAM["misses"]
-        out, dt = _sync_time(fn)
-        seam_log.append((tag, ops.SEAM["misses"] - s0, m))
-        return out, dt
-
-    def check_find(ix, q, tag):
-        live = ix.backend.live_keys_tensor().to(torch.float32)
-        (found, rank), dt = seam(f"find/{tag}", q.numel(), lambda: ix.find(q))
-        qf = q.to(torch.float32)
-        want = torch.searchsorted(live, qf).to(torch.int32)
-        _check_equal(f"find/{tag} rank", rank, want)
-        _check_equal(f"find/{tag} found", found,
-                     torch.searchsorted(live, qf, right=True) > want)
-        return dt
-
-    def check_range(ix, lo, hi, tag):
-        live = ix.backend.live_keys_tensor().to(torch.float32)
-        (rl, rh), dt = seam(f"find_range/{tag}", 2 * lo.numel(),
-                            lambda: ix.find_range(lo, hi))
-        want_lo = torch.searchsorted(live, lo.to(torch.float32)) \
-            .to(torch.int32)
-        want_hi = torch.maximum(torch.searchsorted(
-            live, hi.to(torch.float32), right=True).to(torch.int32), want_lo)
-        _check_equal(f"find_range/{tag} rank_lo", rl, want_lo)
-        _check_equal(f"find_range/{tag} rank_hi", rh, want_hi)
-        return dt
-
-    def churn(ix, keys, steps, tag, edges):
-        """Path A's churn on a dynamic index: find, find_range, a spread
-        and a narrow insert (the narrow one must rebuild), a delete, find
-        and find_range again, every answer against the truth."""
-        n = keys.shape[0]
-        steps[f"find (built{tag})"] = check_find(
-            ix, find_queries(keys, edges), "built" + tag)
-        lo, hi = range_pairs(keys)
-        steps[f"find_range (built{tag})"] = check_range(ix, lo, hi,
-                                                        "built" + tag)
-        n_ins = min(2_000_000, n // 100)      # 2M / 100k / 1M at 200M keys
-        narrow = n_ins // 20
-        _, steps[f"insert (spread{tag})"] = _sync_time(
-            lambda: ix.insert(draw(n_ins - narrow)))
-        rebuilds0 = ix.backend.rebuilds
-        k7_0 = tks.LAUNCHES["ksdist"]
-        narrow_keys = (1.0 + 1e-4 * torch.rand(
-            narrow, dtype=torch.float64, device=dev, generator=g)) \
-            .to(torch.float32).to(torch.float64)
-        _, steps[f"insert (narrow{tag})"] = _sync_time(
-            lambda: ix.insert(narrow_keys))
-        rebuilt = ix.backend.rebuilds - rebuilds0
-        if rebuilt <= 0:
-            raise AssertionError("the narrow insert batch ran no rebuild")
-        live = ix.backend.live_keys_tensor()
-        dels = pick(live, n_ins // 2)
-        _, steps[f"delete{tag}"] = _sync_time(lambda: ix.delete(dels))
-        live = ix.backend.live_keys_tensor()
-        steps[f"find (churned{tag})"] = check_find(
-            ix, find_queries(live, edges), "churned" + tag)
-        lo, hi = range_pairs(live)
-        steps[f"find_range (churned{tag})"] = check_range(ix, lo, hi,
-                                                          "churned" + tag)
-        d = ix.backend
-        expected = n + n_ins - d.deleted
-        if d.live_count != expected or live.numel() != expected:
-            raise AssertionError(f"live count {d.live_count} / "
-                                 f"{live.numel()} != {expected}")
-        return live, rebuilt, tks.LAUNCHES["ksdist"] - k7_0
-
-    def print_steps(steps):
-        for k, v in steps.items():
-            print(f"  {k}: {v:.6f} s")
-
-    def print_seam():
-        for tag, miss, m in seam_log:
-            print(f"  seam_misses {tag}: {miss} of {m} ({miss / m:.6%})")
-        seam_log.clear()
+    h = _Harness(dev, args.seed, args.queries)
+    g, L, nq = h.g, args.n_leaves, args.queries
 
     rows = {}
 
     # ---- phase 2: path A (linear models), counted ---------------------------
     n = args.n
-    keys32 = lognormal_keys(n)
+    keys32 = h.lognormal_keys(n)
     keys = keys32.to(torch.float64)
-    edges = edges_of(keys32)
-    reset_counters()
+    edges = h.edges_of(keys32)
+    h.reset_counters()
     ops.reset_seam()
     steps = {}
     sidx, steps["static build_rmi"] = _sync_time(
         lambda: trmi.build_rmi(keys, n_leaves=L, device=dev))
-    q_static = find_queries(keys, edges)
-    pos, steps["static lookup"] = seam(
+    q_static = h.find_queries(keys, edges)
+    pos, steps["static lookup"] = h.seam(
         "lookup/static", nq, lambda: trmi.lookup(sidx, q_static))
     _check_equal("static lookup", pos,
                  torch.searchsorted(keys32, q_static.to(torch.float32))
                  .to(torch.int32))
     ix, steps["Index.build"] = _sync_time(
         lambda: Index.build(keys, n_leaves=L))
-    live, rebuilt_a, _ = churn(ix, keys, steps, "", edges)
-    launches_a = counters()
+    live, rebuilt_a, _ = h.churn(ix, keys, steps, "", edges)
+    launches_a = h.counters()
     for k in ("lookup", "dynamic_lookup", "dynamic_range"):
         if launches_a[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on path A: "
@@ -1820,15 +1868,15 @@ def main(argv=None) -> int:
           f"rebuilds {d.rebuilds} (narrow batch {rebuilt_a}); deleted "
           f"{d.deleted}; live {d.live_count}; search_iters static "
           f"{sidx.search_iters} dynamic {d.index.search_iters}")
-    print_steps(steps)
-    print_seam()
+    h.print_steps(steps)
+    h.print_seam()
 
     # ---- phase 3: K1-K3 (linear) against their plain versions, timed -------
     s_tabs, s_rows, s_fence = (sidx.packed_tables(), sidx.leaf_rows(),
                                sidx.key_fence)
     d_tabs, d_rows = d.index.packed_tables(), d.index.leaf_rows()
-    qf = find_queries(live, edges).to(torch.float32)
-    lo, hi = range_pairs(live)
+    qf = h.find_queries(live, edges).to(torch.float32)
+    lo, hi = h.range_pairs(live)
     lof, hif = lo.to(torch.float32), hi.to(torch.float32)
     dk = tlk.pad_delta(d.delta_keys_f32)
     skw = dict(n_leaves=L, iters=sidx.search_iters)
@@ -1906,10 +1954,10 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
 
     # ---- phase 4: path B (the lazy path), counted --------------------------
-    keys32 = lognormal_keys(n)
+    keys32 = h.lognormal_keys(n)
     keys = keys32.to(torch.float64)
-    edges = edges_of(keys32)
-    reset_counters()
+    edges = h.edges_of(keys32)
+    h.reset_counters()
     ops.reset_seam()
     steps = {}
     corpus, steps["generate_pool"] = _sync_time(
@@ -1935,8 +1983,8 @@ def main(argv=None) -> int:
     st.report("RMI-NN-MR build_rmi", steps["RMI-NN-MR build_rmi"])
     reuse_rmi = smlp.reuse_fraction
     fresh = int((~smlp.reused_mask).sum())
-    q_static = find_queries(keys, edges)
-    pos, steps["RMI-NN-MR lookup"] = seam(
+    q_static = h.find_queries(keys, edges)
+    pos, steps["RMI-NN-MR lookup"] = h.seam(
         "lookup/RMI-NN-MR", nq,
         lambda: trmi.lookup(smlp, q_static, path="kernel"))
     _check_equal("RMI-NN-MR lookup", pos,
@@ -1953,7 +2001,7 @@ def main(argv=None) -> int:
         lambda: Index.build(keys, pool=mlp_pool, kind="mlp", n_leaves=L,
                             train_steps=args.leaf_steps))
     reuse_dyn = ix.backend.index.reuse_fraction
-    live, rebuilt_b, k7_rebuild = churn(ix, keys, steps, ", pool", edges)
+    live, rebuilt_b, k7_rebuild = h.churn(ix, keys, steps, ", pool", edges)
     if k7_rebuild <= 0:
         raise AssertionError("the pooled rebuild did not re-select from the "
                              "pool")
@@ -1972,8 +2020,8 @@ def main(argv=None) -> int:
                                      fanout=args.fanout, kind="linear",
                                      pool=lin_pool, device=dev))
     st.report("RMRT build_rmrt", steps["RMRT build_rmrt"])
-    q_rmrt = find_queries(keys, edges)
-    pos, steps["RMRT lookup"] = seam(
+    q_rmrt = h.find_queries(keys, edges)
+    pos, steps["RMRT lookup"] = h.seam(
         "lookup/RMRT", nq, lambda: trmrt.lookup(tree, q_rmrt, path="kernel"))
     _check_equal("RMRT lookup", pos,
                  torch.searchsorted(keys32, q_rmrt.to(torch.float32))
@@ -1981,22 +2029,22 @@ def main(argv=None) -> int:
     print(f"  RMRT: depth {tree.depth}, num_nodes {tree.num_nodes}, leaves "
           f"{int(tree.is_leaf.sum())}, reuse_fraction "
           f"{tree.reuse_fraction:.6f}, search_iters {tree.search_iters}")
-    launches_b = counters()
+    launches_b = h.counters()
     if min(launches_b[k] for k in ("lookup", "dynamic_lookup",
                                    "dynamic_range", "rmrt_lookup",
                                    "ksdist", "ksdist_tables")) <= 0:
         raise AssertionError(f"a kernel of path B never launched: "
                              f"{launches_b}")
     print(f"phase 4: path B (lazy) ok; n={n}; launches {launches_b}")
-    print_steps(steps)
-    print_seam()
+    h.print_steps(steps)
+    h.print_seam()
     print(f"  peak memory allocated (path B): "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
     # ---- phase 5: K1-K3 (MLP), K4, K7 against plain versions, timed -------
     d_tabs, d_rows = d.index.packed_tables(), d.index.leaf_rows()
-    qf = find_queries(live, edges).to(torch.float32)
-    lo, hi = range_pairs(live)
+    qf = h.find_queries(live, edges).to(torch.float32)
+    lo, hi = h.range_pairs(live)
     lof, hif = lo.to(torch.float32), hi.to(torch.float32)
     dk = tlk.pad_delta(d.delta_keys_f32)
     mk = dict(leaf_kind="mlp")
@@ -2188,16 +2236,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 6: path C (drift-adaptive serving), counted -----------------
-    keys32 = lognormal_keys(n)
+    keys32 = h.lognormal_keys(n)
     keys = keys32.to(torch.float64)
-    edges = edges_of(keys32)
+    edges = h.edges_of(keys32)
     steps = {}
     dcorpus, steps["generate_pool (drift eps)"] = _sync_time(
         lambda: tsynth.generate_pool(DRIFT_EPS))
     dpool, steps["build_pool (linear, m_sim 64)"] = _sync_time(
         lambda: treuse.build_pool(dcorpus, kind="linear", m_sim=64,
                                   device=dev))
-    print_steps(steps)
+    h.print_steps(steps)
     print(f"  drift pool: {dpool.size} linear models, m={dpool.m}")
     batch = n // 100                    # 2M at 200M keys
 
@@ -2328,7 +2376,7 @@ def main(argv=None) -> int:
 
     errs_c = {"dynamic_lookup": 0, "dynamic_range": 0, "ksdist": 0,
               "ksdist_tables": 0}
-    reset_counters()
+    h.reset_counters()
     ops.reset_seam()
     for mode in ("swap", "refit-only"):
         kw = dict(pool=dpool, drift_bins=64, drift_hi=0.02, drift_lo=0.01,
@@ -2369,11 +2417,11 @@ def main(argv=None) -> int:
                     flushes += 1
                 rb_mnt += d.rebuilds - r1
             live = d.live_keys_tensor()
-            q = find_queries(live, edges)
-            check_find(ix, q, f"{mode}/{phase}")
-            lo, hi = range_pairs(live)
-            check_range(ix, lo, hi, f"{mode}/{phase}")
-            for k, e in uncounted(functools.partial(
+            q = h.find_queries(live, edges)
+            h.check_find(ix, q, f"{mode}/{phase}")
+            lo, hi = h.range_pairs(live)
+            h.check_range(ix, lo, hi, f"{mode}/{phase}")
+            for k, e in h.uncounted(functools.partial(
                     compare_c, d, q, lo, hi, f"{mode}/{phase}")).items():
                 errs_c[k] = max(errs_c[k], e)
             ms = np.asarray(ts) * 1e3
@@ -2399,14 +2447,14 @@ def main(argv=None) -> int:
             raise AssertionError(f"path C {mode}: live count {d.live_count}")
         if mode == "swap":
             tdrift.select_from_pool_batch = real_select
-            errs_c["ksdist"], errs_c["ksdist_tables"] = uncounted(
+            errs_c["ksdist"], errs_c["ksdist_tables"] = h.uncounted(
                 functools.partial(compare_k7_c, selections))
             selections.clear()
         del d.maybe_swap                # break the probe's cycle
         del ix, d, probe, live, q, lo, hi
         gc.collect()
         torch.cuda.empty_cache()
-    launches_c = counters()
+    launches_c = h.counters()
     for k in ("dynamic_lookup", "dynamic_range", "ksdist", "ksdist_tables"):
         if launches_c[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on path C: "
@@ -2417,7 +2465,7 @@ def main(argv=None) -> int:
           f"modes) and K7 (every swap pass) equal their plain versions on "
           f"path C's inputs bit for bit (tolerance 0; K7's table kernel "
           f"too): {errs_c}")
-    print_seam()
+    h.print_seam()
 
     # ---- phase 7: K6 and K5 through ops on path C's keys, counted ----------
     perm = keys32[torch.randperm(n, device=dev, generator=g)]
@@ -2427,7 +2475,7 @@ def main(argv=None) -> int:
     posn = torch.arange(n, dtype=torch.float64, device=dev)
     buckets = trmi.root_buckets("linear", trmi.models.linear_fit(keys, posn),
                                 keys, L, n)
-    reset_counters()
+    h.reset_counters()
     steps = {}
     h_all, steps["ops.histogram (all keys, permuted)"] = _sync_time(
         lambda: ops.histogram(perm, 64, lo_k, hi_k))
@@ -2435,10 +2483,10 @@ def main(argv=None) -> int:
         lambda: ops.histogram(dbatch, 64, lo_k, hi_k))
     fit, steps["ops.segment_linfit"] = _sync_time(
         lambda: ops.segment_linfit(keys, posn, buckets, L))
-    launches_7 = counters()
+    launches_7 = h.counters()
     if launches_7["hist"] != 2 or launches_7["linfit"] != 2:
         raise AssertionError(f"K5/K6 launches on phase 7: {launches_7}")
-    print_steps(steps)
+    h.print_steps(steps)
 
     errs = {"hist": max(
         _compare("hist", lambda: (thist.hist(perm, 64, lo_k, hi_k),),
@@ -2563,20 +2611,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 8: path D (LM serving), counted ----------------------------
-    _path_d(args, dev, rows, counters, reset_counters, uncounted)
+    _path_d(args, dev, rows, h)
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     # ---- phase 9: path E (baselines, snapshots, dataset), counted ---------
-    _path_e(args, dev, rows, types.SimpleNamespace(
-        lognormal_keys=lognormal_keys, edges_of=edges_of, draw=draw,
-        pick=pick, find_queries=find_queries, range_pairs=range_pairs,
-        churn=churn, check_find=check_find, check_range=check_range,
-        seam=seam, print_steps=print_steps, print_seam=print_seam,
-        counters=counters, reset_counters=reset_counters,
-        uncounted=uncounted, g=g))
+    _path_e(args, dev, rows, h)
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(

@@ -13,18 +13,12 @@
 
 The front door over the dynamic index is ``repro_torch.api.Index``.
 
-The modules load on first access: ``kernels`` imports ``core.bounds`` and
-``core.cdf`` while ``core.updates`` imports ``kernels.lookup``, so loading
-every module here would make the two packages import each other.
+Import the modules by name (``from repro_torch.core import persist``):
+``kernels`` imports ``core.bounds`` and ``core.cdf`` while ``core.updates``
+imports ``kernels.lookup``, so loading every module here would make the two
+packages import each other.
 """
-import importlib
-
 __all__ = ["adapt", "bounds", "btree", "cdf", "drift", "models", "paths",
            "persist", "pgm", "radix_spline", "reuse", "rmi", "rmrt", "synth",
            "updates"]
 
-
-def __getattr__(name: str):
-    if name in __all__:
-        return importlib.import_module(f"{__name__}.{name}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

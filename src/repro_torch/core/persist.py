@@ -70,7 +70,7 @@ from . import rmi as rmi_mod
 from .adapt import DomainSpec
 from .bounds import clamped_depth
 from .reuse import ModelPool
-from .updates import DynamicRMI, _psum
+from .updates import DynamicRMI, _psum, _to_host
 
 SCHEMA = 1
 _STEP_FMT = "step_{:08d}"
@@ -140,20 +140,11 @@ def get_tree_path(tree, path: str):
 # ---------------------------------------------------------------------------
 # Array codec: host numpy in, host numpy (or a bf16 tensor) out.
 # ---------------------------------------------------------------------------
-def _host(a) -> np.ndarray:
-    """A tensor or array as host numpy.  A CUDA tensor is copied; a CPU
-    tensor is shared, which is safe: the index never writes a tensor it has
-    published, it rebinds a new one."""
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
-
-
 def _encode_array(arr) -> tuple[np.ndarray, str]:
     """(what npz stores, the manifest's dtype tag)."""
     if isinstance(arr, torch.Tensor) and arr.dtype == torch.bfloat16:
-        return _host(arr.view(torch.int16)).view(np.uint16), "bfloat16"
-    arr = _host(arr)
+        return _to_host(arr.view(torch.int16)).view(np.uint16), "bfloat16"
+    arr = _to_host(arr)
     if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":
         return arr.view(np.uint16), "bfloat16"
     return arr, str(arr.dtype)
@@ -389,7 +380,7 @@ _SHARD_SCALARS = (
 
 def _params_to(arrays: dict, prefix: str, params) -> None:
     for path, arr in tree_paths(params):
-        arrays[prefix + path] = _host(arr)
+        arrays[prefix + path] = _to_host(arr)
 
 
 def _params_from(arrays: dict, prefix: str, kind: str, dev):
@@ -416,7 +407,7 @@ def _shard_arrays(d: DynamicRMI) -> tuple[dict, dict]:
         "delta_leaf": d.delta_leaf,
         "delta_dead": d.delta_dead,
     }
-    arrays = {k: _host(v) for k, v in arrays.items()}
+    arrays = {k: _to_host(v) for k, v in arrays.items()}
     arrays.update(n_inserts=d.n_inserts.copy(), budget=d.budget.copy(),
                   win=d._win.copy())
     _params_to(arrays, "root.", idx.root)
@@ -433,8 +424,8 @@ def _shard_arrays(d: DynamicRMI) -> tuple[dict, dict]:
     if d.drift is not None:
         # Raw counts are the drift monitor's whole state; score and latch
         # are scalars synced here so restore needs no recompute pass.
-        arrays["drift.ref"] = _host(d.drift.ref)
-        arrays["drift.acc"] = _host(d.drift.acc)
+        arrays["drift.ref"] = _to_host(d.drift.ref)
+        arrays["drift.acc"] = _to_host(d.drift.acc)
         meta["drift"] = {
             "m": int(d.drift.m), "lo": float(d.drift.lo),
             "hi": float(d.drift.hi),
@@ -512,9 +503,9 @@ def _restore_shard(arrays: dict, meta: dict, pool, dev) -> DynamicRMI:
 
 
 def _pool_files(pool: ModelPool) -> tuple[dict, dict]:
-    arrays = {"hists": _host(pool.hists),
-              "err_lo": _host(pool.err_lo),
-              "err_hi": _host(pool.err_hi)}
+    arrays = {"hists": _to_host(pool.hists),
+              "err_lo": _to_host(pool.err_lo),
+              "err_hi": _to_host(pool.err_hi)}
     _params_to(arrays, "params.", pool.params)
     _params_to(arrays, "domains.", pool.domains)
     meta = {"eps": float(pool.eps), "m": int(pool.m), "kind": pool.kind,

@@ -311,10 +311,17 @@ def _merge_base(base_keys, base_dead, moved, cap_out: int,
     return allk, dead
 
 
-def _host_ints(x) -> np.ndarray:
+def _to_host(x) -> np.ndarray:
+    """A tensor or array as host numpy.  A CUDA tensor is copied; a CPU
+    tensor is shared, which is safe: the index never writes a tensor it has
+    published, it rebinds a new one."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy().ravel()
-    return np.asarray(x).ravel()
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _host_ints(x) -> np.ndarray:
+    return _to_host(x).ravel()
 
 
 # ---------------------------------------------------------------------------
