@@ -6,6 +6,7 @@ them.
                           [--queries 1048576] [--seed 0] [--eps 0.9]
                           [--pool-steps 400] [--leaf-steps 300]
                           [--rmrt-leaf-cap 1000000] [--fanout 64]
+                          [--shards 8]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -32,7 +33,8 @@ Phases (any failure exits non-zero; nothing is caught):
    (``_k1_k4_edges``): sentinel leaves, the depth cut by 8 and at full
    depth (whole-array windows through the fence), the keys as a view that
    starts inside a 32-byte sector, +-0, +-inf, NaN and the first and last
-   keys.
+   keys.  Then the warm single-index verbs, each a launch and its
+   epilogue: static ``lookup``, ``find`` and ``find_range``.
 4. Path B, the paper's lazy path, counted the same way: ``generate_pool``
    (1,221 datasets at eps 0.9) -> ``build_pool`` (MLP and linear, on the
    card) -> RMI-NN-MR (``build_rmi(kind="mlp", pool=...)``, pool selection
@@ -141,6 +143,24 @@ Phases (any failure exits non-zero; nothing is caught):
    (K7 in every build): ``locate`` of ``--queries`` keys and
    ``locate_range`` of a quarter as many pairs, against a per-shard truth,
    before and after ``append_to_shard`` and ``delete_samples``.
+10. Path F, counted, on fresh keys: the sharded index, its ``--shards``
+   shards stacked on the card (``--n-leaves / --shards`` leaves a shard).
+   ``build_sharded`` + ``make_lookup_fn`` (the shard-stacked K1);
+   ``Index.build(keys, mesh=ShardMesh(S))`` with ``find`` (stacked K2),
+   ``find_range`` (stacked K3), path A's churn, skewed batches of n /
+   ``SKEW_CUT`` keys into shard 0's range until it migrates, a run of
+   duplicates at a seam (its rows rewritten in place), planted queries at
+   and beside every split and +-inf / NaN; every call of K1-K3 must launch
+   its kernel exactly once; warm find and range times and the restacks'
+   times; an index with empty shards; each stacked kernel against its
+   plain version and S single-index launches, bit for bit, and timed, on
+   the inputs the path gives it (the batch routed and grouped, non-live
+   queries replaced by their shard's member key; ``find_range``'s two
+   endpoint arrays as one batch of point pairs);
+   sharded snapshots (blocking, async), restore onto S shards and
+   reshards onto S / 2 and 2S (``ReshardStats``, ``full_rebuilds`` 0), a
+   flipped byte in one shard file under ``"quarantine"`` and
+   ``"fallback"``; a find over ``WIDE_SHARDS`` shards (one launch).
 
 Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
@@ -164,7 +184,8 @@ Keys are lognormal float32 values drawn on the card from ``--seed`` and
 sorted there.  Every answer of path C is held against the truth too.  The
 last lines printed are the kernels' JSON line (K1-K3 a row per
 instantiation: path A launches the linear-leaf one, path B the MLP-leaf
-one; K8 a row per tile: ``flash`` at the prefill shape, its ``bound_ms``
+one, path F the shard-stacked one, with ``single_launches_ms`` for S
+single-index launches of its work; K8 a row per tile: ``flash`` at the prefill shape, its ``bound_ms``
 on the bf16 tensor cores it computes on and ``bound_f32_ms`` on the f32
 rate, ``flash_decode`` at the decode shape with its ``n_split`` and
 ``combine_launches``), the card's ``name, power.limit`` from nvidia-smi,
@@ -210,6 +231,9 @@ SOURCES = {
     "linfit": "src/repro_torch/kernels/csrc/linfit.cu",
     "flash": "src/repro_torch/kernels/csrc/flash.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash.cu",
+    "sharded_lookup": _LOOKUP_CU,
+    "sharded_dynamic_lookup": _LOOKUP_CU,
+    "sharded_dynamic_range": _LOOKUP_CU,
 }
 REPLACES = {
     "lookup": "src/repro/kernels/lookup.py:274",
@@ -225,6 +249,9 @@ REPLACES = {
     "linfit": "src/repro/kernels/linfit.py:52",
     "flash": "src/repro/kernels/flash.py:73",
     "flash_decode": "src/repro/kernels/flash.py:73",
+    "sharded_lookup": "src/repro/kernels/lookup.py:274",
+    "sharded_dynamic_lookup": "src/repro/kernels/lookup.py:393",
+    "sharded_dynamic_range": "src/repro/kernels/lookup.py:516",
 }
 BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 # The previous designs of K1-K5 and K7 (PERF.md section 6, NVIDIA H100
@@ -262,6 +289,10 @@ PGM_EPS = 64
 RS_EPS, RS_RADIX_BITS = 32, 12
 PGM_RS_SAMPLE = 1 << 22
 DATASET_SHARDS = 8
+# Path F: the wide stack's shard count (over --n / WIDE_CUT keys) and the
+# skewed ingest's batches (--n / SKEW_CUT keys each, at most SKEW_BATCHES)
+WIDE_SHARDS, WIDE_CUT = 64, 16
+SKEW_CUT, SKEW_BATCHES = 32, 12
 
 
 def _args(argv):
@@ -275,7 +306,16 @@ def _args(argv):
     p.add_argument("--leaf-steps", type=int, default=300)
     p.add_argument("--rmrt-leaf-cap", type=int, default=1_000_000)
     p.add_argument("--fanout", type=int, default=64)
+    p.add_argument("--shards", type=int, default=8)
     return p.parse_args(argv)
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def _sync_time(fn):
@@ -909,12 +949,14 @@ def _trace_windows(path, tags) -> dict:
     out = {}
     for tag, sp in spans.items():
         if not sp:
-            raise AssertionError(f"path D trace: no '{tag}' annotation")
+            raise AssertionError(f"{Path(path).name}: no '{tag}' "
+                                 f"annotation")
         lo, hi = min(a for a, _ in sp), max(b for _, b in sp)
         mine = sorted((t0, t1, n) for t0, t1, n, c in dev
                       if lo <= launch.get(c, t0) <= hi)
         if not mine:
-            raise AssertionError(f"path D trace: no device event in '{tag}'")
+            raise AssertionError(f"{Path(path).name}: no device event in "
+                                 f"'{tag}'")
         busy, end, kinds = 0.0, lo, {}
         for t0, t1, n in mine:
             busy += max(0.0, t1 - max(t0, end))
@@ -1773,6 +1815,479 @@ def _path_e(args, dev, rows, h) -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
 
+def _trace_verbs(path, calls: dict) -> dict:
+    """Each ``calls[tag]()`` once under ``torch.profiler`` and its own user
+    annotation (a synchronise after each), the trace written to ``path``:
+    ``_trace_windows``'s wall, busy time and device events per tag."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for tag, fn in calls.items():
+            with torch.profiler.record_function(tag):
+                fn()
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    del prof
+    return _trace_windows(path, tuple(calls))
+
+
+def _stacked_work(tlk, kt, q, ds, *, n_leaves, route_n, iters, right,
+                  rows=False, fence=False, delta=None):
+    """Bytes and operations (and sectors) of a shard-stacked call: each
+    shard's ``_search_work`` (and ``_delta_work``) on its own queries, over
+    its own rows of the stacks ``kt``."""
+    parts = []
+    for s in range(kt["keys"].shape[0]):
+        qs = q[ds == s]
+        if not qs.numel():
+            continue
+        parts.append(_search_work(
+            tlk, (kt["roots"][s], kt["mats"][s], kt["vecs"][s]),
+            kt["keys"][s], qs, n_leaves=n_leaves, route_n=route_n,
+            iters=iters,
+            right=right, rows=rows,
+            fence=kt["fences"][s] if fence else None))
+        if delta is not None:
+            parts.append(_delta_work(tlk, delta[s], qs, right))
+    # the shard ids, 4 bytes a query
+    parts.append((q.shape[0] * 4, 0, q.shape[0] * 4))
+    return parts
+
+
+def _per_shard(call, q, ds, n_shards):
+    """``call(s, queries of shard s)`` for each shard, the outputs put back
+    in the batch's order: S single-index launches for what one
+    shard-stacked launch answers."""
+    import torch
+    outs = None
+    for s in range(n_shards):
+        m = torch.nonzero(ds == s).squeeze(1)
+        if not m.numel():
+            continue
+        got = call(s, q[m])
+        got = got if isinstance(got, tuple) else (got,)
+        if outs is None:
+            outs = [torch.zeros(q.shape[:1], dtype=g.dtype,
+                                device=q.device) for g in got]
+        for o, g in zip(outs, got, strict=True):
+            o[m] = g
+    return tuple(outs)
+
+
+def _path_f(args, dev, rows, h) -> None:
+    """Phase 10, path F, counted: the sharded index with its ``--shards``
+    shards stacked on the card.  A static ``build_sharded`` +
+    ``make_lookup_fn`` (the shard-stacked K1); ``Index.build(keys,
+    mesh=ShardMesh(S))``: ``find`` (shard-stacked K2), ``find_range`` (K3),
+    path A's churn, a skewed ingest into one shard until it migrates,
+    planted edges (queries at and beside each split, an index with empty
+    shards, +-inf and NaN, a duplicate run at a seam); sharded snapshots
+    (blocking, async), restore onto S shards and reshards onto S / 2 and
+    2S, a damaged shard file under ``"quarantine"`` and ``"fallback"``;
+    a find over ``WIDE_SHARDS`` shards.  Each stacked kernel is held
+    against its plain version and S single-index launches (bit for bit),
+    its launches counted a call; every answer against the truth."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.api import Index
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core import persist as tpersist
+    from repro_torch.kernels import lookup as tlk
+    from repro_torch.kernels import ops
+
+    f32, f64, i32 = torch.float32, torch.float64, torch.int32
+    n, nq, S = args.n, args.queries, args.shards
+    L = max(args.n_leaves // S, 64)
+    mesh = tdist.ShardMesh(S)
+    keys32 = h.lognormal_keys(n)
+    keys = keys32.to(f64)
+    edges = h.edges_of(keys32)
+    h.reset_counters()
+    ops.reset_seam()
+    steps, per_call = {}, {}
+    K = ("sharded_lookup", "sharded_dynamic_lookup", "sharded_dynamic_range")
+
+    def fq(live):
+        return h.find_queries(live, edges).to(f32).to(f64)
+
+    def counted(name, fn):
+        k0 = tlk.LAUNCHES[name]
+        out, dt = _sync_time(fn)
+        per_call.setdefault(name, []).append(tlk.LAUNCHES[name] - k0)
+        return out, dt
+
+    # ---- 1. the static sharded index: one launch of K1 -------------------
+    si, steps["build_sharded"] = _sync_time(
+        lambda: tdist.build_sharded(keys, mesh, n_leaves=L, device=dev))
+    lookup = tdist.make_lookup_fn(si)
+    q = fq(keys)
+    ranks, steps["make_lookup_fn lookup"] = counted(
+        "sharded_lookup", lambda: lookup(q))
+    bounds = torch.as_tensor(tdist.shard_bounds(keys, S), device=dev)
+    dest = torch.searchsorted(si.splits, q)
+    cap = si.keys.shape[1]
+    qf = q.to(f32)
+    want = torch.searchsorted(keys32, qf) - bounds[dest] + dest * cap
+    _check_equal("make_lookup_fn ranks vs the truth", ranks, want.to(i32))
+    static_q = q
+
+    # ---- 2. the dynamic sharded index ------------------------------------
+    ix, steps["Index.build (mesh)"] = _sync_time(
+        lambda: Index.build(keys, mesh=mesh, n_leaves=L))
+    d = ix.backend
+    _, steps["restack (cold: the stack and its kernel tables)"] = \
+        _sync_time(lambda: d._kernel_args(d._stacked()))
+    live = keys
+    find_q = fq(live)
+    steps["find (built)"], _ = counted(
+        "sharded_dynamic_lookup",
+        lambda: h.check_find(ix, find_q, "sharded built"))
+    lo, hi = h.range_pairs(live)
+    steps["find_range (built)"], _ = counted(
+        "sharded_dynamic_range",
+        lambda: h.check_range(ix, lo, hi, "sharded built"))
+    warm = h.uncounted(lambda: {
+        "find": _event_ms(lambda: ix.find(find_q), 5, warmup=1),
+        "find_range": _event_ms(lambda: ix.find_range(lo, hi), 5,
+                                warmup=1)})
+    n_ins = min(2_000_000, n // 100)
+    _, steps["insert (spread)"] = _sync_time(
+        lambda: ix.insert(h.draw(n_ins - n_ins // 20)))
+    live = d.live_keys_tensor()
+    _, steps["delete"] = _sync_time(
+        lambda: ix.delete(h.pick(live, n_ins // 2)))
+    live = d.live_keys_tensor()
+    find_q = fq(live)
+    steps["find (churned)"], _ = counted(
+        "sharded_dynamic_lookup",
+        lambda: h.check_find(ix, find_q, "sharded churned"))
+    lo, hi = h.range_pairs(live)
+    steps["find_range (churned)"], _ = counted(
+        "sharded_dynamic_range",
+        lambda: h.check_range(ix, lo, hi, "sharded churned"))
+    # skewed ingest into shard 0's range until the shard migrates
+    m0 = d.migrations_incremental + d.migrations_full
+    top = float(d.splits[0])
+    k_lo = float(keys[0])
+    t_skew, batches = 0.0, 0
+    while d.migrations_incremental + d.migrations_full == m0:
+        if batches == SKEW_BATCHES:
+            raise AssertionError(f"{batches} skewed batches ran no "
+                                 f"migration: {d.live_counts()}")
+        x = (k_lo + (top - k_lo) * torch.rand(
+            n // SKEW_CUT, dtype=f64, device=dev, generator=h.g)).to(f32)
+        _, dt = _sync_time(functools.partial(ix.insert, x.to(f64)))
+        t_skew += dt
+        batches += 1
+    steps[f"skewed insert ({batches} x {n // SKEW_CUT} keys into shard 0"
+          f"'s range)"] = t_skew
+    _, steps["restack (after the migration)"] = _sync_time(
+        lambda: d._kernel_args(d._stacked()))
+    # a duplicate run at a seam: 9 more copies of a split key, one shard
+    # touched: its rows rewritten in place
+    seam_key = float(d.splits[S // 2 - 1])
+    _, steps["insert (a run at a seam)"] = _sync_time(
+        lambda: ix.insert(torch.full((9,), seam_key, dtype=f64,
+                                     device=dev)))
+    st = d._stack
+    ptrs = {k: v.data_ptr() for k, v in st.items()
+            if isinstance(v, torch.Tensor)}
+    rows0, full0 = d.restack_rows, d.restack_full
+    _, steps["restack (one dirty row)"] = _sync_time(
+        lambda: d._kernel_args(d._stacked()))
+    if (d.restack_rows - rows0, d.restack_full - full0) != (1, 0) or any(
+            d._stack[k].data_ptr() != p for k, p in ptrs.items()
+            if k not in ("offs", "splits")):
+        raise AssertionError("a one-shard insert must rewrite one row of "
+                             "the stack in place")
+    live = d.live_keys_tensor()
+    live32 = live.to(f32)
+    sp = torch.as_tensor(d.splits, device=dev).to(f32)
+    beside = torch.cat([sp, torch.nextafter(sp, sp + 1), torch.nextafter(
+        sp, sp - 1)]).to(f64)
+    planted = torch.cat([beside, torch.tensor(
+        [float("inf"), float("nan"), float("-inf")], dtype=f64,
+        device=dev)])
+    find_q = torch.cat([fq(live)[:nq - planted.numel()], planted])
+    (found, rank), steps["find (skewed, planted)"] = counted(
+        "sharded_dynamic_lookup", lambda: ix.find(find_q))
+    fin = torch.isfinite(find_q) | (find_q == float("-inf"))
+    fin &= ~torch.isnan(find_q) & (find_q < float("inf"))
+    qf = find_q.to(f32)
+    w_rank = torch.where(fin, torch.searchsorted(live32, qf), 0).to(i32)
+    w_found = fin & (torch.searchsorted(live32, qf, right=True)
+                     > torch.searchsorted(live32, qf))
+    _check_equal("find (planted) rank", rank, w_rank)
+    _check_equal("find (planted) found", found, w_found)
+    run = torch.tensor([seam_key], dtype=f64, device=dev)
+    rl, rh = ix.find_range(run, run)
+    if int(rh - rl) != int((live == seam_key).sum()) or int(rh - rl) < 10:
+        raise AssertionError(f"the seam run: {int(rh - rl)} keys")
+    lo, hi = h.range_pairs(live)
+    lo = torch.cat([lo[:-beside.numel()], beside])
+    hi = torch.cat([hi[:-beside.numel()], beside + 1.0])
+    _, steps["find_range (skewed, planted)"] = counted(
+        "sharded_dynamic_range",
+        lambda: h.check_range(ix, lo, hi, "sharded planted"))
+    launches = h.counters()
+    for k in K:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on path F: "
+                                 f"{launches}")
+    for k, v in per_call.items():
+        if any(c != 1 for c in v):
+            raise AssertionError(f"{k}: launches a call {v}, not 1")
+    warm.update(h.uncounted(lambda: {
+        "find (skewed)": _event_ms(lambda: ix.find(find_q), 5, warmup=1),
+        "find_range (skewed)": _event_ms(lambda: ix.find_range(lo, hi), 5,
+                                         warmup=1)}))
+    # one warm find and one warm find_range traced: device events (all
+    # launches, the stacked kernel's and the epilogue's), busy time, idle
+    # share
+    traced = h.uncounted(lambda: _trace_verbs(
+        ROOT / "build" / "path_f_trace.json",
+        {"path F find": lambda: ix.find(find_q),
+         "path F find_range": lambda: ix.find_range(lo, hi)}))
+    counters = {k: int(getattr(d, k)) for k in tpersist._IDX_COUNTERS}
+    shard_live = d.live_counts().tolist()
+    # ---- 3. the stacked kernels against plain and per-shard launches ----
+    errs = {}
+    st = d._stacked()
+    pk, tabs, kw = d._kernel_args(st)
+    # each stacked kernel's inputs as the path gives them: the batch routed
+    # and grouped, non-live queries replaced by their shard's member key;
+    # find_range sends its lo and hi endpoints as one batch of point pairs
+    _, _, ds, kq, _ = d._grouped(st, find_q)
+    kq = kq.to(f32)
+    _, _, dsr, kr, _ = d._grouped(st, torch.cat([lo, hi]))
+    kr = kr.to(f32)
+    tables = (pk["roots"], pk["mats"], pk["vecs"], pk["kf"])
+    k2 = lambda: tlk.sharded_dynamic_lookup(kq, ds, *tables, pk["dkf"],
+                                            tabs=tabs, **kw)
+    k2p = lambda: tlk.sharded_dynamic_lookup_plain(kq, ds, *tables,
+                                                   pk["dkf"], **kw)
+    k3 = lambda: tlk.sharded_dynamic_range(kr, kr, dsr, *tables, pk["dkf"],
+                                           tabs=tabs, **kw)
+    k3p = lambda: tlk.sharded_dynamic_range_plain(kr, kr, dsr, *tables,
+                                                  pk["dkf"], **kw)
+    k2s = lambda: _per_shard(lambda s, x: tlk.dynamic_lookup(
+        x, pk["roots"][s], pk["mats"][s], pk["vecs"][s], pk["kf"][s],
+        pk["dkf"][s], **kw), kq, ds, S)
+    k3s = lambda: _per_shard(lambda s, x: tlk.dynamic_range(
+        x, x, pk["roots"][s], pk["mats"][s], pk["vecs"][s], pk["kf"][s],
+        pk["dkf"][s], **kw), kr, dsr, S)
+    skt = si.kernel_tables()
+    _, _, sds, sq, _ = tdist._grouped(si.splits, tdist._member(si.keys[:, 0]),
+                                      static_q)
+    sq = sq.to(f32)
+    skw = dict(n_leaves=L, iters=si.search_iters)
+    k1 = lambda: (tlk.sharded_lookup(sq, sds, skt["roots"], skt["mats"],
+                                     skt["vecs"], skt["keys"],
+                                     tabs=skt["tabs"], **skw),)
+    k1p = lambda: (tlk.sharded_lookup_plain(sq, sds, skt["roots"],
+                                            skt["mats"], skt["vecs"],
+                                            skt["keys"], **skw),)
+    k1s = lambda: _per_shard(lambda s, x: tlk.lookup(
+        x, skt["roots"][s], skt["mats"][s], skt["vecs"][s], skt["keys"][s],
+        rows=skt["rows"][s], fence=skt["fences"][s], **skw), sq, sds, S)
+
+    def check(name, kern, plain, single):
+        e = _compare(name, kern, plain)
+        e = max(e, _compare(f"{name} vs {S} single-index launches", kern,
+                            single))
+        errs[name] = e
+    h.uncounted(lambda: [check("sharded_lookup", k1, k1p, k1s),
+                         check("sharded_dynamic_lookup", k2, k2p, k2s),
+                         check("sharded_dynamic_range", k3, k3p, k3s)])
+
+    # an index with empty shards on the card: K2 / K3 and the answers
+    tiny = torch.tensor([1.0, 2.0, 5.0, 9.0, 12.0], dtype=f64, device=dev)
+    tix = Index.build(tiny, mesh=mesh, n_leaves=16)
+    tq = torch.tensor([0.5, 1.0, 2.0, 3.0, 9.0, 12.0, 100.0, float("inf"),
+                       float("nan"), float("-inf")], dtype=f64, device=dev)
+    tf, tr = tix.find(tq)
+    _check_equal("empty shards: rank", tr, torch.tensor(
+        [0, 0, 1, 2, 3, 4, 5, 0, 0, 0], dtype=i32, device=dev))
+    _check_equal("empty shards: found", tf, torch.tensor(
+        [False, True, True, False, True, True, False, False, False, False],
+        device=dev))
+    tst = tix.backend._stacked()
+    tpk, ttabs, tkw = tix.backend._kernel_args(tst)
+    _, _, tds, tqf, _ = tix.backend._grouped(tst, tq)
+    tqf = tqf.to(f32)
+    ttables = (tpk["roots"], tpk["mats"], tpk["vecs"], tpk["kf"])
+    errs["sharded_dynamic_lookup"] = max(errs["sharded_dynamic_lookup"],
+                                         h.uncounted(lambda: _compare(
+        "sharded_dynamic_lookup (empty shards)",
+        lambda: tlk.sharded_dynamic_lookup(tqf, tds, *ttables, tpk["dkf"],
+                                           tabs=ttabs, **tkw),
+        lambda: tlk.sharded_dynamic_lookup_plain(tqf, tds, *ttables,
+                                                 tpk["dkf"], **tkw))))
+    empty_txt = (f"shards {tix.backend.live_counts().tolist()}, splits "
+                 f"{tix.backend.splits.tolist()}")
+    del tix, tst, tpk, ttabs
+
+    # the kernels line's rows: this run's inputs, timed
+    w1 = _stacked_work(tlk, skt, sq, sds, n_leaves=L, route_n=cap,
+                       iters=si.search_iters, right=False, rows=True,
+                       fence=True)
+    kt2 = dict(roots=pk["roots"], mats=pk["mats"], vecs=pk["vecs"],
+               keys=pk["kf"])
+    w2 = _stacked_work(tlk, kt2, kq, ds, n_leaves=L, route_n=L,
+                       iters=st["iters"], right=False, delta=pk["dkf"])
+    w3 = (_stacked_work(tlk, kt2, kr, dsr, n_leaves=L, route_n=L,
+                        iters=st["iters"], right=False, delta=pk["dkf"])
+          + _stacked_work(tlk, kt2, kr, dsr, n_leaves=L, route_n=L,
+                          iters=st["iters"], right=True, delta=pk["dkf"]))
+    lib = {"sharded_lookup": lambda: torch.searchsorted(keys32, sq),
+           "sharded_dynamic_lookup": lambda: torch.searchsorted(live32, kq),
+           "sharded_dynamic_range": lambda: (
+               torch.searchsorted(live32, kr),
+               torch.searchsorted(live32, kr, right=True))}
+    for name, kern, plain, work in (("sharded_lookup", k1, k1p, w1),
+                                    ("sharded_dynamic_lookup", k2, k2p, w2),
+                                    ("sharded_dynamic_range", k3, k3p, w3)):
+        rows[name] = _time_row(name, kern, plain, lib[name], work,
+                               launches[name], errs[name], plain_reps=3)
+        rows[name]["single_launches_ms"] = _event_ms(
+            {"sharded_lookup": k1s, "sharded_dynamic_lookup": k2s,
+             "sharded_dynamic_range": k3s}[name], 5, warmup=1)
+
+    # ---- 4. snapshots, restore, reshard, a damaged shard ------------------
+    store_dir = ROOT / "build"
+    store_dir.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="path_f_store_", dir=store_dir)
+    print(f"  snapshot store {Path(tmp).relative_to(ROOT)}: "
+          f"{shutil.disk_usage(tmp).free / 2**30:.3f} GiB free")
+    times, reshard = {}, {}
+    try:
+        store = tpersist.SnapshotStore(tmp)
+        _, times["snapshot_sharded step 1 (blocking)"] = _sync_time(
+            lambda: ix.snapshot(store, 1))
+        q1 = fq(live)
+        lo1, hi1 = h.range_pairs(live)
+        ans1 = ix.find(q1) + ix.find_range(lo1, hi1)
+        ix.insert(h.draw(n_ins))
+        t0 = time.perf_counter()
+        ix.snapshot(store, 2, blocking=False)
+        times["snapshot_sharded step 2 (async): return"] = \
+            time.perf_counter() - t0
+        store.wait()
+        times["snapshot_sharded step 2 (async): until written"] = \
+            time.perf_counter() - t0
+        step_bytes = {s: _dir_bytes(store._step_dir(s))
+                      for s in store.steps()}
+        live2 = d.live_keys_tensor()
+        q2 = fq(live2)
+        lo2, hi2 = h.range_pairs(live2)
+        ans2 = ix.find(q2) + ix.find_range(lo2, hi2)
+        for m in (S, S // 2, 2 * S):
+            (rix, rep), dt = _sync_time(functools.partial(
+                tpersist.restore_sharded, store, tdist.ShardMesh(m)))
+            times[f"restore_sharded onto {m} shards"] = dt
+            if rep.step != 2 or rix.n_shards != m:
+                raise AssertionError(f"restore onto {m}: {rep}")
+            got = rix.find(q2) + rix.find_range(lo2, hi2)
+            for i, (x, y) in enumerate(zip(got, ans2, strict=True)):
+                _check_equal(f"restored onto {m} [{i}] vs the live index",
+                             x, y)
+            if m != S:
+                if rep.reshard.full_rebuilds != 0:
+                    raise AssertionError(f"reshard {S} -> {m}: {rep.reshard}")
+                reshard[m] = dataclasses.asdict(rep.reshard)
+            del rix, got
+            torch.cuda.empty_cache()
+        # a flipped byte in one shard file of step 2
+        bad = min(3, S - 1)
+        path = os.path.join(store._step_dir(2), f"shard_{bad:05d}.npz")
+        with open(path, "r+b") as fh:
+            fh.seek(os.path.getsize(path) // 2)
+            b = fh.read(1)
+            fh.seek(-1, os.SEEK_CUR)
+            fh.write(bytes([b[0] ^ 0xFF]))
+        (qix, rep), times["restore_sharded (quarantine)"] = _sync_time(
+            lambda: tpersist.restore_sharded(store, mesh,
+                                             on_corrupt="quarantine"))
+        if qix.quarantined != [bad] or rep.step != 2:
+            raise AssertionError(f"quarantine: {qix.quarantined} {rep}")
+        qfound, qrank = qix.find(q2)
+        spl = torch.as_tensor(d.splits, device=dev)
+        mine = (q2 > (spl[bad - 1] if bad else -float("inf"))) \
+            & (q2 <= spl[bad])
+        if bool(qfound[mine].any()) or not torch.equal(qfound[~mine],
+                                                       ans2[0][~mine]):
+            raise AssertionError("quarantined shard's range must answer "
+                                 "found False, the rest as before")
+        del qix, qfound, qrank
+        (fix, rep), times["restore_sharded (fallback to step 1)"] = \
+            _sync_time(lambda: tpersist.restore_sharded(store, mesh))
+        if rep.step != 1:
+            raise AssertionError(f"fallback served step {rep.step}")
+        got = fix.find(q1) + fix.find_range(lo1, hi1)
+        for i, (x, y) in enumerate(zip(got, ans1, strict=True)):
+            _check_equal(f"fallback restore [{i}] vs step 1's answers", x, y)
+        del fix, got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak_main = torch.cuda.max_memory_allocated() / 2**30
+    del ix, d, si, lookup, st, pk, tabs, skt, live, live2, live32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 5. a wide stack: one launch whatever the shard count ------------
+    nw = n // WIDE_CUT
+    wkeys = h.lognormal_keys(nw).to(f64)
+    wix, steps[f"Index.build ({WIDE_SHARDS} shards, {nw} keys)"] = \
+        _sync_time(lambda: Index.build(wkeys, mesh=tdist.ShardMesh(
+            WIDE_SHARDS), n_leaves=max(args.n_leaves // WIDE_SHARDS // 4,
+                                       64)))
+    wq = fq(wkeys)
+    h.check_find(wix, wq, "wide")
+    k0 = tlk.LAUNCHES["sharded_dynamic_lookup"]
+    wix.find(wq)
+    wide_launches = tlk.LAUNCHES["sharded_dynamic_lookup"] - k0
+    if wide_launches != 1:
+        raise AssertionError(f"{WIDE_SHARDS} shards: {wide_launches} "
+                             f"launches a find")
+    wide_ms = _event_ms(lambda: wix.find(wq), 5, warmup=1)
+    del wix, wkeys, wq
+
+    print(f"phase 10: path F (the sharded index, {S} shards, {L} leaves a "
+          f"shard) ok on {_card()}; n={n}; launches {launches}; launches a "
+          f"call "
+          f"{ {k: sorted(set(v)) for k, v in per_call.items()} }; the "
+          f"stacked K1-K3 equal their plain versions and {S} single-index "
+          f"launches bit for bit (tolerance 0): {errs}")
+    h.print_steps(steps)
+    print("  warm (no restack), CUDA-event means of 5 calls: " + ", ".join(
+        f"{k} {v:.6f} ms" for k, v in warm.items()))
+    for tag, w in traced.items():
+        print(f"  traced {tag} (warm, {nq} queries): wall {w['wall']:.6f} s, "
+              f"device busy {w['busy']:.6f} s, idle share "
+              f"{1 - w['busy'] / w['wall']:.6f}, {w['events']} device "
+              f"events (the stacked kernel one of them)")
+    print(f"  counters after the churn and the skewed ingest: {counters}; "
+          f"live keys a shard {shard_live}")
+    print(f"  the index with empty shards: {empty_txt}")
+    for k, v in times.items():
+        print(f"  {k}: {v:.6f} s")
+    print(f"  snapshot bytes a step: {step_bytes}")
+    for m, v in reshard.items():
+        print(f"  ReshardStats {S} -> {m}: {v}")
+    print(f"  {WIDE_SHARDS} shards over {nw} keys: {wide_launches} launch "
+          f"a find, find {wide_ms:.6f} ms")
+    for name in K:
+        print(f"  {name}: {S} single-index launches "
+              f"{rows[name]['single_launches_ms']:.6f} ms against one "
+              f"stacked launch {rows[name]['ms']:.6f} ms")
+    h.print_seam()
+    print(f"  peak memory allocated (path F): {peak_main:.3f} GiB")
+
+
 def main(argv=None) -> int:
     args = _args(argv)
     import numpy as np
@@ -1940,6 +2455,14 @@ def main(argv=None) -> int:
           f"(tolerance 0): {errs}")
     for nm, (k, p, lib, work) in calls_a.items():
         rows[nm] = _time_row(nm, k, p, lib, work(), launches_a[nm], errs[nm])
+    # the single-index verbs warm, each a kernel launch and its epilogue
+    q64 = qf.to(torch.float64)
+    warm = h.uncounted(lambda: {
+        "static lookup": _event_ms(lambda: trmi.lookup(sidx, q64), 5),
+        "find": _event_ms(lambda: ix.find(q64), 5),
+        "find_range": _event_ms(lambda: ix.find_range(lo, hi), 5)})
+    print("  warm, CUDA-event means of 5 calls: " + ", ".join(
+        f"{k} {v:.6f} ms" for k, v in warm.items()))
     print(f"  shapes: n={n} leaves={L} queries={nq} range pairs="
           f"{lo.numel()} base capacity={d.index.keys.shape[0]} delta "
           f"capacity={dk.shape[0]} iters static={sidx.search_iters} "
@@ -2620,11 +3143,15 @@ def main(argv=None) -> int:
     # ---- phase 9: path E (baselines, snapshots, dataset), counted ---------
     _path_e(args, dev, rows, h)
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    # ---- phase 10: path F (the sharded index), counted ---------------------
+    _path_f(args, dev, rows, h)
+    print(f"  wall {time.perf_counter() - t_start:.1f} s")
+
+    smi = _card()
     print(json.dumps({"kernels": [rows[k] for k in SOURCES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

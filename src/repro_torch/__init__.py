@@ -6,7 +6,8 @@ numpy only: never jax, never anything of ``repro``.
 
 Device policy: every entry point (``api.Index.build`` / ``restore``,
 ``core.updates.DynamicRMI.build``, ``core.rmi.build_rmi``, the baselines'
-builds, ``data.indexed_dataset.IndexedDataset.create``) runs on
+builds, ``core.distributed``'s builds and ``core.persist``'s restores,
+``data.indexed_dataset.IndexedDataset.create``) runs on
 ``cuda`` unless the caller passes ``device="cpu"``, and raises when no
 card is present.  There is no silent fallback to the CPU.  Dtypes are
 explicit everywhere (keys and model parameters f64, kernel tables and the

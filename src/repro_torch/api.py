@@ -1,5 +1,8 @@
 """``repro_torch.api`` — the facade over the dynamic index (counterpart of
-``repro.api``), single host.
+``repro.api``): the single-host ``core.updates.DynamicRMI``
+(``mesh=None``) or the range-partitioned
+``core.distributed.ShardedDynamicIndex`` (``mesh=ShardMesh(n)``, its shards
+stacked on the one device).
 
   =============  ====================================================
   verb           backend call
@@ -12,8 +15,12 @@
   gather_range   ``backend.gather_range(rank_lo, rank_hi)``
   maybe_swap     ``backend.maybe_swap()`` (drift maintenance)
   drift_scores   ``core.drift.state_row(backend.drift)`` as a (1, 2) row
-  snapshot       ``core.persist.snapshot_dynamic``
-  restore        ``core.persist.restore_dynamic``
+                 | ``backend.drift_scores()`` (n_shards, 2)
+  snapshot       ``core.persist.snapshot_dynamic`` |
+                 ``core.persist.snapshot_sharded``
+  restore        ``core.persist.restore_dynamic`` |
+                 ``core.persist.restore_sharded`` (reshards onto the
+                 mesh's shard count)
   =============  ====================================================
 
 ``find``/``find_range`` return tensors on the index's device; ``gather``,
@@ -22,8 +29,6 @@
 Algorithm-1 reuse at build, on every rebuild of an MLP leaf and in the
 drift hot-swaps (``drift_bins=``, ``swap_on_drift=``).  A snapshot is in
 the reference's file format, so either package restores the other's.
-Sharding (``mesh=``) is not ported yet and raises ``NotImplementedError``
-naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,9 +37,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from . import not_ported
 from .core import drift as drift_mod
 from .core import persist as persist_mod
+from .core.distributed import ShardedDynamicIndex
 from .core.updates import DynamicRMI, _host_ints
 
 __all__ = ["Index", "build_index"]
@@ -49,19 +54,28 @@ def _as_store(src) -> persist_mod.SnapshotStore:
 @dataclass
 class Index:
     """One dynamic learned index; every verb forwards to the backend."""
-    backend: DynamicRMI
+    backend: DynamicRMI | ShardedDynamicIndex
 
     @classmethod
-    def build(cls, keys, *, mesh=None, pool=None, device=None,
-              **kwargs) -> "Index":
+    def build(cls, keys, *, mesh=None, axis: str = "data", pool=None,
+              device=None, **kwargs) -> "Index":
         """Build over sorted ``keys`` on ``device`` (CUDA unless
-        ``device="cpu"``); ``kwargs`` go to ``DynamicRMI.build``
-        (``n_leaves``, ``kind``, ``eps``, ``reuse_on_rebuild``,
+        ``device="cpu"``).  ``mesh=None`` builds a ``DynamicRMI``; a
+        ``core.distributed.ShardMesh`` a ``ShardedDynamicIndex`` over
+        ``mesh.shape[axis]`` shards.  ``kwargs`` go to the backend's
+        ``build`` (``n_leaves``, ``kind``, ``eps``, ``reuse_on_rebuild``,
         ``drift_bins``, ``drift_hi``, ``drift_lo``, ``swap_on_drift``,
         ...)."""
-        if mesh is not None:
-            raise not_ported("the sharded index (mesh=)", "11")
-        return cls(DynamicRMI.build(keys, pool=pool, device=device, **kwargs))
+        if mesh is None:
+            return cls(DynamicRMI.build(keys, pool=pool, device=device,
+                                        **kwargs))
+        return cls(ShardedDynamicIndex.build(keys, mesh, axis=axis,
+                                             pool=pool, device=device,
+                                             **kwargs))
+
+    @property
+    def sharded(self) -> bool:
+        return isinstance(self.backend, ShardedDynamicIndex)
 
     # -- queries -----------------------------------------------------------
     def find(self, queries, *, path: str = "auto"):
@@ -95,7 +109,8 @@ class Index:
 
     @property
     def live_count(self) -> int:
-        return int(self.backend.live_count)
+        return int(self.backend.total_live if self.sharded
+                   else self.backend.live_count)
 
     # -- drift maintenance -------------------------------------------------
     def maybe_swap(self) -> int:
@@ -105,8 +120,10 @@ class Index:
         return self.backend.maybe_swap()
 
     def drift_scores(self) -> np.ndarray:
-        """(1, 2) [KS score, drifted latch] (host numpy); all zero when
-        drift monitoring is off."""
+        """(n_shards, 2) [KS score, drifted latch] rows (host numpy; one
+        row single-host); all zero when drift monitoring is off."""
+        if self.sharded:
+            return self.backend.drift_scores()
         row = drift_mod.state_row(self.backend.drift, self.backend.device)
         return row.cpu().numpy()[None]
 
@@ -116,19 +133,25 @@ class Index:
         """Write one checksummed, atomically committed snapshot into
         ``store`` (a ``core.persist.SnapshotStore`` or a directory path).
         The drift monitor's state rides the snapshot."""
-        persist_mod.snapshot_dynamic(_as_store(store), step, self.backend,
-                                     blocking=blocking,
-                                     include_pool=include_pool)
+        snap = persist_mod.snapshot_sharded if self.sharded \
+            else persist_mod.snapshot_dynamic
+        snap(_as_store(store), step, self.backend, blocking=blocking,
+             include_pool=include_pool)
 
     @classmethod
-    def restore(cls, store, *, mesh=None, step: int | None = None,
-                device=None) -> "Index":
+    def restore(cls, store, *, mesh=None, axis: str = "data",
+                step: int | None = None, device=None) -> "Index":
         """Restore from the newest verifiable snapshot in ``store`` (or
-        exactly ``step``) onto ``device`` (CUDA unless ``device="cpu"``)."""
-        if mesh is not None:
-            raise not_ported("the sharded index (mesh=)", "11")
-        backend, _ = persist_mod.restore_dynamic(_as_store(store), step=step,
-                                                 device=device)
+        exactly ``step``) onto ``device`` (CUDA unless ``device="cpu"``).
+        ``mesh=None`` restores the single-host backend; a ``ShardMesh`` the
+        sharded one, resharded onto its shard count."""
+        st = _as_store(store)
+        if mesh is None:
+            backend, _ = persist_mod.restore_dynamic(st, step=step,
+                                                     device=device)
+        else:
+            backend, _ = persist_mod.restore_sharded(st, mesh, axis,
+                                                     step=step, device=device)
         return cls(backend)
 
 

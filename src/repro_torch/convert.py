@@ -24,6 +24,22 @@ Dynamic index (:func:`dynamic_from_arrays`), in addition:
   the drift monitor are passed separately.  Tombstone prefix sums and the
   live/dead counters are recomputed.
 
+Sharded dynamic index (:func:`sharded_from_arrays`):
+  ``n_shards``, ``axis``, ``splits``, ``counts`` (the (n_shards, 4)
+  counter table), ``muted``, ``eps``, ``n_leaves``, ``rebalance_ratio``,
+  ``rebalance_skew``, ``migrate_headroom_factor``, ``build_kwargs``, the
+  counters (``rebalances``, ``migrations_incremental``,
+  ``migrations_full``, ``restack_full``, ``restack_rows``,
+  ``capacity_shrinks``, ``swaps_committed``), ``quarantined``, and
+  ``shards``: a list of each shard's :func:`dynamic_from_arrays` arrays
+  (its drift monitor's arrays under ``drift`` when it has one); the pool
+  is passed separately.
+
+Static sharded index (:func:`sharded_index_from_arrays`):
+  ``n_shards``, ``axis``, ``splits``, ``keys`` (n_shards, cap), ``valid``,
+  ``root_a``/``root_b`` (n_shards,), ``leaf_a``/``leaf_b``,
+  ``err_lo``/``err_hi`` (n_shards, n_leaves), ``n_leaves``, ``iters``.
+
 Drift monitor (:func:`drift_from_arrays`):
   ``m``, ``lo``, ``hi``, ``thresh_hi``, ``thresh_lo``, ``ref``, ``acc``,
   ``score``, ``drifted``, ``updates``, ``rebaselines``.
@@ -52,6 +68,7 @@ import torch
 from . import resolve_device
 from .core import models
 from .core.adapt import DomainSpec
+from .core.distributed import ShardedDynamicIndex, ShardedIndex, ShardMesh
 from .core.drift import DriftState
 from .core.reuse import ModelPool
 from .core.rmi import RMIIndex
@@ -123,6 +140,60 @@ def dynamic_from_arrays(arrays: dict, *, pool: ModelPool | None = None,
         swaps_committed=int(arrays.get("swaps_committed", 0)),
         swap_rejects=int(arrays.get("swap_rejects", 0)),
         _win=np.array(arrays["win"], np.float64))
+
+
+_SHARDED_COUNTERS = ("rebalances", "migrations_incremental",
+                     "migrations_full", "restack_full", "restack_rows",
+                     "capacity_shrinks", "swaps_committed")
+
+
+def sharded_from_arrays(arrays: dict, *, pool: ModelPool | None = None,
+                        device=None) -> ShardedDynamicIndex:
+    """The port's ``ShardedDynamicIndex`` over the given shards, splits,
+    counter table and mutes, with an optional pool (on the same
+    device)."""
+    dev = resolve_device(device)
+    shards = []
+    for a in arrays["shards"]:
+        drift = drift_from_arrays(a["drift"], device=dev) \
+            if a.get("drift") is not None else None
+        shards.append(dynamic_from_arrays(a, pool=pool, drift=drift,
+                                          device=dev))
+    n = int(arrays["n_shards"])
+    idx = ShardedDynamicIndex(
+        mesh=ShardMesh(n, str(arrays.get("axis", "data"))),
+        axis=str(arrays.get("axis", "data")),
+        splits=np.array(arrays["splits"], np.float64), shards=shards,
+        eps=float(arrays["eps"]), n_leaves=int(arrays["n_leaves"]),
+        pool=pool, rebalance_ratio=arrays.get("rebalance_ratio", 0.5),
+        rebalance_skew=float(arrays.get("rebalance_skew", 2.0)),
+        migrate_headroom_factor=float(
+            arrays.get("migrate_headroom_factor", 4.0)),
+        quarantined=list(arrays.get("quarantined", [])),
+        build_kwargs=dict(arrays.get("build_kwargs", {})))
+    for k in _SHARDED_COUNTERS:
+        setattr(idx, k, int(arrays.get(k, 0)))
+    idx._init_maintenance()
+    idx._counts = torch.as_tensor(np.array(arrays["counts"], np.int64),
+                                  device=dev)
+    idx._muted = torch.as_tensor(np.array(arrays["muted"], np.int64),
+                                 device=dev)
+    return idx
+
+
+def sharded_index_from_arrays(arrays: dict, *, device=None) -> ShardedIndex:
+    """The port's static ``ShardedIndex`` over the given stacked tables."""
+    dev = resolve_device(device)
+    t = _tensor(arrays, dev)
+    n = int(arrays["n_shards"])
+    return ShardedIndex(
+        mesh=ShardMesh(n, str(arrays.get("axis", "data"))),
+        axis=str(arrays.get("axis", "data")), splits=t("splits"),
+        keys=t("keys"), valid=t("valid", torch.int64),
+        root=models.LinearParams(a=t("root_a"), b=t("root_b")),
+        leaves=models.LinearParams(a=t("leaf_a"), b=t("leaf_b")),
+        err_lo=t("err_lo"), err_hi=t("err_hi"),
+        n_leaves=int(arrays["n_leaves"]), search_iters=int(arrays["iters"]))
 
 
 def drift_from_arrays(arrays: dict, *, device=None) -> DriftState:

@@ -1,9 +1,12 @@
-"""Durable single-host snapshots of the dynamic index (counterpart of the
-single-host half of ``repro.core.persist``).
+"""Durable snapshots of the dynamic index, single-host and sharded, with
+restore and elastic reshard (counterpart of ``repro.core.persist``).
 
 The file format is the reference's: the same directory and file names,
-npz array names, dtypes and shapes, manifest keys, ``kind`` string and
-schema number, so either package restores the other's snapshot.
+npz array names, dtypes and shapes, manifest keys, ``kind`` strings and
+schema number, so either package restores the other's snapshot.  A sharded
+snapshot (``kind`` "sharded-dynamic-index") holds one ``shard_<s>.npz`` a
+shard in the single-host schema, ``index.npz`` (splits, the counter table,
+the skew mutes) and the shared pool.
 
     <dir>/step_00000042/            one committed snapshot
         manifest.json               commit record, written last
@@ -45,8 +48,13 @@ the restored index answers bit for bit as the live one did.
 npz has no bf16: such arrays are stored as their 16-bit words (uint16)
 and tagged "bfloat16" in the manifest, as the reference does; a loaded
 one comes back as a torch bf16 tensor, since numpy has no bf16 dtype.
-The sharded snapshots (``snapshot_sharded``, ``restore_sharded``,
-``reshard_sharded``) wait for the sharded index.
+
+:func:`restore_sharded` restores onto any shard count: a snapshot of N
+shards restored onto M != N is cut at balanced, run-snapped live ranks
+(:func:`reshard_sharded`), each new shard anchored on its largest piece
+(shed on a clone, no refit) with the other pieces riding its delta tier;
+``ReshardStats.full_rebuilds`` stays 0.  ``on_corrupt="quarantine"``
+serves a snapshot with damaged shard files, those shards empty.
 """
 from __future__ import annotations
 
@@ -69,6 +77,7 @@ from . import models
 from . import rmi as rmi_mod
 from .adapt import DomainSpec
 from .bounds import clamped_depth
+from .distributed import ShardedDynamicIndex, _n_shards
 from .reuse import ModelPool
 from .updates import DynamicRMI, _psum, _to_host
 
@@ -369,6 +378,7 @@ class SnapshotStore:
 # ---------------------------------------------------------------------------
 # Dynamic index snapshots.
 # ---------------------------------------------------------------------------
+KIND_SHARDED = "sharded-dynamic-index"
 KIND_DYNAMIC = "dynamic-index"
 _SHARD_FMT = "shard_{:05d}.npz"
 
@@ -376,6 +386,10 @@ _SHARD_SCALARS = (
     "eps", "route_n", "base_n", "base_dead_count", "delta_live",
     "delta_dead_count", "delta_compactions", "rebuilds", "deleted",
     "capacity_shrinks")
+_IDX_COUNTERS = (
+    "rebalances", "migrations_incremental", "migrations_full",
+    "restack_full", "restack_rows", "capacity_shrinks",
+    "swaps_committed")
 
 
 def _params_to(arrays: dict, prefix: str, params) -> None:
@@ -585,3 +599,275 @@ def restore_dynamic(store: SnapshotStore, *, step: int | None = None,
     raise SnapshotCorruption(
         f"no verifiable snapshot among steps "
         f"{sorted(candidates)}: last error: {last_err}")
+
+
+# ---------------------------------------------------------------------------
+# Sharded dynamic index snapshots.
+# ---------------------------------------------------------------------------
+def snapshot_sharded(store: SnapshotStore, step: int, idx, *,
+                     blocking: bool = False,
+                     include_pool: bool = True) -> None:
+    """Snapshot a ``ShardedDynamicIndex``: one npz a shard, the global
+    arrays and (optionally) the shared pool, checksummed and atomically
+    committed by ``store``.  Async by default; every array is on the host
+    before this returns, so churn may continue at once."""
+    store.kind = KIND_SHARDED
+    files = {"index.npz": {
+        "splits": np.asarray(idx.splits, np.float64).copy(),
+        "counts": _to_host(idx._counts),
+        "muted": _to_host(idx._muted)}}
+    shard_meta = []
+    for s, d in enumerate(idx.shards):
+        arrays, m = _shard_arrays(d)
+        files[_SHARD_FMT.format(s)] = arrays
+        shard_meta.append(m)
+    meta = {
+        "axis": idx.axis, "eps": float(idx.eps),
+        "n_leaves": int(idx.n_leaves), "n_shards": int(idx.n_shards),
+        "rebalance_ratio": _json_scalar(idx.rebalance_ratio),
+        "rebalance_skew": float(idx.rebalance_skew),
+        "migrate_headroom_factor": float(idx.migrate_headroom_factor),
+        "build_kwargs": idx.build_kwargs,
+        "counters": {k: int(getattr(idx, k)) for k in _IDX_COUNTERS},
+        "shards": shard_meta,
+    }
+    if include_pool and idx.pool is not None:
+        arrays, pm = _pool_files(idx.pool)
+        files["pool.npz"] = arrays
+        meta["pool"] = pm
+    store.save(step, files, meta, blocking=blocking)
+
+
+@dataclass
+class ReshardStats:
+    """Work accounting of one elastic N -> M reshard.  ``full_rebuilds``
+    (from-scratch builds of non-empty shards) is always 0: only empty
+    shards are built anew (``empty_builds``); ``leaf_refits`` counts the
+    Lemma 4.1 leaf rebuilds the delta-riding merges triggered."""
+    n_from: int = 0
+    n_to: int = 0
+    pieces: int = 0             # (old shard, new shard) overlaps cut out
+    delta_merges: int = 0       # donor segments merged through the delta
+    moved_keys: int = 0         # live keys that changed owning structure
+    leaf_refits: int = 0        # Lemma 4.1 leaf rebuilds in the merges
+    empty_builds: int = 0       # empty shards built
+    full_rebuilds: int = 0      # from-scratch builds of non-empty shards
+
+
+@dataclass
+class RestoreReport:
+    """What :func:`restore_sharded` did."""
+    step: int = -1
+    n_shards_from: int = 0      # shard count in the snapshot
+    n_shards: int = 0           # shard count served (the target mesh)
+    quarantined: list = field(default_factory=list)
+    skipped: list = field(default_factory=list)   # [(step, reason), ...]
+    reshard: ReshardStats | None = None
+
+
+def _empty_shard(eps, n_leaves, pool, build_kwargs, dev) -> DynamicRMI:
+    # a shard's recorded build_kwargs may already pin n_leaves (DynamicRMI
+    # keeps it among its build arguments): the explicit one wins
+    kw = dict(build_kwargs)
+    kw["n_leaves"] = n_leaves
+    return DynamicRMI.build(torch.zeros((0,), dtype=torch.float64),
+                            pool=pool, eps=eps, device=dev, **kw)
+
+
+def _reshard_pieces(shards: list, n_to: int, *, eps, n_leaves, pool,
+                    build_kwargs, dev) -> tuple:
+    """Cut N fitted shards into M at duplicate-run-safe boundaries.
+
+    Cuts are balanced live-count positions snapped to run starts.  Each new
+    shard keeps its largest overlapping piece as its *anchor*, cut out by
+    ``shed_prefix`` / ``shed_suffix`` (on a clone when the source shard
+    feeds other new shards too); the other overlapping pieces' live keys
+    merge into the anchor's delta tier through ``insert_batch``, refitting
+    only the leaves whose Lemma 4.1 budgets trip.  The input shards are
+    consumed.  Returns (new shards, new splits, stats)."""
+    n_from = len(shards)
+    stats = ReshardStats(n_from=n_from, n_to=n_to)
+    lc = np.asarray([d.live_count for d in shards], np.int64)
+    total = int(lc.sum())
+    if total == 0:
+        stats.empty_builds = n_to
+        return ([_empty_shard(eps, n_leaves, pool, build_kwargs, dev)
+                 for _ in range(n_to)],
+                np.full((n_to - 1,), -np.inf, np.float64), stats)
+    glive = np.concatenate([d.live_keys() for d in shards])
+    offs = np.concatenate([[0], np.cumsum(lc)])
+    cuts = np.empty((n_to + 1,), np.int64)
+    cuts[0], cuts[-1] = 0, total
+    for t in range(1, n_to):
+        p = min(round(total * t / n_to), total)
+        if 0 < p < total:
+            # snap to the start of the equal-key run: a duplicate run never
+            # straddles a seam
+            p = int(np.searchsorted(glive, glive[p], side="left"))
+        cuts[t] = p
+    cuts = np.maximum.accumulate(cuts)
+    splits = np.asarray([glive[cuts[t] - 1] if cuts[t] > 0 else -np.inf
+                         for t in range(1, n_to)], np.float64)
+
+    new_shards = []
+    for t in range(n_to):
+        lo, hi = int(cuts[t]), int(cuts[t + 1])
+        if hi <= lo:
+            new_shards.append(_empty_shard(eps, n_leaves, pool,
+                                           build_kwargs, dev))
+            stats.empty_builds += 1
+            continue
+        over = [s for s in range(n_from)
+                if lc[s] > 0 and offs[s] < hi and offs[s + 1] > lo]
+        stats.pieces += len(over)
+        counts = {s: int(min(offs[s + 1], hi) - max(offs[s], lo))
+                  for s in over}
+        s_star = max(over, key=counts.__getitem__)
+        a_lo = int(max(offs[s_star], lo))
+        a_hi = int(min(offs[s_star + 1], hi))
+        # a whole-shard anchor is consumed as it is; a partial one is cut
+        # out of a clone so that its siblings keep their own pieces
+        anchor = shards[s_star] if counts[s_star] == int(lc[s_star]) \
+            else shards[s_star].clone()
+        if a_lo > offs[s_star]:
+            anchor.shed_prefix(float(glive[a_lo - 1]))
+        if a_hi < offs[s_star + 1]:
+            anchor.shed_suffix(float(glive[a_hi - 1]))
+        rb0 = anchor.rebuilds
+        for seg_lo, seg_hi in ((lo, a_lo), (a_hi, hi)):
+            if seg_hi > seg_lo:
+                anchor.insert_batch(glive[seg_lo:seg_hi])
+                stats.delta_merges += 1
+                stats.moved_keys += seg_hi - seg_lo
+        stats.leaf_refits += anchor.rebuilds - rb0
+        new_shards.append(anchor)
+    return new_shards, splits, stats
+
+
+def reshard_sharded(idx, mesh, axis: str | None = None):
+    """Elastic N -> M reshard of a live ``ShardedDynamicIndex`` onto
+    ``mesh`` without a from-scratch rebuild (:func:`_reshard_pieces`).  The
+    input index is consumed.  Returns (new index, ReshardStats)."""
+    axis = axis or idx.axis
+    shards, splits, stats = _reshard_pieces(
+        idx.shards, _n_shards(mesh, axis), eps=idx.eps,
+        n_leaves=idx.n_leaves, pool=idx.pool, build_kwargs=idx.build_kwargs,
+        dev=idx.device)
+    out = ShardedDynamicIndex(
+        mesh=mesh, axis=axis, splits=splits, shards=shards, eps=idx.eps,
+        n_leaves=idx.n_leaves, pool=idx.pool,
+        rebalance_ratio=idx.rebalance_ratio,
+        rebalance_skew=idx.rebalance_skew,
+        migrate_headroom_factor=idx.migrate_headroom_factor,
+        build_kwargs=idx.build_kwargs)
+    out._init_maintenance()
+    return out, stats
+
+
+def restore_sharded(store: SnapshotStore, mesh, axis: str = "data", *,
+                    step: int | None = None, on_corrupt: str = "fallback",
+                    device=None):
+    """Restore a ``ShardedDynamicIndex`` on ``device`` (CUDA unless
+    ``device="cpu"``) from the newest verifiable snapshot in ``store`` (or
+    exactly ``step``), resharded onto ``mesh``'s shard count when it
+    differs from the snapshot's.
+
+    ``on_corrupt``:
+      * ``"fallback"`` (default): a snapshot failing verification anywhere
+        is skipped (``report.skipped``) and the next older one tried;
+        raises :class:`SnapshotCorruption` when none verifies.
+      * ``"raise"``: the newest (or requested) snapshot must verify.
+      * ``"quarantine"``: a torn manifest or global file still falls back,
+        but damaged *shard files* restore as empty shards, listed in
+        ``report.quarantined`` and ``index.quarantined``; queries routed
+        to their ranges answer found False.
+
+    Returns (index, :class:`RestoreReport`)."""
+    if on_corrupt not in ("fallback", "raise", "quarantine"):
+        raise ValueError(f"unknown on_corrupt={on_corrupt!r}")
+    dev = resolve_device(device)
+    report = RestoreReport()
+    candidates = [step] if step is not None else \
+        list(reversed(store.steps()))
+    if not candidates:
+        raise SnapshotError(f"no snapshots in {store.directory}")
+    last_err = None
+    for cand in candidates:
+        try:
+            idx, rep = _restore_one(store, cand, mesh, axis, on_corrupt, dev)
+            rep.skipped = report.skipped
+            return idx, rep
+        except SnapshotCorruption as e:
+            last_err = e
+            report.skipped.append((cand, str(e)))
+            if on_corrupt == "raise" or step is not None:
+                raise
+    raise SnapshotCorruption(
+        f"no verifiable snapshot among steps "
+        f"{sorted(candidates)}: last error: {last_err}")
+
+
+def _restore_one(store: SnapshotStore, step: int, mesh, axis: str,
+                 on_corrupt: str, dev):
+    manifest = store.read_manifest(step)
+    if manifest.get("kind") != KIND_SHARDED:
+        raise SnapshotCorruption(
+            f"step {step}: kind {manifest.get('kind')!r} is not "
+            f"{KIND_SHARDED!r}")
+    meta = manifest["meta"]
+    n_from = int(meta["n_shards"])
+    glob = store.load_file(step, "index.npz", manifest)
+    pool = None
+    if "pool" in meta:
+        pool = _restore_pool(store.load_file(step, "pool.npz", manifest),
+                             meta["pool"], dev)
+    n_to = _n_shards(mesh, axis)
+    report = RestoreReport(step=step, n_shards_from=n_from, n_shards=n_to)
+    shards = []
+    for s in range(n_from):
+        sm = meta["shards"][s]
+        try:
+            shards.append(_restore_shard(
+                store.load_file(step, _SHARD_FMT.format(s), manifest),
+                sm, pool, dev))
+        except SnapshotCorruption as e:
+            if on_corrupt != "quarantine":
+                raise
+            shards.append(_empty_shard(
+                float(sm["eps"]), int(sm["n_leaves"]), pool,
+                dict(sm["build_kwargs"]), dev))
+            report.quarantined.append((s, str(e)))
+    quarantined_ids = [s for s, _ in report.quarantined]
+
+    if n_to == n_from:
+        splits = np.asarray(glob["splits"], np.float64).copy()
+    else:
+        shards, splits, stats = _reshard_pieces(
+            shards, n_to, eps=float(meta["eps"]),
+            n_leaves=int(meta["n_leaves"]), pool=pool,
+            build_kwargs=dict(meta["build_kwargs"]), dev=dev)
+        report.reshard = stats
+    idx = ShardedDynamicIndex(
+        mesh=mesh, axis=axis, splits=splits, shards=shards,
+        eps=float(meta["eps"]), n_leaves=int(meta["n_leaves"]), pool=pool,
+        rebalance_ratio=meta["rebalance_ratio"],
+        rebalance_skew=float(meta["rebalance_skew"]),
+        migrate_headroom_factor=float(meta["migrate_headroom_factor"]),
+        build_kwargs=dict(meta["build_kwargs"]))
+    for k, v in meta.get("counters", {}).items():
+        if hasattr(idx, k):
+            setattr(idx, k, int(v))
+    idx._init_maintenance()
+    if n_to == n_from:
+        # a same-width restore is verbatim: the counter table recomputed
+        # from the restored scalars equals the saved one; the mutes restore
+        # as saved (quarantined rows re-armed)
+        muted = torch.as_tensor(np.asarray(glob["muted"], np.int64),
+                                device=dev)
+        idx._muted = muted
+        if quarantined_ids:
+            idx._mute(quarantined_ids, -1)
+        idx.quarantined = list(quarantined_ids)
+    else:
+        idx.quarantined = []
+    return idx, report

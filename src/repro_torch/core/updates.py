@@ -42,8 +42,9 @@ masked first), and ``.at[].set(mode="drop")`` drops out-of-bounds writes
 (here they go to one extra slot that is sliced off).
 
 ``clone`` gives an independent handle over the same tensors;
-``shrink_capacity`` steps a tier's capacity class back down.  ``shed_*``
-(cutting a shard at a boundary) waits for the sharded index.
+``shrink_capacity`` steps a tier's capacity class back down;
+``shed_suffix`` / ``shed_prefix`` cut an index at a key (the donor half of
+the sharded index's migrations and reshards, ``core.distributed``).
 """
 from __future__ import annotations
 
@@ -207,6 +208,32 @@ def _delete(base_keys, base_dead, dk, ddead, q):
     nb = new_bdead.sum() - base_dead.sum()
     ndel = new_ddead.sum() - ddead.sum()
     return new_bdead, new_ddead, nb, ndel
+
+
+def _shed_suffix(keys, dead, cut: int, leaf=None):
+    """Truncate a sorted +inf-padded tier at position ``cut``: entries
+    [cut:] become +inf padding (leaf -1) with cleared tombstones; survivor
+    positions are unchanged.  Returns (keys, dead, leaf, #tombstones
+    dropped)."""
+    keep = torch.arange(keys.shape[0], device=keys.device) < cut
+    nd = dead & keep
+    return (torch.where(keep, keys, math.inf), nd,
+            None if leaf is None else torch.where(keep, leaf, -1),
+            int(dead.sum()) - int(nd.sum()))
+
+
+def _shed_prefix(keys, dead, cut: int, leaf=None):
+    """Drop the first ``cut`` slots of a sorted +inf-padded tier and
+    compact left (one gather; the tail is re-padded): survivor positions
+    all shift down by exactly ``cut``.  Returns as :func:`_shed_suffix`."""
+    n = keys.shape[0]
+    src = torch.arange(n, device=keys.device) + cut
+    ok = src < n
+    srcc = src.clamp(0, n - 1)
+    nd = torch.where(ok, dead[srcc], False)
+    return (torch.where(ok, keys[srcc], math.inf), nd,
+            None if leaf is None else torch.where(ok, leaf[srcc], -1),
+            int(dead.sum()) - int(nd.sum()))
 
 
 def two_tier_answer(base_keys, base_psum, dk, dpsum, q, lo, hi, iters: int):
@@ -526,6 +553,77 @@ class DynamicRMI:
         self.delta_dead_count = 0
         self.delta_compactions += 1
         self._delta_changed()
+
+    # -- boundary-run migration primitives (sharded index) -----------------
+    def _cut(self, keys, split: float) -> int:
+        return int(torch.searchsorted(
+            keys, torch.tensor([split], dtype=_F64, device=self.device),
+            right=True))
+
+    def shed_suffix(self, split: float) -> None:
+        """Drop every entry with key > ``split`` from both tiers: the donor
+        half of a migration to the right neighbour.  A suffix truncation
+        moves no survivor, so the models, error bounds, packed tables,
+        leaf rows and search depth stay valid; the f32 keys and their
+        fence are recomputed.  ``split`` must end an equal-key run
+        (callers snap it), so a duplicate run and its tombstone prefix
+        move or stay whole."""
+        cut_b = self._cut(self.index.keys, split)
+        if cut_b < self.base_n:
+            keys, dead, _, shed_dead = _shed_suffix(
+                self.index.keys, self.base_dead, cut_b)
+            self.index = replace(self.index, keys=keys, _kf32=None)
+            self.base_dead = dead
+            self.base_dead_count -= shed_dead
+            self.base_psum = torch.zeros((keys.shape[0] + 1,), dtype=_I32,
+                                         device=self.device) \
+                if self.base_dead_count == 0 else _psum(dead)
+            self.base_n = cut_b
+        cut_d = self._cut(self.delta_keys, split)
+        nf = self.delta_live + self.delta_dead_count
+        if cut_d < nf:
+            self.delta_keys, self.delta_dead, self.delta_leaf, sdead = \
+                _shed_suffix(self.delta_keys, self.delta_dead, cut_d,
+                             self.delta_leaf)
+            self.delta_dead_count -= sdead
+            self.delta_live -= (nf - cut_d) - sdead
+            self.delta_psum = _psum(self.delta_dead)
+            self._delta_changed()
+
+    def shed_prefix(self, split: float) -> None:
+        """Drop every entry with key <= ``split``: the donor half of a
+        migration to the left neighbour.  Both tiers compact left and every
+        leaf intercept shifts down by exactly the number of base entries
+        removed (all removals lie left of every survivor, so the shift is
+        exact for either leaf kind under any root); the error bounds and
+        search depth stay, the packed tables and leaf rows are re-packed.
+        Routing is untouched: the frozen root maps keys, not positions."""
+        cut_b = self._cut(self.index.keys, split)
+        if cut_b > 0:
+            keys, dead, _, shed_dead = _shed_prefix(
+                self.index.keys, self.base_dead, cut_b)
+            lv = self.index.leaves
+            leaves = lv._replace(b=lv.b - cut_b) \
+                if self.index.leaf_kind == "linear" \
+                else lv._replace(b2=lv.b2 - cut_b)
+            # the packed root (``_kroot``) stays: roots are frozen
+            self.index = replace(self.index, keys=keys, leaves=leaves,
+                                 _packed=None, _kf32=None)
+            self.base_dead = dead
+            self.base_dead_count -= shed_dead
+            self.base_psum = torch.zeros((keys.shape[0] + 1,), dtype=_I32,
+                                         device=self.device) \
+                if self.base_dead_count == 0 else _psum(dead)
+            self.base_n -= cut_b
+        cut_d = self._cut(self.delta_keys, split)
+        if cut_d > 0:
+            self.delta_keys, self.delta_dead, self.delta_leaf, sdead = \
+                _shed_prefix(self.delta_keys, self.delta_dead, cut_d,
+                             self.delta_leaf)
+            self.delta_dead_count -= sdead
+            self.delta_live -= cut_d - sdead
+            self.delta_psum = _psum(self.delta_dead)
+            self._delta_changed()
 
     def clone(self) -> "DynamicRMI":
         """An independent handle over the same tensors.  Mutating methods

@@ -39,6 +39,13 @@ SIGNATURES = {
                                 I, I, P, I, I, P, P, P, P, P),
         "repro_rmrt_lookup": (P, I, P, P, I, P, P, I, I, I, P, I, F, F, I,
                               P, P),
+        "repro_shard_tables_size": (),
+        "repro_set_shard_tables": (P, I, P, P, P, I, I, F, P, I, F, F, I,
+                                   P, P, P, I, I),
+        "repro_sharded_lookup": (P, P, I, P, I, I, I, P, P),
+        "repro_sharded_dynamic_lookup": (P, P, I, P, I, I, I, P, P, P),
+        "repro_sharded_dynamic_range": (P, P, P, I, P, I, I, I, P, P, P, P,
+                                        P),
     },
     "ksdist": {
         "repro_ksdist_tables": (P, I, I, I, P, P, P),

@@ -12,7 +12,10 @@
 //                                                     _rmrt_route_window)
 //
 // K1-K3 are templated on the root kind and the leaf kind (linear or the
-// paper's 1x4 MLP), K4 on the node model kind.
+// paper's 1x4 MLP), K4 on the node model kind.  K1-K3 also have a
+// shard-stacked entry (section at the end): one launch over the queries of
+// many indexes, each lane reading its index's tables from an array of
+// descriptors; the same item bodies run in both.
 //
 // What bounds them on the card: each query reads a chain of scattered
 // 32-byte sectors -- the root, one leaf row (one node row per RMRT level),
@@ -365,6 +368,21 @@ __device__ __forceinline__ long long warp_tile() {
 // lognormal keys (PERF.md section 6, PR 18): the fence cuts K1 by 10%
 // (linear leaves) and 24% (MLP leaves); the sector finish slows it by
 // 0.5-6%.
+//
+// One work item: query i of the warp tile (`valid` false past the end of
+// the work; every lane of the warp calls it).
+template <bool kMlpRoot, bool kMlpLeaf>
+__device__ __forceinline__ void lookup_item(const Tables& t,
+                                            const float4* rows,
+                                            const float* q, int i,
+                                            bool valid, int* out) {
+  const float x = valid ? q[i] : 0.0f;
+  int lo = 0, hi = 0;
+  if (valid) route_window_rows<kMlpRoot, kMlpLeaf>(t, rows, x, lo, hi);
+  const int pos = leaf_search<true, false>(t, x, valid, lo, hi);
+  if (valid) out[i] = pos;
+}
+
 template <bool kMlpRoot, bool kMlpLeaf>
 __global__ void __launch_bounds__(kTileThreads)
 lookup_kernel(Tables t, const float4* __restrict__ rows,
@@ -372,12 +390,7 @@ lookup_kernel(Tables t, const float4* __restrict__ rows,
   const long long w = warp_tile();
   if (w >= nq) return;                  // whole warps only
   const int i = static_cast<int>(w) + (threadIdx.x & 31);
-  const bool valid = i < nq;
-  const float x = valid ? q[i] : 0.0f;
-  int lo = 0, hi = 0;
-  if (valid) route_window_rows<kMlpRoot, kMlpLeaf>(t, rows, x, lo, hi);
-  const int pos = leaf_search<true, false>(t, x, valid, lo, hi);
-  if (valid) out[i] = pos;
+  lookup_item<kMlpRoot, kMlpLeaf>(t, rows, q, i, i < nq, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -426,16 +439,11 @@ __device__ __forceinline__ void endpoint(const Tables& t, const float* dk,
 }
 
 // K2.  kMlpLeaf reads the leaves from `rows`, not from t.mat / t.vec.
+// One work item, as lookup_item.
 template <bool kMlpRoot, bool kMlpLeaf>
-__global__ void __launch_bounds__(kTileThreads)
-dynamic_lookup_kernel(Tables t, const float4* __restrict__ rows,
-                      const float* __restrict__ q, int nq,
-                      const float* __restrict__ dk, int nd, int d_iters,
-                      int* __restrict__ out, int* __restrict__ dout) {
-  const long long w = warp_tile();
-  if (w >= nq) return;                  // whole warps only
-  const int i = static_cast<int>(w) + (threadIdx.x & 31);
-  const bool valid = i < nq;
+__device__ __forceinline__ void dynamic_lookup_item(
+    const Tables& t, const float4* rows, const float* q, int i, bool valid,
+    const float* dk, int nd, int d_iters, int* out, int* dout) {
   const float x = valid ? q[i] : 0.0f;
   int lo = 0, hi = 0, bpos, dpos;
   if (valid) {
@@ -449,8 +457,38 @@ dynamic_lookup_kernel(Tables t, const float4* __restrict__ rows,
   }
 }
 
+template <bool kMlpRoot, bool kMlpLeaf>
+__global__ void __launch_bounds__(kTileThreads)
+dynamic_lookup_kernel(Tables t, const float4* __restrict__ rows,
+                      const float* __restrict__ q, int nq,
+                      const float* __restrict__ dk, int nd, int d_iters,
+                      int* __restrict__ out, int* __restrict__ dout) {
+  const long long w = warp_tile();
+  if (w >= nq) return;                  // whole warps only
+  const int i = static_cast<int>(w) + (threadIdx.x & 31);
+  dynamic_lookup_item<kMlpRoot, kMlpLeaf>(t, rows, q, i, i < nq, dk, nd,
+                                          d_iters, out, dout);
+}
+
 // K3: work item 2p is the left boundary of qlo[p], 2p + 1 the right
-// boundary of qhi[p].
+// boundary of qhi[p].  One work item j, as lookup_item.
+template <bool kMlpRoot, bool kMlpLeaf>
+__device__ __forceinline__ void dynamic_range_item(
+    const Tables& t, const float* qlo, const float* qhi, long long j,
+    bool valid, const float* dk, int nd, int d_iters, int* blo, int* bhi,
+    int* dlo, int* dhi) {
+  const bool right = j & 1;
+  const int i = static_cast<int>(j >> 1);
+  const float x = valid ? (right ? qhi[i] : qlo[i]) : 0.0f;
+  int lo = 0, hi = 0, bpos, dpos;
+  if (valid) route_window<kMlpRoot, kMlpLeaf>(t, x, lo, hi);
+  endpoint<false>(t, dk, nd, d_iters, x, right, valid, lo, hi, bpos, dpos);
+  if (valid) {
+    (right ? bhi : blo)[i] = bpos;
+    (right ? dhi : dlo)[i] = dpos;
+  }
+}
+
 template <bool kMlpRoot, bool kMlpLeaf>
 __global__ void __launch_bounds__(kTileThreads)
 dynamic_range_kernel(Tables t, const float* __restrict__ qlo,
@@ -461,16 +499,8 @@ dynamic_range_kernel(Tables t, const float* __restrict__ qlo,
   const long long w = warp_tile();
   if (w >= 2LL * nq) return;            // whole warps only
   const long long j = w + (threadIdx.x & 31);
-  const bool valid = j < 2LL * nq, right = j & 1;
-  const int i = static_cast<int>(j >> 1);
-  const float x = valid ? (right ? qhi[i] : qlo[i]) : 0.0f;
-  int lo = 0, hi = 0, bpos, dpos;
-  if (valid) route_window<kMlpRoot, kMlpLeaf>(t, x, lo, hi);
-  endpoint<false>(t, dk, nd, d_iters, x, right, valid, lo, hi, bpos, dpos);
-  if (valid) {
-    (right ? bhi : blo)[i] = bpos;
-    (right ? dhi : dlo)[i] = dpos;
-  }
+  dynamic_range_item<kMlpRoot, kMlpLeaf>(t, qlo, qhi, j, j < 2LL * nq, dk,
+                                         nd, d_iters, blo, bhi, dlo, dhi);
 }
 
 // ---------------------------------------------------------------------------
@@ -543,6 +573,82 @@ rmrt_lookup_kernel(Tables t, const float4* __restrict__ rows, int fanout,
   }
   const int pos = leaf_search<true, true>(t, x, valid, lo, hi);
   if (valid) out[i] = pos;
+}
+
+// ---------------------------------------------------------------------------
+// Shard-stacked K1-K3: one launch answers the queries of many indexes (the
+// shards of core/distributed.py, stacked on one card).  Each query carries
+// the id of its index; each lane reads that index's descriptor -- its
+// Tables, leaf rows and delta tier -- from a small device array and runs the
+// single-index item body on it.  A warp whose lanes belong to several
+// indexes is right as it is: every chain of the item bodies is a lane's
+// own, and a warp vote only asks whether any lane still has work.  K3's
+// two lanes of a pair share the pair's index.  A lane whose id lies outside
+// [0, n_tabs) reads no tables and answers -1.
+struct ShardTables {
+  Tables t;
+  const float4* rows;  // leaf rows (K1; K2 with MLP leaves), or null
+  const float* dk;     // the delta tier (K2, K3), or null
+  int nd;
+  int d_iters;
+};
+
+template <bool kMlpRoot, bool kMlpLeaf>
+__global__ void __launch_bounds__(kTileThreads)
+sharded_lookup_kernel(const ShardTables* __restrict__ tabs, int n_tabs,
+                      const int* __restrict__ shard,
+                      const float* __restrict__ q, int nq,
+                      int* __restrict__ out) {
+  const long long w = warp_tile();
+  if (w >= nq) return;                  // whole warps only
+  const int i = static_cast<int>(w) + (threadIdx.x & 31);
+  const int id = i < nq ? shard[i] : 0;
+  const bool known = id >= 0 && id < n_tabs;
+  const ShardTables s = tabs[known ? id : 0];
+  lookup_item<kMlpRoot, kMlpLeaf>(s.t, s.rows, q, i, i < nq && known, out);
+  if (i < nq && !known) out[i] = -1;
+}
+
+template <bool kMlpRoot, bool kMlpLeaf>
+__global__ void __launch_bounds__(kTileThreads)
+sharded_dynamic_lookup_kernel(const ShardTables* __restrict__ tabs,
+                              int n_tabs, const int* __restrict__ shard,
+                              const float* __restrict__ q, int nq,
+                              int* __restrict__ out, int* __restrict__ dout) {
+  const long long w = warp_tile();
+  if (w >= nq) return;                  // whole warps only
+  const int i = static_cast<int>(w) + (threadIdx.x & 31);
+  const int id = i < nq ? shard[i] : 0;
+  const bool known = id >= 0 && id < n_tabs;
+  const ShardTables s = tabs[known ? id : 0];
+  dynamic_lookup_item<kMlpRoot, kMlpLeaf>(s.t, s.rows, q, i, i < nq && known,
+                                          s.dk, s.nd, s.d_iters, out, dout);
+  if (i < nq && !known) out[i] = dout[i] = -1;
+}
+
+template <bool kMlpRoot, bool kMlpLeaf>
+__global__ void __launch_bounds__(kTileThreads)
+sharded_dynamic_range_kernel(const ShardTables* __restrict__ tabs,
+                             int n_tabs, const int* __restrict__ shard,
+                             const float* __restrict__ qlo,
+                             const float* __restrict__ qhi, int nq,
+                             int* __restrict__ blo, int* __restrict__ bhi,
+                             int* __restrict__ dlo, int* __restrict__ dhi) {
+  const long long w = warp_tile();
+  if (w >= 2LL * nq) return;            // whole warps only
+  const long long j = w + (threadIdx.x & 31);
+  const bool valid = j < 2LL * nq;
+  const int id = valid ? shard[j >> 1] : 0;
+  const bool known = id >= 0 && id < n_tabs;
+  const ShardTables s = tabs[known ? id : 0];
+  dynamic_range_item<kMlpRoot, kMlpLeaf>(s.t, qlo, qhi, j, valid && known,
+                                         s.dk, s.nd, s.d_iters, blo, bhi, dlo,
+                                         dhi);
+  if (valid && !known) {
+    const int p = static_cast<int>(j >> 1);
+    (j & 1 ? bhi : blo)[p] = -1;
+    (j & 1 ? dhi : dlo)[p] = -1;
+  }
 }
 
 Tables make_tables(const void* root, const void* mat, const void* vec, int lp,
@@ -673,4 +779,71 @@ extern "C" int repro_rmrt_lookup(const void* q, int nq, const void* mat,
                       nq, stream, t, static_cast<const float4*>(rows), fanout,
                       depth, static_cast<const float*>(q), nq,
                       static_cast<int*>(out));
+}
+
+// ---------------------------------------------------------------------------
+// Shard-stacked K1-K3.  `tabs` is a device array of n_tabs ShardTables,
+// one an index, filled on the host by repro_set_shard_tables into a buffer
+// of repro_shard_tables_size() bytes an index and copied to the card;
+// `shard` the (nq,) int32 index of each query (of each pair, for K3).  The caller
+// checks what each kernel reads: rows and fences for K1, rows for K2 with
+// MLP leaves, the delta tier for K2 and K3.
+extern "C" int repro_shard_tables_size() {
+  return static_cast<int>(sizeof(ShardTables));
+}
+
+extern "C" int repro_set_shard_tables(void* buf, int s, const void* root,
+                                      const void* mat, const void* vec,
+                                      int lp, int n_leaves, float ratio,
+                                      const void* keys, int n_keys,
+                                      float lo_max, float hi_max, int iters,
+                                      const void* rows, const void* fence,
+                                      const void* dk, int nd, int d_iters) {
+  ShardTables& d = static_cast<ShardTables*>(buf)[s];
+  d.t = make_tables(root, mat, vec, lp, n_leaves, ratio, keys, n_keys,
+                    lo_max, hi_max, iters);
+  if (fence != nullptr) set_fence(d.t, fence);
+  d.rows = static_cast<const float4*>(rows);
+  d.dk = static_cast<const float*>(dk);
+  d.nd = nd;
+  d.d_iters = d_iters;
+  return 0;
+}
+
+extern "C" int repro_sharded_lookup(const void* q, const void* shard, int nq,
+                                    const void* tabs, int n_tabs,
+                                    int root_mlp, int leaf_mlp, void* out,
+                                    void* stream) {
+  return launch_tiles(REPRO_PICK(sharded_lookup_kernel), nq, stream,
+                      static_cast<const ShardTables*>(tabs), n_tabs,
+                      static_cast<const int*>(shard),
+                      static_cast<const float*>(q), nq,
+                      static_cast<int*>(out));
+}
+
+extern "C" int repro_sharded_dynamic_lookup(const void* q, const void* shard,
+                                            int nq, const void* tabs,
+                                            int n_tabs, int root_mlp,
+                                            int leaf_mlp, void* out,
+                                            void* dout, void* stream) {
+  return launch_tiles(REPRO_PICK(sharded_dynamic_lookup_kernel), nq, stream,
+                      static_cast<const ShardTables*>(tabs), n_tabs,
+                      static_cast<const int*>(shard),
+                      static_cast<const float*>(q), nq,
+                      static_cast<int*>(out), static_cast<int*>(dout));
+}
+
+extern "C" int repro_sharded_dynamic_range(const void* qlo, const void* qhi,
+                                           const void* shard, int nq,
+                                           const void* tabs, int n_tabs,
+                                           int root_mlp, int leaf_mlp,
+                                           void* blo, void* bhi, void* dlo,
+                                           void* dhi, void* stream) {
+  return launch_tiles(REPRO_PICK(sharded_dynamic_range_kernel), 2LL * nq,
+                      stream, static_cast<const ShardTables*>(tabs), n_tabs,
+                      static_cast<const int*>(shard),
+                      static_cast<const float*>(qlo),
+                      static_cast<const float*>(qhi), nq,
+                      static_cast<int*>(blo), static_cast<int*>(bhi),
+                      static_cast<int*>(dlo), static_cast<int*>(dhi));
 }

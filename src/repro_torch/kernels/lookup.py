@@ -31,6 +31,12 @@ indexes cache all three beside their packed tables and f32 keys.  The
 plain versions read the packed tables: the rows change what the kernels
 load, not what they compute.
 
+K1-K3 also have shard-stacked entries (:func:`sharded_lookup`,
+:func:`sharded_dynamic_lookup`, :func:`sharded_dynamic_range`): S indexes'
+tables stacked on a leading axis, each query tagged with its index, one
+launch for all of them.  Their plain versions loop over the indexes,
+calling the single-index plain versions.
+
 An MLP predicts ``b2 + relu(q*w1_0 + b1_0)*w2_0 + ... + relu(...)*w2_3``
 in that order (the reference's leaf order); the MLP root sums its four
 terms sequentially from 0 and adds b2 last, the order XLA:CPU uses for
@@ -46,6 +52,7 @@ over the global key array.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -63,7 +70,8 @@ FENCE = 64         # keys a fence entry stands for (csrc/lookup.cu kFenceShift)
 
 # Launches of each CUDA kernel; incremented only where a kernel launches.
 LAUNCHES = {"lookup": 0, "dynamic_lookup": 0, "dynamic_range": 0,
-            "rmrt_lookup": 0}
+            "rmrt_lookup": 0, "sharded_lookup": 0,
+            "sharded_dynamic_lookup": 0, "sharded_dynamic_range": 0}
 
 
 def reset_launches() -> None:
@@ -662,3 +670,264 @@ def rmrt_lookup(queries, mat, vec, keys, *, fanout: int, depth: int,
         build.check(rc, "rmrt_lookup")
         LAUNCHES["rmrt_lookup"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Shard-stacked K1-K3: the tables of S indexes stacked on a leading axis
+# (roots (S, 8, 128), mats (S, 3H, Lp), vecs (S, 8, Lp), keys (S, n), delta
+# tiers (S, nd), leaf rows (S, Lp, w), fences (S, ceil(n / 64))), each
+# query tagged with the int32 index ``shard`` of its tables; positions are
+# within the query's own row, and a query whose index lies outside [0, S)
+# answers -1.  Every index routes at the one
+# ``route_n`` (an index folds its own scale into its root) and searches at
+# the one depth ``iters``.
+# ---------------------------------------------------------------------------
+def _shard_members(shard, S: int) -> list:
+    """The query positions of each shard (host loop: the plain versions)."""
+    return [torch.nonzero(shard == s).squeeze(1) for s in range(S)]
+
+
+def sharded_lookup_plain(queries, shard, roots, mats, vecs, keys, *,
+                         n_leaves: int, route_n: int | None = None,
+                         iters: int | None = None, root_kind: str = "linear",
+                         leaf_kind: str = "linear"):
+    """Plain version of the shard-stacked K1: :func:`lookup_plain` of each
+    query on its shard's tables."""
+    out = torch.full(queries.shape, -1, dtype=torch.int32,
+                     device=queries.device)
+    for s, m in enumerate(_shard_members(shard, keys.shape[0])):
+        if m.numel():
+            out[m] = lookup_plain(queries[m], roots[s], mats[s], vecs[s],
+                                  keys[s], n_leaves=n_leaves, route_n=route_n,
+                                  iters=iters, root_kind=root_kind,
+                                  leaf_kind=leaf_kind)
+    return out
+
+
+def sharded_dynamic_lookup_plain(queries, shard, roots, mats, vecs, keys,
+                                 delta_keys, *, n_leaves: int,
+                                 route_n: int | None = None,
+                                 iters: int | None = None,
+                                 root_kind: str = "linear",
+                                 leaf_kind: str = "linear"):
+    """Plain version of the shard-stacked K2: (base_pos, delta_pos)."""
+    out = torch.full(queries.shape, -1, dtype=torch.int32,
+                     device=queries.device)
+    dout = out.clone()
+    for s, m in enumerate(_shard_members(shard, keys.shape[0])):
+        if m.numel():
+            out[m], dout[m] = dynamic_lookup_plain(
+                queries[m], roots[s], mats[s], vecs[s], keys[s],
+                delta_keys[s], n_leaves=n_leaves, route_n=route_n,
+                iters=iters, root_kind=root_kind, leaf_kind=leaf_kind)
+    return out, dout
+
+
+def sharded_dynamic_range_plain(q_lo, q_hi, shard, roots, mats, vecs, keys,
+                                delta_keys, *, n_leaves: int,
+                                route_n: int | None = None,
+                                iters: int | None = None,
+                                root_kind: str = "linear",
+                                leaf_kind: str = "linear"):
+    """Plain version of the shard-stacked K3: (base_lo, base_hi, delta_lo,
+    delta_hi), ``shard`` the index of each pair."""
+    outs = [torch.full(q_lo.shape, -1, dtype=torch.int32, device=q_lo.device)
+            for _ in range(4)]
+    for s, m in enumerate(_shard_members(shard, keys.shape[0])):
+        if m.numel():
+            res = dynamic_range_plain(
+                q_lo[m], q_hi[m], roots[s], mats[s], vecs[s], keys[s],
+                delta_keys[s], n_leaves=n_leaves, route_n=route_n,
+                iters=iters, root_kind=root_kind, leaf_kind=leaf_kind)
+            for o, r in zip(outs, res, strict=True):
+                o[m] = r
+    return tuple(outs)
+
+
+def _prepare_sharded(tensors: dict, shard, nq: int, *, n_leaves: int,
+                     root_kind: str, leaf_kind: str) -> bool:
+    """Validate the stacked tables and the shard ids of a shard-stacked
+    call; returns whether they lie on a CUDA device."""
+    if root_kind not in KINDS or leaf_kind not in KINDS:
+        raise ValueError(f"model kinds must be in {KINDS}, got "
+                         f"{root_kind!r}/{leaf_kind!r}")
+    devs = {t.device for t in tensors.values()} | {shard.device}
+    if len(devs) != 1:
+        raise ValueError(f"sharded lookup inputs on several devices: {devs}")
+    for name, t in tensors.items():
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous float32")
+    roots, mats, vecs, keys = (tensors[k] for k in ("roots", "mats", "vecs",
+                                                     "keys"))
+    S = keys.shape[0] if keys.dim() == 2 else -1
+    if S < 1 or not 0 < keys.shape[1] < 2 ** 31 - 1:
+        raise ValueError("keys must be a (S, n) stack with int32 positions")
+    if tuple(roots.shape) != (S, ROOT_ROWS, ROOT_LANES) \
+            or mats.dim() != 3 or tuple(mats.shape[:2]) != (S, 3 * H) \
+            or tuple(vecs.shape) != (S, 8, mats.shape[2]):
+        raise ValueError("roots/mats/vecs must stack S packed tables")
+    if not 1 <= n_leaves <= mats.shape[2]:
+        raise ValueError(f"n_leaves={n_leaves} outside [1, {mats.shape[2]}]")
+    dk = tensors.get("delta_keys")
+    if dk is not None and (dk.dim() != 2 or dk.shape[0] != S
+                           or dk.shape[1] % 128):
+        raise ValueError("delta_keys must be a (S, nd) stack, nd a multiple "
+                         "of 128")
+    if shard.dtype != torch.int32 or tuple(shard.shape) != (nq,) \
+            or not shard.is_contiguous():
+        raise ValueError(f"shard must be a contiguous ({nq},) int32 tensor")
+    return next(iter(devs)).type == "cuda"
+
+
+def shard_tables(roots, mats, vecs, keys, *, n_leaves: int,
+                 route_n: int | None = None, iters: int | None = None,
+                 rows=None, fences=None, delta_keys=None) -> torch.Tensor:
+    """The device array of per-shard descriptors (``ShardTables`` of
+    ``csrc/lookup.cu``) the shard-stacked kernels read: each one the
+    single-index ``Tables`` pointed at its shard's rows of the stacks.
+    Built on the host by the library, copied to the card (a few hundred
+    bytes a shard).  It points into the given tensors: it stays valid while
+    they are alive and not reallocated (an in-place row write keeps it)."""
+    lib = build.library("lookup")
+    S, n = keys.shape
+    route_n = n if route_n is None else route_n
+    iters = full_iters(n) if iters is None else iters
+    size = lib.repro_shard_tables_size()
+    buf = ctypes.create_string_buffer(S * size)
+    nd = 0 if delta_keys is None else delta_keys.shape[1]
+    ptr = lambda t, s: None if t is None else t[s].data_ptr()
+    for s in range(S):
+        build.check(lib.repro_set_shard_tables(
+            buf, s, roots[s].data_ptr(), mats[s].data_ptr(),
+            vecs[s].data_ptr(), mats.shape[2], n_leaves,
+            _f32(n_leaves / route_n), keys[s].data_ptr(), n, _f32(n - 1),
+            _f32(n), iters, ptr(rows, s), ptr(fences, s),
+            ptr(delta_keys, s), nd, full_iters(nd) if nd else 0),
+            "shard_tables")
+    return torch.frombuffer(bytearray(buf.raw), dtype=torch.uint8) \
+        .to(keys.device)
+
+
+def stacked_leaf_rows(mats, vecs, kind: str) -> torch.Tensor:
+    """(S, Lp, w) :func:`leaf_rows` of each stacked table."""
+    return torch.stack([leaf_rows(m, v, kind) for m, v in zip(mats, vecs, strict=True)])
+
+
+def stacked_fences(keys) -> torch.Tensor:
+    """(S, ceil(n / 64)) :func:`key_fence` of each row of a (S, n) stack."""
+    return keys[:, ::FENCE].contiguous()
+
+
+def sharded_lookup(queries, shard, roots, mats, vecs, keys, *,
+                   n_leaves: int, route_n: int | None = None,
+                   iters: int | None = None,
+                   root_kind: str = "linear", leaf_kind: str = "linear",
+                   rows=None, fences=None, tabs=None):
+    """Shard-stacked K1: window-clamped left boundaries of f32 ``queries``,
+    each in the keys of its shard, (Q,) int32 -- one launch.  ``rows``
+    (:func:`stacked_leaf_rows`), ``fences`` (:func:`stacked_fences`) and
+    ``tabs`` (:func:`shard_tables` of these tensors) are built when not
+    given; an index caches them."""
+    on_cuda = _prepare_sharded(
+        dict(queries=queries, roots=roots, mats=mats, vecs=vecs, keys=keys),
+        shard, queries.shape[0], n_leaves=n_leaves, root_kind=root_kind,
+        leaf_kind=leaf_kind)
+    kinds = dict(root_kind=root_kind, leaf_kind=leaf_kind)
+    if not on_cuda:
+        return sharded_lookup_plain(queries, shard, roots, mats, vecs, keys,
+                                    n_leaves=n_leaves, route_n=route_n,
+                                    iters=iters, **kinds)
+    out = torch.empty(queries.shape, dtype=torch.int32, device=queries.device)
+    nq = queries.shape[0]
+    if nq:
+        if tabs is None:
+            if rows is None:
+                rows = stacked_leaf_rows(mats, vecs, leaf_kind)
+            if fences is None:
+                fences = stacked_fences(keys)
+            tabs = shard_tables(roots, mats, vecs, keys, n_leaves=n_leaves,
+                                route_n=route_n, iters=iters, rows=rows,
+                                fences=fences)
+        rc = build.library("lookup").repro_sharded_lookup(
+            queries.data_ptr(), shard.data_ptr(), nq, tabs.data_ptr(),
+            keys.shape[0], int(root_kind == "mlp"), int(leaf_kind == "mlp"),
+            out.data_ptr(), _stream(queries))
+        build.check(rc, "sharded_lookup")
+        LAUNCHES["sharded_lookup"] += 1
+    return out
+
+
+def sharded_dynamic_lookup(queries, shard, roots, mats, vecs, keys,
+                           delta_keys, *, n_leaves: int,
+                           route_n: int | None = None,
+                           iters: int | None = None, root_kind: str = "linear",
+                           leaf_kind: str = "linear", rows=None, tabs=None):
+    """Shard-stacked K2: (base_pos, delta_pos) of each query in its shard's
+    tiers -- one launch.  ``delta_keys`` stacks +inf-padded f32 delta
+    tiers; ``rows`` (MLP leaves only) and ``tabs`` as in
+    :func:`sharded_lookup`."""
+    on_cuda = _prepare_sharded(
+        dict(queries=queries, roots=roots, mats=mats, vecs=vecs, keys=keys,
+             delta_keys=delta_keys),
+        shard, queries.shape[0], n_leaves=n_leaves, root_kind=root_kind,
+        leaf_kind=leaf_kind)
+    kinds = dict(root_kind=root_kind, leaf_kind=leaf_kind)
+    if not on_cuda:
+        return sharded_dynamic_lookup_plain(
+            queries, shard, roots, mats, vecs, keys, delta_keys,
+            n_leaves=n_leaves, route_n=route_n, iters=iters, **kinds)
+    out = torch.empty(queries.shape, dtype=torch.int32, device=queries.device)
+    dout = torch.empty_like(out)
+    nq = queries.shape[0]
+    if nq:
+        if tabs is None:
+            if leaf_kind == "mlp" and rows is None:
+                rows = stacked_leaf_rows(mats, vecs, leaf_kind)
+            tabs = shard_tables(roots, mats, vecs, keys, n_leaves=n_leaves,
+                                route_n=route_n, iters=iters,
+                                rows=rows if leaf_kind == "mlp" else None,
+                                delta_keys=delta_keys)
+        rc = build.library("lookup").repro_sharded_dynamic_lookup(
+            queries.data_ptr(), shard.data_ptr(), nq, tabs.data_ptr(),
+            keys.shape[0], int(root_kind == "mlp"), int(leaf_kind == "mlp"),
+            out.data_ptr(), dout.data_ptr(), _stream(queries))
+        build.check(rc, "sharded_dynamic_lookup")
+        LAUNCHES["sharded_dynamic_lookup"] += 1
+    return out, dout
+
+
+def sharded_dynamic_range(q_lo, q_hi, shard, roots, mats, vecs, keys,
+                          delta_keys, *, n_leaves: int,
+                          route_n: int | None = None,
+                          iters: int | None = None, root_kind: str = "linear",
+                          leaf_kind: str = "linear", tabs=None):
+    """Shard-stacked K3: (base_lo, base_hi, delta_lo, delta_hi) of endpoint
+    pairs, ``shard`` the index of each pair -- one launch."""
+    if q_lo.shape != q_hi.shape:
+        raise ValueError("endpoint arrays must pair up")
+    on_cuda = _prepare_sharded(
+        dict(q_lo=q_lo, q_hi=q_hi, roots=roots, mats=mats, vecs=vecs,
+             keys=keys, delta_keys=delta_keys),
+        shard, q_lo.shape[0], n_leaves=n_leaves, root_kind=root_kind,
+        leaf_kind=leaf_kind)
+    kinds = dict(root_kind=root_kind, leaf_kind=leaf_kind)
+    if not on_cuda:
+        return sharded_dynamic_range_plain(
+            q_lo, q_hi, shard, roots, mats, vecs, keys, delta_keys,
+            n_leaves=n_leaves, route_n=route_n, iters=iters, **kinds)
+    outs = [torch.empty(q_lo.shape, dtype=torch.int32, device=q_lo.device)
+            for _ in range(4)]
+    nq = q_lo.shape[0]
+    if nq:
+        if tabs is None:
+            tabs = shard_tables(roots, mats, vecs, keys, n_leaves=n_leaves,
+                                route_n=route_n, iters=iters,
+                                delta_keys=delta_keys)
+        rc = build.library("lookup").repro_sharded_dynamic_range(
+            q_lo.data_ptr(), q_hi.data_ptr(), shard.data_ptr(), nq,
+            tabs.data_ptr(), keys.shape[0], int(root_kind == "mlp"),
+            int(leaf_kind == "mlp"), *(o.data_ptr() for o in outs),
+            _stream(q_lo))
+        build.check(rc, "sharded_dynamic_range")
+        LAUNCHES["sharded_dynamic_range"] += 1
+    return tuple(outs)

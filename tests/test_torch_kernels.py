@@ -145,6 +145,63 @@ def test_seam_fixed_answers_match_ops(dist):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("dist", ("lognormal", "dup-heavy"))
+def test_seam_fixed_answers_non_finite_and_one_row_stack(dist):
+    """The single-index epilogues on +-inf, NaN, +-0 and members of
+    duplicate runs equal the reference's ``ops`` bit for bit (NaN ends its
+    runs past the last key, as the reference's searchsorted places it),
+    and equal the shard-stacked epilogues on a stack of one row."""
+    d, q = _churned(dist, seed=4)
+    idx = d.index
+    root, mat, vec = idx.packed_tables()
+    kw = dict(n_leaves=N_LEAVES, route_n=d.route_n, iters=idx.search_iters)
+    tabs = _tables((root, mat, vec))
+    kf, dk = _t32(idx.keys), _t32(d.delta_keys)
+    bpsum = torch.from_numpy(np.array(d.base_psum))
+    dpsum = torch.from_numpy(np.array(d.delta_psum))
+    live = d.live_keys()
+    q = np.concatenate([q[:400], np.repeat(live[::97], 2),
+                        [np.nan, np.inf, -np.inf, 0.0, -0.0, live[0],
+                         live[-1], np.nan]])
+    hi = q[::-1].copy()
+    jq, jhi = jnp.asarray(q), jnp.asarray(hi)
+    ops_kw = (d.base_dead, d.base_psum, d.delta_keys, d.delta_dead,
+              d.delta_psum)
+    found, rank = tops.dynamic_find(_t32(q), *tabs, kf, bpsum, dk, dpsum,
+                                    **kw)
+    want = jops.dynamic_find(jq, root, mat, vec, idx.keys, *ops_kw, **kw)
+    for g, w in zip((found, rank), want, strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    rng_got = tops.range_lookup(_t32(q), _t32(hi), *tabs, kf, bpsum, dk,
+                                dpsum, **kw)
+    want = jops.range_lookup(jq, jhi, root, mat, vec, idx.keys, *ops_kw,
+                             **kw)
+    for g, w in zip(rng_got, want, strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    pos = tops.index_lookup(_t32(q), *tabs, kf, n_leaves=N_LEAVES,
+                            iters=idx.search_iters)
+    want = jops.index_lookup(jq, root, mat, vec, idx.keys,
+                             n_leaves=N_LEAVES, iters=idx.search_iters)
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(want))
+
+    # the same epilogues over a one-row stack
+    one = torch.zeros(q.size, dtype=torch.int32)
+    df = tlk.pad_delta(dk)
+    dps = tops._edge_pad(dpsum, df.shape[0] + 1)
+    st = (tabs[0][None], tabs[1][None], tabs[2][None], kf[None])
+    got = tops.sharded_dynamic_find(_t32(q), one, *st, bpsum[None], df[None],
+                                    dps[None], **kw)
+    for g, w in zip(got, (found, rank), strict=True):
+        assert torch.equal(g, w)
+    got = tops.sharded_range_lookup(_t32(q), _t32(hi), one, *st, bpsum[None],
+                                    df[None], dps[None], **kw)
+    for g, w in zip(got, rng_got, strict=True):
+        assert torch.equal(g, w)
+    got = tops.sharded_index_lookup(_t32(q), one, *st, n_leaves=N_LEAVES,
+                                    iters=idx.search_iters)
+    assert torch.equal(got, pos)
+
+
 def test_routing_saturates_like_xla():
     """A key or query beyond the root's range lands in leaf L-1, not 0:
     XLA's float->int32 saturates, torch's does not."""

@@ -197,19 +197,30 @@ def test_kernel_path_requires_f32_exact_keys():
 
 
 def test_unported_options_raise(tmp_path):
-    """``mesh=`` (the sharded index) still raises; ``snapshot`` and
-    ``restore`` round-trip a 64-key index on the CPU."""
+    """``mesh=`` builds and restores the sharded index (once an unported
+    option, now ported); ``snapshot`` and ``restore`` round-trip a 64-key
+    index on the CPU, single-host and sharded, and a single-host snapshot
+    does not restore as a sharded one."""
+    from repro_torch.core.distributed import ShardMesh
+    from repro_torch.core.persist import SnapshotCorruption
     keys = np.arange(64, dtype=np.float64)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Index.build(keys, mesh=object(), device="cpu")
-    ix = Index.build(keys, n_leaves=4, device="cpu")
-    ix.snapshot(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Index.restore(tmp_path, mesh=object(), device="cpu")
-    back = Index.restore(tmp_path, device="cpu")
-    np.testing.assert_array_equal(back.live_keys(), keys)
     q = np.asarray([-1.0, 0.0, 10.5, 63.0, 64.0])
+    ix = Index.build(keys, n_leaves=4, device="cpu")
+    ix.snapshot(tmp_path / "one")
+    with pytest.raises(SnapshotCorruption, match="kind"):
+        Index.restore(tmp_path / "one", mesh=ShardMesh(2), device="cpu")
+    back = Index.restore(tmp_path / "one", device="cpu")
+    np.testing.assert_array_equal(back.live_keys(), keys)
     for got, want in zip(back.find(q), ix.find(q), strict=True):
+        assert torch.equal(got, want)
+    sx = Index.build(keys, mesh=ShardMesh(2), n_leaves=4, device="cpu")
+    assert sx.sharded and sx.live_count == 64
+    for got, want in zip(sx.find(q), ix.find(q), strict=True):
+        assert torch.equal(got, want)
+    sx.snapshot(tmp_path / "two")
+    back = Index.restore(tmp_path / "two", mesh=ShardMesh(2), device="cpu")
+    np.testing.assert_array_equal(back.live_keys(), keys)
+    for got, want in zip(back.find(q), sx.find(q), strict=True):
         assert torch.equal(got, want)
 
 
@@ -228,6 +239,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.kernels.linfit\n"
         "import repro_torch.core.btree, repro_torch.core.pgm\n"
         "import repro_torch.core.radix_spline, repro_torch.core.persist\n"
+        "import repro_torch.core.distributed\n"
         "import repro_torch.data.indexed_dataset\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         "sys.argv[1])\n"

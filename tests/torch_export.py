@@ -77,6 +77,41 @@ def export_dynamic(d) -> dict:
     return out
 
 
+def export_sharded(idx) -> dict:
+    """A reference ``ShardedDynamicIndex`` as numpy arrays and scalars, as
+    ``convert.sharded_from_arrays`` takes it (its pool separately)."""
+    shards = []
+    for d in idx.shards:
+        a = export_dynamic(d)
+        a["drift"] = export_drift(d.drift) if d.drift is not None else None
+        shards.append(a)
+    return dict(
+        n_shards=idx.n_shards, axis=idx.axis,
+        splits=np.asarray(idx.splits, np.float64).copy(),
+        counts=np.asarray(idx._counts), muted=np.asarray(idx._muted),
+        eps=idx.eps, n_leaves=idx.n_leaves,
+        rebalance_ratio=idx.rebalance_ratio,
+        rebalance_skew=idx.rebalance_skew,
+        migrate_headroom_factor=idx.migrate_headroom_factor,
+        build_kwargs=dict(idx.build_kwargs),
+        quarantined=list(idx.quarantined), shards=shards,
+        **{k: getattr(idx, k) for k in (
+            "rebalances", "migrations_incremental", "migrations_full",
+            "restack_full", "restack_rows", "capacity_shrinks",
+            "swaps_committed")})
+
+
+def export_sharded_index(si) -> dict:
+    """A reference static ``ShardedIndex`` as numpy arrays and scalars."""
+    g = lambda a: np.asarray(a)
+    return dict(n_shards=si.n_shards, axis=si.axis, splits=g(si.splits),
+                keys=g(si.keys), valid=g(si.valid), root_a=g(si.root.a),
+                root_b=g(si.root.b), leaf_a=g(si.leaves.a),
+                leaf_b=g(si.leaves.b), err_lo=g(si.err_lo),
+                err_hi=g(si.err_hi), n_leaves=si.n_leaves,
+                iters=si.search_iters)
+
+
 def export_drift(st) -> dict:
     """A reference ``DriftState`` as numpy arrays and scalars."""
     g = lambda a: np.asarray(a)
