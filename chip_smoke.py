@@ -161,6 +161,39 @@ Phases (any failure exits non-zero; nothing is caught):
    reshards onto S / 2 and 2S (``ReshardStats``, ``full_rebuilds`` 0), a
    flipped byte in one shard file under ``"quarantine"`` and
    ``"fallback"``; a find over ``WIDE_SHARDS`` shards (one launch).
+11. Path G, counted, on fresh keys: the index service.  Two tenants behind
+   one ``serve.frontend.BatchingFrontend`` with a 2 ms latency budget:
+   tenant A ``--n`` lognormal(0, 1) keys in ``--shards`` shards of path
+   F's leaves a shard, tenant B ``G_B_KEYS`` lognormal(0.5, 0.8) keys in
+   as many shards of a sixteenth of those leaves; the tenant pack is T x S
+   rows padded to tenant A's classes.  The pack's find and range of a
+   batch mixing both tenants, members, misses, pads and queries at and
+   beside every split against each tenant's own ``find`` / ``find_range``
+   and the truth; the stacked K2 and K3 against their plain versions on
+   the pack's T x S descriptors (bit for bit) and timed; one launch a find
+   batch and one a range batch at live sizes ``G_BATCH_SIZES`` after
+   ``warmup``; singleton keys deleted through the queue; a closed loop of
+   full 4,096-key batches (batches and keys a second); open-loop Poisson
+   drives at ``G_RATES`` requests a second, ``G_DRIVE_S`` each, of
+   single-key finds split 70/30 over the tenants with ``G_RANGE_SHARE``
+   range requests of ``G_RANGE_PAIRS`` pairs and ``G_INSERT_SHARE``
+   insert requests of ``G_INSERT_KEYS`` keys above the tenant's largest
+   (an append-heavy ingest, which leaves every find's and range's truth
+   fixed during a drive), every answer against the truth, the first
+   ``G_RATES_ALWAYS`` rates always and then until the first rate whose
+   p99 passes ``G_P99_LIMIT`` budgets (latency from each
+   request's scheduled arrival to its ``done_at``); one saturated second
+   traced (``build/path_g_trace.json``: wall, device busy, idle share,
+   the host's CUDA calls) and the same second untraced with a sync around
+   each stage of a batch; every inserted key found and every deleted one
+   not; the memory reckoned and measured.  Then ``DynamicPageTable`` at
+   path D's page geometry (4 requests of 131 blocks of 16 tokens, one
+   layer), over one index and over 2 shards: one K2 (or stacked K2) launch
+   a lookup of 2^16 block keys while the packed keys are f32-exact
+   (requests 0-3), held against its plain version on that lookup's keys
+   and the table's own stack, none once requests 4-7 are in and request 1
+   released (the f64 path), every ``(found, page)`` against the cache's
+   table.
 
 Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
@@ -175,8 +208,9 @@ bf16 tensor-core rate for K8's prefill tile); K1-K4 rows add
 32-byte sectors the kernel's layout touches (leaf or node rows or
 lane-major table rows, the fence's and the keys' probes).  A row's
 ``launches`` add up every path that launches that instantiation (K1
-linear: paths A, D and E; K2/K3 linear: A, C and E; K7 and its table
-kernel: B, C and E).  K1's, K2's, K3's, K4's, K5's and K7's rows are
+linear: paths A, D and E; K2 linear: A, C, E and G's page table; K3
+linear: A, C and E; stacked K2: F, G and G's page table; stacked K3: F
+and G; K7 and its table kernel: B, C and E).  K1's, K2's, K3's, K4's, K5's and K7's rows are
 printed beside their previous designs' times from ``PERF.md`` (not
 re-run; not in the
 JSON line).
@@ -198,6 +232,7 @@ the repo.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -293,6 +328,24 @@ DATASET_SHARDS = 8
 # skewed ingest's batches (--n / SKEW_CUT keys each, at most SKEW_BATCHES)
 WIDE_SHARDS, WIDE_CUT = 64, 16
 SKEW_CUT, SKEW_BATCHES = 32, 12
+# Path G: tenant B's keys (its leaves a shard are a sixteenth of tenant
+# A's), the front-end's latency budget, the live batch sizes checked for
+# one launch a batch, the closed loop's seconds, the open-loop drives'
+# offered rates (requests/s, each G_DRIVE_S seconds; the first
+# G_RATES_ALWAYS rates always run, then the drives stop at the first rate
+# whose p99 passes G_P99_LIMIT budgets) and their mix of range
+# requests (of G_RANGE_PAIRS pairs) and insert requests (of G_INSERT_KEYS
+# keys) among single-key finds
+G_B_KEYS = 1 << 24
+G_BUDGET_S = 2e-3
+G_BATCH_SIZES = (1, 3, 127, 129, 1000, 4096)
+G_CLOSED_S = 2.0
+G_RATES = (250, 1000, 5000, 20000, 50000)
+G_DRIVE_S = 2.0
+G_P99_LIMIT = 10
+G_RATES_ALWAYS = 2
+G_RANGE_SHARE, G_RANGE_PAIRS = 0.05, 16
+G_INSERT_SHARE, G_INSERT_KEYS = 0.01, 64
 
 
 def _args(argv):
@@ -1471,7 +1524,8 @@ def _slice_ranks(pieces, lo, hi, live_of) -> int:
 def _k23_vs_plain(dyn, q, lo, hi, what) -> dict:
     """K2 and K3 against their plain versions on a dynamic index's own
     tables, rows and delta tier, with the arguments its ``find`` and
-    ``find_range`` pass them; returns each kernel's max |diff|."""
+    ``find_range`` pass them (K2 alone when ``lo`` is None); returns each
+    kernel's max |diff|."""
     import torch
     from repro_torch.kernels import lookup as tlk
     idx = dyn.index
@@ -1480,18 +1534,39 @@ def _k23_vs_plain(dyn, q, lo, hi, what) -> dict:
     kw = dict(n_leaves=idx.n_leaves, route_n=dyn.route_n,
               iters=idx.search_iters, root_kind=idx.root_kind,
               leaf_kind=idx.leaf_kind)
-    qf, lof, hif = (t.to(torch.float32) for t in (q, lo, hi))
-    return {
-        "dynamic_lookup": _compare(
-            f"dynamic_lookup ({what})",
-            lambda: tlk.dynamic_lookup(qf, *tabs, keys, dk,
-                                       rows=idx.leaf_rows(), **kw),
-            lambda: tlk.dynamic_lookup_plain(qf, *tabs, keys, dk, **kw)),
-        "dynamic_range": _compare(
+    qf = q.to(torch.float32)
+    errs = {"dynamic_lookup": _compare(
+        f"dynamic_lookup ({what})",
+        lambda: tlk.dynamic_lookup(qf, *tabs, keys, dk, rows=idx.leaf_rows(),
+                                   **kw),
+        lambda: tlk.dynamic_lookup_plain(qf, *tabs, keys, dk, **kw))}
+    if lo is not None:
+        lof, hif = lo.to(torch.float32), hi.to(torch.float32)
+        errs["dynamic_range"] = _compare(
             f"dynamic_range ({what})",
             lambda: tlk.dynamic_range(lof, hif, *tabs, keys, dk, **kw),
-            lambda: tlk.dynamic_range_plain(lof, hif, *tabs, keys, dk,
-                                            **kw))}
+            lambda: tlk.dynamic_range_plain(lof, hif, *tabs, keys, dk, **kw))
+    return errs
+
+
+def _stacked_k2_vs_plain(d, q, what) -> float:
+    """The stacked K2 against its plain version on a sharded dynamic
+    index's stack and descriptors, with the batch routed and grouped as its
+    ``find`` gives it; returns the max |diff|."""
+    import torch
+    from repro_torch.kernels import lookup as tlk
+    st = d._stacked()
+    pk, tabs, kw = d._kernel_args(st)
+    _, _, ds, kq, _ = d._grouped(st, q)
+    kq = kq.to(torch.float32)
+    tables = (pk["roots"], pk["mats"], pk["vecs"], pk["kf"])
+    return _compare(
+        f"sharded_dynamic_lookup ({what})",
+        lambda: tlk.sharded_dynamic_lookup(kq, ds, *tables, pk["dkf"],
+                                           rows=pk.get("rows"), tabs=tabs,
+                                           **kw),
+        lambda: tlk.sharded_dynamic_lookup_plain(kq, ds, *tables, pk["dkf"],
+                                                 **kw))
 
 
 def _dir_bytes(path: str) -> int:
@@ -2286,6 +2361,538 @@ def _path_f(args, dev, rows, h) -> None:
               f"stacked launch {rows[name]['ms']:.6f} ms")
     h.print_seam()
     print(f"  peak memory allocated (path F): {peak_main:.3f} GiB")
+
+
+def _above(top: float, m: int):
+    """``m`` distinct f32-exact keys above ``top``, increasing (steps of
+    2^-20 relative, wider than an f32 ulp)."""
+    import numpy as np
+    v = np.float32(top) * (1.0 + np.arange(1, m + 1) * 2.0 ** -20)
+    return v.astype(np.float32).astype(np.float64)
+
+
+def _singletons(live32, m: int, g):
+    """``m`` live keys that occur once (deleting one leaves none), from the
+    top percent of the keys: in the sparse tail, where f32 lognormal keys
+    rarely repeat."""
+    import torch
+    n = live32.shape[0]
+    i = torch.randint(n - max(n // 100, 16 * m), n, (16 * m,),
+                      device=live32.device, generator=g)
+    c = live32[i]
+    one = (torch.searchsorted(live32, c, right=True)
+           - torch.searchsorted(live32, c)) == 1
+    c = torch.unique(c[one])[:m]
+    if c.numel() < m:
+        raise AssertionError(f"only {c.numel()} singleton keys drawn")
+    return c.cpu().numpy().astype("float64")
+
+
+def _percentiles(lat_ms):
+    import numpy as np
+    return float(np.percentile(lat_ms, 50)), float(np.percentile(lat_ms, 99))
+
+
+def _path_g(args, dev, rows, h) -> None:
+    """Phase 11, path G, counted: the index service.  Two tenants behind
+    one ``BatchingFrontend`` (``ServeConfig(latency_budget_s=2e-3)``):
+    tenant A ``--n`` lognormal(0, 1) keys, tenant B ``G_B_KEYS``
+    lognormal(0.5, 0.8) keys, each in ``--shards`` shards (A at path F's
+    leaves a shard, B at a sixteenth of them), f32-exact.  The pack
+    against each tenant's own ``find`` / ``find_range`` and the truth; the
+    stacked K2 / K3 against their plain versions on the pack's T x S
+    descriptors; one launch a batch at live sizes ``G_BATCH_SIZES``;
+    deletes through the queue; a closed loop of full batches; open-loop
+    Poisson drives at ``G_RATES`` (single-key finds 70/30 over the
+    tenants, ``G_RANGE_SHARE`` range requests, ``G_INSERT_SHARE`` insert
+    requests of keys above each tenant's largest, so that no answer's
+    truth moves during a drive), the first ``G_RATES_ALWAYS`` rates always,
+    then until p99 passes ``G_P99_LIMIT`` budgets;
+    one saturated second traced; every inserted key found and every
+    deleted one not.  Then ``DynamicPageTable`` at path D's page geometry,
+    over one index and over 2 shards: K2 (held against its plain version
+    on the lookup's keys) for requests 0-3, the f64 path once requests 4-7
+    are in."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Index
+    from repro_torch.core import distributed as tdist
+    from repro_torch.kernels import lookup as tlk
+    from repro_torch.kernels import ops
+    from repro_torch.serve import frontend as tfe
+    from repro_torch.serve import kvcache as tkv
+
+    f32, f64 = torch.float32, torch.float64
+    n, S = args.n, args.shards
+    L_A = max(args.n_leaves // S, 64)
+    L_B = max(L_A // 16, 16)
+    n_b = min(G_B_KEYS, max(n // 8, 1 << 12))
+    mesh = tdist.ShardMesh(S)
+    rng = np.random.default_rng(args.seed)
+    h.reset_counters()
+    ops.reset_seam()
+    steps = {}
+    K2, K3 = "sharded_dynamic_lookup", "sharded_dynamic_range"
+
+    # ---- 1. two tenants and the pack ---------------------------------------
+    keys = h.lognormal_keys(n).to(f64)
+    ta, steps["Index.build (tenant A)"] = _sync_time(
+        lambda: Index.build(keys, mesh=mesh, n_leaves=L_A).backend)
+    del keys
+    keys = torch.sort(torch.empty(n_b, dtype=f32, device=dev).log_normal_(
+        0.5, 0.8, generator=h.g)).values.to(f64)
+    tb, steps["Index.build (tenant B)"] = _sync_time(
+        lambda: Index.build(keys, mesh=mesh, n_leaves=L_B).backend)
+    del keys
+    tenants = [ta, tb]
+    T = len(tenants)
+    fe = tfe.BatchingFrontend(tenants, config=tfe.ServeConfig(
+        latency_budget_s=G_BUDGET_S))
+    if not fe.pack.use_kernel:
+        raise AssertionError("path G's pack must take the kernel path")
+    lives = [t.live_keys_tensor().to(f32) for t in tenants]
+
+    def truth(t, q):
+        """(found, rank) of f64 queries of tenant t, on the card."""
+        qf = torch.as_tensor(q, device=dev).to(f32)
+        lo = torch.searchsorted(lives[t], qf)
+        return (torch.searchsorted(lives[t], qf, right=True) > lo,
+                lo.to(torch.int32))
+
+    def range_truth(t, lo, hi):
+        el = truth(t, lo)[1]
+        return el, torch.maximum(torch.searchsorted(
+            lives[t], torch.as_tensor(hi, device=dev).to(f32),
+            right=True).to(torch.int32), el)
+
+    def matrices(width):
+        """A (T, width) batch of members, misses and pads (0.0), the
+        splits and their f32 neighbours; its [lo | hi] range matrix."""
+        qs = []
+        for t in range(T):
+            sp = torch.as_tensor(tenants[t].splits, device=dev).to(f32)
+            fixed = torch.cat([sp, torch.nextafter(sp, sp + 1),
+                               torch.nextafter(sp, sp - 1)]).to(f64)
+            q = torch.cat([fixed, torch.zeros(width // 16, dtype=f64,
+                                              device=dev),
+                           h.draw(width // 4)])
+            q = torch.cat([q, h.pick(lives[t], width - q.numel()).to(f64)])
+            qs.append(q[torch.randperm(width, device=dev, generator=h.g)])
+        qmat = torch.stack(qs)
+        hi = (qmat + torch.empty_like(qmat).exponential_(
+            500.0, generator=h.g)).to(f32).to(f64)
+        hi[:, :width // 64] = qmat[:, :width // 64] - 0.5   # lo > hi
+        return qmat, torch.cat([qmat, hi], 1)
+
+    _, steps["warmup (pack assembly, every class)"] = _sync_time(
+        lambda: fe.warmup(G_BATCH_SIZES))
+    pk = fe.pack._st
+    slot_t = [sum(int(d.index.keys.shape[0]) * 17 for d in t.shards)
+              + t.n_shards * t._stack["bcap"] * 17 for t in tenants]
+    slot_p = T * S * (pk["bcap"] * 8 + pk["dcap"] * 8)
+    mem_txt = (f"reckoned: tenant A {slot_t[0] / 2**30:.3f} GiB, tenant B "
+               f"{slot_t[1] / 2**30:.3f} GiB (shards and stack, 17 B a "
+               f"slot), pack {slot_p / 2**30:.3f} GiB ({T} x {S} rows of "
+               f"{pk['bcap']} base and {pk['dcap']} delta slots, 8 B a slot:"
+               f" f32 key, prefix sum); {torch.cuda.memory_allocated() / 2**30:.3f}"
+               f" GiB allocated after warmup")
+
+    # ---- 2. the pack against each tenant's own answers and the truth ------
+    errs = {}
+    qmat, rmat = matrices(4096)
+    W = qmat.shape[1]
+    k0 = dict(tlk.LAUNCHES)
+    (f, r), steps["pack find (2 x 4,096)"] = _sync_time(
+        lambda: fe.pack.find(qmat))
+    (rl, rh), steps["pack find_range (2 x 4,096 pairs)"] = _sync_time(
+        lambda: fe.pack.find_range(rmat))
+    direct = {k: tlk.LAUNCHES[k] - k0[k] for k in (K2, K3)}
+    if direct != {K2: 1, K3: 1}:
+        raise AssertionError(f"the pack's find and range: launches {direct}")
+
+    def own(t):
+        return tenants[t].find(qmat[t]) + tenants[t].find_range(
+            rmat[t, :W], rmat[t, W:])
+    for t in range(T):
+        got = (f[t], r[t], rl[t], rh[t])
+        for i, (x, y) in enumerate(zip(
+                got, h.uncounted(functools.partial(own, t)), strict=True)):
+            _check_equal(f"tenant {t} pack vs own [{i}]", x, y)
+        for i, (x, y) in enumerate(zip(got, truth(t, qmat[t])
+                                       + range_truth(t, rmat[t, :W],
+                                                     rmat[t, W:]),
+                                       strict=True)):
+            _check_equal(f"tenant {t} pack vs truth [{i}]", x, y)
+    # the stacked kernels on the pack's T x S descriptors, bit for bit
+    tables, _, tabs, kw = tdist._tenant_kernel_args(pk)
+    kt = tables[:4]
+    dkf = tables[5]
+    _, ds, kq, _ = tdist._tenant_grouped(pk, qmat)
+    _, dsr, kr, _ = tdist._tenant_grouped(pk, rmat)
+    kq, kr = kq.to(f32), kr.to(f32)
+    if set(ds.unique().tolist()) != set(range(T * S)):
+        raise AssertionError("the checked batch must reach every row")
+    errs[K2] = h.uncounted(lambda: _compare(
+        f"{K2} (tenant pack, {T * S} rows)",
+        lambda: tlk.sharded_dynamic_lookup(kq, ds, *kt, dkf, tabs=tabs, **kw),
+        lambda: tlk.sharded_dynamic_lookup_plain(kq, ds, *kt, dkf, **kw)))
+    errs[K3] = h.uncounted(lambda: _compare(
+        f"{K3} (tenant pack, {T * S} rows)",
+        lambda: tlk.sharded_dynamic_range(kr, kr, dsr, *kt, dkf, tabs=tabs,
+                                          **kw),
+        lambda: tlk.sharded_dynamic_range_plain(kr, kr, dsr, *kt, dkf,
+                                                **kw)))
+    kernel_ms = h.uncounted(lambda: {
+        K2: _event_ms(lambda: tlk.sharded_dynamic_lookup(
+            kq, ds, *kt, dkf, tabs=tabs, **kw), 20),
+        K3: _event_ms(lambda: tlk.sharded_dynamic_range(
+            kr, kr, dsr, *kt, dkf, tabs=tabs, **kw), 20)})
+    pack_errs = dict(errs)
+    del qmat, rmat, f, r, rl, rh, kq, kr, ds, dsr
+
+    # ---- 3. one launch a batch, whatever the live batch size ---------------
+    fe.start()
+    per_batch = {"find": set(), "range": set()}
+    for sz in G_BATCH_SIZES:
+        for t in range(T):
+            q = h.pick(lives[t], sz).to(f64)
+            k0 = tlk.LAUNCHES[K2]
+            found, rank = fe.lookup(t, q.cpu().numpy(), timeout=120.0)
+            per_batch["find"].add(tlk.LAUNCHES[K2] - k0)
+            wf, wr = truth(t, q)
+            _check_equal(f"G find t{t} sz {sz}", torch.as_tensor(rank,
+                         device=dev), wr)
+            _check_equal(f"G found t{t} sz {sz}", torch.as_tensor(found,
+                         device=dev), wf)
+            hi = (q + 0.01).to(f32).to(f64)
+            k0 = tlk.LAUNCHES[K3]
+            rlo, rhi = fe.scan(t, q.cpu().numpy(), hi.cpu().numpy(),
+                               timeout=120.0)
+            per_batch["range"].add(tlk.LAUNCHES[K3] - k0)
+            for x, y in zip((rlo, rhi), range_truth(t, q, hi), strict=True):
+                _check_equal(f"G range t{t} sz {sz}",
+                             torch.as_tensor(x, device=dev), y)
+    if per_batch != {"find": {1}, "range": {1}}:
+        raise AssertionError(f"launches a batch {per_batch}, not 1")
+
+    # ---- 4. deletes through the queue, then the drives ---------------------
+    deleted = [_singletons(lives[t], 64, h.g) for t in range(T)]
+    for t in range(T):
+        fe.submit(tfe.Request(t, "delete", deleted[t])).result(timeout=120.0)
+    inserted = [[] for _ in range(T)]
+
+    def refresh_truth():
+        for t in range(T):
+            lives[t] = tenants[t].live_keys_tensor().to(f32)
+    refresh_truth()
+    pools = [h.pick(lives[t], 1 << 20).to(f64).cpu().numpy()
+             for t in range(T)]
+    # closed loop of full batches, one request in flight
+    arrays = [(t, pools[t][i * 4096:(i + 1) * 4096])
+              for i in range(8) for t in range(T)]
+    want = [truth(t, a)[1].cpu().numpy() for t, a in arrays]
+    fe.stats = tfe.FrontendStats()
+    k0 = dict(tlk.LAUNCHES)
+    i, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < G_CLOSED_S:
+        t, a = arrays[i % len(arrays)]
+        found, rank = fe.lookup(t, a, timeout=120.0)
+        if not found.all() or not np.array_equal(rank, want[i % len(arrays)]):
+            raise AssertionError(f"closed loop batch {i}: wrong answers")
+        i += 1
+    closed_s = time.perf_counter() - t0
+    closed = dict(batches=i, seconds=closed_s, batches_per_s=i / closed_s,
+                  keys_per_s=4096 * i / closed_s,
+                  launches=tlk.LAUNCHES[K2] - k0[K2],
+                  stats_batches=fe.stats.batches)
+    if closed["launches"] != i or fe.stats.batches != i:
+        raise AssertionError(f"closed loop: {closed}")
+
+    drives = []
+    for rate in G_RATES:
+        gaps = rng.exponential(1.0 / rate, int(rate * G_DRIVE_S * 1.5) + 16)
+        arr = np.cumsum(gaps)
+        arr = arr[arr < G_DRIVE_S]
+        u = rng.random(arr.size)
+        tid = (rng.random(arr.size) < 0.3).astype(int)
+        tops = [float(lives[t][-1]) for t in range(T)]
+        n_ins = [int(((u >= 1 - G_INSERT_SHARE) & (tid == t)).sum())
+                 for t in range(T)]
+        fresh = [_above(tops[t], max(n_ins[t], 1) * G_INSERT_KEYS)
+                 for t in range(T)]
+        picks = [0, 0]
+        reqs = []
+        for j in range(arr.size):
+            t = int(tid[j])
+            if u[j] < G_RANGE_SHARE:
+                lo = pools[t][rng.integers(0, pools[t].size, G_RANGE_PAIRS)]
+                hi = np.minimum(lo + rng.exponential(0.002, lo.size),
+                                tops[t]).astype(np.float32).astype(
+                                    np.float64)
+                reqs.append(tfe.Request(t, "range", np.stack([lo, hi])))
+            elif u[j] >= 1 - G_INSERT_SHARE:
+                k = fresh[t][picks[t]:picks[t] + G_INSERT_KEYS]
+                picks[t] += G_INSERT_KEYS
+                inserted[t].append(k)
+                reqs.append(tfe.Request(t, "insert", k))
+            else:
+                reqs.append(tfe.Request(t, "find", pools[t][
+                    rng.integers(0, pools[t].size, 1)]))
+        fe.stats = tfe.FrontendStats()
+        k0 = dict(tlk.LAUNCHES)
+        pr0, pf0 = fe.pack.pack_rows, fe.pack.pack_full
+        t0 = fe.clock()
+        for dt, req in zip(arr, reqs, strict=True):
+            lag = (t0 + dt) - fe.clock()
+            if lag > 0:
+                time.sleep(lag)
+            req.arrival = t0 + dt
+            fe.submit(req)
+        for req in reqs:
+            req.result(timeout=300.0)
+        lat = np.asarray([req.done_at - req.arrival for req in reqs]) * 1e3
+        span = max(req.done_at for req in reqs) - t0
+        st = fe.stats
+        p50, p99 = _percentiles(lat)
+        kinds = {k: [r for r in reqs if r.kind == k] for k in
+                 ("find", "range", "insert")}
+        drives.append(dict(
+            offered=rate, requests=len(reqs), sustained=len(reqs) / span,
+            p50_ms=p50, p99_ms=p99,
+            find_p99_ms=_percentiles(np.asarray(
+                [r.done_at - r.arrival for r in kinds["find"]]) * 1e3)[1],
+            batches=st.batches,
+            keys_per_batch=(st.queries + 2 * st.ranges) / max(st.batches, 1),
+            pad_fraction=st.pad_fraction, qcaps=sorted(st.qcaps),
+            launches={k: tlk.LAUNCHES[k] - k0[k] for k in (K2, K3)},
+            pack_rows=fe.pack.pack_rows - pr0,
+            pack_full=fe.pack.pack_full - pf0, swaps=st.swaps,
+            updates=st.updates,
+            kinds={k: len(v) for k, v in kinds.items()}))
+        # every answer against the truth: inserted keys lie above each
+        # tenant's largest key, so no find's or range's truth moved
+        for t in range(T):
+            fq = [r for r in kinds["find"] if r.tenant == t]
+            if fq:
+                q = np.concatenate([r.keys for r in fq])
+                wf, wr = truth(t, q)
+                _check_equal(f"drive {rate}: t{t} found", torch.as_tensor(
+                    np.concatenate([r.found for r in fq]), device=dev), wf)
+                _check_equal(f"drive {rate}: t{t} rank", torch.as_tensor(
+                    np.concatenate([r.rank for r in fq]), device=dev), wr)
+            rq = [r for r in kinds["range"] if r.tenant == t]
+            if rq:
+                el, eh = range_truth(t, np.concatenate(
+                    [r.keys[0] for r in rq]), np.concatenate(
+                    [r.keys[1] for r in rq]))
+                _check_equal(f"drive {rate}: t{t} rank_lo", torch.as_tensor(
+                    np.concatenate([r.rank_lo for r in rq]), device=dev), el)
+                _check_equal(f"drive {rate}: t{t} rank_hi", torch.as_tensor(
+                    np.concatenate([r.rank_hi for r in rq]), device=dev), eh)
+        lb = drives[-1]["launches"]
+        if max(lb.values()) > st.batches or sum(lb.values()) < st.batches:
+            raise AssertionError(f"drive {rate}: {lb} launches in "
+                                 f"{st.batches} batches")
+        refresh_truth()
+        del reqs, kinds
+        if len(drives) >= G_RATES_ALWAYS and \
+                p99 > G_P99_LIMIT * G_BUDGET_S * 1e3:
+            break
+
+    # one saturated second traced: a closed loop, two requests in flight
+    def saturated():
+        pend = [fe.submit_find(*arrays[0]), fe.submit_find(*arrays[1])]
+        j, t1 = 2, time.perf_counter()
+        while time.perf_counter() - t1 < 1.0:
+            pend.pop(0).result(timeout=120.0)
+            pend.append(fe.submit_find(*arrays[j % len(arrays)]))
+            j += 1
+        for p in pend:
+            p.result(timeout=120.0)
+        return j
+    fe.stats = tfe.FrontendStats()
+    (ROOT / "build").mkdir(exist_ok=True)
+    traced_path = ROOT / "build" / "path_g_trace.json"
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("path G saturated"):
+            sat_requests = saturated()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(traced_path))
+    host_top = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in sorted(
+        prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+        reverse=True)[:12]]
+    del prof
+    traced = _trace_windows(traced_path, ("path G saturated",))[
+        "path G saturated"]
+    traced["batches"] = fe.stats.batches
+    traced["requests"] = sat_requests
+    # the same saturated second untraced, each stage of a batch bracketed
+    # by synchronisations: inclusive seconds a stage
+    fe.stats = tfe.FrontendStats()
+    with contextlib.ExitStack() as stack:
+        stages = [stack.enter_context(_Stages(m, names)) for m, names in (
+            (tfe.BatchingFrontend, ("_apply_updates", "_dispatch",
+                                    "_resolve")),
+            (tfe.TenantPack, ("_refresh",)),
+            (tdist, ("_tenant_grouped", "_scatter_back")),
+            (tlk, (K2,)), (ops, ("_seam_fix", "_two_tier_find")))]
+        t1 = time.perf_counter()
+        staged_requests = saturated()
+        staged_s = time.perf_counter() - t1
+    staged = dict(seconds=staged_s, requests=staged_requests,
+                  batches=fe.stats.batches,
+                  secs={k: v for sg in stages for k, v in sg.secs.items()})
+
+    # ---- 5. the queue's updates, seen ----------------------------------------
+    for t in range(T):
+        ins = np.concatenate(inserted[t]) if inserted[t] else np.zeros(0)
+        if ins.size:
+            found, _ = fe.lookup(t, ins, timeout=120.0)
+            if not found.all():
+                raise AssertionError(f"tenant {t}: {int((~found).sum())} "
+                                     f"inserted keys not found")
+        found, _ = fe.lookup(t, deleted[t], timeout=120.0)
+        if found.any():
+            raise AssertionError(f"tenant {t}: deleted keys found")
+    fe.stop()
+    launches = h.counters()
+    seam = ops.SEAM["misses"], ops.SEAM["calls"]
+    counters = [dict(live=t.total_live, restack_rows=t.restack_rows,
+                     restack_full=t.restack_full,
+                     rebuilds=sum(d.rebuilds for d in t.shards))
+                for t in tenants]
+    pack_counts = (fe.pack.pack_rows, fe.pack.pack_full)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_ins = [sum(a.size for a in inserted[t]) for t in range(T)]
+    del fe, tenants, ta, tb, lives, pk, tables, kt, dkf, tabs, pools
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 6. the dynamic page table at path D's page geometry --------------
+    blocks = (LM_PROMPT_LEN + LM_NEW_TOKENS) // 16 + 1
+    pq = [(int(r) << 22) | int(b) for r, b in zip(
+        rng.integers(0, 2 * LM_REQUESTS, 1 << 16),
+        rng.integers(0, blocks + 4, 1 << 16), strict=True)]
+    pq = np.asarray(pq, np.float64)
+    tables_g, pt_errs = {}, {}
+    for tag, pmesh, kname in (("one index", None, "dynamic_lookup"),
+                              ("2 shards", tdist.ShardMesh(2), K2)):
+        cache = tkv.PagedKVCache(n_pages=2 * LM_REQUESTS * blocks,
+                                 page_size=16, n_kv_heads=8, head_dim=128,
+                                 n_layers=1, device=dev)
+        for req in range(LM_REQUESTS):
+            cache.allocate_batch(req, range(blocks))
+        pt = tkv.DynamicPageTable.build(cache, mesh=pmesh)
+        for stage in ("requests 0-3", "requests 0-7 less 1"):
+            if stage != "requests 0-3":
+                for req in range(LM_REQUESTS, 2 * LM_REQUESTS):
+                    pt.allocate(req, range(blocks))
+                pt.release(1)
+            k0 = tlk.LAUNCHES[kname]
+            found, page = pt.lookup(pq)
+            got_launches = tlk.LAUNCHES[kname] - k0
+            want = [cache.table.get((int(k) >> 22, int(k) & ((1 << 22) - 1)))
+                    for k in pq]
+            wf = np.asarray([w is not None for w in want])
+            if not np.array_equal(found, wf) or not np.array_equal(
+                    page[wf], np.asarray([w for w in want if w is not None])):
+                raise AssertionError(f"page table ({tag}, {stage}) wrong")
+            exact = bool(pt.dyn.f32_exact)
+            if exact:
+                # the kernel on this lookup's own inputs, before its timing
+                q = torch.as_tensor(pq, device=dev)
+                what = f"page table, {tag}, {stage}"
+                e = h.uncounted(
+                    lambda: _stacked_k2_vs_plain(pt.dyn, q, what)
+                    if pmesh is not None else
+                    _k23_vs_plain(pt.dyn, q, None, None, what)[kname])
+                errs[kname] = max(errs.get(kname, 0), e)
+                pt_errs[(tag, stage)] = e
+            ms = np.mean([_sync_time(functools.partial(pt.lookup, pq))[1]
+                          for _ in range(5)]) * 1e3
+            if got_launches != (1 if exact else 0):
+                raise AssertionError(f"page table ({tag}, {stage}): "
+                                     f"{got_launches} launches, f32-exact "
+                                     f"{exact}")
+            tables_g[(tag, stage)] = dict(
+                f32_exact=exact, path="kernel" if exact else "f64",
+                launches=got_launches, ms=ms, found=int(wf.sum()),
+                err=pt_errs.get((tag, stage)), stats=pt.maintenance_stats())
+        del pt, cache
+    launches_pt = {k: v - launches[k] for k, v in h.counters().items()
+                   if v != launches[k]}
+    for k, v in launches_pt.items():
+        launches[k] += v
+
+    for name in (K2, K3, "dynamic_lookup"):
+        rows[name]["launches"] += launches[name]
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        errs.get(name, 0))
+    card = _card()
+    print(f"phase 11: path G (the index service: {T} tenants x {S} shards, "
+          f"{L_A} / {L_B} leaves a shard) ok on {card}; tenant A n={n}, "
+          f"tenant B n={n_b}; launches {launches}; the stacked K2 / K3 on "
+          f"the pack's {T * S} descriptors equal their plain versions bit "
+          f"for bit (tolerance 0): {pack_errs}; pack find / range launches "
+          f"{direct}; launches a batch at live sizes {G_BATCH_SIZES}: "
+          f"{ {k: sorted(v) for k, v in per_batch.items()} }")
+    h.print_steps(steps)
+    print(f"  stacked K2 on the pack (2 x 4,096 queries, {T * S} rows): "
+          f"{kernel_ms[K2]:.6f} ms; stacked K3 (2 x 8,192 endpoints): "
+          f"{kernel_ms[K3]:.6f} ms (CUDA events, 20 calls)")
+    print(f"  memory: {mem_txt}; peak allocated (path G) {peak:.3f} GiB")
+    print(f"  closed loop, full 4,096-key batches, one in flight: "
+          f"{closed['batches']} batches in {closed['seconds']:.6f} s, "
+          f"{closed['batches_per_s']:.3f} batches/s, "
+          f"{closed['keys_per_s']:.1f} keys/s, {closed['launches']} stacked "
+          f"K2 launches")
+    for dv in drives:
+        print(f"  drive offered {dv['offered']} req/s: {dv['requests']} "
+              f"requests {dv['kinds']}, sustained {dv['sustained']:.3f} "
+              f"req/s, p50 {dv['p50_ms']:.6f} ms, p99 {dv['p99_ms']:.6f} ms "
+              f"(finds p99 {dv['find_p99_ms']:.6f} ms), {dv['batches']} "
+              f"batches, {dv['keys_per_batch']:.3f} keys a batch, pad "
+              f"fraction {dv['pad_fraction']:.6f}, classes {dv['qcaps']}, "
+              f"launches {dv['launches']} (a batch: "
+              f"{dv['launches'][K2] / max(dv['batches'], 1):.6f} K2, "
+              f"{dv['launches'][K3] / max(dv['batches'], 1):.6f} K3), "
+              f"pack_rows {dv['pack_rows']}, pack_full "
+              f"{dv['pack_full']}, swaps {dv['swaps']}, update keys "
+              f"{dv['updates']}")
+    last = drives[-1]
+    stop = "p99 over the limit" if last["p99_ms"] > \
+        G_P99_LIMIT * G_BUDGET_S * 1e3 else "every rate within the limit"
+    print(f"  drives stopped at {last['offered']} req/s ({stop}: "
+          f"{G_P99_LIMIT} x the {G_BUDGET_S * 1e3:.1f} ms budget; the first "
+          f"{G_RATES_ALWAYS} rates always run)")
+    print(f"  traced saturated second ({traced['requests']} requests of "
+          f"4,096 keys, {traced['batches']} batches): wall "
+          f"{traced['wall']:.6f} s, device busy {traced['busy']:.6f} s, "
+          f"idle share {1 - traced['busy'] / traced['wall']:.6f}, "
+          f"{traced['events']} device events; host time by op (self, "
+          f"ms, calls): " + "; ".join(f"{k} {ms:.3f} ({c})"
+                                      for k, ms, c in host_top))
+    sb = max(staged["batches"], 1)
+    print(f"  the same second untraced, a sync around each stage "
+          f"({staged['requests']} requests, {staged['batches']} batches in "
+          f"{staged['seconds']:.6f} s), inclusive ms a batch: " + ", ".join(
+              f"{k} {v * 1e3 / sb:.6f}" for k, v in staged["secs"].items()))
+    print(f"  after the drives: inserted {n_ins} keys through the queue, all "
+          f"found; deleted {[d.size for d in deleted]}, none found; tenants "
+          f"{counters}; pack_rows / pack_full {pack_counts}; seam misses "
+          f"{seam[0]} in {seam[1]} calls")
+    for (tag, stage), v in tables_g.items():
+        print(f"  DynamicPageTable ({tag}, {stage}): f32-exact "
+              f"{v['f32_exact']}, path {v['path']}, {v['launches']} launch a"
+              f" lookup of 2^16 block keys, {v['ms']:.6f} ms a lookup, "
+              f"{v['found']} found, all equal to the cache's table; "
+              + ("no kernel on this path" if v["err"] is None else
+                 f"the kernel on these keys against its plain version "
+                 f"(tolerance 0): max |diff| {v['err']}")
+              + f"; {v['stats']}")
+    print(f"  page-table launches {launches_pt}")
 
 
 def main(argv=None) -> int:
@@ -3149,6 +3756,13 @@ def main(argv=None) -> int:
 
     # ---- phase 10: path F (the sharded index), counted ---------------------
     _path_f(args, dev, rows, h)
+    print(f"  wall {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- phase 11: path G (the index service), counted --------------------
+    _path_g(args, dev, rows, h)
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
 
     smi = _card()

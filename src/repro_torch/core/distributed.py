@@ -135,17 +135,23 @@ def _member(first: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(first))
 
 
-def _grouped(splits: torch.Tensor, member: torch.Tensor, q: torch.Tensor):
-    """A batch routed and grouped by shard, as the shard-stacked kernels
-    take it: (the owning shard of each query, the stable grouping order,
-    the grouped shard ids, the grouped queries with the non-live ones --
-    +inf and NaN -- replaced by their shard's ``member`` key, the grouped
-    live mask)."""
-    dest = _route(splits, q)
+def _group(dest: torch.Tensor, member: torch.Tensor, q: torch.Tensor):
+    """A batch grouped by its rows ``dest`` of a stack, as the
+    shard-stacked kernels take it: (the stable grouping order, the grouped
+    row ids, the grouped queries with the non-live ones -- +inf and NaN --
+    replaced by their row's ``member`` key, the grouped live mask)."""
     order = torch.argsort(dest, stable=True)
     ds, qs = dest[order], q[order]
     live = qs < torch.inf
-    return dest, order, ds, torch.where(live, qs, member[ds.long()]), live
+    return order, ds, torch.where(live, qs, member[ds.long()]), live
+
+
+def _grouped(splits: torch.Tensor, member: torch.Tensor, q: torch.Tensor):
+    """A batch routed and grouped by shard: (the owning shard of each
+    query, then :func:`_group`'s order, shard ids, queries and live
+    mask)."""
+    dest = _route(splits, q)
+    return (dest, *_group(dest, member, q))
 
 
 def _row(params, s: int):
@@ -430,6 +436,59 @@ def _rebalance_trigger(counts: torch.Tensor, muted: torch.Tensor,
                         (dead_hot[hot] & any_).to(_I64)])
 
 
+def _row_f64_answer(st: dict, r: int, q: torch.Tensor, rng: bool,
+                    n_leaves: int, route_n: float):
+    """Row ``r``'s f64 answer on the stack ``st`` (the reference's jnp
+    body): route at the row's scale ``route_n`` over ``n_leaves`` leaves,
+    window, two-tier tail over the row's padded tiers at the stack's
+    depth."""
+    b = rmi_mod.root_buckets("linear", _row(st["root"], r), q, n_leaves,
+                             route_n)
+    lo, hi = rmi_mod.leaf_window(st["leaf_kind"], _row(st["leaves"], r),
+                                 st["err_lo"][r], st["err_hi"][r], b, q,
+                                 st["bcap"])
+    args = (st["base"][r], st["bpsum"][r], st["dk"][r], st["dpsum"][r])
+    if rng:
+        return two_tier_range_answer(*args, q, q, lo, hi, st["iters"])
+    found, rank, _ = two_tier_answer(*args, q, lo, hi, st["iters"])
+    return found, rank
+
+
+def _answer_grouped(grouped, offs: torch.Tensor, n_rows: int, rng: bool,
+                    kernel, f64_row):
+    """Answers of a batch grouped by row (:func:`_group`): one launch of
+    the shard-stacked K2 (or, with ``rng``, K3) over every row when
+    ``kernel`` -- (its stacked tables, MLP leaf rows, descriptors,
+    keywords) -- is given, else ``f64_row(r, queries)`` a row; then each
+    row's live offset ``offs[r]`` added and the answers put back in the
+    batch's order: (found, rank), or (rank_lo, rank_hi) of each query as a
+    point range.  Non-live queries answer (False, 0) / (0, 0)."""
+    order, ds, qm, live = grouped
+    if kernel is not None:
+        tables, rows, tabs, kw = kernel
+        qf = qm.to(torch.float32)
+        if rng:
+            a, b = ops.sharded_range_lookup(qf, qf, ds, *tables, tabs=tabs,
+                                            **kw)
+        else:
+            a, b = ops.sharded_dynamic_find(qf, ds, *tables, rows=rows,
+                                            tabs=tabs, **kw)
+    else:
+        a = torch.zeros(qm.shape, dtype=_I32 if rng else torch.bool,
+                        device=qm.device)
+        b = torch.zeros(qm.shape, dtype=_I32, device=qm.device)
+        for r, lo, hi in _segments(ds, n_rows):
+            a[lo:hi], b[lo:hi] = f64_row(r, qm[lo:hi])
+    off = offs[ds.long()]
+    zero = torch.zeros_like(off)
+    if rng:
+        a = torch.where(live, a.to(_I32) + off, zero)
+    else:
+        a = a & live
+    b = torch.where(live, b.to(_I32) + off, zero)
+    return _scatter_back(order, a, b)
+
+
 def _pad_rows(a: torch.Tensor, c: int) -> torch.Tensor:
     return torch.cat([a, a.new_zeros((c - a.shape[0],))])
 
@@ -486,6 +545,12 @@ class ShardedDynamicIndex:
     _bcaps: np.ndarray = None
     _dcaps: np.ndarray = None
     _iters_vec: np.ndarray = None
+    # Restack generations: ``_row_gen[s]`` is the generation of the restack
+    # that last wrote row s of the stack (each restack one past the newest).
+    # Rows are rewritten in place, so a reader of the stack
+    # (``serve.frontend.TenantPack``) learns which rows changed from these,
+    # not from the tensors' identity.
+    _row_gen: np.ndarray = None
 
     @classmethod
     def build(cls, keys, mesh, axis: str = "data", n_leaves: int = 256,
@@ -810,6 +875,8 @@ class ShardedDynamicIndex:
             leaf_kind=self.shards[0].index.leaf_kind,
             iters=int(self._iters_vec.max()),  # tracelint: ok[hot-sync](np mirror)
             packed=None, tabs=None)
+        gen = 1 if self._row_gen is None else self._row_gen.max() + 1
+        self._row_gen = np.full(self.n_shards, gen, np.int64)
         for k in self._ROW_KEYS:
             st[k] = torch.stack([r[k] for r in rows])
             for r in rows:
@@ -840,6 +907,7 @@ class ShardedDynamicIndex:
                                        device=self.device)
         st["iters"] = int(self._iters_vec.max())  # tracelint: ok[hot-sync](np mirror)
         st["tabs"] = None
+        self._row_gen[ids] = self._row_gen.max() + 1
         self.restack_rows += len(ids)
         self._dirty.clear()
 
@@ -869,21 +937,6 @@ class ShardedDynamicIndex:
                 delta_keys=pk["dkf"])
         return pk, st["tabs"], kw
 
-    def _f64_answer(self, st: dict, s: int, q: torch.Tensor, rng: bool):
-        """Shard ``s``'s f64 answer (the reference's jnp body): route at
-        the shard's frozen scale, window, two-tier tail over its padded
-        rows at the stack's depth."""
-        b = rmi_mod.root_buckets("linear", _row(st["root"], s), q,
-                                 self.n_leaves, float(self.shards[s].route_n))
-        lo, hi = rmi_mod.leaf_window(st["leaf_kind"], _row(st["leaves"], s),
-                                     st["err_lo"][s], st["err_hi"][s], b, q,
-                                     st["bcap"])
-        args = (st["base"][s], st["bpsum"][s], st["dk"][s], st["dpsum"][s])
-        if rng:
-            return two_tier_range_answer(*args, q, q, lo, hi, st["iters"])
-        found, rank, _ = two_tier_answer(*args, q, lo, hi, st["iters"])
-        return found, rank
-
     def _grouped(self, st: dict, q: torch.Tensor):
         """:func:`_grouped` of a batch on the stack ``st``: what
         :meth:`_answer` gives the shard-stacked kernels."""
@@ -894,34 +947,17 @@ class ShardedDynamicIndex:
         or, with ``rng``, (rank_lo, rank_hi) of each endpoint as a point
         range, global ranks; non-live queries answer (False, 0) / (0, 0)."""
         st = self._stacked()
-        _, order, ds, qm, live = self._grouped(st, q)
+        _, *grouped = self._grouped(st, q)
+        kernel = None
         if use_kernel:
             pk, tabs, kw = self._kernel_args(st)
-            qf = qm.to(torch.float32)
-            tables = (pk["roots"], pk["mats"], pk["vecs"], pk["kf"],
-                      st["bpsum"], pk["dkf"], st["dpsum"])
-            if rng:
-                a, b = ops.sharded_range_lookup(qf, qf, ds, *tables,
-                                                tabs=tabs, **kw)
-            else:
-                a, b = ops.sharded_dynamic_find(qf, ds, *tables,
-                                                rows=pk.get("rows"),
-                                                tabs=tabs, **kw)
-        else:
-            a = torch.zeros(qm.shape, dtype=torch.int32 if rng else torch.bool,
-                            device=q.device)
-            b = torch.zeros(qm.shape, dtype=_I32, device=q.device)
-            for s, lo, hi in _segments(ds, self.n_shards):
-                ra, rb = self._f64_answer(st, s, qm[lo:hi], rng)
-                a[lo:hi], b[lo:hi] = ra, rb
-        offs = st["offs"][ds.long()]
-        zero = torch.zeros_like(offs)
-        if rng:
-            a = torch.where(live, a.to(_I32) + offs, zero)
-        else:
-            a = a & live
-        b = torch.where(live, b.to(_I32) + offs, zero)
-        return _scatter_back(order, a, b)
+            kernel = ((pk["roots"], pk["mats"], pk["vecs"], pk["kf"],
+                       st["bpsum"], pk["dkf"], st["dpsum"]), pk.get("rows"),
+                      tabs, kw)
+        return _answer_grouped(
+            grouped, st["offs"], self.n_shards, rng, kernel,
+            lambda s, x: _row_f64_answer(st, s, x, rng, self.n_leaves,
+                                         float(self.shards[s].route_n)))
 
     def _use_kernel(self, path: str) -> bool:
         return resolve_path(path, f32_exact=lambda: self.f32_exact,
@@ -964,3 +1000,66 @@ class ShardedDynamicIndex:
         live = self.live_keys()
         lo, hi = _host_ints(rank_lo), _host_ints(rank_hi)
         return [live[int(a):int(b)] for a, b in zip(lo, hi, strict=True)]
+
+
+# ---------------------------------------------------------------------------
+# Tenant-stacked answers: several sharded indexes in one launch.
+# ---------------------------------------------------------------------------
+# Calls of the tenant-stacked find and range (the counterpart of the
+# reference's trace counter ``TRACE_COUNTS``): the serve front-end makes
+# one of each a batch, each one launch of the shard-stacked K2 / K3 on the
+# kernel path.
+TENANT_CALLS = {"tenant_find": 0, "tenant_range": 0}
+
+
+def _tenant_grouped(pack: dict, qmat: torch.Tensor):
+    """A (T, Q) query matrix routed to its rows of the tenant pack (query
+    of tenant t, shard s: row ``t * S + s``) and grouped by row:
+    :func:`_group`'s order, row ids, queries and live mask."""
+    T, S = qmat.shape[0], pack["n_shards"]
+    dest = torch.searchsorted(pack["splits"], qmat)
+    dest = torch.where(torch.isnan(qmat), S - 1, dest)
+    row = (dest + S * torch.arange(T, device=qmat.device)[:, None]) \
+        .reshape(-1).to(_I32)
+    return _group(row, pack["member"], qmat.reshape(-1))
+
+
+def _tenant_kernel_args(pack: dict) -> tuple:
+    """(stacked tables, MLP leaf rows, descriptors, keywords) of the
+    shard-stacked K2 / K3 over a tenant pack: every row routes at ratio 1
+    over the pack's ``n_leaves`` and searches at the pack's depth."""
+    L = pack["n_leaves"]
+    return ((pack["roots"], pack["mats"], pack["vecs"], pack["kf"],
+             pack["bpsum"], pack["dkf"], pack["dpsum"]), pack.get("rows"),
+            pack["tabs"], dict(n_leaves=L, route_n=L, iters=pack["iters"],
+                               leaf_kind=pack["leaf_kind"]))
+
+
+def tenant_stacked_answer(pack: dict, qmat: torch.Tensor, *,
+                          use_kernel: bool, rng: bool):
+    """Answer a (T, Q) f64 query matrix, row t for tenant t, over the
+    tenant pack ``pack`` (``serve.frontend.TenantPack``: T tenants of S
+    shards each as T x S rows, (tenant, shard) flattened): the counterpart
+    of the reference's ``_tenant_stacked_find_fn`` (``rng`` False:
+    (found, rank)) and ``_tenant_stacked_range_fn`` (``rng`` True: each
+    query's (rank_lo, rank_hi) as a point range), both (T, Q).
+
+    A query of tenant t routes by that tenant's split vector to its shard
+    s and is answered on row ``t * S + s``, its rank offset by
+    ``offs[t * S + s]``, the tenant's live keys in shards < s.  On the
+    kernel path the whole matrix is one launch of the shard-stacked K2 (or
+    K3), every row routed at ratio 1 with the pack's ``n_leaves`` (each
+    tenant's routing scale folded into its packed roots, its leaf tables
+    padded with its last live leaf) and searched at the pack's depth; on
+    the f64 path each row's two-tier answer, routed at the row's
+    ``route_n`` (the shard's frozen scale times ``n_leaves / L_t``, the
+    reference's rescale).  Non-live queries (+inf, NaN) answer (False, 0)
+    / (0, 0)."""
+    T, Q = qmat.shape
+    TENANT_CALLS["tenant_range" if rng else "tenant_find"] += 1
+    a, b = _answer_grouped(
+        _tenant_grouped(pack, qmat), pack["offs"], T * pack["n_shards"],
+        rng, _tenant_kernel_args(pack) if use_kernel else None,
+        lambda r, x: _row_f64_answer(pack, r, x, rng, pack["n_leaves"],
+                                     float(pack["route_n"][r])))
+    return a.reshape(T, Q), b.reshape(T, Q)

@@ -9,8 +9,10 @@ rank arithmetic.
 
   insert_batch   sort the batch, route it through the root, gather-merge
                  it into the delta tier (tombstoned entries purged in the
-                 same pass), bump the per-leaf Lemma 4.1 counters.
-  delete_batch   tombstone the leftmost live occurrence, delta tier first.
+                 same pass), bump the per-leaf Lemma 4.1 counters;
+                 ``insert(key)`` is a batch of one.
+  delete_batch   tombstone the leftmost live occurrence, delta tier first;
+                 ``delete(key)`` is a batch of one.
   find           (found, rank): base window search + delta probe +
                  tombstone mask.  ``rank`` counts live keys < q across both
                  tiers.  On CUDA the search is kernel K2 (``kernels.ops``).
@@ -474,6 +476,10 @@ class DynamicRMI:
         self._dkf32 = None
 
     # -- mutation ----------------------------------------------------------
+    def insert(self, key: float) -> None:
+        """Insert one key: a one-element :meth:`insert_batch`."""
+        self.insert_batch(np.asarray([key], np.float64))
+
     def insert_batch(self, keys) -> None:
         """Bulk insert: sort and route the batch, merge it into the delta
         tier, one host read of the per-leaf counts, batched rebuild of any
@@ -516,6 +522,11 @@ class DynamicRMI:
             return
         if over.size:
             self._rebuild_leaves(over)
+
+    def delete(self, key: float) -> None:
+        """Delete one occurrence of a key: a one-element
+        :meth:`delete_batch`."""
+        self.delete_batch(np.asarray([key], np.float64))
 
     def delete_batch(self, keys) -> None:
         """Tombstone the leftmost live occurrence of each key, in the delta
