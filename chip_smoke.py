@@ -194,6 +194,28 @@ Phases (any failure exits non-zero; nothing is caught):
    and the table's own stack, none once requests 4-7 are in and request 1
    released (the f64 path), every ``(found, page)`` against the cache's
    table.
+12. Path H, counted, on fresh keys: the sharded index across mesh
+   positions, ``ShardMesh(--shards, devices=...)`` with one shard a
+   position (the reference's layout), every position this card (the
+   copies between positions cost nothing here; they are counted as bytes
+   a call).  ``build_sharded`` + ``make_lookup_fn`` with capacity factor
+   None and 2.0 (the -1s must be ``_budget_mask``'s, every other rank the
+   truth); ``Index.build(mesh=)``: ``find`` and ``find_range``, path A's
+   churn, a skewed ingest until a boundary run migrates from position 0 to
+   position 1, a run at a seam (its position's rows rewritten in place),
+   planted queries at and beside every split and +-inf / NaN, an index
+   with empty shards; every call of K1-K3 must launch its kernel once a
+   position; after each step, at each position, the stacked K2 and K3
+   (K1 once) against their plain versions on that position's rows and the
+   grouped queries the exchange gives it.  Warm ``find`` / ``find_range``
+   at D = --shards and D = --shards / 4 positions and on one stack (D = 1:
+   other meshes over the same shards), beside path F's; a snapshot
+   restored onto ``H_RESTORE`` and resharded onto ``H_RESHARD`` (shards,
+   positions), the answers against the truth after each; two tenants of
+   ``H_TENANT_KEYS`` keys (tenant B's size for both: a cut) on
+   ``H_TENANT_POSITIONS`` positions behind one ``BatchingFrontend``, a
+   closed loop of 4,096-key batches for ``H_CLOSED_S``, one stacked K2
+   launch a position a batch, every answer against the truth.
 
 Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
@@ -209,8 +231,8 @@ bf16 tensor-core rate for K8's prefill tile); K1-K4 rows add
 lane-major table rows, the fence's and the keys' probes).  A row's
 ``launches`` add up every path that launches that instantiation (K1
 linear: paths A, D and E; K2 linear: A, C, E and G's page table; K3
-linear: A, C and E; stacked K2: F, G and G's page table; stacked K3: F
-and G; K7 and its table kernel: B, C and E).  K1's, K2's, K3's, K4's, K5's and K7's rows are
+linear: A, C and E; stacked K1: F and H; stacked K2: F, G, G's page table
+and H; stacked K3: F, G and H; K7 and its table kernel: B, C and E).  K1's, K2's, K3's, K4's, K5's and K7's rows are
 printed beside their previous designs' times from ``PERF.md`` (not
 re-run; not in the
 JSON line).
@@ -344,6 +366,11 @@ G_RATES = (250, 1000, 5000, 20000, 50000)
 G_DRIVE_S = 2.0
 G_P99_LIMIT = 10
 G_RATES_ALWAYS = 2
+# Path H: the recovery's meshes (shards, positions), the tenants' keys,
+# leaves and positions (tenant B's size), and the closed loop's seconds
+H_RESTORE, H_RESHARD = (4, 2), (8, 4)
+H_TENANT_KEYS, H_TENANT_LEAVES, H_TENANT_POSITIONS = 1 << 24, 2048, 2
+H_CLOSED_S = 1.0
 G_RANGE_SHARE, G_RANGE_PAIRS = 0.05, 16
 G_INSERT_SHARE, G_INSERT_KEYS = 0.01, 64
 
@@ -1034,6 +1061,7 @@ class _Harness:
         self.g.manual_seed(seed)
         self.counted = (lookup, ksdist, hist, linfit, flash)
         self.seam_log = []
+        self.notes = {}         # what a later path prints beside its own
 
     def counters(self):
         return {k: v for mod in self.counted for k, v in mod.LAUNCHES.items()}
@@ -1556,7 +1584,7 @@ def _stacked_k2_vs_plain(d, q, what) -> float:
     import torch
     from repro_torch.kernels import lookup as tlk
     st = d._stacked()
-    pk, tabs, kw = d._kernel_args(st)
+    pk, tabs, kw = d._kernel_args(st, st["parts"][0])
     _, _, ds, kq, _ = d._grouped(st, q)
     kq = kq.to(torch.float32)
     tables = (pk["roots"], pk["mats"], pk["vecs"], pk["kf"])
@@ -1950,6 +1978,37 @@ def _per_shard(call, q, ds, n_shards):
     return tuple(outs)
 
 
+def _restack(d):
+    """A sharded dynamic index's stack and every position's kernel tables
+    and descriptors, brought up to date (what a kernel-path find does
+    before its launches)."""
+    st = d._stacked()
+    for part in st["parts"]:
+        d._kernel_args(st, part)
+    return st
+
+
+def _row_ptrs(st) -> dict:
+    """The addresses of every position's row tensors of a stack: a row
+    restack writes them in place (its descriptors, which point into them,
+    are built anew)."""
+    import torch
+    out = {}
+    for i, part in enumerate(st["parts"]):
+        for k, v in part.items():
+            if k == "tabs":
+                continue
+            if isinstance(v, torch.Tensor):
+                out[f"p{i}/{k}"] = v.data_ptr()
+            elif k in ("root", "leaves"):
+                out.update({f"p{i}/{k}.{j}": t.data_ptr()
+                            for j, t in enumerate(v)})
+            elif k == "packed" and v is not None:
+                out.update({f"p{i}/packed/{kk}": t.data_ptr()
+                            for kk, t in v.items()})
+    return out
+
+
 def _path_f(args, dev, rows, h) -> None:
     """Phase 10, path F, counted: the sharded index with its ``--shards``
     shards stacked on the card.  A static ``build_sharded`` +
@@ -2015,7 +2074,7 @@ def _path_f(args, dev, rows, h) -> None:
         lambda: Index.build(keys, mesh=mesh, n_leaves=L))
     d = ix.backend
     _, steps["restack (cold: the stack and its kernel tables)"] = \
-        _sync_time(lambda: d._kernel_args(d._stacked()))
+        _sync_time(lambda: _restack(d))
     live = keys
     find_q = fq(live)
     steps["find (built)"], _ = counted(
@@ -2061,22 +2120,19 @@ def _path_f(args, dev, rows, h) -> None:
     steps[f"skewed insert ({batches} x {n // SKEW_CUT} keys into shard 0"
           f"'s range)"] = t_skew
     _, steps["restack (after the migration)"] = _sync_time(
-        lambda: d._kernel_args(d._stacked()))
+        lambda: _restack(d))
     # a duplicate run at a seam: 9 more copies of a split key, one shard
     # touched: its rows rewritten in place
     seam_key = float(d.splits[S // 2 - 1])
     _, steps["insert (a run at a seam)"] = _sync_time(
         lambda: ix.insert(torch.full((9,), seam_key, dtype=f64,
                                      device=dev)))
-    st = d._stack
-    ptrs = {k: v.data_ptr() for k, v in st.items()
-            if isinstance(v, torch.Tensor)}
+    ptrs = _row_ptrs(d._stack)
     rows0, full0 = d.restack_rows, d.restack_full
     _, steps["restack (one dirty row)"] = _sync_time(
-        lambda: d._kernel_args(d._stacked()))
-    if (d.restack_rows - rows0, d.restack_full - full0) != (1, 0) or any(
-            d._stack[k].data_ptr() != p for k, p in ptrs.items()
-            if k not in ("offs", "splits")):
+        lambda: _restack(d))
+    if (d.restack_rows - rows0, d.restack_full - full0) != (1, 0) or \
+            _row_ptrs(d._stack) != ptrs:
         raise AssertionError("a one-shard insert must rewrite one row of "
                              "the stack in place")
     live = d.live_keys_tensor()
@@ -2127,12 +2183,15 @@ def _path_f(args, dev, rows, h) -> None:
         ROOT / "build" / "path_f_trace.json",
         {"path F find": lambda: ix.find(find_q),
          "path F find_range": lambda: ix.find_range(lo, hi)}))
+    h.notes["path F warm"] = h.uncounted(lambda: {
+        "find (skewed)": _verb_ms(lambda: ix.find(find_q)),
+        "find_range (skewed)": _verb_ms(lambda: ix.find_range(lo, hi))})
     counters = {k: int(getattr(d, k)) for k in tpersist._IDX_COUNTERS}
     shard_live = d.live_counts().tolist()
     # ---- 3. the stacked kernels against plain and per-shard launches ----
     errs = {}
     st = d._stacked()
-    pk, tabs, kw = d._kernel_args(st)
+    pk, tabs, kw = d._kernel_args(st, st["parts"][0])
     # each stacked kernel's inputs as the path gives them: the batch routed
     # and grouped, non-live queries replaced by their shard's member key;
     # find_range sends its lo and hi endpoints as one batch of point pairs
@@ -2191,7 +2250,7 @@ def _path_f(args, dev, rows, h) -> None:
         [False, True, True, False, True, True, False, False, False, False],
         device=dev))
     tst = tix.backend._stacked()
-    tpk, ttabs, tkw = tix.backend._kernel_args(tst)
+    tpk, ttabs, tkw = tix.backend._kernel_args(tst, tst["parts"][0])
     _, _, tds, tqf, _ = tix.backend._grouped(tst, tq)
     tqf = tqf.to(f32)
     ttables = (tpk["roots"], tpk["mats"], tpk["vecs"], tpk["kf"])
@@ -2524,7 +2583,7 @@ def _path_g(args, dev, rows, h) -> None:
                                        strict=True)):
             _check_equal(f"tenant {t} pack vs truth [{i}]", x, y)
     # the stacked kernels on the pack's T x S descriptors, bit for bit
-    tables, _, tabs, kw = tdist._tenant_kernel_args(pk)
+    tables, _, tabs, kw = tdist._tenant_kernel_args(pk, pk["parts"][0])
     kt = tables[:4]
     dkf = tables[5]
     _, ds, kq, _ = tdist._tenant_grouped(pk, qmat)
@@ -2893,6 +2952,456 @@ def _path_g(args, dev, rows, h) -> None:
                  f"(tolerance 0): max |diff| {v['err']}")
               + f"; {v['stats']}")
     print(f"  page-table launches {launches_pt}")
+
+
+def _verb_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds of ``fn`` as ``time_verbs.py`` times a verb: three
+    warm-up calls, then ``reps`` calls, each between its own pair of CUDA
+    events and synchronised."""
+    import torch
+    for _ in range(3):
+        fn()
+    ms = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return sum(ms) / len(ms)
+
+
+def _positions_vs_plain(d, q, lo, hi, what) -> dict:
+    """At each mesh position of a sharded dynamic index, the stacked K2
+    (and K3 when ``lo`` is given) against its plain version on that
+    position's rows and descriptors, with the grouped queries its
+    ``find`` (``find_range``: both endpoint arrays as one batch of point
+    pairs) gives the position; returns each kernel's max |diff|."""
+    import torch
+    from repro_torch.kernels import lookup as tlk
+    f32 = torch.float32
+    st = d._stacked()
+    errs = {"sharded_dynamic_lookup": 0, "sharded_dynamic_range": 0}
+    batches = [("sharded_dynamic_lookup", q)]
+    if lo is not None:
+        batches.append(("sharded_dynamic_range", torch.cat([lo, hi])))
+    for name, x in batches:
+        _, _, ds, kq, _ = d._grouped(st, x)
+        for i, part in enumerate(st["parts"]):
+            m = (ds >= part["lo"]) & (ds < part["lo"] + part["n"])
+            if not bool(m.any()):
+                continue
+            pq, rid = kq[m].to(f32), ds[m] - part["lo"]
+            pk, tabs, kw = d._kernel_args(st, part)
+            tables = (pk["roots"], pk["mats"], pk["vecs"], pk["kf"])
+            tag = f"{name} ({what}, position {i})"
+            if name == "sharded_dynamic_lookup":
+                e = _compare(
+                    tag, lambda: tlk.sharded_dynamic_lookup(
+                        pq, rid, *tables, pk["dkf"], rows=pk.get("rows"),
+                        tabs=tabs, **kw),
+                    lambda: tlk.sharded_dynamic_lookup_plain(
+                        pq, rid, *tables, pk["dkf"], **kw))
+            else:
+                e = _compare(
+                    tag, lambda: tlk.sharded_dynamic_range(
+                        pq, pq, rid, *tables, pk["dkf"], tabs=tabs, **kw),
+                    lambda: tlk.sharded_dynamic_range_plain(
+                        pq, pq, rid, *tables, pk["dkf"], **kw))
+            errs[name] = max(errs[name], e)
+    return errs
+
+
+def _path_h(args, dev, rows, h) -> None:
+    """Phase 12, path H, counted: the sharded index across mesh positions
+    (``ShardMesh(S, devices=...)`` and the routed exchange), at path F's
+    geometry on a mesh of ``--shards`` positions, one shard a position, as
+    the reference places them; every position is this one card, so the
+    copies between positions cost nothing here.  ``build_sharded`` +
+    ``make_lookup_fn`` (capacity factor None and 2.0: the -1s are
+    ``_budget_mask``'s), ``Index.build(mesh=)``: ``find`` / ``find_range``,
+    path A's churn, a skewed ingest until a boundary run migrates between
+    positions, planted edges, an index with empty shards; at each step and
+    each position the stacked K2 / K3 (K1 once) against their plain
+    versions on that position's rows.  Warm verbs at D = 8 and D = 2 (and
+    D = 1, path F's layout, over the same shards), the exchange's bytes a
+    call, the restacks; a snapshot restored onto ``H_RESTORE`` and
+    resharded onto ``H_RESHARD`` (shards, positions); two tenants of
+    ``H_TENANT_KEYS`` keys on ``H_TENANT_POSITIONS`` positions behind a
+    ``BatchingFrontend`` for ``H_CLOSED_S`` of closed loop.  Every answer
+    against the truth; launches a call counted."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.api import Index
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core import persist as tpersist
+    from repro_torch.kernels import lookup as tlk
+    from repro_torch.kernels import ops
+    from repro_torch.serve import frontend as tfe
+
+    f32, f64, i32 = torch.float32, torch.float64, torch.int32
+    n, S = args.n, args.shards
+    L = max(args.n_leaves // S, 64)
+    P = S
+    on = lambda m, p: tdist.ShardMesh(m, devices=(dev,) * p)
+    mesh = on(S, P)
+    card = _card()
+    keys32 = h.lognormal_keys(n)
+    keys = keys32.to(f64)
+    edges = h.edges_of(keys32)
+    h.reset_counters()
+    ops.reset_seam()
+    steps, per_call, errs, warm, moved = {}, {}, {}, {}, {}
+    K = ("sharded_lookup", "sharded_dynamic_lookup", "sharded_dynamic_range")
+
+    def fq(live):
+        return h.find_queries(live, edges).to(f32).to(f64)
+
+    def counted(name, fn):
+        k0 = tlk.LAUNCHES[name]
+        out, dt = _sync_time(fn)
+        per_call.setdefault(name, []).append(tlk.LAUNCHES[name] - k0)
+        return out, dt
+
+    def fold(e):
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0), v)
+
+    # ---- 1. the static index: one stacked K1 a position ------------------
+    si, steps["build_sharded"] = _sync_time(
+        lambda: tdist.build_sharded(keys, mesh, n_leaves=L, device=dev))
+    q = fq(keys)
+    qf = q.to(f32)
+    bounds = torch.as_tensor(tdist.shard_bounds(keys, S), device=dev)
+    dest = torch.searchsorted(si.splits, q)
+    cap = si.cap
+    want = (torch.searchsorted(keys32, qf) - bounds[dest]
+            + dest * cap).to(i32)
+    budget = {}
+    for cf in (None, 2.0):
+        ranks, steps[f"make_lookup_fn (capacity {cf})"] = counted(
+            "sharded_lookup",
+            lambda cf=cf: tdist.make_lookup_fn(si, capacity_factor=cf)(q))
+        keep = tdist._budget_mask(tdist._route(si.splits, q), S, cf) \
+            if cf is not None else torch.ones_like(q, dtype=torch.bool)
+        _check_equal(f"make_lookup_fn ({cf}) -1s vs _budget_mask",
+                     ranks < 0, ~keep)
+        _check_equal(f"make_lookup_fn ({cf}) ranks vs the truth",
+                     ranks[keep], want[keep])
+        budget[cf] = int((~keep).sum())
+    member = tdist._at_home([tdist._member(p.keys[:, 0]) for p in si.parts],
+                            si.device)
+    _, _, sds, sq, _ = tdist._grouped(si.splits, member, q)
+    sq = sq.to(f32)
+    e1 = 0
+    for i, part in enumerate(si.parts):
+        m = sds == i
+        pq, rid = sq[m], sds[m] - i
+        t = part.kernel_tables()
+        kw = dict(n_leaves=L, iters=si.search_iters)
+        e1 = max(e1, h.uncounted(lambda t=t, pq=pq, rid=rid, kw=kw: _compare(
+            f"sharded_lookup (position {i})",
+            lambda: (tlk.sharded_lookup(pq, rid, t["roots"], t["mats"],
+                                        t["vecs"], t["keys"], rows=t["rows"],
+                                        fences=t["fences"], tabs=t["tabs"],
+                                        **kw),),
+            lambda: (tlk.sharded_lookup_plain(pq, rid, t["roots"],
+                                              t["mats"], t["vecs"],
+                                              t["keys"], **kw),))))
+    fold({"sharded_lookup": e1})
+    del si, ranks, want, bounds, dest, member, sq, sds
+
+    # ---- 2. the dynamic index: one stacked K2 / K3 a position ------------
+    ix, steps["Index.build (mesh of 8 positions)"] = _sync_time(
+        lambda: Index.build(keys, mesh=mesh, n_leaves=L))
+    d = ix.backend
+    _, steps["restack (cold: every position's stack and tables)"] = \
+        _sync_time(lambda: _restack(d))
+    live = keys
+    find_q = fq(live)
+    lo, hi = h.range_pairs(live)
+    steps["find (built)"], _ = counted(
+        "sharded_dynamic_lookup",
+        lambda: h.check_find(ix, find_q, "positions built"))
+    steps["find_range (built)"], _ = counted(
+        "sharded_dynamic_range",
+        lambda: h.check_range(ix, lo, hi, "positions built"))
+    fold(h.uncounted(lambda: _positions_vs_plain(d, find_q, lo, hi,
+                                                 "built")))
+    tdist.reset_exchange()
+    h.uncounted(lambda: ix.find(find_q))
+    moved["find"] = dict(tdist.EXCHANGE)
+    tdist.reset_exchange()
+    h.uncounted(lambda: ix.find_range(lo, hi))
+    moved["find_range"] = dict(tdist.EXCHANGE)
+    warm[f"D = {P}"] = h.uncounted(lambda: {
+        "find": _verb_ms(lambda: ix.find(find_q)),
+        "find_range": _verb_ms(lambda: ix.find_range(lo, hi))})
+    # the same shards on 2 positions and on one stack (path F's layout):
+    # other meshes over the same DynamicRMI objects, for the times only
+    def view(devices):
+        v = tdist.ShardedDynamicIndex(
+            mesh=tdist.ShardMesh(S, devices=devices), axis=d.axis,
+            splits=d.splits.copy(), shards=d.shards, eps=d.eps,
+            n_leaves=d.n_leaves, build_kwargs=d.build_kwargs)
+        v._init_maintenance()
+        k0 = tlk.LAUNCHES["sharded_dynamic_lookup"]
+        _, r = v.find(find_q)
+        out = {"launches a find": tlk.LAUNCHES["sharded_dynamic_lookup"]
+               - k0}
+        _check_equal(f"D = {len(v.positions)}: find rank vs D = {P}", r,
+                     ix.find(find_q)[1])
+        out.update(find=_verb_ms(lambda: v.find(find_q)),
+                   find_range=_verb_ms(lambda: v.find_range(lo, hi)))
+        return out
+    for devices in ((dev,) * (P // 4), None):
+        tag = f"D = {len(devices) if devices else 1}"
+        warm[tag] = h.uncounted(functools.partial(view, devices))
+        gc.collect()
+        torch.cuda.empty_cache()
+    # path A's churn
+    n_ins = min(2_000_000, n // 100)
+    _, steps["insert (spread)"] = _sync_time(
+        lambda: ix.insert(h.draw(n_ins - n_ins // 20)))
+    live = d.live_keys_tensor()
+    _, steps["delete"] = _sync_time(
+        lambda: ix.delete(h.pick(live, n_ins // 2)))
+    live = d.live_keys_tensor()
+    find_q = fq(live)
+    lo, hi = h.range_pairs(live)
+    steps["find (churned)"], _ = counted(
+        "sharded_dynamic_lookup",
+        lambda: h.check_find(ix, find_q, "positions churned"))
+    steps["find_range (churned)"], _ = counted(
+        "sharded_dynamic_range",
+        lambda: h.check_range(ix, lo, hi, "positions churned"))
+    fold(h.uncounted(lambda: _positions_vs_plain(d, find_q, lo, hi,
+                                                 "churned")))
+    # a skewed ingest into shard 0's range until a boundary run migrates
+    # from position 0 to position 1
+    m0 = d.migrations_incremental + d.migrations_full
+    top, k_lo = float(d.splits[0]), float(keys[0])
+    t_skew, batches = 0.0, 0
+    while d.migrations_incremental + d.migrations_full == m0:
+        if batches == SKEW_BATCHES:
+            raise AssertionError(f"{batches} skewed batches ran no "
+                                 f"migration: {d.live_counts()}")
+        x = (k_lo + (top - k_lo) * torch.rand(
+            n // SKEW_CUT, dtype=f64, device=dev, generator=h.g)).to(f32)
+        _, dt = _sync_time(functools.partial(ix.insert, x.to(f64)))
+        t_skew += dt
+        batches += 1
+    steps[f"skewed insert ({batches} x {n // SKEW_CUT} keys, a run "
+          f"migrated from position 0 to 1)"] = t_skew
+    if S // P != 1:
+        raise AssertionError("shards 0 and 1 must lie on two positions")
+    _, steps["restack (after the migration)"] = _sync_time(
+        lambda: _restack(d))
+    seam_key = float(d.splits[S // 2 - 1])
+    ix.insert(torch.full((9,), seam_key, dtype=f64, device=dev))
+    ptrs = _row_ptrs(d._stack)
+    rows0, full0 = d.restack_rows, d.restack_full
+    _, steps["restack (one dirty row)"] = _sync_time(lambda: _restack(d))
+    if (d.restack_rows - rows0, d.restack_full - full0) != (1, 0) or \
+            _row_ptrs(d._stack) != ptrs:
+        raise AssertionError("a one-shard insert must rewrite one row of "
+                             "its position's stack in place")
+    # planted: at and beside every split, +-inf and NaN
+    live = d.live_keys_tensor()
+    live32 = live.to(f32)
+    sp = torch.as_tensor(d.splits, device=dev).to(f32)
+    beside = torch.cat([sp, torch.nextafter(sp, sp + 1), torch.nextafter(
+        sp, sp - 1)]).to(f64)
+    planted = torch.cat([beside, torch.tensor(
+        [float("inf"), float("nan"), float("-inf")], dtype=f64,
+        device=dev)])
+    find_q = torch.cat([fq(live)[:h.nq - planted.numel()], planted])
+    (found, rank), steps["find (skewed, planted)"] = counted(
+        "sharded_dynamic_lookup", lambda: ix.find(find_q))
+    fin = (find_q < float("inf")) & ~torch.isnan(find_q)
+    pq = find_q.to(f32)
+    _check_equal("find (planted) rank", rank, torch.where(
+        fin, torch.searchsorted(live32, pq), 0).to(i32))
+    _check_equal("find (planted) found", found, fin & (torch.searchsorted(
+        live32, pq, right=True) > torch.searchsorted(live32, pq)))
+    lo, hi = h.range_pairs(live)
+    lo = torch.cat([lo[:-beside.numel()], beside])
+    hi = torch.cat([hi[:-beside.numel()], beside + 1.0])
+    steps["find_range (skewed, planted)"], _ = counted(
+        "sharded_dynamic_range",
+        lambda: h.check_range(ix, lo, hi, "positions planted"))
+    fold(h.uncounted(lambda: _positions_vs_plain(d, find_q, lo, hi,
+                                                 "skewed, planted")))
+    warm[f"D = {P}"].update(h.uncounted(lambda: {
+        "find (skewed)": _verb_ms(lambda: ix.find(find_q)),
+        "find_range (skewed)": _verb_ms(lambda: ix.find_range(lo, hi))}))
+    counters = {k: int(getattr(d, k)) for k in tpersist._IDX_COUNTERS}
+    shard_live = d.live_counts().tolist()
+    # an index with empty shards on the 8 positions
+    tiny = torch.tensor([1.0, 2.0, 5.0, 9.0, 12.0], dtype=f64, device=dev)
+    tix = Index.build(tiny, mesh=mesh, n_leaves=16)
+    tq = torch.tensor([0.5, 1.0, 2.0, 3.0, 9.0, 12.0, 100.0, float("inf"),
+                       float("nan"), float("-inf")], dtype=f64, device=dev)
+    tf, tr = tix.find(tq)
+    _check_equal("empty shards: rank", tr, torch.tensor(
+        [0, 0, 1, 2, 3, 4, 5, 0, 0, 0], dtype=i32, device=dev))
+    _check_equal("empty shards: found", tf, torch.tensor(
+        [False, True, True, False, True, True, False, False, False, False],
+        device=dev))
+    fold(h.uncounted(lambda: _positions_vs_plain(tix.backend, tq, None,
+                                                 None, "empty shards")))
+    empty_txt = f"live keys a shard {tix.backend.live_counts().tolist()}"
+    del tix
+    launches = h.counters()
+    for k in K:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on path H: "
+                                 f"{launches}")
+    for k, v in per_call.items():
+        if any(c != P for c in v):
+            raise AssertionError(f"{k}: launches a call {v}, not {P}")
+    peak_index = torch.cuda.max_memory_allocated() / 2**30
+
+    # ---- 3. recovery: a snapshot, restored and resharded onto meshes -----
+    store_dir = ROOT / "build"
+    store_dir.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="path_h_store_", dir=store_dir)
+    times, reshard = {}, {}
+    try:
+        store = tpersist.SnapshotStore(tmp)
+        _, times["snapshot_sharded (blocking)"] = _sync_time(
+            lambda: ix.snapshot(store, 1))
+        live_snap = d.live_keys_tensor()
+        del ix, d, live, live32, found, rank
+        gc.collect()
+        torch.cuda.empty_cache()
+        rq = fq(live_snap)
+        rlo, rhi = h.range_pairs(live_snap)
+
+        def verify(got, tag, shape):
+            if (got.n_shards, len(got.positions)) != shape:
+                raise AssertionError(f"{tag}: {got.n_shards} shards on "
+                                     f"{len(got.positions)} positions")
+            _check_equal(f"{tag}: live keys", got.live_keys_tensor(),
+                         live_snap)
+            h.uncounted(lambda: (h.check_find(Index(got), rq, tag),
+                                 h.check_range(Index(got), rlo, rhi, tag)))
+        (rix, rep), dt = _sync_time(functools.partial(
+            tpersist.restore_sharded, store, on(*H_RESTORE)))
+        times[f"restore_sharded onto {H_RESTORE[0]} shards over "
+              f"{H_RESTORE[1]} positions"] = dt
+        reshard["restore"] = dataclasses.asdict(rep.reshard)
+        verify(rix, "restored", H_RESTORE)
+        (six, stats), dt = _sync_time(functools.partial(
+            tpersist.reshard_sharded, rix, on(*H_RESHARD)))
+        times[f"reshard_sharded onto {H_RESHARD[0]} shards over "
+              f"{H_RESHARD[1]} positions"] = dt
+        reshard["reshard"] = dataclasses.asdict(stats)
+        del rix
+        verify(six, "resharded", H_RESHARD)
+        for v in reshard.values():
+            if v["full_rebuilds"] != 0:
+                raise AssertionError(f"a reshard rebuilt a shard: {reshard}")
+        del six, live_snap
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak_main = torch.cuda.max_memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 4. two tenants on 2 positions behind one front-end --------------
+    tmesh = on(S, H_TENANT_POSITIONS)
+    tenants = []
+    for t, (mu, sigma) in enumerate(((0.0, 1.0), (0.5, 0.8))):
+        tk = torch.sort(torch.empty(H_TENANT_KEYS, dtype=f32, device=dev)
+                        .log_normal_(mu, sigma, generator=h.g)).values
+        tenants.append(Index.build(tk.to(f64), mesh=tmesh,
+                                   n_leaves=H_TENANT_LEAVES).backend)
+    lives = [t.live_keys_tensor().to(f32) for t in tenants]
+    k0 = dict(tlk.LAUNCHES)
+    fe = tfe.BatchingFrontend(tenants, config=tfe.ServeConfig(
+        latency_budget_s=G_BUDGET_S))
+    if not fe.pack.use_kernel:
+        raise AssertionError("path H's pack must take the kernel path")
+    with fe:
+        fe.warmup((4096,))
+        arrays = [(t, h.pick(lives[t], 4096).cpu().numpy())
+                  for _ in range(4) for t in range(2)]
+        wants = [torch.searchsorted(lives[t], torch.as_tensor(
+            a, device=dev).to(f32)).to(i32).cpu().numpy() for t, a in arrays]
+        b0, c0 = fe.stats.batches, tlk.LAUNCHES["sharded_dynamic_lookup"]
+        i, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < H_CLOSED_S:
+            t, a = arrays[i % len(arrays)]
+            found, rank = fe.lookup(t, a, timeout=120.0)
+            if not found.all() or not np.array_equal(
+                    rank, wants[i % len(arrays)]):
+                raise AssertionError(f"path H tenants: batch {i} wrong")
+            i += 1
+        closed_s = time.perf_counter() - t0
+        tb = fe.stats.batches - b0
+        tl = tlk.LAUNCHES["sharded_dynamic_lookup"] - c0
+    if tb != i or tl != H_TENANT_POSITIONS * tb:
+        raise AssertionError(f"path H tenants: {i} requests, {tb} batches, "
+                             f"{tl} stacked K2 launches (want "
+                             f"{H_TENANT_POSITIONS} a batch)")
+    tenant_launches = {k: tlk.LAUNCHES[k] - k0[k] for k in K}
+    del fe, tenants, lives
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = h.counters()
+    for name in K:
+        rows[name]["launches"] += launches[name]
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        errs.get(name, 0))
+    fw = h.notes.get("path F warm", {})
+    print(f"phase 12: path H (the sharded index across mesh positions: "
+          f"{S} shards of {L} leaves on {P} positions, one shard a "
+          f"position) ok on {card}; every position is {mesh.devices[0]} "
+          f"(one card: the positions share it, the copies between them "
+          f"are no-ops); n={n}; launches {launches}; launches a call "
+          f"{ {k: sorted(set(v)) for k, v in per_call.items()} } (one a "
+          f"position); the stacked K1-K3 at every position equal their "
+          f"plain versions bit for bit (tolerance 0): {errs}; "
+          f"make_lookup_fn -1s (capacity 2.0: equal to _budget_mask's) "
+          f"{budget}")
+    h.print_steps(steps)
+    for tag, v in warm.items():
+        print(f"  warm, {card}, {tag}: " + ", ".join(
+            f"{k} {x:.6f} ms" if isinstance(x, float) else f"{k} {x}"
+            for k, x in v.items()) + " (CUDA events, 20 calls a verb, as "
+            "time_verbs.py)")
+    if fw:
+        print(f"  path F's one stack, same run (its own keys): " + ", ".join(
+            f"{k} {x:.6f} ms" for k, x in fw.items()))
+    for verb, e in moved.items():
+        print(f"  exchange of one {verb}: {e['answers']} position calls, "
+              f"{e['bytes']} bytes between the home position and the "
+              f"others (queries out, answers back), reckoned as if each "
+              f"position were its own card")
+    print(f"  counters after the churn and the skewed ingest: {counters}; "
+          f"live keys a shard {shard_live}; the index with empty shards: "
+          f"{empty_txt}")
+    for k, v in times.items():
+        print(f"  {k}: {v:.6f} s")
+    for k, v in reshard.items():
+        print(f"  ReshardStats ({k}): {v}")
+    print(f"  tenants: 2 x {H_TENANT_KEYS} keys, {S} shards of "
+          f"{H_TENANT_LEAVES} leaves on {H_TENANT_POSITIONS} positions "
+          f"(cut: tenant B's size for both); closed loop of 4,096-key "
+          f"batches, one in flight: {tb} batches in {closed_s:.6f} s "
+          f"({tb / closed_s:.3f} batches/s), {tl} stacked K2 launches "
+          f"({tl / max(tb, 1):.3f} a batch); launches {tenant_launches}")
+    h.print_seam()
+    print(f"  peak memory allocated (path H): {peak_index:.3f} GiB through "
+          f"the index's verbs, {peak_main:.3f} GiB through the recovery "
+          f"({card})")
 
 
 def main(argv=None) -> int:
@@ -3763,6 +4272,13 @@ def main(argv=None) -> int:
 
     # ---- phase 11: path G (the index service), counted --------------------
     _path_g(args, dev, rows, h)
+    print(f"  wall {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- phase 12: path H (the sharded index across positions), counted ---
+    _path_h(args, dev, rows, h)
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
 
     smi = _card()

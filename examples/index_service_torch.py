@@ -1,17 +1,20 @@
 """Multi-tenant learned-index service on the PyTorch port's batching
 front-end (the counterpart of ``examples/index_service.py``).
 
-Two dynamic sharded indexes of different build sizes, each of 4 shards
-stacked on one device, serve as tenants of one
-``repro_torch.serve.frontend.BatchingFrontend``: requests coalesce up to a
-2 ms latency budget, pad to pow2 capacity classes, and every batch's finds
-over both tenants are one launch of the shard-stacked K2 on the card.  An
+Two dynamic sharded indexes of different build sizes, each of 4 shards on
+the positions of one mesh (``--positions``, each position on ``--device``:
+4 is one shard a position, as the reference places them, 1 one stack),
+serve as tenants of one ``repro_torch.serve.frontend.BatchingFrontend``:
+requests coalesce up to a 2 ms latency budget, pad to pow2 capacity
+classes, and every batch's finds over both tenants are one launch of the
+shard-stacked K2 a position that holds queries.  An
 insert rides the queue as a typed ``Request``; a short open-loop Poisson
 drive reports the sustained QPS and p50/p99 latency; then the indexed
 data-pipeline demo (agile reuse on every new shard).
 
     PYTHONPATH=src python examples/index_service_torch.py                # card
     PYTHONPATH=src python examples/index_service_torch.py --device cpu
+    PYTHONPATH=src python examples/index_service_torch.py --positions 2
 
 The tenants' keys are rounded to f32 (the reference example's are not), so
 that on the card the front-end takes the kernels; the dataset's keys are
@@ -46,8 +49,12 @@ def main(argv=None) -> dict:
                    help="seconds of the Poisson drive")
     p.add_argument("--n", type=int, default=1 << 16,
                    help="keys of the larger tenant (the other: n / 4)")
+    p.add_argument("--positions", type=int, default=1, choices=(1, 2, 4),
+                   help="mesh positions the 4 shards lie on, each on "
+                        "--device")
     args = p.parse_args(argv)
     dev = torch.device(args.device)
+    mesh = ShardMesh(4, devices=(dev,) * args.positions)
     rng = np.random.default_rng(3)
 
     # --- multi-tenant serving front-end -----------------------------------
@@ -57,7 +64,7 @@ def main(argv=None) -> dict:
     for i, (n, n_leaves) in enumerate(((args.n, 256), (args.n // 4, 64))):
         raw = rng.lognormal(0, 1, n) * 1e6 + i * 1e9
         keys = np.unique(np.sort(raw).astype(np.float32)).astype(np.float64)
-        tenants.append(Index.build(keys, mesh=ShardMesh(4), n_leaves=n_leaves,
+        tenants.append(Index.build(keys, mesh=mesh, n_leaves=n_leaves,
                                    device=dev).backend)
         live.append(keys)
 
@@ -104,9 +111,10 @@ def main(argv=None) -> dict:
               f"{args.rate:.0f}), p50={out['p50_ms']:.1f}ms "
               f"p99={out['p99_ms']:.1f}ms")
         print(f"  {batches} stacked dispatches over {fe.pack.n_tenants} "
-              f"tenants x {fe.pack.n_shards} shards "
-              f"({launches} launches of the stacked K2), capacity classes "
-              f"{sorted(st.qcaps)}, pad fraction {st.pad_fraction:.0%}")
+              f"tenants x {fe.pack.n_shards} shards on {args.positions} "
+              f"positions ({launches} launches of the stacked K2), "
+              f"capacity classes {sorted(st.qcaps)}, pad fraction "
+              f"{st.pad_fraction:.0%}")
 
     # --- indexed data pipeline ----------------------------------------------
     ds = IndexedDataset.create(eps=0.9, kind="linear", n_leaves=128,

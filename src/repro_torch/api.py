@@ -2,7 +2,8 @@
 ``repro.api``): the single-host ``core.updates.DynamicRMI``
 (``mesh=None``) or the range-partitioned
 ``core.distributed.ShardedDynamicIndex`` (``mesh=ShardMesh(n)``, its shards
-stacked on the one device).
+stacked on the one device, or ``ShardMesh(n, devices=...)``, each mesh
+position's shards on its device).
 
   =============  ====================================================
   verb           backend call
@@ -62,7 +63,8 @@ class Index:
         """Build over sorted ``keys`` on ``device`` (CUDA unless
         ``device="cpu"``).  ``mesh=None`` builds a ``DynamicRMI``; a
         ``core.distributed.ShardMesh`` a ``ShardedDynamicIndex`` over
-        ``mesh.shape[axis]`` shards.  ``kwargs`` go to the backend's
+        ``mesh.shape[axis]`` shards, on the mesh's devices when it names
+        them.  ``kwargs`` go to the backend's
         ``build`` (``n_leaves``, ``kind``, ``eps``, ``reuse_on_rebuild``,
         ``drift_bins``, ``drift_hi``, ``drift_lo``, ``swap_on_drift``,
         ...)."""
@@ -144,7 +146,8 @@ class Index:
         """Restore from the newest verifiable snapshot in ``store`` (or
         exactly ``step``) onto ``device`` (CUDA unless ``device="cpu"``).
         ``mesh=None`` restores the single-host backend; a ``ShardMesh`` the
-        sharded one, resharded onto its shard count."""
+        sharded one, resharded onto its shard count and placed on its
+        devices when it names them."""
         st = _as_store(store)
         if mesh is None:
             backend, _ = persist_mod.restore_dynamic(st, step=step,

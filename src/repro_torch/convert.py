@@ -148,21 +148,28 @@ _SHARDED_COUNTERS = ("rebalances", "migrations_incremental",
 
 
 def sharded_from_arrays(arrays: dict, *, pool: ModelPool | None = None,
-                        device=None) -> ShardedDynamicIndex:
+                        device=None, mesh=None) -> ShardedDynamicIndex:
     """The port's ``ShardedDynamicIndex`` over the given shards, splits,
-    counter table and mutes, with an optional pool (on the same
-    device)."""
-    dev = resolve_device(device)
-    shards = []
-    for a in arrays["shards"]:
-        drift = drift_from_arrays(a["drift"], device=dev) \
-            if a.get("drift") is not None else None
-        shards.append(dynamic_from_arrays(a, pool=pool, drift=drift,
-                                          device=dev))
+    counter table and mutes, with an optional pool (on the home device).
+    ``mesh`` (a ``ShardMesh`` of the arrays' shard count) places the
+    shards on its devices; without one, every shard lies on ``device``."""
     n = int(arrays["n_shards"])
+    axis = str(arrays.get("axis", "data"))
+    mesh = ShardMesh(n, axis) if mesh is None else mesh
+    if int(mesh.shape[axis]) != n:
+        raise ValueError(f"a mesh of {mesh.shape[axis]} shards for {n}")
+    positions = mesh.positions(device)
+    dev = positions[0]
+    shards = []
+    for s, a in enumerate(arrays["shards"]):
+        sdev = positions[s * len(positions) // n]
+        drift = drift_from_arrays(a["drift"], device=sdev) \
+            if a.get("drift") is not None else None
+        shards.append(dynamic_from_arrays(
+            a, pool=None if pool is None else pool.replica(sdev),
+            drift=drift, device=sdev))
     idx = ShardedDynamicIndex(
-        mesh=ShardMesh(n, str(arrays.get("axis", "data"))),
-        axis=str(arrays.get("axis", "data")),
+        mesh=mesh, axis=axis,
         splits=np.array(arrays["splits"], np.float64), shards=shards,
         eps=float(arrays["eps"]), n_leaves=int(arrays["n_leaves"]),
         pool=pool, rebalance_ratio=arrays.get("rebalance_ratio", 0.5),
@@ -181,19 +188,26 @@ def sharded_from_arrays(arrays: dict, *, pool: ModelPool | None = None,
     return idx
 
 
-def sharded_index_from_arrays(arrays: dict, *, device=None) -> ShardedIndex:
-    """The port's static ``ShardedIndex`` over the given stacked tables."""
-    dev = resolve_device(device)
-    t = _tensor(arrays, dev)
+def sharded_index_from_arrays(arrays: dict, *, device=None,
+                              mesh=None) -> ShardedIndex:
+    """The port's static ``ShardedIndex`` over the given stacked tables,
+    each mesh position's rows on its device (``mesh`` as in
+    :func:`sharded_from_arrays`)."""
     n = int(arrays["n_shards"])
-    return ShardedIndex(
-        mesh=ShardMesh(n, str(arrays.get("axis", "data"))),
-        axis=str(arrays.get("axis", "data")), splits=t("splits"),
-        keys=t("keys"), valid=t("valid", torch.int64),
+    axis = str(arrays.get("axis", "data"))
+    mesh = ShardMesh(n, axis) if mesh is None else mesh
+    if int(mesh.shape[axis]) != n:
+        raise ValueError(f"a mesh of {mesh.shape[axis]} shards for {n}")
+    positions = mesh.positions(device)
+    t = _tensor(arrays, positions[0])
+    return ShardedIndex.from_stack(
+        mesh, axis, splits=t("splits"), keys=t("keys"),
+        valid=t("valid", torch.int64),
         root=models.LinearParams(a=t("root_a"), b=t("root_b")),
         leaves=models.LinearParams(a=t("leaf_a"), b=t("leaf_b")),
         err_lo=t("err_lo"), err_hi=t("err_hi"),
-        n_leaves=int(arrays["n_leaves"]), search_iters=int(arrays["iters"]))
+        n_leaves=int(arrays["n_leaves"]), search_iters=int(arrays["iters"]),
+        positions=positions)
 
 
 def drift_from_arrays(arrays: dict, *, device=None) -> DriftState:

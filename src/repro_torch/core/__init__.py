@@ -6,9 +6,9 @@
   rmrt.build_rmrt / rmrt.lookup       the paper's RMRT
   updates.DynamicRMI                  §4 insert handling (Lemma 4.1)
   distributed.ShardedDynamicIndex     the range-partitioned index, its
-                                      shards stacked on one card
-                                      (ShardMesh, build_sharded,
-                                      make_lookup_fn)
+                                      shards stacked a mesh position on
+                                      the position's device (ShardMesh,
+                                      build_sharded, make_lookup_fn)
   drift                               online KS drift monitoring and
                                       bound-checked pool hot-swaps
   paths.resolve_path                  the path="auto"|"kernel"|"jnp" policy

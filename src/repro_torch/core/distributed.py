@@ -1,24 +1,32 @@
-"""Range-partitioned learned index with its shards stacked on one card
+"""Range-partitioned learned index over the positions of a mesh
 (counterpart of ``repro.core.distributed``).
 
-An index over more keys than one host holds is range-partitioned across
-shards.  The reference runs one shard a device under ``shard_map`` and
-routes each query batch through an ``all_to_all`` exchange; here the
-shards' tables are stacked on one card and the exchange becomes three
-steps, so that every find, range or static lookup over all shards is one
-launch of a shard-stacked kernel (``kernels.lookup.sharded_*``):
+An index over more keys than one card holds is range-partitioned across
+shards, and the shards across the devices of a mesh.  ``ShardMesh(S,
+devices=(d_0, ..., d_{D-1}))`` places shards p*S/D .. (p+1)*S/D - 1 on
+``d_p``, stacked there; D = S is the reference's layout, one shard a
+device, and ``devices=None`` stacks every shard on the one ``device=``.
+One process drives every position, as the reference's single controller
+does: it holds each shard's two-tier index and routes the updates and
+migrations.  A query batch arrives on the home device ``d_0`` and goes
+through :func:`_exchange`, the counterpart of the reference's
+``_routed_exchange`` (an ``all_to_all`` out to the owners, the owners'
+answers, the inverse ``all_to_all`` back):
 
   route    ``dest = searchsorted(splits, q, side="left")`` (NaN routes to
            the last shard), then a stable grouping of the queries by
-           ``dest``;
-  answer   one launch over all grouped queries, each lane reading its
-           shard's tables from a descriptor array (or, on the f64 path, one
-           pass a shard);
-  return   the answers scattered back to the queries' order.
-
-``ShardMesh`` stands in for ``jax.sharding.Mesh``: it names the shard count
-(``mesh.shape[axis]``) and carries no device; an index takes ``device=`` as
-every entry point of the port does.
+           ``dest``: a position's shards are consecutive, so its queries
+           are one slice of the grouped batch;
+  out      one host read of the slices' lengths, each slice copied to its
+           position's device;
+  answer   one launch of a shard-stacked kernel (``kernels.lookup
+           .sharded_*``) a position, each lane reading its shard's tables
+           from a descriptor array (or, on the f64 path, one pass a
+           shard); every position's launch is issued before the
+           epilogue's first host read, and the epilogue reads once a step
+           for all positions;
+  back     the answers copied to the home device, the live offsets added
+           there, and the answers scattered back to the queries' order.
 
 Partitioning invariants (shared by the static and dynamic index):
 :func:`shard_bounds` is an equal-count split snapped to equal-key run
@@ -36,13 +44,16 @@ index reports found True for +inf), and rank ``valid[s] + s * cap`` in the
 static lookup.  -inf is live and routes to shard 0.
 
 ``ShardedDynamicIndex`` keeps the reference's maintenance contract: each
-shard is a ``core.updates.DynamicRMI``; mutations mark shards dirty; the
-stacked state the finds read is rewritten row by row in place
-(``index_copy_``), re-padded whole only when the global capacity class
-changes; a (n_shards, 4) device counter table feeds the rebalance trigger,
-one reduction and one host read a batch; skew migrates whole boundary runs
-to a neighbour (the donor sheds in place, the run rides the receiver's
-delta tier), delta-hot shards flush and dead-hot shards rebuild in place.
+shard is a ``core.updates.DynamicRMI`` on its position's device (a pool
+replicated once a device); mutations mark shards dirty; the stacked state
+the finds read is rewritten row by row in place (``index_copy_``), a
+position's rows on its device, re-padded whole only when the global
+capacity class changes (the class is global across positions, as in the
+reference); a (n_shards, 4) counter table on the home device feeds the
+rebalance trigger, one reduction and one host read a batch; skew migrates
+whole boundary runs to a neighbour, across positions when they differ
+(the donor sheds in place, the run rides the receiver's delta tier),
+delta-hot shards flush and dead-hot shards rebuild in place.
 """
 from __future__ import annotations
 
@@ -66,16 +77,65 @@ _I32 = torch.int32
 _I64 = torch.int64
 
 
+def _position_device(device) -> torch.device:
+    """A mesh position's device, resolved as an entry point resolves its
+    ``device=`` (no fallback), a card always by its index."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        i = torch.cuda.current_device() if dev.index is None else dev.index
+        if i >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"a mesh position on cuda:{i}, and "
+                f"{torch.cuda.device_count()} CUDA devices are visible")
+        dev = torch.device("cuda", i)
+    return dev
+
+
 @dataclass(frozen=True)
 class ShardMesh:
-    """The shard count of a sharded index under a mesh axis name: the
-    port's stand-in for ``jax.sharding.Mesh`` (``mesh.shape[axis]``)."""
+    """The shards of a sharded index and the devices that hold them: the
+    port's stand-in for ``jax.sharding.Mesh`` (``mesh.shape[axis]`` is the
+    shard count).
+
+    ``devices`` names the device of each of D mesh positions, D dividing
+    ``n_shards`` = S: position p holds shards p*S/D .. (p+1)*S/D - 1,
+    stacked on ``devices[p]``, and ``devices[0]`` is the home device, where
+    a caller's batches, the answers, the splits and the counter table
+    live.  D = S is the reference's layout, one shard a device; D = 1 one
+    stack.  ``devices=None`` stacks every shard on the entry point's
+    ``device=``.  A mesh that mixes device types, or names a card that is
+    not there, raises."""
     n_shards: int
     axis: str = "data"
+    devices: tuple | None = None
+
+    def __post_init__(self):
+        if self.devices is None:
+            return
+        devs = tuple(_position_device(d) for d in self.devices)
+        if not devs or self.n_shards % len(devs):
+            raise ValueError(f"{len(devs)} mesh positions do not divide "
+                             f"{self.n_shards} shards")
+        if len({d.type for d in devs}) > 1:
+            raise ValueError("a mesh mixes device types: "
+                             f"{[str(d) for d in devs]}")
+        object.__setattr__(self, "devices", devs)
 
     @property
     def shape(self) -> dict:
         return {self.axis: self.n_shards}
+
+    def positions(self, device=None) -> tuple:
+        """The device of each position: ``devices``, or with none named the
+        one ``device`` (CUDA unless ``device="cpu"``).  A ``device`` that
+        contradicts ``devices[0]`` raises."""
+        if self.devices is None:
+            return (resolve_device(device),)
+        if device is not None and \
+                _position_device(device) != self.devices[0]:
+            raise ValueError(f"device={device} is not the mesh's home "
+                             f"device {self.devices[0]}")
+        return self.devices
 
 
 def _n_shards(mesh, axis: str) -> int:
@@ -83,6 +143,21 @@ def _n_shards(mesh, axis: str) -> int:
     if n < 1:
         raise ValueError(f"a mesh of {n} shards")
     return n
+
+
+def _layout(positions: tuple, n_rows: int) -> list:
+    """(device, first row, rows) of each position of a stack of ``n_rows``
+    rows, cut into equal consecutive runs."""
+    k = n_rows // len(positions)
+    return [(dev, p * k, k) for p, dev in enumerate(positions)]
+
+
+def _at_home(ts: list, home: torch.device) -> torch.Tensor:
+    """The positions' pieces ``ts`` concatenated on the home device (the
+    one piece itself when there is one)."""
+    if len(ts) == 1:
+        return ts[0]
+    return torch.cat([t.to(home) for t in ts])
 
 
 # ---------------------------------------------------------------------------
@@ -163,18 +238,6 @@ def _stack_params(ps: list):
     return type(ps[0])(*(torch.stack(f) for f in zip(*ps, strict=True)))
 
 
-def _segments(ds: torch.Tensor, n_shards: int) -> list:
-    """[(shard, start, end)] of the non-empty runs of grouped shard ids
-    (one host read of the counts)."""
-    cnt = torch.bincount(ds.long(), minlength=n_shards).tolist()
-    out, a = [], 0
-    for s, c in enumerate(cnt):
-        if c:
-            out.append((s, a, a + c))
-        a += c
-    return out
-
-
 def _scatter_back(order: torch.Tensor, *grouped):
     """Answers of grouped queries put back in the queries' order."""
     outs = []
@@ -185,35 +248,110 @@ def _scatter_back(order: torch.Tensor, *grouped):
     return outs
 
 
+# The exchange's accounting: ``calls`` exchanges, ``answers`` position calls
+# (one a position that holds queries), ``bytes`` copied between the home
+# position and the others (the queries out, the answers back), counted as if
+# every position were its own card.
+EXCHANGE = {"calls": 0, "answers": 0, "bytes": 0}
+
+
+def reset_exchange() -> None:
+    for k in EXCHANGE:
+        EXCHANGE[k] = 0
+
+
+def _exchange(ds: torch.Tensor, qm: torch.Tensor, layout: list,
+              dtypes: tuple, *, kernel=None, f64_row=None) -> tuple:
+    """The routed exchange of a grouped batch (the counterpart of the
+    reference's ``_routed_exchange``): ``ds`` the sorted row ids and ``qm``
+    the queries, on the home device; ``layout`` the (device, first row,
+    rows) of each mesh position.  A position's rows are consecutive, so its
+    queries are one slice of the batch:
+
+      1. one host read of the slices' lengths (none for one position on
+         the kernel path);
+      2. each slice copied to its position's device, its row ids made
+         local to the position;
+      3. one answer call a position: ``kernel`` = (an ``ops.*_all``
+         function, ``call(i, f32 queries, local rows)`` giving position
+         i's (arguments, keywords)), every position's launch issued before
+         the epilogue's first host read; or on the f64 path
+         ``f64_row(i, local row, queries)`` a row;
+      4. the answers copied back into one tensor a dtype of ``dtypes``,
+         in the batch's grouped order, on the home device."""
+    home, Q = qm.device, qm.shape[0]
+    EXCHANGE["calls"] += 1
+    if kernel is not None and len(layout) == 1:
+        cuts = [(0, 0, Q, None)]
+    else:
+        n_rows = layout[-1][1] + layout[-1][2]
+        cnt = torch.bincount(ds.long(), minlength=n_rows).tolist()
+        cuts, a = [], 0
+        for i, (_, lo, n) in enumerate(layout):
+            c = cnt[lo:lo + n]
+            e = a + sum(c)
+            if e > a:
+                cuts.append((i, a, e, c))
+            a = e
+    EXCHANGE["answers"] += len(cuts)
+    sent, calls, outs = [], [], []
+    for i, a, e, c in cuts:
+        dev, lo, _ = layout[i]
+        if kernel is not None:
+            q = qm[a:e].to(dev, torch.float32)
+            rid = (ds[a:e] if lo == 0 else ds[a:e] - lo).to(dev)
+            calls.append(kernel[1](i, q, rid))
+            sent.append((q, rid))
+            continue
+        q = qm[a:e].to(dev)
+        res = tuple(torch.empty(e - a, dtype=t, device=dev) for t in dtypes)
+        b = 0
+        for j, cj in enumerate(c):
+            if cj:
+                for r, v in zip(res, f64_row(i, j, q[b:b + cj]), strict=True):
+                    r[b:b + cj] = v
+            b += cj
+        outs.append(res)
+        sent.append((q,))
+    if kernel is not None:
+        outs = [o if isinstance(o, tuple) else (o,) for o in kernel[0](calls)]
+    for (i, *_), moved, o in zip(cuts, sent, outs, strict=True):
+        if i:
+            EXCHANGE["bytes"] += sum(t.numel() * t.element_size()
+                                     for t in (*moved, *o))
+    if len(cuts) == 1 and cuts[0][1:3] == (0, Q):
+        return tuple(t.to(home) for t in outs[0])
+    res = tuple(torch.empty(Q, dtype=t, device=home) for t in dtypes)
+    for (_, a, e, _), o in zip(cuts, outs, strict=True):
+        for r, v in zip(res, o, strict=True):
+            r[a:e] = v
+    return res
+
+
 # ---------------------------------------------------------------------------
 # The static sharded index.
 # ---------------------------------------------------------------------------
 @dataclass
-class ShardedIndex:
-    """Per-shard linear RMIs, stacked, and the split vector."""
-    mesh: ShardMesh
-    axis: str
-    splits: torch.Tensor     # (n_shards - 1,) f64
-    keys: torch.Tensor       # (n_shards, cap) f64, +inf padded
-    valid: torch.Tensor      # (n_shards,) int64 real keys a shard
-    root: models.LinearParams      # stacked (n_shards,)
-    leaves: models.LinearParams    # stacked (n_shards, n_leaves)
+class ShardStack:
+    """The shards of one mesh position, stacked on its device: the keys
+    (k, cap) f64 +inf padded, the per-shard linear RMIs, and the kernel
+    tables the shard-stacked K1 reads, built on the first kernel-path
+    lookup."""
+    keys: torch.Tensor       # (k, cap) f64, +inf padded
+    root: models.LinearParams      # stacked (k,)
+    leaves: models.LinearParams    # stacked (k, n_leaves)
     err_lo: torch.Tensor
     err_hi: torch.Tensor
     n_leaves: int
     search_iters: int | None = None
-    # kernel tables, built on the first kernel-path lookup: packed
-    # (roots, mats, vecs), f32 keys, leaf rows, fences, descriptors
+    # kernel tables: packed (roots, mats, vecs), f32 keys, leaf rows,
+    # fences, descriptors
     _packed: tuple | None = None
     _kf32: torch.Tensor = None
     _rows: torch.Tensor = None
     _fences: torch.Tensor = None
     _tabs: torch.Tensor = None
     _f32_exact: bool | None = None
-
-    @property
-    def n_shards(self) -> int:
-        return int(self.keys.shape[0])
 
     @property
     def device(self) -> torch.device:
@@ -227,8 +365,6 @@ class ShardedIndex:
 
     @property
     def f32_exact(self) -> bool:
-        """Every shard's keys round-trip through f32 (the kernel path's
-        precondition)."""
         if self._f32_exact is None:
             self._f32_exact = bool(
                 (self.keys_f32.to(_F64) == self.keys).all())
@@ -238,7 +374,7 @@ class ShardedIndex:
         """(roots, mats, vecs) stacked packed kernel tables (cached)."""
         if self._packed is None:
             kr, km, kv = [], [], []
-            for s in range(self.n_shards):
+            for s in range(self.keys.shape[0]):
                 kr.append(tlk.pack_root("linear", _row(self.root, s)))
                 w1, b1, w2, b2 = rmi_mod._leaf_table_arrays(
                     "linear", _row(self.leaves, s), self.n_leaves)
@@ -266,38 +402,118 @@ class ShardedIndex:
                     rows=self._rows, fences=self._fences, tabs=self._tabs)
 
 
+@dataclass
+class ShardedIndex:
+    """Per-shard linear RMIs, one :class:`ShardStack` a mesh position, and
+    the split vector and valid counts on the home device."""
+    mesh: ShardMesh
+    axis: str
+    splits: torch.Tensor     # (n_shards - 1,) f64
+    valid: torch.Tensor      # (n_shards,) int64 real keys a shard
+    parts: list              # ShardStack a position
+    n_leaves: int
+    search_iters: int | None = None
+
+    @classmethod
+    def from_stack(cls, mesh, axis: str, splits, keys, valid, root, leaves,
+                   err_lo, err_hi, n_leaves: int, search_iters,
+                   positions: tuple) -> "ShardedIndex":
+        """The index over whole (n_shards, ...) stacks, each position's
+        rows copied to its device."""
+        home = positions[0]
+        parts = []
+        for dev, lo, k in _layout(positions, keys.shape[0]):
+            cut = lambda t: t[lo:lo + k].to(dev)
+            parts.append(ShardStack(
+                keys=cut(keys), root=type(root)(*map(cut, root)),
+                leaves=type(leaves)(*map(cut, leaves)), err_lo=cut(err_lo),
+                err_hi=cut(err_hi), n_leaves=n_leaves,
+                search_iters=search_iters))
+        return cls(mesh=mesh, axis=axis, splits=splits.to(home),
+                   valid=valid.to(home), parts=parts, n_leaves=n_leaves,
+                   search_iters=search_iters)
+
+    @property
+    def n_shards(self) -> int:
+        return sum(p.keys.shape[0] for p in self.parts)
+
+    @property
+    def cap(self) -> int:
+        return int(self.parts[0].keys.shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        """The home device."""
+        return self.parts[0].device
+
+    @property
+    def positions(self) -> tuple:
+        return tuple(p.device for p in self.parts)
+
+    @property
+    def keys(self) -> torch.Tensor:
+        """The whole (n_shards, cap) key stack on the home device (a copy
+        when the positions are several)."""
+        return _at_home([p.keys for p in self.parts], self.device)
+
+    @property
+    def f32_exact(self) -> bool:
+        """Every shard's keys round-trip through f32 (the kernel path's
+        precondition)."""
+        return all(p.f32_exact for p in self.parts)
+
+    def kernel_tables(self) -> dict:
+        """:meth:`ShardStack.kernel_tables` of a one-position index."""
+        if len(self.parts) != 1:
+            raise ValueError("an index over several positions has kernel "
+                             "tables a position: parts[p].kernel_tables()")
+        return self.parts[0].kernel_tables()
+
+
 def build_sharded(keys, mesh, axis: str = "data", n_leaves: int = 1024,
                   pool=None, *, device=None) -> ShardedIndex:
     """Equal-count range partition snapped to duplicate-run boundaries; one
-    linear RMI a shard (empty shards get the trivial zero-model build), on
-    ``device`` (CUDA unless ``device="cpu"``)."""
-    dev = resolve_device(device)
+    linear RMI a shard (empty shards get the trivial zero-model build),
+    each on its mesh position's device (with ``mesh.devices`` None, on
+    ``device``: CUDA unless ``device="cpu"``)."""
+    positions = mesh.positions(device)
+    home = positions[0]
     n_shards = _n_shards(mesh, axis)
-    keys = torch.as_tensor(keys, dtype=_F64, device=dev).reshape(-1)
+    keys = torch.as_tensor(keys, dtype=_F64,
+                           device=home if len(positions) == 1 else None)
+    keys = keys.reshape(-1)
     n = keys.shape[0]
     if n == 0:
         raise ValueError("build_sharded needs at least one key")
     bounds = shard_bounds(keys, n_shards)
     cap = max(int(np.diff(bounds).max()), 1)
-    splits = torch.as_tensor(_splits_from_bounds(keys, bounds), device=dev)
-    shards, valid, roots, leaves, elos, ehis = [], [], [], [], [], []
-    for s in range(n_shards):
-        part = keys[int(bounds[s]):int(bounds[s + 1])]
-        idx = rmi_mod.build_rmi(part, n_leaves=n_leaves, kind="linear",
-                                pool=pool, device=dev)
-        shards.append(tlk.pad_capacity(part, cap))
-        valid.append(part.shape[0])
-        roots.append(idx.root)
-        leaves.append(idx.leaves)
-        elos.append(idx.err_lo)
-        ehis.append(idx.err_hi)
-    err_lo, err_hi = torch.stack(elos), torch.stack(ehis)
+    splits = torch.as_tensor(_splits_from_bounds(keys, bounds), device=home)
+    parts, valid = [], []
+    for dev, lo, k in _layout(positions, n_shards):
+        shards, roots, leaves, elos, ehis = [], [], [], [], []
+        for s in range(lo, lo + k):
+            part = keys[int(bounds[s]):int(bounds[s + 1])].to(dev)
+            idx = rmi_mod.build_rmi(
+                part, n_leaves=n_leaves, kind="linear",
+                pool=None if pool is None else pool.replica(dev), device=dev)
+            shards.append(tlk.pad_capacity(part, cap))
+            valid.append(part.shape[0])
+            roots.append(idx.root)
+            leaves.append(idx.leaves)
+            elos.append(idx.err_lo)
+            ehis.append(idx.err_hi)
+        parts.append(ShardStack(
+            keys=torch.stack(shards), root=_stack_params(roots),
+            leaves=_stack_params(leaves), err_lo=torch.stack(elos),
+            err_hi=torch.stack(ehis), n_leaves=n_leaves))
+    iters = tlk.search_iters(_at_home([p.err_lo for p in parts], home),
+                             _at_home([p.err_hi for p in parts], home), cap)
+    for p in parts:
+        p.search_iters = iters
     return ShardedIndex(
-        mesh=mesh, axis=axis, splits=splits, keys=torch.stack(shards),
-        valid=torch.as_tensor(valid, dtype=_I64, device=dev),
-        root=_stack_params(roots), leaves=_stack_params(leaves),
-        err_lo=err_lo, err_hi=err_hi, n_leaves=n_leaves,
-        search_iters=tlk.search_iters(err_lo, err_hi, cap))
+        mesh=mesh, axis=axis, splits=splits, parts=parts,
+        valid=torch.as_tensor(valid, dtype=_I64, device=home),
+        n_leaves=n_leaves, search_iters=iters)
 
 
 def _cumcount(ids: torch.Tensor, n_bins: int) -> torch.Tensor:
@@ -344,39 +560,42 @@ def make_lookup_fn(index: ShardedIndex, *,
     ``capacity_factor``: C = max(int(B * factor / n_shards), 1) slots for
     each (origin block, destination) pair, B = Q / n_shards; queries past
     the budget answer -1 (the caller retries).  None answers every query.
-    ``path`` as in ``core.paths``: the kernel path is one launch of the
-    shard-stacked K1 (``kernels.ops.sharded_index_lookup``), the f64 path a
-    verified window search a shard."""
-    S, cap = index.keys.shape
-    dev = index.device
+    The budget is the reference's, whatever the positions: reckoned on the
+    home device over the whole batch.  ``path`` as in ``core.paths``: the
+    kernel path is one launch of the shard-stacked K1 a mesh position
+    (``kernels.ops.sharded_index_lookup_all`` through :func:`_exchange`),
+    the f64 path a verified window search a shard."""
+    S, cap = index.n_shards, index.cap
+    home = index.device
     iters = index.search_iters
+    parts = index.parts
+    layout = _layout(index.positions, S)
     use_kernel = resolve_path(path, f32_exact=lambda: index.f32_exact,
-                              device=dev, what="sharded key space")
-    tabs = index.kernel_tables() if use_kernel else None
-    member = _member(index.keys[:, 0])
+                              device=home, what="sharded key space")
+    tabs = [p.kernel_tables() for p in parts] if use_kernel else None
+    member = _at_home([_member(p.keys[:, 0]) for p in parts], home)
 
-    def local_f64(s, q):
-        b = rmi_mod.root_buckets("linear", _row(index.root, s), q,
+    def local_f64(i, j, q):
+        p = parts[i]
+        b = rmi_mod.root_buckets("linear", _row(p.root, j), q,
                                  index.n_leaves, cap)
-        lo, hi = rmi_mod.leaf_window("linear", _row(index.leaves, s),
-                                     index.err_lo[s], index.err_hi[s], b, q,
-                                     cap)
-        return rmi_mod.verified_search(index.keys[s], q, lo, hi,
-                                       iters=iters)
+        lo, hi = rmi_mod.leaf_window("linear", _row(p.leaves, j),
+                                     p.err_lo[j], p.err_hi[j], b, q, cap)
+        return (rmi_mod.verified_search(p.keys[j], q, lo, hi, iters=iters),)
+
+    def call(i, qf, rid):
+        t = tabs[i]
+        return ((qf, rid, t["roots"], t["mats"], t["vecs"], t["keys"]),
+                dict(n_leaves=index.n_leaves, iters=iters, rows=t["rows"],
+                     fences=t["fences"], tabs=t["tabs"]))
 
     def lookup(q_global) -> torch.Tensor:
-        q = torch.as_tensor(q_global, dtype=_F64, device=dev).reshape(-1)
+        q = torch.as_tensor(q_global, dtype=_F64, device=home).reshape(-1)
         dest, order, ds, qm, live = _grouped(index.splits, member, q)
-        if use_kernel:
-            r = ops.sharded_index_lookup(
-                qm.to(torch.float32), ds, tabs["roots"], tabs["mats"],
-                tabs["vecs"], tabs["keys"], n_leaves=index.n_leaves,
-                iters=iters, rows=tabs["rows"], fences=tabs["fences"],
-                tabs=tabs["tabs"])
-        else:
-            r = torch.empty(qm.shape, dtype=_I32, device=dev)
-            for s, a, e in _segments(ds, S):
-                r[a:e] = local_f64(s, qm[a:e])
+        (r,) = _exchange(
+            ds, qm, layout, (_I32,), f64_row=local_f64,
+            kernel=(ops.sharded_index_lookup_all, call) if use_kernel
+            else None)
         v = index.valid[ds.long()]
         rank = (torch.where(live, torch.minimum(r.long(), v), v)
                 + ds.long() * cap).to(_I32)
@@ -436,49 +655,49 @@ def _rebalance_trigger(counts: torch.Tensor, muted: torch.Tensor,
                         (dead_hot[hot] & any_).to(_I64)])
 
 
-def _row_f64_answer(st: dict, r: int, q: torch.Tensor, rng: bool,
-                    n_leaves: int, route_n: float):
-    """Row ``r``'s f64 answer on the stack ``st`` (the reference's jnp
-    body): route at the row's scale ``route_n`` over ``n_leaves`` leaves,
-    window, two-tier tail over the row's padded tiers at the stack's
-    depth."""
-    b = rmi_mod.root_buckets("linear", _row(st["root"], r), q, n_leaves,
+def _row_f64_answer(st: dict, part: dict, r: int, q: torch.Tensor,
+                    rng: bool, n_leaves: int, route_n: float):
+    """Row ``r`` of the position ``part`` of the stack ``st``: its f64
+    answer (the reference's jnp body): route at the row's scale ``route_n``
+    over ``n_leaves`` leaves, window, two-tier tail over the row's padded
+    tiers at the stack's depth."""
+    b = rmi_mod.root_buckets("linear", _row(part["root"], r), q, n_leaves,
                              route_n)
-    lo, hi = rmi_mod.leaf_window(st["leaf_kind"], _row(st["leaves"], r),
-                                 st["err_lo"][r], st["err_hi"][r], b, q,
+    lo, hi = rmi_mod.leaf_window(st["leaf_kind"], _row(part["leaves"], r),
+                                 part["err_lo"][r], part["err_hi"][r], b, q,
                                  st["bcap"])
-    args = (st["base"][r], st["bpsum"][r], st["dk"][r], st["dpsum"][r])
+    args = (part["base"][r], part["bpsum"][r], part["dk"][r],
+            part["dpsum"][r])
     if rng:
         return two_tier_range_answer(*args, q, q, lo, hi, st["iters"])
     found, rank, _ = two_tier_answer(*args, q, lo, hi, st["iters"])
     return found, rank
 
 
-def _answer_grouped(grouped, offs: torch.Tensor, n_rows: int, rng: bool,
+def _answer_grouped(grouped, offs: torch.Tensor, layout: list, rng: bool,
                     kernel, f64_row):
-    """Answers of a batch grouped by row (:func:`_group`): one launch of
-    the shard-stacked K2 (or, with ``rng``, K3) over every row when
-    ``kernel`` -- (its stacked tables, MLP leaf rows, descriptors,
-    keywords) -- is given, else ``f64_row(r, queries)`` a row; then each
-    row's live offset ``offs[r]`` added and the answers put back in the
-    batch's order: (found, rank), or (rank_lo, rank_hi) of each query as a
-    point range.  Non-live queries answer (False, 0) / (0, 0)."""
+    """Answers of a batch grouped by row (:func:`_group`) over a stack laid
+    out on mesh positions (``layout``, as :func:`_exchange` takes it): one
+    launch of the shard-stacked K2 (or, with ``rng``, K3) a position when
+    ``kernel`` -- ``kernel(i)`` giving position i's (stacked tables, MLP
+    leaf rows, descriptors, keywords) -- is given, else ``f64_row(i, local
+    row, queries)`` a row; then each row's live offset ``offs[r]`` added
+    on the home device and the answers put back in the batch's order:
+    (found, rank), or (rank_lo, rank_hi) of each query as a point range.
+    Non-live queries answer (False, 0) / (0, 0)."""
     order, ds, qm, live = grouped
-    if kernel is not None:
-        tables, rows, tabs, kw = kernel
-        qf = qm.to(torch.float32)
+
+    def call(i, qf, rid):
+        tables, rows, tabs, kw = kernel(i)
         if rng:
-            a, b = ops.sharded_range_lookup(qf, qf, ds, *tables, tabs=tabs,
-                                            **kw)
-        else:
-            a, b = ops.sharded_dynamic_find(qf, ds, *tables, rows=rows,
-                                            tabs=tabs, **kw)
-    else:
-        a = torch.zeros(qm.shape, dtype=_I32 if rng else torch.bool,
-                        device=qm.device)
-        b = torch.zeros(qm.shape, dtype=_I32, device=qm.device)
-        for r, lo, hi in _segments(ds, n_rows):
-            a[lo:hi], b[lo:hi] = f64_row(r, qm[lo:hi])
+            return (qf, qf, rid, *tables), dict(tabs=tabs, **kw)
+        return (qf, rid, *tables), dict(rows=rows, tabs=tabs, **kw)
+
+    multi = ops.sharded_range_lookup_all if rng \
+        else ops.sharded_dynamic_find_all
+    a, b = _exchange(ds, qm, layout, (_I32 if rng else torch.bool, _I32),
+                     kernel=None if kernel is None else (multi, call),
+                     f64_row=f64_row)
     off = offs[ds.long()]
     zero = torch.zeros_like(off)
     if rng:
@@ -502,9 +721,10 @@ def _pad_psum(a: torch.Tensor, c: int) -> torch.Tensor:
 class ShardedDynamicIndex:
     """Range-partitioned two-tier dynamic index (module docstring: layout,
     slice cache and rebalance policy).  Mutations run a shard at a time
-    (each shard a ``core.updates.DynamicRMI``); finds read the shards'
-    slices stacked on the card, maintained O(touched shards) a mutation,
-    and answer a batch with one launch."""
+    (each shard a ``core.updates.DynamicRMI`` on its mesh position's
+    device); finds read the shards' slices stacked a position, maintained
+    O(touched shards) a mutation, and answer a batch with one launch a
+    position."""
     mesh: ShardMesh
     axis: str
     splits: np.ndarray                  # (n_shards - 1,) host split values
@@ -558,21 +778,27 @@ class ShardedDynamicIndex:
               rebalance_ratio: float | None = 0.5,
               rebalance_skew: float = 2.0, *, device=None, **rmi_kwargs):
         """Partition sorted ``keys`` with :func:`shard_bounds` and build
-        one ``DynamicRMI`` a shard on ``device`` (CUDA unless
+        one ``DynamicRMI`` a shard on its mesh position's device (with
+        ``mesh.devices`` None, on ``device``: CUDA unless
         ``device="cpu"``)."""
         rmi_kwargs.setdefault("kind", "linear")
         if rmi_kwargs.get("root_kind", "linear") != "linear":
             raise ValueError(
                 "ShardedDynamicIndex requires a monotone (linear) root: "
                 "split routing and run snapping assume key order")
-        dev = resolve_device(device)
-        keys = torch.as_tensor(keys, dtype=_F64, device=dev).reshape(-1)
+        positions = mesh.positions(device)
+        keys = torch.as_tensor(
+            keys, dtype=_F64,
+            device=positions[0] if len(positions) == 1 else None).reshape(-1)
         n_shards = _n_shards(mesh, axis)
         bounds = shard_bounds(keys, n_shards)
-        shards = [DynamicRMI.build(
-            keys[int(bounds[s]):int(bounds[s + 1])], pool=pool, eps=eps,
-            n_leaves=n_leaves, device=dev, **rmi_kwargs)
-            for s in range(n_shards)]
+        shards = []
+        for dev, lo, k in _layout(positions, n_shards):
+            shards += [DynamicRMI.build(
+                keys[int(bounds[s]):int(bounds[s + 1])],
+                pool=None if pool is None else pool.replica(dev), eps=eps,
+                n_leaves=n_leaves, device=dev, **rmi_kwargs)
+                for s in range(lo, lo + k)]
         idx = cls(mesh=mesh, axis=axis,
                   splits=_splits_from_bounds(keys, bounds), shards=shards,
                   eps=eps, n_leaves=n_leaves, pool=pool,
@@ -583,7 +809,8 @@ class ShardedDynamicIndex:
 
     def _init_maintenance(self) -> None:
         """Seed the counter table, the mutes, the drift table and the host
-        capacity/depth mirrors (the one full scan outside a cold restack)."""
+        capacity/depth mirrors (the one full scan outside a cold restack),
+        on the home device."""
         S, dev = self.n_shards, self.device
         self._bcaps = np.asarray(
             [d.index.keys.shape[0] for d in self.shards], np.int64)
@@ -595,13 +822,16 @@ class ShardedDynamicIndex:
             [self._count_row(d) for d in self.shards], dtype=_I64,
             device=dev)
         self._muted = torch.full((S,), -1, dtype=_I64, device=dev)
-        self._drift = torch.stack([drift_mod.state_row(d.drift, dev)
-                                   for d in self.shards])
+        self._drift = torch.stack([self._drift_row(d) for d in self.shards])
 
     @staticmethod
     def _count_row(d: DynamicRMI) -> list:
         return [d.base_n, d.base_dead_count, d.delta_live,
                 d.delta_dead_count]
+
+    def _drift_row(self, d: DynamicRMI) -> torch.Tensor:
+        """A shard's [score, drifted] row on the home device."""
+        return drift_mod.state_row(d.drift, self.device).to(self.device)
 
     def _touch(self, ids) -> None:
         """Mark shards mutated: step their capacities down where they can,
@@ -627,17 +857,31 @@ class ShardedDynamicIndex:
             [self._count_row(self.shards[s]) for s in ids], dtype=_I64,
             device=self.device))
         self._drift = self._drift.index_put(it, torch.stack(
-            [drift_mod.state_row(self.shards[s].drift, self.device)
-             for s in ids]))
+            [self._drift_row(self.shards[s]) for s in ids]))
 
-    # -- shape / bookkeeping ----------------------------------------------
+    # -- shape / placement / bookkeeping -------------------------------------
     @property
     def n_shards(self) -> int:
         return len(self.shards)
 
     @property
+    def positions(self) -> tuple:
+        """The device of each mesh position (the home device first)."""
+        return self.mesh.devices or (self.shards[0].device,)
+
+    @property
     def device(self) -> torch.device:
-        return self.shards[0].device
+        """The home device: batches, answers, the counter table, the mutes
+        and the drift rows live there."""
+        return self.positions[0]
+
+    def shard_device(self, s: int) -> torch.device:
+        """The device of shard ``s``: its mesh position's."""
+        P = self.positions
+        return P[s * len(P) // self.n_shards]
+
+    def _pool_on(self, dev: torch.device):
+        return None if self.pool is None else self.pool.replica(dev)
 
     @property
     def f32_exact(self) -> bool:
@@ -658,8 +902,9 @@ class ShardedDynamicIndex:
         return np.concatenate([d.live_keys() for d in self.shards])
 
     def live_keys_tensor(self) -> torch.Tensor:
-        """:meth:`live_keys` on the index's device."""
-        return torch.cat([d.live_keys_tensor() for d in self.shards])
+        """:meth:`live_keys` on the home device."""
+        return torch.cat([d.live_keys_tensor().to(self.device)
+                          for d in self.shards])
 
     # -- mutation ----------------------------------------------------------
     def _route(self, keys: np.ndarray) -> np.ndarray:
@@ -739,7 +984,8 @@ class ShardedDynamicIndex:
         donor sheds in place (``shed_suffix`` / ``shed_prefix``), the run
         rides the receiver's delta tier -- or, past the receiver's
         headroom, the receiver rebuilds once.  A cut that would move
-        everything (one giant run) is skipped."""
+        everything (one giant run) is skipped.  The run crosses as host
+        keys, so the two shards may sit on different positions' devices."""
         a = self.shards[src].live_keys()
         recv = self.shards[dst]
         m = int(a.size - recv.live_count) // 2
@@ -772,9 +1018,11 @@ class ShardedDynamicIndex:
         return True
 
     def _rebuild_shard(self, s: int, keys: np.ndarray) -> None:
+        dev = self.shard_device(s)
         self.shards[s] = DynamicRMI.build(
-            torch.as_tensor(keys, dtype=_F64), pool=self.pool, eps=self.eps,
-            n_leaves=self.n_leaves, device=self.device, **self.build_kwargs)
+            torch.as_tensor(keys, dtype=_F64), pool=self._pool_on(dev),
+            eps=self.eps, n_leaves=self.n_leaves, device=dev,
+            **self.build_kwargs)
 
     # -- drift maintenance -------------------------------------------------
     def drift_scores(self) -> np.ndarray:
@@ -784,8 +1032,9 @@ class ShardedDynamicIndex:
 
     def maybe_swap(self) -> int:
         """Pool hot-swap pass over the drift-latched shards (and those with
-        deferred over-budget refits); swapped shards go through the dirty
-        rows.  Returns the number of leaves swapped across all shards."""
+        deferred over-budget refits), each on its own device with its
+        position's pool replica; swapped shards go through the dirty rows.
+        Returns the number of leaves swapped across all shards."""
         if all(d.drift is None for d in self.shards):
             return 0
         latched = set(
@@ -805,6 +1054,11 @@ class ShardedDynamicIndex:
         return total
 
     # -- serving: the per-shard slice cache --------------------------------
+    # The stack is one dict of what every position shares -- capacity
+    # classes, depth, and on the home device the splits, live offsets and
+    # each shard's member key -- and ``parts``, one dict a position on its
+    # device: its shards' rows of every stacked tensor, and its kernel
+    # tables and descriptors.
     _ROW_KEYS = ("route_n", "base", "bdead", "bpsum", "dk", "ddead",
                  "dpsum", "err_lo", "err_hi")
 
@@ -813,7 +1067,7 @@ class ShardedDynamicIndex:
         unit of incremental restacking."""
         d = self.shards[s]
         return dict(
-            route_n=torch.tensor(d.route_n, dtype=_F64, device=self.device),
+            route_n=torch.tensor(d.route_n, dtype=_F64, device=d.device),
             base=tlk.pad_capacity(d.index.keys, bcap),
             bdead=_pad_rows(d.base_dead, bcap),
             bpsum=_pad_psum(d.base_psum, bcap),
@@ -850,10 +1104,19 @@ class ShardedDynamicIndex:
             self._restack_rows(st, sorted(self._dirty), bcap, dcap)
         return st
 
+    def _refresh_globals(self, st: dict) -> None:
+        """The home device's share of the stack: splits, live offsets, each
+        shard's member key (:func:`_member`)."""
+        st["splits"] = torch.as_tensor(self.splits, dtype=_F64,
+                                       device=self.device)
+        st["offs"] = _offs(self._counts)
+        st["member"] = _at_home([_member(p["base"][:, 0])
+                                 for p in st["parts"]], self.device)
+
     def _restack_full(self, bcap: int, dcap: int) -> dict:
-        """Cold assembly over every shard; shards that arrived oversized
-        without passing through ``_touch`` (a restored or resharded index)
-        step their capacities down first."""
+        """Cold assembly over every shard, a position at a time; shards
+        that arrived oversized without passing through ``_touch`` (a
+        restored or resharded index) step their capacities down first."""
         for s, d in enumerate(self.shards):
             if d.shrink_capacity():
                 self.capacity_shrinks += 1
@@ -863,24 +1126,27 @@ class ShardedDynamicIndex:
         bcap = int(self._bcaps.max())  # tracelint: ok[hot-sync](np mirror)
         dcap = int(self._dcaps.max())  # tracelint: ok[hot-sync](np mirror)
         self._stack = None              # free the old stack first
-        rows = [self._slice_rows(s, bcap, dcap)
-                for s in range(self.n_shards)]
         st = dict(
             bcap=bcap, dcap=dcap,
-            splits=torch.as_tensor(self.splits, dtype=_F64,
-                                   device=self.device),
-            offs=_offs(self._counts),
-            root=_stack_params([d.index.root for d in self.shards]),
-            leaves=_stack_params([d.index.leaves for d in self.shards]),
             leaf_kind=self.shards[0].index.leaf_kind,
             iters=int(self._iters_vec.max()),  # tracelint: ok[hot-sync](np mirror)
-            packed=None, tabs=None)
+            parts=[])
+        for dev, lo, k in _layout(self.positions, self.n_shards):
+            ids = range(lo, lo + k)
+            rows = [self._slice_rows(s, bcap, dcap) for s in ids]
+            part = dict(
+                device=dev, lo=lo, n=k, packed=None, tabs=None,
+                root=_stack_params([self.shards[s].index.root for s in ids]),
+                leaves=_stack_params([self.shards[s].index.leaves
+                                      for s in ids]))
+            for key in self._ROW_KEYS:
+                part[key] = torch.stack([r[key] for r in rows])
+                for r in rows:
+                    del r[key]
+            st["parts"].append(part)
+        self._refresh_globals(st)
         gen = 1 if self._row_gen is None else self._row_gen.max() + 1
         self._row_gen = np.full(self.n_shards, gen, np.int64)
-        for k in self._ROW_KEYS:
-            st[k] = torch.stack([r[k] for r in rows])
-            for r in rows:
-                del r[k]
         self._stack = st
         self.restack_full += 1
         self._dirty.clear()
@@ -888,76 +1154,97 @@ class ShardedDynamicIndex:
 
     def _restack_rows(self, st: dict, ids: list, bcap: int,
                       dcap: int) -> None:
-        """Rewrite the dirty shards' rows of the stacked tensors in place:
-        one row scatter a tensor, O(touched) slice work."""
-        rows = [self._slice_rows(s, bcap, dcap) for s in ids]
-        idx = torch.as_tensor(ids, dtype=_I64, device=self.device)
-        for k in self._ROW_KEYS:
-            scatter_rows_(st[k], idx, torch.stack([r[k] for r in rows]))
-        for key in ("root", "leaves"):
-            fresh = [getattr(self.shards[s].index, key) for s in ids]
-            for t, *r in zip(st[key], *fresh, strict=True):
-                scatter_rows_(t, idx, torch.stack(r))
-        if st["packed"] is not None:
-            packs = [self._shard_pack(s, bcap, dcap) for s in ids]
-            for k, t in st["packed"].items():
-                scatter_rows_(t, idx, torch.stack([p[k] for p in packs]))
-        st["offs"] = _offs(self._counts)
-        st["splits"] = torch.as_tensor(self.splits, dtype=_F64,
-                                       device=self.device)
-        st["iters"] = int(self._iters_vec.max())  # tracelint: ok[hot-sync](np mirror)
-        st["tabs"] = None
+        """Rewrite the dirty shards' rows of their positions' stacked
+        tensors in place: one row scatter a tensor a touched position,
+        O(touched) slice work."""
+        iters = int(self._iters_vec.max())  # tracelint: ok[hot-sync](np mirror)
+        for part in st["parts"]:
+            lo = part["lo"]
+            mine = [s for s in ids if lo <= s < lo + part["n"]]
+            if not mine:
+                if iters != st["iters"]:
+                    part["tabs"] = None
+                continue
+            rows = [self._slice_rows(s, bcap, dcap) for s in mine]
+            idx = torch.as_tensor([s - lo for s in mine], dtype=_I64,
+                                  device=part["device"])
+            for k in self._ROW_KEYS:
+                scatter_rows_(part[k], idx, torch.stack([r[k] for r in rows]))
+            for key in ("root", "leaves"):
+                fresh = [getattr(self.shards[s].index, key) for s in mine]
+                for t, *r in zip(part[key], *fresh, strict=True):
+                    scatter_rows_(t, idx, torch.stack(r))
+            if part["packed"] is not None:
+                packs = [self._shard_pack(s, bcap, dcap) for s in mine]
+                for k, t in part["packed"].items():
+                    scatter_rows_(t, idx, torch.stack([p[k] for p in packs]))
+            part["tabs"] = None
+        st["iters"] = iters
+        self._refresh_globals(st)
         self._row_gen[ids] = self._row_gen.max() + 1
         self.restack_rows += len(ids)
         self._dirty.clear()
 
-    def _packed_stack(self, st: dict) -> dict:
-        """The stacked kernel tables (built on the first kernel-path find,
-        then maintained row by row by :meth:`_restack_rows`)."""
-        if st["packed"] is None:
-            packs = [self._shard_pack(s, st["bcap"], st["dcap"])
-                     for s in range(self.n_shards)]
-            st["packed"] = {k: torch.stack([p[k] for p in packs])
-                            for k in packs[0]}
-        return st["packed"]
+    def _packed_stack(self, st: dict) -> list:
+        """Each position's stacked kernel tables (built on the first
+        kernel-path find, then maintained row by row by
+        :meth:`_restack_rows`)."""
+        for part in st["parts"]:
+            if part["packed"] is None:
+                lo = part["lo"]
+                packs = [self._shard_pack(s, st["bcap"], st["dcap"])
+                         for s in range(lo, lo + part["n"])]
+                part["packed"] = {k: torch.stack([p[k] for p in packs])
+                                  for k in packs[0]}
+        return [part["packed"] for part in st["parts"]]
 
-    def _kernel_args(self, st: dict) -> tuple:
+    def _kernel_args(self, st: dict, part: dict) -> tuple:
         """(stacked kernel tables, descriptors or None on the CPU, keyword
-        arguments) of a shard-stacked K2/K3 call: every shard routes at
-        ratio 1 (its scale is folded into its root) and searches at the
-        stack's depth."""
-        pk = self._packed_stack(st)
+        arguments) of a shard-stacked K2/K3 call on the position ``part``:
+        every shard routes at ratio 1 (its scale is folded into its root)
+        and searches at the stack's depth."""
+        if part["packed"] is None:
+            self._packed_stack(st)
+        pk = part["packed"]
         kw = dict(n_leaves=self.n_leaves, route_n=self.n_leaves,
                   iters=st["iters"], leaf_kind=st["leaf_kind"])
-        if st["tabs"] is None and self.device.type == "cuda":
-            st["tabs"] = tlk.shard_tables(
+        if part["tabs"] is None and part["device"].type == "cuda":
+            part["tabs"] = tlk.shard_tables(
                 pk["roots"], pk["mats"], pk["vecs"], pk["kf"],
                 n_leaves=self.n_leaves, route_n=self.n_leaves,
                 iters=st["iters"], rows=pk.get("rows"),
                 delta_keys=pk["dkf"])
-        return pk, st["tabs"], kw
+        return pk, part["tabs"], kw
 
     def _grouped(self, st: dict, q: torch.Tensor):
         """:func:`_grouped` of a batch on the stack ``st``: what
         :meth:`_answer` gives the shard-stacked kernels."""
-        return _grouped(st["splits"], _member(st["base"][:, 0]), q)
+        return _grouped(st["splits"], st["member"], q)
 
     def _answer(self, q: torch.Tensor, use_kernel: bool, rng: bool):
         """Route, answer on each query's shard, scatter back: (found, rank)
         or, with ``rng``, (rank_lo, rank_hi) of each endpoint as a point
         range, global ranks; non-live queries answer (False, 0) / (0, 0)."""
         st = self._stacked()
+        parts = st["parts"]
         _, *grouped = self._grouped(st, q)
-        kernel = None
-        if use_kernel:
-            pk, tabs, kw = self._kernel_args(st)
-            kernel = ((pk["roots"], pk["mats"], pk["vecs"], pk["kf"],
-                       st["bpsum"], pk["dkf"], st["dpsum"]), pk.get("rows"),
-                      tabs, kw)
-        return _answer_grouped(
-            grouped, st["offs"], self.n_shards, rng, kernel,
-            lambda s, x: _row_f64_answer(st, s, x, rng, self.n_leaves,
-                                         float(self.shards[s].route_n)))
+
+        def kernel(i):
+            part = parts[i]
+            pk, tabs, kw = self._kernel_args(st, part)
+            return ((pk["roots"], pk["mats"], pk["vecs"], pk["kf"],
+                     part["bpsum"], pk["dkf"], part["dpsum"]),
+                    pk.get("rows"), tabs, kw)
+
+        def f64_row(i, j, x):
+            part = parts[i]
+            return _row_f64_answer(
+                st, part, j, x, rng, self.n_leaves,
+                float(self.shards[part["lo"] + j].route_n))
+
+        layout = [(p["device"], p["lo"], p["n"]) for p in parts]
+        return _answer_grouped(grouped, st["offs"], layout, rng,
+                               kernel if use_kernel else None, f64_row)
 
     def _use_kernel(self, path: str) -> bool:
         return resolve_path(path, f32_exact=lambda: self.f32_exact,
@@ -970,10 +1257,11 @@ class ShardedDynamicIndex:
     def find(self, queries, *, path: str = "auto"):
         """(found, global live rank) per query: each query routes to its
         shard by the split vector and is answered there -- on the kernel
-        path by one launch of the shard-stacked K2 for the whole batch
-        (``kernels.ops.sharded_dynamic_find``), on the f64 path by each
-        shard's two-tier find -- with the shard's live offset added.
-        ``path`` as in ``core.paths``."""
+        path by one launch of the shard-stacked K2 a mesh position
+        (``kernels.ops.sharded_dynamic_find_all`` through
+        :func:`_exchange`), on the f64 path by each shard's two-tier find
+        -- with the shard's live offset added.  ``path`` as in
+        ``core.paths``."""
         q = self._as_queries(queries)
         return tuple(self._answer(q, self._use_kernel(path), rng=False))
 
@@ -981,9 +1269,9 @@ class ShardedDynamicIndex:
         """(rank_lo, rank_hi) global live ranks of the inclusive ranges
         ``[q_lo[i], q_hi[i]]``: both endpoint arrays routed as one batch,
         each endpoint answered by its own shard with its left and right
-        rank (one launch of the shard-stacked K3 on the kernel path);
-        rank_lo comes from the lo endpoint's shard, rank_hi from the hi
-        endpoint's, clamped to rank_lo so degenerate ranges come back
+        rank (one launch of the shard-stacked K3 a position on the kernel
+        path); rank_lo comes from the lo endpoint's shard, rank_hi from the
+        hi endpoint's, clamped to rank_lo so degenerate ranges come back
         empty.  ``live_keys()[rank_lo:rank_hi]`` is the range's content."""
         ql, qh = self._as_queries(q_lo), self._as_queries(q_hi)
         if ql.shape != qh.shape:
@@ -1003,35 +1291,45 @@ class ShardedDynamicIndex:
 
 
 # ---------------------------------------------------------------------------
-# Tenant-stacked answers: several sharded indexes in one launch.
+# Tenant-stacked answers: several sharded indexes in one launch a position.
 # ---------------------------------------------------------------------------
 # Calls of the tenant-stacked find and range (the counterpart of the
 # reference's trace counter ``TRACE_COUNTS``): the serve front-end makes
-# one of each a batch, each one launch of the shard-stacked K2 / K3 on the
-# kernel path.
+# one of each a batch, each one launch of the shard-stacked K2 / K3 a mesh
+# position on the kernel path.
 TENANT_CALLS = {"tenant_find": 0, "tenant_range": 0}
+
+
+def tenant_row(t: int, s: int, n_tenants: int, k: int) -> int:
+    """Row of (tenant ``t``, shard ``s``) in a tenant pack whose positions
+    hold ``k`` shards each: position-major, so that a position's rows are
+    consecutive (``s // k`` the position, ``t * k + s % k`` the row in
+    it).  With one position, ``t * S + s``."""
+    return (s // k) * (n_tenants * k) + t * k + s % k
 
 
 def _tenant_grouped(pack: dict, qmat: torch.Tensor):
     """A (T, Q) query matrix routed to its rows of the tenant pack (query
-    of tenant t, shard s: row ``t * S + s``) and grouped by row:
+    of tenant t, shard s: row :func:`tenant_row`) and grouped by row:
     :func:`_group`'s order, row ids, queries and live mask."""
     T, S = qmat.shape[0], pack["n_shards"]
+    k = S // len(pack["parts"])
     dest = torch.searchsorted(pack["splits"], qmat)
     dest = torch.where(torch.isnan(qmat), S - 1, dest)
-    row = (dest + S * torch.arange(T, device=qmat.device)[:, None]) \
-        .reshape(-1).to(_I32)
+    t = torch.arange(T, device=qmat.device)[:, None]
+    row = ((dest // k) * (T * k) + t * k + dest % k).reshape(-1).to(_I32)
     return _group(row, pack["member"], qmat.reshape(-1))
 
 
-def _tenant_kernel_args(pack: dict) -> tuple:
+def _tenant_kernel_args(pack: dict, part: dict) -> tuple:
     """(stacked tables, MLP leaf rows, descriptors, keywords) of the
-    shard-stacked K2 / K3 over a tenant pack: every row routes at ratio 1
-    over the pack's ``n_leaves`` and searches at the pack's depth."""
+    shard-stacked K2 / K3 over the position ``part`` of a tenant pack:
+    every row routes at ratio 1 over the pack's ``n_leaves`` and searches
+    at the pack's depth."""
     L = pack["n_leaves"]
-    return ((pack["roots"], pack["mats"], pack["vecs"], pack["kf"],
-             pack["bpsum"], pack["dkf"], pack["dpsum"]), pack.get("rows"),
-            pack["tabs"], dict(n_leaves=L, route_n=L, iters=pack["iters"],
+    return ((part["roots"], part["mats"], part["vecs"], part["kf"],
+             part["bpsum"], part["dkf"], part["dpsum"]), part.get("rows"),
+            part["tabs"], dict(n_leaves=L, route_n=L, iters=pack["iters"],
                                leaf_kind=pack["leaf_kind"]))
 
 
@@ -1039,27 +1337,35 @@ def tenant_stacked_answer(pack: dict, qmat: torch.Tensor, *,
                           use_kernel: bool, rng: bool):
     """Answer a (T, Q) f64 query matrix, row t for tenant t, over the
     tenant pack ``pack`` (``serve.frontend.TenantPack``: T tenants of S
-    shards each as T x S rows, (tenant, shard) flattened): the counterpart
-    of the reference's ``_tenant_stacked_find_fn`` (``rng`` False:
-    (found, rank)) and ``_tenant_stacked_range_fn`` (``rng`` True: each
-    query's (rank_lo, rank_hi) as a point range), both (T, Q).
+    shards each as T x S rows, a mesh position's T x S / D rows stacked on
+    its device): the counterpart of the reference's
+    ``_tenant_stacked_find_fn`` (``rng`` False: (found, rank)) and
+    ``_tenant_stacked_range_fn`` (``rng`` True: each query's (rank_lo,
+    rank_hi) as a point range), both (T, Q).
 
     A query of tenant t routes by that tenant's split vector to its shard
-    s and is answered on row ``t * S + s``, its rank offset by
-    ``offs[t * S + s]``, the tenant's live keys in shards < s.  On the
+    s and is answered on row :func:`tenant_row` of (t, s), its rank offset
+    by that row's ``offs``, the tenant's live keys in shards < s.  On the
     kernel path the whole matrix is one launch of the shard-stacked K2 (or
-    K3), every row routed at ratio 1 with the pack's ``n_leaves`` (each
-    tenant's routing scale folded into its packed roots, its leaf tables
-    padded with its last live leaf) and searched at the pack's depth; on
-    the f64 path each row's two-tier answer, routed at the row's
-    ``route_n`` (the shard's frozen scale times ``n_leaves / L_t``, the
-    reference's rescale).  Non-live queries (+inf, NaN) answer (False, 0)
-    / (0, 0)."""
+    K3) a position (:func:`_exchange`), every row routed at ratio 1 with
+    the pack's ``n_leaves`` (each tenant's routing scale folded into its
+    packed roots, its leaf tables padded with its last live leaf) and
+    searched at the pack's depth; on the f64 path each row's two-tier
+    answer, routed at the row's ``route_n`` (the shard's frozen scale times
+    ``n_leaves / L_t``, the reference's rescale).  Non-live queries (+inf,
+    NaN) answer (False, 0) / (0, 0)."""
     T, Q = qmat.shape
     TENANT_CALLS["tenant_range" if rng else "tenant_find"] += 1
+    parts = pack["parts"]
+
+    def f64_row(i, j, x):
+        part = parts[i]
+        return _row_f64_answer(pack, part, j, x, rng, pack["n_leaves"],
+                               float(pack["route_n"][part["lo"] + j]))
+
+    layout = [(p["device"], p["lo"], p["n"]) for p in parts]
     a, b = _answer_grouped(
-        _tenant_grouped(pack, qmat), pack["offs"], T * pack["n_shards"],
-        rng, _tenant_kernel_args(pack) if use_kernel else None,
-        lambda r, x: _row_f64_answer(pack, r, x, rng, pack["n_leaves"],
-                                     float(pack["route_n"][r])))
+        _tenant_grouped(pack, qmat), pack["offs"], layout, rng,
+        (lambda i: _tenant_kernel_args(pack, parts[i])) if use_kernel
+        else None, f64_row)
     return a.reshape(T, Q), b.reshape(T, Q)

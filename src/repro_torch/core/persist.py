@@ -671,17 +671,20 @@ def _empty_shard(eps, n_leaves, pool, build_kwargs, dev) -> DynamicRMI:
     kw = dict(build_kwargs)
     kw["n_leaves"] = n_leaves
     return DynamicRMI.build(torch.zeros((0,), dtype=torch.float64),
-                            pool=pool, eps=eps, device=dev, **kw)
+                            pool=None if pool is None else pool.replica(dev),
+                            eps=eps, device=dev, **kw)
 
 
 def _reshard_pieces(shards: list, n_to: int, *, eps, n_leaves, pool,
-                    build_kwargs, dev) -> tuple:
-    """Cut N fitted shards into M at duplicate-run-safe boundaries.
+                    build_kwargs, devs: list) -> tuple:
+    """Cut N fitted shards into M at duplicate-run-safe boundaries, new
+    shard t on ``devs[t]``.
 
     Cuts are balanced live-count positions snapped to run starts.  Each new
     shard keeps its largest overlapping piece as its *anchor*, cut out by
     ``shed_prefix`` / ``shed_suffix`` (on a clone when the source shard
-    feeds other new shards too); the other overlapping pieces' live keys
+    feeds other new shards too) and moved to the new shard's device when
+    its source lies elsewhere; the other overlapping pieces' live keys
     merge into the anchor's delta tier through ``insert_batch``, refitting
     only the leaves whose Lemma 4.1 budgets trip.  The input shards are
     consumed.  Returns (new shards, new splits, stats)."""
@@ -691,8 +694,8 @@ def _reshard_pieces(shards: list, n_to: int, *, eps, n_leaves, pool,
     total = int(lc.sum())
     if total == 0:
         stats.empty_builds = n_to
-        return ([_empty_shard(eps, n_leaves, pool, build_kwargs, dev)
-                 for _ in range(n_to)],
+        return ([_empty_shard(eps, n_leaves, pool, build_kwargs, devs[t])
+                 for t in range(n_to)],
                 np.full((n_to - 1,), -np.inf, np.float64), stats)
     glive = np.concatenate([d.live_keys() for d in shards])
     offs = np.concatenate([[0], np.cumsum(lc)])
@@ -714,7 +717,7 @@ def _reshard_pieces(shards: list, n_to: int, *, eps, n_leaves, pool,
         lo, hi = int(cuts[t]), int(cuts[t + 1])
         if hi <= lo:
             new_shards.append(_empty_shard(eps, n_leaves, pool,
-                                           build_kwargs, dev))
+                                           build_kwargs, devs[t]))
             stats.empty_builds += 1
             continue
         over = [s for s in range(n_from)
@@ -729,6 +732,7 @@ def _reshard_pieces(shards: list, n_to: int, *, eps, n_leaves, pool,
         # out of a clone so that its siblings keep their own pieces
         anchor = shards[s_star] if counts[s_star] == int(lc[s_star]) \
             else shards[s_star].clone()
+        anchor = anchor.to(devs[t])
         if a_lo > offs[s_star]:
             anchor.shed_prefix(float(glive[a_lo - 1]))
         if a_hi < offs[s_star + 1]:
@@ -744,18 +748,32 @@ def _reshard_pieces(shards: list, n_to: int, *, eps, n_leaves, pool,
     return new_shards, splits, stats
 
 
+def _shard_devices(positions: tuple, n: int) -> list:
+    """The device of each of ``n`` shards laid out on ``positions``."""
+    return [positions[s * len(positions) // n] for s in range(n)]
+
+
 def reshard_sharded(idx, mesh, axis: str | None = None):
     """Elastic N -> M reshard of a live ``ShardedDynamicIndex`` onto
-    ``mesh`` without a from-scratch rebuild (:func:`_reshard_pieces`).  The
-    input index is consumed.  Returns (new index, ReshardStats)."""
+    ``mesh`` without a from-scratch rebuild (:func:`_reshard_pieces`): a
+    change of the shard count, of the mesh's positions, or both; the new
+    shards land on ``mesh``'s devices (with ``devices`` None, on the
+    index's home device).  The input index is consumed.  Returns (new
+    index, ReshardStats)."""
     axis = axis or idx.axis
+    n_to = _n_shards(mesh, axis)
+    positions = mesh.positions(idx.device if mesh.devices is None
+                               else None)
+    pool = idx.pool
+    if pool is not None:
+        pool = pool.replica(positions[0])
     shards, splits, stats = _reshard_pieces(
-        idx.shards, _n_shards(mesh, axis), eps=idx.eps,
-        n_leaves=idx.n_leaves, pool=idx.pool, build_kwargs=idx.build_kwargs,
-        dev=idx.device)
+        idx.shards, n_to, eps=idx.eps, n_leaves=idx.n_leaves, pool=pool,
+        build_kwargs=idx.build_kwargs,
+        devs=_shard_devices(positions, n_to))
     out = ShardedDynamicIndex(
         mesh=mesh, axis=axis, splits=splits, shards=shards, eps=idx.eps,
-        n_leaves=idx.n_leaves, pool=idx.pool,
+        n_leaves=idx.n_leaves, pool=pool,
         rebalance_ratio=idx.rebalance_ratio,
         rebalance_skew=idx.rebalance_skew,
         migrate_headroom_factor=idx.migrate_headroom_factor,
@@ -767,10 +785,12 @@ def reshard_sharded(idx, mesh, axis: str | None = None):
 def restore_sharded(store: SnapshotStore, mesh, axis: str = "data", *,
                     step: int | None = None, on_corrupt: str = "fallback",
                     device=None):
-    """Restore a ``ShardedDynamicIndex`` on ``device`` (CUDA unless
-    ``device="cpu"``) from the newest verifiable snapshot in ``store`` (or
-    exactly ``step``), resharded onto ``mesh``'s shard count when it
-    differs from the snapshot's.
+    """Restore a ``ShardedDynamicIndex`` onto ``mesh``'s devices (with
+    ``mesh.devices`` None, onto ``device``: CUDA unless ``device="cpu"``)
+    from the newest verifiable snapshot in ``store`` (or exactly ``step``),
+    resharded onto ``mesh``'s shard count when it differs from the
+    snapshot's.  Either package's snapshots restore onto any mesh: the
+    file format carries no placement.
 
     ``on_corrupt``:
       * ``"fallback"`` (default): a snapshot failing verification anywhere
@@ -785,7 +805,7 @@ def restore_sharded(store: SnapshotStore, mesh, axis: str = "data", *,
     Returns (index, :class:`RestoreReport`)."""
     if on_corrupt not in ("fallback", "raise", "quarantine"):
         raise ValueError(f"unknown on_corrupt={on_corrupt!r}")
-    dev = resolve_device(device)
+    positions = mesh.positions(device)
     report = RestoreReport()
     candidates = [step] if step is not None else \
         list(reversed(store.steps()))
@@ -794,7 +814,8 @@ def restore_sharded(store: SnapshotStore, mesh, axis: str = "data", *,
     last_err = None
     for cand in candidates:
         try:
-            idx, rep = _restore_one(store, cand, mesh, axis, on_corrupt, dev)
+            idx, rep = _restore_one(store, cand, mesh, axis, on_corrupt,
+                                    positions)
             rep.skipped = report.skipped
             return idx, rep
         except SnapshotCorruption as e:
@@ -808,7 +829,8 @@ def restore_sharded(store: SnapshotStore, mesh, axis: str = "data", *,
 
 
 def _restore_one(store: SnapshotStore, step: int, mesh, axis: str,
-                 on_corrupt: str, dev):
+                 on_corrupt: str, positions: tuple):
+    dev = positions[0]
     manifest = store.read_manifest(step)
     if manifest.get("kind") != KIND_SHARDED:
         raise SnapshotCorruption(
@@ -823,19 +845,22 @@ def _restore_one(store: SnapshotStore, step: int, mesh, axis: str,
                              meta["pool"], dev)
     n_to = _n_shards(mesh, axis)
     report = RestoreReport(step=step, n_shards_from=n_from, n_shards=n_to)
+    # a snapshot's shard s restores onto the position that would hold it on
+    # a mesh of its own width: where a reshard keeps most of its keys
     shards = []
-    for s in range(n_from):
+    for s, sdev in enumerate(_shard_devices(positions, n_from)):
         sm = meta["shards"][s]
+        spool = None if pool is None else pool.replica(sdev)
         try:
             shards.append(_restore_shard(
                 store.load_file(step, _SHARD_FMT.format(s), manifest),
-                sm, pool, dev))
+                sm, spool, sdev))
         except SnapshotCorruption as e:
             if on_corrupt != "quarantine":
                 raise
             shards.append(_empty_shard(
                 float(sm["eps"]), int(sm["n_leaves"]), pool,
-                dict(sm["build_kwargs"]), dev))
+                dict(sm["build_kwargs"]), sdev))
             report.quarantined.append((s, str(e)))
     quarantined_ids = [s for s, _ in report.quarantined]
 
@@ -845,7 +870,8 @@ def _restore_one(store: SnapshotStore, step: int, mesh, axis: str,
         shards, splits, stats = _reshard_pieces(
             shards, n_to, eps=float(meta["eps"]),
             n_leaves=int(meta["n_leaves"]), pool=pool,
-            build_kwargs=dict(meta["build_kwargs"]), dev=dev)
+            build_kwargs=dict(meta["build_kwargs"]),
+            devs=_shard_devices(positions, n_to))
         report.reshard = stats
     idx = ShardedDynamicIndex(
         mesh=mesh, axis=axis, splits=splits, shards=shards,

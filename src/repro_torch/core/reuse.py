@@ -19,7 +19,7 @@ to f64 at the end.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
 from typing import NamedTuple
 
 import numpy as np
@@ -142,10 +142,43 @@ class ModelPool:
     sel_ps: torch.Tensor | None = None  # (P, m) f32 P_S
     reuse_count: int = 0
     trained_count: int = 0
+    # A replica (:meth:`replica`) names the pool it copies, and counts its
+    # reuses and trainings there.
+    primary: "ModelPool | None" = None
+    _replicas: dict = field(default_factory=dict, repr=False)
 
     @property
     def size(self) -> int:
         return int(self.hists.shape[0])
+
+    @property
+    def owner(self) -> "ModelPool":
+        """The pool that keeps the counts: the primary of a replica."""
+        return self if self.primary is None else self.primary
+
+    def replica(self, device) -> "ModelPool":
+        """This pool on ``device``: itself when it lies there, else a copy
+        of its tensors on ``device``, made once a device and kept (the
+        reference replicates its pool over a mesh's devices; a sharded
+        index's shards on another device read this copy).  A replica takes
+        no ``enqueue``; an ``enqueue`` into the primary drops its replicas,
+        so later ones copy the grown pool."""
+        dev = torch.device(device)
+        if dev == self.device:
+            return self
+        own = self.owner
+        if dev not in own._replicas:
+            if dev == own.device:
+                return own
+            mv = lambda t: None if t is None else t.to(dev)
+            own._replicas[dev] = replace(
+                own, hists=mv(own.hists),
+                params=type(own.params)(*(mv(t) for t in own.params)),
+                err_lo=mv(own.err_lo), err_hi=mv(own.err_hi),
+                domains=DomainSpec(*(mv(t) for t in own.domains)),
+                sel_a=mv(own.sel_a), sel_ps=mv(own.sel_ps), reuse_count=0,
+                trained_count=0, primary=own, _replicas={})
+        return own._replicas[dev]
 
     @property
     def device(self) -> torch.device:
@@ -183,7 +216,7 @@ class ModelPool:
             r = torch.arange(target_keys.shape[0], dtype=_F64,
                              device=target_keys.device) - pred
             lo, hi = r.min(), r.max()
-        self.reuse_count += 1
+        self.owner.reuse_count += 1
         return AdaptedModel(kind=self.kind, params=adapted, err_lo=lo,
                             err_hi=hi, reused=True, dist=float(sel.dist))
 
@@ -218,7 +251,7 @@ class ModelPool:
             p = models.MLPParams(w1=p.w1 / span, b1=p.b1 - p.w1 * lo_k / span,
                                  w2=p.w2, b2=p.b2)
             elo, ehi = models.mlp_err_bounds(p, keys, pos)
-        self.trained_count += 1
+        self.owner.trained_count += 1
         fresh = AdaptedModel(kind=self.kind, params=p, err_lo=elo,
                              err_hi=ehi, reused=False, dist=0.0)
         if enqueue:
@@ -227,6 +260,9 @@ class ModelPool:
 
     def enqueue(self, hist, params, err_lo, err_hi, dom: DomainSpec) -> None:
         """Insert a freshly trained model, keeping ascending width order."""
+        if self.primary is not None:
+            raise ValueError("enqueue into the primary pool, not a replica")
+        self._replicas = {}
         width = float(err_hi - err_lo)
         widths = (self.err_hi - self.err_lo).cpu().numpy()
         slot = int(np.searchsorted(widths, width))

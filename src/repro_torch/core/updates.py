@@ -51,7 +51,7 @@ the sharded index's migrations and reshards, ``core.distributed``).
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, field, fields, is_dataclass, replace
 
 import numpy as np
 import torch
@@ -347,6 +347,22 @@ def _to_host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _moved(x, dev: torch.device):
+    """``x`` with every tensor in it copied to ``dev``: dataclasses and
+    tuples walked, a pool swapped for its replica there."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, ModelPool):
+        return x.replica(dev)
+    if is_dataclass(x) and not isinstance(x, type):
+        return replace(x, **{f.name: _moved(getattr(x, f.name), dev)
+                             for f in fields(x)})
+    if isinstance(x, tuple):
+        items = [_moved(v, dev) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
 
 
 def _host_ints(x) -> np.ndarray:
@@ -653,6 +669,15 @@ class DynamicRMI:
         d._win = self._win.copy()
         return d
 
+    def to(self, device) -> "DynamicRMI":
+        """This index on ``device``: itself when it lies there, else a
+        handle with every tensor copied to ``device`` and its pool's
+        replica there (``ModelPool.replica``), for a sharded index that
+        places a shard on another mesh position.  The handle shares the
+        host counters with this one, which it consumes."""
+        dev = torch.device(device)
+        return self if dev == self.device else _moved(self, dev)
+
     def shrink_capacity(self, hysteresis: int = 4) -> bool:
         """Step either tier's capacity class back down, the inverse of the
         grow-only policy of ``insert_batch`` / ``_rebuild_leaves``.  A tier
@@ -903,7 +928,7 @@ class DynamicRMI:
         # swap starts a fresh budget epoch.
         self.n_inserts[cid] = 0
         self.swaps_committed += nc
-        self.pool.reuse_count += nc
+        self.pool.owner.reuse_count += nc
         return nc
 
     # -- queries -----------------------------------------------------------

@@ -82,9 +82,11 @@ def hist(keys: torch.Tensor, m: int, lo, hi) -> torch.Tensor:
     out = torch.empty((m,), dtype=torch.float32, device=k.device)
     sms = torch.cuda.get_device_properties(k.device).multi_processor_count
     blocks = max(1, min(-(-n // _THREADS), sms * _BLOCKS_PER_SM))
-    rc = build.library("hist").repro_hist(
-        k.data_ptr(), n, m, lo32, inv_span, inv_n, blocks, counts.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(k.device).cuda_stream)
+    with torch.cuda.device(k.device):
+        rc = build.library("hist").repro_hist(
+            k.data_ptr(), n, m, lo32, inv_span, inv_n, blocks,
+            counts.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(k.device).cuda_stream)
     build.check(rc, "hist")
     LAUNCHES["hist"] += 1
     return out

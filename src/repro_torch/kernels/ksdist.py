@@ -73,9 +73,10 @@ def tables(tgt_hists: torch.Tensor):
     pt = torch.empty((L, m), dtype=torch.float32, device=h.device)
     if L == 0:
         return ta, pt
-    rc = build.library("ksdist").repro_ksdist_tables(
-        h.data_ptr(), int(h.dtype == torch.float64), L, m, ta.data_ptr(),
-        pt.data_ptr(), torch.cuda.current_stream(h.device).cuda_stream)
+    with torch.cuda.device(h.device):
+        rc = build.library("ksdist").repro_ksdist_tables(
+            h.data_ptr(), int(h.dtype == torch.float64), L, m, ta.data_ptr(),
+            pt.data_ptr(), torch.cuda.current_stream(h.device).cuda_stream)
     build.check(rc, "ksdist_tables")
     LAUNCHES["ksdist_tables"] += 1
     return ta, pt
@@ -94,10 +95,11 @@ def distance(ta, pt, pool_a, pool_ps) -> torch.Tensor:
     out = torch.empty((L, P), dtype=torch.float32, device=ta.device)
     if L == 0 or P == 0:
         return out
-    rc = build.library("ksdist").repro_ksdist(
-        ta.data_ptr(), pt.data_ptr(), L, pool_a.data_ptr(),
-        pool_ps.data_ptr(), P, m, out.data_ptr(),
-        torch.cuda.current_stream(ta.device).cuda_stream)
+    with torch.cuda.device(ta.device):
+        rc = build.library("ksdist").repro_ksdist(
+            ta.data_ptr(), pt.data_ptr(), L, pool_a.data_ptr(),
+            pool_ps.data_ptr(), P, m, out.data_ptr(),
+            torch.cuda.current_stream(ta.device).cuda_stream)
     build.check(rc, "ksdist")
     LAUNCHES["ksdist"] += 1
     return out

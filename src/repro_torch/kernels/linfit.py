@@ -68,10 +68,11 @@ def linfit_sums(x, y, buckets, n_buckets: int) -> torch.Tensor:
     bk = buckets.to(torch.int32).contiguous()
     sums = torch.empty((n_buckets, 5), dtype=_F64, device=x.device)
     out = torch.empty((n_buckets, 5), dtype=torch.float32, device=x.device)
-    rc = build.library("linfit").repro_linfit_sums(
-        xf.data_ptr(), yf.data_ptr(), bk.data_ptr(), xf.shape[0], n_buckets,
-        sums.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        rc = build.library("linfit").repro_linfit_sums(
+            xf.data_ptr(), yf.data_ptr(), bk.data_ptr(), xf.shape[0],
+            n_buckets, sums.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "linfit")
     if xf.shape[0]:
         LAUNCHES["linfit"] += 1

@@ -474,12 +474,13 @@ def lookup(queries, root, mat, vec, keys, *, n_leaves: int,
             rows = leaf_rows(mat, vec, leaf_kind)
         if fence is None:
             fence = key_fence(keys)
-        rc = build.library("lookup").repro_lookup(
-            queries.data_ptr(), nq,
-            *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
-                         route_n=route_n, iters=iters, **kinds),
-            rows.data_ptr(), fence.data_ptr(), out.data_ptr(),
-            _stream(queries))
+        with torch.cuda.device(queries.device):
+            rc = build.library("lookup").repro_lookup(
+                queries.data_ptr(), nq,
+                *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
+                             route_n=route_n, iters=iters, **kinds),
+                rows.data_ptr(), fence.data_ptr(), out.data_ptr(),
+                _stream(queries))
         build.check(rc, "lookup")
         LAUNCHES["lookup"] += 1
     return out
@@ -514,13 +515,14 @@ def dynamic_lookup(queries, root, mat, vec, keys, delta_keys, *,
             rows = None
         elif rows is None:
             rows = leaf_rows(mat, vec)
-        rc = build.library("lookup").repro_dynamic_lookup(
-            queries.data_ptr(), nq,
-            *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
-                         route_n=route_n, iters=iters, **kinds),
-            None if rows is None else rows.data_ptr(),
-            delta_keys.data_ptr(), nd, full_iters(nd), out.data_ptr(),
-            dout.data_ptr(), _stream(queries))
+        with torch.cuda.device(queries.device):
+            rc = build.library("lookup").repro_dynamic_lookup(
+                queries.data_ptr(), nq,
+                *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
+                             route_n=route_n, iters=iters, **kinds),
+                None if rows is None else rows.data_ptr(),
+                delta_keys.data_ptr(), nd, full_iters(nd), out.data_ptr(),
+                dout.data_ptr(), _stream(queries))
         build.check(rc, "dynamic_lookup")
         LAUNCHES["dynamic_lookup"] += 1
     return out, dout
@@ -549,12 +551,13 @@ def dynamic_range(q_lo, q_hi, root, mat, vec, keys, delta_keys, *,
             for _ in range(4)]
     nq, nd = q_lo.shape[0], delta_keys.shape[0]
     if nq:
-        rc = build.library("lookup").repro_dynamic_range(
-            q_lo.data_ptr(), q_hi.data_ptr(), nq,
-            *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
-                         route_n=route_n, iters=iters, **kinds),
-            delta_keys.data_ptr(), nd, full_iters(nd),
-            *(o.data_ptr() for o in outs), _stream(q_lo))
+        with torch.cuda.device(q_lo.device):
+            rc = build.library("lookup").repro_dynamic_range(
+                q_lo.data_ptr(), q_hi.data_ptr(), nq,
+                *_table_args(root, mat, vec, keys, n_leaves=n_leaves,
+                             route_n=route_n, iters=iters, **kinds),
+                delta_keys.data_ptr(), nd, full_iters(nd),
+                *(o.data_ptr() for o in outs), _stream(q_lo))
         build.check(rc, "dynamic_range")
         LAUNCHES["dynamic_range"] += 1
     return tuple(outs)
@@ -661,12 +664,13 @@ def rmrt_lookup(queries, mat, vec, keys, *, fanout: int, depth: int,
             rows = node_rows(mat, vec, kind)
         if fence is None:
             fence = key_fence(keys)
-        rc = build.library("lookup").repro_rmrt_lookup(
-            queries.data_ptr(), nq, mat.data_ptr(), vec.data_ptr(),
-            mat.shape[1], rows.data_ptr(), fence.data_ptr(), fanout, depth,
-            int(kind == "mlp"),
-            keys.data_ptr(), S, _f32(S - 1), _f32(S), iters, out.data_ptr(),
-            _stream(queries))
+        with torch.cuda.device(queries.device):
+            rc = build.library("lookup").repro_rmrt_lookup(
+                queries.data_ptr(), nq, mat.data_ptr(), vec.data_ptr(),
+                mat.shape[1], rows.data_ptr(), fence.data_ptr(), fanout, depth,
+                int(kind == "mlp"),
+                keys.data_ptr(), S, _f32(S - 1), _f32(S), iters,
+                out.data_ptr(), _stream(queries))
         build.check(rc, "rmrt_lookup")
         LAUNCHES["rmrt_lookup"] += 1
     return out
@@ -848,10 +852,11 @@ def sharded_lookup(queries, shard, roots, mats, vecs, keys, *,
             tabs = shard_tables(roots, mats, vecs, keys, n_leaves=n_leaves,
                                 route_n=route_n, iters=iters, rows=rows,
                                 fences=fences)
-        rc = build.library("lookup").repro_sharded_lookup(
-            queries.data_ptr(), shard.data_ptr(), nq, tabs.data_ptr(),
-            keys.shape[0], int(root_kind == "mlp"), int(leaf_kind == "mlp"),
-            out.data_ptr(), _stream(queries))
+        with torch.cuda.device(queries.device):
+            rc = build.library("lookup").repro_sharded_lookup(
+                queries.data_ptr(), shard.data_ptr(), nq, tabs.data_ptr(),
+                keys.shape[0], int(root_kind == "mlp"),
+                int(leaf_kind == "mlp"), out.data_ptr(), _stream(queries))
         build.check(rc, "sharded_lookup")
         LAUNCHES["sharded_lookup"] += 1
     return out
@@ -887,10 +892,12 @@ def sharded_dynamic_lookup(queries, shard, roots, mats, vecs, keys,
                                 route_n=route_n, iters=iters,
                                 rows=rows if leaf_kind == "mlp" else None,
                                 delta_keys=delta_keys)
-        rc = build.library("lookup").repro_sharded_dynamic_lookup(
-            queries.data_ptr(), shard.data_ptr(), nq, tabs.data_ptr(),
-            keys.shape[0], int(root_kind == "mlp"), int(leaf_kind == "mlp"),
-            out.data_ptr(), dout.data_ptr(), _stream(queries))
+        with torch.cuda.device(queries.device):
+            rc = build.library("lookup").repro_sharded_dynamic_lookup(
+                queries.data_ptr(), shard.data_ptr(), nq, tabs.data_ptr(),
+                keys.shape[0], int(root_kind == "mlp"),
+                int(leaf_kind == "mlp"), out.data_ptr(), dout.data_ptr(),
+                _stream(queries))
         build.check(rc, "sharded_dynamic_lookup")
         LAUNCHES["sharded_dynamic_lookup"] += 1
     return out, dout
@@ -923,11 +930,12 @@ def sharded_dynamic_range(q_lo, q_hi, shard, roots, mats, vecs, keys,
             tabs = shard_tables(roots, mats, vecs, keys, n_leaves=n_leaves,
                                 route_n=route_n, iters=iters,
                                 delta_keys=delta_keys)
-        rc = build.library("lookup").repro_sharded_dynamic_range(
-            q_lo.data_ptr(), q_hi.data_ptr(), shard.data_ptr(), nq,
-            tabs.data_ptr(), keys.shape[0], int(root_kind == "mlp"),
-            int(leaf_kind == "mlp"), *(o.data_ptr() for o in outs),
-            _stream(q_lo))
+        with torch.cuda.device(q_lo.device):
+            rc = build.library("lookup").repro_sharded_dynamic_range(
+                q_lo.data_ptr(), q_hi.data_ptr(), shard.data_ptr(), nq,
+                tabs.data_ptr(), keys.shape[0], int(root_kind == "mlp"),
+                int(leaf_kind == "mlp"), *(o.data_ptr() for o in outs),
+                _stream(q_lo))
         build.check(rc, "sharded_dynamic_range")
         LAUNCHES["sharded_dynamic_range"] += 1
     return tuple(outs)

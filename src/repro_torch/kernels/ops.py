@@ -21,8 +21,9 @@ import torch
 
 from . import lookup as _lookup
 
-# Seam-fix accounting: calls verified and window misses re-searched.  Each
-# verification reads its miss count to the host once.
+# Seam-fix accounting: stacks verified and window misses re-searched.  One
+# verification step reads the miss counts of all its stacks to the host
+# once.
 SEAM = {"calls": 0, "misses": 0}
 
 
@@ -31,38 +32,74 @@ def reset_seam() -> None:
     SEAM["misses"] = 0
 
 
+def _reads(ts: list) -> list:
+    """Host values of the device scalars ``ts`` (perhaps on several
+    devices): one host read for all of them."""
+    if len(ts) == 1:
+        return [ts[0].item()]
+    if not ts:
+        return []
+    dev = ts[0].device
+    return torch.stack([t.to(dev) for t in ts]).tolist()
+
+
 # Every epilogue works on (S, n) stacks of tiers, each query tagged with its
-# row ``rid``; a single index is the stack of one row, ``rid`` None.
+# row ``rid``; a single index is the stack of one row, ``rid`` None.  The
+# epilogues take a list of items, each a stack with its queries (the
+# positions of a mesh, each on its own device), and read to the host once
+# a step for all of them.
 def _row_search(stack, rid, qf, right=False):
-    """Left boundaries of ``qf`` in row ``rid`` of the (S, n) ``stack``, or
-    right ones (``right`` True, or a mask of the queries that ask for them):
-    one batched ``torch.searchsorted`` of the rows, each given its own
-    queries, laid out (S, m) with +inf padding (m the most queries a row
-    has: one host read).  Positions within the row, int32; NaN past the
-    row's end, where the reference's search places it."""
-    S, n = stack.shape
-    if rid is None:
-        find = lambda side: torch.searchsorted(stack[0], qf, right=side)
-    else:
+    """:func:`_row_searches` of one item."""
+    return _row_searches([(stack, rid, qf, right)])[0]
+
+
+def _row_searches(items: list) -> list:
+    """Left boundaries of each item's ``qf`` in its rows ``rid`` of its
+    (S, n) ``stack``, or right ones (``right`` True, or a mask of the
+    queries that ask for them): one batched ``torch.searchsorted`` of an
+    item's rows, each given its own queries, laid out (S, m) with +inf
+    padding (m the most queries a row has: one host read for all items).
+    Positions within the row, int32; NaN past the row's end, where the
+    reference's search places it."""
+    lays = []
+    for stack, rid, _, _ in items:
+        if rid is None or not rid.numel():
+            lays.append(None)
+            continue
         r = rid.long()
         order = torch.argsort(r, stable=True)
         rs = r[order]
-        start = torch.searchsorted(rs, torch.arange(S, device=r.device))
+        start = torch.searchsorted(
+            rs, torch.arange(stack.shape[0], device=r.device))
         slot = torch.arange(r.shape[0], device=r.device) - start[rs]
-        m = int(slot.max()) + 1 if r.numel() else 0
-        vals = torch.full((S, m), torch.inf, dtype=stack.dtype,
-                          device=stack.device)
-        vals[rs, slot] = qf[order]
+        lays.append((r, order, rs, slot))
+    widths = iter(_reads([lay[3].max() for lay in lays if lay is not None]))
+    out = []
+    for (stack, rid, qf, right), lay in zip(items, lays, strict=True):
+        S, n = stack.shape
+        if rid is None:
+            find = lambda side, st=stack, q=qf: torch.searchsorted(
+                st[0], q, right=side)
+        elif lay is None:
+            find = lambda side, r=rid: torch.empty_like(r, dtype=torch.int64)
+        else:
+            r, order, rs, slot = lay
+            vals = torch.full((S, next(widths) + 1), torch.inf,
+                              dtype=stack.dtype, device=stack.device)
+            vals[rs, slot] = qf[order]
 
-        def find(side):
-            pos = torch.empty_like(r)
-            pos[order] = torch.searchsorted(stack, vals, right=side)[rs, slot]
-            return pos
-    if isinstance(right, bool):
-        pos = find(right)
-    else:
-        pos = torch.where(right, find(True), find(False))
-    return torch.where(torch.isnan(qf), n, pos).to(torch.int32)
+            def find(side, st=stack, vals=vals, r=r, order=order, rs=rs,
+                     slot=slot):
+                pos = torch.empty_like(r)
+                pos[order] = torch.searchsorted(st, vals,
+                                                right=side)[rs, slot]
+                return pos
+        if isinstance(right, bool):
+            pos = find(right)
+        else:
+            pos = torch.where(right, find(True), find(False))
+        out.append(torch.where(torch.isnan(qf), n, pos).to(torch.int32))
+    return out
 
 
 def _at(stack, rid, pos):
@@ -73,78 +110,132 @@ def _at(stack, rid, pos):
     return stack.reshape(-1)[p]
 
 
-def _seam_fix(r, kf, rid, qf, right=None):
-    """Seam verification in f32 key space, within each query's row of the
-    (S, n) stack ``kf``.  Valid positions satisfy the left-boundary
-    invariant kf[r-1] < q <= kf[r], or where the mask ``right`` is set the
-    right-boundary one kf[r-1] <= q < kf[r]; the rest -- boundary queries
-    outside their leaf's window, or sentinel windows deeper than the
-    clamped depth -- are re-searched in their own row.  One host read of
-    the miss count."""
-    n = kf.shape[1]
-    prev = _at(kf, rid, (r - 1).clamp(0, n - 1))
-    cur = _at(kf, rid, r.clamp(0, n - 1))
-    lo_ok, hi_ok = prev < qf, cur >= qf
-    if right is not None:
-        lo_ok = lo_ok | (right & (prev == qf))
-        hi_ok = hi_ok & ~(right & (cur == qf))
-    valid = ((r == 0) | lo_ok) & ((r == n) | hi_ok)
-    bad = torch.nonzero(~valid).squeeze(1)
-    SEAM["calls"] += 1
-    SEAM["misses"] += bad.numel()
-    if bad.numel() == 0:
-        return r
-    r = r.clone()
-    r[bad] = _row_search(kf, None if rid is None else rid[bad], qf[bad],
-                         False if right is None else right[bad])
-    return r
+def _nonzeros(masks: list) -> list:
+    """The set positions of each mask (None where it has none), the masks
+    perhaps on several devices: one host read of all their counts (then a
+    ``nonzero_static`` each, which reads nothing), or for a single mask
+    the read of its own ``nonzero``."""
+    if len(masks) == 1:
+        nz = torch.nonzero(masks[0]).squeeze(1)
+        return [nz if nz.numel() else None]
+    counts = _reads([m.sum() for m in masks])
+    return [torch.nonzero_static(m, size=c).squeeze(1) if c else None
+            for m, c in zip(masks, counts, strict=True)]
 
 
-def _run_end(stack, rid, qf, pos):
-    """Right boundaries of ``qf`` in their rows from the exact left
-    boundaries ``pos``; NaN past the row's end.  One row: a searchsorted of
-    the batch.  A stack: one step past a member key, and a row search only
-    for runs of two or more equal keys (one host read of their count, where
-    a search of the whole batch would lay it out by row)."""
-    if rid is None:
-        return _row_search(stack, None, qf, right=True)
-    n = stack.shape[1]
-    hit = lambda p: (p < n) & (_at(stack, rid, p.clamp(max=n - 1)) == qf)
-    r = pos + hit(pos).to(pos.dtype)
-    runs = torch.nonzero(hit(r)).squeeze(1)
-    if runs.numel():
-        r[runs] = _row_search(stack, rid[runs], qf[runs], right=True)
-    return torch.where(torch.isnan(qf), n, r)
+def _seam_fix(items: list) -> list:
+    """Seam verification in f32 key space of each item ``(r, kf, rid, qf,
+    right)``: positions ``r`` of the queries ``qf``, each within its row
+    ``rid`` of the (S, n) stack ``kf``.  Valid positions satisfy the
+    left-boundary invariant kf[r-1] < q <= kf[r], or where the mask
+    ``right`` (None: nowhere) is set the right-boundary one kf[r-1] <= q <
+    kf[r]; the rest -- boundary queries outside their leaf's window, or
+    sentinel windows deeper than the clamped depth -- are re-searched in
+    their own row.  The items may lie on several devices (the positions of
+    a mesh): one host read of all their miss counts, and one of the
+    re-searches' layouts.  Returns the fixed positions of each item."""
+    bads = []
+    for r, kf, rid, qf, right in items:
+        n = kf.shape[1]
+        prev = _at(kf, rid, (r - 1).clamp(0, n - 1))
+        cur = _at(kf, rid, r.clamp(0, n - 1))
+        lo_ok, hi_ok = prev < qf, cur >= qf
+        if right is not None:
+            lo_ok = lo_ok | (right & (prev == qf))
+            hi_ok = hi_ok & ~(right & (cur == qf))
+        bads.append(~(((r == 0) | lo_ok) & ((r == n) | hi_ok)))
+    fixes = []
+    for i, bad in enumerate(_nonzeros(bads)):
+        SEAM["calls"] += 1
+        if bad is not None:
+            SEAM["misses"] += bad.numel()
+            fixes.append((i, bad))
+    out = [r for r, *_ in items]
+    found = _row_searches([
+        (items[i][1], None if items[i][2] is None else items[i][2][bad],
+         items[i][3][bad], False if items[i][4] is None else items[i][4][bad])
+        for i, bad in fixes])
+    for (i, bad), pos in zip(fixes, found, strict=True):
+        out[i] = out[i].clone()
+        out[i][bad] = pos
+    return out
 
 
-def _two_tier_find(kf, bpsum, dkf, dpsum, rid, qf, pos, dpos):
-    """(found, rank) of the exact left boundaries ``pos`` / ``dpos`` in the
-    two tiers: ``found`` iff a live entry is in q's equal-key run of either
+def _run_end(items: list) -> list:
+    """Right boundaries of each item's queries ``(stack, rid, qf, pos)`` in
+    their rows from the exact left boundaries ``pos``; NaN past the row's
+    end.  One row (``rid`` None): a searchsorted of the batch.  A stack:
+    one step past a member key, and a row search only for runs of two or
+    more equal keys (one host read of their counts over all items, and one
+    of the searches' layouts, where a search of the whole batch would lay
+    it out by row)."""
+    out = [None] * len(items)
+    stacked, masks = [], []
+    for i, (stack, rid, qf, pos) in enumerate(items):
+        if rid is None:
+            out[i] = _row_search(stack, None, qf, right=True)
+            continue
+        n = stack.shape[1]
+        hit = lambda p: (p < n) & (_at(stack, rid, p.clamp(max=n - 1)) == qf)
+        out[i] = pos + hit(pos).to(pos.dtype)
+        stacked.append(i)
+        masks.append(hit(out[i]))
+    runs = [(i, nz) for i, nz in zip(stacked, _nonzeros(masks), strict=True)
+            if nz is not None]
+    found = _row_searches([(items[i][0], items[i][1][nz], items[i][2][nz],
+                            True) for i, nz in runs])
+    for (i, nz), p in zip(runs, found, strict=True):
+        out[i][nz] = p
+    for i in stacked:
+        out[i] = torch.where(torch.isnan(items[i][2]), items[i][0].shape[1],
+                             out[i])
+    return out
+
+
+def _two_tier_find(items: list) -> list:
+    """(found, rank) of each item ``(kf, bpsum, dkf, dpsum, rid, qf, pos,
+    dpos)``, from the exact left boundaries ``pos`` / ``dpos`` in the two
+    tiers: ``found`` iff a live entry is in q's equal-key run of either
     tier, ``rank`` the live keys < q over both."""
-    bhi = _run_end(kf, rid, qf, pos)
-    dhi = _run_end(dkf, rid, qf, dpos)
-    bp = lambda p: _at(bpsum, rid, p)
-    dp = lambda p: _at(dpsum, rid, p)
-    base_hit = (bhi - pos) > (bp(bhi) - bp(pos))
-    delta_hit = (dhi - dpos) > (dp(dhi) - dp(dpos))
-    return base_hit | delta_hit, (pos - bp(pos)) + (dpos - dp(dpos))
+    bhis = _run_end([(kf, rid, qf, pos)
+                     for kf, _, _, _, rid, qf, pos, _ in items])
+    dhis = _run_end([(dkf, rid, qf, dpos)
+                     for _, _, dkf, _, rid, qf, _, dpos in items])
+    out = []
+    for (_, bpsum, _, dpsum, rid, _, pos, dpos), bhi, dhi in zip(
+            items, bhis, dhis, strict=True):
+        bp = lambda p: _at(bpsum, rid, p)
+        dp = lambda p: _at(dpsum, rid, p)
+        base_hit = (bhi - pos) > (bp(bhi) - bp(pos))
+        delta_hit = (dhi - dpos) > (dp(dhi) - dp(dpos))
+        out.append((base_hit | delta_hit,
+                    (pos - bp(pos)) + (dpos - dp(dpos))))
+    return out
 
 
-def _two_tier_range(kf, bpsum, dpsum, rid, q_lo, q_hi, blo, bhi, dlo, dhi):
-    """(rank_lo, rank_hi) of K3's positions: the base ones seam-fixed in
+def _two_tier_range(items: list) -> list:
+    """(rank_lo, rank_hi) of each item ``(kf, bpsum, dpsum, rid, q_lo, q_hi,
+    blo, bhi, dlo, dhi)`` of K3's positions: the base ones seam-fixed in
     one pass over both ends (the delta probe ran at full depth), rank_hi
     clamped to rank_lo."""
-    Q = q_lo.shape[0]
-    q = torch.cat([q_lo, q_hi])
-    b = _seam_fix(torch.cat([blo, bhi]), kf,
-                  None if rid is None else torch.cat([rid, rid]), q,
-                  torch.arange(2 * Q, device=q.device) >= Q)
-    blo, bhi = b[:Q], b[Q:]
-    bp = lambda p: _at(bpsum, rid, p)
-    dp = lambda p: _at(dpsum, rid, p)
-    rank_lo = (blo - bp(blo)) + (dlo - dp(dlo))
-    rank_hi = (bhi - bp(bhi)) + (dhi - dp(dhi))
-    return rank_lo, torch.maximum(rank_hi, rank_lo)
+    fix = []
+    for kf, _, _, rid, q_lo, q_hi, blo, bhi, _, _ in items:
+        Q = q_lo.shape[0]
+        fix.append((torch.cat([blo, bhi]), kf,
+                    None if rid is None else torch.cat([rid, rid]),
+                    torch.cat([q_lo, q_hi]),
+                    torch.arange(2 * Q, device=q_lo.device) >= Q))
+    out = []
+    for (_, bpsum, dpsum, rid, q_lo, _, _, _, dlo, dhi), b in zip(
+            items, _seam_fix(fix), strict=True):
+        Q = q_lo.shape[0]
+        blo, bhi = b[:Q], b[Q:]
+        bp = lambda p: _at(bpsum, rid, p)
+        dp = lambda p: _at(dpsum, rid, p)
+        rank_lo = (blo - bp(blo)) + (dlo - dp(dlo))
+        rank_hi = (bhi - bp(bhi)) + (dhi - dp(dhi))
+        out.append((rank_lo, torch.maximum(rank_hi, rank_lo)))
+    return out
 
 
 def index_lookup(queries, root, mat, vec, keys, *, n_leaves: int,
@@ -160,7 +251,7 @@ def index_lookup(queries, root, mat, vec, keys, *, n_leaves: int,
     r = _lookup.lookup(queries, root, mat, vec, keys, n_leaves=n_leaves,
                        iters=iters, root_kind=root_kind, leaf_kind=leaf_kind,
                        rows=rows, fence=fence)
-    return _seam_fix(r, keys[None], None, queries)
+    return _seam_fix([(r, keys[None], None, queries, None)])[0]
 
 
 def rmrt_lookup(queries, mat, vec, keys, *, fanout: int, depth: int,
@@ -176,7 +267,7 @@ def rmrt_lookup(queries, mat, vec, keys, *, fanout: int, depth: int,
     r = _lookup.rmrt_lookup(queries, mat, vec, keys, fanout=fanout,
                             depth=depth, kind=kind, iters=iters, rows=rows,
                             fence=fence)
-    return _seam_fix(r, keys[None], None, queries)
+    return _seam_fix([(r, keys[None], None, queries, None)])[0]
 
 
 def ksdist_matrix(tgt_hists, pool_a, pool_ps):
@@ -256,10 +347,11 @@ def dynamic_index_lookup(queries, root, mat, vec, keys, base_psum,
                                        n_leaves=n_leaves, route_n=route_n,
                                        iters=iters, root_kind=root_kind,
                                        leaf_kind=leaf_kind, rows=rows)
-    pos = _seam_fix(pos, keys[None], None, queries)
+    (pos,) = _seam_fix([(pos, keys[None], None, queries, None)])
     dpsum = _edge_pad(delta_psum, df.shape[0] + 1)
-    found, rank = _two_tier_find(keys[None], base_psum[None], df[None],
-                                 dpsum[None], None, queries, pos, dpos)
+    ((found, rank),) = _two_tier_find([(keys[None], base_psum[None],
+                                        df[None], dpsum[None], None, queries,
+                                        pos, dpos)])
     return found, rank, pos, dpos
 
 
@@ -285,22 +377,33 @@ def range_lookup(q_lo, q_hi, root, mat, vec, keys, base_psum, delta_keys,
         route_n=route_n, iters=iters, root_kind=root_kind,
         leaf_kind=leaf_kind)
     dpsum = _edge_pad(delta_psum, df.shape[0] + 1)
-    return _two_tier_range(keys[None], base_psum[None], dpsum[None], None,
-                           q_lo, q_hi, *pos)
+    return _two_tier_range([(keys[None], base_psum[None], dpsum[None], None,
+                             q_lo, q_hi, *pos)])[0]
 
 
 # ---------------------------------------------------------------------------
-# Shard-stacked forms: the same epilogues, ``shard`` the row ids.
+# Shard-stacked forms: the same epilogues, ``shard`` the row ids.  Each
+# ``*_all`` form takes several calls -- ``(args, keywords)`` of its single
+# form, each call's tensors on their own device (the positions of a mesh,
+# ``core.distributed``) -- launches every call's kernel before the first
+# host read, and then reads once a step of the epilogue for all of them.
 # ---------------------------------------------------------------------------
 def sharded_index_lookup(queries, shard, roots, mats, vecs, keys, *,
                          n_leaves: int, iters: int, rows=None, fences=None,
                          tabs=None):
     """Shard-stacked static lookup (K1 + seam fix): the left boundary of
     each f32 query in its shard's row of the (S, n) f32 ``keys``."""
-    r = _lookup.sharded_lookup(queries, shard, roots, mats, vecs, keys,
-                               n_leaves=n_leaves, iters=iters, rows=rows,
-                               fences=fences, tabs=tabs)
-    return _seam_fix(r, keys, shard, queries)
+    return sharded_index_lookup_all([(
+        (queries, shard, roots, mats, vecs, keys),
+        dict(n_leaves=n_leaves, iters=iters, rows=rows, fences=fences,
+             tabs=tabs))])[0]
+
+
+def sharded_index_lookup_all(calls: list) -> list:
+    """:func:`sharded_index_lookup` of each call."""
+    rs = [_lookup.sharded_lookup(*a, **kw) for a, kw in calls]
+    return _seam_fix([(r, a[5], a[1], a[0], None)
+                      for r, (a, _) in zip(rs, calls, strict=True)])
 
 
 def sharded_dynamic_find(queries, shard, roots, mats, vecs, keys, base_psum,
@@ -312,13 +415,26 @@ def sharded_dynamic_find(queries, shard, roots, mats, vecs, keys, base_psum,
     stacks: f32 ``keys`` (S, n) and ``delta_keys`` (S, nd) (nd a multiple
     of 128, +inf padded), tombstone prefix sums (S, n + 1) and
     (S, nd + 1)."""
-    pos, dpos = _lookup.sharded_dynamic_lookup(
-        queries, shard, roots, mats, vecs, keys, delta_keys,
-        n_leaves=n_leaves, route_n=route_n, iters=iters,
-        root_kind=root_kind, leaf_kind=leaf_kind, rows=rows, tabs=tabs)
-    pos = _seam_fix(pos, keys, shard, queries)
-    return _two_tier_find(keys, base_psum, delta_keys, delta_psum, shard,
-                          queries, pos, dpos)
+    return sharded_dynamic_find_all([(
+        (queries, shard, roots, mats, vecs, keys, base_psum, delta_keys,
+         delta_psum),
+        dict(n_leaves=n_leaves, route_n=route_n, iters=iters,
+             root_kind=root_kind, leaf_kind=leaf_kind, rows=rows,
+             tabs=tabs))])[0]
+
+
+def sharded_dynamic_find_all(calls: list) -> list:
+    """:func:`sharded_dynamic_find` of each call."""
+    pos = []
+    for (q, shard, roots, mats, vecs, keys, _, dkeys, _), kw in calls:
+        pos.append(_lookup.sharded_dynamic_lookup(
+            q, shard, roots, mats, vecs, keys, dkeys, **kw))
+    fixed = _seam_fix([(p, a[5], a[1], a[0], None)
+                       for (p, _), (a, _) in zip(pos, calls, strict=True)])
+    return _two_tier_find([
+        (keys, bpsum, dkeys, dpsum, shard, q, p, dp)
+        for ((q, shard, _, _, _, keys, bpsum, dkeys, dpsum), _), p, (_, dp)
+        in zip(calls, fixed, pos, strict=True)])
 
 
 def sharded_range_lookup(q_lo, q_hi, shard, roots, mats, vecs, keys,
@@ -328,9 +444,21 @@ def sharded_range_lookup(q_lo, q_hi, shard, roots, mats, vecs, keys,
                          leaf_kind: str = "linear", tabs=None):
     """Shard-stacked two-tier range answer (K3 + epilogue): (rank_lo,
     rank_hi) within each pair's shard, rank_hi clamped to rank_lo."""
-    pos = _lookup.sharded_dynamic_range(
-        q_lo, q_hi, shard, roots, mats, vecs, keys, delta_keys,
-        n_leaves=n_leaves, route_n=route_n, iters=iters,
-        root_kind=root_kind, leaf_kind=leaf_kind, tabs=tabs)
-    return _two_tier_range(keys, base_psum, delta_psum, shard, q_lo, q_hi,
-                           *pos)
+    return sharded_range_lookup_all([(
+        (q_lo, q_hi, shard, roots, mats, vecs, keys, base_psum, delta_keys,
+         delta_psum),
+        dict(n_leaves=n_leaves, route_n=route_n, iters=iters,
+             root_kind=root_kind, leaf_kind=leaf_kind, tabs=tabs))])[0]
+
+
+def sharded_range_lookup_all(calls: list) -> list:
+    """:func:`sharded_range_lookup` of each call."""
+    pos = []
+    for (q_lo, q_hi, shard, roots, mats, vecs, keys, _, dkeys, _), kw \
+            in calls:
+        pos.append(_lookup.sharded_dynamic_range(
+            q_lo, q_hi, shard, roots, mats, vecs, keys, dkeys, **kw))
+    return _two_tier_range([
+        (keys, bpsum, dpsum, shard, q_lo, q_hi, *p)
+        for ((q_lo, q_hi, shard, _, _, _, keys, bpsum, _, dpsum), _), p
+        in zip(calls, pos, strict=True)])

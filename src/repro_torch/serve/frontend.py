@@ -20,10 +20,10 @@ Pipeline::
   graph a class would need) and the pad work, which ``FrontendStats``
   counts.
 * **Multi-tenant stacked dispatch**: N independent ``ShardedDynamicIndex``
-  tenants on one device answer a batch in one call of
+  tenants on one mesh answer a batch in one call of
   ``core.distributed.tenant_stacked_answer``: one launch of the
-  shard-stacked K2 (finds) and one of K3 (ranges) over T x S rows,
-  (tenant, shard) flattened.  Tenants of different build sizes share the
+  shard-stacked K2 (finds) and one of K3 (ranges) a mesh position, over
+  the T x S / D rows of (tenant, shard) the position holds.  Tenants of different build sizes share the
   launch: tiers pad to the cross-tenant maximum capacity classes (+inf
   keys, edge-extended prefix sums), leaf tables pad to the widest tenant
   with the last live leaf replicated (``lookup.pad_packed_leaves``), and
@@ -57,7 +57,8 @@ Pipeline::
   in ``maintain_error``) and the loop serves on.
 
 Threads: the dispatcher thread makes every torch call of a batch, on the
-tenants' device and its default stream.  While the front-end runs it owns
+mesh's devices and their default streams; a batch is staged on the home
+device, where its answers come back.  While the front-end runs it owns
 its tenants: a caller that mutates or queries a tenant directly from
 another thread races the dispatcher (updates go through the queue).  A
 batch that fails fails its callers and never stops the loop.
@@ -215,7 +216,10 @@ class TenantPack:
     cross-tenant capacity classes, and maintained incrementally: a batch
     rewrites in place only the rows whose tenant restacked them since the
     last batch, and re-assembles the pack cold only when a cross-tenant
-    capacity class crosses a power of two.
+    capacity class crosses a power of two.  The tenants share one mesh:
+    each of its D positions holds the T x S / D rows of the shards it owns
+    on its device (``core.distributed.tenant_row`` numbers them), and a
+    batch is one stacked launch a position.
 
     Counters, as the reference counts them: ``pack_full`` cold assemblies,
     ``pack_rows`` tenants whose rows were rewritten (one a tenant a
@@ -225,15 +229,16 @@ class TenantPack:
         if not tenants:
             raise ValueError("TenantPack needs at least one tenant")
         t0 = tenants[0]
-        if any(t.mesh != t0.mesh or t.axis != t0.axis for t in tenants):
-            raise ValueError("tenants must share one mesh and axis")
-        if any(t.device != t0.device for t in tenants):
-            raise ValueError("tenants must share one device")
+        if any(t.mesh != t0.mesh or t.axis != t0.axis
+               or t.positions != t0.positions for t in tenants):
+            raise ValueError("tenants must share one mesh: its shard count, "
+                             "axis and devices")
         kinds = {t.shards[0].index.leaf_kind for t in tenants}
         if len(kinds) != 1:
             raise ValueError(f"tenants must share one leaf kind: {kinds}")
         self.tenants = list(tenants)
         self.mesh, self.axis, self.device = t0.mesh, t0.axis, t0.device
+        self.positions = t0.positions
         self.use_kernel = resolve_path(
             path, f32_exact=lambda: all(t.f32_exact for t in tenants),
             device=self.device, what="tenant key space")
@@ -241,6 +246,12 @@ class TenantPack:
         self.n_leaves = max(t.n_leaves for t in tenants)
         # common packed lane count: the widest tenant's 128-multiple
         self._lp = -(-self.n_leaves // 128) * 128
+        T, S = self.n_tenants, self.n_shards
+        k = S // len(self.positions)
+        # each tenant's row of every shard, on the home device
+        self._rows = torch.as_tensor(
+            [[dist_mod.tenant_row(t, s, T, k) for s in range(S)]
+             for t in range(T)], dtype=torch.int64, device=self.device)
         self._st: dict | None = None
         self._seen: list | None = None    # _row_gen copies at the last write
         self.pack_full = 0                # cold pack assemblies
@@ -257,81 +268,99 @@ class TenantPack:
     # -- assembly ----------------------------------------------------------
     def _allocate(self, sts: list, bcap: int, dcap: int) -> dict:
         """Empty pack tensors for the geometry (bcap, dcap): the f64 path's
-        or the kernel path's, not both."""
-        T, S, L, dev = self.n_tenants, self.n_shards, self.n_leaves, \
+        or the kernel path's, not both; what every position shares on the
+        home device, and each position's rows on its own."""
+        T, S, L, home = self.n_tenants, self.n_shards, self.n_leaves, \
             self.device
         TS = T * S
-        new = lambda shape, dtype: torch.empty(shape, dtype=dtype,
-                                               device=dev)
+        new = lambda shape, dtype, dev=home: torch.empty(shape, dtype=dtype,
+                                                         device=dev)
         pk = dict(n_shards=S, n_leaves=L, leaf_kind=self.leaf_kind,
-                  bcap=bcap, dcap=dcap, iters=None, tabs=None,
+                  bcap=bcap, dcap=dcap, iters=None,
                   splits=new((T, S - 1), _F64),
                   offs=new((TS,), torch.int32),
                   member=new((TS,), _F64),
-                  route_n=np.zeros(TS, np.float64),
-                  bpsum=new((TS, bcap + 1), torch.int32),
-                  dpsum=new((TS, dcap + 1), torch.int32))
-        st0 = sts[0]
-        if self.use_kernel:
-            p0 = st0["packed"]
-            pk.update(roots=new((TS,) + tuple(p0["roots"].shape[1:]),
-                                torch.float32),
-                      mats=new((TS, p0["mats"].shape[1], self._lp),
-                               torch.float32),
-                      vecs=new((TS, p0["vecs"].shape[1], self._lp),
-                               torch.float32),
-                      kf=new((TS, bcap), torch.float32),
-                      dkf=new((TS, dcap), torch.float32))
-            if self.leaf_kind == "mlp":
-                w = tlk.leaf_rows(p0["mats"][0], p0["vecs"][0], "mlp") \
-                    .shape[1:]
-                pk["rows"] = new((TS, self._lp) + tuple(w), torch.float32)
-        else:
-            alloc = lambda p, width: type(p)(*(
-                new((TS,) + ((width,) if width else ()) + tuple(
-                    f.shape[2 if width else 1:]), f.dtype) for f in p))
-            pk.update(root=alloc(st0["root"], None),
-                      leaves=alloc(st0["leaves"], L),
-                      err_lo=new((TS, L), _F64), err_hi=new((TS, L), _F64),
-                      base=new((TS, bcap), _F64), dk=new((TS, dcap), _F64))
+                  route_n=np.zeros(TS, np.float64), parts=[])
+        for p, (dev, _, k) in enumerate(dist_mod._layout(self.positions,
+                                                          S)):
+            n = T * k
+            part = dict(device=dev, lo=p * n, n=n, tabs=None,
+                        bpsum=new((n, bcap + 1), torch.int32, dev),
+                        dpsum=new((n, dcap + 1), torch.int32, dev))
+            st0 = sts[0]["parts"][p]
+            if self.use_kernel:
+                p0 = st0["packed"]
+                part.update(
+                    roots=new((n,) + tuple(p0["roots"].shape[1:]),
+                              torch.float32, dev),
+                    mats=new((n, p0["mats"].shape[1], self._lp),
+                             torch.float32, dev),
+                    vecs=new((n, p0["vecs"].shape[1], self._lp),
+                             torch.float32, dev),
+                    kf=new((n, bcap), torch.float32, dev),
+                    dkf=new((n, dcap), torch.float32, dev))
+                if self.leaf_kind == "mlp":
+                    w = tlk.leaf_rows(p0["mats"][0], p0["vecs"][0], "mlp") \
+                        .shape[1:]
+                    part["rows"] = new((n, self._lp) + tuple(w),
+                                       torch.float32, dev)
+            else:
+                alloc = lambda f0, width: type(f0)(*(
+                    new((n,) + ((width,) if width else ()) + tuple(
+                        f.shape[2 if width else 1:]), f.dtype, dev)
+                    for f in f0))
+                part.update(root=alloc(st0["root"], None),
+                            leaves=alloc(st0["leaves"], L),
+                            err_lo=new((n, L), _F64, dev),
+                            err_hi=new((n, L), _F64, dev),
+                            base=new((n, bcap), _F64, dev),
+                            dk=new((n, dcap), _F64, dev))
+            pk["parts"].append(part)
         return pk
 
     def _write(self, i: int, ids, st: dict) -> None:
-        """Rewrite tenant ``i``'s rows ``ids`` (its shard ids) of the pack
+        """Rewrite tenant ``i``'s rows of its shards ``ids`` in the pack
         from its stack ``st``, in place, and its splits and offsets."""
         pk, S, L = self._st, self.n_shards, self.n_leaves
         t = self.tenants[i]
         lt = t.n_leaves
+        k = S // len(pk["parts"])
         inf = float("inf")
         pk["splits"][i] = st["splits"]
-        pk["offs"][i * S:(i + 1) * S] = st["offs"]
+        pk["offs"][self._rows[i]] = st["offs"]
         for s in ids:
-            r = i * S + int(s)
-            pk["member"][r] = dist_mod._member(st["base"][s, 0])
+            s = int(s)
+            p, j = divmod(s, k)
+            r = dist_mod.tenant_row(i, s, self.n_tenants, k)
+            part, src = pk["parts"][p], st["parts"][p]
+            lr = r - part["lo"]
+            pk["member"][r] = st["member"][s]
             # the reference's rescale: the frozen scale times L / L_t
             pk["route_n"][r] = np.float64(t.shards[s].route_n) * (
                 np.float64(L) / np.float64(lt))
-            _put(pk["bpsum"], r, st["bpsum"][s], None)
-            _put(pk["dpsum"], r, st["dpsum"][s], None)
+            _put(part["bpsum"], lr, src["bpsum"][j], None)
+            _put(part["dpsum"], lr, src["dpsum"][j], None)
             if self.use_kernel:
-                p = st["packed"]
-                pk["roots"][r] = p["roots"][s]
-                mat, vec = pad_packed_leaves(p["mats"][s], p["vecs"][s], lt,
+                pp = src["packed"]
+                part["roots"][lr] = pp["roots"][j]
+                mat, vec = pad_packed_leaves(pp["mats"][j], pp["vecs"][j], lt,
                                              self._lp)
-                pk["mats"][r], pk["vecs"][r] = mat, vec
-                if "rows" in pk:
-                    pk["rows"][r] = tlk.leaf_rows(mat, vec, self.leaf_kind)
-                _put(pk["kf"], r, p["kf"][s], inf)
-                _put(pk["dkf"], r, p["dkf"][s], inf)
+                part["mats"][lr], part["vecs"][lr] = mat, vec
+                if "rows" in part:
+                    part["rows"][lr] = tlk.leaf_rows(mat, vec,
+                                                     self.leaf_kind)
+                _put(part["kf"], lr, pp["kf"][j], inf)
+                _put(part["dkf"], lr, pp["dkf"][j], inf)
             else:
-                for dst, src in zip(pk["root"], st["root"], strict=True):
-                    dst[r] = src[s]
-                for dst, src in zip(pk["leaves"], st["leaves"], strict=True):
-                    _put(dst, r, src[s], None)
-                _put(pk["err_lo"], r, st["err_lo"][s], None)
-                _put(pk["err_hi"], r, st["err_hi"][s], None)
-                _put(pk["base"], r, st["base"][s], inf)
-                _put(pk["dk"], r, st["dk"][s], inf)
+                for dst, f in zip(part["root"], src["root"], strict=True):
+                    dst[lr] = f[j]
+                for dst, f in zip(part["leaves"], src["leaves"],
+                                  strict=True):
+                    _put(dst, lr, f[j], None)
+                _put(part["err_lo"], lr, src["err_lo"][j], None)
+                _put(part["err_hi"], lr, src["err_hi"][j], None)
+                _put(part["base"], lr, src["base"][j], inf)
+                _put(part["dk"], lr, src["dk"][j], inf)
 
     def _refresh(self) -> dict:
         sts = [t._stacked() for t in self.tenants]
@@ -367,13 +396,16 @@ class TenantPack:
         iters = max(st["iters"] for st in sts)
         pk = self._st
         if iters != pk["iters"]:
-            pk["iters"], pk["tabs"] = iters, None
-        if self.use_kernel and pk["tabs"] is None \
-                and self.device.type == "cuda":
-            pk["tabs"] = tlk.shard_tables(
-                pk["roots"], pk["mats"], pk["vecs"], pk["kf"],
-                n_leaves=self.n_leaves, route_n=self.n_leaves, iters=iters,
-                rows=pk.get("rows"), delta_keys=pk["dkf"])
+            pk["iters"] = iters
+            for part in pk["parts"]:
+                part["tabs"] = None
+        for part in pk["parts"] if self.use_kernel else ():
+            if part["tabs"] is None and part["device"].type == "cuda":
+                part["tabs"] = tlk.shard_tables(
+                    part["roots"], part["mats"], part["vecs"], part["kf"],
+                    n_leaves=self.n_leaves, route_n=self.n_leaves,
+                    iters=iters, rows=part.get("rows"),
+                    delta_keys=part["dkf"])
         return pk
 
     # -- dispatch ----------------------------------------------------------
@@ -387,8 +419,8 @@ class TenantPack:
     def find(self, qmat) -> tuple[torch.Tensor, torch.Tensor]:
         """One stacked find: ``qmat`` is (n_tenants, qcap) f64, row t the
         queries of tenant t (callers pad to ``capacity_class`` widths).
-        Returns (found, rank) as (n_tenants, qcap) tensors on the tenants'
-        device, each tenant's global live ranks."""
+        Returns (found, rank) as (n_tenants, qcap) tensors on the mesh's
+        home device, each tenant's global live ranks."""
         st = self._refresh()
         return dist_mod.tenant_stacked_answer(
             st, self._matrix(qmat), use_kernel=self.use_kernel, rng=False)

@@ -159,7 +159,9 @@ class DynamicPageTable:
         allocations ride the delta tier until Lemma 4.1 triggers rebuilds.
         With ``mesh`` (a ``core.distributed.ShardMesh``) the table rides
         the sharded dynamic index: the same batched insert/delete/find,
-        the block keys range-partitioned over the shards.  ``rmi_kwargs``
+        the block keys range-partitioned over the shards (and over the
+        mesh's devices when it names them; lookups answer on its home
+        device).  ``rmi_kwargs``
         go to the index's build (``device=``: CUDA unless ``"cpu"``)."""
         items = sorted(cache.table.items())
         if not items:

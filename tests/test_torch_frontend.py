@@ -24,7 +24,8 @@ against the reference's (``repro.serve.frontend``).
   module starts and read at its end; the port's pack must equal it bit
   for bit, each tenant's own ``find`` / ``find_range`` (which
   ``test_torch_sharded.py`` holds against the reference) and the
-  searchsorted truth.
+  searchsorted truth.  Again with the tenants on CPU mesh positions (2
+  shards on 2, 4 on 4, 4 on 2), which must also equal the one-stack pack.
 * One stacked call a batch over all tenants, whatever the live batch size
   (1 to 256): ``TENANT_CALLS`` and the calls of the shard-stacked K2 / K3
   wrappers.
@@ -65,6 +66,7 @@ from repro_torch.core import synth as tsynth
 from repro_torch.kernels import lookup as tlk
 from repro_torch.kernels.lookup import capacity_class
 from repro_torch.serve import frontend as F
+from torch_mesh import HOME_KEYS, cpu_mesh, stack_tensors
 
 PATHS = ("jnp", "kernel")
 SIZES = ((4000, 64), (900, 16))      # the reference's _build_tenants
@@ -99,10 +101,10 @@ def _spec(seed: int, sizes=SIZES):
     return out
 
 
-def _tenants(spec, n_shards: int = 1, device="cpu", **kw):
-    return [D.ShardedDynamicIndex.build(base, D.ShardMesh(n_shards),
-                                        n_leaves=nl, eps=0.7, device=device,
-                                        **kw)
+def _tenants(spec, n_shards: int = 1, device="cpu", positions=None, **kw):
+    mesh = cpu_mesh(n_shards, positions)
+    return [D.ShardedDynamicIndex.build(base, mesh, n_leaves=nl, eps=0.7,
+                                        device=device, **kw)
             for base, nl, _ in spec]
 
 
@@ -410,12 +412,29 @@ def test_tenant_pack_bit_exact_one_shard(one_shard_record, path):
 def test_tenant_pack_on_shards(mesh_record, n_shards, path):
     """Each step: the pack against each tenant's own find / find_range,
     the truth and the reference's multi-device answers (jnp)."""
+    _pack_on_shards(mesh_record, n_shards, path, None)
+
+
+@pytest.mark.parametrize("n_shards,positions", ((2, 2), (4, 4), (4, 2)))
+@pytest.mark.parametrize("path", PATHS)
+def test_tenant_pack_on_positions(mesh_record, n_shards, positions, path):
+    """The tenants on a mesh of CPU positions: each position holds the
+    T x S / D rows of its shards, and every step's answers equal the
+    reference's, each tenant's own, the truth and the one-stack pack's."""
+    one = _pack_on_shards(mesh_record, n_shards, path, None)
+    got = _pack_on_shards(mesh_record, n_shards, path, positions)
+    for a, b in zip(got, one, strict=True):
+        _eq(a, b, "vs the one-stack pack")
+
+
+def _pack_on_shards(mesh_record, n_shards, path, positions):
     inp, out = mesh_record()
     case, recs = inp[n_shards], out[n_shards]
-    P = [D.ShardedDynamicIndex.build(base, D.ShardMesh(n_shards),
+    P = [D.ShardedDynamicIndex.build(base, cpu_mesh(n_shards, positions),
                                      n_leaves=nl, eps=0.7, device="cpu")
          for base, nl in case["build"]]
     pack = F.TenantPack(P, path=path)
+    answers = []
     for k, (step, rec) in enumerate(zip(case["steps"], recs, strict=True)):
         for t, kind, keys in step["ops"]:
             getattr(P[t], kind + "_batch")(keys)
@@ -441,6 +460,11 @@ def test_tenant_pack_on_shards(mesh_record, n_shards, path):
             el, eh = _range_truth(live, rmat[t, :rcap], rmat[t, rcap:])
             _eq(rl[t], el, "rank_lo truth")
             _eq(rh[t], eh, "rank_hi truth")
+        answers += [f, r, rl, rh]
+    T, D_ = len(P), positions or 1
+    assert [(p["lo"], p["n"]) for p in pack._st["parts"]] == \
+        [(i * T * n_shards // D_, T * n_shards // D_) for i in range(D_)]
+    return answers
 
 
 def test_pack_sees_in_place_restacks():
@@ -455,15 +479,15 @@ def test_pack_sees_in_place_restacks():
     qmat = np.stack([base0[:64], spec[1][2][:64]])
     f, _ = pack.find(qmat)
     assert f[0].all() and not f[1].any()
-    ptrs = {k: v.data_ptr() for k, v in P[1]._stack.items()
-            if isinstance(v, torch.Tensor)}
+    ptrs = {k: v.data_ptr() for k, v in stack_tensors(P[1]._stack).items()
+            if k not in HOME_KEYS}
     rows0 = P[1].restack_rows
     P[1].insert_batch(spec[1][2][:64])
     P[0].delete_batch(base0[:32])
     f, r = pack.find(qmat)
     assert P[1].restack_rows > rows0
-    assert all(P[1]._stack[k].data_ptr() == p for k, p in ptrs.items()
-               if k not in ("offs", "splits"))
+    now = stack_tensors(P[1]._stack)
+    assert all(now[k].data_ptr() == p for k, p in ptrs.items())
     assert f[1].all(), "the pack served a stale row of tenant 1"
     assert not f[0, :32].any() and f[0, 32:].all()
     _eq(r[0], _truth(P[0].live_keys(), qmat[0])[1], "rank after delete")
@@ -532,6 +556,45 @@ def test_one_stacked_call_a_batch(monkeypatch):
         assert D.TENANT_CALLS["tenant_find"] - t0["tenant_find"] == n
         assert D.TENANT_CALLS["tenant_range"] - t0["tenant_range"] == n
         assert fe.stats.qcaps <= {128, 256}, fe.stats.qcaps
+
+
+def test_one_stacked_call_a_position_a_batch(monkeypatch):
+    """Tenants on a mesh of two CPU positions: every find batch is one
+    tenant-stacked call and one stacked K2 call a position that holds
+    queries of the batch (the pads route to the first), every range batch
+    the same of K3, and the answers are the truth."""
+    calls = {"k2": 0, "k3": 0}
+    k2, k3 = tlk.sharded_dynamic_lookup, tlk.sharded_dynamic_range
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+    monkeypatch.setattr(tlk, "sharded_dynamic_lookup", count("k2", k2))
+    monkeypatch.setattr(tlk, "sharded_dynamic_range", count("k3", k3))
+    spec = _spec(37)
+    P = _tenants(spec, 4, positions=2)
+    lives = [base for base, _, _ in spec]
+    rng = np.random.default_rng(9)
+    with F.BatchingFrontend(P, path="kernel", config=F.ServeConfig(
+            latency_budget_s=BUDGET)) as fe:
+        fe.warmup((1, 200))
+        for sz in (1, 17, 128, 250):
+            tid = int(rng.integers(2))
+            q = rng.choice(lives[tid], sz)
+            c0, e0 = dict(calls), D.EXCHANGE["answers"]
+            found, rank = fe.lookup(tid, q)
+            _eq(rank, _truth(lives[tid], q)[1], f"sz={sz}")
+            assert found.all()
+            k2_calls = calls["k2"] - c0["k2"]
+            assert k2_calls == D.EXCHANGE["answers"] - e0
+            assert 1 <= k2_calls <= 2 and (sz < 100 or k2_calls == 2), sz
+            lo = rng.choice(lives[tid], sz)
+            c0 = dict(calls)
+            rl, _ = fe.scan(tid, lo, lo * 1.001)
+            _eq(rl, _range_truth(lives[tid], lo, lo * 1.001)[0], f"sz={sz}")
+            assert 1 <= calls["k3"] - c0["k3"] <= 2
 
 
 # --------------------------------------------- the front-end end to end --
@@ -830,11 +893,20 @@ def test_example_runs_on_the_cpu():
     """``examples/index_service_torch.py`` at a reduced size on the CPU:
     the typed insert, the Poisson drive (every drawn key found) and the
     dataset demo."""
+    _example(1)
+
+
+def test_example_runs_on_two_positions():
+    """The example with its tenants' shards on two CPU positions."""
+    _example(2)
+
+
+def _example(positions):
     path = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "examples", "index_service_torch.py")
     out = runpy.run_path(path)["main"](
         ["--device", "cpu", "--rate", "200", "--duration", "0.5", "--n",
-         "8192"])
+         "8192", "--positions", str(positions)])
     assert out["requests"] > 0 and 0 < out["batches"] <= out["requests"]
     assert out["launches"] == 0          # plain versions on the CPU
     assert out["p99_ms"] >= out["p50_ms"] > 0.0

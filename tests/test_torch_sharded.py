@@ -31,7 +31,11 @@ reference's bit for bit:
   (queries routed to empty leaves) exceed the reference's per-call budget
   of 1,024 in one shard and not in the others;
 * the counters, splits, mutes, counter table and ``live_keys()`` after
-  every step, and a warm stack against a cold one.
+  every step, and a warm stack against a cold one;
+* all of the above again on mesh positions (``ShardMesh(devices=...)``,
+  ``tests/torch_mesh.py``: one CPU position a shard, and two positions of
+  two shards), which must equal the reference and the one stack bit for
+  bit, each shard on its position and each position's stack its own.
 
 Without the reference: the shard-stacked K1-K3 walked lane by lane in
 numpy (each lane's descriptor, warps whose lanes span shards, an empty
@@ -65,6 +69,8 @@ from repro_torch import convert
 from repro_torch.core import distributed as D
 from repro_torch.kernels import lookup as tlk
 from repro_torch.kernels import ops
+from torch_mesh import (HOME_KEYS, POSITIONED, cpu_mesh, stack_scalars,
+                        stack_tensors)
 
 MESHES = (1, 2, 4)
 PATHS = ("jnp", "kernel")
@@ -299,6 +305,30 @@ def test_shard_bounds_and_splits(ref, n):
         assert np.isneginf(ref[n]["part_prefix"][2]).all()
 
 
+def _static_case(ref, n, positions):
+    """``make_lookup_fn`` ranks of an index built on ``positions`` and of
+    the reference's state converted onto them, on both paths, with the
+    budget off, at 2.0 and at 1.0, against the reference's; returns the
+    ranks by (factor, path)."""
+    keys, q, want, arrays = ref[n]["static"]
+    mesh = cpu_mesh(n, positions)
+    si = D.build_sharded(keys, mesh, n_leaves=64, device="cpu")
+    conv = convert.sharded_index_from_arrays(arrays, device="cpu",
+                                             mesh=mesh)
+    assert len(si.parts) == len(conv.parts) == (positions or 1)
+    _eq(si.keys, arrays["keys"], "stacked keys")
+    _eq(si.splits, arrays["splits"], "splits")
+    out = {}
+    for cf, r in want.items():
+        for index in (si, conv):
+            for path in PATHS:
+                got = D.make_lookup_fn(index, capacity_factor=cf,
+                                       path=path)(q)
+                _eq(got, r, f"cf={cf} {path}")
+                out[cf, path] = got
+    return out
+
+
 @pytest.mark.parametrize("n", MESHES)
 def test_make_lookup_fn_equals_reference(ref, n):
     """Global ranks of ``make_lookup_fn`` on both paths, with the budget
@@ -306,21 +336,13 @@ def test_make_lookup_fn_equals_reference(ref, n):
     answered ones equal the truth; a converted reference index answers the
     same."""
     keys, q, want, arrays = ref[n]["static"]
-    si = D.build_sharded(keys, D.ShardMesh(n), n_leaves=64, device="cpu")
-    conv = convert.sharded_index_from_arrays(arrays, device="cpu")
-    _eq(si.keys, arrays["keys"], "stacked keys")
-    _eq(si.splits, arrays["splits"], "splits")
-    cap = si.keys.shape[1]
+    _static_case(ref, n, None)
+    cap = arrays["keys"].shape[1]
     dest = np.searchsorted(arrays["splits"], q)
     truth = np.asarray([min(np.searchsorted(arrays["keys"][d], x),
                             arrays["valid"][d]) for d, x in zip(dest, q)])
     truth += dest * cap
     for cf, r in want.items():
-        for index in (si, conv):
-            for path in PATHS:
-                got = D.make_lookup_fn(index, capacity_factor=cf,
-                                       path=path)(q)
-                _eq(got, r, f"cf={cf} {path}")
         kept = r >= 0
         _eq(r[kept], truth[kept], f"cf={cf} truth")
         if cf is None or cf >= n:       # C = B * cf / n slots: none drop
@@ -328,15 +350,27 @@ def test_make_lookup_fn_equals_reference(ref, n):
     assert (want[1.0] < 0).any() or n == 1
 
 
-def _replay(r, paths=PATHS):
-    """Run the reference's operations on the port (CPU); returns the index
-    and, per record, {path: (found, rank, rank_lo, rank_hi)} and the
-    counters, splits, mutes, counter table and live keys, read where the
-    reference read them."""
+@pytest.mark.parametrize("n,positions", POSITIONED)
+def test_make_lookup_fn_on_positions(ref, n, positions):
+    """On a mesh of ``positions`` CPU positions, built and converted, the
+    ranks equal the reference's (the budget's -1s included) and the
+    one-stack index's bit for bit, on both paths."""
+    want = _static_case(ref, n, None)
+    for k, got in _static_case(ref, n, positions).items():
+        _eq(got, want[k], f"{k} vs one stack")
+
+
+def _replay(r, paths=PATHS, positions=None):
+    """Run the reference's operations on the port (CPU), on a mesh of
+    ``positions`` CPU positions (None: one stack); returns the index and,
+    per record, {path: (found, rank, rank_lo, rank_hi)} and the counters,
+    splits, mutes, counter table and live keys, read where the reference
+    read them."""
     base = r["static"][0]
     n = len(r["final"]["shards"])
-    idx = D.ShardedDynamicIndex.build(base, D.ShardMesh(n), n_leaves=32,
-                                      eps=r["final"]["eps"], device="cpu")
+    idx = D.ShardedDynamicIndex.build(base, cpu_mesh(n, positions),
+                                      n_leaves=32, eps=r["final"]["eps"],
+                                      device="cpu")
     recs = []
     ops_ = r["ops"]
     done = 0
@@ -362,11 +396,13 @@ def replayed(ref):
     return {n: _replay(ref[n]) for n in MESHES}
 
 
-@pytest.mark.parametrize("n", MESHES)
-def test_find_and_range_equal_reference(ref, replayed, n):
-    """(found, rank) and (rank_lo, rank_hi) after every step, on both
-    paths, equal the reference's and the truth over ``live_keys()``."""
-    _, recs = replayed[n]
+@pytest.fixture(scope="module")
+def replayed_on(ref):
+    """The replays on CPU positions, by (shards, positions)."""
+    return {(n, p): _replay(ref[n], positions=p) for n, p in POSITIONED}
+
+
+def _answers_equal_reference(ref, recs, n):
     for want, got in zip(ref[n]["recs"], recs, strict=True):
         tag = want["tag"]
         live = want["live"]
@@ -391,11 +427,26 @@ def test_find_and_range_equal_reference(ref, replayed, n):
 
 
 @pytest.mark.parametrize("n", MESHES)
-def test_maintenance_state_equals_reference(ref, replayed, n):
-    """Counters, splits, the counter table, the mutes, the stack's search
-    depth and the live keys after every step equal the reference's; the
-    churn ran the paths it was drawn to run."""
-    _, recs = replayed[n]
+def test_find_and_range_equal_reference(ref, replayed, n):
+    """(found, rank) and (rank_lo, rank_hi) after every step, on both
+    paths, equal the reference's and the truth over ``live_keys()``."""
+    _answers_equal_reference(ref, replayed[n][1], n)
+
+
+@pytest.mark.parametrize("n,positions", POSITIONED)
+def test_find_and_range_on_positions(ref, replayed, replayed_on, n,
+                                     positions):
+    """On CPU positions, every step's answers on both paths equal the
+    reference's, the truth and the one-stack replay's bit for bit."""
+    recs = replayed_on[n, positions][1]
+    _answers_equal_reference(ref, recs, n)
+    for one, got in zip(replayed[n][1], recs, strict=True):
+        for path, ans in got["answers"].items():
+            for a, b in zip(ans, one["answers"][path], strict=True):
+                assert torch.equal(a, b), path
+
+
+def _state_equals_reference(ref, recs, n):
     for want, got in zip(ref[n]["recs"], recs, strict=True):
         tag = want["tag"]
         assert got["counters"] == want["counters"], tag
@@ -404,6 +455,14 @@ def test_maintenance_state_equals_reference(ref, replayed, n):
         _eq(got["muted"], want["muted"], f"{tag} muted")
         _eq(got["live"], want["live"], f"{tag} live keys")
         assert got["iters"] == want["iters"], tag
+
+
+@pytest.mark.parametrize("n", MESHES)
+def test_maintenance_state_equals_reference(ref, replayed, n):
+    """Counters, splits, the counter table, the mutes, the stack's search
+    depth and the live keys after every step equal the reference's; the
+    churn ran the paths it was drawn to run."""
+    _state_equals_reference(ref, replayed[n][1], n)
     last = ref[n]["recs"][-1]
     c = last["counters"]
     if n == 4:
@@ -413,51 +472,68 @@ def test_maintenance_state_equals_reference(ref, replayed, n):
         assert c["rebalances"] >= 2 and c["restack_rows"] > 0, c
 
 
+def _warm_equals_cold(idx):
+    """The stack maintained row by row equals a cold assembly of the same
+    state bit for bit, kernel tables included, and a row restack writes
+    each position's stacked tensors in place."""
+    idx.find(np.zeros(4), path="kernel")
+    warm = idx._stack
+    ptrs = {k: v.data_ptr() for k, v in stack_tensors(warm).items()
+            if k not in HOME_KEYS}
+    idx.insert_batch(idx.live_keys()[:3])
+    idx.find(np.zeros(4), path="kernel")
+    if idx._stack is warm or idx._stack["bcap"] == warm["bcap"]:
+        now = stack_tensors(idx._stack)
+        for k, p in ptrs.items():
+            assert now[k].data_ptr() == p, k
+    warm = idx._stack
+    idx._stack = None
+    idx._dirty.clear()
+    cold = idx._stacked()
+    idx._packed_stack(cold)
+    assert stack_scalars(warm) == stack_scalars(cold)
+    wt, ct = stack_tensors(warm), stack_tensors(cold)
+    assert wt.keys() == ct.keys()
+    for k in wt:
+        if "tabs" not in k:
+            _eq(wt[k], ct[k], k)
+
+
 @pytest.mark.parametrize("n", MESHES)
 def test_warm_stack_equals_cold(replayed, n):
     """The stack maintained row by row equals a cold assembly of the same
     state bit for bit, kernel tables included, and a row restack writes
     the stacked tensors in place."""
-    idx, _ = replayed[n]
-    idx.find(np.zeros(4), path="kernel")
-    warm = dict(idx._stack)
-    ptrs = {k: v.data_ptr() for k, v in warm.items()
-            if isinstance(v, torch.Tensor)}
-    idx.insert_batch(idx.live_keys()[:3])
-    idx.find(np.zeros(4), path="kernel")
-    if idx._stack is warm or idx._stack["bcap"] == warm["bcap"]:
-        for k, p in ptrs.items():
-            if k not in ("offs", "splits"):
-                assert idx._stack[k].data_ptr() == p, k
-    warm = dict(idx._stack)
-    warm_packed = dict(warm["packed"])
-    idx._stack = None
-    idx._dirty.clear()
-    cold = idx._stacked()
-    idx._packed_stack(cold)
-    assert warm.keys() == cold.keys()
-    for k in warm:
-        a, b = warm[k], cold[k]
-        if k == "packed":
-            assert a.keys() == b.keys()
-            for kk in a:
-                _eq(warm_packed[kk], b[kk], f"packed {kk}")
-        elif k in ("root", "leaves"):
-            for x, y in zip(a, b, strict=True):
-                _eq(x, y, k)
-        elif isinstance(a, torch.Tensor):
-            _eq(a, b, k)
-        elif k != "tabs":
-            assert a == b, k
+    _warm_equals_cold(replayed[n][0])
 
 
-@pytest.mark.parametrize("n", MESHES)
-def test_converted_reference_state_answers_the_same(ref, replayed, n):
-    """The reference's final state carried across by
-    ``convert.sharded_from_arrays`` answers the last record's batches as the
-    reference did, and holds its counters and live keys."""
+@pytest.mark.parametrize("n,positions", POSITIONED)
+def test_maintenance_state_on_positions(ref, replayed_on, n, positions):
+    """On CPU positions, the counters, splits, counter table, mutes, depth
+    and live keys after every step equal the reference's (and so the one
+    stack's); each shard lies on its position's device, and the stack has
+    one part a position."""
+    idx, recs = replayed_on[n, positions]
+    _state_equals_reference(ref, recs, n)
+    k = n // positions
+    assert idx.positions == (torch.device("cpu"),) * positions
+    for s, d in enumerate(idx.shards):
+        assert d.device == idx.positions[s // k] == idx.shard_device(s)
+    assert [(p["lo"], p["n"]) for p in idx._stack["parts"]] == \
+        [(p * k, k) for p in range(positions)]
+
+
+@pytest.mark.parametrize("n,positions", POSITIONED)
+def test_warm_stack_equals_cold_on_positions(replayed_on, n, positions):
+    """On CPU positions, the row-maintained stack equals a cold one bit for
+    bit, each position's tensors rewritten in place."""
+    _warm_equals_cold(replayed_on[n, positions][0])
+
+
+def _converted_answers(ref, n, positions):
     r = ref[n]
-    idx = convert.sharded_from_arrays(r["final"], device="cpu")
+    idx = convert.sharded_from_arrays(r["final"], device="cpu",
+                                      mesh=cpu_mesh(n, positions))
     want = r["recs"][-1]
     assert {k: int(getattr(idx, k)) for k in want["counters"]} \
         == want["counters"]
@@ -473,6 +549,21 @@ def test_converted_reference_state_answers_the_same(ref, replayed, n):
 
 
 @pytest.mark.parametrize("n", MESHES)
+def test_converted_reference_state_answers_the_same(ref, replayed, n):
+    """The reference's final state carried across by
+    ``convert.sharded_from_arrays`` answers the last record's batches as the
+    reference did, and holds its counters and live keys."""
+    _converted_answers(ref, n, None)
+
+
+@pytest.mark.parametrize("n,positions", POSITIONED)
+def test_converted_reference_state_on_positions(ref, n, positions):
+    """The reference's final state converted onto CPU positions answers as
+    the reference did."""
+    _converted_answers(ref, n, positions)
+
+
+@pytest.mark.parametrize("n", MESHES)
 def test_seam_misses_past_the_budget_in_one_shard(ref, n):
     """The "seam" batch: queries in the gap between the key cluster and the
     outliers route to empty leaves of the last shard and miss their
@@ -480,9 +571,23 @@ def test_seam_misses_past_the_budget_in_one_shard(ref, n):
     takes one by one in a call, while the other shards' queries do not
     miss; the port re-searches every miss in its own row, and both paths
     equal the reference (``test_find_and_range_equal_reference``)."""
+    _seam_case(ref, n, None)
+
+
+@pytest.mark.parametrize("n,positions", POSITIONED)
+def test_seam_misses_on_positions(ref, n, positions):
+    """The "seam" batch on CPU positions: the misses all in the last
+    position's last shard, every one re-searched in its own row; one
+    verification a position that holds queries."""
+    _seam_case(ref, n, positions)
+    assert ops.SEAM["calls"] <= positions
+
+
+def _seam_case(ref, n, positions):
     r = ref[n]
     (want,) = [w for w in r["recs"] if w["tag"] == "seam"]
-    idx = D.ShardedDynamicIndex.build(r["static"][0], D.ShardMesh(n),
+    idx = D.ShardedDynamicIndex.build(r["static"][0],
+                                      cpu_mesh(n, positions),
                                       n_leaves=32, eps=r["final"]["eps"],
                                       device="cpu")
     q = want["q"]

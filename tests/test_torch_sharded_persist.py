@@ -12,7 +12,10 @@ each ``on_corrupt`` mode, and records every answer (``find`` on
 ``ReshardStats``.  The port then restores the reference's snapshots and
 must give the same, bit for bit; the manifests of both packages'
 snapshots of the same state are equal (files, array names, shapes, dtypes,
-kind, meta keys).  Faults come in through the port's ``_write_bytes``
+kind, meta keys).  On CPU mesh positions the same snapshots restore and
+reshard (the shard count, the positions or both changing) to the same
+answers and ``ReshardStats``, and a snapshot made on positions holds the
+same arrays as one made on one stack.  Faults come in through the port's ``_write_bytes``
 seam and ``tests/faultinject.py``'s at-rest damage.
 """
 from __future__ import annotations
@@ -33,6 +36,7 @@ import faultinject as fi
 from repro_torch.api import Index
 from repro_torch.core import distributed as D
 from repro_torch.core import persist as tpersist
+from torch_mesh import cpu_mesh
 
 DEV = "cpu"
 
@@ -168,11 +172,12 @@ def _manifest(path, step):
     return m, {f: e["arrays"] for f, e in m["files"].items()}
 
 
-def _build(keys, batches, n, store=None, probe=None):
-    """The port's index after the churn, snapshotting after each batch
-    pair into ``store`` and answering ``probe`` as the reference does."""
-    idx = D.ShardedDynamicIndex.build(keys, D.ShardMesh(n), n_leaves=32,
-                                      eps=0.3, device=DEV)
+def _build(keys, batches, n, store=None, probe=None, positions=None):
+    """The port's index after the churn (on ``positions`` CPU positions,
+    None: one stack), snapshotting after each batch pair into ``store`` and
+    answering ``probe`` as the reference does."""
+    idx = D.ShardedDynamicIndex.build(keys, cpu_mesh(n, positions),
+                                      n_leaves=32, eps=0.3, device=DEV)
     for step, (ins, dels) in enumerate(batches, start=1):
         idx.insert_batch(ins)
         idx.delete_batch(dels)
@@ -286,6 +291,79 @@ def test_reshard_equals_reference(case, n, m):
     assert dataclasses.asdict(stats) == want["report"][4]
     _same(_answers(again, *data["probe"]), want, f"reshard {n} -> {m}",
           keys=("found", "rank", "rank_lo", "rank_hi", "live", "splits"))
+
+
+def _placed(idx, positions):
+    """Each shard on its position's device, one position a ``positions``."""
+    assert len(idx.positions) == positions
+    k = idx.n_shards // positions
+    for s, d in enumerate(idx.shards):
+        assert d.device == idx.positions[s // k]
+
+
+@pytest.mark.parametrize("n,positions", ((4, 4), (4, 2), (2, 2)))
+def test_reference_snapshot_restores_on_positions(case, n, positions):
+    """The reference's snapshot restores onto CPU positions verbatim, as
+    onto one stack; the port's snapshot of the same churn made on those
+    positions holds the same files, arrays and meta as the one-stack
+    snapshot, so the reference restores it as it restores that one."""
+    data, _, ref, tmp = case
+    q = data["probe"]
+    store = tpersist.SnapshotStore(str(tmp / f"ref{n}"))
+    idx, rep = tpersist.restore_sharded(store, cpu_mesh(n, positions),
+                                        device=DEV)
+    assert (rep.step, rep.n_shards_from, rep.n_shards) == (2, n, n)
+    _placed(idx, positions)
+    got = _answers(idx, *q)
+    _same(got, ref[f"live_{n}_2"], f"ref{n} on {positions} positions")
+    assert got["counters"] == ref[f"live_{n}_2"]["counters"]
+    keys, batches = data["build"][n]
+    one = tpersist.SnapshotStore(str(tmp / f"one{n}_{positions}"))
+    mine = tpersist.SnapshotStore(str(tmp / f"pos{n}_{positions}"))
+    _build(keys, batches, n, one, q)
+    _placed(_build(keys, batches, n, mine, q, positions), positions)
+    for step in (1, 2):
+        om, of = _manifest(one.directory, step)
+        pm, pf = _manifest(mine.directory, step)
+        assert of == pf and om["meta"] == pm["meta"], step
+        for f in of:
+            a = one.load_file(step, f, one.read_manifest(step))
+            b = mine.load_file(step, f, mine.read_manifest(step))
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=f"{f} {k}")
+
+
+@pytest.mark.parametrize("n,m,positions", ((4, 2, 2), (2, 4, 4),
+                                           (2, 4, 2)))
+def test_reshard_on_positions(case, n, m, positions):
+    """Restoring an n-shard snapshot onto m shards over CPU positions (the
+    shard count and the positions both change): ``ReshardStats``, splits,
+    answers and live keys equal the reference's; ``reshard_sharded`` of a
+    positioned index onto another shard count and position count takes
+    the same cuts, and onto the same shard count on other positions keeps
+    every answer."""
+    data, _, ref, tmp = case
+    store = tpersist.SnapshotStore(str(tmp / f"ref{n}"))
+    mesh = cpu_mesh(m, positions)
+    idx, rep = tpersist.restore_sharded(store, mesh, device=DEV)
+    want = ref[f"ref{n}_on_{m}"]
+    assert dataclasses.asdict(rep.reshard) == want["report"][4]
+    _placed(idx, positions)
+    got = _answers(idx, *data["probe"])
+    _same(got, want, f"{n} on {m} over {positions}")
+    assert got["counters"] == want["counters"]
+    same, _ = tpersist.restore_sharded(store, cpu_mesh(n, n), device=DEV)
+    again, stats = tpersist.reshard_sharded(same, mesh)
+    assert dataclasses.asdict(stats) == want["report"][4]
+    _placed(again, positions)
+    _same(_answers(again, *data["probe"]), want, f"reshard {n} -> {m}",
+          keys=("found", "rank", "rank_lo", "rank_hi", "live", "splits"))
+    moved, stats = tpersist.reshard_sharded(again, cpu_mesh(m, 1))
+    assert (stats.n_from, stats.n_to, stats.full_rebuilds) == (m, m, 0)
+    _placed(moved, 1)
+    _same(_answers(moved, *data["probe"]), want, f"{m} onto one position",
+          keys=("found", "rank", "rank_lo", "rank_hi", "live"))
 
 
 def test_on_corrupt_modes(case):
