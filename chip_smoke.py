@@ -34,7 +34,12 @@ Phases (any failure exits non-zero; nothing is caught):
    depth (whole-array windows through the fence), the keys as a view that
    starts inside a 32-byte sector, +-0, +-inf, NaN and the first and last
    keys.  Then the warm single-index verbs, each a launch and its
-   epilogue: static ``lookup``, ``find`` and ``find_range``.
+   epilogue: static ``lookup``, ``find`` and ``find_range``; then one
+   more warm ``Index.find`` and ``Index.find_range`` under the sync
+   census (``_census``: ``torch.cuda.set_sync_debug_mode("warn")``, every
+   sync the CUDA runtime reports counted by the innermost ``file:line`` of
+   the port's source, each of which must be a site the static analyzer's
+   hot-sync rule flags; uncounted, untimed).
 4. Path B, the paper's lazy path, counted the same way: ``generate_pool``
    (1,221 datasets at eps 0.9) -> ``build_pool`` (MLP and linear, on the
    card) -> RMI-NN-MR (``build_rmi(kind="mlp", pool=...)``, pool selection
@@ -193,7 +198,9 @@ Phases (any failure exits non-zero; nothing is caught):
    (requests 0-3), held against its plain version on that lookup's keys
    and the table's own stack, none once requests 4-7 are in and request 1
    released (the f64 path), every ``(found, page)`` against the cache's
-   table.
+   table.  Before the page table, with the front-end stopped, one warm
+   batch of both tenants' finds (2,048 keys) and ranges (256 pairs),
+   ``_dispatch`` then ``_resolve`` on this thread, under the sync census.
 12. Path H, counted, on fresh keys: the sharded index across mesh
    positions, ``ShardMesh(--shards, devices=...)`` with one shard a
    position (the reference's layout), every position this card (the
@@ -215,7 +222,24 @@ Phases (any failure exits non-zero; nothing is caught):
    ``H_TENANT_KEYS`` keys (tenant B's size for both: a cut) on
    ``H_TENANT_POSITIONS`` positions behind one ``BatchingFrontend``, a
    closed loop of 4,096-key batches for ``H_CLOSED_S``, one stacked K2
-   launch a position a batch, every answer against the truth.
+   launch a position a batch, every answer against the truth.  After the
+   warm verbs at D = --shards, one more ``find`` and ``find_range`` there
+   under the sync census.
+13. The port's static analyzer (``repro_torch.analysis``) on the card's
+   host over ``ANALYZED``: no unsuppressed finding, the counts by rule and
+   the suppressed hot-sync sites printed; the kernel rule's static shared
+   memory of every ``__global__`` held against the size of each entry's
+   ``.nv.shared.<entry>`` section in ``cuobjdump -elf`` of the built
+   library, less the 1 KiB the card reserves a block where the cubin
+   reserves it (``_elf_smem``, ``_reserved_bytes``,
+   ``_smem_vs_card``: at most the library's, equal where the rule bounded
+   every dimension, every entry one the rule read), and those against the
+   ``bytes smem`` of ptxas's report for each library phase 1 built now;
+   every launch the rule bounds, and every launch in the traces of paths
+   D, F and G (CUPTI's static plus dynamic bytes), against the card's own
+   opt-in limit read at run time
+   (``cudaDevAttrMaxSharedMemoryPerBlockOptin``); the census of phases 3,
+   11 and 12 summed up.
 
 Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
@@ -373,6 +397,11 @@ H_TENANT_KEYS, H_TENANT_LEAVES, H_TENANT_POSITIONS = 1 << 24, 2048, 2
 H_CLOSED_S = 1.0
 G_RANGE_SHARE, G_RANGE_PAIRS = 0.05, 16
 G_INSERT_SHARE, G_INSERT_KEYS = 0.01, 64
+# Phase 13: the paths the port's static analyzer reads (its CLI's), and
+# what torch.cuda.set_sync_debug_mode("warn") says at each sync
+ANALYZED = ("src/repro_torch", "chip_smoke.py", "time_verbs.py",
+            "examples/index_service_torch.py")
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def _args(argv):
@@ -798,6 +827,311 @@ def _spills(report: str) -> list:
     return bad
 
 
+def _ptxas_smem(report: str) -> dict:
+    """Static shared memory per entry function of a build report
+    (``-Xptxas -v``): mangled name -> the ``bytes smem`` of its ``Used``
+    line (0 where the line names none)."""
+    import re
+    out, entry = {}, None
+    for line in report.splitlines():
+        mm = re.search(r"Compiling entry function '([^']+)'", line)
+        if mm:
+            entry = mm[1]
+            continue
+        if entry is not None and "Used" in line and "registers" in line:
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[entry] = int(sm[1]) if sm else 0
+            entry = None
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def _analysis() -> tuple:
+    """The port's static analyzer over ``ANALYZED`` (pure AST, on the
+    host), once: every finding, suppressed ones with their reasons."""
+    from repro_torch.analysis import analyze
+    return tuple(analyze([ROOT / p for p in ANALYZED], root=ROOT))
+
+
+def _hot_sync_spans() -> dict:
+    """path -> [(first, last line)] of every hot-sync finding, suppressed
+    or not: the sites the rule flags."""
+    from repro_torch.analysis.engine import span
+    out = {}
+    for fd in _analysis():
+        if fd.rule == "hot-sync":
+            out.setdefault(str(fd.path), []).append(span(fd))
+    return out
+
+
+def _census(h, where: str, calls: dict) -> None:
+    """One warm call of each of ``calls`` with the CUDA runtime's sync
+    detector on (``torch.cuda.set_sync_debug_mode("warn")``): each sync it
+    reports, by the innermost frame in the port's source (else where the
+    warning points), counted by site; fails on a site that the analyzer's
+    hot-sync rule does not flag.  Launches do not count."""
+    import warnings
+
+    import torch
+    flagged = _hot_sync_spans()
+    src = str(ROOT / "src" / "repro_torch") + os.sep
+    for name, fn in calls.items():
+        sites = {}
+        show = warnings.showwarning
+
+        def hook(message, category, filename, lineno, file=None, line=None,
+                 sites=sites, show=show):
+            if SYNC_WARNING not in str(message):
+                return show(message, category, filename, lineno, file, line)
+            f = sys._getframe(1)
+            while f is not None and not f.f_code.co_filename.startswith(src):
+                f = f.f_back
+            site = (os.path.relpath(f.f_code.co_filename, ROOT), f.f_lineno) \
+                if f is not None else (filename, lineno)
+            sites[site] = sites.get(site, 0) + 1
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                h.uncounted(fn)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        missed = sorted(s for s in sites if not any(
+            a <= s[1] <= b for a, b in flagged.get(s[0], ())))
+        print(f"  sync census ({where}) {name}: {sum(sites.values())} syncs "
+              f"a call: " + (", ".join(
+                  f"{p}:{ln} x{c}" for (p, ln), c in sorted(sites.items()))
+                  or "none"))
+        if missed:
+            raise AssertionError(
+                f"syncs at sites the hot-sync rule does not flag ({where}, "
+                f"{name}): {missed}")
+        h.census.setdefault(where, {})[name] = sites
+
+
+def _entry_name(mangled: str) -> str | None:
+    """The unqualified name of a mangled entry function, past an
+    anonymous namespace (``_ZN<n>_GLOBAL__N_...<len><name>...``)."""
+    import re
+    i = 3 if mangled.startswith("_ZN") else 2
+    while True:
+        d = re.match(r"\d+", mangled[i:])
+        if d is None:
+            return None
+        i += len(d[0])
+        ident, i = mangled[i:i + int(d[0])], i + int(d[0])
+        if not ident.startswith("_GLOBAL__N"):
+            return ident
+
+
+def _elf_smem(text: str, reserved: int) -> dict:
+    """Static shared memory per function of a cubin, from the section
+    table of ``cuobjdump -elf``: mangled name -> the size of its
+    ``.nv.shared.<name>`` section (0 for a ``.text.<name>`` without one).
+    Where the cubin has a ``.nv.shared.reserved`` section, each function's
+    section also holds the ``reserved`` bytes the card keeps a block for
+    the system: they are taken off."""
+    sizes, cols_n = {}, None
+    for line in text.splitlines():
+        cols = line.split()
+        if cols[:3] == ["Index", "Offset", "Size"]:
+            cols_n = len(cols)
+            continue
+        if cols_n is None or len(cols) != cols_n:
+            cols_n = None
+            continue
+        sizes[cols[-1]] = int(cols[2], 16)
+    has_reserve = any(n.startswith(".nv.shared.reserved") for n in sizes)
+    out = {}
+    for name, size in sizes.items():
+        if name.startswith(".text."):
+            out.setdefault(name[len(".text."):], 0)
+        elif name.startswith(".nv.shared.") and \
+                not name.startswith(".nv.shared.reserved"):
+            got = size - (reserved if has_reserve else 0)
+            if got < 0:
+                raise AssertionError(f"{name}: {size} bytes, below the "
+                                     f"{reserved} reserved a block")
+            out[name[len(".nv.shared."):]] = got
+    return out
+
+
+def _smem_vs_card(usage: dict) -> list:
+    """Each entry function's static shared memory as the built library
+    records it (``{library: {mangled: bytes}}``) against the kernel
+    rule's figure for its ``__global__``: the figure must be at most the
+    library's, and equal where the rule bounded every dimension; every
+    ``__global__`` the rule read must be there.  Returns (library, kernel,
+    library bytes, figure, exact) rows; a function that is no
+    ``__global__`` of the source (a runtime helper) gets kernel None."""
+    from repro_torch.analysis import engine as teng
+    from repro_torch.analysis.rules import kernel as tkernel
+    rows = []
+    for lib, entries in sorted(usage.items()):
+        f = next(x for x in teng.load_project(
+            [ROOT / f"src/repro_torch/kernels/csrc/{lib}.cu"],
+            root=ROOT).cuda)
+        kernels = {k.kernel: k for k in tkernel.figures(f)[0]}
+        seen = set()
+        for mangled, got in sorted(entries.items()):
+            k = kernels.get(_entry_name(mangled) or "")
+            if k is None:
+                rows.append((lib, None, got, 0, False))
+                continue
+            seen.add(k.kernel)
+            if k.bytes > got or (k.exact and k.bytes != got):
+                raise AssertionError(
+                    f"{lib}.cu {k.kernel}: the kernel rule's static shared "
+                    f"memory {'' if k.exact else 'at least '}{k.bytes} "
+                    f"bytes against the library's {got}")
+            rows.append((lib, k.kernel, got, k.bytes, k.exact))
+        if set(kernels) - seen:
+            raise AssertionError(f"{lib}: no entry in the library for "
+                                 f"{sorted(set(kernels) - seen)}")
+    return rows
+
+
+def _trace_smem() -> dict:
+    """kernel name -> the most shared memory (static plus dynamic) a
+    launch of it used, as CUPTI recorded it in the traces paths D, F and
+    G left under ``build/`` (``args["shared memory"]`` of each kernel
+    event; {} where the traces carry no such figure)."""
+    import re
+    out = {}
+    for name in ("path_d_trace.json", "path_f_trace.json",
+                 "path_g_trace.json"):
+        path = ROOT / "build" / name
+        if not path.exists():
+            continue
+        for ev in json.loads(path.read_text()).get("traceEvents", []):
+            got = (ev.get("args") or {}).get("shared memory")
+            if ev.get("cat") == "kernel" and got is not None:
+                k = re.split(r"[<(]", ev.get("name", "").replace(
+                    "(anonymous namespace)", ""))[0].split("::")[-1]
+                k = (k.split() or ["?"])[-1]
+                out[k] = max(out.get(k, 0), int(got))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _device_attribute(attr: int) -> int:
+    """``cudaDeviceGetAttribute(attr)`` of card 0, read at run time."""
+    import ctypes
+    cudart = ctypes.CDLL("/usr/local/cuda/lib64/libcudart.so")
+    v = ctypes.c_int()
+    rc = cudart.cudaDeviceGetAttribute(ctypes.byref(v), attr, 0)
+    if rc != 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute({attr}): error {rc}")
+    return v.value
+
+
+def _optin_bytes() -> int:
+    """The card's own per-block opt-in shared memory limit
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin), read at run time."""
+    import torch
+    got = getattr(torch.cuda.get_device_properties(0),
+                  "shared_memory_per_block_optin", None)
+    return int(got) if got else _device_attribute(97)
+
+
+def _reserved_bytes() -> int:
+    """The shared memory the card keeps in every block for the system
+    (cudaDevAttrReservedSharedMemoryPerBlock, 1 KiB since sm_80)."""
+    return _device_attribute(111)
+
+
+def _phase13(reports: dict, h) -> None:
+    """The static analyzer on the card: no unsuppressed finding; the
+    kernel rule's shared memory against the built libraries and the
+    card's opt-in limit; the sync census of phases 3, 11 and 12."""
+    from repro_torch.analysis import Config
+    from repro_torch.analysis import engine as teng
+    from repro_torch.analysis.rules import kernel as tkernel
+    findings = _analysis()
+    bad = [fd for fd in findings if fd.suppressed is None]
+    if bad:
+        raise AssertionError("the port's static analyzer: " + "; ".join(
+            fd.render() for fd in bad))
+    by_rule = {}
+    for fd in findings:
+        by_rule[fd.rule] = by_rule.get(fd.rule, 0) + 1
+    hot = {(str(fd.path), fd.line) for fd in findings
+           if fd.rule == "hot-sync"}
+    print(f"phase 13: the static analyzer ({' '.join(ANALYZED)}): 0 "
+          f"unsuppressed findings; suppressed by rule {by_rule}; "
+          f"{len(hot)} suppressed hot-sync sites on the hot path, in "
+          f"{len({p for p, _ in hot})} files")
+    # static shared memory: each library's own record (cuobjdump), held
+    # against ptxas's report wherever this process built the library
+    from repro_torch.kernels import build
+    reserved = _reserved_bytes()
+    usage = {lib: _elf_smem(build.elf(lib), reserved)
+             for lib in build.SIGNATURES}
+    for lib, report in reports.items():
+        ptxas = _ptxas_smem(report)
+        if {k: usage[lib].get(k) for k in ptxas} != ptxas:
+            raise AssertionError(f"{lib}: cuobjdump -elf "
+                                 f"{usage[lib]} against ptxas {ptxas}")
+    rows = _smem_vs_card(usage)
+    others = sorted({(lib, got) for lib, k, got, _, _ in rows if k is None})
+    rows = [r for r in rows if r[1] is not None]
+    shown = {}
+    for lib, k, got, fig, exact in rows:
+        key = (lib, k, got, fig, exact)
+        shown[key] = shown.get(key, 0) + 1
+    for (lib, k, got, fig, exact), c in sorted(shown.items()):
+        if got or fig:
+            print(f"  {lib}.cu {k}: {got} bytes static shared memory "
+                  f"(its .nv.shared section), the kernel "
+                  f"rule {fig if exact else f'at least {fig}'} ({c} entries)")
+    print(f"  static shared memory: {len(rows)} entries of "
+          f"{len(usage)} libraries (cuobjdump -elf's .nv.shared sections "
+          f"less the {reserved} bytes reserved a block where the cubin "
+          f"reserves them; ptxas's report also read for "
+          f"{sorted(reports) or 'none: built before this process'}), "
+          f"each at or above the kernel rule's figure, equal where it is "
+          f"exact ({sum(1 for *_, e in rows if e)} of them); "
+          f"{sum(1 for _, _, g, _, _ in rows if g == 0)} at 0 bytes; "
+          f"functions that are no __global__ (library, bytes): "
+          f"{others or 'none'}")
+    optin = _optin_bytes()
+    project = teng.load_project([ROOT / "src/repro_torch/kernels/csrc"],
+                                root=ROOT)
+    n_bounded, unbounded = 0, set()
+    for f in project.cuda:
+        for la in tkernel.figures(f)[1]:
+            if la.static + (la.dynamic or 0) > optin:
+                raise AssertionError(
+                    f"{la.file}:{la.line}: {la.kernel} launch of at least "
+                    f"{la.static + (la.dynamic or 0)} bytes of shared "
+                    f"memory, above the card's opt-in limit {optin}")
+            if la.dynamic is None:
+                unbounded.add(la.kernel)
+            else:
+                n_bounded += 1
+    traced = _trace_smem()
+    over = {k: v for k, v in traced.items() if v > optin}
+    if over:
+        raise AssertionError(f"traced launches above the card's opt-in "
+                             f"limit {optin}: {over}")
+    print(f"  launches: the card's opt-in limit {optin} bytes a block "
+          f"(Config.smem_budget_bytes {Config().smem_budget_bytes}); "
+          f"{n_bounded} launch figures bounded by the constants, within "
+          f"it; dynamic bytes set at run time: {', '.join(sorted(unbounded))}"
+          f"; traced launches (paths D, F, G; static plus dynamic, "
+          f"CUPTI), the most a kernel: " + (", ".join(
+              f"{k} {v}" for k, v in sorted(traced.items()) if v)
+              or "no figure in the traces"))
+    for where, calls in h.census.items():
+        for name, sites in calls.items():
+            print(f"  sync census {where}, {name}: "
+                  f"{sum(sites.values())} syncs a call at {len(sites)} "
+                  f"sites, every one flagged by hot-sync")
+
+
 def _compare(name, kern, plain):
     """Kernel and plain outputs equal bit for bit; returns max |diff|."""
     import torch
@@ -1062,6 +1396,7 @@ class _Harness:
         self.counted = (lookup, ksdist, hist, linfit, flash)
         self.seam_log = []
         self.notes = {}         # what a later path prints beside its own
+        self.census = {}        # phase -> call -> {(path, line): syncs}
 
     def counters(self):
         return {k: v for mod in self.counted for k, v in mod.LAUNCHES.items()}
@@ -2816,6 +3151,24 @@ def _path_g(args, dev, rows, h) -> None:
         if found.any():
             raise AssertionError(f"tenant {t}: deleted keys found")
     fe.stop()
+    # one warm batch of finds and ranges of both tenants, dispatched and
+    # resolved on this thread, under the sync census
+    def census_batch():
+        batch = []
+        for t in range(T):
+            q = h.pick(lives[t], 2048).to(f64)
+            batch += [tfe.Request(t, "find", q.cpu().numpy(), arrival=0.0),
+                      tfe.Request(t, "range", torch.stack(
+                          [q[:256], q[:256] + 0.01]).cpu().numpy(),
+                          arrival=0.0)]
+        return batch
+    warm_batch, batch = census_batch(), census_batch()
+    h.uncounted(lambda: fe._resolve(fe._dispatch(warm_batch)))
+    torch.cuda.synchronize()
+    _census(h, "phase 11", {"front-end batch (_dispatch + _resolve)":
+                            lambda: fe._resolve(fe._dispatch(batch))})
+    if not all(req.done() and req.error is None for req in batch):
+        raise AssertionError("the census batch was not answered")
     launches = h.counters()
     seam = ops.SEAM["misses"], ops.SEAM["calls"]
     counters = [dict(live=t.total_live, restack_rows=t.restack_rows,
@@ -3142,6 +3495,9 @@ def _path_h(args, dev, rows, h) -> None:
     warm[f"D = {P}"] = h.uncounted(lambda: {
         "find": _verb_ms(lambda: ix.find(find_q)),
         "find_range": _verb_ms(lambda: ix.find_range(lo, hi))})
+    _census(h, "phase 12", {f"find (D = {P})": lambda: ix.find(find_q),
+                            f"find_range (D = {P})":
+                                lambda: ix.find_range(lo, hi)})
     # the same shards on 2 positions and on one stack (path F's layout):
     # other meshes over the same DynamicRMI objects, for the times only
     def view(devices):
@@ -3579,6 +3935,8 @@ def main(argv=None) -> int:
         "find_range": _event_ms(lambda: ix.find_range(lo, hi), 5)})
     print("  warm, CUDA-event means of 5 calls: " + ", ".join(
         f"{k} {v:.6f} ms" for k, v in warm.items()))
+    _census(h, "phase 3", {"Index.find": lambda: ix.find(q64),
+                           "Index.find_range": lambda: ix.find_range(lo, hi)})
     print(f"  shapes: n={n} leaves={L} queries={nq} range pairs="
           f"{lo.numel()} base capacity={d.index.keys.shape[0]} delta "
           f"capacity={dk.shape[0]} iters static={sidx.search_iters} "
@@ -4279,6 +4637,10 @@ def main(argv=None) -> int:
 
     # ---- phase 12: path H (the sharded index across positions), counted ---
     _path_h(args, dev, rows, h)
+    print(f"  wall {time.perf_counter() - t_start:.1f} s")
+
+    # ---- phase 13: the static analyzer, held against the card -------------
+    _phase13(reports, h)
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
 
     smi = _card()

@@ -157,6 +157,7 @@ def _at_home(ts: list, home: torch.device) -> torch.Tensor:
     one piece itself when there is one)."""
     if len(ts) == 1:
         return ts[0]
+    # sync: ok(device to device: the positions' pieces to the home device)
     return torch.cat([t.to(home) for t in ts])
 
 
@@ -285,6 +286,7 @@ def _exchange(ds: torch.Tensor, qm: torch.Tensor, layout: list,
         cuts = [(0, 0, Q, None)]
     else:
         n_rows = layout[-1][1] + layout[-1][2]
+        # sync: ok(the one read of the slice lengths a call, _exchange step 1)
         cnt = torch.bincount(ds.long(), minlength=n_rows).tolist()
         cuts, a = [], 0
         for i, (_, lo, n) in enumerate(layout):
@@ -298,11 +300,14 @@ def _exchange(ds: torch.Tensor, qm: torch.Tensor, layout: list,
     for i, a, e, c in cuts:
         dev, lo, _ = layout[i]
         if kernel is not None:
-            q = qm[a:e].to(dev, torch.float32)
+            # tracelint: ok[f32-cast](kernel path: past the f32_exact gate)
+            q = qm[a:e].to(dev, torch.float32)  # sync: ok(device to device)
+            # sync: ok(device to device: its row ids, step 2)
             rid = (ds[a:e] if lo == 0 else ds[a:e] - lo).to(dev)
             calls.append(kernel[1](i, q, rid))
             sent.append((q, rid))
             continue
+        # sync: ok(device to device: the f64 path's slice, step 2)
         q = qm[a:e].to(dev)
         res = tuple(torch.empty(e - a, dtype=t, device=dev) for t in dtypes)
         b = 0
@@ -320,6 +325,7 @@ def _exchange(ds: torch.Tensor, qm: torch.Tensor, layout: list,
             EXCHANGE["bytes"] += sum(t.numel() * t.element_size()
                                      for t in (*moved, *o))
     if len(cuts) == 1 and cuts[0][1:3] == (0, Q):
+        # sync: ok(device to device: the answers back home, step 4)
         return tuple(t.to(home) for t in outs[0])
     res = tuple(torch.empty(Q, dtype=t, device=home) for t in dtypes)
     for (_, a, e, _), o in zip(cuts, outs, strict=True):
@@ -360,6 +366,7 @@ class ShardStack:
     @property
     def keys_f32(self) -> torch.Tensor:
         if self._kf32 is None:
+            # tracelint: ok[f32-cast](the copy f32_exact compares)
             self._kf32 = self.keys.to(torch.float32)
         return self._kf32
 
@@ -1067,6 +1074,7 @@ class ShardedDynamicIndex:
         unit of incremental restacking."""
         d = self.shards[s]
         return dict(
+            # sync: ok(a restack after a write: the shard's route scale)
             route_n=torch.tensor(d.route_n, dtype=_F64, device=d.device),
             base=tlk.pad_capacity(d.index.keys, bcap),
             bdead=_pad_rows(d.base_dead, bcap),
@@ -1107,6 +1115,7 @@ class ShardedDynamicIndex:
     def _refresh_globals(self, st: dict) -> None:
         """The home device's share of the stack: splits, live offsets, each
         shard's member key (:func:`_member`)."""
+        # sync: ok(a restack after a write: the split vector)
         st["splits"] = torch.as_tensor(self.splits, dtype=_F64,
                                        device=self.device)
         st["offs"] = _offs(self._counts)
@@ -1166,6 +1175,7 @@ class ShardedDynamicIndex:
                     part["tabs"] = None
                 continue
             rows = [self._slice_rows(s, bcap, dcap) for s in mine]
+            # sync: ok(a restack after a write: the dirty rows' ids)
             idx = torch.as_tensor([s - lo for s in mine], dtype=_I64,
                                   device=part["device"])
             for k in self._ROW_KEYS:
@@ -1240,6 +1250,7 @@ class ShardedDynamicIndex:
             part = parts[i]
             return _row_f64_answer(
                 st, part, j, x, rng, self.n_leaves,
+                # sync: ok(f64 path: route_n is a host float)
                 float(self.shards[part["lo"] + j].route_n))
 
         layout = [(p["device"], p["lo"], p["n"]) for p in parts]
@@ -1251,6 +1262,7 @@ class ShardedDynamicIndex:
                             device=self.device, what="sharded key space")
 
     def _as_queries(self, q) -> torch.Tensor:
+        # sync: ok(no copy for a batch on the device; a host one is uploaded)
         return torch.as_tensor(q, dtype=_F64,
                                device=self.device).reshape(-1).contiguous()
 
@@ -1361,6 +1373,7 @@ def tenant_stacked_answer(pack: dict, qmat: torch.Tensor, *,
     def f64_row(i, j, x):
         part = parts[i]
         return _row_f64_answer(pack, part, j, x, rng, pack["n_leaves"],
+                               # sync: ok(f64 path: a host float)
                                float(pack["route_n"][part["lo"] + j]))
 
     layout = [(p["device"], p["lo"], p["n"]) for p in parts]

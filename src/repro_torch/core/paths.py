@@ -37,6 +37,7 @@ def resolve_path(path: str = "auto", *, f32_exact: bool | Callable[[], bool],
         return False
     if path == "auto" and torch.device(device).type != "cuda":
         return False
+    # sync: ok(a python bool: the caller's cached f32_exact flag)
     exact = f32_exact() if callable(f32_exact) else bool(f32_exact)
     if path == "kernel" and not exact:
         raise ValueError(

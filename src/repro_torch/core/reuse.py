@@ -170,6 +170,7 @@ class ModelPool:
         if dev not in own._replicas:
             if dev == own.device:
                 return own
+            # sync: ok(a pool copied once a device, kept in _replicas)
             mv = lambda t: None if t is None else t.to(dev)
             own._replicas[dev] = replace(
                 own, hists=mv(own.hists),

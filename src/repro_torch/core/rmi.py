@@ -333,6 +333,7 @@ class RMIIndex:
     def _key_space(self) -> tuple:
         if self._kf32 is None:
             from ..kernels.lookup import key_fence
+            # tracelint: ok[f32-cast](the copy f32_exact compares)
             kf = self.keys.to(torch.float32)
             self._kf32 = (kf, key_fence(kf))
         return self._kf32
@@ -712,6 +713,7 @@ def verified_search(keys, queries, lo, hi, iters: int | None = None):
     rc = r.clamp(0, n - 1).long()
     valid = ((r == 0) | (keys[(r - 1).clamp(0, n - 1).long()] < queries)) \
         & ((r == n) | (keys[rc] >= queries))
+    # sync: ok(f64 path only: the seam check's one read a call)
     if bool(valid.all()):
         return r
     full = bounded_search(keys, queries, torch.zeros_like(lo),

@@ -88,6 +88,7 @@ class RMRTIndex:
     def _key_space(self) -> tuple:
         if self._kf32 is None:
             from ..kernels.lookup import key_fence
+            # tracelint: ok[f32-cast](the copy f32_exact compares)
             kf = self.keys.to(torch.float32)
             self._kf32 = (kf, key_fence(kf))
         return self._kf32

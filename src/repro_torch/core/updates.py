@@ -353,6 +353,7 @@ def _moved(x, dev: torch.device):
     """``x`` with every tensor in it copied to ``dev``: dataclasses and
     tuples walked, a pool swapped for its replica there."""
     if isinstance(x, torch.Tensor):
+        # sync: ok(DynamicRMI.to, reached through the name .to: moves a shard)
         return x.to(dev)
     if isinstance(x, ModelPool):
         return x.replica(dev)
@@ -484,6 +485,7 @@ class DynamicRMI:
         return self.index.device
 
     def _as_keys(self, keys) -> torch.Tensor:
+        # sync: ok(no copy for a batch on the device; a host one is uploaded)
         return torch.as_tensor(keys, dtype=_F64,
                                device=self.device).reshape(-1)
 
@@ -936,6 +938,7 @@ class DynamicRMI:
     def delta_keys_f32(self) -> torch.Tensor:
         """The delta tier in the kernel's f32 key space (cached)."""
         if self._dkf32 is None:
+            # tracelint: ok[f32-cast](the copy f32_exact compares)
             self._dkf32 = self.delta_keys.to(torch.float32)
         return self._dkf32
 
@@ -943,6 +946,7 @@ class DynamicRMI:
     def f32_exact(self) -> bool:
         """Both tiers round-trip through f32 (kernel-path precondition)."""
         if self._delta_f32 is None:
+            # sync: ok(once after a delta write: cached in _delta_f32)
             self._delta_f32 = bool(
                 (self.delta_keys_f32.to(_F64) == self.delta_keys).all())
         return self.index.f32_exact and self._delta_f32

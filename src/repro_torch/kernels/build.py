@@ -134,17 +134,29 @@ def build_sources(name: str, sources: dict) -> dict:
     nvcc = _nvcc()
     reports = _finish({key: (_start(Path(src), nvcc), _target(name, src))
                        for key, src in sources.items()})
+    # tracelint: ok[retrace](a measurement helper: each source loaded once)
     return {key: (_bind(ctypes.CDLL(str(_target(name, src))), name),
                   reports[key]) for key, src in sources.items()}
+
+
+def _cuobjdump(name: str, flag: str) -> str:
+    build_all((name,))
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), flag, str(_target(name))],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def sass(name: str) -> str:
     """``cuobjdump -sass`` of the built library ``name`` (built first if
     needed): the instructions the card runs."""
-    build_all((name,))
-    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
-    return subprocess.run([str(cuobjdump), "-sass", str(_target(name))],
-                          capture_output=True, text=True, check=True).stdout
+    return _cuobjdump(name, "-sass")
+
+
+def elf(name: str) -> str:
+    """``cuobjdump -elf`` of the built library ``name`` (built first if
+    needed): its cubin's sections, each function's code and static shared
+    memory among them, whether or not this process built it."""
+    return _cuobjdump(name, "-elf")
 
 
 def library(name: str) -> ctypes.CDLL:

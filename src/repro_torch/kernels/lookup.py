@@ -256,6 +256,7 @@ def window_search(keys, q, lo, hi, iters: int, right: bool = False):
     +inf.  Returns the raw converged ``lo`` (callers apply their own
     window-miss convention)."""
     n = keys.shape[0]
+    # sync: ok(plain and f64 paths only: the +inf fill value)
     inf = torch.tensor(math.inf, dtype=keys.dtype, device=keys.device)
     l, h = lo, hi
     for _ in range(iters):
@@ -688,6 +689,7 @@ def rmrt_lookup(queries, mat, vec, keys, *, fanout: int, depth: int,
 # ---------------------------------------------------------------------------
 def _shard_members(shard, S: int) -> list:
     """The query positions of each shard (host loop: the plain versions)."""
+    # sync: ok(plain versions only: the CPU's loop over shards)
     return [torch.nonzero(shard == s).squeeze(1) for s in range(S)]
 
 
@@ -808,6 +810,7 @@ def shard_tables(roots, mats, vecs, keys, *, n_leaves: int,
             _f32(n), iters, ptr(rows, s), ptr(fences, s),
             ptr(delta_keys, s), nd, full_iters(nd) if nd else 0),
             "shard_tables")
+    # sync: ok(descriptors uploaded once a restack, then cached)
     return torch.frombuffer(bytearray(buf.raw), dtype=torch.uint8) \
         .to(keys.device)
 

@@ -36,10 +36,12 @@ def _reads(ts: list) -> list:
     """Host values of the device scalars ``ts`` (perhaps on several
     devices): one host read for all of them."""
     if len(ts) == 1:
+        # sync: ok(the one host read of a step's scalars, one of them)
         return [ts[0].item()]
     if not ts:
         return []
     dev = ts[0].device
+    # sync: ok(the one host read of a step's scalars, all positions')
     return torch.stack([t.to(dev) for t in ts]).tolist()
 
 
@@ -116,6 +118,7 @@ def _nonzeros(masks: list) -> list:
     ``nonzero_static`` each, which reads nothing), or for a single mask
     the read of its own ``nonzero``."""
     if len(masks) == 1:
+        # sync: ok(a single mask's own nonzero: the step's one read)
         nz = torch.nonzero(masks[0]).squeeze(1)
         return [nz if nz.numel() else None]
     counts = _reads([m.sum() for m in masks])

@@ -329,6 +329,7 @@ class TenantPack:
         pk["splits"][i] = st["splits"]
         pk["offs"][self._rows[i]] = st["offs"]
         for s in ids:
+            # sync: ok(shard ids are host numpy: np.arange or np.flatnonzero)
             s = int(s)
             p, j = divmod(s, k)
             r = dist_mod.tenant_row(i, s, self.n_tenants, k)
@@ -375,6 +376,7 @@ class TenantPack:
         # new generation, so the rows whose generation moved are exactly
         # the ones to copy.
         stale = {i: np.arange(self.n_shards) if full else
+                 # sync: ok(np mirror: the tenants' restack generations)
                  np.flatnonzero(t._row_gen != self._seen[i])
                  for i, t in enumerate(self.tenants)}
         stale = {i: ids for i, ids in stale.items() if ids.size}
@@ -410,6 +412,7 @@ class TenantPack:
 
     # -- dispatch ----------------------------------------------------------
     def _matrix(self, qmat) -> torch.Tensor:
+        # sync: ok(the batch's query matrix uploaded, one copy a call)
         qmat = torch.as_tensor(qmat, dtype=_F64, device=self.device)
         if qmat.dim() != 2 or qmat.shape[0] != self.n_tenants:
             raise ValueError(f"bad query matrix {tuple(qmat.shape)}: want "
@@ -654,7 +657,9 @@ class BatchingFrontend:
         """The one host read of a batch's answers, scattered to its
         callers."""
         if inf.plan:
+            # sync: ok(the host read of a batch's answers: found)
             found = inf.found.cpu().numpy()
+            # sync: ok(the host read of a batch's answers: rank)
             rank = inf.rank.cpu().numpy()
             now = self.clock()
             for req, t, a, b in inf.plan:
@@ -663,7 +668,9 @@ class BatchingFrontend:
                 req.done_at = now
                 req._event.set()
         if inf.rplan:
+            # sync: ok(the host read of a batch's answers: rank_lo)
             rlo = inf.rank_lo.cpu().numpy()
+            # sync: ok(the host read of a batch's answers: rank_hi)
             rhi = inf.rank_hi.cpu().numpy()
             now = self.clock()
             for req, t, a, b in inf.rplan:
