@@ -240,6 +240,36 @@ Phases (any failure exits non-zero; nothing is caught):
    opt-in limit read at run time
    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``); the census of phases 3,
    11 and 12 summed up.
+14. Path I, LM training, counted: ``launch.train.train("granite-moe-1b-
+   a400m", steps=8, batch=8, seq=2048, lr=1e-3)``, the one-card form
+   (``configs.single_card``: 24 layers, d_model 1,024, 16 query and 8 KV
+   heads, dh 64, 32 experts top-8, 1.385e9 random bf16 parameters from
+   ``--seed``) at full width and depth, remat on, a loss read every step.
+   K8 must launch 48 times a step (24 forward, 24 in the recompute), each
+   on the tensor-core tile with its ``lse`` output, never on another tile;
+   every loss finite and the last below the first.  On the first step's
+   attention inputs of layers 0 and 23: ``lse`` within ``I_LSE_ATOL`` of
+   the plain version's and an f64 oracle's, ``out`` bit-equal to the tile
+   launched without ``lse`` and within one bf16 ulp of the magnitude of
+   plain, and dq, dk, dv from ``FlashAttention`` within ``I_GRAD_ULPS``
+   bf16 ulps of the leaf against f64 autograd of a dense softmax; K8 timed
+   there with and without ``lse`` beside plain, SDPA and its bound (the
+   ``path_i_*`` keys of the ``flash`` row).  One warm step traced with
+   ``torch.profiler`` (``build/path_i_trace.json``): wall, device busy,
+   idle share, device time by kind (K8 forward, the attention backward's
+   torch ops, MoE dispatch and combine, GEMMs, the rest).  From the same
+   weights and first batch, the loss and grad norm with the plain
+   attention forward put in place of the tile by this script, within
+   ``I_PLAIN_LOSS_RTOL`` / ``I_PLAIN_GNORM_RTOL``.  Then a cut of
+   ``I_CUT_LAYERS`` layers of the same width trains 8 steps with a
+   checkpoint at step 4 (async) and 8 (blocking) into a temporary store
+   under ``build/`` (removed at the end): the restored step 4 and 8 equal
+   the live state bit for bit, and a step from the restored step 4 gives
+   the uninterrupted step 5's loss and parameters, bit for bit or, where
+   the card's sums are not in a fixed order, within
+   ``I_RESUME_LOSS_RTOL`` and one bf16 ulp (printed which).  Prints step
+   seconds (warm: the median of steps 2-8), tokens a second, peak memory
+   and K8 launches a step.
 
 Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
@@ -399,6 +429,20 @@ G_RANGE_SHARE, G_RANGE_PAIRS = 0.05, 16
 G_INSERT_SHARE, G_INSERT_KEYS = 0.01, 64
 # Phase 13: the paths the port's static analyzer reads (its CLI's), and
 # what torch.cuda.set_sync_debug_mode("warn") says at each sync
+# Path I: the model trained (the reference launcher's default arch, in its
+# one-card form), its batch, steps and lr (the CLI's), the checkpoint
+# gate's depth cut and checkpoint interval, and the gates' tolerances: K8's
+# lse against plain and an f64 oracle (absolute; lse is about 5 here), the
+# attention gradients against f64 autograd in bf16 ulps of the leaf, the
+# plain-attention step's loss and grad norm (relative), and the resumed
+# step's loss where the card's sums are not in a fixed order (relative)
+I_ARCH = "granite-moe-1b-a400m"
+I_BATCH, I_SEQ, I_STEPS, I_LR = 8, 2048, 8, 1e-3
+I_CUT_LAYERS, I_CKPT_EVERY = 4, 4
+I_LSE_ATOL = 1e-5
+I_GRAD_ULPS = 2
+I_PLAIN_LOSS_RTOL, I_PLAIN_GNORM_RTOL = 1e-3, 1e-2
+I_RESUME_LOSS_RTOL = 1e-5
 ANALYZED = ("src/repro_torch", "chip_smoke.py", "time_verbs.py",
             "examples/index_service_torch.py")
 SYNC_WARNING = "called a synchronizing CUDA operation"
@@ -3760,6 +3804,417 @@ def _path_h(args, dev, rows, h) -> None:
           f"({card})")
 
 
+def _lse_f64(q, k):
+    """Each row's log-sum-exp of the scaled causal scores, in f64, one
+    batch row at a time: (B, H, Sq)."""
+    import math
+    import torch
+    B, Sq, H, dh = q.shape
+    G = H // k.shape[2]
+    keep = torch.ones(Sq, k.shape[1], dtype=torch.bool,
+                      device=q.device).tril()
+    out = torch.empty((B, H, Sq), dtype=torch.float64, device=q.device)
+    for b in range(B):
+        s = torch.einsum("qhd,khd->hqk", q[b].double(),
+                         k[b].double().repeat_interleave(G, 1)) / math.sqrt(dh)
+        out[b] = torch.logsumexp(s.masked_fill(~keep, float("-inf")), -1)
+    return out
+
+
+def _grads_f64(q, k, v, do):
+    """(dq, dk, dv) of causal attention by f64 autograd of a dense softmax,
+    one batch row at a time."""
+    import math
+    import torch
+    B, Sq, H, dh = q.shape
+    G = H // k.shape[2]
+    keep = torch.ones(Sq, k.shape[1], dtype=torch.bool,
+                      device=q.device).tril()
+    outs = [torch.empty(t.shape, dtype=torch.float64, device=q.device)
+            for t in (q, k, v)]
+    for b in range(B):
+        qd, kd, vd = (t[b].double().requires_grad_() for t in (q, k, v))
+        s = torch.einsum("qhd,khd->hqk", qd, kd.repeat_interleave(G, 1)) \
+            / math.sqrt(dh)
+        p = torch.softmax(s.masked_fill(~keep, float("-inf")), -1)
+        o = torch.einsum("hqk,khd->qhd", p, vd.repeat_interleave(G, 1))
+        for dst, g in zip(outs, torch.autograd.grad(o, (qd, kd, vd),
+                                                    do[b].double()),
+                          strict=True):
+            dst[b] = g
+    return outs
+
+
+def _leaf_ulps(got, want) -> float:
+    """max |got - want| in bf16 ulps of the largest |want|."""
+    import math
+    m = max(float(want.abs().max()), 2.0 ** -126)
+    return float((got.double() - want).abs().max()) / \
+        2.0 ** (math.floor(math.log2(m)) - 7)
+
+
+def _train_kinds(path, tag) -> dict:
+    """Path I's traced step (``torch.profiler`` chrome trace): the window of
+    the user annotation ``tag`` (wall: to its last device event's end),
+    the device busy time (the union of the device events' intervals) and
+    the device time by kind, a device event's kind set by where its launch
+    lies: inside an autograd ``FlashAttentionBackward`` span "attention
+    backward" (K8's backward, torch ops), inside a ``moe.dispatch`` /
+    ``moe.combine`` span "MoE dispatch and combine" (the forward and the
+    recompute; their backward ops fall to the kinds below), else by name:
+    "K8 forward", "GEMMs", "other"; and the 8 kernels with the most device
+    time."""
+    import bisect
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    launch, dev, win = {}, [], []
+    spans = {"attention backward": [], "MoE dispatch and combine": []}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, a, name = e.get("cat", ""), e.get("args") or {}, e.get("name", "")
+        t0 = float(e["ts"])
+        t1 = t0 + float(e.get("dur", 0))
+        if cat in ("cuda_runtime", "cuda_driver") and "correlation" in a:
+            launch[a["correlation"]] = t0
+        elif cat == "user_annotation" and name == tag:
+            win.append((t0, t1))
+        elif cat in ("user_annotation", "cpu_op") and \
+                name in ("moe.dispatch", "moe.combine"):
+            spans["MoE dispatch and combine"].append((t0, t1))
+        elif cat == "cpu_op" and "FlashAttentionBackward" in name:
+            spans["attention backward"].append((t0, t1))
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            dev.append((t0, t1, name, a.get("correlation")))
+    if not win:
+        raise AssertionError(f"{Path(path).name}: no '{tag}' annotation")
+    lo, hi = min(a for a, _ in win), max(b for _, b in win)
+    sorted_spans = {k: sorted(v) for k, v in spans.items()}
+
+    def inside(kind, t):
+        sp = sorted_spans[kind]
+        i = bisect.bisect_right(sp, (t, float("inf"))) - 1
+        return any(sp[j][0] <= t <= sp[j][1] for j in range(max(i - 8, 0),
+                                                            i + 1))
+    mine = sorted((t0, t1, n, launch.get(c, t0)) for t0, t1, n, c in dev
+                  if lo <= launch.get(c, t0) <= hi)
+    if not mine:
+        raise AssertionError(f"{Path(path).name}: no device event in '{tag}'")
+    busy, end, kinds, names = 0.0, lo, {}, {}
+    for t0, t1, n, tl in mine:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+        kind = next((k for k in sorted_spans if inside(k, tl)), None)
+        if kind is None:
+            kind = {"K8": "K8 forward", "GEMM": "GEMMs"}.get(_kind(n), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + (t1 - t0) / 1e6
+        names[n[:72]] = names.get(n[:72], 0.0) + (t1 - t0) / 1e6
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+    return dict(wall=(max(hi, end) - lo) / 1e6, busy=busy / 1e6, kinds=kinds,
+                events=len(mine), top=top)
+
+
+def _path_i(args, dev, rows, h) -> None:
+    """Phase 14, path I: granite-moe-1b-a400m trained at full width and
+    depth through ``launch.train.train``, counted; K8's ``lse`` output,
+    its ``out`` and the attention gradients against the plain version and
+    f64 oracles on layer 0's and layer 23's inputs of the first step; a
+    traced warm step; one step with the plain attention from the same
+    weights and batch; the checkpoint gate on a 4-layer cut of the same
+    width.  Adds path I's K8 launches and times to the ``flash`` row."""
+    import shutil
+    import statistics
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, single_card
+    from repro_torch.data.indexed_dataset import synthetic_token_stream
+    from repro_torch.kernels import flash as tflash
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import layers as tlayers
+    from repro_torch.models import model as TM
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.step import make_train_step
+
+    cfg = single_card(get_arch(I_ARCH))
+    L, tokens = cfg.n_layers, I_BATCH * I_SEQ
+    pos = torch.arange(I_SEQ, dtype=torch.int32, device=dev)[None] \
+        .expand(I_BATCH, I_SEQ)
+
+    def batch(cfg_, i):
+        """The stream's i-th batch on the card, as ``train`` draws it."""
+        stream = synthetic_token_stream(args.seed, cfg_.vocab_size, I_BATCH,
+                                        I_SEQ)
+        for _ in range(i):
+            next(stream)
+        toks, labels = next(stream)
+        return (torch.from_numpy(toks).to(dev),
+                torch.from_numpy(labels).to(dev))
+
+    real_flash = tlayers.flash_attention
+    captured, calls = {}, [0]
+
+    def recording(q, k, v, *, q_offset, kv_valid=None, **kw):
+        """K8 as the model calls it, keeping copies of layer 0's and the
+        last layer's inputs in the first step's forward."""
+        if calls[0] in (0, L - 1):
+            captured[calls[0]] = tuple(t.detach().clone() for t in (q, k, v))
+        calls[0] += 1
+        return real_flash(q, k, v, q_offset=q_offset, kv_valid=kv_valid, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    h.reset_counters()
+    tlayers.flash_attention = recording
+    try:
+        res, t_all = _sync_time(lambda: tlaunch.train(
+            I_ARCH, steps=I_STEPS, batch=I_BATCH, seq=I_SEQ, lr=I_LR,
+            reduced=False, ckpt_dir=None, log_every=1, seed=args.seed))
+    finally:
+        tlayers.flash_attention = real_flash
+    launches, with_lse = h.counters(), dict(tflash.LSE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"flash": 2 * L * I_STEPS, "flash_decode": 0, "flash_combine": 0,
+            "flash_cc": 0}
+    if {k: launches[k] for k in want} != want or \
+            with_lse["flash"] != want["flash"]:
+        raise AssertionError(f"path I launches {launches}, with lse "
+                             f"{with_lse}; want {want}, every one with lse")
+    losses = res.losses
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"path I losses {losses}: not finite or not "
+                             f"falling")
+    warm = statistics.median(res.step_s[1:])
+    print(f"phase 14: path I ({I_ARCH}, single card: {L} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query / {cfg.n_kv_heads} KV heads, "
+          f"dh {cfg.head_dim}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k}, {cfg.param_count()} parameters, "
+          f"{cfg.param_count(active_only=True)} active) ok; {I_STEPS} steps "
+          f"of {I_BATCH} x {I_SEQ} tokens, lr {I_LR}, remat on")
+    print(f"  losses {[round(x, 6) for x in losses]}; grad norms "
+          f"{[round(x, 6) for x in res.grad_norms]}")
+    print(f"  step seconds {[round(x, 6) for x in res.step_s]}; warm (median "
+          f"of steps 2-{I_STEPS}) {warm:.6f} s, {tokens / warm:.1f} tokens/s; "
+          f"train() {t_all:.3f} s with weight init; peak memory allocated "
+          f"{peak:.3f} GiB; K8 launches a step "
+          f"{launches['flash'] / I_STEPS:.1f} (tensor-core tile, all with "
+          f"lse: {with_lse})")
+
+    # K8's lse, out and gradients on the first step's layer 0 and 23
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 14)
+    err = 0.0
+    for layer, (q, k, v) in sorted(captured.items()):
+        out, lse = h.uncounted(functools.partial(
+            tflash.flash_attention_lse, q, k, v, q_offset=0))
+        bare = h.uncounted(functools.partial(tflash.flash_attention, q, k, v,
+                                             q_offset=0))
+        ref, lse_p = tflash.flash_attention_plain(q, k, v, q_offset=0,
+                                                  return_lse=True)
+        lse_x = _lse_f64(q, k)
+        mag = tflash.flash_attention_plain(q.float(), k.float(),
+                                           v.float().abs(), q_offset=0)
+        d_out = (out.double() - ref.double()).abs()
+        d_lp = float((lse - lse_p).abs().max())
+        d_lx = float((lse.double() - lse_x).abs().max())
+        if not torch.equal(out, bare):
+            raise AssertionError(f"K8 layer {layer}: out with lse differs "
+                                 f"from the tile without it")
+        if not bool((d_out <= _bf16_ulp(mag)).all()):
+            raise AssertionError(f"K8 layer {layer}: out beyond one bf16 ulp "
+                                 f"of the magnitude from plain")
+        if max(d_lp, d_lx) > I_LSE_ATOL:
+            raise AssertionError(f"K8 layer {layer}: lse off by {d_lp} "
+                                 f"(plain) / {d_lx} (f64), tolerance "
+                                 f"{I_LSE_ATOL}")
+        do = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            o = h.uncounted(functools.partial(tflash.flash_attention, qg, kg,
+                                              vg, q_offset=0))
+            o.backward(do)
+        exact = _grads_f64(q, k, v, do)
+        gu = [_leaf_ulps(a.grad, x)
+              for a, x in zip((qg, kg, vg), exact, strict=True)]
+        if max(gu) > I_GRAD_ULPS:
+            raise AssertionError(f"K8 layer {layer}: dq/dk/dv {gu} ulps of "
+                                 f"the leaf from f64 autograd, tolerance "
+                                 f"{I_GRAD_ULPS}")
+        err = max(err, float(d_out.max()))
+        print(f"  K8 layer {layer} (q {tuple(q.shape)}, k/v {tuple(k.shape)})"
+              f": out with lse equal to the tile without it bit for bit, "
+              f"within one bf16 ulp of the magnitude of plain (max "
+              f"|diff| {float(d_out.max()):.6e}); lse max |kernel - plain| "
+              f"{d_lp:.6e}, |kernel - f64| {d_lx:.6e} (tolerance "
+              f"{I_LSE_ATOL}); dq, dk, dv against f64 autograd "
+              f"{[round(x, 6) for x in gu]} ulps of the leaf (tolerance "
+              f"{I_GRAD_ULPS})")
+    q, k, v = captured[0]
+    work = _flash_work(q, k, 0, I_SEQ)
+    t_ops = work[1] / BF16_TC_OPS_PER_S * 1e3
+    t_bytes = work[0] / HBM_BYTES_PER_S * 1e3
+    k_ms = _event_ms(lambda: h.uncounted(lambda: tflash.flash_attention_lse(
+        q, k, v, q_offset=0)), 20)
+    bare_ms = _event_ms(lambda: h.uncounted(lambda: tflash.flash_attention(
+        q, k, v, q_offset=0)), 20)
+    p_ms = _event_ms(lambda: tflash.flash_attention_plain(
+        q, k, v, q_offset=0, return_lse=True), 3, warmup=1)
+    s_ms = _event_ms(_sdpa_call(q, k, v, 0, I_SEQ), 20)
+    do = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+    _, lse = h.uncounted(lambda: tflash.flash_attention_lse(q, k, v,
+                                                            q_offset=0))
+    b_ms = _event_ms(lambda: tflash.flash_attention_bwd(
+        q, k, v, do, lse, q_offset=0), 5, warmup=1)
+    row = rows["flash"]
+    row["launches"] += launches["flash"]
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row.update(path_i_launches=launches["flash"], path_i_lse_ms=k_ms,
+               path_i_no_lse_ms=bare_ms, path_i_plain_ms=p_ms,
+               path_i_sdpa_ms=s_ms, path_i_bound_ms=max(t_ops, t_bytes),
+               path_i_backward_ms=b_ms)
+    print(f"  K8 at path I's shape: with lse {k_ms:.6f} ms, without "
+          f"{bare_ms:.6f} ms, plain (with lse) {p_ms:.6f} ms, SDPA "
+          f"{s_ms:.6f} ms, bound {max(t_ops, t_bytes):.6f} ms ("
+          f"{'operations' if t_ops >= t_bytes else 'bytes'} on the bf16 "
+          f"tensor cores: {work[0]} bytes, {work[1]} operations); the "
+          f"backward's torch ops {b_ms:.6f} ms a layer")
+    del captured, q, k, v, do, lse
+
+    # one warm step traced: where the time goes
+    step_fn = make_train_step(cfg, lr=I_LR)
+    inputs, labels = batch(cfg, I_STEPS)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("path I step"):
+            step_fn(res.params, res.opt, inputs, labels, pos)
+        torch.cuda.synchronize()
+    trace = ROOT / "build" / "path_i_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    del prof
+    w = _train_kinds(trace, "path I step")
+    kinds = ", ".join(f"{k_} {v_:.6f} s ({v_ / w['busy']:.3%} of busy)"
+                      for k_, v_ in sorted(w["kinds"].items(),
+                                           key=lambda kv: -kv[1]))
+    print(f"  traced warm step ({trace.relative_to(ROOT)}): wall "
+          f"{w['wall']:.6f} s, device busy {w['busy']:.6f} s, idle share "
+          f"{1 - w['busy'] / w['wall']:.6f}; {w['events']} device events; "
+          f"by kind {kinds}")
+    for name, sec in w["top"]:
+        print(f"    {sec:.6f} s  {name}")
+    del res, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same weights and first batch through the plain attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    params = TM.init_params(cfg, gen, dev)
+    inputs, labels = batch(cfg, 0)
+
+    def loss_gnorm():
+        ps = TM.tree_map(lambda t: t.detach().requires_grad_(), params)
+        x, _ = TM.forward(ps, cfg, inputs, pos=pos, mode="train")
+        loss = TM.lm_loss(ps, cfg, x, labels, False)
+        grads = list(torch.autograd.grad(loss, topt.leaves(ps)))
+        return float(loss.detach()), float(topt.global_grad_norm(grads))
+
+    real_lse = tflash.flash_attention_lse
+    lk, gk = h.uncounted(loss_gnorm)
+    tflash.flash_attention_lse = functools.partial(
+        tflash.flash_attention_plain, return_lse=True)
+    try:
+        (lp, gp), t_p = _sync_time(loss_gnorm)
+    finally:
+        tflash.flash_attention_lse = real_lse
+    if abs(lp - lk) > I_PLAIN_LOSS_RTOL * abs(lk) or \
+            abs(gp / gk - 1) > I_PLAIN_GNORM_RTOL:
+        raise AssertionError(f"path I plain attention: loss {lp} / {lk}, "
+                             f"grad norm {gp} / {gk}")
+    print(f"  the first step with the plain attention forward: loss {lp:.6f}"
+          f" against the kernel's {lk:.6f} (train()'s first step "
+          f"{losses[0]:.6f}; |diff| {abs(lp - lk):.6e}, tolerance "
+          f"{I_PLAIN_LOSS_RTOL} relative), grad norm {gp:.6f} against "
+          f"{gk:.6f} (tolerance {I_PLAIN_GNORM_RTOL} relative); plain "
+          f"forward and backward {t_p:.3f} s")
+    del params, inputs, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the checkpoint gate on a cut of the same width
+    cut = tlaunch.train_config(I_ARCH, reduced=False, n_layers=I_CUT_LAYERS)
+    kept = {}
+
+    def keep(step, params, opt, metrics):
+        if step == I_CKPT_EVERY:
+            kept["state"] = TM.tree_map(lambda t: t.clone(),
+                                          {"params": params, "opt": opt})
+        elif step == I_CKPT_EVERY + 1:
+            kept["loss"] = metrics["loss"].clone()
+            kept["params"] = TM.tree_map(lambda t: t.clone(), params)
+
+    store_dir = ROOT / "build"
+    store_dir.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="path_i_ckpt_", dir=store_dir)
+    print(f"  checkpoint gate ({cut.n_layers} layers of the same width, "
+          f"{cut.param_count()} parameters): store "
+          f"{Path(tmp).relative_to(ROOT)}, "
+          f"{shutil.disk_usage(tmp).free / 2**30:.3f} GiB free")
+    try:
+        res_c, t_c = _sync_time(lambda: tlaunch.train(
+            I_ARCH, steps=I_STEPS, batch=I_BATCH, seq=I_SEQ, lr=I_LR,
+            reduced=False, n_layers=I_CUT_LAYERS, ckpt_dir=tmp,
+            ckpt_every=I_CKPT_EVERY, log_every=I_STEPS, seed=args.seed,
+            on_step=keep))
+        ck = Checkpointer(tmp)
+        on_disk = ck._store.steps()
+        nbytes = _dir_bytes(os.path.join(tmp, f"step_{I_CKPT_EVERY:08d}"))
+        back, t_r = _sync_time(lambda: ck.restore(I_CKPT_EVERY,
+                                                  kept["state"]))
+        for a, b in zip(topt.leaves(back), topt.leaves(kept["state"]),
+                        strict=True):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError("path I: the restored step-4 state "
+                                     "differs from the live one")
+        last = ck.restore(I_STEPS, {"params": res_c.params,
+                                    "opt": res_c.opt})
+        for a, b in zip(topt.leaves(last), topt.leaves(
+                {"params": res_c.params, "opt": res_c.opt}), strict=True):
+            if not torch.equal(a, b):
+                raise AssertionError("path I: the restored final state "
+                                     "differs from the live one")
+        inputs, labels = batch(cut, I_CKPT_EVERY + 1)
+        p5, _, m5 = make_train_step(cut, lr=I_LR)(
+            back["params"], back["opt"], inputs, labels, pos)
+        l_live, l_back = float(kept["loss"]), float(m5["loss"])
+        diffs = [(a.double() - b.double()).abs() / _bf16_ulp(b)
+                 for a, b in zip(topt.leaves(p5),
+                                 topt.leaves(kept["params"]), strict=True)]
+        n_diff = sum(int((d > 0).sum()) for d in diffs)
+        worst = max(float(d.max()) for d in diffs)
+        exact = n_diff == 0 and l_live == l_back
+        if not exact and (abs(l_back - l_live) > I_RESUME_LOSS_RTOL *
+                          abs(l_live) or worst > 1):
+            raise AssertionError(f"path I resume: loss {l_back} / {l_live}, "
+                                 f"{n_diff} parameters differ, by up to "
+                                 f"{worst} ulps")
+        print(f"  cut: {I_STEPS} steps in {t_c:.3f} s with checkpoints at "
+              f"{on_disk} ({nbytes} bytes a step, async at step "
+              f"{I_CKPT_EVERY}, blocking at {I_STEPS}); losses "
+              f"{[round(x, 6) for x in res_c.losses]}; restore of step "
+              f"{I_CKPT_EVERY} {t_r:.3f} s, bit-equal to the live params and "
+              f"optimizer state, step {I_STEPS} bit-equal to the final "
+              f"state; the step from the restored state: loss {l_back:.9f} "
+              f"against the uninterrupted {l_live:.9f}, "
+              f"{'bit for bit' if exact else 'NOT bit for bit'} ("
+              f"{n_diff} parameters differ, by up to {worst} bf16 ulps; "
+              f"tolerance if not exact: loss {I_RESUME_LOSS_RTOL} relative, "
+              f"parameters one ulp)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     args = _args(argv)
     import numpy as np
@@ -4641,6 +5096,13 @@ def main(argv=None) -> int:
 
     # ---- phase 13: the static analyzer, held against the card -------------
     _phase13(reports, h)
+    print(f"  wall {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- phase 14: path I (LM training), counted ---------------------------
+    _path_i(args, dev, rows, h)
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
 
     smi = _card()

@@ -53,7 +53,8 @@ LM parameters (:func:`lm_params_from_arrays`): the reference's parameter
   tree as nested dicts of numpy arrays (a NamedTuple's fields by name,
   absent leaves left out), superblock leaves stacked on axis 0; bf16
   arrives as ``ml_dtypes.bfloat16`` and is carried across as its 16-bit
-  words, never through f32.
+  words, never through f32.  AdamW state (:func:`adamw_state_from_arrays`):
+  ``mu``, ``nu`` and ``master`` as such trees (f32), and ``step``.
 
 RMRT (:func:`rmrt_from_arrays`):
   ``keys``, ``kind``, params under ``p``, ``is_leaf``, ``child_base``,
@@ -266,11 +267,28 @@ def _lm_leaf(a, dev) -> torch.Tensor:
 
 
 def lm_params_from_arrays(tree: dict, cfg, *, device=None) -> dict:
-    """The port's LM parameter tree (``models.model``) from the reference's
-    as numpy arrays, bit for bit; every leaf's shape is checked against
-    ``build_tree(cfg)``."""
-    from .models import model as M
+    """The port's LM parameter tree (``models.model``, MoE leaves included)
+    from the reference's as numpy arrays, bit for bit; every leaf's shape
+    is checked against ``build_tree(cfg)``."""
+    return _lm_tree(tree, cfg, resolve_device(device))
+
+
+def adamw_state_from_arrays(tree: dict, cfg, *, device=None):
+    """The port's ``train.optimizer.AdamWState`` from the reference's
+    ``AdamWState`` as numpy arrays: ``mu``, ``nu`` and ``master`` (f32
+    trees shaped as the parameters, checked against ``build_tree(cfg)``)
+    and ``step``, bit for bit."""
+    from .train.optimizer import AdamWState
     dev = resolve_device(device)
+    return AdamWState(
+        mu=_lm_tree(tree["mu"], cfg, dev), nu=_lm_tree(tree["nu"], cfg, dev),
+        master=_lm_tree(tree["master"], cfg, dev),
+        step=torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32,
+                          device=dev))
+
+
+def _lm_tree(tree: dict, cfg, dev) -> dict:
+    from .models import model as M
 
     def carry(desc, node, stacked, path):
         if desc is None:

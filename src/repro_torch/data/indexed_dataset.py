@@ -170,3 +170,18 @@ class IndexedDataset:
         return float(np.mean([s.reuse_fraction for s in self.shards])) \
             if self.shards else 0.0
 
+
+
+def synthetic_token_stream(key: int, vocab: int, batch: int, seq: int):
+    """Deterministic synthetic LM batches (zipf-ish unigram): the
+    reference's generator (``numpy.random.default_rng(key)``, the same draws
+    in the same order), so both packages yield equal arrays.  Yields host
+    numpy ``(inputs, labels)``, each (batch, seq) int32, the labels the
+    inputs shifted by one."""
+    rng = np.random.default_rng(key)
+    ranks = np.arange(1, vocab + 1)
+    probs = 1.0 / ranks ** 1.1
+    probs /= probs.sum()
+    while True:
+        toks = rng.choice(vocab, size=(batch, seq + 1), p=probs)
+        yield toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)

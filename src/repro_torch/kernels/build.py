@@ -58,8 +58,9 @@ SIGNATURES = {
         "repro_linfit_sums": (P, P, P, LL, I, P, P, P),
     },
     "flash": {
-        "repro_flash_cc": (P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P),
-        "repro_flash_tc": (P, P, P, P, I, I, I, I, I, I, I, I, F, P),
+        "repro_flash_cc": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F,
+                           P),
+        "repro_flash_tc": (P, P, P, P, P, I, I, I, I, I, I, I, I, F, P),
         "repro_flash_decode": (P, P, P, P, P, I, I, I, I, I, I, I, I, F, I,
                                I, P),
     },

@@ -75,6 +75,13 @@
 //    explicit fmaf loops; a 64-row tile, or an 8-row one for Sq * G <= 8.
 //    expf and f32 dots in key and feature order.
 //
+// Training: tiles 1 and 3 take an optional `lse` pointer (f32, (B, H, Sq)).
+// Where it is not null, each block's epilogue also writes every row's
+// log-sum-exp m + log(l) of its scaled scores, from the m and l it holds in
+// registers, for the backward (kernels/flash.py flash_attention_bwd).
+// Serving passes null: the main loop, the output and the wgmma sequence are
+// the same either way.
+//
 // The kernels sum their dot products in other orders than XLA's dot, so
 // they agree with the reference to f32 rounding (within the tolerances
 // stated in the tests), not bit for bit.
@@ -132,9 +139,9 @@ __device__ __forceinline__ int col_of(int tx, int cc) {
 template <typename T, int D, int RPT>
 __global__ void __launch_bounds__(kCcThreads)
 flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ out, int Sq,
-                int Skv, int H, int Hkv, int G, int q_offset, int kv_valid,
-                float scale) {
+                const T* __restrict__ v, T* __restrict__ out,
+                float* __restrict__ lse, int Sq, int Skv, int H, int Hkv,
+                int G, int q_offset, int kv_valid, float scale) {
   constexpr int kBK = kCcBK;
   constexpr int kThreads = kCcThreads;
   constexpr int BR = 8 * RPT;              // rows a block
@@ -321,13 +328,17 @@ flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int cc = 0; cc < COLS; ++cc)
       store_val(dst + col_of<D>(tx, cc), __fdiv_rn(acc[r][cc], den));
+    // the row's log-sum-exp, m and l being the same in its 16 lanes
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<size_t>(b) * H + hkv * G + g) * Sq + i] =
+          __fadd_rn(m[r], logf(l[r]));
   }
 }
 
 template <typename T, int D, int RPT>
-int launch_cc(const void* q, const void* k, const void* v, void* out, int B,
-              int Sq, int Skv, int H, int Hkv, int q_offset, int kv_valid,
-              float scale, cudaStream_t stream) {
+int launch_cc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int Sq, int Skv, int H, int Hkv,
+              int q_offset, int kv_valid, float scale, cudaStream_t stream) {
   constexpr int BR = 8 * RPT;
   const int smem = static_cast<int>((D * BR + 2 * D * kCcBK) * sizeof(float));
   auto kern = flash_cc_kernel<T, D, RPT>;
@@ -338,8 +349,8 @@ int launch_cc(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq * G + BR - 1) / BR, Hkv, B);
   kern<<<grid, kCcThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, Hkv, G,
-      q_offset, kv_valid, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Skv, H, Hkv,
+      G, q_offset, kv_valid, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -347,20 +358,20 @@ int launch_cc(const void* q, const void* k, const void* v, void* out, int B,
 // 64 and 128).
 template <typename T, int RPT>
 int cc_by_dim(int D, const void* q, const void* k, const void* v, void* out,
-              int B, int Sq, int Skv, int H, int Hkv, int q_offset,
-              int kv_valid, float scale, cudaStream_t st) {
+              float* lse, int B, int Sq, int Skv, int H, int Hkv,
+              int q_offset, int kv_valid, float scale, cudaStream_t st) {
   switch (D) {
-    case 16: return launch_cc<T, 16, RPT>(q, k, v, out, B, Sq, Skv, H, Hkv,
+    case 16: return launch_cc<T, 16, RPT>(q, k, v, out, lse, B, Sq, Skv, H, Hkv,
                                           q_offset, kv_valid, scale, st);
-    case 32: return launch_cc<T, 32, RPT>(q, k, v, out, B, Sq, Skv, H, Hkv,
+    case 32: return launch_cc<T, 32, RPT>(q, k, v, out, lse, B, Sq, Skv, H, Hkv,
                                           q_offset, kv_valid, scale, st);
     default: break;
   }
   if constexpr (sizeof(T) == 4) {
     switch (D) {
-      case 64: return launch_cc<T, 64, RPT>(q, k, v, out, B, Sq, Skv, H, Hkv,
+      case 64: return launch_cc<T, 64, RPT>(q, k, v, out, lse, B, Sq, Skv, H, Hkv,
                                             q_offset, kv_valid, scale, st);
-      case 128: return launch_cc<T, 128, RPT>(q, k, v, out, B, Sq, Skv, H,
+      case 128: return launch_cc<T, 128, RPT>(q, k, v, out, lse, B, Sq, Skv, H,
                                               Hkv, q_offset, kv_valid, scale,
                                               st);
       default: break;
@@ -555,8 +566,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_tc_kernel(__grid_constant__ const CUtensorMap kmap,
                 __grid_constant__ const CUtensorMap vmap,
                 const __nv_bfloat16* __restrict__ q,
-                __nv_bfloat16* __restrict__ out, int B, int Sq, int H,
-                int Hkv, int G, int q_offset, int kv_valid, float scale) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int B, int Sq, int H, int Hkv, int G, int q_offset,
+                int kv_valid, float scale) {
   using S = TcSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[kTcStages], empty[kTcStages];
@@ -788,6 +800,10 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap kmap,
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * t4) =
           __floats2bfloat162_rn(__fdiv_rn(o[4 * j + 2 * half], den),
                                 __fdiv_rn(o[4 * j + 2 * half + 1], den));
+    // the row's log-sum-exp, m and l being the same in its quad
+    if (lse != nullptr && t4 == 0)
+      lse[(static_cast<size_t>(b) * H + hkv * G + g) * Sq + i] =
+          __fadd_rn(half ? mB : mA, logf(half ? lB : lA));
   }
 }
 
@@ -835,9 +851,9 @@ int kv_map(CUtensorMap* map, const void* base, int B, int Skv, int Hkv,
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
-              int Sq, int Skv, int H, int Hkv, int q_offset, int kv_valid,
-              float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int Sq, int Skv, int H, int Hkv,
+              int q_offset, int kv_valid, float scale, cudaStream_t stream) {
   CUtensorMap kmap, vmap;
   int rc = kv_map(&kmap, k, B, Skv, Hkv, D);
   if (rc == 0) rc = kv_map(&vmap, v, B, Skv, Hkv, D);
@@ -850,8 +866,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   const int ntx = (Sq * G + kTcBR - 1) / kTcBR;
   kern<<<ntx * Hkv * B, kTcThreads, TcSmem<D>::kBytes, stream>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q),
-      static_cast<__nv_bfloat16*>(out), B, Sq, H, Hkv, G, q_offset, kv_valid,
-      scale);
+      static_cast<__nv_bfloat16*>(out), lse, B, Sq, H, Hkv, G, q_offset,
+      kv_valid, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1136,39 +1152,45 @@ int launch_split(const void* q, const void* k, const void* v, void* m_part,
 // and out (B, Sq, H, D), 16-byte aligned, and return the first CUDA error
 // (0 when the launch went through).
 
+// `lse`, where not null, is f32 (B, H, Sq): each row's log-sum-exp of its
+// scaled scores, m + log(l), for the backward (training passes it; serving
+// passes null and the tiles write nothing more).
+
 // The CUDA-core tile: all f32 (bf16 = 0) with D in {16, 32, 64, 128}, or all
 // bf16 (bf16 = 1) with D in {16, 32}; `decode` picks the 8-row tile (Sq * H
 // / Hkv <= 8).
 extern "C" int repro_flash_cc(const void* q, const void* k, const void* v,
-                              void* out, int B, int Sq, int Skv, int H,
-                              int Hkv, int D, int q_offset, int kv_valid,
-                              int bf16, int decode, float scale,
+                              void* out, void* lse, int B, int Sq, int Skv,
+                              int H, int Hkv, int D, int q_offset,
+                              int kv_valid, int bf16, int decode, float scale,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ls = static_cast<float*>(lse);
   if (bf16) {
-    return decode ? cc_by_dim<__nv_bfloat16, 1>(D, q, k, v, out, B, Sq, Skv,
-                                                H, Hkv, q_offset, kv_valid,
-                                                scale, st)
-                  : cc_by_dim<__nv_bfloat16, 8>(D, q, k, v, out, B, Sq, Skv,
-                                                H, Hkv, q_offset, kv_valid,
-                                                scale, st);
+    return decode ? cc_by_dim<__nv_bfloat16, 1>(D, q, k, v, out, ls, B, Sq,
+                                                Skv, H, Hkv, q_offset,
+                                                kv_valid, scale, st)
+                  : cc_by_dim<__nv_bfloat16, 8>(D, q, k, v, out, ls, B, Sq,
+                                                Skv, H, Hkv, q_offset,
+                                                kv_valid, scale, st);
   }
-  return decode ? cc_by_dim<float, 1>(D, q, k, v, out, B, Sq, Skv, H, Hkv,
-                                      q_offset, kv_valid, scale, st)
-                : cc_by_dim<float, 8>(D, q, k, v, out, B, Sq, Skv, H, Hkv,
-                                      q_offset, kv_valid, scale, st);
+  return decode ? cc_by_dim<float, 1>(D, q, k, v, out, ls, B, Sq, Skv, H,
+                                      Hkv, q_offset, kv_valid, scale, st)
+                : cc_by_dim<float, 8>(D, q, k, v, out, ls, B, Sq, Skv, H,
+                                      Hkv, q_offset, kv_valid, scale, st);
 }
 
 // The tensor-core prefill tile: bf16, D in {64, 128}.
 extern "C" int repro_flash_tc(const void* q, const void* k, const void* v,
-                              void* out, int B, int Sq, int Skv, int H,
-                              int Hkv, int D, int q_offset, int kv_valid,
-                              float scale, void* stream) {
+                              void* out, void* lse, int B, int Sq, int Skv,
+                              int H, int Hkv, int D, int q_offset,
+                              int kv_valid, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ls = static_cast<float*>(lse);
   switch (D) {
-    case 64: return launch_tc<64>(q, k, v, out, B, Sq, Skv, H, Hkv, q_offset,
-                                  kv_valid, scale, st);
-    case 128: return launch_tc<128>(q, k, v, out, B, Sq, Skv, H, Hkv,
+    case 64: return launch_tc<64>(q, k, v, out, ls, B, Sq, Skv, H, Hkv,
+                                  q_offset, kv_valid, scale, st);
+    case 128: return launch_tc<128>(q, k, v, out, ls, B, Sq, Skv, H, Hkv,
                                     q_offset, kv_valid, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

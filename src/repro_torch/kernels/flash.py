@@ -34,6 +34,21 @@ On a CUDA tensor ``flash_attention`` launches one of three tiles of
 
 ``flash_decode_split_plain`` is the split-KV tile's partials and combine
 in plain torch, for the tests and ``chip_smoke.py``.
+
+Training (``FlashAttention``, which ``flash_attention`` takes whenever
+autograd records): the forward launches the same tensor-core or CUDA-core
+tile with its ``lse`` output, each row's f32 log-sum-exp ``m + log(l)``
+of (B, H, Sq), counted in ``LAUNCHES`` as any launch of the tile and in
+``LSE_LAUNCHES`` besides; the split-KV decode tile writes no ``lse`` and
+raises.  The backward (``flash_attention_bwd``) is torch ops, not a
+kernel: the reference's TPU kernel is forward only and the reference
+trains by XLA's autodiff of its jnp scan, so the port recomputes the
+softmax from ``lse`` in f32, a block of query rows at a time over every
+key they see (``P = exp(s - lse)``, ``D = rowsum(P * dP)`` exact in f32),
+sums dk and dv over the G query heads a KV head serves, and rounds once
+to the inputs' dtype.  No library attention: SDPA's backward rounds P to
+bf16.  On the CPU the forward is the plain version (``return_lse``) and
+the backward the same code.
 """
 from __future__ import annotations
 
@@ -46,16 +61,19 @@ from . import build
 
 LAUNCHES = {"flash": 0, "flash_decode": 0, "flash_combine": 0,
             "flash_cc": 0}
+LSE_LAUNCHES = {"flash": 0, "flash_cc": 0}   # of those, with the lse output
 
 DIMS = (16, 32, 64, 128)         # head dims the kernels are instantiated for
 TC_DIMS = (64, 128)               # head dims of the bf16 tiles
 DECODE_ROWS = 8                   # rows of the decode tiles (Sq * G <= 8)
 KEY_TILE = 64                     # keys a tile of every kernel
+BWD_Q_BLOCK = 256                 # query rows a block of the backward
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LSE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def softmax_scale(dh: int) -> float:
@@ -79,10 +97,12 @@ def _check(q, k, v):
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, q_offset: int, kv_valid: int | None = None,
-                          kv_block: int = 1024) -> torch.Tensor:
+                          kv_block: int = 1024, return_lse: bool = False):
     """Plain version of K8: the reference's blockwise online softmax
     (``repro.models.layers.flash_attention``), (B, Sq, H, dh) in q's
-    dtype."""
+    dtype; with ``return_lse`` also each row's f32 ``m + log(l)`` (B, H,
+    Sq) from the reference's final ``m`` and ``l``
+    (``return_partial=True``)."""
     _check(q, k, v)
     B, Sq, H, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -117,7 +137,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                    vb.to(f32))
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+    out = out.transpose(1, 2).to(q.dtype)
+    return (out, m + torch.log(l)) if return_lse else out
 
 
 def split_plan(blocks: int, kend: int, sms: int) -> tuple[int, int]:
@@ -207,27 +228,16 @@ def tile_of(dtype: torch.dtype, dh: int, rows: int) -> str:
     return "flash_cc"
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    q_offset: int, kv_valid: int | None = None
-                    ) -> torch.Tensor:
-    """K8 (replaces ``repro.kernels.flash.flash_attention_pallas``, in the
-    general form of ``repro.models.layers.flash_attention``): causal GQA
-    attention of q (B, Sq, H, dh) over k, v (B, Skv, Hkv, dh) at query
-    positions ``q_offset + i``, keys at positions ``>= kv_valid`` masked.
-    CUDA tensors launch a kernel (``tile_of``); CPU tensors take the plain
-    version."""
-    _check(q, k, v)
-    q_offset = int(q_offset)
-    Skv = k.shape[1]
-    kv_valid = Skv if kv_valid is None else int(kv_valid)
-    if not 0 <= kv_valid <= Skv:
-        raise ValueError(f"kv_valid {kv_valid} outside [0, {Skv}]")
-    if q.device.type != "cuda":
-        return flash_attention_plain(q, k, v, q_offset=q_offset,
-                                     kv_valid=kv_valid)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
+            kv_valid: int, lse: torch.Tensor | None) -> torch.Tensor:
+    """One launch of the tile ``tile_of`` picks, on CUDA tensors; ``lse``
+    (f32 (B, H, Sq), or None) receives each row's log-sum-exp."""
     B, Sq, H, dh = q.shape
-    Hkv = k.shape[2]
+    Skv, Hkv = k.shape[1], k.shape[2]
     tile = tile_of(q.dtype, dh, Sq * (H // Hkv))
+    if lse is not None and tile == "flash_decode":
+        raise ValueError("the split-KV decode tile (Sq * H / Hkv <= 8 rows "
+                         "at head dim 64 or 128) writes no lse")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention needs 16-byte aligned tensors")
@@ -238,9 +248,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = softmax_scale(dh)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    lse_ptr = None if lse is None else lse.data_ptr()
     if tile == "flash":
-        rc = lib.repro_flash_tc(*ptrs, out.data_ptr(), B, Sq, Skv, H, Hkv,
-                                dh, q_offset, kv_valid, scale, stream)
+        rc = lib.repro_flash_tc(*ptrs, out.data_ptr(), lse_ptr, B, Sq, Skv,
+                                H, Hkv, dh, q_offset, kv_valid, scale, stream)
         build.check(rc, "flash (tensor-core tile)")
     elif tile == "flash_decode":
         n_split, per = decode_plan(q, k, q_offset=q_offset,
@@ -255,9 +266,139 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         LAUNCHES["flash_combine"] += 1
     else:
         rc = lib.repro_flash_cc(
-            *ptrs, out.data_ptr(), B, Sq, Skv, H, Hkv, dh, q_offset,
+            *ptrs, out.data_ptr(), lse_ptr, B, Sq, Skv, H, Hkv, dh, q_offset,
             kv_valid, int(q.dtype == torch.bfloat16),
             int(Sq * (H // Hkv) <= DECODE_ROWS), scale, stream)
         build.check(rc, "flash (CUDA-core tile)")
     LAUNCHES[tile] += 1
+    if lse is not None:
+        LSE_LAUNCHES[tile] += 1
     return out
+
+
+def _args_of(q, k, v, q_offset, kv_valid) -> tuple[int, int]:
+    _check(q, k, v)
+    Skv = k.shape[1]
+    kv_valid = Skv if kv_valid is None else int(kv_valid)
+    if not 0 <= kv_valid <= Skv:
+        raise ValueError(f"kv_valid {kv_valid} outside [0, {Skv}]")
+    return int(q_offset), kv_valid
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, q_offset: int, kv_valid: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8 with its row statistics: (out, lse), lse f32 (B, H, Sq) = m +
+    log(l) of each row's scaled scores.  CUDA tensors launch the tile with
+    its ``lse`` output; CPU tensors take the plain version."""
+    q_offset, kv_valid = _args_of(q, k, v, q_offset, kv_valid)
+    if q.device.type != "cuda":
+        return flash_attention_plain(q, k, v, q_offset=q_offset,
+                                     kv_valid=kv_valid, return_lse=True)
+    B, Sq, H, _ = q.shape
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, q_offset, kv_valid, lse), lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, lse: torch.Tensor, *,
+                        q_offset: int, kv_valid: int | None = None
+                        ) -> tuple:
+    """(dq, dk, dv) of K8 from its inputs, the output's cotangent and the
+    forward's ``lse``, in torch ops on any device.  A block of
+    ``BWD_Q_BLOCK`` query rows at a time, in f32: ``s = (f32(q) * scale) . k`` over the
+    keys the block sees, ``P = exp(s - lse)`` (masked: 0), ``dV += P^T dO``,
+    ``dP = dO V^T``, ``D = rowsum(P * dP)``, ``dS = P * (dP - D)``, ``dQ =
+    scale * dS K``, ``dK += dS^T (q * scale)``.  The G = H / Hkv query heads
+    of a KV head are rows of one product, so dk and dv come out summed
+    over them (the transpose of the reference's ``jnp.repeat``).  Each
+    gradient is rounded once to its input's dtype."""
+    q_offset, kv_valid = _args_of(q, k, v, q_offset, kv_valid)
+    B, Sq, H, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    f32, dev = torch.float32, q.device
+    scale = torch.tensor(softmax_scale(dh), dtype=f32, device=dev)
+
+    def rows(t):                        # (B, Sq, H, x) -> (B, Hkv, G, Sq, x)
+        return t.to(f32).reshape(B, Sq, Hkv, G, -1).permute(0, 2, 3, 1, 4)
+
+    qs = rows(q) * scale
+    do = rows(dout)
+    ls = lse.reshape(B, Hkv, G, Sq)
+    kf = k.to(f32).transpose(1, 2)      # (B, Hkv, Skv, dh)
+    vf = v.to(f32).transpose(1, 2)
+    dq = torch.empty((B, Hkv, G, Sq, dh), dtype=f32, device=dev)
+    dk = torch.zeros((B, Hkv, Skv, dh), dtype=f32, device=dev)
+    dv = torch.zeros((B, Hkv, Skv, dh), dtype=f32, device=dev)
+    kv_pos = torch.arange(Skv, device=dev)
+    for i0 in range(0, Sq, BWD_Q_BLOCK):
+        i1 = min(i0 + BWD_Q_BLOCK, Sq)
+        kend = max(0, min(kv_valid, q_offset + i1))
+        n = G * (i1 - i0)
+        if kend == 0:
+            dq[:, :, :, i0:i1] = 0
+            continue
+        qb = qs[:, :, :, i0:i1].reshape(B, Hkv, n, dh)
+        dob = do[:, :, :, i0:i1].reshape(B, Hkv, n, dh)
+        kb, vb = kf[:, :, :kend], vf[:, :, :kend]
+        q_pos = q_offset + torch.arange(i0, i1, device=dev)
+        keep = (kv_pos[None, :kend] <= q_pos[:, None]) & \
+            (kv_pos[None, :kend] < kv_valid)                  # (bq, kend)
+        keep = keep.expand(G, -1, -1).reshape(n, kend)
+        s = qb @ kb.transpose(-1, -2)                         # (B, Hkv, n, k)
+        lb = ls[:, :, :, i0:i1].reshape(B, Hkv, n, 1)
+        p = torch.where(keep, torch.exp(s - lb), torch.zeros((), dtype=f32,
+                                                             device=dev))
+        del s
+        dv[:, :, :kend] += p.transpose(-1, -2) @ dob
+        dp = dob @ vb.transpose(-1, -2)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        del p, dp
+        dq[:, :, :, i0:i1] = (ds @ kb).reshape(B, Hkv, G, i1 - i0, dh) * scale
+        dk[:, :, :kend] += ds.transpose(-1, -2) @ qb
+        del ds
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
+    return dq, dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K8 under a gradient: the forward launches the tile with its ``lse``
+    output (CPU: the plain version), saving q, k, v and ``lse``; the
+    backward is ``flash_attention_bwd``.  There is no fallback: a tile that
+    fails to build or launch fails the step."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset: int, kv_valid: int):
+        out, lse = flash_attention_lse(q, k, v, q_offset=q_offset,
+                                       kv_valid=kv_valid)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.q_offset, ctx.kv_valid = q_offset, kv_valid
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout, lse,
+                                         q_offset=ctx.q_offset,
+                                         kv_valid=ctx.kv_valid)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_offset: int, kv_valid: int | None = None
+                    ) -> torch.Tensor:
+    """K8 (replaces ``repro.kernels.flash.flash_attention_pallas``, in the
+    general form of ``repro.models.layers.flash_attention``): causal GQA
+    attention of q (B, Sq, H, dh) over k, v (B, Skv, Hkv, dh) at query
+    positions ``q_offset + i``, keys at positions ``>= kv_valid`` masked.
+    CUDA tensors launch a kernel (``tile_of``); CPU tensors take the plain
+    version.  Where autograd records (grad enabled and an input requiring
+    it) the call goes through ``FlashAttention``."""
+    q_offset, kv_valid = _args_of(q, k, v, q_offset, kv_valid)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, q_offset, kv_valid)
+    if q.device.type != "cuda":
+        return flash_attention_plain(q, k, v, q_offset=q_offset,
+                                     kv_valid=kv_valid)
+    return _launch(q, k, v, q_offset, kv_valid, None)

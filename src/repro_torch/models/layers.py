@@ -1,6 +1,6 @@
-"""Transformer layers of the LM serving path on one device (a port of
-``repro.models.layers``: norms, RoPE, flash attention, the attention block
-and the dense SwiGLU MLP).
+"""Transformer layers of the LM path on one device (a port of
+``repro.models.layers``: norms, RoPE, flash attention, the attention block,
+the dense SwiGLU MLP and the MoE block), for serving and for training.
 
 Numerics follow the reference: parameters and activations bf16, every
 projection an ``einsum(bf16, bf16, preferred_element_type=f32)`` whose f32
@@ -14,8 +14,13 @@ values are exact in f32).  No GEMM with a bf16 result is issued, so the
 setting ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
 never applies and is never changed.  Norms, RoPE and the softmax run in f32.
 
+Under a gradient ``matmul_f32`` and ``bmm_f32`` take the reference's
+transpose of ``einsum(bf16, bf16, preferred_element_type=f32)``: each
+operand's gradient is the f32 cotangent times the other operand, an f32
+product, rounded once to the operand's dtype (``_MatmulF32``).
+
 There is no mesh: tensor-parallel layouts (``cfg.tp_shard``), sequence-
-sharded caches, ``bias_qk``, partial softmax results, M-RoPE and MoE raise
+sharded caches, ``bias_qk``, partial softmax results and M-RoPE raise
 ``not_ported`` (ROADMAP queue 1 item 14).  Caches are updated in place.
 """
 from __future__ import annotations
@@ -31,16 +36,61 @@ F32 = torch.float32
 BF16 = torch.bfloat16
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 product of 2-d (``mm``) or 3-d (``bmm``) operands: on the card a
+    bf16 GEMM with an f32 result where both are bf16, else an f32 product
+    of the upcast operands."""
+    mm = torch.mm if a.dim() == 2 else torch.bmm
+    if a.device.type == "cuda" and a.dtype == b.dtype == BF16:
+        return mm(a, b, out_dtype=F32)
+    return mm(a.to(F32), b.to(F32))
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``_mm_f32`` with the reference's transpose.  JAX differentiates
+    ``einsum(x, w, preferred_element_type=f32)`` into an f32 cotangent g
+    times the other operand, in f32, rounded once to the operand's dtype:
+    ``dx = bf16(g . f32(w)^T)``, ``dw = bf16(f32(x)^T . g)``.  The port does
+    exactly that.  Cost: both backward products are f32 GEMMs (the
+    cotangent is f32, so the bf16 tensor cores cannot take them; on an
+    H100 67 TFLOP/s against 989), plus an f32 copy of the other operand.
+    ``torch.mm(..., out_dtype=f32)`` has no backward of its own to use."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (g @ b.to(F32).transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = (a.to(F32).transpose(-1, -2) @ g).to(b.dtype)
+        return ga, gb
+
+
+def _records(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _MatmulF32.apply(a, b) if _records(a, b) else _mm_f32(a, b)
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("...d,df->...f", x, w, preferred_element_type=f32)``: f32
     result of bf16 (or f32) operands."""
     lead, d = x.shape[:-1], x.shape[-1]
-    x2 = x.reshape(-1, d)
-    if x.device.type == "cuda" and x.dtype == w.dtype == BF16:
-        out = torch.mm(x2, w, out_dtype=F32)
-    else:
-        out = torch.mm(x2.to(F32), w.to(F32))
+    out = _mm(x.reshape(-1, d), w)
     return out.reshape(*lead, w.shape[-1])
+
+
+def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("ecd,edf->ecf", x, w, preferred_element_type=f32)``."""
+    return _mm(x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -198,5 +248,168 @@ def mlp_block(p: MLPParams, x: torch.Tensor, cfg, *, tp_shard: bool,
     return out.to(x.dtype) if reduce else out
 
 
-def moe_block(p, x, cfg, *, tp_shard: bool, capacity_factor: float = 1.25):
-    raise not_ported("MoE FFN (moe_block)", "14")
+# ---------------------------------------------------------------------------
+# MoE block (top-k routing into capacity buckets)
+# ---------------------------------------------------------------------------
+class MoEParams(NamedTuple):
+    ln: torch.Tensor
+    router: torch.Tensor      # (d, E)
+    w_gate: torch.Tensor      # (E, d, fe)
+    w_up: torch.Tensor        # (E, d, fe)
+    w_down: torch.Tensor      # (E, fe, d)
+    sh_gate: torch.Tensor | None   # (d, n_shared * fe) with shared experts
+    sh_up: torch.Tensor | None
+    sh_down: torch.Tensor | None   # (n_shared * fe, d)
+
+
+def top_k(logits: torch.Tensor, k: int) -> tuple:
+    """(values, indices) of the k largest entries of each row, largest
+    first, the lower index first among equal values (``jax.lax.top_k``'s
+    rule; ``torch.topk`` promises no order on ties): a stable descending
+    sort.  The values are gathered from ``logits``, so their gradient
+    scatters back to the chosen entries."""
+    idx = torch.sort(logits, dim=-1, descending=True, stable=True)[1][:, :k]
+    return logits.gather(-1, idx), idx
+
+
+class _RepeatRows(torch.autograd.Function):
+    """``x[repeat(arange(T), k)]``: each row k times in a row.  Backward:
+    the k gradients of a row summed in k order in their own dtype (a
+    rounding after each add), as XLA's scatter-add transposes the
+    reference's gather; a fixed reduction, where an index backward would
+    scatter atomics on the card."""
+
+    @staticmethod
+    def forward(ctx, x, k: int):
+        ctx.k = k
+        return x.unsqueeze(1).expand(-1, k, -1).reshape(-1, x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_k(g.reshape(-1, ctx.k, g.shape[-1])), None
+
+
+def _sum_k(t: torch.Tensor) -> torch.Tensor:
+    """(T, k, d) -> (T, d): the k slices added one after another, in k
+    order."""
+    out = t[:, 0]
+    for j in range(1, t.shape[1]):
+        out = out + t[:, j]
+    return out
+
+
+class _SumK(torch.autograd.Function):
+    """``_sum_k`` (the combine: a token's k contributions in k order, as
+    XLA:CPU's scatter-add gives them) with the transpose of the reference's
+    gather, each contribution receiving its token's gradient: an expanded
+    view, where autograd through the k slices would zero-fill a (T, k, d)
+    tensor a slice."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.k = t.shape[1]
+        return _sum_k(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.unsqueeze(1).expand(-1, ctx.k, -1)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``src[idx]`` for row indices unique but for the last row (the
+    trash row), whose gathered rows the caller masks to zero.  Backward:
+    each gradient row written to its source row, no scatter-add; the trash
+    row receives zeros whichever write lands.  An index backward would
+    scatter-add with a sort, one warp adding up every duplicate of the
+    trash row in turn."""
+
+    @staticmethod
+    def forward(ctx, src, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = src.shape[0]
+        return src[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        out = g.new_zeros((ctx.rows, g.shape[1]))
+        out[idx] = g
+        return out, None
+
+
+class _Softmax(torch.autograd.Function):
+    """``jax.nn.softmax`` over the last axis: ``e / sum(e)`` with ``e =
+    exp(x - max)``; backward its custom JVP transposed, ``y g - y sum(y
+    g)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        e = torch.exp(x - x.amax(-1, keepdim=True))
+        y = e / e.sum(-1, keepdim=True)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        yg = y * g
+        return yg - y * yg.sum(-1, keepdim=True)
+
+
+def moe_block(p: MoEParams, x: torch.Tensor, cfg, *, tp_shard: bool,
+              capacity_factor: float = 1.25) -> torch.Tensor:
+    """Top-k MoE FFN with capacity buckets (the reference's ``moe_block``
+    on one device).  Router logits f32; the top k by ``top_k`` (lower index
+    on a tie), a softmax over the k gates.  Each assignment's slot in its
+    expert is the exclusive running count of earlier assignments to it;
+    ``C = max(int(T * top_k * capacity_factor / E), 4)``, and an
+    assignment at slot >= C goes to the trash row ``E * C`` and
+    contributes nothing (its token goes through on the residual).  ``buf``
+    (E, C, d) bf16, the expert GEMMs f32 with ``silu(g) * u`` rounded to
+    bf16, then each token's k weighted contributions added in k order in
+    f32 (XLA:CPU's scatter-add order; no atomics), plus the shared experts
+    where the config has them, rounded once to x's dtype.  The routing and
+    the combine run under ``torch.profiler`` spans ``moe.dispatch`` and
+    ``moe.combine`` (a trace's time by kind)."""
+    _no_tp(tp_shard)
+    mc = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, k = mc.n_experts, mc.top_k
+    C = max(int(T * k * capacity_factor / E), 4)
+    dev = x.device
+
+    h = rms_norm(x, p.ln, cfg.norm_eps).reshape(T, d)
+    logits = matmul_f32(h, p.router)                     # (T, E)
+    with torch.profiler.record_function("moe.dispatch"):
+        gates, top_e = top_k(logits, k)
+        gates = _Softmax.apply(gates)
+        flat_e = top_e.reshape(-1)                       # (T * k,)
+        flat_w = gates.reshape(-1)
+        # the exclusive running count of the one-hot, scanned along its
+        # inner axis: torch's scan along an outer axis is one thread a
+        # column, 32 threads walking all T * k assignments in turn
+        onehot = torch.nn.functional.one_hot(flat_e, E).T.contiguous()
+        pos = (torch.cumsum(onehot, 1) - onehot).gather(
+            0, flat_e[None])[0]
+        local = pos < C
+        slot = torch.where(local, flat_e * C + pos, E * C)
+        hx = _RepeatRows.apply(h.to(BF16), k)            # (T * k, d)
+        buf = torch.zeros((E * C + 1, d), dtype=BF16, device=dev) \
+            .index_put((slot,), hx)
+        buf = buf[:E * C].reshape(E, C, d)
+    g = bmm_f32(buf, p.w_gate)
+    u = bmm_f32(buf, p.w_up)
+    y = bmm_f32((g * torch.sigmoid(g) * u).to(BF16), p.w_down)  # (E, C, d)
+    with torch.profiler.record_function("moe.combine"):
+        y_flat = torch.cat([y.reshape(E * C, d), y.new_zeros((1, d))])
+        contrib = _GatherRows.apply(y_flat, slot) * flat_w[:, None]
+        contrib = torch.where(local[:, None], contrib, contrib.new_zeros(()))
+        out = _SumK.apply(contrib.reshape(T, k, d))
+
+    if mc.n_shared:
+        g2 = matmul_f32(h, p.sh_gate)
+        u2 = matmul_f32(h, p.sh_up)
+        out = out + matmul_f32((g2 * torch.sigmoid(g2) * u2).to(BF16),
+                               p.sh_down)
+    return out.reshape(B, S, d).to(x.dtype)

@@ -1,5 +1,5 @@
-"""The decoder of the LM serving path on one device (a port of
-``repro.models.model`` for attention layers with a dense FFN).
+"""The decoder of the LM path on one device (a port of
+``repro.models.model`` for attention layers with a dense or MoE FFN).
 
 One parameter factory (``build_tree``) gives every leaf's shape and
 initialiser; ``init_params`` instantiates it from a ``torch.Generator``
@@ -9,10 +9,13 @@ weights differ: the parity tests carry the reference's weights across with
 leading axis of length ``cfg.n_sb``, as in the reference; the reference's
 scan over superblocks is a loop over that axis.
 
-Forward modes: ``"prefill"`` (full sequence, into fresh caches when given)
-and ``"decode"`` (one token against the caches).  Caches are updated in
-place and returned.  ``mode="train"``, the mamba / mLSTM / sLSTM kinds,
-MoE, M-RoPE, ``embed_input`` archs and tensor-parallel layouts raise
+Forward modes: ``"train"`` (full sequence, loss-ready hidden states; with
+``remat`` each superblock is checkpointed, as the reference's
+``jax.checkpoint`` of its scan body), ``"prefill"`` (full sequence, into
+fresh caches when given) and ``"decode"`` (one token against the caches).
+Caches are updated in place and returned.  ``lm_loss`` is the chunked
+cross-entropy the train step differentiates.  The mamba / mLSTM / sLSTM
+kinds, M-RoPE, ``embed_input`` archs and tensor-parallel layouts raise
 ``not_ported`` (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import not_ported, resolve_device
 from . import layers
@@ -47,8 +51,6 @@ def _supported(cfg) -> None:
     for kind in set(cfg.pattern):
         if kind != "attn":
             raise not_ported(f"{kind!r} blocks", "14")
-    if cfg.moe is not None and any(cfg.moe_at(i) for i in range(cfg.sb)):
-        raise not_ported("MoE FFN layers", "14")
 
 
 def _block_leaves(cfg, kind: str, pos: int) -> dict:
@@ -66,12 +68,29 @@ def _block_leaves(cfg, kind: str, pos: int) -> dict:
         qn=Leaf((dh,), -1) if cfg.qk_norm else None,
         kn=Leaf((dh,), -1) if cfg.qk_norm else None,
     )}
-    out["ffn"] = layers.MLPParams(
-        ln=Leaf((d,), -1),
-        w_gate=Leaf((d, cfg.d_ff), d),
-        w_up=Leaf((d, cfg.d_ff), d),
-        w_down=Leaf((cfg.d_ff, d), cfg.d_ff),
-    ) if cfg.d_ff > 0 else None
+    if cfg.d_ff <= 0:
+        out["ffn"] = None
+    elif cfg.moe_at(pos):
+        mc = cfg.moe
+        fe, E = mc.d_expert, cfg.n_experts_padded
+        sh = mc.n_shared * mc.d_expert
+        out["ffn"] = layers.MoEParams(
+            ln=Leaf((d,), -1),
+            router=Leaf((d, mc.n_experts), d),
+            w_gate=Leaf((E, d, fe), d),
+            w_up=Leaf((E, d, fe), d),
+            w_down=Leaf((E, fe, d), fe),
+            sh_gate=Leaf((d, sh), d) if mc.n_shared else None,
+            sh_up=Leaf((d, sh), d) if mc.n_shared else None,
+            sh_down=Leaf((sh, d), sh) if mc.n_shared else None,
+        )
+    else:
+        out["ffn"] = layers.MLPParams(
+            ln=Leaf((d,), -1),
+            w_gate=Leaf((d, cfg.d_ff), d),
+            w_up=Leaf((d, cfg.d_ff), d),
+            w_down=Leaf((cfg.d_ff, d), cfg.d_ff),
+        )
     return out
 
 
@@ -172,21 +191,34 @@ def _run_block(cfg, pos_idx: int, kind: str, blk_params, x, *, pos, cache,
     o, new_cache = layers.attention_block(blk_params["core"], x, cfg, pos=pos,
                                           cache=cache, tp_shard=tp_shard)
     x = x + o
-    if ffn is not None:
-        if not isinstance(ffn, layers.MLPParams):
-            raise not_ported("MoE FFN layers", "14")
+    if isinstance(ffn, layers.MoEParams):
+        x = x + layers.moe_block(ffn, x, cfg, tp_shard=tp_shard)
+    elif ffn is not None:
         x = x + layers.mlp_block(ffn, x, cfg, tp_shard=tp_shard)
     return x, new_cache
 
 
+def unstack(sb, n_sb: int) -> list:
+    """The superblock leaves of each layer: ``torch.unbind`` of every
+    stacked leaf, views into it.  Under a gradient the stacked leaf
+    receives the layers' gradients as one stack (unbind's backward), not a
+    zero-filled full-size tensor a layer as single indexing would."""
+    per = tree_map(lambda t: t.unbind(0), sb)
+    return [tree_map(lambda ts, _l=layer: ts[_l], per)
+            for layer in range(n_sb)]
+
+
 def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
-            mode: str = "prefill", cache_len=None, seq_sharded: bool = False):
+            mode: str = "train", remat: bool = True, cache_len=None,
+            seq_sharded: bool = False):
     """inputs: token ids (B, S).  pos: (B, S) positions (decode takes them
     from ``cache_len``, an int; default ``pos[0, 0]``).  Returns (hidden
     (B, S, d), caches) -- the caches written in place, or None without
-    caches."""
-    if mode not in ("prefill", "decode"):
-        raise not_ported(f"forward(mode={mode!r})", "14")
+    caches.  ``mode="train"`` with ``remat`` (and autograd recording)
+    checkpoints each superblock (``torch.utils.checkpoint``, non-reentrant):
+    its activations are recomputed in the backward, K8 launched again."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"forward(mode={mode!r}): train, prefill or decode")
     if seq_sharded:
         raise not_ported("sequence-sharded KV caches", "14")
     _supported(cfg)
@@ -199,8 +231,8 @@ def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
                          device=x.device)
     elif caches is not None:           # prefill into fresh caches
         cache_len = 0
-    for layer in range(cfg.n_sb):
-        p_sb = tree_map(lambda t, _l=layer: t[_l], params["sb"])
+
+    def superblock(x, p_sb, layer):
         for i in range(cfg.sb):
             c = None
             if caches is not None:
@@ -209,6 +241,15 @@ def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
                      "length": cache_len}
             x, _ = _run_block(cfg, i, cfg.pattern[i], p_sb[f"pos{i}"], x,
                               pos=pos, cache=c, tp_shard=cfg.tp_shard)
+        return x
+
+    ckpt = mode == "train" and remat and caches is None \
+        and torch.is_grad_enabled()
+    for layer, p_sb in enumerate(unstack(params["sb"], cfg.n_sb)):
+        if ckpt:
+            x = checkpoint(superblock, x, p_sb, layer, use_reentrant=False)
+        else:
+            x = superblock(x, p_sb, layer)
     return x, caches
 
 
@@ -217,3 +258,44 @@ def lm_logits(params, cfg, x: torch.Tensor, tp_shard: bool) -> torch.Tensor:
     layers._no_tp(tp_shard)
     h = layers.rms_norm(x, params["final_ln"], cfg.norm_eps)
     return layers.matmul_f32(h, params["lm_head"])
+
+
+def _chunk_loss(hc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor) -> tuple:
+    """(sum of the chunk's nll, its valid count), both f32 scalars."""
+    logits = layers.matmul_f32(hc, w)                  # (B, ch, V)
+    V = w.shape[1]
+    # stability offset only; exact under detach (it cancels in the lse)
+    mx = logits.amax(-1).detach()
+    lse = torch.log(torch.exp(logits - mx[..., None]).sum(-1)) + mx
+    ok = (lc >= 0) & (lc < V)
+    true = logits.gather(-1, lc.clamp(0, V - 1).long()[..., None])[..., 0]
+    true = torch.where(ok, true, true.new_zeros(()))
+    valid = (lc >= 0).to(F32)
+    return ((lse - true) * valid).sum(), valid.sum()
+
+
+def lm_loss(params, cfg, x: torch.Tensor, labels: torch.Tensor,
+            tp_shard: bool, seq_chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over the labels >= 0, in chunks of ``seq_chunk``
+    positions (label -1 pads the last one), so the full (B, S, V) f32
+    logits never exist at once; under a gradient each chunk is checkpointed
+    (its logits recomputed in the backward), as the reference remats
+    ``chunk_loss``.  The chunk totals are added in chunk order."""
+    layers._no_tp(tp_shard)
+    B, S, d = x.shape
+    h = layers.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    w = params["lm_head"]
+    ch = min(seq_chunk, S)
+    nch = -(-S // ch)
+    pad = nch * ch - S
+    hp = torch.nn.functional.pad(h, (0, 0, 0, pad))
+    lp = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=F32, device=x.device)
+    cnt = torch.zeros((), dtype=F32, device=x.device)
+    grad = torch.is_grad_enabled()
+    for c in range(nch):
+        args = (hp[:, c * ch:(c + 1) * ch], lp[:, c * ch:(c + 1) * ch], w)
+        t, n = checkpoint(_chunk_loss, *args, use_reentrant=False) if grad \
+            else _chunk_loss(*args)
+        tot, cnt = tot + t, cnt + n
+    return tot / cnt.clamp_min(1.0)

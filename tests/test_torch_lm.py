@@ -259,7 +259,8 @@ def _shapes(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "command-r-plus-104b",
-                                  "qwen1.5-4b", "yi-9b"])
+                                  "qwen1.5-4b", "yi-9b",
+                                  "granite-moe-1b-a400m", "qwen2-moe-a2.7b"])
 def test_params_and_caches_match_reference_shapes(arch):
     """``init_params`` and ``init_cache`` give the reference's shapes and
     dtypes, reduced and (without allocating) at published widths."""
@@ -556,15 +557,16 @@ def test_device_and_unported_rules():
     tc = reduce_cfg(get_arch("qwen3-4b"))
     with pytest.raises(NotImplementedError, match="item 14"):
         TM.forward({}, tc, torch.zeros(1, 2, dtype=torch.int32),
-                   pos=torch.zeros(1, 2, dtype=torch.int32), mode="train")
-    for arch in ("granite-moe-1b-a400m", "jamba-v0.1-52b", "xlstm-125m",
-                 "qwen2-vl-72b", "musicgen-large"):
+                   pos=torch.zeros(1, 2, dtype=torch.int32), mode="decode",
+                   seq_sharded=True)
+    for arch in ("jamba-v0.1-52b", "xlstm-125m", "qwen2-vl-72b",
+                 "musicgen-large"):
         with pytest.raises(NotImplementedError, match="item 14"):
             TM.build_tree(reduce_cfg(get_arch(arch)))
     with pytest.raises(NotImplementedError, match="single_card"):
         TM.build_tree(get_arch("qwen3-4b"))
     with pytest.raises(NotImplementedError, match="item 14"):
-        tlayers.moe_block(None, None, tc, tp_shard=False)
+        tlayers.moe_block(None, None, tc, tp_shard=True)
     with pytest.raises(NotImplementedError, match="item 14"):
         tlayers.attention_block(None, torch.zeros(1, 1, 64), tc, pos=None,
                                 tp_shard=True)
