@@ -270,6 +270,39 @@ Phases (any failure exits non-zero; nothing is caught):
    ``I_RESUME_LOSS_RTOL`` and one bf16 ulp (printed which).  Prints step
    seconds (warm: the median of steps 2-8), tokens a second, peak memory
    and K8 launches a step.
+15. Path J, the recurrent families served, counted, one process after path
+   I: ``launch.serve.serve`` at full width for xlstm-125m (``single_card``:
+   12 layers, 6 mLSTM at head dim 384 = 2 x 768 / 4, 6 sLSTM at 192,
+   vocabulary 50,304, random bf16 weights from ``--seed``) and for
+   jamba-v0.1-52b cut to its first superblock (``J_JAMBA_LAYERS``: 7 Mamba
+   layers and the attention layer at position 4, 32 / 8 heads at dh 128,
+   MoE of 16 experts top-2 at positions 1, 3, 5 and 7; 1.33e10
+   parameters, where 32 layers would not fit the card), each 4 requests
+   of 2,048 prompt and 32 new tokens.  xlstm: K8's bias tile 6 times in
+   prefill, no K8 in decode; jamba: the tensor-core tile once and the
+   split-KV tile 32 times; K1 for the page table; finite logits.  K8
+   against its plain version and an f64 oracle on every input each arch
+   gives it; the bias tile also on ``J_BIAS_EDGES``
+   (biases near +-1.4e3 that cancel, ``kv_valid < Skv`` with fk zero past
+   it, Sq not a multiple of its 64-row block, dh 64, GQA with a
+   ``q_offset``) and two planted faults that must fail the check (fk one
+   key late, the causal mask one key late); the bias tile timed at the
+   first mLSTM layer's shape against its plain version and SDPA in f32
+   with the (B, H, S, S) f32 bias mask (``flash_bias`` row: ``bound_ms``
+   on the bf16 tensor cores, ``bound_f32_ms``, ``sdpa_mask_bytes``).  A
+   second prefill of each arch on the same weights traced with
+   ``torch.profiler``: wall, device busy, idle share, device time by kind
+   (K8, GEMMs, the sLSTM's and the Mamba scan's time loops, MoE dispatch
+   and combine, the rest) and the loops' host time.  Then each arch served
+   again with K8's plain version and with the plain version at 512-key
+   blocks (the control: f32 rounding order only): prefill logits and the
+   first decode step's, kernel vs plain, within ``J_LOGIT_FLOOR`` or
+   ``J_CONTROL_FACTOR`` times the control's difference, whichever is
+   larger, greedy first tokens equal where the margin exceeds twice it;
+   xlstm (sLSTM layers, whose recurrence decorrelates such runs) to the
+   logits' scale, ``J_SCALE_RTOL``.  Prints prefill s, decode tokens/s, peak
+   memory and K8 launches by tile; phase 1 also fails on a spill in
+   ``flash_bias_kernel``.
 
 Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
@@ -298,7 +331,8 @@ one, path F the shard-stacked one, with ``single_launches_ms`` for S
 single-index launches of its work; K8 a row per tile: ``flash`` at the prefill shape, its ``bound_ms``
 on the bf16 tensor cores it computes on and ``bound_f32_ms`` on the f32
 rate, ``flash_decode`` at the decode shape with its ``n_split`` and
-``combine_launches``), the card's ``name, power.limit`` from nvidia-smi,
+``combine_launches``; ``flash_bias`` at path J's mLSTM shape), the card's
+``name, power.limit`` from nvidia-smi,
 and the result line.  Phase 1 also prints the flash library's ptxas
 report and the number of ``HGMMA`` instructions ``cuobjdump -sass`` finds
 in it, and fails if there are none.  Exits non-zero without printing a
@@ -342,6 +376,7 @@ SOURCES = {
     "linfit": "src/repro_torch/kernels/csrc/linfit.cu",
     "flash": "src/repro_torch/kernels/csrc/flash.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash.cu",
+    "flash_bias": "src/repro_torch/kernels/csrc/flash.cu",
     "sharded_lookup": _LOOKUP_CU,
     "sharded_dynamic_lookup": _LOOKUP_CU,
     "sharded_dynamic_range": _LOOKUP_CU,
@@ -360,6 +395,7 @@ REPLACES = {
     "linfit": "src/repro/kernels/linfit.py:52",
     "flash": "src/repro/kernels/flash.py:73",
     "flash_decode": "src/repro/kernels/flash.py:73",
+    "flash_bias": "src/repro/kernels/flash.py:73",
     "sharded_lookup": "src/repro/kernels/lookup.py:274",
     "sharded_dynamic_lookup": "src/repro/kernels/lookup.py:393",
     "sharded_dynamic_range": "src/repro/kernels/lookup.py:516",
@@ -443,6 +479,38 @@ I_LSE_ATOL = 1e-5
 I_GRAD_ULPS = 2
 I_PLAIN_LOSS_RTOL, I_PLAIN_GNORM_RTOL = 1e-3, 1e-2
 I_RESUME_LOSS_RTOL = 1e-5
+# Path J: the recurrent families served (each arch's one-card form, 4
+# requests of LM_PROMPT_LEN prompt and LM_NEW_TOKENS new tokens, as path D);
+# jamba cut to its first superblock (7 Mamba layers and 1 attention layer;
+# its 32 layers hold 5.16e10 parameters, 103 GB of bf16, over the card's
+# 80 GB); K8's bias tile checked on these planted edges (name, B, Sq, Skv,
+# H, Hkv, dh, q_offset, kv_valid or None for Skv, forget-gate shift)
+J_ARCHS = ("xlstm-125m", "jamba-v0.1-52b")
+J_JAMBA_LAYERS = 8
+J_BIAS_EDGES = (
+    ("biases near +-1.4e3 that cancel (forget gates N(0.3, 1))", 4, 2048,
+     2048, 4, 4, 384, 0, None, 0.3),
+    ("kv_valid < Skv, fk zero past it", 2, 2048, 2048, 4, 4, 384, 0, 1500,
+     0.0),
+    ("Sq not a multiple of the 64-row block", 2, 2047, 2047, 4, 4, 384, 0,
+     None, 0.0),
+    ("dh 64", 4, 2048, 2048, 4, 4, 64, 0, None, 0.0),
+    ("dh 64, GQA 8 / 4, q_offset 16", 2, 1000, 1016, 8, 4, 64, 16, None,
+     0.0))
+# The end-to-end gate: kernel vs plain logits within max(J_LOGIT_FLOOR,
+# J_CONTROL_FACTOR x the control's difference), the control being the plain
+# version with 512-key blocks against its 1,024-key blocks: an f32
+# rounding-order change alone.  An arch with sLSTM layers is held to the
+# logits' scale instead (standard deviation within J_SCALE_RTOL of plain's,
+# mean within J_SCALE_RTOL of that deviation): with random weights the
+# sLSTM's 2,048-step recurrence decorrelates runs that differ at f32 level
+# (xlstm's kernel and plain prefill logits 0.86 and 1.88 apart in two
+# designs of the bias tile, the control 0.35, the logits up to 4.5), while
+# every K8 call of the path is within one bf16 ulp on its own inputs
+J_LOGIT_FLOOR = 0.25
+J_CONTROL_FACTOR = 4
+J_CONTROL_BLOCK = 512
+J_SCALE_RTOL = 0.1
 ANALYZED = ("src/repro_torch", "chip_smoke.py", "time_verbs.py",
             "examples/index_service_torch.py")
 SYNC_WARNING = "called a synchronizing CUDA operation"
@@ -869,6 +937,21 @@ def _spills(report: str) -> list:
         if mm and (int(mm[1]) or int(mm[2])):
             bad.append(line.strip())
     return bad
+
+
+def _entry_report(report: str, name: str) -> str:
+    """The lines of a ptxas report (``-Xptxas -v``) about the entry
+    functions whose mangled names hold ``name``."""
+    import re
+    out, mine = [], False
+    for line in report.splitlines():
+        mm = re.search(r"(?:Compiling entry function|Function properties "
+                       r"for) '?([^' ]+)", line)
+        if mm:
+            mine = name in mm[1]
+        if mine:
+            out.append(line)
+    return "\n".join(out)
 
 
 def _ptxas_smem(report: str) -> dict:
@@ -1325,9 +1408,10 @@ def _bf16_ulp(mag):
     return torch.exp2(torch.floor(torch.log2(m)) - 7)
 
 
-def _dense_f64(q, k, v, q_offset: int, kv_valid: int):
+def _dense_f64(q, k, v, q_offset: int, kv_valid: int, bias=None):
     """Attention by a dense f64 softmax, one batch row at a time: an oracle
-    independent of the online softmax."""
+    independent of the online softmax; ``bias = (fq, fk)`` adds the
+    per-query and per-key terms (K8's bias form)."""
     import math
     import torch
     B, Sq, H, dh = q.shape
@@ -1340,6 +1424,9 @@ def _dense_f64(q, k, v, q_offset: int, kv_valid: int):
         kb = k[b].double().repeat_interleave(G, 1)
         vb = v[b].double().repeat_interleave(G, 1)
         s = torch.einsum("qhd,khd->hqk", q[b].double(), kb) / math.sqrt(dh)
+        if bias is not None:
+            s = s + bias[0][b].double().T[:, :, None] + \
+                bias[1][b].double().T[:, None, :]
         s = s.masked_fill(~keep, float("-inf"))
         out[b] = torch.einsum("hqk,khd->qhd", torch.softmax(s, -1), vb)
     return out
@@ -1367,7 +1454,7 @@ def _sdpa_call(q, k, v, q_offset: int, kv_valid: int):
 
 
 K8_KERNELS = ("flash_tc_kernel", "flash_split_kernel", "flash_combine_kernel",
-              "flash_cc_kernel")
+              "flash_cc_kernel", "flash_bias_kernel")
 
 
 def _kind(name: str) -> str:
@@ -1657,7 +1744,7 @@ def _path_d(args, dev, rows, h) -> None:
     # prefill on the tensor-core tile, decode on the split-KV tile and its
     # combine pass, nothing on the CUDA-core tile
     want = {"flash": L, "flash_decode": L * T, "flash_combine": L * T,
-            "flash_cc": 0}
+            "flash_cc": 0, "flash_bias": 0}
     if {k: launches[k] for k in want} != want or launches["lookup"] <= 0:
         raise AssertionError(f"path D launches {launches}, want {want} and "
                              f"K1 at least once")
@@ -3853,21 +3940,30 @@ def _leaf_ulps(got, want) -> float:
         2.0 ** (math.floor(math.log2(m)) - 7)
 
 
-def _train_kinds(path, tag) -> dict:
-    """Path I's traced step (``torch.profiler`` chrome trace): the window of
-    the user annotation ``tag`` (wall: to its last device event's end),
-    the device busy time (the union of the device events' intervals) and
-    the device time by kind, a device event's kind set by where its launch
-    lies: inside an autograd ``FlashAttentionBackward`` span "attention
-    backward" (K8's backward, torch ops), inside a ``moe.dispatch`` /
-    ``moe.combine`` span "MoE dispatch and combine" (the forward and the
-    recompute; their backward ops fall to the kinds below), else by name:
-    "K8 forward", "GEMMs", "other"; and the 8 kernels with the most device
-    time."""
+def _train_span(cat: str, name: str):
+    """Path I's kinds by span: K8's backward (an autograd
+    ``FlashAttentionBackward`` op) and the MoE routing and combine."""
+    if cat == "cpu_op" and "FlashAttentionBackward" in name:
+        return "attention backward"
+    if cat in ("user_annotation", "cpu_op") and \
+            name in ("moe.dispatch", "moe.combine"):
+        return "MoE dispatch and combine"
+    return None
+
+
+def _trace_kinds(path, tag, span_of=_train_span,
+                 by_name=(("K8", "K8 forward"), ("GEMM", "GEMMs"))) -> dict:
+    """A traced window (``torch.profiler`` chrome trace): the window of the
+    user annotation ``tag`` (wall: to its last device event's end), the
+    device busy time (the union of the device events' intervals) and the
+    device time by kind, a device event's kind set by the span its launch
+    lies in (``span_of(cat, name)`` names a span's kind, or None), else by
+    ``_kind`` of its name (renamed by ``by_name``, the rest "other"); the
+    host time of each span kind (its spans' durations summed) and the 8
+    kernels with the most device time."""
     import bisect
     events = json.loads(Path(path).read_text())["traceEvents"]
-    launch, dev, win = {}, [], []
-    spans = {"attention backward": [], "MoE dispatch and combine": []}
+    launch, dev, win, spans = {}, [], [], {}
     for e in events:
         if e.get("ph") != "X":
             continue
@@ -3878,17 +3974,17 @@ def _train_kinds(path, tag) -> dict:
             launch[a["correlation"]] = t0
         elif cat == "user_annotation" and name == tag:
             win.append((t0, t1))
-        elif cat in ("user_annotation", "cpu_op") and \
-                name in ("moe.dispatch", "moe.combine"):
-            spans["MoE dispatch and combine"].append((t0, t1))
-        elif cat == "cpu_op" and "FlashAttentionBackward" in name:
-            spans["attention backward"].append((t0, t1))
         elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
             dev.append((t0, t1, name, a.get("correlation")))
+        elif span_of(cat, name) is not None:
+            spans.setdefault(span_of(cat, name), []).append((t0, t1))
     if not win:
         raise AssertionError(f"{Path(path).name}: no '{tag}' annotation")
     lo, hi = min(a for a, _ in win), max(b for _, b in win)
     sorted_spans = {k: sorted(v) for k, v in spans.items()}
+    span_s = {k: sum(t1 - t0 for t0, t1 in v if lo <= t0 <= hi) / 1e6
+              for k, v in sorted_spans.items()}
+    names_of = dict(by_name)
 
     def inside(kind, t):
         sp = sorted_spans[kind]
@@ -3905,12 +4001,12 @@ def _train_kinds(path, tag) -> dict:
         end = max(end, t1)
         kind = next((k for k in sorted_spans if inside(k, tl)), None)
         if kind is None:
-            kind = {"K8": "K8 forward", "GEMM": "GEMMs"}.get(_kind(n), "other")
+            kind = names_of.get(_kind(n), "other")
         kinds[kind] = kinds.get(kind, 0.0) + (t1 - t0) / 1e6
         names[n[:72]] = names.get(n[:72], 0.0) + (t1 - t0) / 1e6
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
     return dict(wall=(max(hi, end) - lo) / 1e6, busy=busy / 1e6, kinds=kinds,
-                events=len(mine), top=top)
+                events=len(mine), top=top, span_s=span_s)
 
 
 def _path_i(args, dev, rows, h) -> None:
@@ -3974,7 +4070,7 @@ def _path_i(args, dev, rows, h) -> None:
     launches, with_lse = h.counters(), dict(tflash.LSE_LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = {"flash": 2 * L * I_STEPS, "flash_decode": 0, "flash_combine": 0,
-            "flash_cc": 0}
+            "flash_cc": 0, "flash_bias": 0}
     if {k: launches[k] for k in want} != want or \
             with_lse["flash"] != want["flash"]:
         raise AssertionError(f"path I launches {launches}, with lse "
@@ -4093,7 +4189,7 @@ def _path_i(args, dev, rows, h) -> None:
     trace.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(trace))
     del prof
-    w = _train_kinds(trace, "path I step")
+    w = _trace_kinds(trace, "path I step")
     kinds = ", ".join(f"{k_} {v_:.6f} s ({v_ / w['busy']:.3%} of busy)"
                       for k_, v_ in sorted(w["kinds"].items(),
                                            key=lambda kv: -kv[1]))
@@ -4215,6 +4311,410 @@ def _path_i(args, dev, rows, h) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _j_bias_inputs(g, dev, B, Sq, Skv, H, Hkv, dh, shift):
+    """bf16 q, k, v and the mLSTM's bias terms from ``g``: fq = F_t, fk =
+    i_s - F_s, F the running sum over time of log_sigmoid(N(shift, 1))
+    forget gates (about -1.2e3 at 2,048 steps), i ~ N(0, 1)."""
+    import torch
+    from repro_torch.models import layers as tlayers
+    n = max(Sq, Skv)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    q = rn(B, Sq, H, dh).to(torch.bfloat16)
+    k = (rn(B, Skv, Hkv, dh) / dh ** 0.5).to(torch.bfloat16)
+    v = rn(B, Skv, Hkv, dh).to(torch.bfloat16)
+    f_cum = torch.cumsum(tlayers.log_sigmoid(rn(B, n, H) + shift), 1)
+    ig = rn(B, n, H)
+    return q, k, v, f_cum[:, :Sq].contiguous(), (ig - f_cum)[:, :Skv] \
+        .contiguous()
+
+
+def _k8_check(h, what, q, k, v, qo, kvv, bias=None) -> dict:
+    """K8 (uncounted) against its plain version and a dense f64 oracle on
+    these inputs, each within one bf16 ulp of the magnitude (the attention
+    of |v| in f32); raises beyond.  Returns the largest |kernel - plain|
+    and the comparisons in ulps of the magnitude."""
+    import functools
+    import torch
+    from repro_torch.kernels import flash as tflash
+    got = h.uncounted(functools.partial(
+        tflash.flash_attention, q, k, v, q_offset=qo, kv_valid=kvv,
+        bias_qk=bias))
+    ref = tflash.flash_attention_plain(q, k, v, q_offset=qo, kv_valid=kvv,
+                                       bias_qk=bias)
+    mag = tflash.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                       q_offset=qo, kv_valid=kvv,
+                                       bias_qk=bias)
+    exact = _dense_f64(q, k, v, qo, kvv, bias)
+    torch.cuda.synchronize()
+    tol = _bf16_ulp(mag)
+    out = {"max_abs_err": float((got.double() - ref.double()).abs().max())}
+    for name, a, b in (("plain", got, ref), ("f64", got, exact),
+                       ("plain vs f64", ref, exact)):
+        d = (a.double() - b.double()).abs()
+        if not bool((d <= tol).all()):
+            raise AssertionError(f"K8 {what} vs {name}: {int((d > tol).sum())}"
+                                 f" entries beyond one bf16 ulp of the "
+                                 f"magnitude (max {float(d.max())})")
+        out[name] = float((d / tol).max())
+    return out
+
+
+def _path_j(args, dev, rows, h) -> None:
+    """Phase 15, path J: the recurrent families served through
+    ``launch.serve.serve`` at full width, counted: xlstm-125m at full depth
+    (6 mLSTM layers through K8's bias tile at head dim 384, 6 sLSTM
+    layers), jamba-v0.1-52b cut to its first superblock (7 Mamba layers, 1
+    attention layer on K8's prefill and split-KV decode tiles, MoE at
+    positions 1, 3, 5 and 7), 4 requests of 2,048 prompt and 32 new tokens
+    each.  K8 against its plain version and an f64 oracle on every K8
+    input each arch gives it, and the bias tile on
+    ``J_BIAS_EDGES`` with two planted faults; the bias tile timed against
+    its plain version and SDPA with an f32 bias mask; a traced second
+    prefill of each arch (device time by kind, the time loops' host spans,
+    idle share); each arch served again with the plain attention and with
+    the plain attention at 512-key blocks (the control), prefill and first
+    decode logits, kernel vs plain, within the larger of ``J_LOGIT_FLOOR``
+    and ``J_CONTROL_FACTOR`` times the control's (an arch with sLSTM
+    layers: their scale within ``J_SCALE_RTOL``).  Adds the
+    ``flash_bias`` row and path J's K8 launches to the ``flash`` and
+    ``flash_decode`` rows."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, single_card
+    from repro_torch.kernels import flash as tflash
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import layers as tlayers
+    from repro_torch.models import model as TM
+
+    P, T, B = LM_PROMPT_LEN, LM_NEW_TOKENS, LM_REQUESTS
+    rows.setdefault("flash_bias", {"launches": 0, "max_abs_err": 0.0})
+    real = dict(flash=tlayers.flash_attention, card=tserve.single_card,
+                init=TM.init_params, logits=TM.lm_logits)
+
+    def config(arch):
+        c = single_card(get_arch(arch))
+        if arch.startswith("jamba"):
+            c = dataclasses.replace(c, n_layers=J_JAMBA_LAYERS,
+                                    pattern=c.pattern[:J_JAMBA_LAYERS])
+        return c
+
+    def served(arch, attn, keep):
+        """serve() with K8 as ``attn`` and the arch cut by ``config``; the
+        weights and the first two logits (prefill, first decode step) kept
+        in ``keep``."""
+        def init(*a, **kw):
+            keep["params"] = real["init"](*a, **kw)
+            return keep["params"]
+
+        def logits(*a, **kw):
+            out = real["logits"](*a, **kw)
+            if len(keep.setdefault("logits", [])) < 2:
+                keep["logits"].append(out[:, -1].clone())
+            return out
+        tlayers.flash_attention = attn
+        tserve.single_card = lambda c: config(arch)
+        TM.init_params, TM.lm_logits = init, logits
+        try:
+            return tserve.serve(arch, reduced=False, requests=B,
+                                prompt_len=P, new_tokens=T, seed=args.seed)
+        finally:
+            tlayers.flash_attention = real["flash"]
+            tserve.single_card = real["card"]
+            TM.init_params, TM.lm_logits = real["init"], real["logits"]
+
+    def recording(store, wanted):
+        """K8 as the model calls it, keeping copies of the inputs of the
+        calls numbered in ``wanted``."""
+        calls = [0]
+
+        def rec(q, k, v, *, q_offset, kv_valid=None, bias_qk=None, **kw):
+            if calls[0] in wanted:
+                store[calls[0]] = (
+                    q.clone(), k.clone(), v.clone(), int(q_offset),
+                    k.shape[1] if kv_valid is None else int(kv_valid),
+                    None if bias_qk is None else tuple(t.clone()
+                                                       for t in bias_qk))
+            calls[0] += 1
+            return real["flash"](q, k, v, q_offset=q_offset,
+                                 kv_valid=kv_valid, bias_qk=bias_qk, **kw)
+        return rec
+
+    def plain_at(block):
+        def plain(q, k, v, *, q_offset, kv_valid=None, bias_qk=None, **kw):
+            return tflash.flash_attention_plain(
+                q, k, v, q_offset=q_offset, kv_valid=kv_valid,
+                bias_qk=bias_qk, kv_block=block)
+        return plain
+
+    for arch in J_ARCHS:
+        cfg = config(arch)
+        n_mlstm = cfg.pattern.count("mlstm")
+        n_attn = cfg.pattern.count("attn")
+        store, keep = {}, {}
+        # K8's calls, every one kept: xlstm's mLSTM layers in prefill (none
+        # in decode); jamba's attention layer in prefill, then one a step
+        wanted = range(n_mlstm + n_attn * (1 + T))
+        torch.cuda.reset_peak_memory_stats()
+        h.reset_counters()
+        res, t_all = _sync_time(lambda: served(
+            arch, recording(store, wanted), keep))
+        launches = h.counters()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {"flash": n_attn, "flash_decode": n_attn * T,
+                "flash_combine": n_attn * T, "flash_cc": 0,
+                "flash_bias": n_mlstm}
+        if {k: launches[k] for k in want} != want or launches["lookup"] <= 0:
+            raise AssertionError(f"path J {arch} launches {launches}, want "
+                                 f"{want} and K1 at least once")
+        toks = res.tokens
+        lk, dk = keep["logits"]
+        if toks.shape != (B, T + 1) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_size or \
+                lk.shape != (B, cfg.vocab_padded) or \
+                not bool(torch.isfinite(lk).all() & torch.isfinite(dk).all()):
+            raise AssertionError(f"path J {arch}: tokens {toks.shape} or "
+                                 f"logits {tuple(lk.shape)} misshapen or not "
+                                 f"finite")
+        kinds = {k: cfg.pattern.count(k) for k in sorted(set(cfg.pattern))}
+        sizes = []
+        TM.tree_map(lambda t: sizes.append(t.numel()), keep["params"])
+        n_params = sum(sizes)
+        print(f"phase 15: path J ({arch}, single card: {cfg.n_layers} layers "
+              f"{kinds}, d_model {cfg.d_model}, {n_params} parameters) ok; "
+              f"{B} requests x {P} prompt + {T} new tokens; "
+              f"K8 launches by tile "
+              f"{ {k: launches[k] for k in want if launches[k]} }; K1 "
+              f"{launches['lookup']}")
+        print(f"  prefill {res.prefill_s:.6f} s; decode {res.decode_s:.6f} s "
+              f"for {T} steps ({res.decode_tok_s:.3f} tokens/s); serve() "
+              f"{t_all:.6f} s with weight init; peak memory allocated "
+              f"{peak:.3f} GiB; page table over {res.pages} pages")
+        print(f"  greedy tokens (first 8 of each request): "
+              f"{toks[:, :8].tolist()}")
+        rows["lookup"]["launches"] += launches["lookup"]
+
+        # K8 on every input the model gave it (the first and last printed)
+        worst = {}
+        for i, (q, k, v, qo, kvv, bias) in sorted(store.items()):
+            name = "flash_bias" if bias is not None else \
+                tflash.tile_of(q.dtype, q.shape[-1],
+                               q.shape[1] * q.shape[2] // k.shape[2])
+            r = _k8_check(h, f"{arch} call {i} ({name})", q, k, v, qo, kvv,
+                          bias)
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                            r["max_abs_err"])
+            worst = {key: max(worst.get(key, 0.0), x) for key, x in r.items()}
+            if i not in (0, len(store) - 1):
+                continue
+            extra = "" if bias is None else (
+                f"; |fq| up to {float(bias[0].abs().max()):.3f}, |fk| up to "
+                f"{float(bias[1].abs().max()):.3f}")
+            print(f"  K8 {name} on call {i} (q {tuple(q.shape)}, k/v "
+                  f"{tuple(k.shape)}, q_offset {qo}, kv_valid {kvv}{extra}): "
+                  f"in ulps of the magnitude, kernel - plain "
+                  f"{r['plain']:.6f}, kernel - f64 {r['f64']:.6f}, plain - "
+                  f"f64 {r['plain vs f64']:.6f}; max |kernel - plain| "
+                  f"{r['max_abs_err']:.6e}")
+        print(f"  K8 on all {len(store)} calls: the largest in ulps of the "
+              f"magnitude, kernel - plain {worst['plain']:.6f}, kernel - f64 "
+              f"{worst['f64']:.6f}, plain - f64 {worst['plain vs f64']:.6f}")
+        for name in ("flash", "flash_decode", "flash_bias"):
+            rows[name]["launches"] += launches[name]
+
+        if n_mlstm:
+            _j_bias_edges(h, dev, rows, store[0], launches["flash_bias"])
+        # a second prefill on the same weights, traced
+        params = keep.pop("params")
+        caches = TM.init_cache(cfg, B, P + T, device=dev)
+        prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
+            0, cfg.vocab_size, (B, P))).to(device=dev, dtype=torch.int32)
+        pos = torch.arange(P, dtype=torch.int32, device=dev)[None].expand(B, P)
+        prefill = tserve.serve_step.make_prefill(cfg)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function("path J prefill"):
+                lt, _ = prefill(params, caches, prompts, pos)
+            torch.cuda.synchronize()
+        trace = ROOT / "build" / f"path_j_{arch}_trace.json"
+        trace.parent.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+        del prof, params, caches
+        w = _trace_kinds(trace, "path J prefill", span_of=_j_span,
+                         by_name=(("K8", "K8"), ("GEMM", "GEMMs")))
+        trace.unlink()
+        d_pre = float((lt - lk).abs().max())
+        kinds_txt = ", ".join(f"{k} {v:.6f} s ({v / w['busy']:.3%} of busy)"
+                              for k, v in sorted(w["kinds"].items(),
+                                                 key=lambda kv: -kv[1]))
+        loops = ", ".join(f"{k} {v:.6f} s ({v / w['wall']:.3%} of the wall)"
+                          for k, v in w["span_s"].items())
+        print(f"  traced second prefill: wall {w['wall']:.6f} s, device busy "
+              f"{w['busy']:.6f} s, idle share "
+              f"{1 - w['busy'] / w['wall']:.6f}; {w['events']} device "
+              f"events; by kind {kinds_txt}; host time in the time loops: "
+              f"{loops or 'none'}; logits max |diff| to the first prefill "
+              f"{d_pre:.6e}")
+        print(f"    top kernels: " + "; ".join(f"{n} {t:.6f} s"
+                                               for n, t in w["top"]))
+        del keep
+
+        # the same serving run with K8's plain version, and the control
+        ends = {}
+        for tag, block in (("plain", 1024), ("control", J_CONTROL_BLOCK)):
+            kept = {}
+            ends[tag] = (served(arch, plain_at(block), kept), *kept["logits"])
+            del kept
+        res_p, lp, dp = ends["plain"]
+        res_c, lc, dc = ends["control"]
+        first = (toks[:, 0], res_p.tokens[:, 0], res_c.tokens[:, 0])
+        # the first decode step's input is each run's first token
+        same = torch.from_numpy((first[0] == first[1]) &
+                                (first[1] == first[2])).to(dev)
+        d_pre, c_pre = float((lk - lp).abs().max()), \
+            float((lc - lp).abs().max())
+        d_dec, c_dec = (float(t[same].abs().max()) if bool(same.any())
+                        else 0.0 for t in (dk - dp, dc - dp))
+        tol = max(J_LOGIT_FLOOR, J_CONTROL_FACTOR * max(c_pre, c_dec))
+        # the logits' scale, kernel against plain: (std ratio - 1, |mean
+        # difference| / plain's std) of the prefill and first decode logits
+        scale = [(float(a.std() / b.std()) - 1,
+                  float((a.mean() - b.mean()).abs() / b.std()))
+                 for a, b in ((lk, lp), (dk, dp))]
+        decorrelated = "slstm" in cfg.pattern
+        v_ = cfg.vocab_size
+        top2 = torch.topk(lp[:, :v_], 2).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        sure = margin > 2 * tol
+        agree = res_p.tokens == toks
+        lead = [int(np.argmin(np.append(a, False))) for a in agree]
+        print(f"  end to end with the plain attention: prefill logits max "
+              f"|kernel - plain| {d_pre:.6e} (control |plain at "
+              f"{J_CONTROL_BLOCK}-key blocks - plain| {c_pre:.6e}), first "
+              f"decode step's {d_dec:.6e} (control {c_dec:.6e}) over the "
+              f"{int(same.sum())} requests whose first token agrees in all "
+              f"three; tolerance {tol:.6f} (logits max "
+              f"{float(lp.abs().max()):.6f}); top-2 margins "
+              f"{np.round(margin, 6).tolist()}; greedy tokens equal "
+              f"{int(agree.sum())} of {agree.size}, leading run per request "
+              f"{lead}; control's tokens equal plain's "
+              f"{int((res_c.tokens == res_p.tokens).sum())}; plain prefill "
+              f"{res_p.prefill_s:.6f} s, decode {res_p.decode_tok_s:.3f} "
+              f"tokens/s")
+        print(f"    the logits' scale, kernel vs plain (std ratio - 1, "
+              f"|mean difference| / std): prefill {scale[0][0]:.6f}, "
+              f"{scale[0][1]:.6f}; first decode step {scale[1][0]:.6f}, "
+              f"{scale[1][1]:.6f}; gate: "
+              f"{'the scale (sLSTM layers)' if decorrelated else 'the'}"
+              f"{'' if decorrelated else ' logits'}")
+        if decorrelated:
+            if any(abs(r) > J_SCALE_RTOL or m > J_SCALE_RTOL
+                   for r, m in scale):
+                raise AssertionError(f"path J {arch} kernel vs plain logits' "
+                                     f"scale {scale} beyond {J_SCALE_RTOL}")
+        elif d_pre > tol or d_dec > tol or \
+                not (first[0][sure] == first[1][sure]).all():
+            raise AssertionError(f"path J {arch} kernel vs plain logits: "
+                                 f"prefill {d_pre}, decode {d_dec} "
+                                 f"(tolerance {tol}), first tokens "
+                                 f"{first[0]} / {first[1]}")
+        del ends, lc, dc
+        del lk, dk, lp, dp, store
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _j_span(cat: str, name: str):
+    """Path J's kinds by span: the sLSTM's and the Mamba scan's time loops,
+    the MoE routing and combine."""
+    if cat not in ("user_annotation", "cpu_op"):
+        return None
+    return {"slstm.scan": "sLSTM time loop", "mamba.scan": "Mamba time loop",
+            "moe.dispatch": "MoE dispatch and combine",
+            "moe.combine": "MoE dispatch and combine"}.get(name)
+
+
+def _j_bias_edges(h, dev, rows, first, launches) -> None:
+    """K8's bias tile on ``J_BIAS_EDGES`` and two planted faults, then its
+    row of the kernels line, timed on the first mLSTM layer's inputs
+    (``first``: q, k, v, q_offset, kv_valid, (fq, fk))."""
+    import torch
+    from repro_torch.kernels import flash as tflash
+    g = torch.Generator(device=dev)
+    g.manual_seed(25)
+    for what, B, Sq, Skv, H, Hkv, dh, qo, kvv, shift in J_BIAS_EDGES:
+        q, k, v, fq, fk = _j_bias_inputs(g, dev, B, Sq, Skv, H, Hkv, dh,
+                                         shift)
+        if kvv is None:
+            kvv = Skv
+        fk[:, kvv:] = 0.0
+        r = _k8_check(h, f"bias tile ({what})", q, k, v, qo, kvv, (fq, fk))
+        rows["flash_bias"]["max_abs_err"] = max(
+            rows["flash_bias"]["max_abs_err"], r["max_abs_err"])
+        print(f"  K8 bias tile, {what} (q {tuple(q.shape)}, k/v "
+              f"{tuple(k.shape)}, q_offset {qo}, kv_valid {kvv}, |fq| up to "
+              f"{float(fq.abs().max()):.3f}): in ulps of the magnitude, "
+              f"kernel - plain {r['plain']:.6f}, kernel - f64 {r['f64']:.6f},"
+              f" plain - f64 {r['plain vs f64']:.6f}")
+    q, k, v, qo, kvv, (fq, fk) = first
+    exact = _dense_f64(q, k, v, qo, kvv, (fq, fk))
+    mag = tflash.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                       q_offset=qo, kv_valid=kvv,
+                                       bias_qk=(fq, fk))
+    tol = _bf16_ulp(mag)
+    for what, qo_f, fk_f in (("fk one key late", qo, torch.roll(fk, 1, 1)),
+                             ("the causal mask one key late", qo + 1, fk)):
+        bad = h.uncounted(lambda: tflash.flash_attention(
+            q, k, v, q_offset=qo_f, kv_valid=kvv, bias_qk=(fq, fk_f)))
+        d = (bad.double() - exact).abs()
+        if not bool((d > tol).any()):
+            raise AssertionError(f"K8 bias tile: the planted fault ({what}) "
+                                 f"passes the check")
+        print(f"    planted fault ({what}): {int((d > tol).sum())} entries "
+              f"beyond one bf16 ulp of the magnitude, max "
+              f"{float((d / tol).max()):.6f} ulps")
+    del exact, mag, tol
+
+    # timed at the first mLSTM layer's shape; the library yardstick is SDPA
+    # in f32 with the (B, H, Sq, Skv) f32 bias mask (-inf where masked)
+    Sq, Skv = q.shape[1], k.shape[1]
+    keep = (torch.arange(Skv, device=dev)[None, :]
+            <= qo + torch.arange(Sq, device=dev)[:, None]) & \
+        (torch.arange(Skv, device=dev) < kvv)[None, :]
+    mask = (fq.transpose(1, 2)[..., None] + fk.transpose(1, 2)[:, :, None, :]
+            ).masked_fill(~keep, float("-inf"))
+    qs, ks, vs = (t.transpose(1, 2).float().contiguous() for t in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask)
+    nbytes, ops = _flash_work(q, k, qo, kvv)
+    nbytes += (fq.numel() + fk.numel()) * 4
+    err = rows["flash_bias"]["max_abs_err"]
+    row = _time_row(
+        "flash_bias", lambda: tflash.flash_attention(
+            q, k, v, q_offset=qo, kv_valid=kvv, bias_qk=(fq, fk)),
+        lambda: tflash.flash_attention_plain(
+            q, k, v, q_offset=qo, kv_valid=kvv, bias_qk=(fq, fk)),
+        sdpa, [(nbytes, ops)], launches, err, reps=10, plain_reps=3)
+    # bf16 inputs: the least time is the operations on the bf16 tensor
+    # cores; the f32 rate the tile computes at kept beside it
+    t_ops = ops / BF16_TC_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row["bound_f32_ms"] = row["bound_ms"]
+    row["bound_ms"], row["bound_by"] = (
+        (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
+    row["sdpa_mask_bytes"] = mask.numel() * mask.element_size()
+    rows["flash_bias"] = row
+    print(f"    {nbytes} bytes, {ops} operations; bound_ms "
+          f"{row['bound_ms']:.6f} ({row['bound_by']}), bound_f32_ms "
+          f"{row['bound_f32_ms']:.6f}; SDPA's f32 mask "
+          f"{row['sdpa_mask_bytes']} bytes")
+    del mask, qs, ks, vs
+
+
 def main(argv=None) -> int:
     args = _args(argv)
     import numpy as np
@@ -4275,6 +4775,15 @@ def main(argv=None) -> int:
     if hgmma == 0:
         raise AssertionError("the flash library's SASS holds no HGMMA: the "
                              "prefill tile does not use the tensor cores")
+    # K8's bias tile keeps 96 f32 output accumulators a lane at D = 384
+    # (its mma.sync fragments) beside S's 32: none may spill
+    if "flash" in reports:
+        bias_spills = _spills(_entry_report(reports["flash"],
+                                            "flash_bias_kernel"))
+        if bias_spills:
+            raise AssertionError(f"ptxas spills in flash_bias_kernel: "
+                                 f"{bias_spills}")
+        print("  flash_bias_kernel (D 64, 384): no spills")
 
     h = _Harness(dev, args.seed, args.queries)
     g, L, nq = h.g, args.n_leaves, args.queries
@@ -5103,6 +5612,13 @@ def main(argv=None) -> int:
 
     # ---- phase 14: path I (LM training), counted ---------------------------
     _path_i(args, dev, rows, h)
+    print(f"  wall {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- phase 15: path J (the recurrent families served), counted --------
+    _path_j(args, dev, rows, h)
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
 
     smi = _card()

@@ -55,6 +55,8 @@ LM parameters (:func:`lm_params_from_arrays`): the reference's parameter
   arrives as ``ml_dtypes.bfloat16`` and is carried across as its 16-bit
   words, never through f32.  AdamW state (:func:`adamw_state_from_arrays`):
   ``mu``, ``nu`` and ``master`` as such trees (f32), and ``step``.
+  Decode caches (:func:`lm_caches_from_arrays`): the reference's
+  ``init_cache`` tree, ``pos{i}`` -> K/V or a recurrent state's arrays.
 
 RMRT (:func:`rmrt_from_arrays`):
   ``keys``, ``kind``, params under ``p``, ``is_leaf``, ``child_base``,
@@ -271,6 +273,36 @@ def lm_params_from_arrays(tree: dict, cfg, *, device=None) -> dict:
     from the reference's as numpy arrays, bit for bit; every leaf's shape
     is checked against ``build_tree(cfg)``."""
     return _lm_tree(tree, cfg, resolve_device(device))
+
+
+def lm_caches_from_arrays(tree: dict, cfg, *, device=None) -> dict:
+    """The port's decode-state tree (``models.model.init_cache``'s: K/V and
+    the recurrent states) from the reference's ``init_cache`` tree as
+    numpy arrays, bit for bit; every leaf's shape and dtype is checked
+    against ``cache_shapes(cfg, batch, max_seq)``, batch and max_seq read
+    from the tree."""
+    from .models import model as M
+    dev = resolve_device(device)
+    first = next(iter(next(iter(tree.values())).values()))
+    batch = np.shape(first)[1]
+    kv = [np.shape(v["k"])[2] for v in tree.values() if "k" in v]
+    want = M.cache_shapes(cfg, batch, kv[0] if kv else 1)
+    if set(tree) != set(want):
+        raise ValueError(f"cache positions {sorted(tree)}, the config "
+                         f"wants {sorted(want)}")
+    out = {}
+    for pos, leaves in want.items():
+        if set(tree[pos]) != set(leaves):
+            raise ValueError(f"{pos}: leaves {sorted(tree[pos])}, the "
+                             f"config wants {sorted(leaves)}")
+        out[pos] = {}
+        for name, (shape, dt) in leaves.items():
+            t = _lm_leaf(tree[pos][name], dev)
+            if tuple(t.shape) != shape or t.dtype != dt:
+                raise ValueError(f"{pos}/{name}: {tuple(t.shape)} {t.dtype}, "
+                                 f"the config wants {shape} {dt}")
+            out[pos][name] = t
+    return out
 
 
 def adamw_state_from_arrays(tree: dict, cfg, *, device=None):

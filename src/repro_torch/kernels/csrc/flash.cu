@@ -4,7 +4,8 @@
 //
 // Replaces repro/kernels/flash.py flash_attention_pallas (_flash_kernel), in
 // the general form the LM layers call (repro/models/layers.py
-// flash_attention without bias_qk): q (B, Sq, H, D), k/v (B, Skv, Hkv, D),
+// flash_attention; bias_qk in tile 4 only): q (B, Sq, H, D), k/v (B, Skv,
+// Hkv, D),
 // f32 or bf16, query head h reading KV head h / (H / Hkv), and
 //
 //   s    = (q * scale) . k                    (f32; scale = 1 / sqrt(D) in f32)
@@ -22,8 +23,8 @@
 //
 // Every tile puts the G = H / Hkv query heads that share a KV head on the
 // rows of one tile: row r is query position r / G, head hkv * G + r % G, so
-// one K/V tile serves G heads.  Three tiles, chosen by the wrapper from the
-// dtype, D and the rows Sq * G (it raises where none applies):
+// one K/V tile serves G heads.  Four tiles, chosen by the wrapper from the
+// dtype, D, the rows Sq * G and bias_qk (it raises where none applies):
 //
 // 1. flash_tc_kernel: bf16, D in {64, 128}, Sq * G > 8 (prefill).  What
 //    bounds it is the operations (4 D a (query, valid key) pair), so it
@@ -74,6 +75,9 @@
 //    on the CUDA cores, an f32 staging of Q, K and V in shared memory and
 //    explicit fmaf loops; a 64-row tile, or an 8-row one for Sq * G <= 8.
 //    expf and f32 dots in key and feature order.
+// 4. flash_bias_kernel: bias_qk given (the mLSTM's parallel form), bf16, D
+//    in {64, 384}: the per-query and per-key terms added to each score, S
+//    and P.V on the tensor cores by mma.sync (section 4 below).
 //
 // Training: tiles 1 and 3 take an optional `lse` pointer (f32, (B, H, Sq)).
 // Where it is not null, each block's epilogue also writes every row's
@@ -1146,6 +1150,277 @@ int launch_split(const void* q, const void* k, const void* v, void* m_part,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ===========================================================================
+// 4. The bias tile (bf16, D in {64, 384}): the mLSTM's parallel form
+// ===========================================================================
+// flash_attention(..., bias_qk=(fq, fk)) of repro/models/layers.py, which
+// repro/models/xlstm.py mlstm_block calls with fq = F_t and fk = i_s - F_s
+// (f32, (B, Sq, H) and (B, Skv, H)):
+//
+//   s = (scale * (q . k) + fq[b, i, h]) + fk[b, j, h]
+//
+// the two additions in that order, each an f32 rounding, then the mask and
+// the online softmax of the other tiles.  The two bias terms reach +-1e3
+// at S = 2,048 and cancel, so each score keeps its f32 roundings: the dot
+// product of the bf16 inputs is exact product by product and summed in f32
+// by the tensor cores, scaled after the product (as in tile 1: the
+// reference's f32(q) * scale . k differs from it by f32 rounding only),
+// then the two bias terms added one at a time.  xlstm-125m's head dim is
+// 384 (expand 2 x d_model 768 / 4 heads), the reduced configs' 64.
+//
+// What bounds it: 4 D operations a (query, valid key) pair, 0.052 ms at
+// xlstm's prefill shape on the bf16 tensor cores.  The design is
+// FlashAttention-2's on mma.sync (warp-level m16n8k16, bf16 in, f32
+// accumulators): a block of 64 query rows, 16 a warp; K, V (transposed)
+// and the block's Q staged in shared memory as bf16 (rows padded by 8
+// values, so the fragment loads hit 32 distinct banks), a 64-key tile at a
+// time.  S = Q K^T in registers (8 n-tiles of 8 keys, 4 f32 a lane each);
+// the softmax in the accumulators' layout (a row in the 4 lanes of a quad,
+// expf as tile 3); P kept above bf16 for P.V as tile 1 keeps it (P = P_hi
+// + P_lo, each bf16, two MMAs against the same V fragment).  At D = 384 the
+// output (16 rows x 384 f32 a warp) is split between two warps of the
+// same rows, 192 columns each (96 accumulators a lane); each computes the
+// rows' S itself.  A block is then 8 warps and 155,648 + 256 G bytes of
+// shared memory (one block an SM); at D = 64, 4 warps and 27,648 + 256 G.
+constexpr int kBiasBR = 64;                 // query rows a block
+constexpr int kBiasBK = 64;                 // keys a tile
+constexpr int kBiasPad = 8;                 // bf16 values padding a row
+
+template <int D>
+struct BiasTile {
+  static constexpr int kSlices = D >= 256 ? 2 : 1;   // output column slices
+  static constexpr int kWarps = 4 * kSlices;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kCols = D / kSlices;          // output columns a warp
+  static constexpr int kQs = D + kBiasPad;           // sQ, sK row stride
+  static constexpr int kVs = kBiasBK + kBiasPad;     // sVt row stride
+  static constexpr int kBf16Bytes =
+      2 * (kBiasBR * kQs + kBiasBK * kQs + D * kVs);
+};
+
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(BiasTile<D>::kThreads)
+flash_bias_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const float* __restrict__ fq, const float* __restrict__ fk,
+                  __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
+                  int Hkv, int G, int q_offset, int kv_valid, float scale) {
+  using T = BiasTile<D>;
+  constexpr int kBK = kBiasBK, QS = T::kQs, VS = T::kVs;
+  constexpr int NCH = D / 8;                 // 16-byte chunks a row
+  constexpr int NTO = T::kCols / 8;          // output n-tiles a warp
+  static_assert(D % 64 == 0, "the bias tile takes D a multiple of 64");
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem4);  // [BR][QS]
+  __nv_bfloat16* sK = sQ + kBiasBR * QS;                         // [BK][QS]
+  __nv_bfloat16* sVt = sK + kBK * QS;                            // [D][VS]
+  float* sFk = reinterpret_cast<float*>(sVt + D * VS);           // [G][BK]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;   // mma group and lane in it
+  const int hkv = blockIdx.y, b = blockIdx.z;
+  const int rows = Sq * G;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kBiasBR;
+  const int wr = (warp & 3) * 16;            // the warp's first row
+  const int c0 = (warp >> 2) * T::kCols;     // the warp's first column
+  const size_t kv_row = static_cast<size_t>(Hkv) * D;
+
+  for (int idx = tid; idx < kBiasBR * NCH; idx += T::kThreads) {
+    const int r = idx / NCH, ch = idx % NCH, rr = r0 + r;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (rr < rows)
+      w = *reinterpret_cast<const uint4*>(
+          q + ((static_cast<size_t>(b) * Sq + rr / G) * H + hkv * G + rr % G) *
+                  D + ch * 8);
+    *reinterpret_cast<uint4*>(sQ + r * QS + ch * 8) = w;
+  }
+
+  // the thread's two rows (gq and gq + 8 of the warp's 16): query terms
+  int rr2[2], g2[2], qp2[2];
+  float fq2[2], m[2], l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rr2[h] = r0 + wr + gq + 8 * h;
+    g2[h] = rr2[h] % G;
+    qp2[h] = q_offset + rr2[h] / G;
+    fq2[h] = rr2[h] < rows
+        ? fq[(static_cast<size_t>(b) * Sq + rr2[h] / G) * H + hkv * G + g2[h]]
+        : 0.0f;
+    m[h] = kFloor;
+    l[h] = 0.0f;
+  }
+  float o[NTO][4];
+#pragma unroll
+  for (int j = 0; j < NTO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+
+  const int i_last = (min(r0 + kBiasBR, rows) - 1) / G;
+  const int kend = max(0, min(kv_valid, q_offset + i_last + 1));
+  const int ntiles = (kend + kBK - 1) / kBK;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * Skv * kv_row + hkv * D;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Skv * kv_row + hkv * D;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * kBK;
+    __syncthreads();                 // the previous tile's reads are done
+    for (int idx = tid; idx < kBK * NCH; idx += T::kThreads) {
+      const int j = idx / NCH, ch = idx % NCH;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (k0 + j < Skv)
+        w = *reinterpret_cast<const uint4*>(kb + (k0 + j) * kv_row + ch * 8);
+      *reinterpret_cast<uint4*>(sK + j * QS + ch * 8) = w;
+    }
+    for (int idx = tid; idx < kBK * NCH; idx += T::kThreads) {
+      const int j = idx % kBK, ch = idx / kBK;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (k0 + j < Skv)
+        w = *reinterpret_cast<const uint4*>(vb + (k0 + j) * kv_row + ch * 8);
+      const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&w);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sVt[(ch * 8 + e) * VS + j] = e8[e];
+    }
+    for (int idx = tid; idx < G * kBK; idx += T::kThreads) {
+      const int g = idx / kBK, kp = k0 + idx % kBK;
+      sFk[idx] = kp < Skv
+          ? fk[(static_cast<size_t>(b) * Skv + kp) * H + hkv * G + g]
+          : 0.0f;
+    }
+    __syncthreads();
+
+    // S = Q K^T: the warp's 16 rows x 64 keys, 8 n-tiles of 8 keys
+    float s[kBK / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+#pragma unroll 4
+    for (int kk = 0; kk < D; kk += 16) {
+      const __nv_bfloat16* qa = sQ + (wr + gq) * QS + kk + 2 * tq;
+      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * QS), ld32(qa + 8),
+                             ld32(qa + 8 * QS + 8)};
+#pragma unroll
+      for (int n = 0; n < kBK / 8; ++n) {
+        const __nv_bfloat16* kp = sK + (n * 8 + gq) * QS + kk + 2 * tq;
+        mma_bf16_16816(s[n], a, ld32(kp), ld32(kp + 8));
+      }
+    }
+
+    // scale, the bias terms, the mask; the online softmax (a row in a quad)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, key = n * 8 + 2 * tq + (e & 1), kp = k0 + key;
+        float x = __fadd_rn(__fadd_rn(__fmul_rn(s[n][e], scale), fq2[h]),
+                            sFk[g2[h] * kBK + key]);
+        if (!(kp <= qp2[h] && kp < kv_valid)) x = -INFINITY;
+        s[n][e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o2 = 1; o2 < 4; o2 <<= 1)
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], o2));
+      const float m_new = fmaxf(fmaxf(m[h], mx[h]), kFloor);
+      corr[h] = expf(__fsub_rn(m[h], m_new));
+      m[h] = m_new;
+    }
+    float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = expf(__fsub_rn(s[n][e], m[e >> 1]));     // -inf -> 0
+        ps[e >> 1] = __fadd_rn(ps[e >> 1], s[n][e]);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o2 = 1; o2 < 4; o2 <<= 1)
+        ps[h] = __fadd_rn(ps[h], __shfl_xor_sync(0xffffffffu, ps[h], o2));
+      l[h] = __fadd_rn(__fmul_rn(l[h], corr[h]), ps[h]);
+    }
+#pragma unroll
+    for (int j = 0; j < NTO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = __fmul_rn(o[j][e], corr[e >> 1]);
+
+    // O += P V: the A fragment of keys kk..kk+15 is S's n-tiles kk / 8 and
+    // kk / 8 + 1 (rows gq, gq + 8), split into bf16 hi + lo
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      const int n = kk / 8;
+      uint32_t ah[4], al[4];
+      split_bf16x2(s[n][0], s[n][1], ah[0], al[0]);
+      split_bf16x2(s[n][2], s[n][3], ah[1], al[1]);
+      split_bf16x2(s[n + 1][0], s[n + 1][1], ah[2], al[2]);
+      split_bf16x2(s[n + 1][2], s[n + 1][3], ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NTO; ++j) {
+        const __nv_bfloat16* vp = sVt + (c0 + j * 8 + gq) * VS + kk + 2 * tq;
+        const uint32_t b0 = ld32(vp), b1 = ld32(vp + 8);
+        mma_bf16_16816(o[j], ah, b0, b1);
+        mma_bf16_16816(o[j], al, b0, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (rr2[h] >= rows) continue;
+    __nv_bfloat16* dst =
+        out + ((static_cast<size_t>(b) * Sq + rr2[h] / G) * H + hkv * G +
+               g2[h]) * D + c0 + 2 * tq;
+    const float den = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NTO; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
+          __floats2bfloat162_rn(__fdiv_rn(o[j][2 * h], den),
+                                __fdiv_rn(o[j][2 * h + 1], den));
+  }
+}
+
+template <int D>
+int launch_bias(const void* q, const void* k, const void* v, const float* fq,
+                const float* fk, void* out, int B, int Sq, int Skv, int H,
+                int Hkv, int q_offset, int kv_valid, float scale,
+                cudaStream_t stream) {
+  using T = BiasTile<D>;
+  const int G = H / Hkv;
+  const int smem = T::kBf16Bytes +
+                   static_cast<int>(G * kBiasBK * sizeof(float));
+  auto kern = flash_bias_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq * G + kBiasBR - 1) / kBiasBR, Hkv, B);
+  kern<<<grid, T::kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), fq, fk,
+      static_cast<__nv_bfloat16*>(out), Sq, Skv, H, Hkv, G, q_offset,
+      kv_valid, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // All entry points take contiguous q (B, Sq, H, D), k/v (B, Skv, Hkv, D)
@@ -1237,4 +1512,23 @@ extern "C" int repro_flash_decode(const void* q, const void* k,
       m_part, l_part, acc_part, static_cast<__nv_bfloat16*>(out), Sq, H, Hkv,
       H / Hkv, D, n_split);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bias tile (the mLSTM's parallel form): bf16 q, k, v with D in {64,
+// 384}, f32 fq (B, Sq, H) and fk (B, Skv, H), both contiguous.
+extern "C" int repro_flash_bias(const void* q, const void* k, const void* v,
+                                const void* fq, const void* fk, void* out,
+                                int B, int Sq, int Skv, int H, int Hkv, int D,
+                                int q_offset, int kv_valid, float scale,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* fqp = static_cast<const float*>(fq);
+  const float* fkp = static_cast<const float*>(fk);
+  switch (D) {
+    case 64: return launch_bias<64>(q, k, v, fqp, fkp, out, B, Sq, Skv, H,
+                                    Hkv, q_offset, kv_valid, scale, st);
+    case 384: return launch_bias<384>(q, k, v, fqp, fkp, out, B, Sq, Skv, H,
+                                      Hkv, q_offset, kv_valid, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

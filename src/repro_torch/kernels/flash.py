@@ -2,7 +2,8 @@
 version and launch counters (the CUDA kernel is ``csrc/flash.cu``).
 
 The function is the one every LM attention layer of the reference calls,
-``repro.models.layers.flash_attention`` without ``bias_qk``; the TPU kernel
+``repro.models.layers.flash_attention`` (its ``bias_qk`` form, the mLSTM's,
+in a tile of its own); the TPU kernel
 ``repro.kernels.flash.flash_attention_pallas`` is its special case
 ``q_offset = 0``, ``kv_valid = Skv``, ``Sq = Skv``, with GQA broadcast by
 the caller.  For q (B, Sq, H, dh) and k/v (B, Skv, Hkv, dh), f32 or bf16,
@@ -30,7 +31,12 @@ On a CUDA tensor ``flash_attention`` launches one of three tiles of
   ``LAUNCHES["flash_decode"]``, its combine pass beside it in
   ``LAUNCHES["flash_combine"]``;
 * f32, or dh 16 or 32: the CUDA-core tile, counted in
-  ``LAUNCHES["flash_cc"]``.
+  ``LAUNCHES["flash_cc"]``;
+* with ``bias_qk = (fq, fk)`` (f32 (B, Sq, H) and (B, Skv, H), the
+  mLSTM's F_t and i_s - F_s): the bias tile, bf16 at dh 64 or 384
+  (``bias_tile_of``), each score ``(s + fq[i]) + fk[j]`` before the mask;
+  counted in ``LAUNCHES["flash_bias"]``.  It has no backward yet: under
+  autograd the bias form raises ``not_ported``.
 
 ``flash_decode_split_plain`` is the split-KV tile's partials and combine
 in plain torch, for the tests and ``chip_smoke.py``.
@@ -57,14 +63,16 @@ import functools
 import numpy as np
 import torch
 
+from .. import not_ported
 from . import build
 
 LAUNCHES = {"flash": 0, "flash_decode": 0, "flash_combine": 0,
-            "flash_cc": 0}
+            "flash_cc": 0, "flash_bias": 0}
 LSE_LAUNCHES = {"flash": 0, "flash_cc": 0}   # of those, with the lse output
 
 DIMS = (16, 32, 64, 128)         # head dims the kernels are instantiated for
 TC_DIMS = (64, 128)               # head dims of the bf16 tiles
+BIAS_DIMS = (64, 384)             # head dims of the bias tile (the mLSTM's)
 DECODE_ROWS = 8                   # rows of the decode tiles (Sq * G <= 8)
 KEY_TILE = 64                     # keys a tile of every kernel
 BWD_Q_BLOCK = 256                 # query rows a block of the backward
@@ -95,15 +103,33 @@ def _check(q, k, v):
         raise TypeError("flash_attention takes q, k, v all f32 or all bf16")
 
 
+def _check_bias(q, k, bias_qk) -> tuple:
+    fq, fk = bias_qk
+    B, Sq, H, _ = q.shape
+    want = ((B, Sq, H), (B, k.shape[1], H))
+    if (tuple(fq.shape), tuple(fk.shape)) != want or \
+            fq.dtype != torch.float32 or fk.dtype != torch.float32:
+        raise ValueError(f"bias_qk takes f32 (fq, fk) shaped {want}, got "
+                         f"{tuple(fq.shape)} {fq.dtype}, {tuple(fk.shape)} "
+                         f"{fk.dtype}")
+    return fq, fk
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, q_offset: int, kv_valid: int | None = None,
-                          kv_block: int = 1024, return_lse: bool = False):
+                          kv_block: int = 1024, return_lse: bool = False,
+                          bias_qk: tuple | None = None):
     """Plain version of K8: the reference's blockwise online softmax
     (``repro.models.layers.flash_attention``), (B, Sq, H, dh) in q's
     dtype; with ``return_lse`` also each row's f32 ``m + log(l)`` (B, H,
     Sq) from the reference's final ``m`` and ``l``
-    (``return_partial=True``)."""
+    (``return_partial=True``).  ``bias_qk = (fq, fk)``, f32 (B, Sq, H) and
+    (B, Skv, H), adds ``fq[b, i, h]`` then ``fk[b, j, h]`` to each score
+    before the mask, fk zero-padded to the key blocks, as the reference
+    does for the mLSTM."""
     _check(q, k, v)
+    if bias_qk is not None:
+        bias_qk = _check_bias(q, k, bias_qk)
     B, Sq, H, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -115,6 +141,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     if kv_valid is None and pad:
         kv_valid = Skv
+    if bias_qk is not None:
+        fq_t = bias_qk[0].transpose(1, 2)[:, :, :, None]       # (B, H, Sq, 1)
+        fk_t = torch.nn.functional.pad(bias_qk[1], (0, 0, 0, pad)) \
+            .transpose(1, 2)[:, :, None, :]                     # (B, H, 1, K)
     qf = q.to(f32) * torch.tensor(softmax_scale(dh), dtype=f32, device=dev)
     q_pos = int(q_offset) + torch.arange(Sq, device=dev)
     m = torch.full((B, H, Sq), -1e30, dtype=f32, device=dev)
@@ -128,6 +158,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = kv_pos[None, :] <= q_pos[:, None]
         if kv_valid is not None:
             mask &= (kv_pos < int(kv_valid))[None, :]
+        if bias_qk is not None:
+            s = s + fq_t + fk_t[..., start:start + kv_block]
         s = torch.where(mask[None, None], s, float("-inf"))
         m_new = torch.maximum(m, s.amax(-1)).clamp_min(-1e30)
         p = torch.exp(s - m_new[..., None])
@@ -229,15 +261,20 @@ def tile_of(dtype: torch.dtype, dh: int, rows: int) -> str:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
-            kv_valid: int, lse: torch.Tensor | None) -> torch.Tensor:
-    """One launch of the tile ``tile_of`` picks, on CUDA tensors; ``lse``
-    (f32 (B, H, Sq), or None) receives each row's log-sum-exp."""
+            kv_valid: int, lse: torch.Tensor | None,
+            bias: tuple | None = None) -> torch.Tensor:
+    """One launch of the tile ``tile_of`` picks (``bias_tile_of`` where
+    ``bias``, the checked (fq, fk) of the bias form, is given), on CUDA
+    tensors; ``lse`` (f32 (B, H, Sq), or None) receives each row's
+    log-sum-exp."""
     B, Sq, H, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    tile = tile_of(q.dtype, dh, Sq * (H // Hkv))
-    if lse is not None and tile == "flash_decode":
-        raise ValueError("the split-KV decode tile (Sq * H / Hkv <= 8 rows "
-                         "at head dim 64 or 128) writes no lse")
+    tile = tile_of(q.dtype, dh, Sq * (H // Hkv)) if bias is None else \
+        bias_tile_of(q.dtype, dh)
+    if lse is not None and tile in ("flash_decode", "flash_bias"):
+        raise ValueError(f"the {tile} tile writes no lse")
+    if bias is not None and any(t.device != q.device for t in bias):
+        raise ValueError("bias_qk must lie on q's device")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention needs 16-byte aligned tensors")
@@ -264,6 +301,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
                                     kv_valid, scale, n_split, per, stream)
         build.check(rc, "flash (split-KV decode tile and combine)")
         LAUNCHES["flash_combine"] += 1
+    elif tile == "flash_bias":
+        fq, fk = (t.contiguous() for t in bias)
+        rc = lib.repro_flash_bias(*ptrs, fq.data_ptr(), fk.data_ptr(),
+                                  out.data_ptr(), B, Sq, Skv, H, Hkv, dh,
+                                  q_offset, kv_valid, scale, stream)
+        build.check(rc, "flash (bias tile)")
     else:
         rc = lib.repro_flash_cc(
             *ptrs, out.data_ptr(), lse_ptr, B, Sq, Skv, H, Hkv, dh, q_offset,
@@ -274,6 +317,16 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
     if lse is not None:
         LSE_LAUNCHES[tile] += 1
     return out
+
+
+def bias_tile_of(dtype: torch.dtype, dh: int) -> str:
+    """The ``LAUNCHES`` key of the tile that serves ``bias_qk`` on a card;
+    raises for inputs it does not take (bf16 only, head dims
+    ``BIAS_DIMS``)."""
+    if dtype != torch.bfloat16 or dh not in BIAS_DIMS:
+        raise ValueError(f"the bias tile takes bf16 q, k, v at head dims "
+                         f"{BIAS_DIMS}, got {dtype} at {dh}")
+    return "flash_bias"
 
 
 def _args_of(q, k, v, q_offset, kv_valid) -> tuple[int, int]:
@@ -386,16 +439,30 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    q_offset: int, kv_valid: int | None = None
-                    ) -> torch.Tensor:
+                    q_offset: int, kv_valid: int | None = None,
+                    bias_qk: tuple | None = None) -> torch.Tensor:
     """K8 (replaces ``repro.kernels.flash.flash_attention_pallas``, in the
     general form of ``repro.models.layers.flash_attention``): causal GQA
     attention of q (B, Sq, H, dh) over k, v (B, Skv, Hkv, dh) at query
-    positions ``q_offset + i``, keys at positions ``>= kv_valid`` masked.
-    CUDA tensors launch a kernel (``tile_of``); CPU tensors take the plain
-    version.  Where autograd records (grad enabled and an input requiring
-    it) the call goes through ``FlashAttention``."""
+    positions ``q_offset + i``, keys at positions ``>= kv_valid`` masked;
+    with ``bias_qk = (fq, fk)`` each score gains ``fq[b, i, h] + fk[b, j,
+    h]`` (the mLSTM's parallel form).  CUDA tensors launch a kernel
+    (``tile_of``; ``bias_tile_of`` with ``bias_qk``); CPU tensors take the
+    plain version.  Where autograd records (grad enabled and an input
+    requiring it) the call goes through ``FlashAttention``; the bias form
+    has no backward yet and raises there."""
     q_offset, kv_valid = _args_of(q, k, v, q_offset, kv_valid)
+    if bias_qk is not None:
+        fq, fk = _check_bias(q, k, bias_qk)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v, fq, fk)):
+            raise not_ported("flash_attention(bias_qk=...) under autograd "
+                             "(the mLSTM's training)", "14")
+        if q.device.type != "cuda":
+            return flash_attention_plain(q, k, v, q_offset=q_offset,
+                                         kv_valid=kv_valid,
+                                         bias_qk=(fq, fk))
+        return _launch(q, k, v, q_offset, kv_valid, None, (fq, fk))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, q_offset, kv_valid)
     if q.device.type != "cuda":

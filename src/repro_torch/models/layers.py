@@ -20,8 +20,11 @@ operand's gradient is the f32 cotangent times the other operand, an f32
 product, rounded once to the operand's dtype (``_MatmulF32``).
 
 There is no mesh: tensor-parallel layouts (``cfg.tp_shard``), sequence-
-sharded caches, ``bias_qk``, partial softmax results and M-RoPE raise
-``not_ported`` (ROADMAP queue 1 item 14).  Caches are updated in place.
+sharded caches, partial softmax results (``return_partial``), ``bias_qk``
+under autograd and M-RoPE raise ``not_ported`` (ROADMAP queue 1 item 14).
+Caches are updated in place.  The activations ``softplus``,
+``log_sigmoid`` and ``silu`` are jax.nn's formulas, for the recurrent
+blocks (``models/ssm.py``, ``models/xlstm.py``).
 """
 from __future__ import annotations
 
@@ -93,6 +96,35 @@ def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _mm(x, w)
 
 
+def no_tf32(dev: torch.device) -> None:
+    """The recurrent blocks' f32 products (the sLSTM's recurrence, the
+    mLSTM's state) are f32 GEMMs, as the reference's f32 einsums: on the
+    card only while TF32 is off (``torch.backends.cuda.matmul.allow_tf32``,
+    False by default), else raise rather than keep 10 mantissa bits."""
+    if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the recurrent blocks need full f32 products: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
+# ---------------------------------------------------------------------------
+# activations (jax.nn's formulas)
+# ---------------------------------------------------------------------------
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, ``logaddexp(x, 0)``: ``max(x, 0) +
+    log1p(exp(-|x|))`` (``F.softplus`` switches to x above a threshold)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``."""
+    return x * torch.sigmoid(x)
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -137,16 +169,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     return_partial: bool = False) -> torch.Tensor:
     """q: (B, Sq, H, dh); k/v: (B, Skv, Hkv, dh) with H % Hkv == 0.  Causal
     over global positions (``q_offset`` for decode), keys at positions
-    ``>= kv_valid`` masked.  K8 (``kernels.flash.flash_attention``): CUDA
-    tensors launch the kernel, CPU tensors take its plain version."""
-    if bias_qk is not None:
-        raise not_ported("flash_attention(bias_qk=...) (the mLSTM reuse)",
-                         "14")
+    ``>= kv_valid`` masked; ``bias_qk = (fq, fk)``, f32 (B, Sq, H) and
+    (B, Skv, H), adds the per-query and per-key terms to each score (the
+    mLSTM's parallel form; inference only: under autograd it raises).  K8
+    (``kernels.flash.flash_attention``): CUDA tensors launch the kernel,
+    CPU tensors take its plain version."""
     if return_partial:
         raise not_ported("flash_attention(return_partial=True) "
                          "(sequence-sharded decode)", "14")
     return _flash.flash_attention(q, k, v, q_offset=q_offset,
-                                  kv_valid=kv_valid)
+                                  kv_valid=kv_valid, bias_qk=bias_qk)
 
 
 # ---------------------------------------------------------------------------

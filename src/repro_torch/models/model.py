@@ -1,5 +1,6 @@
 """The decoder of the LM path on one device (a port of
-``repro.models.model`` for attention layers with a dense or MoE FFN).
+``repro.models.model``: attention, Mamba, mLSTM and sLSTM layers, with a
+dense or MoE FFN).
 
 One parameter factory (``build_tree``) gives every leaf's shape and
 initialiser; ``init_params`` instantiates it from a ``torch.Generator``
@@ -13,10 +14,11 @@ Forward modes: ``"train"`` (full sequence, loss-ready hidden states; with
 ``remat`` each superblock is checkpointed, as the reference's
 ``jax.checkpoint`` of its scan body), ``"prefill"`` (full sequence, into
 fresh caches when given) and ``"decode"`` (one token against the caches).
-Caches are updated in place and returned.  ``lm_loss`` is the chunked
-cross-entropy the train step differentiates.  The mamba / mLSTM / sLSTM
-kinds, M-RoPE, ``embed_input`` archs and tensor-parallel layouts raise
-``not_ported`` (ROADMAP queue 1 item 14).
+Caches (K/V for attention layers, the recurrent states of the others) are
+updated in place and returned.  ``lm_loss`` is the chunked cross-entropy
+the train step differentiates.  M-RoPE, ``embed_input`` archs,
+tensor-parallel layouts and ``forward(mode="train")`` through a Mamba,
+mLSTM or sLSTM layer raise ``not_ported`` (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import not_ported, resolve_device
-from . import layers
+from . import layers, ssm, xlstm
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -49,26 +51,76 @@ def _supported(cfg) -> None:
     if cfg.rope == "mrope":
         raise not_ported("M-RoPE archs", "14")
     for kind in set(cfg.pattern):
-        if kind != "attn":
-            raise not_ported(f"{kind!r} blocks", "14")
+        if kind not in KINDS:
+            raise ValueError(f"unknown block kind {kind!r}")
+
+
+KINDS = ("attn", "mamba", "mlstm", "slstm")
+RECURRENT = ("mamba", "mlstm", "slstm")
+_STATE = {"mamba": ssm.MambaState, "mlstm": xlstm.MLSTMState,
+          "slstm": xlstm.SLSTMState}
+
+
+def _core_leaves(cfg, kind: str):
+    d, dh = cfg.d_model, cfg.head_dim
+    if kind == "attn":
+        H, KV = cfg.n_heads_padded, cfg.n_kv_padded
+        return layers.AttnParams(
+            ln=Leaf((d,), -1),
+            wq=Leaf((d, H * dh), d),
+            wk=Leaf((d, KV * dh), d),
+            wv=Leaf((d, KV * dh), d),
+            wo=Leaf((H * dh, d), H * dh),
+            bq=Leaf((H * dh,), 0) if cfg.qkv_bias else None,
+            bk=Leaf((KV * dh,), 0) if cfg.qkv_bias else None,
+            bv=Leaf((KV * dh,), 0) if cfg.qkv_bias else None,
+            qn=Leaf((dh,), -1) if cfg.qk_norm else None,
+            kn=Leaf((dh,), -1) if cfg.qk_norm else None,
+        )
+    if kind == "mamba":
+        di, ds, dtr, K = cfg.d_inner, cfg.d_state, cfg.dt_rank, cfg.d_conv
+        return ssm.MambaParams(
+            ln=Leaf((d,), -1),
+            in_proj=Leaf((d, 2 * di), d),
+            conv_w=Leaf((K, di), K),
+            conv_b=Leaf((di,), 0),
+            x_proj=Leaf((di, dtr + 2 * ds), di),
+            dt_w=Leaf((dtr, di), dtr),
+            dt_b=Leaf((di,), 0),
+            a_log=Leaf((di, ds), -1),
+            d_skip=Leaf((di,), -1),
+            out_proj=Leaf((di, d), di),
+        )
+    NH, ef = cfg.xl_heads, cfg.expand * d
+    if kind == "mlstm":
+        return xlstm.MLSTMParams(
+            ln=Leaf((d,), -1),
+            w_qkv=Leaf((ef, 3 * ef), ef),
+            w_if=Leaf((d, 2 * NH), d),
+            b_if=Leaf((2 * NH,), 0),
+            w_o=Leaf((d, ef), d),
+            w_up=Leaf((d, 2 * ef), d),
+            w_down=Leaf((ef, d), ef),
+            ln_inner=Leaf((ef,), -1),
+        )
+    dh_s = d // NH
+    return xlstm.SLSTMParams(
+        ln=Leaf((d,), -1),
+        w_x=Leaf((d, 4 * NH * dh_s), d),
+        r_h=Leaf((NH, dh_s, 4 * dh_s), dh_s),
+        b=Leaf((4 * NH * dh_s,), 0),
+        w_up=Leaf((d, ef), d),
+        w_down=Leaf((ef, d), ef),
+        ln_ff=Leaf((d,), -1),
+    )
 
 
 def _block_leaves(cfg, kind: str, pos: int) -> dict:
-    d, dh = cfg.d_model, cfg.head_dim
-    H, KV = cfg.n_heads_padded, cfg.n_kv_padded
-    out: dict[str, Any] = {"core": layers.AttnParams(
-        ln=Leaf((d,), -1),
-        wq=Leaf((d, H * dh), d),
-        wk=Leaf((d, KV * dh), d),
-        wv=Leaf((d, KV * dh), d),
-        wo=Leaf((H * dh, d), H * dh),
-        bq=Leaf((H * dh,), 0) if cfg.qkv_bias else None,
-        bk=Leaf((KV * dh,), 0) if cfg.qkv_bias else None,
-        bv=Leaf((KV * dh,), 0) if cfg.qkv_bias else None,
-        qn=Leaf((dh,), -1) if cfg.qk_norm else None,
-        kn=Leaf((dh,), -1) if cfg.qk_norm else None,
-    )}
-    if cfg.d_ff <= 0:
+    d = cfg.d_model
+    out: dict[str, Any] = {"core": _core_leaves(cfg, kind)}
+    # the FFN stage: attention and Mamba layers only (xLSTM blocks carry
+    # their own up and down projections)
+    if kind not in ("attn", "mamba") or cfg.d_ff <= 0:
         out["ffn"] = None
     elif cfg.moe_at(pos):
         mc = cfg.moe
@@ -149,15 +201,44 @@ def init_params(cfg, generator: torch.Generator, device=None) -> dict:
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
-def init_cache(cfg, batch: int, max_seq: int, *, device=None) -> dict:
-    """KV caches stacked over superblocks: ``pos{i}`` -> ``k``/``v`` of
-    (n_sb, batch, max_seq, n_kv_heads, head_dim) bf16 zeros."""
+def cache_shapes(cfg, batch: int, max_seq: int) -> dict:
+    """``pos{i}`` -> {name: (shape, dtype)} of each layer position's cache,
+    stacked over superblocks (the reference's ``init_cache`` on one
+    device): K/V (n_sb, batch, max_seq, n_kv_heads, head_dim) bf16; Mamba
+    ``conv`` (n_sb, batch, d_conv - 1, d_inner) bf16 and ``h`` (n_sb,
+    batch, d_inner, d_state) f32; mLSTM ``c`` (n_sb, batch, NH, dh, dh),
+    ``n`` (.., NH, dh), ``m`` (.., NH) f32 with dh = expand d / NH; sLSTM
+    ``h``, ``c``, ``n``, ``m`` (n_sb, batch, NH, d / NH) f32."""
     _supported(cfg)
+    lead = (cfg.n_sb, batch)
+    out = {}
+    for i in range(cfg.sb):
+        kind = cfg.pattern[i]
+        if kind == "attn":
+            kv = (lead + (max_seq, cfg.n_kv_heads, cfg.head_dim), BF16)
+            out[f"pos{i}"] = {"k": kv, "v": kv}
+        elif kind == "mamba":
+            out[f"pos{i}"] = {
+                "conv": (lead + (cfg.d_conv - 1, cfg.d_inner), BF16),
+                "h": (lead + (cfg.d_inner, cfg.d_state), F32)}
+        elif kind == "mlstm":
+            NH = cfg.xl_heads
+            dh = cfg.expand * cfg.d_model // NH
+            out[f"pos{i}"] = {"c": (lead + (NH, dh, dh), F32),
+                              "n": (lead + (NH, dh), F32),
+                              "m": (lead + (NH,), F32)}
+        else:
+            z = (lead + (cfg.xl_heads, cfg.d_model // cfg.xl_heads), F32)
+            out[f"pos{i}"] = {k: z for k in ("h", "c", "n", "m")}
+    return out
+
+
+def init_cache(cfg, batch: int, max_seq: int, *, device=None) -> dict:
+    """The decode-state tree (``cache_shapes``) as zeros on ``device``."""
     dev = resolve_device(device)
-    shape = (cfg.n_sb, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {f"pos{i}": {"k": torch.zeros(shape, dtype=BF16, device=dev),
-                        "v": torch.zeros(shape, dtype=BF16, device=dev)}
-            for i in range(cfg.sb)}
+    return {pos: {k: torch.zeros(shape, dtype=dt, device=dev)
+                  for k, (shape, dt) in leaves.items()}
+            for pos, leaves in cache_shapes(cfg, batch, max_seq).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -178,19 +259,33 @@ def embed_tokens(params, cfg, tokens: torch.Tensor, tp_shard: bool
 
 def _run_block(cfg, pos_idx: int, kind: str, blk_params, x, *, pos, cache,
                tp_shard):
-    if kind != "attn":
-        raise not_ported(f"{kind!r} blocks", "14")
+    """One layer: (x, new_cache).  ``cache`` is the layer's K/V dict (with
+    ``length``) or its recurrent state's dict; ``new_cache`` the written
+    K/V, or the new state's dict where a cache was given (Mamba also
+    without one at S = 1), as the reference's ``_run_block``."""
     ffn = blk_params.get("ffn")
-    if cfg.parallel_block and isinstance(ffn, layers.MLPParams):
+    core = blk_params["core"]
+    new_cache = None
+    if kind == "attn" and cfg.parallel_block and \
+            isinstance(ffn, layers.MLPParams):
         # Cohere-style parallel block: attention and FFN read the same input
         o, new_cache = layers.attention_block(
-            blk_params["core"], x, cfg, pos=pos, cache=cache,
-            tp_shard=tp_shard, reduce=False)
+            core, x, cfg, pos=pos, cache=cache, tp_shard=tp_shard,
+            reduce=False)
         m = layers.mlp_block(ffn, x, cfg, tp_shard=tp_shard, reduce=False)
         return x + (o + m).to(x.dtype), new_cache
-    o, new_cache = layers.attention_block(blk_params["core"], x, cfg, pos=pos,
-                                          cache=cache, tp_shard=tp_shard)
-    x = x + o
+    if kind == "attn":
+        o, new_cache = layers.attention_block(core, x, cfg, pos=pos,
+                                              cache=cache, tp_shard=tp_shard)
+        x = x + o
+    else:
+        st = _STATE[kind](**cache) if cache is not None else None
+        block = {"mamba": ssm.mamba_block, "mlstm": xlstm.mlstm_block,
+                 "slstm": xlstm.slstm_block}[kind]
+        o, nst = block(core, x, cfg, state=st, tp_shard=tp_shard)
+        x = o if kind == "slstm" else x + o   # the sLSTM's output replaces x
+        if nst is not None and (cache is not None or kind == "mamba"):
+            new_cache = nst._asdict()
     if isinstance(ffn, layers.MoEParams):
         x = x + layers.moe_block(ffn, x, cfg, tp_shard=tp_shard)
     elif ffn is not None:
@@ -213,8 +308,9 @@ def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
             seq_sharded: bool = False):
     """inputs: token ids (B, S).  pos: (B, S) positions (decode takes them
     from ``cache_len``, an int; default ``pos[0, 0]``).  Returns (hidden
-    (B, S, d), caches) -- the caches written in place, or None without
-    caches.  ``mode="train"`` with ``remat`` (and autograd recording)
+    (B, S, d), caches) -- the caches written in place (K/V at the filled
+    prefix, each recurrent layer's state replaced by its new one), or None
+    without caches.  ``mode="train"`` with ``remat`` (and autograd recording)
     checkpoints each superblock (``torch.utils.checkpoint``, non-reentrant):
     its activations are recomputed in the backward, K8 launched again."""
     if mode not in ("train", "prefill", "decode"):
@@ -222,6 +318,9 @@ def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
     if seq_sharded:
         raise not_ported("sequence-sharded KV caches", "14")
     _supported(cfg)
+    if mode == "train" and set(cfg.pattern) & set(RECURRENT):
+        raise not_ported("training through Mamba, mLSTM or sLSTM layers "
+                         "(forward(mode='train'))", "14")
     x = embed_tokens(params, cfg, inputs, cfg.tp_shard)
     if mode == "decode":
         if cache_len is None:
@@ -234,13 +333,16 @@ def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
 
     def superblock(x, p_sb, layer):
         for i in range(cfg.sb):
-            c = None
+            kind, c = cfg.pattern[i], None
             if caches is not None:
-                kv = caches[f"pos{i}"]
-                c = {"k": kv["k"][layer], "v": kv["v"][layer],
-                     "length": cache_len}
-            x, _ = _run_block(cfg, i, cfg.pattern[i], p_sb[f"pos{i}"], x,
-                              pos=pos, cache=c, tp_shard=cfg.tp_shard)
+                c = {k: t[layer] for k, t in caches[f"pos{i}"].items()}
+                if kind == "attn":
+                    c["length"] = cache_len
+            x, nc = _run_block(cfg, i, kind, p_sb[f"pos{i}"], x, pos=pos,
+                               cache=c, tp_shard=cfg.tp_shard)
+            if kind != "attn" and c is not None and nc is not None:
+                for k, t in nc.items():       # the new state, in place
+                    c[k].copy_(t)
         return x
 
     ckpt = mode == "train" and remat and caches is None \

@@ -1,0 +1,137 @@
+"""The Mamba block of jamba's SSM layers on one device (a port of
+``repro.models.ssm``: ``MambaParams``, ``MambaState``, ``_ssm_scan``,
+``mamba_block``).
+
+Numerics follow the reference: the projections are ``matmul_f32``
+(bf16 operands, f32 result), the depthwise causal conv is Python's ``sum``
+over the taps in f32 (tap 0 added onto the int 0, then taps 1 .. K-1, then
+the bias), ``softplus`` and ``silu`` are jax.nn's formulas
+(``layers.softplus``, ``layers.silu``), and the selective scan runs in f32.
+Prefill scans the sequence in chunks of ``min(256, S)`` steps (``S`` must
+be a multiple of it, as the reference asserts); decode (S = 1) is the
+one-step recurrence.  The conv state is stored as bf16 and read back as
+f32.
+
+The scan is a loop over time on the host, as the reference's ``lax.scan``:
+each chunk's decay ``exp(dt a)`` and input ``dt x b`` (B, L, d_inner,
+d_state) are computed for the whole chunk first -- the same elementwise
+roundings as the reference's step -- and each step is then one multiply and
+one add, written into the chunk's stack of states; ``y = c . h + D x``
+follows for the chunk at once.  The time loop runs under the
+``torch.profiler`` span ``mamba.scan`` (a trace's host share of it).  The
+TPU reference has no kernel here, and neither has the port.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import layers
+
+F32 = torch.float32
+BF16 = torch.bfloat16
+CHUNK = 256
+
+
+class MambaParams(NamedTuple):
+    ln: torch.Tensor          # (d,)
+    in_proj: torch.Tensor     # (d, 2 * di)
+    conv_w: torch.Tensor      # (d_conv, di)
+    conv_b: torch.Tensor      # (di,)
+    x_proj: torch.Tensor      # (di, dt_rank + 2 * d_state)
+    dt_w: torch.Tensor        # (dt_rank, di)
+    dt_b: torch.Tensor        # (di,)
+    a_log: torch.Tensor       # (di, d_state)
+    d_skip: torch.Tensor      # (di,)
+    out_proj: torch.Tensor    # (di, d)
+
+
+class MambaState(NamedTuple):
+    conv: torch.Tensor        # (B, d_conv - 1, di) bf16: trailing inputs
+    h: torch.Tensor           # (B, di, d_state) f32
+
+
+def _ssm_scan(x, dt, b_in, c_in, a, d_skip, h0, chunk: int) -> tuple:
+    """Selective scan ``h_t = exp(dt_t a) h_{t-1} + dt_t b_t x_t``, ``y_t =
+    c_t . h_t + D x_t`` over chunks of ``chunk`` steps.  x, dt (B, S, di),
+    b, c (B, S, ds), a (di, ds), h0 (B, di, ds); returns (y (B, S, di),
+    h_final), both f32."""
+    B, S, di = x.shape
+    ds = a.shape[1]
+    ys, h = [], h0
+    for c0 in range(0, S, chunk):
+        xc, dtc = x[:, c0:c0 + chunk], dt[:, c0:c0 + chunk]
+        bc, cc = b_in[:, c0:c0 + chunk], c_in[:, c0:c0 + chunk]
+        L = xc.shape[1]
+        # (L, B, di, ds): step t reads and writes contiguous slices
+        decay = torch.exp(dtc.transpose(0, 1)[..., None] * a)
+        u = (dtc * xc).transpose(0, 1)[..., None] * \
+            bc.transpose(0, 1)[:, :, None, :]
+        hs = torch.empty((L, B, di, ds), dtype=F32, device=x.device)
+        with torch.profiler.record_function("mamba.scan"):
+            for t in range(L):
+                torch.add(decay[t] * h, u[t], out=hs[t])
+                h = hs[t]
+        y = (hs * cc.transpose(0, 1)[:, :, None, :]).sum(-1) + \
+            d_skip * xc.transpose(0, 1)
+        ys.append(y.transpose(0, 1))
+        del decay, u, hs
+    return torch.cat(ys, 1), h.clone()
+
+
+def mamba_block(p: MambaParams, x: torch.Tensor, cfg, *,
+                state: MambaState | None, tp_shard: bool,
+                chunk: int = CHUNK) -> tuple:
+    """x: (B, S, d) -> (out (B, S, d) in x's dtype, new_state).  The new
+    state is returned where a state was passed or S == 1, else None."""
+    layers._no_tp(tp_shard)
+    B, S, d = x.shape
+    h = layers.rms_norm(x, p.ln, cfg.norm_eps)
+    xz = layers.matmul_f32(h, p.in_proj)
+    di = xz.shape[-1] // 2
+    xs, z = xz[..., :di], xz[..., di:]
+
+    # depthwise causal conv over time (d_conv taps)
+    K = cfg.d_conv
+    if state is None:
+        pad = torch.zeros((B, K - 1, di), dtype=xs.dtype, device=x.device)
+        new_conv = xs[:, S - (K - 1):, :] if S >= K - 1 else None
+    else:
+        pad = state.conv.to(xs.dtype)
+        new_conv = torch.cat([pad, xs], 1)[:, -(K - 1):, :]
+    xp = torch.cat([pad, xs], 1)                        # (B, S + K - 1, di)
+    xc = sum(xp[:, i:i + S, :] * p.conv_w[i] for i in range(K)) + p.conv_b
+    xc = layers.silu(xc)
+
+    feats = layers.matmul_f32(xc.to(BF16), p.x_proj)
+    dtr, ds = cfg.dt_rank, cfg.d_state
+    dt_in = feats[..., :dtr]
+    b_in = feats[..., dtr:dtr + ds]
+    c_in = feats[..., dtr + ds:]
+    dt = layers.softplus(layers.matmul_f32(dt_in.to(BF16), p.dt_w) + p.dt_b)
+    a = -torch.exp(p.a_log.to(F32))                     # (di, ds)
+
+    h0 = state.h if state is not None else \
+        torch.zeros((B, di, ds), dtype=F32, device=x.device)
+    if S == 1:                                          # decode
+        decay = torch.exp(dt[:, 0, :, None] * a)
+        hn = decay * h0 + (dt[:, 0] * xc[:, 0].to(F32))[..., None] * \
+            b_in[:, 0, None, :]
+        y = (hn * c_in[:, 0, None, :]).sum(-1) + p.d_skip * xc[:, 0]
+        y = y[:, None, :]
+    else:
+        ch = min(chunk, S)
+        if S % ch:
+            raise ValueError(f"mamba_block: the sequence ({S}) must be a "
+                             f"multiple of the scan chunk ({ch})")
+        y, hn = _ssm_scan(xc.to(F32), dt, b_in, c_in, a, p.d_skip, h0, ch)
+
+    y = y * layers.silu(z)
+    out = layers.matmul_f32(y.to(BF16), p.out_proj)
+    new_state = None
+    if state is not None or S == 1:
+        conv = new_conv if new_conv is not None else \
+            torch.zeros((B, K - 1, di), dtype=xs.dtype, device=x.device)
+        new_state = MambaState(conv=conv.to(BF16), h=hn)
+    return out.to(x.dtype), new_state

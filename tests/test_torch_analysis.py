@@ -505,7 +505,7 @@ def test_real_cuda_sources_figures():
     # the launchers that size dynamic memory at run time set the attribute
     assert {la.kernel for la in launches if la.has_attribute} == {
         "flash_cc_kernel", "flash_tc_kernel", "flash_split_kernel",
-        "ksdist_tables_staged_kernel", "ksdist_kernel"}
+        "flash_bias_kernel", "ksdist_tables_staged_kernel", "ksdist_kernel"}
 
 
 # -- chip_smoke.py's phase 13 helpers, on the CPU ----------------------------

@@ -119,6 +119,8 @@ def _randomize(tree, rng):
 
 
 def _to_jax(tree, like):
+    if like is None:                    # a layer without an FFN stage
+        return None
     if isinstance(like, dict):
         return {k: _to_jax(tree[k], v) for k, v in like.items()}
     if hasattr(like, "_fields"):
@@ -260,7 +262,8 @@ def _shapes(tree, prefix=""):
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "command-r-plus-104b",
                                   "qwen1.5-4b", "yi-9b",
-                                  "granite-moe-1b-a400m", "qwen2-moe-a2.7b"])
+                                  "granite-moe-1b-a400m", "qwen2-moe-a2.7b",
+                                  "jamba-v0.1-52b", "xlstm-125m"])
 def test_params_and_caches_match_reference_shapes(arch):
     """``init_params`` and ``init_cache`` give the reference's shapes and
     dtypes, reduced and (without allocating) at published widths."""
@@ -559,10 +562,16 @@ def test_device_and_unported_rules():
         TM.forward({}, tc, torch.zeros(1, 2, dtype=torch.int32),
                    pos=torch.zeros(1, 2, dtype=torch.int32), mode="decode",
                    seq_sharded=True)
-    for arch in ("jamba-v0.1-52b", "xlstm-125m", "qwen2-vl-72b",
-                 "musicgen-large"):
+    for arch in ("qwen2-vl-72b", "musicgen-large"):     # M-RoPE, embed_input
         with pytest.raises(NotImplementedError, match="item 14"):
             TM.build_tree(reduce_cfg(get_arch(arch)))
+    for arch in ("jamba-v0.1-52b", "xlstm-125m"):      # served, not trained
+        rc = reduce_cfg(get_arch(arch))
+        assert TM.build_tree(rc)["sb"]
+        with pytest.raises(NotImplementedError, match="item 14"):
+            TM.forward({}, rc, torch.zeros(1, 2, dtype=torch.int32),
+                       pos=torch.zeros(1, 2, dtype=torch.int32),
+                       mode="train")
     with pytest.raises(NotImplementedError, match="single_card"):
         TM.build_tree(get_arch("qwen3-4b"))
     with pytest.raises(NotImplementedError, match="item 14"):
@@ -598,5 +607,6 @@ def test_cuda_serve_reduced_runs_the_kernels():
                        new_tokens=6)
     assert res.tokens.shape == (4, 7)
     assert tflash.LAUNCHES == {"flash": 0, "flash_decode": 0,
-                               "flash_combine": 0, "flash_cc": 7}
+                               "flash_combine": 0, "flash_cc": 7,
+                               "flash_bias": 0}
     assert tlk.LAUNCHES["lookup"] >= 1
