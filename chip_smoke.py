@@ -303,6 +303,37 @@ Phases (any failure exits non-zero; nothing is caught):
    logits' scale, ``J_SCALE_RTOL``.  Prints prefill s, decode tokens/s, peak
    memory and K8 launches by tile; phase 1 also fails on a spill in
    ``flash_bias_kernel``.
+16. Path K, the recurrent families trained, counted, after path J:
+   ``launch.train.train("xlstm-125m", steps=K_STEPS, batch=8, seq=2048,
+   lr=1e-3)`` in its one-card form at full width and depth (12 layers: 6
+   mLSTM at head dim 384, 6 sLSTM at 192; 1.34e8 random bf16 parameters
+   from ``--seed``), remat on, a loss read every step.  K8's bias tile
+   must launch twice a mLSTM layer a step (the forward and the remat's
+   recompute), each with its ``lse`` output, and no other tile; every
+   loss finite and the last below the first.  On the first step's inputs
+   of the first and last mLSTM layer: ``out`` with ``lse`` bit-equal to
+   the tile without it and within one bf16 ulp of the magnitude of plain,
+   ``lse`` within ``K_LSE_ATOL`` of plain's and an f64 oracle's, dq, dk,
+   dv from ``FlashAttention`` within ``K_GRAD_ULPS`` bf16 ulps of the
+   leaf of f64 autograd of the dense biased softmax, and dfq, dfk within
+   ``K_BIAS_SUM_RTOL`` of the largest sum of |dS| over the same axis.
+   ``lse`` on ``J_BIAS_EDGES`` the same way, and a planted fault (one
+   query row's fq raised by ``K_LSE_FAULT`` tolerances: every output
+   within one ulp, the ``lse`` check must fail).  The tile timed there
+   with and without ``lse`` beside plain and the torch-op backward (the
+   ``path_k_*`` keys of the ``flash_bias`` row).  A warm step of a
+   ``K_TRACE_LAYERS``-layer cut of the same width traced with
+   ``torch.profiler``: wall, device busy, idle share, device time by kind
+   (the sLSTM loop forward with the recompute and backward, the bias tile
+   and its backward, GEMMs, the rest) and the loops' host spans.  Then one
+   Mamba layer at jamba-v0.1-52b's full width (d_model 4,096, d_inner
+   8,192) on ``K_MAMBA_B`` x ``K_MAMBA_S`` tokens in its train form: the
+   input's and every weight's gradient with each scan chunk checkpointed
+   equal to those without the checkpoint bit for bit, and within
+   ``K_MAMBA_RTOL`` of each leaf's largest entry of the block in f64
+   (``_mamba_f64``: the port's bf16 roundings kept, the rest f64).
+   Prints step seconds (warm: the median of steps 2 on), tokens a second,
+   peak memory, the backward's seconds and peak memory.
 
 Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
@@ -331,7 +362,8 @@ one, path F the shard-stacked one, with ``single_launches_ms`` for S
 single-index launches of its work; K8 a row per tile: ``flash`` at the prefill shape, its ``bound_ms``
 on the bf16 tensor cores it computes on and ``bound_f32_ms`` on the f32
 rate, ``flash_decode`` at the decode shape with its ``n_split`` and
-``combine_launches``; ``flash_bias`` at path J's mLSTM shape), the card's
+``combine_launches``; ``flash_bias`` at path J's mLSTM shape, with path
+K's launches and ``path_k_*`` times), the card's
 ``name, power.limit`` from nvidia-smi,
 and the result line.  Phase 1 also prints the flash library's ptxas
 report and the number of ``HGMMA`` instructions ``cuobjdump -sass`` finds
@@ -511,6 +543,30 @@ J_LOGIT_FLOOR = 0.25
 J_CONTROL_FACTOR = 4
 J_CONTROL_BLOCK = 512
 J_SCALE_RTOL = 0.1
+# Path K: the recurrent families trained.  xlstm-125m (the launcher's
+# --arch) in its one-card form at full width and depth, its batch,
+# sequence, steps and lr; the gates' tolerances: the bias tile's lse
+# against plain and an f64 oracle (absolute: each biased score carries the
+# f32 roundings of adding |F| up to about 1.7e3, 1.2e-4 an ulp there), dq /
+# dk / dv against f64 autograd in bf16 ulps of the leaf, dfq / dfk within
+# a share of the largest sum of |dS| over the same axis (f64), the lse of
+# the planted fault's row raised by this many tolerances.  Then one Mamba
+# layer at jamba's full width in its train form, batch and sequence, its
+# gradients against the same block in f64 (each leaf's largest |diff| over
+# its largest entry)
+K_ARCH = "xlstm-125m"
+K_BATCH, K_SEQ, K_STEPS, K_LR = 8, 2048, 4, 1e-3
+K_LSE_ATOL = 1e-3
+K_GRAD_ULPS = 2
+K_BIAS_SUM_RTOL = 2e-3
+K_LSE_FAULT = 16
+# the traced warm step's depth cut: one superblock (an mLSTM and an sLSTM
+# layer) at full width, batch and sequence.  All 12 layers' chrome trace
+# ran to 2.1 GB and took 81 s to read back in this phase's first run
+K_TRACE_LAYERS = 2
+K_MAMBA_ARCH = "jamba-v0.1-52b"
+K_MAMBA_B, K_MAMBA_S = 2, 2048
+K_MAMBA_RTOL = 0.03
 ANALYZED = ("src/repro_torch", "chip_smoke.py", "time_verbs.py",
             "examples/index_service_torch.py")
 SYNC_WARNING = "called a synchronizing CUDA operation"
@@ -1408,27 +1464,44 @@ def _bf16_ulp(mag):
     return torch.exp2(torch.floor(torch.log2(m)) - 7)
 
 
+def _keep(q, k, q_offset: int = 0, kv_valid=None):
+    """The causal mask of K8's call, (Sq, Skv): key j <= q_offset + i and
+    j < kv_valid."""
+    import torch
+    qp = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    return (kp <= qp) & (kp < (k.shape[1] if kv_valid is None else kv_valid))
+
+
+def _f64_scores(qb, kb, bias_b, keep):
+    """One batch row's scaled (with ``bias_b = (fq[b], fk[b])``, also
+    biased) scores in f64, (H, Sq, Skv), -inf outside ``keep``, from f64
+    qb (Sq, H, dh) and kb (Skv, Hkv, dh)."""
+    import math
+    import torch
+    G = qb.shape[1] // kb.shape[1]
+    s = torch.einsum("qhd,khd->hqk", qb, kb.repeat_interleave(G, 1)) \
+        / math.sqrt(qb.shape[-1])
+    if bias_b is not None:
+        s = s + bias_b[0].double().T[:, :, None] + \
+            bias_b[1].double().T[:, None, :]
+    return s.masked_fill(~keep, float("-inf"))
+
+
 def _dense_f64(q, k, v, q_offset: int, kv_valid: int, bias=None):
     """Attention by a dense f64 softmax, one batch row at a time: an oracle
     independent of the online softmax; ``bias = (fq, fk)`` adds the
     per-query and per-key terms (K8's bias form)."""
-    import math
     import torch
-    B, Sq, H, dh = q.shape
-    G = H // k.shape[2]
-    qp = q_offset + torch.arange(Sq, device=q.device)[:, None]
-    kp = torch.arange(k.shape[1], device=q.device)[None, :]
-    keep = (kp <= qp) & (kp < kv_valid)
+    G = q.shape[2] // k.shape[2]
+    keep = _keep(q, k, q_offset, kv_valid)
     out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
-    for b in range(B):
-        kb = k[b].double().repeat_interleave(G, 1)
-        vb = v[b].double().repeat_interleave(G, 1)
-        s = torch.einsum("qhd,khd->hqk", q[b].double(), kb) / math.sqrt(dh)
-        if bias is not None:
-            s = s + bias[0][b].double().T[:, :, None] + \
-                bias[1][b].double().T[:, None, :]
-        s = s.masked_fill(~keep, float("-inf"))
-        out[b] = torch.einsum("hqk,khd->qhd", torch.softmax(s, -1), vb)
+    for b in range(q.shape[0]):
+        s = _f64_scores(q[b].double(), k[b].double(),
+                        None if bias is None else (bias[0][b], bias[1][b]),
+                        keep)
+        out[b] = torch.einsum("hqk,khd->qhd", torch.softmax(s, -1),
+                              v[b].double().repeat_interleave(G, 1))
     return out
 
 
@@ -3891,45 +3964,48 @@ def _path_h(args, dev, rows, h) -> None:
           f"({card})")
 
 
-def _lse_f64(q, k):
-    """Each row's log-sum-exp of the scaled causal scores, in f64, one
-    batch row at a time: (B, H, Sq)."""
-    import math
+def _lse_f64(q, k, q_offset: int = 0, kv_valid=None, bias=None):
+    """Each row's log-sum-exp of the scaled (with ``bias = (fq, fk)``,
+    scaled and biased) causal scores, in f64, one batch row at a time: (B,
+    H, Sq)."""
     import torch
-    B, Sq, H, dh = q.shape
-    G = H // k.shape[2]
-    keep = torch.ones(Sq, k.shape[1], dtype=torch.bool,
-                      device=q.device).tril()
+    B, Sq, H, _ = q.shape
+    keep = _keep(q, k, q_offset, kv_valid)
     out = torch.empty((B, H, Sq), dtype=torch.float64, device=q.device)
     for b in range(B):
-        s = torch.einsum("qhd,khd->hqk", q[b].double(),
-                         k[b].double().repeat_interleave(G, 1)) / math.sqrt(dh)
-        out[b] = torch.logsumexp(s.masked_fill(~keep, float("-inf")), -1)
+        out[b] = torch.logsumexp(_f64_scores(
+            q[b].double(), k[b].double(),
+            None if bias is None else (bias[0][b], bias[1][b]), keep), -1)
     return out
 
 
-def _grads_f64(q, k, v, do):
+def _grads_f64(q, k, v, do, bias=None):
     """(dq, dk, dv) of causal attention by f64 autograd of a dense softmax,
-    one batch row at a time."""
-    import math
+    one batch row at a time; with ``bias = (fq, fk)`` also dfq and dfk
+    (the sums of dS over keys and over queries, as (B, S, H)) and the
+    largest sums of |dS| over the same axes (their scales)."""
     import torch
-    B, Sq, H, dh = q.shape
-    G = H // k.shape[2]
-    keep = torch.ones(Sq, k.shape[1], dtype=torch.bool,
-                      device=q.device).tril()
+    G = q.shape[2] // k.shape[2]
+    keep = _keep(q, k)
     outs = [torch.empty(t.shape, dtype=torch.float64, device=q.device)
-            for t in (q, k, v)]
-    for b in range(B):
+            for t in (q, k, v, *(bias or ()))]
+    scales = [0.0, 0.0]
+    for b in range(q.shape[0]):
         qd, kd, vd = (t[b].double().requires_grad_() for t in (q, k, v))
-        s = torch.einsum("qhd,khd->hqk", qd, kd.repeat_interleave(G, 1)) \
-            / math.sqrt(dh)
-        p = torch.softmax(s.masked_fill(~keep, float("-inf")), -1)
-        o = torch.einsum("hqk,khd->qhd", p, vd.repeat_interleave(G, 1))
-        for dst, g in zip(outs, torch.autograd.grad(o, (qd, kd, vd),
-                                                    do[b].double()),
-                          strict=True):
+        s = _f64_scores(qd, kd, None if bias is None else
+                        (bias[0][b], bias[1][b]), keep)
+        o = torch.einsum("hqk,khd->qhd", torch.softmax(s, -1),
+                         vd.repeat_interleave(G, 1))
+        gs = torch.autograd.grad(o, (qd, kd, vd, s), do[b].double())
+        for dst, g in zip(outs, gs[:3], strict=False):
             dst[b] = g
-    return outs
+        if bias is not None:
+            ds = gs[3]                                # (H, Sq, Skv)
+            outs[3][b], outs[4][b] = ds.sum(-1).T, ds.sum(-2).T
+            scales = [max(scales[0], float(ds.abs().sum(-1).max())),
+                      max(scales[1], float(ds.abs().sum(-2).max()))]
+        del s, o, gs
+    return outs if bias is None else (*outs, *scales)
 
 
 def _leaf_ulps(got, want) -> float:
@@ -4713,6 +4789,417 @@ def _j_bias_edges(h, dev, rows, first, launches) -> None:
           f"{row['bound_f32_ms']:.6f}; SDPA's f32 mask "
           f"{row['sdpa_mask_bytes']} bytes")
     del mask, qs, ks, vs
+
+
+def _k_span(cat: str, name: str):
+    """Path K's kinds by span: the sLSTM's time loop forward (with the
+    checkpoint's recompute) and backward (``_SLSTMLoop``'s spans), the bias
+    tile's torch-op backward (an autograd ``FlashAttentionBackward`` op)."""
+    if cat in ("user_annotation", "cpu_op") and name.startswith("slstm.scan"):
+        return "sLSTM loop " + ("backward" if name.endswith("backward")
+                                else "forward")
+    if cat == "cpu_op" and "FlashAttentionBackward" in name:
+        return "bias tile's backward (torch ops)"
+    return None
+
+
+def _path_k(args, dev, rows, h) -> None:
+    """Phase 16, path K: xlstm-125m trained at full width and depth through
+    ``launch.train.train``, counted (every mLSTM layer's K8 call on the
+    bias tile with its ``lse`` output, in the forward and again in the
+    remat's recompute); the bias tile's ``lse``, ``out`` and gradients (dq,
+    dk, dv, dfq, dfk) against plain and f64 oracles on the first step's
+    first and last mLSTM layer; ``J_BIAS_EDGES`` with ``lse`` and a planted
+    ``lse`` fault; the tile timed with and without ``lse`` beside plain and
+    the torch-op backward; a traced warm step; then one Mamba layer at
+    jamba's full width in its train form against the same block without
+    the chunk checkpoint (bit for bit) and in f64.  Adds path K's launches
+    and times to the ``flash_bias`` row."""
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.data.indexed_dataset import synthetic_token_stream
+    from repro_torch.kernels import flash as tflash
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import layers as tlayers
+    from repro_torch.models import model as TM
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.step import make_train_step
+
+    t_path = time.perf_counter()
+    cfg = tlaunch.train_config(K_ARCH, reduced=False)
+    n_m, n_s = cfg.pattern.count("mlstm"), cfg.pattern.count("slstm")
+    tokens = K_BATCH * K_SEQ
+    real_flash = tlayers.flash_attention
+    captured, calls = {}, [0]
+
+    def recording(q, k, v, *, q_offset, kv_valid=None, bias_qk=None, **kw):
+        """K8 as the model calls it, keeping copies of the first and last
+        mLSTM layer's inputs in the first step's forward."""
+        if calls[0] in (0, n_m - 1):
+            captured[calls[0]] = tuple(t.detach().clone() for t in (
+                q, k, v, *bias_qk))
+        calls[0] += 1
+        return real_flash(q, k, v, q_offset=q_offset, kv_valid=kv_valid,
+                          bias_qk=bias_qk, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    h.reset_counters()
+    tlayers.flash_attention = recording
+    try:
+        res, t_all = _sync_time(lambda: tlaunch.train(
+            K_ARCH, steps=K_STEPS, batch=K_BATCH, seq=K_SEQ, lr=K_LR,
+            reduced=False, ckpt_dir=None, log_every=1, seed=args.seed))
+    finally:
+        tlayers.flash_attention = real_flash
+    launches, with_lse = h.counters(), dict(tflash.LSE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"flash": 0, "flash_decode": 0, "flash_combine": 0,
+            "flash_cc": 0, "flash_bias": 2 * n_m * K_STEPS}
+    if {k: launches[k] for k in want} != want or \
+            with_lse["flash_bias"] != want["flash_bias"]:
+        raise AssertionError(f"path K launches {launches}, with lse "
+                             f"{with_lse}; want {want}, every one with lse")
+    losses = res.losses
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"path K losses {losses}: not finite or not "
+                             f"falling")
+    warm = statistics.median(res.step_s[1:])
+    print(f"phase 16: path K ({K_ARCH}, single card: {cfg.n_layers} layers, "
+          f"{n_m} mLSTM at head dim {cfg.expand * cfg.d_model // cfg.xl_heads}"
+          f" and {n_s} sLSTM at {cfg.d_model // cfg.xl_heads}, d_model "
+          f"{cfg.d_model}, {cfg.param_count()} parameters) ok; {K_STEPS} "
+          f"steps of {K_BATCH} x {K_SEQ} tokens, lr {K_LR}, remat on")
+    print(f"  losses {[round(x, 6) for x in losses]}; grad norms "
+          f"{[round(x, 6) for x in res.grad_norms]}")
+    print(f"  step seconds {[round(x, 6) for x in res.step_s]}; warm (median "
+          f"of steps 2-{K_STEPS}) {warm:.6f} s, {tokens / warm:.1f} tokens/s; "
+          f"train() {t_all:.3f} s with weight init; peak memory allocated "
+          f"{peak:.3f} GiB; K8 bias-tile launches {launches['flash_bias']} "
+          f"({launches['flash_bias'] / K_STEPS:.1f} a step), with lse "
+          f"{with_lse['flash_bias']}; other K8 tiles 0")
+
+    # the bias tile's lse, out and gradients on the first and last mLSTM
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 16)
+    err = 0.0
+    for layer, (q, k, v, fq, fk) in sorted(captured.items()):
+        bias = (fq, fk)
+        out, lse = h.uncounted(functools.partial(
+            tflash.flash_attention_lse, q, k, v, q_offset=0, bias_qk=bias))
+        bare = h.uncounted(functools.partial(
+            tflash.flash_attention, q, k, v, q_offset=0, bias_qk=bias))
+        ref, lse_p = tflash.flash_attention_plain(
+            q, k, v, q_offset=0, return_lse=True, bias_qk=bias)
+        lse_x = _lse_f64(q, k, bias=bias)
+        mag = tflash.flash_attention_plain(q.float(), k.float(),
+                                           v.float().abs(), q_offset=0,
+                                           bias_qk=bias)
+        d_out = (out.double() - ref.double()).abs()
+        d_lp = float((lse - lse_p).abs().max())
+        d_lx = float((lse.double() - lse_x).abs().max())
+        if not torch.equal(out, bare):
+            raise AssertionError(f"bias tile, mLSTM layer {layer}: out with "
+                                 f"lse differs from the tile without it")
+        if not bool((d_out <= _bf16_ulp(mag)).all()):
+            raise AssertionError(f"bias tile, mLSTM layer {layer}: out "
+                                 f"beyond one bf16 ulp of the magnitude")
+        if max(d_lp, d_lx) > K_LSE_ATOL:
+            raise AssertionError(f"bias tile, mLSTM layer {layer}: lse off "
+                                 f"by {d_lp} (plain) / {d_lx} (f64), "
+                                 f"tolerance {K_LSE_ATOL}")
+        do = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, fq, fk)]
+        with torch.enable_grad():
+            o = h.uncounted(functools.partial(
+                tflash.flash_attention, *leaves[:3], q_offset=0,
+                bias_qk=tuple(leaves[3:])))
+            o.backward(do)
+        dq, dk, dv, dfq, dfk, sq, sk = _grads_f64(q, k, v, do, bias)
+        gu = [_leaf_ulps(a.grad, x) for a, x in zip(leaves[:3], (dq, dk, dv),
+                                                    strict=True)]
+        gs = [float((a.grad.double() - x).abs().max()) / sc
+              for a, x, sc in ((leaves[3], dfq, sq), (leaves[4], dfk, sk))]
+        if max(gu) > K_GRAD_ULPS or max(gs) > K_BIAS_SUM_RTOL:
+            raise AssertionError(f"bias tile, mLSTM layer {layer}: dq/dk/dv "
+                                 f"{gu} ulps of the leaf (tolerance "
+                                 f"{K_GRAD_ULPS}), dfq/dfk {gs} of the "
+                                 f"largest sum of |dS| (tolerance "
+                                 f"{K_BIAS_SUM_RTOL})")
+        err = max(err, float(d_out.max()))
+        print(f"  bias tile, mLSTM layer {layer} (q {tuple(q.shape)}, |fq| "
+              f"up to {float(fq.abs().max()):.3f}): out with lse equal to "
+              f"the tile without it bit for bit, within one bf16 ulp of the "
+              f"magnitude of plain (max |diff| {float(d_out.max()):.6e}); "
+              f"lse max |kernel - plain| {d_lp:.6e}, |kernel - f64| "
+              f"{d_lx:.6e} (tolerance {K_LSE_ATOL}); dq, dk, dv against f64 "
+              f"autograd {[round(x, 6) for x in gu]} ulps of the leaf "
+              f"(tolerance {K_GRAD_ULPS}); dfq, dfk "
+              f"{[f'{x:.3e}' for x in gs]} of the largest sum of |dS| "
+              f"({sq:.6f}, {sk:.6f}; tolerance {K_BIAS_SUM_RTOL})")
+        del leaves, o, dq, dk, dv, dfq, dfk, lse_x, mag, ref
+    _k_lse_edges(h, dev)
+
+    # timed at the first mLSTM layer's shape: with and without lse, plain
+    # (with lse), and the torch-op backward
+    q, k, v, fq, fk = captured[0]
+    bias = (fq, fk)
+    nbytes, ops = _flash_work(q, k, 0, K_SEQ)
+    nbytes += (fq.numel() + fk.numel()) * 4 + q.shape[0] * q.shape[2] * \
+        K_SEQ * 4
+    bound = max(ops / BF16_TC_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    k_ms = _event_ms(lambda: h.uncounted(lambda: tflash.flash_attention_lse(
+        q, k, v, q_offset=0, bias_qk=bias)), 20)
+    bare_ms = _event_ms(lambda: h.uncounted(lambda: tflash.flash_attention(
+        q, k, v, q_offset=0, bias_qk=bias)), 20)
+    p_ms = _event_ms(lambda: tflash.flash_attention_plain(
+        q, k, v, q_offset=0, return_lse=True, bias_qk=bias), 3, warmup=1)
+    do = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+    _, lse = h.uncounted(lambda: tflash.flash_attention_lse(
+        q, k, v, q_offset=0, bias_qk=bias))
+    b_ms = _event_ms(lambda: tflash.flash_attention_bwd(
+        q, k, v, do, lse, q_offset=0, bias_qk=bias), 5, warmup=1)
+    row = rows["flash_bias"]
+    row["launches"] += launches["flash_bias"]
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row.update(path_k_launches=launches["flash_bias"], path_k_lse_ms=k_ms,
+               path_k_no_lse_ms=bare_ms, path_k_plain_ms=p_ms,
+               path_k_bound_ms=bound, path_k_backward_ms=b_ms)
+    print(f"  bias tile at path K's shape (q {tuple(q.shape)}): with lse "
+          f"{k_ms:.6f} ms, without {bare_ms:.6f} ms, plain (with lse) "
+          f"{p_ms:.6f} ms, bound {bound:.6f} ms ({nbytes} bytes, {ops} "
+          f"operations on the bf16 tensor cores); the backward's torch ops "
+          f"{b_ms:.6f} ms a layer")
+    del captured, q, k, v, fq, fk, bias, do, lse
+
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one warm step of a cut of the same width traced: where the time goes
+    cut = tlaunch.train_config(K_ARCH, reduced=False, n_layers=K_TRACE_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    params = TM.init_params(cut, gen, dev)
+    opt = topt.init(params)
+    step_fn = make_train_step(cut, lr=K_LR)
+    toks, labels = next(synthetic_token_stream(args.seed, cut.vocab_size,
+                                               K_BATCH, K_SEQ))
+    inputs = torch.from_numpy(toks).to(dev)
+    labels = torch.from_numpy(labels).to(dev)
+    pos = torch.arange(K_SEQ, dtype=torch.int32, device=dev)[None] \
+        .expand(K_BATCH, K_SEQ)
+    params, opt, _ = step_fn(params, opt, inputs, labels, pos)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("path K step"):
+            step_fn(params, opt, inputs, labels, pos)
+        torch.cuda.synchronize()
+    trace = ROOT / "build" / "path_k_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    del prof
+    t_read = time.perf_counter()
+    w = _trace_kinds(trace, "path K step", span_of=_k_span,
+                     by_name=(("K8", "bias tile (K8 forward)"),
+                              ("GEMM", "GEMMs")))
+    t_read = time.perf_counter() - t_read
+    trace_mb = trace.stat().st_size / 2**20
+    trace.unlink()
+    kinds = ", ".join(f"{k_} {v_:.6f} s ({v_ / w['busy']:.3%} of busy)"
+                      for k_, v_ in sorted(w["kinds"].items(),
+                                           key=lambda kv: -kv[1]))
+    loops = ", ".join(f"{k_} {v_:.6f} s ({v_ / w['wall']:.3%} of the wall)"
+                      for k_, v_ in w["span_s"].items())
+    print(f"  traced warm step of a {cut.n_layers}-layer cut of the same "
+          f"width ({cut.pattern}): wall {w['wall']:.6f} s, device busy "
+          f"{w['busy']:.6f} s, idle share {1 - w['busy'] / w['wall']:.6f}; "
+          f"{w['events']} device events ({trace_mb:.1f} MiB of trace, read "
+          f"in {t_read:.1f} s); by kind {kinds}; host spans: {loops}")
+    print("    top kernels: " + "; ".join(f"{n} {t:.6f} s"
+                                          for n, t in w["top"]))
+    del params, opt, step_fn, inputs, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    _k_mamba(args, dev)
+    print(f"  path K wall {time.perf_counter() - t_path:.1f} s")
+
+
+def _k_lse_edges(h, dev) -> None:
+    """The bias tile's ``lse`` on ``J_BIAS_EDGES`` against plain and f64,
+    ``out`` with it bit-equal to the tile without it; then a planted fault:
+    one row's fq raised by ``K_LSE_FAULT`` lse tolerances leaves every
+    output within one ulp (a row's constant cancels in its softmax) but
+    must fail the ``lse`` check."""
+    import torch
+    from repro_torch.kernels import flash as tflash
+    g = torch.Generator(device=dev)
+    g.manual_seed(26)
+    worst = [0.0, 0.0]
+    for n_edge, (what, B, Sq, Skv, H, Hkv, dh, qo, kvv, shift) in \
+            enumerate(J_BIAS_EDGES):
+        q, k, v, fq, fk = _j_bias_inputs(g, dev, B, Sq, Skv, H, Hkv, dh,
+                                         shift)
+        if kvv is None:
+            kvv = Skv
+        fk[:, kvv:] = 0.0
+        bias = (fq, fk)
+        kw = dict(q_offset=qo, kv_valid=kvv, bias_qk=bias)
+        out, lse = h.uncounted(functools.partial(
+            tflash.flash_attention_lse, q, k, v, **kw))
+        bare = h.uncounted(functools.partial(tflash.flash_attention, q, k,
+                                             v, **kw))
+        _, lse_p = tflash.flash_attention_plain(
+            q, k, v, q_offset=qo, kv_valid=kvv, return_lse=True,
+            bias_qk=bias)
+        lse_x = _lse_f64(q, k, qo, kvv, bias)
+        d = [float((lse - lse_p).abs().max()),
+             float((lse.double() - lse_x).abs().max())]
+        if not torch.equal(out, bare) or max(d) > K_LSE_ATOL:
+            raise AssertionError(f"bias tile lse ({what}): out equal to the "
+                                 f"tile without lse {torch.equal(out, bare)}"
+                                 f", lse off by {d} (tolerance "
+                                 f"{K_LSE_ATOL})")
+        worst = [max(a, b) for a, b in zip(worst, d, strict=True)]
+        if n_edge:
+            continue
+        # the planted fault on the first edge: row i's fq raised
+        i = Sq // 3
+        bad_fq = fq.clone()
+        bad_fq[:, i] += K_LSE_FAULT * K_LSE_ATOL
+        out_f, lse_f = h.uncounted(functools.partial(
+            tflash.flash_attention_lse, q, k, v, q_offset=qo, kv_valid=kvv,
+            bias_qk=(bad_fq, fk)))
+        mag = tflash.flash_attention_plain(q.float(), k.float(),
+                                           v.float().abs(), q_offset=qo,
+                                           kv_valid=kvv, bias_qk=bias)
+        ulps = float(((out_f.double() - out.double()).abs()
+                      / _bf16_ulp(mag)).max())
+        d_f = (lse_f.double() - lse_x).abs()
+        if not bool((d_f > K_LSE_ATOL).any()):
+            raise AssertionError("bias tile: the planted lse fault passes "
+                                 "the lse check")
+        print(f"  bias tile lse, planted fault (fq of query row {i} raised "
+              f"by {K_LSE_FAULT * K_LSE_ATOL}): out within {ulps:.6f} ulps "
+              f"of the magnitude of the unplanted tile's, lse off by up to "
+              f"{float(d_f.max()):.6e} on {int((d_f > K_LSE_ATOL).sum())} "
+              f"rows: caught")
+        del bad_fq, out_f, lse_f, mag, d_f
+    print(f"  bias tile lse on all {len(J_BIAS_EDGES)} J_BIAS_EDGES: out with "
+          f"lse equal to the tile without it bit for bit; lse max |kernel - "
+          f"plain| {worst[0]:.6e}, |kernel - f64| {worst[1]:.6e} (tolerance "
+          f"{K_LSE_ATOL})")
+
+
+def _mamba_f64(p, x, cfg):
+    """The Mamba block in f64 from the same bf16 weights and input, each of
+    the port's bf16 roundings in the forward kept (the rounded value, a
+    straight-through gradient), everything else f64: an oracle for its
+    gradients."""
+    import torch
+    import torch.nn.functional as F
+    f64, bf16 = torch.float64, torch.bfloat16
+
+    def rb(t):
+        return t + (t.to(bf16).to(f64) - t).detach()
+
+    def silu(t):
+        return t * torch.sigmoid(t)
+    p = type(p)(*(t.to(f64) for t in p))
+    B, S, _ = x.shape
+    xf = x.to(f64)
+    hn = rb(xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True)
+                             + cfg.norm_eps))
+    hh = rb(hn * p.ln)
+    xz = hh @ p.in_proj
+    di = xz.shape[-1] // 2
+    xs, z = xz[..., :di], xz[..., di:]
+    K = cfg.d_conv
+    xp = torch.cat([xs.new_zeros((B, K - 1, di)), xs], 1)
+    xc = silu(sum(xp[:, i:i + S] * p.conv_w[i] for i in range(K)) + p.conv_b)
+    feats = rb(xc) @ p.x_proj
+    dtr, ds = cfg.dt_rank, cfg.d_state
+    dt = F.softplus(rb(feats[..., :dtr]) @ p.dt_w + p.dt_b, threshold=1e4)
+    b_in, c_in = feats[..., dtr:dtr + ds], feats[..., dtr + ds:]
+    a = -torch.exp(p.a_log)
+    hst = xs.new_zeros((B, di, ds))
+    ys = []
+    for t in range(S):
+        hst = torch.exp(dt[:, t, :, None] * a) * hst + \
+            (dt[:, t] * xc[:, t])[..., None] * b_in[:, t, None, :]
+        ys.append((hst * c_in[:, t, None, :]).sum(-1) + p.d_skip * xc[:, t])
+    y = torch.stack(ys, 1) * silu(z)
+    return rb(y) @ p.out_proj
+
+
+def _k_mamba(args, dev) -> None:
+    """One Mamba layer at jamba's full width (``K_MAMBA_B`` x
+    ``K_MAMBA_S``), its train form (each scan chunk checkpointed): the
+    input's and every weight's gradient equal to the same block without the
+    chunk checkpoint bit for bit, and within ``K_MAMBA_RTOL`` of each
+    leaf's largest entry of the block in f64 (``_mamba_f64``)."""
+    import torch
+    from repro_torch.configs import get_arch, single_card
+    from repro_torch.models import model as TM
+    from repro_torch.models import ssm as tssm
+    cfg = single_card(get_arch(K_MAMBA_ARCH))
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 17)
+
+    def make(leaf):
+        if leaf.fan_in in (0, -1):
+            return torch.full(leaf.shape, float(leaf.fan_in == -1),
+                              dtype=torch.bfloat16, device=dev)
+        return (torch.randn(leaf.shape, generator=g, device=dev)
+                / leaf.fan_in ** 0.5).to(torch.bfloat16)
+    p = TM.tree_map(make, TM.build_tree(cfg)["sb"]["pos0"]["core"])
+    shape = (K_MAMBA_B, K_MAMBA_S, cfg.d_model)
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in (x, *p)]
+        torch.cuda.reset_peak_memory_stats()
+        with torch.enable_grad():
+            out, _ = tssm.mamba_block(type(p)(*leaves[1:]), leaves[0], cfg,
+                                      state=None, tp_shard=False)
+            (_, sec) = _sync_time(lambda: out.backward(dy))
+        return [t.grad for t in leaves], sec, \
+            torch.cuda.max_memory_allocated() / 2**30
+    got, sec, peak = grads()
+    real = tssm.checkpoint
+    tssm.checkpoint = lambda fn, *a, **kw: fn(*a)   # each chunk called directly
+    try:
+        plain, sec_p, peak_p = grads()
+    finally:
+        tssm.checkpoint = real
+    same = [torch.equal(a, b) for a, b in zip(got, plain, strict=True)]
+    names = ("x", *p._fields)
+    if not all(same):
+        raise AssertionError(f"Mamba train form: the chunk checkpoint changes "
+                             f"the gradients of {[n for n, s in zip(names, same, strict=True) if not s]}")
+    del plain
+    leaves = [t.to(torch.float64).requires_grad_() for t in (x, *p)]
+    with torch.enable_grad():
+        out = _mamba_f64(type(p)(*leaves[1:]), leaves[0], cfg)
+        (_, sec_x) = _sync_time(lambda: out.backward(dy.to(torch.float64)))
+    rel = {n: float((a.double() - b.grad).abs().max() / b.grad.abs().max())
+           for n, a, b in zip(names, got, leaves, strict=True)}
+    if max(rel.values()) > K_MAMBA_RTOL:
+        raise AssertionError(f"Mamba train form against f64: {rel} "
+                             f"(tolerance {K_MAMBA_RTOL})")
+    print(f"  Mamba layer at {K_MAMBA_ARCH}'s width (d_model {cfg.d_model}, "
+          f"d_inner {cfg.d_inner}, d_state {cfg.d_state}, dt_rank "
+          f"{cfg.dt_rank}; {K_MAMBA_B} x {K_MAMBA_S} tokens, chunks of "
+          f"{tssm.CHUNK}): input and weight gradients with the chunk "
+          f"checkpoint equal to those without it bit for bit; against f64 "
+          f"(largest |diff| / largest entry) "
+          f"{ {n: float(f'{r:.3e}') for n, r in rel.items()} } (tolerance "
+          f"{K_MAMBA_RTOL}); backward {sec:.6f} s with the checkpoint (peak "
+          f"{peak:.3f} GiB), {sec_p:.6f} s without ({peak_p:.3f} GiB), f64 "
+          f"{sec_x:.3f} s")
 
 
 def main(argv=None) -> int:
@@ -5619,6 +6106,13 @@ def main(argv=None) -> int:
 
     # ---- phase 15: path J (the recurrent families served), counted --------
     _path_j(args, dev, rows, h)
+    print(f"  wall {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- phase 16: path K (the recurrent families trained), counted -------
+    _path_k(args, dev, rows, h)
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
 
     smi = _card()

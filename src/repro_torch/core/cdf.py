@@ -44,6 +44,43 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     return (loc + exc[..., None]).reshape(*x.shape[:-1], nb * _BLOCK)[..., :m]
 
 
+def reverse_prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """``out[j] = sum_{i >= j} x[i]`` over the last axis in the order
+    XLA:CPU computes ``lax.cumsum(reverse=True)`` (the transpose of
+    ``jnp.cumsum``, hence its VJP): a row of width <= 16 gives each entry
+    its own sum from j to the end, taken from j onward; a wider row is
+    zero-padded at its end into blocks of 16, each block summed so, the
+    block totals summed the same way (recursively) and each block's
+    following blocks' total added to its entries."""
+    m = x.shape[-1]
+    if m <= _BLOCK:
+        out = x.clone()
+        for d in range(1, m):
+            out[..., :m - d] = out[..., :m - d] + x[..., d:]
+        return out
+    nb = -(-m // _BLOCK)
+    xp = torch.nn.functional.pad(x, (0, nb * _BLOCK - m))
+    loc = reverse_prefix_sum(xp.reshape(*x.shape[:-1], nb, _BLOCK))
+    inc = reverse_prefix_sum(loc[..., 0])
+    exc = torch.cat([inc[..., 1:], torch.zeros_like(inc[..., :1])], -1)
+    return (loc + exc[..., None]).reshape(*x.shape[:-1], nb * _BLOCK)[..., :m]
+
+
+class PrefixSum(torch.autograd.Function):
+    """``prefix_sum`` under a gradient, with the VJP JAX gives
+    ``jnp.cumsum``: ``reverse_prefix_sum`` of the cotangent, in XLA's
+    order (autograd of ``prefix_sum``'s own additions would sum it in
+    another)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return prefix_sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reverse_prefix_sum(g)
+
+
 def exclusive_prefix(h: torch.Tensor) -> torch.Tensor:
     """``concat([0], cumsum(h)[:-1])`` over the last axis, XLA's order."""
     inc = prefix_sum(h)

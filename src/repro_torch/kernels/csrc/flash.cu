@@ -79,12 +79,13 @@
 //    in {64, 384}: the per-query and per-key terms added to each score, S
 //    and P.V on the tensor cores by mma.sync (section 4 below).
 //
-// Training: tiles 1 and 3 take an optional `lse` pointer (f32, (B, H, Sq)).
-// Where it is not null, each block's epilogue also writes every row's
-// log-sum-exp m + log(l) of its scaled scores, from the m and l it holds in
-// registers, for the backward (kernels/flash.py flash_attention_bwd).
-// Serving passes null: the main loop, the output and the wgmma sequence are
-// the same either way.
+// Training: tiles 1, 3 and 4 take an optional `lse` pointer (f32, (B, H,
+// Sq)).  Where it is not null, each block's epilogue also writes every row's
+// log-sum-exp m + log(l) of its scaled (tile 4: scaled and biased) scores,
+// from the m and l it holds in registers, for the backward
+// (kernels/flash.py flash_attention_bwd).  Serving passes null: the main
+// loop, the output and the wgmma / mma.sync sequence are the same either
+// way.
 //
 // The kernels sum their dot products in other orders than XLA's dot, so
 // they agree with the reference to f32 rounding (within the tolerances
@@ -1217,8 +1218,9 @@ flash_bias_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   const float* __restrict__ fq, const float* __restrict__ fk,
-                  __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
-                  int Hkv, int G, int q_offset, int kv_valid, float scale) {
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                  int Sq, int Skv, int H, int Hkv, int G, int q_offset,
+                  int kv_valid, float scale) {
   using T = BiasTile<D>;
   constexpr int kBK = kBiasBK, QS = T::kQs, VS = T::kVs;
   constexpr int NCH = D / 8;                 // 16-byte chunks a row
@@ -1395,14 +1397,19 @@ flash_bias_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
           __floats2bfloat162_rn(__fdiv_rn(o[j][2 * h], den),
                                 __fdiv_rn(o[j][2 * h + 1], den));
+    // the row's log-sum-exp: m and l are the same in its quad and in both
+    // column slices' warps, so the first lane of the first slice writes it
+    if (lse != nullptr && tq == 0 && c0 == 0)
+      lse[(static_cast<size_t>(b) * H + hkv * G + g2[h]) * Sq + rr2[h] / G] =
+          __fadd_rn(m[h], logf(l[h]));
   }
 }
 
 template <int D>
 int launch_bias(const void* q, const void* k, const void* v, const float* fq,
-                const float* fk, void* out, int B, int Sq, int Skv, int H,
-                int Hkv, int q_offset, int kv_valid, float scale,
-                cudaStream_t stream) {
+                const float* fk, void* out, float* lse, int B, int Sq,
+                int Skv, int H, int Hkv, int q_offset, int kv_valid,
+                float scale, cudaStream_t stream) {
   using T = BiasTile<D>;
   const int G = H / Hkv;
   const int smem = T::kBf16Bytes +
@@ -1416,7 +1423,7 @@ int launch_bias(const void* q, const void* k, const void* v, const float* fq,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), fq, fk,
-      static_cast<__nv_bfloat16*>(out), Sq, Skv, H, Hkv, G, q_offset,
+      static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, H, Hkv, G, q_offset,
       kv_valid, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1515,20 +1522,22 @@ extern "C" int repro_flash_decode(const void* q, const void* k,
 }
 
 // The bias tile (the mLSTM's parallel form): bf16 q, k, v with D in {64,
-// 384}, f32 fq (B, Sq, H) and fk (B, Skv, H), both contiguous.
+// 384}, f32 fq (B, Sq, H) and fk (B, Skv, H), both contiguous; `lse` as
+// above (the biased scores' log-sum-exp), or null.
 extern "C" int repro_flash_bias(const void* q, const void* k, const void* v,
                                 const void* fq, const void* fk, void* out,
-                                int B, int Sq, int Skv, int H, int Hkv, int D,
-                                int q_offset, int kv_valid, float scale,
-                                void* stream) {
+                                void* lse, int B, int Sq, int Skv, int H,
+                                int Hkv, int D, int q_offset, int kv_valid,
+                                float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* fqp = static_cast<const float*>(fq);
   const float* fkp = static_cast<const float*>(fk);
+  float* ls = static_cast<float*>(lse);
   switch (D) {
-    case 64: return launch_bias<64>(q, k, v, fqp, fkp, out, B, Sq, Skv, H,
-                                    Hkv, q_offset, kv_valid, scale, st);
-    case 384: return launch_bias<384>(q, k, v, fqp, fkp, out, B, Sq, Skv, H,
-                                      Hkv, q_offset, kv_valid, scale, st);
+    case 64: return launch_bias<64>(q, k, v, fqp, fkp, out, ls, B, Sq, Skv,
+                                    H, Hkv, q_offset, kv_valid, scale, st);
+    case 384: return launch_bias<384>(q, k, v, fqp, fkp, out, ls, B, Sq, Skv,
+                                      H, Hkv, q_offset, kv_valid, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -35,24 +35,25 @@ On a CUDA tensor ``flash_attention`` launches one of three tiles of
 * with ``bias_qk = (fq, fk)`` (f32 (B, Sq, H) and (B, Skv, H), the
   mLSTM's F_t and i_s - F_s): the bias tile, bf16 at dh 64 or 384
   (``bias_tile_of``), each score ``(s + fq[i]) + fk[j]`` before the mask;
-  counted in ``LAUNCHES["flash_bias"]``.  It has no backward yet: under
-  autograd the bias form raises ``not_ported``.
+  counted in ``LAUNCHES["flash_bias"]``.
 
 ``flash_decode_split_plain`` is the split-KV tile's partials and combine
 in plain torch, for the tests and ``chip_smoke.py``.
 
 Training (``FlashAttention``, which ``flash_attention`` takes whenever
-autograd records): the forward launches the same tensor-core or CUDA-core
-tile with its ``lse`` output, each row's f32 log-sum-exp ``m + log(l)``
-of (B, H, Sq), counted in ``LAUNCHES`` as any launch of the tile and in
-``LSE_LAUNCHES`` besides; the split-KV decode tile writes no ``lse`` and
-raises.  The backward (``flash_attention_bwd``) is torch ops, not a
+autograd records): the forward launches the same tensor-core, CUDA-core or
+bias tile with its ``lse`` output, each row's f32 log-sum-exp ``m +
+log(l)`` of (B, H, Sq) (of the biased scores in the bias form), counted in
+``LAUNCHES`` as any launch of the tile and in ``LSE_LAUNCHES`` besides; the
+split-KV decode tile writes no ``lse`` and raises.  The backward (``flash_attention_bwd``) is torch ops, not a
 kernel: the reference's TPU kernel is forward only and the reference
 trains by XLA's autodiff of its jnp scan, so the port recomputes the
 softmax from ``lse`` in f32, a block of query rows at a time over every
 key they see (``P = exp(s - lse)``, ``D = rowsum(P * dP)`` exact in f32),
 sums dk and dv over the G query heads a KV head serves, and rounds once
-to the inputs' dtype.  No library attention: SDPA's backward rounds P to
+to the inputs' dtype; in the bias form it also returns the bias terms'
+gradients, ``dfq = sum_j dS`` and ``dfk = sum_i dS`` per query head, in
+f32.  No library attention: SDPA's backward rounds P to
 bf16.  On the CPU the forward is the plain version (``return_lse``) and
 the backward the same code.
 """
@@ -63,12 +64,12 @@ import functools
 import numpy as np
 import torch
 
-from .. import not_ported
 from . import build
 
 LAUNCHES = {"flash": 0, "flash_decode": 0, "flash_combine": 0,
             "flash_cc": 0, "flash_bias": 0}
-LSE_LAUNCHES = {"flash": 0, "flash_cc": 0}   # of those, with the lse output
+LSE_LAUNCHES = {"flash": 0, "flash_cc": 0,   # of those, with the lse output
+                "flash_bias": 0}
 
 DIMS = (16, 32, 64, 128)         # head dims the kernels are instantiated for
 TC_DIMS = (64, 128)               # head dims of the bf16 tiles
@@ -271,7 +272,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
     Skv, Hkv = k.shape[1], k.shape[2]
     tile = tile_of(q.dtype, dh, Sq * (H // Hkv)) if bias is None else \
         bias_tile_of(q.dtype, dh)
-    if lse is not None and tile in ("flash_decode", "flash_bias"):
+    if lse is not None and tile == "flash_decode":
         raise ValueError(f"the {tile} tile writes no lse")
     if bias is not None and any(t.device != q.device for t in bias):
         raise ValueError("bias_qk must lie on q's device")
@@ -304,8 +305,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
     elif tile == "flash_bias":
         fq, fk = (t.contiguous() for t in bias)
         rc = lib.repro_flash_bias(*ptrs, fq.data_ptr(), fk.data_ptr(),
-                                  out.data_ptr(), B, Sq, Skv, H, Hkv, dh,
-                                  q_offset, kv_valid, scale, stream)
+                                  out.data_ptr(), lse_ptr, B, Sq, Skv, H,
+                                  Hkv, dh, q_offset, kv_valid, scale, stream)
         build.check(rc, "flash (bias tile)")
     else:
         rc = lib.repro_flash_cc(
@@ -339,34 +340,45 @@ def _args_of(q, k, v, q_offset, kv_valid) -> tuple[int, int]:
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, q_offset: int, kv_valid: int | None = None
+                        *, q_offset: int, kv_valid: int | None = None,
+                        bias_qk: tuple | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """K8 with its row statistics: (out, lse), lse f32 (B, H, Sq) = m +
-    log(l) of each row's scaled scores.  CUDA tensors launch the tile with
-    its ``lse`` output; CPU tensors take the plain version."""
+    log(l) of each row's scaled scores (with ``bias_qk``, scaled and
+    biased).  CUDA tensors launch the tile with its ``lse`` output; CPU
+    tensors take the plain version."""
     q_offset, kv_valid = _args_of(q, k, v, q_offset, kv_valid)
+    if bias_qk is not None:
+        bias_qk = _check_bias(q, k, bias_qk)
     if q.device.type != "cuda":
         return flash_attention_plain(q, k, v, q_offset=q_offset,
-                                     kv_valid=kv_valid, return_lse=True)
+                                     kv_valid=kv_valid, return_lse=True,
+                                     bias_qk=bias_qk)
     B, Sq, H, _ = q.shape
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    return _launch(q, k, v, q_offset, kv_valid, lse), lse
+    return _launch(q, k, v, q_offset, kv_valid, lse, bias_qk), lse
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, lse: torch.Tensor, *,
-                        q_offset: int, kv_valid: int | None = None
-                        ) -> tuple:
+                        q_offset: int, kv_valid: int | None = None,
+                        bias_qk: tuple | None = None) -> tuple:
     """(dq, dk, dv) of K8 from its inputs, the output's cotangent and the
-    forward's ``lse``, in torch ops on any device.  A block of
-    ``BWD_Q_BLOCK`` query rows at a time, in f32: ``s = (f32(q) * scale) . k`` over the
-    keys the block sees, ``P = exp(s - lse)`` (masked: 0), ``dV += P^T dO``,
-    ``dP = dO V^T``, ``D = rowsum(P * dP)``, ``dS = P * (dP - D)``, ``dQ =
-    scale * dS K``, ``dK += dS^T (q * scale)``.  The G = H / Hkv query heads
-    of a KV head are rows of one product, so dk and dv come out summed
-    over them (the transpose of the reference's ``jnp.repeat``).  Each
-    gradient is rounded once to its input's dtype."""
+    forward's ``lse``, in torch ops on any device; with ``bias_qk = (fq,
+    fk)`` also (dfq, dfk), f32 (B, Sq, H) and (B, Skv, H).  A block of
+    ``BWD_Q_BLOCK`` query rows at a time, in f32: ``s = (f32(q) * scale) .
+    k`` over the keys the block sees (bias form: ``(s + fq[i]) + fk[j]``),
+    ``P = exp(s - lse)`` (masked: 0), ``dV += P^T dO``, ``dP = dO V^T``,
+    ``D = rowsum(P * dP)``, ``dS = P * (dP - D)``, ``dQ = scale * dS K``,
+    ``dK += dS^T (q * scale)``, ``dfq = sum_j dS``, ``dfk += sum_i dS``.
+    The G = H / Hkv query heads of a KV head are rows of one product, so
+    dk and dv come out summed over them (the transpose of the reference's
+    ``jnp.repeat``); dfk stays a query head's own.  Keys at or past
+    ``kv_valid`` get zero.  Each gradient of q, k, v is rounded once to its
+    input's dtype."""
     q_offset, kv_valid = _args_of(q, k, v, q_offset, kv_valid)
+    if bias_qk is not None:
+        bias_qk = _check_bias(q, k, bias_qk)
     B, Sq, H, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -384,11 +396,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty((B, Hkv, G, Sq, dh), dtype=f32, device=dev)
     dk = torch.zeros((B, Hkv, Skv, dh), dtype=f32, device=dev)
     dv = torch.zeros((B, Hkv, Skv, dh), dtype=f32, device=dev)
+    if bias_qk is not None:             # (B, S, H) -> (B, Hkv, G, S)
+        fqr, fkr = (t.reshape(B, -1, Hkv, G).permute(0, 2, 3, 1)
+                    for t in bias_qk)
+        dfq = torch.zeros((B, Hkv, G, Sq), dtype=f32, device=dev)
+        dfk = torch.zeros((B, Hkv, G, Skv), dtype=f32, device=dev)
     kv_pos = torch.arange(Skv, device=dev)
     for i0 in range(0, Sq, BWD_Q_BLOCK):
         i1 = min(i0 + BWD_Q_BLOCK, Sq)
         kend = max(0, min(kv_valid, q_offset + i1))
-        n = G * (i1 - i0)
+        bq = i1 - i0
+        n = G * bq
         if kend == 0:
             dq[:, :, :, i0:i1] = 0
             continue
@@ -400,6 +418,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             (kv_pos[None, :kend] < kv_valid)                  # (bq, kend)
         keep = keep.expand(G, -1, -1).reshape(n, kend)
         s = qb @ kb.transpose(-1, -2)                         # (B, Hkv, n, k)
+        if bias_qk is not None:
+            s = (s.view(B, Hkv, G, bq, kend) + fqr[..., i0:i1, None]
+                 + fkr[:, :, :, None, :kend]).view(B, Hkv, n, kend)
         lb = ls[:, :, :, i0:i1].reshape(B, Hkv, n, 1)
         p = torch.where(keep, torch.exp(s - lb), torch.zeros((), dtype=f32,
                                                              device=dev))
@@ -408,34 +429,48 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dp = dob @ vb.transpose(-1, -2)
         ds = p * (dp - (p * dp).sum(-1, keepdim=True))
         del p, dp
-        dq[:, :, :, i0:i1] = (ds @ kb).reshape(B, Hkv, G, i1 - i0, dh) * scale
+        dq[:, :, :, i0:i1] = (ds @ kb).reshape(B, Hkv, G, bq, dh) * scale
         dk[:, :, :kend] += ds.transpose(-1, -2) @ qb
+        if bias_qk is not None:
+            ds = ds.view(B, Hkv, G, bq, kend)
+            dfq[..., i0:i1] = ds.sum(-1)
+            dfk[..., :kend] += ds.sum(3)
         del ds
     dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
-    return dq, dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+    grads = (dq, dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(
+        v.dtype))
+    if bias_qk is None:
+        return grads
+    return grads + (dfq.permute(0, 3, 1, 2).reshape(B, Sq, H),
+                    dfk.permute(0, 3, 1, 2).reshape(B, Skv, H))
 
 
 class FlashAttention(torch.autograd.Function):
     """K8 under a gradient: the forward launches the tile with its ``lse``
-    output (CPU: the plain version), saving q, k, v and ``lse``; the
-    backward is ``flash_attention_bwd``.  There is no fallback: a tile that
-    fails to build or launch fails the step."""
+    output (CPU: the plain version), saving q, k, v, ``lse`` and, in the
+    bias form, fq and fk; the backward is ``flash_attention_bwd``, which
+    also gives fq and fk their gradients.  There is no fallback: a tile
+    that fails to build or launch fails the step."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_offset: int, kv_valid: int):
+    def forward(ctx, q, k, v, q_offset: int, kv_valid: int, fq=None,
+                fk=None):
+        bias = None if fq is None else (fq, fk)
         out, lse = flash_attention_lse(q, k, v, q_offset=q_offset,
-                                       kv_valid=kv_valid)
-        ctx.save_for_backward(q, k, v, lse)
+                                       kv_valid=kv_valid, bias_qk=bias)
+        ctx.save_for_backward(q, k, v, lse, fq, fk)
         ctx.q_offset, ctx.kv_valid = q_offset, kv_valid
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, dout, lse,
-                                         q_offset=ctx.q_offset,
-                                         kv_valid=ctx.kv_valid)
-        return dq, dk, dv, None, None
+        q, k, v, lse, fq, fk = ctx.saved_tensors
+        bias = None if fq is None else (fq, fk)
+        grads = flash_attention_bwd(q, k, v, dout, lse,
+                                    q_offset=ctx.q_offset,
+                                    kv_valid=ctx.kv_valid, bias_qk=bias)
+        return (*grads[:3], None, None,
+                *(grads[3:] if bias is not None else (None, None)))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -448,24 +483,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with ``bias_qk = (fq, fk)`` each score gains ``fq[b, i, h] + fk[b, j,
     h]`` (the mLSTM's parallel form).  CUDA tensors launch a kernel
     (``tile_of``; ``bias_tile_of`` with ``bias_qk``); CPU tensors take the
-    plain version.  Where autograd records (grad enabled and an input
-    requiring it) the call goes through ``FlashAttention``; the bias form
-    has no backward yet and raises there."""
+    plain version.  Where autograd records (grad enabled and an input,
+    fq and fk included, requiring it) the call goes through
+    ``FlashAttention``."""
     q_offset, kv_valid = _args_of(q, k, v, q_offset, kv_valid)
-    if bias_qk is not None:
-        fq, fk = _check_bias(q, k, bias_qk)
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v, fq, fk)):
-            raise not_ported("flash_attention(bias_qk=...) under autograd "
-                             "(the mLSTM's training)", "14")
-        if q.device.type != "cuda":
-            return flash_attention_plain(q, k, v, q_offset=q_offset,
-                                         kv_valid=kv_valid,
-                                         bias_qk=(fq, fk))
-        return _launch(q, k, v, q_offset, kv_valid, None, (fq, fk))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, q_offset, kv_valid)
+    bias = () if bias_qk is None else _check_bias(q, k, bias_qk)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (q, k, v, *bias)):
+        return FlashAttention.apply(q, k, v, q_offset, kv_valid, *bias)
     if q.device.type != "cuda":
         return flash_attention_plain(q, k, v, q_offset=q_offset,
-                                     kv_valid=kv_valid)
-    return _launch(q, k, v, q_offset, kv_valid, None)
+                                     kv_valid=kv_valid, bias_qk=bias or None)
+    return _launch(q, k, v, q_offset, kv_valid, None, bias or None)

@@ -20,11 +20,12 @@ operand's gradient is the f32 cotangent times the other operand, an f32
 product, rounded once to the operand's dtype (``_MatmulF32``).
 
 There is no mesh: tensor-parallel layouts (``cfg.tp_shard``), sequence-
-sharded caches, partial softmax results (``return_partial``), ``bias_qk``
-under autograd and M-RoPE raise ``not_ported`` (ROADMAP queue 1 item 14).
-Caches are updated in place.  The activations ``softplus``,
-``log_sigmoid`` and ``silu`` are jax.nn's formulas, for the recurrent
-blocks (``models/ssm.py``, ``models/xlstm.py``).
+sharded caches, partial softmax results (``return_partial``) and M-RoPE
+raise ``not_ported`` (ROADMAP queue 1 item 14).  Caches are updated in
+place.  The activations ``softplus``, ``log_sigmoid``, ``sigmoid`` and
+``silu`` are jax.nn's formulas, for the recurrent blocks
+(``models/ssm.py``, ``models/xlstm.py``), with JAX's derivatives under a
+gradient (``_Softplus``, ``_Sigmoid``).
 """
 from __future__ import annotations
 
@@ -107,12 +108,56 @@ def no_tf32(dev: torch.device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# activations (jax.nn's formulas)
+# activations (jax.nn's formulas, and under a gradient JAX's derivatives)
 # ---------------------------------------------------------------------------
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _no_posinf(t: torch.Tensor) -> torch.Tensor:
+    return torch.where(t == float("inf"), torch.zeros((), dtype=t.dtype,
+                                                      device=t.device), t)
+
+
+class _Softplus(torch.autograd.Function):
+    """``logaddexp(x, 0)`` with the custom JVP JAX gives it: ``g *
+    exp(r(x) - r(y))``, r putting 0 for +inf (1 at x = +inf, 0 at -inf, 0.5
+    at 0).  Autograd of the formula would give 1 or 0 at x = 0 (the
+    clamp's subgradient; torch's sign(0) is 0) and round differently."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _softplus(x)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * torch.exp(_no_posinf(x) - _no_posinf(y))
+
+
+class _Sigmoid(torch.autograd.Function):
+    """``lax.logistic`` with JAX's derivative ``g * (s * (1 - s))``
+    (torch's rounds ``(g * (1 - s)) * s``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.sigmoid(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``, ``logaddexp(x, 0)``: ``max(x, 0) +
-    log1p(exp(-|x|))`` (``F.softplus`` switches to x above a threshold)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    log1p(exp(-|x|))`` (``F.softplus`` switches to x above a threshold);
+    under a gradient ``_Softplus``."""
+    return _Softplus.apply(x) if _records(x) else _softplus(x)
 
 
 def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -120,9 +165,15 @@ def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return -softplus(-x)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``; under a gradient ``_Sigmoid``."""
+    return _Sigmoid.apply(x) if _records(x) else torch.sigmoid(x)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``: ``x * sigmoid(x)``."""
-    return x * torch.sigmoid(x)
+    """``jax.nn.silu``: ``x * sigmoid(x)``; under a gradient the product's
+    transpose and ``_Sigmoid``'s, as JAX differentiates it."""
+    return x * sigmoid(x)
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +222,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     over global positions (``q_offset`` for decode), keys at positions
     ``>= kv_valid`` masked; ``bias_qk = (fq, fk)``, f32 (B, Sq, H) and
     (B, Skv, H), adds the per-query and per-key terms to each score (the
-    mLSTM's parallel form; inference only: under autograd it raises).  K8
+    mLSTM's parallel form; under autograd fq and fk get gradients).  K8
     (``kernels.flash.flash_attention``): CUDA tensors launch the kernel,
     CPU tensors take its plain version."""
     if return_partial:

@@ -16,9 +16,12 @@ Forward modes: ``"train"`` (full sequence, loss-ready hidden states; with
 fresh caches when given) and ``"decode"`` (one token against the caches).
 Caches (K/V for attention layers, the recurrent states of the others) are
 updated in place and returned.  ``lm_loss`` is the chunked cross-entropy
-the train step differentiates.  M-RoPE, ``embed_input`` archs,
-tensor-parallel layouts and ``forward(mode="train")`` through a Mamba,
-mLSTM or sLSTM layer raise ``not_ported`` (ROADMAP queue 1 item 14).
+the train step differentiates; ``"train"`` runs through every layer
+kind (the recurrent blocks' training forms: ``models/ssm.py``,
+``models/xlstm.py``), and the superblock's checkpoint recomputes the
+sLSTM's loop and K8's bias tile in the backward as it does any layer.
+M-RoPE, ``embed_input`` archs and tensor-parallel layouts raise
+``not_ported`` (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -56,7 +59,6 @@ def _supported(cfg) -> None:
 
 
 KINDS = ("attn", "mamba", "mlstm", "slstm")
-RECURRENT = ("mamba", "mlstm", "slstm")
 _STATE = {"mamba": ssm.MambaState, "mlstm": xlstm.MLSTMState,
           "slstm": xlstm.SLSTMState}
 
@@ -318,9 +320,6 @@ def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
     if seq_sharded:
         raise not_ported("sequence-sharded KV caches", "14")
     _supported(cfg)
-    if mode == "train" and set(cfg.pattern) & set(RECURRENT):
-        raise not_ported("training through Mamba, mLSTM or sLSTM layers "
-                         "(forward(mode='train'))", "14")
     x = embed_tokens(params, cfg, inputs, cfg.tp_shard)
     if mode == "decode":
         if cache_len is None:

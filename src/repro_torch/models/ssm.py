@@ -13,19 +13,25 @@ one-step recurrence.  The conv state is stored as bf16 and read back as
 f32.
 
 The scan is a loop over time on the host, as the reference's ``lax.scan``:
-each chunk's decay ``exp(dt a)`` and input ``dt x b`` (B, L, d_inner,
+each chunk's decay ``exp(dt a)`` and input ``dt x b`` (L, B, d_inner,
 d_state) are computed for the whole chunk first -- the same elementwise
 roundings as the reference's step -- and each step is then one multiply and
 one add, written into the chunk's stack of states; ``y = c . h + D x``
-follows for the chunk at once.  The time loop runs under the
+follows for the chunk at once (``_scan_chunk``).  The time loop runs under the
 ``torch.profiler`` span ``mamba.scan`` (a trace's host share of it).  The
 TPU reference has no kernel here, and neither has the port.
+
+Training (autograd recording): each chunk's states are stacked once
+instead, under ``torch.utils.checkpoint`` (non-reentrant), as the
+reference's chunk body is ``jax.checkpoint``ed: the backward keeps a chunk
+boundary's state, not every step's.  ``softplus`` and ``silu`` take JAX's derivatives.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers
 
@@ -52,32 +58,51 @@ class MambaState(NamedTuple):
     h: torch.Tensor           # (B, di, d_state) f32
 
 
-def _ssm_scan(x, dt, b_in, c_in, a, d_skip, h0, chunk: int) -> tuple:
-    """Selective scan ``h_t = exp(dt_t a) h_{t-1} + dt_t b_t x_t``, ``y_t =
-    c_t . h_t + D x_t`` over chunks of ``chunk`` steps.  x, dt (B, S, di),
-    b, c (B, S, ds), a (di, ds), h0 (B, di, ds); returns (y (B, S, di),
-    h_final), both f32."""
-    B, S, di = x.shape
-    ds = a.shape[1]
-    ys, h = [], h0
-    for c0 in range(0, S, chunk):
-        xc, dtc = x[:, c0:c0 + chunk], dt[:, c0:c0 + chunk]
-        bc, cc = b_in[:, c0:c0 + chunk], c_in[:, c0:c0 + chunk]
-        L = xc.shape[1]
-        # (L, B, di, ds): step t reads and writes contiguous slices
-        decay = torch.exp(dtc.transpose(0, 1)[..., None] * a)
-        u = (dtc * xc).transpose(0, 1)[..., None] * \
-            bc.transpose(0, 1)[:, :, None, :]
-        hs = torch.empty((L, B, di, ds), dtype=F32, device=x.device)
-        with torch.profiler.record_function("mamba.scan"):
-            for t in range(L):
+def _scan_chunk(h, xc, dtc, bc, cc, a, d_skip) -> tuple:
+    """One chunk of ``_ssm_scan``: (y (B, L, di), the last state).  The
+    chunk's decay ``exp(dt a)`` and input ``dt x b`` (L, B, di, ds) first,
+    then one multiply and one add a step: without a gradient each state
+    written into the chunk's stack (``out=``); under one the states stacked
+    once (autograd rejects ``out=``) from the inputs unbound (an index a
+    step would zero-fill the whole stacks in each step's backward)."""
+    decay = torch.exp(dtc.transpose(0, 1)[..., None] * a)
+    u = (dtc * xc).transpose(0, 1)[..., None] * \
+        bc.transpose(0, 1)[:, :, None, :]
+    with torch.profiler.record_function("mamba.scan"):
+        if layers._records(decay, u, h):
+            steps = []
+            for dt_a, dbx in zip(decay.unbind(0), u.unbind(0), strict=True):
+                h = dt_a * h + dbx
+                steps.append(h)
+            hs = torch.stack(steps)
+        else:
+            hs = torch.empty_like(u)
+            for t in range(hs.shape[0]):
                 torch.add(decay[t] * h, u[t], out=hs[t])
                 h = hs[t]
-        y = (hs * cc.transpose(0, 1)[:, :, None, :]).sum(-1) + \
-            d_skip * xc.transpose(0, 1)
-        ys.append(y.transpose(0, 1))
-        del decay, u, hs
-    return torch.cat(ys, 1), h.clone()
+    y = (hs * cc.transpose(0, 1)[:, :, None, :]).sum(-1) + \
+        d_skip * xc.transpose(0, 1)
+    return y.transpose(0, 1), h
+
+
+def _ssm_scan(x, dt, b_in, c_in, a, d_skip, h0, chunk: int) -> tuple:
+    """Selective scan ``h_t = exp(dt_t a) h_{t-1} + dt_t b_t x_t``, ``y_t =
+    c_t . h_t + D x_t`` over chunks of ``chunk`` steps (``_scan_chunk``).
+    x, dt (B, S, di), b, c (B, S, ds), a (di, ds), h0 (B, di, ds); returns
+    (y (B, S, di), h_final), both f32.  Under a gradient each chunk runs
+    under ``torch.utils.checkpoint`` (non-reentrant: its decay, input and
+    states recomputed in the backward), as the reference
+    ``jax.checkpoint``s its chunk body."""
+    grad = layers._records(x, dt, b_in, c_in, a, d_skip, h0)
+    ys, h = [], h0
+    for c0 in range(0, x.shape[1], chunk):
+        args = (h, x[:, c0:c0 + chunk], dt[:, c0:c0 + chunk],
+                b_in[:, c0:c0 + chunk], c_in[:, c0:c0 + chunk], a, d_skip)
+        y, h = checkpoint(_scan_chunk, *args, use_reentrant=False) \
+            if grad else _scan_chunk(*args)
+        ys.append(y)
+    # without a gradient h is a view into the last chunk's stack
+    return torch.cat(ys, 1), h if grad else h.clone()
 
 
 def mamba_block(p: MambaParams, x: torch.Tensor, cfg, *,

@@ -22,6 +22,17 @@ cell outputs plus their gated FFN, which replace the layer's input (the
 reference's ``x = o``).  Its time loop runs under the ``torch.profiler``
 span ``slstm.scan``.
 
+Training (autograd recording): the mLSTM's parallel form goes through K8's
+bias form under a gradient (``kernels.flash.FlashAttention``: the bias
+tile with its ``lse`` output, a torch-op backward that also gives fq and
+fk their gradients) and F's gradient is ``core.cdf.PrefixSum``'s, XLA's
+order for the transpose of ``jnp.cumsum``; the sLSTM's loop is
+``_SLSTMLoop``: the serving loop forward, a reverse loop of torch ops with
+JAX's derivatives backward (under the ``torch.profiler`` span
+``slstm.scan.backward``).  The mLSTM's sigmoid, silu and log-sigmoid take
+JAX's derivatives too (``layers.sigmoid``, ``layers.silu``,
+``layers.log_sigmoid``).
+
 The recurrent products (the sLSTM's ``h . r_h``, the mLSTM's C, n and
 decode readout) are f32 GEMMs, as the reference's f32 einsums;
 ``layers.no_tf32`` refuses to run them on the card under TF32.
@@ -33,7 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.cdf import prefix_sum
+from ..core.cdf import PrefixSum, prefix_sum
 from . import layers
 
 F32 = torch.float32
@@ -110,8 +121,11 @@ def mlstm_block(p: MLSTMParams, x: torch.Tensor, cfg, *,
         o = out_h.reshape(B, 1, NH * dh)
     else:
         # parallel form: K8 with the gates' bias terms; F in XLA's cumsum
-        # order (blocks of 16), as the reference sums it
-        f_cum = prefix_sum(logf.transpose(1, 2)).transpose(1, 2)  # (B,S,NH)
+        # order (blocks of 16), as the reference sums it, and under a
+        # gradient its VJP in XLA's order too
+        lt = logf.transpose(1, 2)
+        f_cum = (PrefixSum.apply(lt) if layers._records(lt) else
+                 prefix_sum(lt)).transpose(1, 2)               # (B, S, NH)
         o = layers.flash_attention(q.to(BF16), k.to(BF16), v.to(BF16),
                                    q_offset=0,
                                    bias_qk=(f_cum, ig - f_cum))
@@ -129,7 +143,7 @@ def mlstm_block(p: MLSTMParams, x: torch.Tensor, cfg, *,
 
     o = layers.rms_norm(o, p.ln_inner, cfg.norm_eps)
     og = layers.matmul_f32(h, p.w_o)
-    o = o * torch.sigmoid(og)
+    o = o * layers.sigmoid(og)
     y = o.to(F32) * layers.silu(gate)
     out = layers.matmul_f32(y.to(BF16), p.w_down)
     return out.to(x.dtype), new_state
@@ -161,13 +175,100 @@ def _slstm_step(st: SLSTMState, gxt: torch.Tensor, r: torch.Tensor
     4 dh), r = f32(r_h) (NH, dh, 4 dh)."""
     g = gxt + torch.bmm(st.h, r)                        # (NH, B, 4 dh)
     gi, gf, gz, go = g.chunk(4, dim=-1)
-    mn = torch.maximum(gf + st.m, gi)                   # exp-gate stabiliser
+    fm = gf + st.m
+    mn = torch.maximum(fm, gi)                          # exp-gate stabiliser
     i_ = torch.exp(gi - mn)
-    f_ = torch.exp(gf + st.m - mn)
+    f_ = torch.exp(fm - mn)
     c = f_ * st.c + i_ * torch.tanh(gz)
     n = f_ * st.n + i_
     h = torch.sigmoid(go) * c / torch.clamp_min(n, 1e-6)
     return SLSTMState(h=h, c=c, n=n, m=mn)
+
+
+class _SLSTMLoop(torch.autograd.Function):
+    """The sLSTM's time loop under a gradient.  The forward is the serving
+    loop (``_slstm_step`` a step, no graph), keeping each step's h, c, n
+    and m; the backward recomputes every step's gates at once from them
+    (one product over all steps for ``h' r``: the same values to f32
+    rounding) with the step-local factors of JAX's derivatives (sigmoid
+    ``s (1 - s)``, tanh ``(1 + z)(1 - z)``, a tie of the stabiliser's or
+    the normaliser's max split in halves), then walks the steps in reverse
+    in torch ops, 24 a step, carrying dh, dc, dn and dm; dgx is stacked
+    once and dr is one product over all steps.  Autograd of the loop
+    itself records about 20 ops a step, and under the superblock's
+    checkpoint calls its pack and unpack hooks on each of their saved
+    tensors.  Inputs in head-major layout: gx (S, NH, B, 4 dh), r (NH, dh,
+    4 dh), the state's h, c, n, m (NH, B, dh); returns (hs (S, NH, B,
+    dh), the final h, c, n, m)."""
+
+    @staticmethod
+    def forward(ctx, gx, r, h0, c0, n0, m0):
+        st = SLSTMState(h0, c0, n0, m0)
+        kept = ([], [], [], [])
+        with torch.profiler.record_function("slstm.scan"):
+            for t in range(gx.shape[0]):
+                st = _slstm_step(st, gx[t], r)
+                for lst, v in zip(kept, st, strict=True):
+                    lst.append(v)
+        H, C, N, M = (torch.stack(lst) for lst in kept)
+        ctx.save_for_backward(gx, r, h0, c0, n0, m0, H, C, N, M)
+        return (H, *st)
+
+    @staticmethod
+    def backward(ctx, dH, dh, dc, dn, dm):
+        gx, r, h0, c0, n0, m0, H, C, N, M = ctx.saved_tensors
+        S, NH, B, d4 = gx.shape
+        zero = torch.zeros_like(h0)
+        dh, dc, dn, dm = (zero if g is None else g for g in (dh, dc, dn, dm))
+        with torch.profiler.record_function("slstm.scan.backward"):
+            # every step's gates at once, from the states kept (step t
+            # reads step t - 1's)
+            Hp, Cp, Np, Mp = (torch.cat([t0[None], T[:-1]]) for T, t0 in (
+                (H, h0), (C, c0), (N, n0), (M, m0)))
+            hr = torch.bmm(Hp.transpose(0, 1).reshape(NH, S * B, -1), r)
+            gi, gf, gz, go = (gx + hr.reshape(NH, S, B, d4).transpose(0, 1)
+                              ).chunk(4, dim=-1)
+            fm = gf + Mp
+            I, F = torch.exp(gi - M), torch.exp(fm - M)
+            Z, Sg = torch.tanh(gz), torch.sigmoid(go)
+            NC = torch.clamp_min(N, 1e-6)
+            # h = (s c) / max(n, 1e-6); c = f c' + i z, n = f n' + i;
+            # i = exp(gi - m), f = exp(fm - m), m = max(fm, gi), fm = gf + m'
+            KN = Sg * C / (NC * NC) * _tie(N, 1e-6)
+            CSD = C * (Sg * (1.0 - Sg))
+            IZD = I * ((1.0 + Z) * (1.0 - Z))
+            CpF, NpF = Cp * F, Np * F
+            TW = _tie(fm, gi)
+            del hr, gi, gf, gz, go, fm, Hp, Cp, Np, Mp
+            dgs = [None] * S
+            rt = r.transpose(1, 2)
+            for t in range(S - 1, -1, -1):
+                if dH is not None:
+                    dh = dh + dH[t]
+                dq = dh / NC[t]
+                dn = dn - dh * KN[t]
+                dc = dc + dq * Sg[t]
+                da = (dc * Z[t] + dn) * I[t]
+                db = dc * CpF[t] + dn * NpF[t]
+                dmn = dm - da - db
+                to_fm = dmn * TW[t]
+                dm = db + to_fm
+                dgs[t] = dg = torch.cat(
+                    [da + (dmn - to_fm), dm, dc * IZD[t], dq * CSD[t]], -1)
+                dh = torch.bmm(dg, rt)
+                dc, dn = dc * F[t], dn * F[t]
+            dgx = torch.stack(dgs)                      # (S, NH, B, 4 dh)
+            hp = torch.cat([h0[None], H[:-1]])
+            dr = torch.bmm(hp.permute(1, 3, 0, 2).reshape(NH, -1, S * B),
+                           dgx.permute(1, 0, 2, 3).reshape(NH, S * B, -1))
+        return dgx, dr, dh, dc, dn, dm
+
+
+def _tie(a: torch.Tensor, b) -> torch.Tensor:
+    """The share of ``max(a, b)``'s gradient that goes to a: 1 where a > b,
+    0.5 on a tie, 0 below (``jnp.maximum``'s and ``torch.maximum``'s
+    rule)."""
+    return (a > b).to(a.dtype) + 0.5 * (a == b).to(a.dtype)
 
 
 def slstm_block(p: SLSTMParams, x: torch.Tensor, cfg, *,
@@ -192,11 +293,15 @@ def slstm_block(p: SLSTMParams, x: torch.Tensor, cfg, *,
     else:
         st = SLSTMState(*(t.transpose(0, 1) for t in state))
     r = p.r_h.to(F32)
-    hs = torch.empty((S, NH, B, dh), dtype=F32, device=x.device)
-    with torch.profiler.record_function("slstm.scan"):
-        for t in range(S):
-            st = _slstm_step(st, gx[t], r)
-            hs[t] = st.h
+    if layers._records(gx, r, *st):
+        hs, *fin = _SLSTMLoop.apply(gx, r, *st)
+        st = SLSTMState(*fin)
+    else:
+        hs = torch.empty((S, NH, B, dh), dtype=F32, device=x.device)
+        with torch.profiler.record_function("slstm.scan"):
+            for t in range(S):
+                st = _slstm_step(st, gx[t], r)
+                hs[t] = st.h
     hs = hs.permute(2, 0, 1, 3).reshape(B, S, d)
     new_st = SLSTMState(*(t.transpose(0, 1).contiguous() for t in st))
 

@@ -177,11 +177,12 @@ def test_flash_rules():
         assert np.float32(tflash.softmax_scale(dh)) == np.float32(ref)
         assert np.float32(tflash.softmax_scale(dh)) == np.float32(
             1.0 / float(dh) ** 0.5)
-    # bias_qk is served (test_torch_recurrent.py); under autograd it raises
+    # bias_qk is served (test_torch_recurrent.py) and trained
+    # (test_torch_train_recurrent.py): under autograd FlashAttention takes it
     fq, fk = torch.zeros(1, 4, 4), torch.zeros(1, 8, 4)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tlayers.flash_attention(q.clone().requires_grad_(), k, v, q_offset=0,
-                                bias_qk=(fq, fk))
+    out = tlayers.flash_attention(q.clone().requires_grad_(), k, v,
+                                  q_offset=0, bias_qk=(fq, fk))
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     with pytest.raises(NotImplementedError, match="item 14"):
         tlayers.flash_attention(q, k, v, q_offset=0, return_partial=True)
 

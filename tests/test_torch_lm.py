@@ -565,13 +565,16 @@ def test_device_and_unported_rules():
     for arch in ("qwen2-vl-72b", "musicgen-large"):     # M-RoPE, embed_input
         with pytest.raises(NotImplementedError, match="item 14"):
             TM.build_tree(reduce_cfg(get_arch(arch)))
-    for arch in ("jamba-v0.1-52b", "xlstm-125m"):      # served, not trained
-        rc = reduce_cfg(get_arch(arch))
+    for arch in ("jamba-v0.1-52b", "xlstm-125m"):      # served and trained
+        rc = reduce_cfg(get_arch(arch), d_model=64, vocab=256)
         assert TM.build_tree(rc)["sb"]
-        with pytest.raises(NotImplementedError, match="item 14"):
-            TM.forward({}, rc, torch.zeros(1, 2, dtype=torch.int32),
-                       pos=torch.zeros(1, 2, dtype=torch.int32),
-                       mode="train")
+        g = torch.Generator()
+        g.manual_seed(0)
+        x, _ = TM.forward(TM.init_params(rc, g, "cpu"), rc,
+                          torch.zeros(1, 2, dtype=torch.int32),
+                          pos=torch.zeros(1, 2, dtype=torch.int32),
+                          mode="train")
+        assert tuple(x.shape) == (1, 2, 64)
     with pytest.raises(NotImplementedError, match="single_card"):
         TM.build_tree(get_arch("qwen3-4b"))
     with pytest.raises(NotImplementedError, match="item 14"):

@@ -192,9 +192,10 @@ def test_plain_bias_matches_reference(dh, Sq, Skv, kv_valid):
 
 
 def test_bias_rules():
-    """The bias form: shapes and dtypes checked; no backward yet (under
-    autograd it raises not_ported); the card's tile takes bf16 at head dims
-    64 and 384 only; ``return_partial`` still raises."""
+    """The bias form: shapes and dtypes checked; under autograd it goes
+    through ``FlashAttention`` (its gradients are held in
+    ``test_torch_train_recurrent.py``); the card's tile takes bf16 at head
+    dims 64 and 384 only; ``return_partial`` still raises."""
     q, k, v, fq, fk = (torch.from_numpy(a) for a in _bias_inputs(
         0, 1, 8, 8, 2, 64))
     with pytest.raises(ValueError, match="bias_qk"):
@@ -202,9 +203,9 @@ def test_bias_rules():
     with pytest.raises(ValueError, match="bias_qk"):
         tflash.flash_attention(q, k, v, q_offset=0,
                                bias_qk=(fq.double(), fk))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tlayers.flash_attention(q.requires_grad_(), k, v, q_offset=0,
-                                bias_qk=(fq, fk))
+    out = tlayers.flash_attention(q.requires_grad_(), k, v, q_offset=0,
+                                  bias_qk=(fq, fk))
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     with pytest.raises(NotImplementedError, match="item 14"):
         tlayers.flash_attention(q.detach(), k, v, q_offset=0,
                                 return_partial=True)
@@ -570,13 +571,15 @@ def test_serve_reduced_matches_reference_serve(monkeypatch, arch):
 
 
 def test_recurrent_rules(models, monkeypatch):
-    """Training through a recurrent layer, tensor-parallel layouts and TF32
+    """Training through a recurrent layer runs (held against the reference
+    in ``test_torch_train_recurrent.py``); tensor-parallel layouts and TF32
     on the card raise; the CLI reaches xlstm-125m at full width."""
     tc = models["xlstm-125m"][1]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TM.forward(models["xlstm-125m"][3], tc,
-                   torch.zeros(1, 2, dtype=torch.int32),
-                   pos=torch.zeros(1, 2, dtype=torch.int32), mode="train")
+    x, caches = TM.forward(models["xlstm-125m"][3], tc,
+                           torch.zeros(1, 2, dtype=torch.int32),
+                           pos=torch.zeros(1, 2, dtype=torch.int32),
+                           mode="train")
+    assert caches is None and tuple(x.shape) == (1, 2, tc.d_model)
     with pytest.raises(NotImplementedError, match="item 14"):
         txl.slstm_block(None, torch.zeros(1, 1, 64), tc, state=None,
                         tp_shard=True)
