@@ -334,6 +334,43 @@ Phases (any failure exits non-zero; nothing is caught):
    (``_mamba_f64``: the port's bf16 roundings kept, the rest f64).
    Prints step seconds (warm: the median of steps 2 on), tokens a second,
    peak memory, the backward's seconds and peak memory.
+17. Path L, the embedding-input and M-RoPE families, counted, after path
+   K: musicgen-large (``single_card``: 48 layers, d_model 2,048, 32 / 32
+   heads at dh 64, frame embeddings (B, S, 2,048) in bf16 for inputs, no
+   token table, no rotation; 3.226e9 random parameters) at full width and
+   depth through ``launch.serve.serve`` at path D's traffic (4 requests of
+   2,048 prompt and 32 new positions, each decode step a fresh frame
+   draw): K8 launched once a layer on the prefill tile and once a layer a
+   step on the split-KV tile, K1 for the page table; a second ``serve()``
+   traced (``build/path_l_trace.json``, removed once read: wall, device
+   busy, idle share, device time by kind, device events a decode step);
+   served again with the plain attention, the prefill logits within
+   ``LM_LOGIT_TOL``; then trained through ``launch.train.train`` at path
+   I's batch and sequence, at its ``L_LR``, for ``L_TRAIN_STEPS`` steps (K8
+   twice a layer a step, each with ``lse``; the loss finite and
+   falling).  qwen2-vl-72b (M-RoPE with sections (16, 24, 24) over
+   dh 128, 64 / 8 heads) at full width cut to ``L_QWEN_SERVE_LAYERS``
+   layers, served the same way (the launcher's ids, t = h = w), then one
+   more prefill through ``serve_step.make_prefill`` at image-layout ids
+   (``_image_ids``: ``L_IMAGE``'s text prefix, a grid of patches at one t
+   with h the row and w the column, text resuming at the largest id + 1)
+   with the kernel and with the plain attention (within
+   ``LM_LOGIT_TOL``) and at text positions (farther than that:
+   the h and w ids reach the logits); ``apply_mrope`` at those ids within
+   one bf16 ulp of the magnitude of an f64 evaluation of the formula and
+   differing from ``apply_rope`` at the t ids; then trained cut to
+   ``L_QWEN_TRAIN_LAYERS`` layer at ``L_QWEN_TRAIN_BATCH`` x 2,048 a step
+   and one warm step traced (``_l_span``: the token table's index
+   backward, K8's backward).  K8 on the first and last layer's inputs in
+   prefill and in the last decode step against its plain version and an
+   f64 oracle (``_k8_check``), and on the first training step's with
+   ``lse`` and gradients (``_lse_grad_check``: ``lse`` within
+   ``L_LSE_ATOL``); each of the five shapes (each arch's prefill and
+   training, musicgen's decode; qwen2-vl's decode at group 8 too) timed
+   against plain and SDPA beside its bound (``_l_time``; the
+   ``path_l_shapes`` of the ``flash`` and ``flash_decode`` rows).  Prints
+   prefill s, decode tokens/s, step s, tokens/s, peak memory and each
+   stage's wall.
 
 Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
@@ -362,8 +399,9 @@ one, path F the shard-stacked one, with ``single_launches_ms`` for S
 single-index launches of its work; K8 a row per tile: ``flash`` at the prefill shape, its ``bound_ms``
 on the bf16 tensor cores it computes on and ``bound_f32_ms`` on the f32
 rate, ``flash_decode`` at the decode shape with its ``n_split`` and
-``combine_launches``; ``flash_bias`` at path J's mLSTM shape, with path
-K's launches and ``path_k_*`` times), the card's
+``combine_launches``, both with path L's shapes in ``path_l_shapes``;
+``flash_bias`` at path J's mLSTM shape, with path K's launches and
+``path_k_*`` times), the card's
 ``name, power.limit`` from nvidia-smi,
 and the result line.  Phase 1 also prints the flash library's ptxas
 report and the number of ``HGMMA`` instructions ``cuobjdump -sass`` finds
@@ -567,6 +605,29 @@ K_TRACE_LAYERS = 2
 K_MAMBA_ARCH = "jamba-v0.1-52b"
 K_MAMBA_B, K_MAMBA_S = 2, 2048
 K_MAMBA_RTOL = 0.03
+# Path L: the embedding-input and M-RoPE families at path D's serving
+# traffic and path I's training traffic (I_BATCH or L_QWEN_TRAIN_BATCH x
+# I_SEQ a step), L_TRAIN_STEPS steps.  musicgen-large at full width and
+# depth; qwen2-vl-72b at full width cut in depth: L_QWEN_SERVE_LAYERS
+# layers served (9.513e9 parameters, 19.0 GB; its 80 layers hold 7.27e10,
+# 145 GB, over the card's 80 GB) and L_QWEN_TRAIN_LAYERS trained (3.369e9
+# parameters, 53.9 GB of weights, gradients and AdamW state before
+# activations); the image layout of its extra prefill (text positions,
+# grid rows, grid columns); K8's lse against plain and f64 (absolute).
+# Each arch trains at its L_LR: AdamW's first steps move every weight by
+# about lr, in step over a layer's fan-in, so a layer's output moves by
+# about lr x fan-in of its scale, and the launcher has no warmup (the
+# published recipes warm up over thousands of steps).  On an H100, at path
+# I's 1e-3 musicgen diverged (losses 8.14, 14.41, 14.91, 13.94), at 1e-4
+# too (8.14, 7.53, 8.41, 9.16); at 1e-5 it fell (8.14, 8.00, 8.07, 8.01),
+# and qwen2-vl's fan-in of 29,568 diverged (12.39, 10.97, 19.51, 18.41).
+L_TRAIN_STEPS = 4
+L_LR = {"musicgen-large": 1e-5, "qwen2-vl-72b": 1e-6}
+L_QWEN_SERVE_LAYERS = 8
+L_QWEN_TRAIN_LAYERS = 1
+L_QWEN_TRAIN_BATCH = 4
+L_IMAGE = (100, 32, 48)
+L_LSE_ATOL = 1e-3
 ANALYZED = ("src/repro_torch", "chip_smoke.py", "time_verbs.py",
             "examples/index_service_torch.py")
 SYNC_WARNING = "called a synchronizing CUDA operation"
@@ -4016,6 +4077,59 @@ def _leaf_ulps(got, want) -> float:
         2.0 ** (math.floor(math.log2(m)) - 7)
 
 
+def _lse_grad_check(h, g, what, q, k, v, lse_atol, grad_ulps) -> float:
+    """K8 with ``lse`` (uncounted) on one training layer's causal inputs:
+    ``out`` bit-equal to the tile launched without ``lse`` and within one
+    bf16 ulp of the magnitude of plain, ``lse`` within ``lse_atol`` of the
+    plain version's and an f64 oracle's, and dq, dk, dv from
+    ``FlashAttention`` (a cotangent drawn from ``g``) within ``grad_ulps``
+    bf16 ulps of the leaf of f64 autograd of a dense softmax; raises
+    beyond, prints the figures and returns max |out - plain|."""
+    import torch
+    from repro_torch.kernels import flash as tflash
+    out, lse = h.uncounted(functools.partial(
+        tflash.flash_attention_lse, q, k, v, q_offset=0))
+    bare = h.uncounted(functools.partial(tflash.flash_attention, q, k, v,
+                                         q_offset=0))
+    ref, lse_p = tflash.flash_attention_plain(q, k, v, q_offset=0,
+                                              return_lse=True)
+    lse_x = _lse_f64(q, k)
+    mag = tflash.flash_attention_plain(q.float(), k.float(),
+                                       v.float().abs(), q_offset=0)
+    d_out = (out.double() - ref.double()).abs()
+    d_lp = float((lse - lse_p).abs().max())
+    d_lx = float((lse.double() - lse_x).abs().max())
+    if not torch.equal(out, bare):
+        raise AssertionError(f"K8 {what}: out with lse differs from the "
+                             f"tile without it")
+    if not bool((d_out <= _bf16_ulp(mag)).all()):
+        raise AssertionError(f"K8 {what}: out beyond one bf16 ulp of the "
+                             f"magnitude from plain")
+    if max(d_lp, d_lx) > lse_atol:
+        raise AssertionError(f"K8 {what}: lse off by {d_lp} (plain) / "
+                             f"{d_lx} (f64), tolerance {lse_atol}")
+    do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        o = h.uncounted(functools.partial(tflash.flash_attention, qg, kg,
+                                          vg, q_offset=0))
+        o.backward(do)
+    exact = _grads_f64(q, k, v, do)
+    gu = [_leaf_ulps(a.grad, x)
+          for a, x in zip((qg, kg, vg), exact, strict=True)]
+    if max(gu) > grad_ulps:
+        raise AssertionError(f"K8 {what}: dq/dk/dv {gu} ulps of the leaf "
+                             f"from f64 autograd, tolerance {grad_ulps}")
+    print(f"  K8 {what} (q {tuple(q.shape)}, k/v {tuple(k.shape)}): out "
+          f"with lse equal to the tile without it bit for bit, within one "
+          f"bf16 ulp of the magnitude of plain (max |diff| "
+          f"{float(d_out.max()):.6e}); lse max |kernel - plain| "
+          f"{d_lp:.6e}, |kernel - f64| {d_lx:.6e} (tolerance {lse_atol}); "
+          f"dq, dk, dv against f64 autograd {[round(x, 6) for x in gu]} "
+          f"ulps of the leaf (tolerance {grad_ulps})")
+    return float(d_out.max())
+
+
 def _train_span(cat: str, name: str):
     """Path I's kinds by span: K8's backward (an autograd
     ``FlashAttentionBackward`` op) and the MoE routing and combine."""
@@ -4174,52 +4288,9 @@ def _path_i(args, dev, rows, h) -> None:
     # K8's lse, out and gradients on the first step's layer 0 and 23
     g = torch.Generator(device=dev)
     g.manual_seed(args.seed + 14)
-    err = 0.0
-    for layer, (q, k, v) in sorted(captured.items()):
-        out, lse = h.uncounted(functools.partial(
-            tflash.flash_attention_lse, q, k, v, q_offset=0))
-        bare = h.uncounted(functools.partial(tflash.flash_attention, q, k, v,
-                                             q_offset=0))
-        ref, lse_p = tflash.flash_attention_plain(q, k, v, q_offset=0,
-                                                  return_lse=True)
-        lse_x = _lse_f64(q, k)
-        mag = tflash.flash_attention_plain(q.float(), k.float(),
-                                           v.float().abs(), q_offset=0)
-        d_out = (out.double() - ref.double()).abs()
-        d_lp = float((lse - lse_p).abs().max())
-        d_lx = float((lse.double() - lse_x).abs().max())
-        if not torch.equal(out, bare):
-            raise AssertionError(f"K8 layer {layer}: out with lse differs "
-                                 f"from the tile without it")
-        if not bool((d_out <= _bf16_ulp(mag)).all()):
-            raise AssertionError(f"K8 layer {layer}: out beyond one bf16 ulp "
-                                 f"of the magnitude from plain")
-        if max(d_lp, d_lx) > I_LSE_ATOL:
-            raise AssertionError(f"K8 layer {layer}: lse off by {d_lp} "
-                                 f"(plain) / {d_lx} (f64), tolerance "
-                                 f"{I_LSE_ATOL}")
-        do = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
-        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-        with torch.enable_grad():
-            o = h.uncounted(functools.partial(tflash.flash_attention, qg, kg,
-                                              vg, q_offset=0))
-            o.backward(do)
-        exact = _grads_f64(q, k, v, do)
-        gu = [_leaf_ulps(a.grad, x)
-              for a, x in zip((qg, kg, vg), exact, strict=True)]
-        if max(gu) > I_GRAD_ULPS:
-            raise AssertionError(f"K8 layer {layer}: dq/dk/dv {gu} ulps of "
-                                 f"the leaf from f64 autograd, tolerance "
-                                 f"{I_GRAD_ULPS}")
-        err = max(err, float(d_out.max()))
-        print(f"  K8 layer {layer} (q {tuple(q.shape)}, k/v {tuple(k.shape)})"
-              f": out with lse equal to the tile without it bit for bit, "
-              f"within one bf16 ulp of the magnitude of plain (max "
-              f"|diff| {float(d_out.max()):.6e}); lse max |kernel - plain| "
-              f"{d_lp:.6e}, |kernel - f64| {d_lx:.6e} (tolerance "
-              f"{I_LSE_ATOL}); dq, dk, dv against f64 autograd "
-              f"{[round(x, 6) for x in gu]} ulps of the leaf (tolerance "
-              f"{I_GRAD_ULPS})")
+    err = max(_lse_grad_check(h, g, f"layer {layer}", q, k, v, I_LSE_ATOL,
+                              I_GRAD_ULPS)
+              for layer, (q, k, v) in sorted(captured.items()))
     q, k, v = captured[0]
     work = _flash_work(q, k, 0, I_SEQ)
     t_ops = work[1] / BF16_TC_OPS_PER_S * 1e3
@@ -5202,6 +5273,506 @@ def _k_mamba(args, dev) -> None:
           f"{sec_x:.3f} s")
 
 
+def _image_ids(batch: int, seq: int, dev):
+    """(3, batch, seq) int32 M-RoPE ids laid out like an image
+    (``L_IMAGE``): a text prefix (t = h = w = i), a grid of patches at t =
+    the prefix's length with h = it + the row and w = it + the column,
+    then text resuming at the largest id + 1."""
+    import torch
+    n_text, gh, gw = L_IMAGE
+    i = torch.arange(seq, device=dev)
+    r, c = (i - n_text).div(gw, rounding_mode="floor"), (i - n_text) % gw
+    grid = (i >= n_text) & (i < n_text + gh * gw)
+    after = n_text + max(gh, gw) + (i - n_text - gh * gw)
+    text = torch.where(i < n_text, i, after)
+    ids = torch.stack([torch.where(grid, n_text, text),
+                       torch.where(grid, n_text + r, text),
+                       torch.where(grid, n_text + c, text)])
+    return ids[:, None].expand(3, batch, seq).to(torch.int32).contiguous()
+
+
+def _mrope_f64(x, pos3, theta: float, sections) -> tuple:
+    """M-RoPE in f64, from the formula: frequency slot j of dh / 2 turns by
+    the id of its section (``sections`` summing to dh / 2), at
+    ``theta ** (-2 j / dh)``; and the magnitude each output is held to,
+    ``|x1| + |x2|`` of its pair: the f32 angle's rounding (up to about
+    3e-5 at ids near 560) moves an output by that much of it, also where
+    the rotation nearly cancels."""
+    import numpy as np
+    import torch
+    dh = x.shape[-1]
+    sec = torch.from_numpy(np.repeat(np.arange(3), sections)).to(x.device)
+    freqs = 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float64,
+                                          device=x.device) / dh))
+    ang = pos3.double()[sec].permute(1, 2, 0) * freqs
+    cos, sin = torch.cos(ang)[:, :, None], torch.sin(ang)[:, :, None]
+    x1, x2 = x.double().chunk(2, dim=-1)
+    pair = x1.abs() + x2.abs()
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1), \
+        torch.cat([pair, pair], -1)
+
+
+def _l_time(h, q, k, v, qo: int, kvv: int, lse: bool) -> dict:
+    """One K8 shape of path L timed by CUDA events: the kernel (with its
+    ``lse`` output where ``lse``) in two turns around the plain version and
+    SDPA (``enable_gqa``); the bound of ``_flash_work``'s bytes and
+    operations (on the bf16 tensor cores for the prefill tile, at the f32
+    rate for the decode tile, as their rows of the kernels line); where
+    ``lse``, also the backward's torch ops."""
+    import torch
+    from repro_torch.kernels import flash as tflash
+    rows_ = q.shape[1] * q.shape[2] // k.shape[2]
+    tile = tflash.tile_of(q.dtype, q.shape[-1], rows_)
+    fn = tflash.flash_attention_lse if lse else tflash.flash_attention
+    kern = lambda: h.uncounted(lambda: fn(q, k, v, q_offset=qo,
+                                          kv_valid=kvv))
+    decode = tile == "flash_decode"
+    reps, plain_reps = (100, 20) if decode else (20, 3)
+    k1 = _event_ms(kern, reps)
+    p_ms = _event_ms(lambda: tflash.flash_attention_plain(
+        q, k, v, q_offset=qo, kv_valid=kvv, return_lse=lse), plain_reps,
+        warmup=1)
+    s_ms = _event_ms(_sdpa_call(q, k, v, qo, kvv), reps)
+    k2 = _event_ms(kern, reps)
+    nbytes, ops = _flash_work(q, k, qo, kvv)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (F32_OPS_PER_S if decode else BF16_TC_OPS_PER_S) * 1e3
+    out = dict(tile=tile, B=q.shape[0], Sq=q.shape[1], Skv=kvv,
+               heads=f"{q.shape[2]}/{k.shape[2]}", dh=q.shape[-1], lse=lse,
+               ms=(k1 + k2) / 2, plain_ms=p_ms, sdpa_ms=s_ms,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               bytes=nbytes, operations=ops)
+    if lse:
+        _, l_ = h.uncounted(lambda: tflash.flash_attention_lse(
+            q, k, v, q_offset=qo, kv_valid=kvv))
+        do = torch.ones_like(q)
+        out["backward_ms"] = _event_ms(lambda: tflash.flash_attention_bwd(
+            q, k, v, do, l_, q_offset=qo, kv_valid=kvv), 3, warmup=1)
+    return out
+
+
+def _l_span(cat: str, name: str):
+    """Path L's training kinds by span: K8's backward (an autograd
+    ``FlashAttentionBackward`` op) and the token table's index backward
+    (``IndexBackward0``: a scatter-add into the embedding's gradient)."""
+    if cat != "cpu_op":
+        return None
+    if "FlashAttentionBackward" in name:
+        return "attention backward"
+    if "IndexBackward" in name:
+        return "embedding backward (index)"
+    return None
+
+
+def _path_l(args, dev, rows, h) -> None:
+    """Phase 17, path L: the embedding-input and M-RoPE families, counted.
+    musicgen-large (frame embeddings, no rotation; 32 / 32 heads at dh 64)
+    served at full width and depth through ``launch.serve.serve``, a second
+    ``serve()`` traced, the run repeated with the plain attention, then
+    trained through ``launch.train.train``; qwen2-vl-72b (M-RoPE, 64 / 8
+    heads at dh 128) served cut to ``L_QWEN_SERVE_LAYERS`` layers, one more
+    prefill at image-layout ids (``_image_ids``) through
+    ``serve_step.make_prefill``, ``apply_mrope`` at those ids against f64
+    and against ``apply_rope`` at the t ids, then trained cut to
+    ``L_QWEN_TRAIN_LAYERS`` layer with a warm step traced.  K8 against
+    its plain version and an f64 oracle on the first and last layer's
+    inputs in prefill and the last decode step, and with ``lse`` and the
+    gradients on the first step's; the five shapes timed (``_l_time``).
+    Adds path L's launches and its shapes (``path_l_shapes``) to the
+    ``flash`` and ``flash_decode`` rows."""
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, single_card
+    from repro_torch.kernels import flash as tflash
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import layers as tlayers
+    from repro_torch.models import model as TM
+    from repro_torch.train.step import make_train_step
+
+    P, T, B = LM_PROMPT_LEN, LM_NEW_TOKENS, LM_REQUESTS
+    real = dict(flash=tlayers.flash_attention, card=tserve.single_card,
+                init=TM.init_params, prefill=tserve.serve_step.make_prefill,
+                decode=tserve.serve_step.make_decode_step)
+    shapes = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 17)
+
+    def config(arch, layers=None):
+        c = single_card(get_arch(arch))
+        if layers is not None:
+            c = dataclasses.replace(c, n_layers=layers,
+                                    pattern=c.pattern[:layers])
+        return c
+
+    def recording(store, wanted):
+        """K8 as the model calls it, keeping copies of the inputs of the
+        calls numbered in ``wanted``."""
+        calls = [0]
+
+        def rec(q, k, v, *, q_offset, kv_valid=None, **kw):
+            if calls[0] in wanted:
+                store[calls[0]] = tuple(t.detach().clone() for t in (
+                    q, k, v)) + (int(q_offset), k.shape[1] if kv_valid is
+                                 None else int(kv_valid))
+            calls[0] += 1
+            return real["flash"](q, k, v, q_offset=q_offset,
+                                 kv_valid=kv_valid, **kw)
+        return rec
+
+    def plain(q, k, v, *, q_offset, kv_valid=None, **kw):
+        return tflash.flash_attention_plain(q, k, v, q_offset=q_offset,
+                                            kv_valid=kv_valid)
+
+    def served(arch, cfg, attn, keep, tag=None):
+        """serve() with K8 as ``attn`` and the arch as ``cfg``; the weights
+        and the prefill logits kept in ``keep``; prefill and each decode
+        step under the annotations ``tag + " prefill"`` / ``" decode"``
+        where ``tag`` is given."""
+        def init(*a, **kw):
+            keep["params"] = real["init"](*a, **kw)
+            return keep["params"]
+
+        def make(which):
+            def made(c):
+                fn = real[which](c)
+
+                def run(*a):
+                    with torch.profiler.record_function(
+                            f"{tag} {which}") if tag else \
+                            contextlib.nullcontext():
+                        out = fn(*a)
+                    if which == "prefill":
+                        keep["logits"] = out[0].clone()
+                    return out
+                return run
+            return made
+        tlayers.flash_attention = attn
+        tserve.single_card = lambda c: cfg
+        TM.init_params = init
+        tserve.serve_step.make_prefill = make("prefill")
+        tserve.serve_step.make_decode_step = make("decode")
+        try:
+            return tserve.serve(arch, reduced=False, requests=B,
+                                prompt_len=P, new_tokens=T, seed=args.seed)
+        finally:
+            tlayers.flash_attention = real["flash"]
+            tserve.single_card = real["card"]
+            TM.init_params = real["init"]
+            tserve.serve_step.make_prefill = real["prefill"]
+            tserve.serve_step.make_decode_step = real["decode"]
+
+    def check_captured(arch, store, n_layers):
+        """K8 on the captured serving inputs; returns the largest |kernel -
+        plain| by tile."""
+        errs = {"flash": 0.0, "flash_decode": 0.0}
+        for i, (q, k, v, qo, kvv) in sorted(store.items()):
+            step, layer = divmod(i, n_layers)
+            name = tflash.tile_of(q.dtype, q.shape[-1],
+                                  q.shape[1] * q.shape[2] // k.shape[2])
+            r = _k8_check(h, f"{arch} step {step} layer {layer} ({name})",
+                          q, k, v, qo, kvv)
+            errs[name] = max(errs[name], r["max_abs_err"])
+            where = "prefill" if step == 0 else f"decode step {step}"
+            print(f"  K8 {name}, {where} layer {layer} (q "
+                  f"{tuple(q.shape)}, k/v {tuple(k.shape)}, q_offset {qo}, "
+                  f"kv_valid {kvv}): in ulps of the magnitude, kernel - plain"
+                  f" {r['plain']:.6f}, kernel - f64 {r['f64']:.6f}, plain - "
+                  f"f64 {r['plain vs f64']:.6f}; max |kernel - plain| "
+                  f"{r['max_abs_err']:.6e}")
+        return errs
+
+    def end_to_end(arch, v_, lk, lp, toks, toks_p):
+        """The prefill logits, kernel vs plain attention, within
+        ``LM_LOGIT_TOL``; the first greedy ids (of the ``v_`` real ones)
+        wherever the margin allows."""
+        dl = float((lk - lp).abs().max())
+        top2 = torch.topk(lp[:, :v_], 2).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        sure = margin > 2 * LM_LOGIT_TOL
+        first_k = lk[:, :v_].argmax(-1).cpu().numpy()
+        first_p = lp[:, :v_].argmax(-1).cpu().numpy()
+        if dl > LM_LOGIT_TOL or not (first_k[sure] == first_p[sure]).all() \
+                or not (first_k == toks[:, 0]).all():
+            raise AssertionError(f"path L {arch} kernel vs plain prefill "
+                                 f"logits: max |diff| {dl} (tolerance "
+                                 f"{LM_LOGIT_TOL}), first ids {first_k} / "
+                                 f"{first_p} / {toks[:, 0]}")
+        agree = toks_p == toks
+        print(f"  end to end with the plain attention: prefill logits max "
+              f"|kernel - plain| {dl:.6e} (tolerance {LM_LOGIT_TOL}; logits "
+              f"max {float(lp.abs().max()):.6f}); top-2 margins "
+              f"{np.round(margin, 6).tolist()}; greedy ids equal "
+              f"{int(agree.sum())} of {agree.size}")
+
+    def serve_phase(arch, cfg, trace):
+        n = cfg.n_layers
+        store, keep = {}, {}
+        # prefill's and the last decode step's first and last layer
+        wanted = (0, n - 1, T * n, T * n + n - 1)
+        torch.cuda.reset_peak_memory_stats()
+        h.reset_counters()
+        t0 = time.perf_counter()
+        res, t_all = _sync_time(lambda: served(arch, cfg,
+                                               recording(store, wanted),
+                                               keep))
+        launches = h.counters()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {"flash": n, "flash_decode": n * T, "flash_combine": n * T,
+                "flash_cc": 0, "flash_bias": 0}
+        if {k: launches[k] for k in want} != want or launches["lookup"] <= 0:
+            raise AssertionError(f"path L {arch} launches {launches}, want "
+                                 f"{want} and K1 at least once")
+        toks, lk = res.tokens, keep["logits"]
+        if toks.shape != (B, T + 1) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_size or \
+                lk.shape != (B, cfg.vocab_padded) or \
+                not bool(torch.isfinite(lk).all()):
+            raise AssertionError(f"path L {arch}: ids {toks.shape} or logits"
+                                 f" {tuple(lk.shape)} misshapen or not "
+                                 f"finite")
+        sizes = []
+        TM.tree_map(lambda t: sizes.append(t.numel()), keep["params"])
+        print(f"phase 17: path L ({arch}, single card: {n} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads} query / {cfg.n_kv_heads} KV "
+              f"heads, dh {cfg.head_dim}, rope {cfg.rope!r}, inputs "
+              f"{'frame embeddings' if cfg.embed_input else 'token ids'}, "
+              f"{sum(sizes)} parameters) served; {B} requests x {P} prompt "
+              f"+ {T} new positions; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        print(f"  prefill {res.prefill_s:.6f} s; decode {res.decode_s:.6f} s "
+              f"for {T} steps ({res.decode_tok_s:.3f} tokens/s); serve() "
+              f"{t_all:.6f} s with weight init and input draws; peak memory "
+              f"allocated {peak:.3f} GiB; page table over {res.pages} pages")
+        print(f"  greedy ids (first 8 of each request): "
+              f"{toks[:, :8].tolist()}")
+        rows["lookup"]["launches"] += launches["lookup"]
+        errs = check_captured(arch, store, n)
+        for name in ("flash", "flash_decode"):
+            rows[name]["launches"] += launches[name]
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                            errs[name])
+        prefill_in, decode_in = store[0], store[T * n]
+        del store
+        params = keep.pop("params")
+        if trace:
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                res_t = served(arch, cfg, real["flash"], {}, tag="path L")
+            path = ROOT / "build" / "path_l_trace.json"
+            path.parent.mkdir(exist_ok=True)
+            prof.export_chrome_trace(str(path))
+            del prof
+            split = _trace_windows(path, ("path L prefill", "path L decode"))
+            path.unlink()
+            for tag_, w in split.items():
+                kinds = ", ".join(f"{k} {v:.6f} s ({v / w['busy']:.3%} of "
+                                  f"busy)" for k, v in sorted(
+                                      w["kinds"].items(),
+                                      key=lambda kv: -kv[1]))
+                per = "" if tag_.endswith("prefill") else \
+                    f" ({w['events'] / T:.1f} a decode step)"
+                print(f"  traced {tag_}: wall {w['wall']:.6f} s, device "
+                      f"busy {w['busy']:.6f} s, idle share "
+                      f"{1 - w['busy'] / w['wall']:.6f}; {w['events']} "
+                      f"device events{per}; by kind {kinds}")
+            print(f"  the traced serve(): prefill {res_t.prefill_s:.6f} s, "
+                  f"{res_t.decode_tok_s:.3f} tokens/s (untraced "
+                  f"{res.prefill_s:.6f} s, {res.decode_tok_s:.3f})")
+        kept = {}
+        res_p = served(arch, cfg, plain, kept)
+        end_to_end(arch, cfg.vocab_size, lk, kept["logits"], toks,
+                   res_p.tokens)
+        print(f"  plain attention: prefill {res_p.prefill_s:.6f} s, decode "
+              f"{res_p.decode_tok_s:.3f} tokens/s; path wall "
+              f"{time.perf_counter() - t0:.3f} s")
+        del kept, res_p
+        return params, prefill_in, decode_in
+
+    def train_phase(arch, cfg, batch):
+        n = cfg.n_layers
+        captured = {}
+        torch.cuda.reset_peak_memory_stats()
+        h.reset_counters()
+        tlayers.flash_attention = recording(captured, (0, n - 1))
+        t0 = time.perf_counter()
+        try:
+            res, t_all = _sync_time(lambda: tlaunch.train(
+                arch, steps=L_TRAIN_STEPS, batch=batch, seq=I_SEQ,
+                lr=L_LR[arch],
+                reduced=False, n_layers=n, ckpt_dir=None, log_every=1,
+                seed=args.seed))
+        finally:
+            tlayers.flash_attention = real["flash"]
+        launches, with_lse = h.counters(), dict(tflash.LSE_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {"flash": 2 * n * L_TRAIN_STEPS, "flash_decode": 0,
+                "flash_combine": 0, "flash_cc": 0, "flash_bias": 0}
+        if {k: launches[k] for k in want} != want or \
+                with_lse["flash"] != want["flash"]:
+            raise AssertionError(f"path L {arch} training launches "
+                                 f"{launches}, with lse {with_lse}; want "
+                                 f"{want}, every one with lse")
+        losses = res.losses
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"path L {arch} losses {losses}: not finite"
+                                 f" or not falling")
+        warm = statistics.median(res.step_s[1:])
+        print(f"phase 17: path L ({arch}) trained: {n} layers, "
+              f"{cfg.param_count()} parameters; {L_TRAIN_STEPS} steps of "
+              f"{batch} x {I_SEQ}, lr {L_LR[arch]}, remat on")
+        print(f"  losses {[round(x, 6) for x in losses]}; grad norms "
+              f"{[round(x, 6) for x in res.grad_norms]}")
+        print(f"  step seconds {[round(x, 6) for x in res.step_s]}; warm "
+              f"(median of steps 2-{L_TRAIN_STEPS}) {warm:.6f} s, "
+              f"{batch * I_SEQ / warm:.1f} tokens/s; train() {t_all:.3f} s "
+              f"with weight init; peak memory allocated {peak:.3f} GiB; K8 "
+              f"launches {launches['flash']} (all with lse)")
+        rows["flash"]["launches"] += launches["flash"]
+        return res, captured, t0
+
+    def check_train(arch, captured, t0):
+        err = max(_lse_grad_check(h, g, f"{arch} training layer {layer}",
+                                  q, k, v, L_LSE_ATOL, I_GRAD_ULPS)
+                  for layer, (q, k, v, _, _) in sorted(captured.items()))
+        rows["flash"]["max_abs_err"] = max(rows["flash"]["max_abs_err"], err)
+        q, k, v, _, _ = captured[0]
+        shapes[f"{arch} training"] = _l_time(h, q, k, v, 0, q.shape[1], True)
+        print(f"  path wall (training) {time.perf_counter() - t0:.3f} s")
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # ---- musicgen-large: frame embeddings, no rotation -------------------
+    arch = "musicgen-large"
+    cfg = config(arch)
+    params, pre, dec = serve_phase(arch, cfg, trace=True)
+    del params
+    shapes[f"{arch} prefill"] = _l_time(h, *pre, False)
+    shapes[f"{arch} decode"] = _l_time(h, *dec, False)
+    del pre, dec
+    free()
+    res, captured, t0 = train_phase(arch, cfg, I_BATCH)
+    del res
+    free()
+    check_train(arch, captured, t0)
+    del captured
+    free()
+
+    # ---- qwen2-vl-72b: M-RoPE, 64 / 8 heads -------------------------------
+    arch = "qwen2-vl-72b"
+    cfg = config(arch, L_QWEN_SERVE_LAYERS)
+    params, pre, dec = serve_phase(arch, cfg, trace=False)
+    shapes[f"{arch} prefill"] = _l_time(h, *pre, False)
+    shapes[f"{arch} decode"] = _l_time(h, *dec, False)
+    del pre, dec
+    # one more prefill at image-layout ids, kernel and plain attention
+    ids = _image_ids(B, P, dev)
+    prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (B, P))).to(device=dev, dtype=torch.int32)
+    text = torch.arange(P, dtype=torch.int32, device=dev)[None] \
+        .expand(3, B, P)
+    prefill = tserve.serve_step.make_prefill(cfg)
+    out = {}
+    for tag, attn, pos in (("image", real["flash"], ids),
+                           ("image, plain", plain, ids),
+                           ("text", real["flash"], text)):
+        caches = TM.init_cache(cfg, B, P + T, device=dev)
+        tlayers.flash_attention = attn
+        try:
+            (out[tag], _), dt = _sync_time(lambda: h.uncounted(
+                lambda: prefill(params, caches, prompts, pos)))
+        finally:
+            tlayers.flash_attention = real["flash"]
+        print(f"  prefill at {tag} ids: {dt:.6f} s")
+        del caches
+    d_img = float((out["image"] - out["image, plain"]).abs().max())
+    d_txt = float((out["image"] - out["text"]).abs().max())
+    if not bool(torch.isfinite(out["image"]).all()) or \
+            d_img > LM_LOGIT_TOL or d_txt <= LM_LOGIT_TOL:
+        raise AssertionError(f"path L image-layout prefill: kernel vs plain "
+                             f"{d_img} (tolerance {LM_LOGIT_TOL}), against "
+                             f"text positions {d_txt} (must exceed it)")
+    print(f"  image-layout ids ({L_IMAGE[0]} text, a {L_IMAGE[1]} x "
+          f"{L_IMAGE[2]} grid at one t, text after; t, h, w up to "
+          f"{ids.amax(dim=(1, 2)).tolist()}): logits max |kernel - plain| "
+          f"{d_img:.6e} (tolerance {LM_LOGIT_TOL}), against the same prompt "
+          f"at text positions {d_txt:.6e} (must exceed the tolerance: the "
+          f"h and w ids reach the logits)")
+    del out, params, prompts, text
+    free()
+    # apply_mrope on the card at those ids against f64, and against RoPE
+    # at the t ids (the planted check that the h and w sections act)
+    x = torch.randn((B, P, cfg.n_heads, cfg.head_dim), generator=g,
+                    device=dev).mul_(3.0).to(torch.bfloat16)
+    got = tlayers.apply_mrope(x, ids, cfg.rope_theta, cfg.mrope_sections)
+    exact, mag = _mrope_f64(x, ids, cfg.rope_theta, cfg.mrope_sections)
+    d = (got.double() - exact).abs() / _bf16_ulp(mag)
+    rope = tlayers.apply_rope(x, ids[0], cfg.rope_theta)
+    moved = int((rope != got).sum())
+    if float(d.max()) > 1 or not moved:
+        raise AssertionError(f"apply_mrope at image ids: {float(d.max())} "
+                             f"bf16 ulps of the magnitude from f64; entries "
+                             f"differing from RoPE at the t ids {moved}")
+    print(f"  apply_mrope (x {tuple(x.shape)}, sections "
+          f"{cfg.mrope_sections}) at the image ids: max {float(d.max()):.6f}"
+          f" bf16 ulps of the magnitude from f64 (tolerance 1); "
+          f"{moved} of {got.numel()} entries differ from apply_rope at the "
+          f"t ids (planted: the h and w sections act)")
+    del x, got, exact, mag, d, rope, ids
+    free()
+    cfg = config(arch, L_QWEN_TRAIN_LAYERS)
+    res, captured, t0 = train_phase(arch, cfg, L_QWEN_TRAIN_BATCH)
+    # one warm step traced: the token table's index backward among the rest
+    pos = torch.arange(I_SEQ, dtype=torch.int32, device=dev)[None] \
+        .expand(3, L_QWEN_TRAIN_BATCH, I_SEQ)
+    inputs = torch.randint(0, cfg.vocab_size, (L_QWEN_TRAIN_BATCH, I_SEQ),
+                           generator=g, device=dev, dtype=torch.int32)
+    labels = torch.randint(0, cfg.vocab_size, (L_QWEN_TRAIN_BATCH, I_SEQ),
+                           generator=g, device=dev, dtype=torch.int32)
+    step_fn = make_train_step(cfg, lr=L_LR[arch])
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("path L step"):
+            h.uncounted(lambda: step_fn(res.params, res.opt, inputs, labels,
+                                        pos))
+        torch.cuda.synchronize()
+    trace = ROOT / "build" / "path_l_train_trace.json"
+    prof.export_chrome_trace(str(trace))
+    del prof
+    w = _trace_kinds(trace, "path L step", span_of=_l_span)
+    trace.unlink()
+    kinds = ", ".join(f"{k_} {v_:.6f} s ({v_ / w['busy']:.3%} of busy)"
+                      for k_, v_ in sorted(w["kinds"].items(),
+                                           key=lambda kv: -kv[1]))
+    print(f"  traced warm step ({arch}, {cfg.n_layers} layer): wall "
+          f"{w['wall']:.6f} s, device busy {w['busy']:.6f} s, idle share "
+          f"{1 - w['busy'] / w['wall']:.6f}; {w['events']} device events; "
+          f"by kind {kinds}")
+    print("    top kernels: " + "; ".join(f"{n_} {t_:.6f} s"
+                                          for n_, t_ in w["top"]))
+    del res, step_fn, inputs, labels, pos
+    free()
+    check_train(arch, captured, t0)
+    del captured
+    free()
+
+    for name, sh in shapes.items():
+        print(f"  K8 at {name}: " + ", ".join(
+            f"{k} {v:.6f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in sh.items()))
+    for name in ("flash", "flash_decode"):
+        rows[name]["path_l_shapes"] = {
+            k: v for k, v in shapes.items() if v["tile"] == name}
+
+
 def main(argv=None) -> int:
     args = _args(argv)
     import numpy as np
@@ -6113,6 +6684,13 @@ def main(argv=None) -> int:
 
     # ---- phase 16: path K (the recurrent families trained), counted -------
     _path_k(args, dev, rows, h)
+    print(f"  wall {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- phase 17: path L (embedding-input and M-RoPE families), counted --
+    _path_l(args, dev, rows, h)
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
 
     smi = _card()

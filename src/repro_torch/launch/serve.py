@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from . import bf16_draws
 from ..configs import get_arch, single_card
 from ..configs.reduced import reduce_cfg
 from ..models import model as M
@@ -45,11 +46,15 @@ def _sync(dev: torch.device) -> None:
 def serve(arch: str, *, reduced: bool, requests: int, prompt_len: int,
           new_tokens: int, d_model: int = 128, seed: int = 0,
           device=None) -> ServeResult:
-    """Prefill ``requests`` random prompts of ``prompt_len`` tokens (drawn
-    from ``numpy.random.default_rng(seed)``, as the reference draws them)
-    and decode ``new_tokens`` greedy tokens each, on ``device`` (CUDA
-    unless ``device="cpu"``).  Weights are random from a
-    ``torch.Generator`` seeded with ``seed``."""
+    """Prefill ``requests`` random prompts of ``prompt_len`` tokens and
+    decode ``new_tokens`` greedy tokens each, on ``device`` (CUDA unless
+    ``device="cpu"``).  Inputs come from ``numpy.random.default_rng(seed)``
+    in the reference's order: token ids, or for an embedding-input arch
+    N(0, 1) embeddings (B, S, d) rounded to bf16 and a fresh (B, 1, d)
+    draw a decode step (the greedy ids are returned, not fed back);
+    positions ``arange``, broadcast to the three (t, h, w) rows for
+    M-RoPE.  Weights are random from a ``torch.Generator`` seeded with
+    ``seed``."""
     dev = resolve_device(device)
     cfg = get_arch(arch)
     cfg = reduce_cfg(cfg, d_model=d_model, vocab=2048) if reduced \
@@ -63,11 +68,17 @@ def serve(arch: str, *, reduced: bool, requests: int, prompt_len: int,
     S_max = prompt_len + new_tokens
     rng = np.random.default_rng(seed)
     B = requests
-    prompts = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (B, prompt_len))).to(
-        device=dev, dtype=torch.int32)
+    if cfg.embed_input:
+        prompts = bf16_draws(rng.normal(0, 1, (B, prompt_len, cfg.d_model)),
+                              dev)
+    else:
+        prompts = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, prompt_len))).to(
+            device=dev, dtype=torch.int32)
     pos = torch.arange(prompt_len, dtype=torch.int32,
                        device=dev)[None].expand(B, prompt_len)
+    if cfg.rope == "mrope":
+        pos = pos[None].expand(3, B, prompt_len)
 
     caches = M.init_cache(cfg, B, S_max, device=dev)
     _sync(dev)
@@ -91,8 +102,13 @@ def serve(arch: str, *, reduced: bool, requests: int, prompt_len: int,
     for i in range(new_tokens):
         dpos = torch.full((B, 1), prompt_len + i, dtype=torch.int32,
                           device=dev)
-        tok, caches = decode(params, caches, tok[:, None], dpos,
-                             prompt_len + i)
+        if cfg.rope == "mrope":
+            dpos = dpos[None].expand(3, B, 1)
+        if cfg.embed_input:
+            tok_in = bf16_draws(rng.normal(0, 1, (B, 1, cfg.d_model)), dev)
+        else:
+            tok_in = tok[:, None]
+        tok, caches = decode(params, caches, tok_in, dpos, prompt_len + i)
         out.append(tok)
     _sync(dev)
     dt = time.perf_counter() - t0

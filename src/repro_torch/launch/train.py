@@ -12,7 +12,12 @@ Without ``--reduced`` the architecture trains at its published widths in
 its one-card form (``configs.single_card``); ``--n-layers`` then cuts its
 depth (the reference reads it only with ``--reduced``).  Weights are
 random from a ``torch.Generator`` seeded with ``--seed`` (the reference
-draws from ``jax.random``, so the two packages' weights differ).
+draws from ``jax.random``, so the two packages' weights differ).  Inputs
+are the reference's: token ids and labels from
+``synthetic_token_stream``; for an embedding-input arch (musicgen-large)
+step i's inputs are ``numpy.random.default_rng(i).normal(0, 1, (B, S,
+d))`` rounded to bf16, its labels still the stream's; M-RoPE archs
+(qwen2-vl-72b) take the positions broadcast to (3, B, S).
 
 The loss and the gradient norm stay on the device until a logging step
 (every ``log_every`` steps and the last): reading them syncs, so step
@@ -26,9 +31,11 @@ import dataclasses
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import resolve_device
+from . import bf16_draws
 from ..configs import get_arch, single_card
 from ..configs.reduced import reduce_cfg
 from ..data.indexed_dataset import synthetic_token_stream
@@ -63,6 +70,16 @@ def train_config(arch: str, *, reduced: bool, d_model: int = 128,
     return cfg
 
 
+def step_inputs(cfg, toks: np.ndarray, step: int, dev) -> torch.Tensor:
+    """Step ``step``'s inputs on ``dev``: the stream's token ids, or for an
+    embedding-input arch the reference's N(0, 1) draw (B, S, d) from
+    ``default_rng(step)``, rounded to bf16 through f32."""
+    if not cfg.embed_input:
+        return torch.from_numpy(toks).to(dev)
+    return bf16_draws(np.random.default_rng(step).normal(
+        0, 1, toks.shape + (cfg.d_model,)), dev)
+
+
 def train(arch: str, *, steps: int, batch: int, seq: int, lr: float,
           reduced: bool, ckpt_dir: str | None, ckpt_every: int = 50,
           d_model: int = 128, n_layers: int | None = None,
@@ -85,6 +102,8 @@ def train(arch: str, *, steps: int, batch: int, seq: int, lr: float,
     stream = synthetic_token_stream(seed, cfg.vocab_size, batch, seq)
     pos = torch.arange(seq, dtype=torch.int32, device=dev)[None] \
         .expand(batch, seq)
+    if cfg.rope == "mrope":
+        pos = pos[None].expand(3, batch, seq)
 
     print(f"[train] {cfg.name}: {cfg.param_count() / 1e6:.1f}M params "
           f"({cfg.param_count(active_only=True) / 1e6:.1f}M active), "
@@ -96,7 +115,7 @@ def train(arch: str, *, steps: int, batch: int, seq: int, lr: float,
     t_log, logged = time.perf_counter(), 0
     for step in range(steps):
         toks, labels = next(stream)
-        inputs = torch.from_numpy(toks).to(dev)
+        inputs = step_inputs(cfg, toks, step, dev)
         labels = torch.from_numpy(labels).to(dev)
         t0 = time.perf_counter()
         params, opt, metrics = step_fn(params, opt, inputs, labels, pos)

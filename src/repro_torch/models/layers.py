@@ -20,8 +20,8 @@ operand's gradient is the f32 cotangent times the other operand, an f32
 product, rounded once to the operand's dtype (``_MatmulF32``).
 
 There is no mesh: tensor-parallel layouts (``cfg.tp_shard``), sequence-
-sharded caches, partial softmax results (``return_partial``) and M-RoPE
-raise ``not_ported`` (ROADMAP queue 1 item 14).  Caches are updated in
+sharded caches and partial softmax results (``return_partial``) raise
+``not_ported`` (ROADMAP queue 1 item 14).  Caches are updated in
 place.  The activations ``softplus``, ``log_sigmoid``, ``sigmoid`` and
 ``silu`` are jax.nn's formulas, for the recurrent blocks
 (``models/ssm.py``, ``models/xlstm.py``), with JAX's derivatives under a
@@ -207,8 +207,34 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
-def apply_mrope(x, pos3, theta, sections):
-    raise not_ported("M-RoPE (apply_mrope)", "14")
+def mrope_section_ids(sections, n: int, device=None) -> torch.Tensor:
+    """``jnp.repeat(arange(3), sections, total_repeat_length=n)``, the
+    section (0 = t, 1 = h, 2 = w) of each of the n = dh / 2 frequency
+    slots, (n,) int64, by JAX's algorithm: a mark at each section's start
+    that lies below n, and each slot the count of marks up to it, less one.
+    So sections summing past n are cut (at dh 16, (16, 24, 24) gives every
+    slot the t id), and sections summing short leave the rest on the last
+    id ((2, 2, 2) at n 8: 0 0 1 1 2 2 2 2)."""
+    j = torch.arange(n, device=device)
+    starts = [sum(int(r) for r in sections[:i]) for i in range(len(sections))]
+    return sum((j >= s).long() for s in starts) - 1
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """M-RoPE (qwen2-vl): x (B, S, H, dh); pos3 (3, B, S) int, the (t, h,
+    w) ids.  Frequency slot j turns by the id of its section
+    (``mrope_section_ids``), in f32, then the half-split rotation of
+    ``apply_rope``, rounded once to x's dtype.  Linear in x: autograd's
+    transpose adds each half's two products, as JAX's does, in one f32
+    addition (the same sum in either order)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    sec = mrope_section_ids(sections, x.shape[-1] // 2, pos3.device)
+    ang = pos3.to(F32)[sec].permute(1, 2, 0) * freqs      # (B, S, dh/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.to(F32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -285,7 +311,8 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg, *, pos, cache=None,
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     elif cfg.rope == "mrope":
-        apply_mrope(q, pos, cfg.rope_theta, cfg.mrope_sections)
+        q = apply_mrope(q, pos, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, pos, cfg.rope_theta, cfg.mrope_sections)
 
     new_cache = None
     if cache is None:

@@ -20,8 +20,10 @@ the train step differentiates; ``"train"`` runs through every layer
 kind (the recurrent blocks' training forms: ``models/ssm.py``,
 ``models/xlstm.py``), and the superblock's checkpoint recomputes the
 sLSTM's loop and K8's bias tile in the backward as it does any layer.
-M-RoPE, ``embed_input`` archs and tensor-parallel layouts raise
-``not_ported`` (ROADMAP queue 1 item 14).
+Embedding-input archs (``cfg.embed_input``: musicgen's frame embeddings)
+have no ``embed`` leaf and take (B, S, d) inputs; M-RoPE archs
+(``cfg.rope == "mrope"``: qwen2-vl) take (3, B, S) (t, h, w) ids.
+Tensor-parallel layouts raise ``not_ported`` (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -49,10 +51,6 @@ def _supported(cfg) -> None:
     if cfg.tp_shard:
         raise not_ported("tensor-parallel layouts (cfg.tp_shard=True; serve "
                          "configs.single_card(cfg) on one card)", "14")
-    if cfg.embed_input:
-        raise not_ported("embedding-input archs (embed_input)", "14")
-    if cfg.rope == "mrope":
-        raise not_ported("M-RoPE archs", "14")
     for kind in set(cfg.pattern):
         if kind not in KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
@@ -149,16 +147,18 @@ def _block_leaves(cfg, kind: str, pos: int) -> dict:
 
 
 def build_tree(cfg) -> dict:
-    """Leaf-description tree (superblock leaves before stacking)."""
+    """Leaf-description tree (superblock leaves before stacking); no
+    ``embed`` leaf where ``cfg.embed_input`` (the reference's tree)."""
     _supported(cfg)
     d = cfg.d_model
-    return {
-        "embed": Leaf((cfg.vocab_padded, d), d),
-        "sb": {f"pos{i}": _block_leaves(cfg, cfg.pattern[i], i)
-               for i in range(cfg.sb)},
-        "final_ln": Leaf((d,), -1),
-        "lm_head": Leaf((d, cfg.vocab_padded), d),
-    }
+    tree: dict[str, Any] = {}
+    if not cfg.embed_input:
+        tree["embed"] = Leaf((cfg.vocab_padded, d), d)
+    tree["sb"] = {f"pos{i}": _block_leaves(cfg, cfg.pattern[i], i)
+                  for i in range(cfg.sb)}
+    tree["final_ln"] = Leaf((d,), -1)
+    tree["lm_head"] = Leaf((d, cfg.vocab_padded), d)
+    return tree
 
 
 def tree_map(fn, tree):
@@ -308,25 +308,33 @@ def unstack(sb, n_sb: int) -> list:
 def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
             mode: str = "train", remat: bool = True, cache_len=None,
             seq_sharded: bool = False):
-    """inputs: token ids (B, S).  pos: (B, S) positions (decode takes them
-    from ``cache_len``, an int; default ``pos[0, 0]``).  Returns (hidden
-    (B, S, d), caches) -- the caches written in place (K/V at the filled
-    prefix, each recurrent layer's state replaced by its new one), or None
-    without caches.  ``mode="train"`` with ``remat`` (and autograd recording)
-    checkpoints each superblock (``torch.utils.checkpoint``, non-reentrant):
-    its activations are recomputed in the backward, K8 launched again."""
+    """inputs: token ids (B, S), or embeddings (B, S, d) where
+    ``cfg.embed_input`` (cast to bf16).  pos: (B, S) positions, or (3, B,
+    S) (t, h, w) ids for M-RoPE.  Decode takes ``cache_len`` (an int;
+    default the first entry of ``pos``) as the caches' filled prefix and,
+    but for M-RoPE, as every query's position; M-RoPE keeps the caller's
+    ids, as the reference does.  Returns (hidden (B, S, d), caches) -- the
+    caches written in place (K/V at the filled prefix, each recurrent
+    layer's state replaced by its new one), or None without caches.
+    ``mode="train"`` with ``remat`` (and autograd recording) checkpoints
+    each superblock (``torch.utils.checkpoint``, non-reentrant): its
+    activations are recomputed in the backward, K8 launched again."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"forward(mode={mode!r}): train, prefill or decode")
     if seq_sharded:
         raise not_ported("sequence-sharded KV caches", "14")
     _supported(cfg)
-    x = embed_tokens(params, cfg, inputs, cfg.tp_shard)
+    if cfg.embed_input:
+        x = inputs.to(BF16)
+    else:
+        x = embed_tokens(params, cfg, inputs, cfg.tp_shard)
     if mode == "decode":
         if cache_len is None:
             cache_len = int(pos.reshape(-1)[0])
         cache_len = int(cache_len)
-        pos = torch.full(inputs.shape[:2], cache_len, dtype=torch.int32,
-                         device=x.device)
+        if cfg.rope != "mrope":
+            pos = torch.full(inputs.shape[:2], cache_len, dtype=torch.int32,
+                             device=x.device)
     elif caches is not None:           # prefill into fresh caches
         cache_len = 0
 

@@ -17,7 +17,9 @@ from ..models import model as M
 
 def make_prefill(cfg):
     """fn(params, caches, tokens, pos) -> (logits (B, V_padded) f32,
-    caches).  The attention of every layer goes over the whole ``S_max``
+    caches).  ``tokens``: ids (B, S), or embeddings (B, S, d) where
+    ``cfg.embed_input``; ``pos``: (B, S), or (3, B, S) (t, h, w) ids for
+    M-RoPE.  The attention of every layer goes over the whole ``S_max``
     cache with ``q_offset = 0, kv_valid = S``."""
     def prefill(params, caches, tokens, pos):
         x, caches = M.forward(params, cfg, tokens, pos=pos, caches=caches,
@@ -29,7 +31,9 @@ def make_prefill(cfg):
 
 def make_decode_step(cfg):
     """fn(params, caches, tokens, pos, cache_len) -> (next ids (B,) int32,
-    caches); positions come from ``cache_len`` (an int)."""
+    caches).  ``tokens``: ids (B, 1), or embeddings (B, 1, d) where
+    ``cfg.embed_input``.  Positions come from ``cache_len`` (an int), but
+    for M-RoPE, whose (3, B, 1) ids in ``pos`` are kept."""
     def decode(params, caches, tokens, pos, cache_len):
         x, caches = M.forward(params, cfg, tokens, pos=pos, caches=caches,
                               mode="decode", cache_len=cache_len)

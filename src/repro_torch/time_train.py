@@ -21,18 +21,21 @@
    (``key_averages``).
 
 Weights are random from ``--seed``; the config is the one-card form
-(``configs.single_card``), cut to ``--layers`` when given.
+(``configs.single_card``), cut to ``--layers`` when given.  Each batch is
+the one ``launch.train`` gives that step (``step_inputs``: token ids, or
+an embedding-input arch's N(0, 1) draw; positions (3, B, S) for M-RoPE).
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 
 import numpy as np
 import torch
 
 from .configs import get_arch
 from .data.indexed_dataset import synthetic_token_stream
-from .launch.train import train_config
+from .launch.train import step_inputs, train_config
 from .models import layers as L
 from .models import model as M
 from .train import optimizer, step as train_step
@@ -128,18 +131,26 @@ def main(argv=None) -> None:
     stream = synthetic_token_stream(args.seed, cfg.vocab_size, args.batch,
                                     args.seq)
 
+    drawn = itertools.count()
+
     def batch():
-        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                for a in next(stream)]
+        toks, labels = next(stream)
+        return (step_inputs(cfg, np.ascontiguousarray(toks), next(drawn),
+                            dev),
+                torch.from_numpy(np.ascontiguousarray(labels)).to(dev))
     if cfg.moe is not None and get_arch(args.arch).moe_at(0):
+        inputs = batch()[0]
         with torch.no_grad():
-            x = M.embed_tokens(params, cfg, batch()[0], cfg.tp_shard)
+            x = inputs.to(torch.bfloat16) if cfg.embed_input else \
+                M.embed_tokens(params, cfg, inputs, cfg.tp_shard)
         _moe_pieces(cfg, params, x)
-        del x
+        del x, inputs
     opt = optimizer.init(params)
     fn = train_step.make_train_step(cfg, lr=1e-3)
     pos = torch.arange(args.seq, dtype=torch.int32, device=dev)[None] \
         .expand(args.batch, args.seq)
+    if cfg.rope == "mrope":
+        pos = pos[None].expand(3, args.batch, args.seq)
 
     def one():
         fn(params, opt, *batch(), pos)

@@ -22,13 +22,15 @@ F32 = torch.float32
 
 
 def batch_shapes(cfg, global_batch: int, seq_len: int) -> dict:
-    """(shape, dtype) of each input of a step (token-id archs: ids and
-    labels int32, positions (B, S) int32)."""
-    if cfg.embed_input or cfg.rope == "mrope":
-        raise not_ported("embedding-input and M-RoPE archs", "14")
+    """(shape, dtype) of each input of a step, the reference's: ids (B, S)
+    int32, or embeddings (B, S, d) bf16 where ``cfg.embed_input``; labels
+    (B, S) int32; positions (B, S) int32, or (3, B, S) for M-RoPE."""
     B, S = global_batch, seq_len
-    return {"inputs": ((B, S), torch.int32), "labels": ((B, S), torch.int32),
-            "pos": ((B, S), torch.int32)}
+    inputs = ((B, S, cfg.d_model), torch.bfloat16) if cfg.embed_input \
+        else ((B, S), torch.int32)
+    pos = (3, B, S) if cfg.rope == "mrope" else (B, S)
+    return {"inputs": inputs, "labels": ((B, S), torch.int32),
+            "pos": (pos, torch.int32)}
 
 
 def auto_microbatch(cfg, global_batch: int, seq_len: int, *,
@@ -50,7 +52,8 @@ def make_train_step(cfg, *, lr: float = 3e-4, remat: bool = True,
     metrics)``.  ``microbatch`` > 1 splits the batch into that many slices
     taken one after another, accumulating f32 gradients (``acc + f32(g)``)
     and the loss, both divided by the count at the end, as the
-    reference's scan does."""
+    reference's scan does; M-RoPE's (3, B, S) ids are sliced on their
+    batch axis, 1."""
     if compress_pod:
         raise not_ported("compress_pod (the int8 gradient psum over a pod "
                          "axis: multi-card training)", "14")
@@ -76,7 +79,8 @@ def make_train_step(cfg, *, lr: float = 3e-4, remat: bool = True,
                                           device=inputs.device)
             for i in range(microbatch):
                 sl = slice(i * n, (i + 1) * n)
-                l, g = loss_and_grads(ps, inputs[sl], labels[sl], pos[sl])
+                p_sl = pos[:, sl] if cfg.rope == "mrope" else pos[sl]
+                l, g = loss_and_grads(ps, inputs[sl], labels[sl], p_sl)
                 g = [gi.to(F32) for gi in g]      # 0 + g: the first slice
                 acc = g if acc is None else [a + gi for a, gi in
                                              zip(acc, g, strict=True)]

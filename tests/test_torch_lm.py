@@ -263,7 +263,8 @@ def _shapes(tree, prefix=""):
 @pytest.mark.parametrize("arch", ["qwen3-4b", "command-r-plus-104b",
                                   "qwen1.5-4b", "yi-9b",
                                   "granite-moe-1b-a400m", "qwen2-moe-a2.7b",
-                                  "jamba-v0.1-52b", "xlstm-125m"])
+                                  "jamba-v0.1-52b", "xlstm-125m",
+                                  "qwen2-vl-72b", "musicgen-large"])
 def test_params_and_caches_match_reference_shapes(arch):
     """``init_params`` and ``init_cache`` give the reference's shapes and
     dtypes, reduced and (without allocating) at published widths."""
@@ -562,19 +563,22 @@ def test_device_and_unported_rules():
         TM.forward({}, tc, torch.zeros(1, 2, dtype=torch.int32),
                    pos=torch.zeros(1, 2, dtype=torch.int32), mode="decode",
                    seq_sharded=True)
-    for arch in ("qwen2-vl-72b", "musicgen-large"):     # M-RoPE, embed_input
-        with pytest.raises(NotImplementedError, match="item 14"):
-            TM.build_tree(reduce_cfg(get_arch(arch)))
-    for arch in ("jamba-v0.1-52b", "xlstm-125m"):      # served and trained
+    # served and trained: the recurrent families, M-RoPE (3-D ids) and
+    # frame embeddings (no token table)
+    for arch in ("jamba-v0.1-52b", "xlstm-125m", "qwen2-vl-72b",
+                 "musicgen-large"):
         rc = reduce_cfg(get_arch(arch), d_model=64, vocab=256)
         assert TM.build_tree(rc)["sb"]
+        assert ("embed" in TM.build_tree(rc)) is not rc.embed_input
         g = torch.Generator()
         g.manual_seed(0)
-        x, _ = TM.forward(TM.init_params(rc, g, "cpu"), rc,
-                          torch.zeros(1, 2, dtype=torch.int32),
-                          pos=torch.zeros(1, 2, dtype=torch.int32),
+        inputs = torch.zeros(1, 2, 64) if rc.embed_input else \
+            torch.zeros(1, 2, dtype=torch.int32)
+        pos = torch.zeros((3, 1, 2) if rc.rope == "mrope" else (1, 2),
+                          dtype=torch.int32)
+        x, _ = TM.forward(TM.init_params(rc, g, "cpu"), rc, inputs, pos=pos,
                           mode="train")
-        assert tuple(x.shape) == (1, 2, 64)
+        assert tuple(x.shape) == (1, 2, 64) and x.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="single_card"):
         TM.build_tree(get_arch("qwen3-4b"))
     with pytest.raises(NotImplementedError, match="item 14"):

@@ -441,6 +441,17 @@ def test_step_rules():
     assert tstep.batch_shapes(tc, 8, 128)["inputs"] == ((8, 128),
                                                         torch.int32)
     from repro.configs.base import SHAPES
+    # the reference's shapes and dtypes: frame embeddings (B, S, d) bf16
+    # for musicgen, (3, B, S) ids for qwen2-vl's M-RoPE
+    for arch in ("musicgen-large", "qwen2-vl-72b", "qwen3-4b"):
+        for shape in SHAPES.values():
+            want = jstep.batch_shapes(jget_arch(arch), shape)
+            got = tstep.batch_shapes(get_arch(arch), shape.global_batch,
+                                     shape.seq_len)
+            assert set(got) == set(want)
+            for k, w in want.items():
+                assert got[k][0] == tuple(w.shape), (arch, k)
+                assert str(got[k][1]) == f"torch.{w.dtype}", (arch, k)
     for arch in ("granite-moe-1b-a400m", "qwen3-4b", "yi-9b"):
         for shape in SHAPES.values():
             jc = jget_arch(arch)
@@ -528,9 +539,15 @@ def test_launch_train_cpu_loss_falls():
 def test_checkpoints_cross_packages():
     """A reference ``Checkpointer`` save of reduced params and an AdamW
     state after one update restores in the port bit for bit, and the port's
-    save restores in the reference; the template is left as it was."""
-    jc, tc, jp, tp, _ = carried("qwen2-moe-a2.7b", n_layers=2, d_model=64,
-                                vocab=256)
+    save restores in the reference; the template is left as it was.
+    qwen2-moe's tree and musicgen's, which has no ``embed`` leaf."""
+    for arch in ("qwen2-moe-a2.7b", "musicgen-large"):
+        _checkpoint_round_trip(arch)
+
+
+def _checkpoint_round_trip(arch: str) -> None:
+    jc, tc, jp, tp, _ = carried(arch, n_layers=2, d_model=64, vocab=256)
+    assert ("embed" in tp) is not tc.embed_input
     rng = np.random.default_rng(12)
     g = jax.tree.map(lambda p: jnp.asarray(rng.normal(size=p.shape),
                                            p.dtype), jp)
