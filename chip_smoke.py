@@ -302,7 +302,8 @@ Phases (any failure exits non-zero; nothing is caught):
    xlstm (sLSTM layers, whose recurrence decorrelates such runs) to the
    logits' scale, ``J_SCALE_RTOL``.  Prints prefill s, decode tokens/s, peak
    memory and K8 launches by tile; phase 1 also fails on a spill in
-   ``flash_bias_kernel``.
+   ``flash_bias_kernel`` and unless its SASS holds ``HGMMA`` (``wgmma``)
+   and no ``HMMA`` (``mma.sync``).
 16. Path K, the recurrent families trained, counted, after path J:
    ``launch.train.train("xlstm-125m", steps=K_STEPS, batch=8, seq=2048,
    lr=1e-3)`` in its one-card form at full width and depth (12 layers: 6
@@ -320,8 +321,9 @@ Phases (any failure exits non-zero; nothing is caught):
    ``lse`` on ``J_BIAS_EDGES`` the same way, and a planted fault (one
    query row's fq raised by ``K_LSE_FAULT`` tolerances: every output
    within one ulp, the ``lse`` check must fail).  The tile timed there
-   with and without ``lse`` beside plain and the torch-op backward (the
-   ``path_k_*`` keys of the ``flash_bias`` row).  A warm step of a
+   with and without ``lse`` beside plain, SDPA in f32 with the f32 bias
+   mask (forward only) and the torch-op backward (the ``path_k_*`` keys
+   of the ``flash_bias`` row).  A warm step of a
    ``K_TRACE_LAYERS``-layer cut of the same width traced with
    ``torch.profiler``: wall, device busy, idle share, device time by kind
    (the sLSTM loop forward with the recompute and backward, the bias tile
@@ -1054,6 +1056,20 @@ def _spills(report: str) -> list:
         if mm and (int(mm[1]) or int(mm[2])):
             bad.append(line.strip())
     return bad
+
+
+def _sass_functions(sass: str, name: str) -> list:
+    """The SASS text of each function of a ``cuobjdump -sass`` listing
+    whose mangled name holds ``name``."""
+    out, cur = [], None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = [] if name in line else None
+            if cur is not None:
+                out.append(cur)
+        elif cur is not None:
+            cur.append(line)
+    return ["\n".join(f) for f in out]
 
 
 def _entry_report(report: str, name: str) -> str:
@@ -4826,17 +4842,7 @@ def _j_bias_edges(h, dev, rows, first, launches) -> None:
 
     # timed at the first mLSTM layer's shape; the library yardstick is SDPA
     # in f32 with the (B, H, Sq, Skv) f32 bias mask (-inf where masked)
-    Sq, Skv = q.shape[1], k.shape[1]
-    keep = (torch.arange(Skv, device=dev)[None, :]
-            <= qo + torch.arange(Sq, device=dev)[:, None]) & \
-        (torch.arange(Skv, device=dev) < kvv)[None, :]
-    mask = (fq.transpose(1, 2)[..., None] + fk.transpose(1, 2)[:, :, None, :]
-            ).masked_fill(~keep, float("-inf"))
-    qs, ks, vs = (t.transpose(1, 2).float().contiguous() for t in (q, k, v))
-
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask)
+    sdpa, mask_bytes = _bias_sdpa(q, k, v, qo, kvv, (fq, fk))
     nbytes, ops = _flash_work(q, k, qo, kvv)
     nbytes += (fq.numel() + fk.numel()) * 4
     err = rows["flash_bias"]["max_abs_err"]
@@ -4853,13 +4859,33 @@ def _j_bias_edges(h, dev, rows, first, launches) -> None:
     row["bound_f32_ms"] = row["bound_ms"]
     row["bound_ms"], row["bound_by"] = (
         (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
-    row["sdpa_mask_bytes"] = mask.numel() * mask.element_size()
+    row["sdpa_mask_bytes"] = mask_bytes
     rows["flash_bias"] = row
     print(f"    {nbytes} bytes, {ops} operations; bound_ms "
           f"{row['bound_ms']:.6f} ({row['bound_by']}), bound_f32_ms "
           f"{row['bound_f32_ms']:.6f}; SDPA's f32 mask "
           f"{row['sdpa_mask_bytes']} bytes")
-    del mask, qs, ks, vs
+    del sdpa
+
+
+def _bias_sdpa(q, k, v, qo, kvv, bias):
+    """The bias tile's library yardstick on these inputs: a call of SDPA in
+    f32 with the (B, H, Sq, Skv) f32 bias mask (fq + fk, -inf where
+    masked), and the mask's bytes."""
+    import torch
+    fq, fk = bias
+    dev, Sq, Skv = q.device, q.shape[1], k.shape[1]
+    keep = (torch.arange(Skv, device=dev)[None, :]
+            <= qo + torch.arange(Sq, device=dev)[:, None]) & \
+        (torch.arange(Skv, device=dev) < kvv)[None, :]
+    mask = (fq.transpose(1, 2)[..., None] + fk.transpose(1, 2)[:, :, None, :]
+            ).masked_fill(~keep, float("-inf"))
+    qs, ks, vs = (t.transpose(1, 2).float().contiguous() for t in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask)
+    return sdpa, mask.numel() * mask.element_size()
 
 
 def _k_span(cat: str, name: str):
@@ -5030,15 +5056,22 @@ def _path_k(args, dev, rows, h) -> None:
         q, k, v, q_offset=0, bias_qk=bias))
     b_ms = _event_ms(lambda: tflash.flash_attention_bwd(
         q, k, v, do, lse, q_offset=0, bias_qk=bias), 5, warmup=1)
+    # the library yardstick of the forward, as phase 15's (no library
+    # backward gives the bias sums)
+    sdpa, mask_bytes = _bias_sdpa(q, k, v, 0, K_SEQ, bias)
+    l_ms = _event_ms(sdpa, 20)
+    del sdpa
     row = rows["flash_bias"]
     row["launches"] += launches["flash_bias"]
     row["max_abs_err"] = max(row["max_abs_err"], err)
     row.update(path_k_launches=launches["flash_bias"], path_k_lse_ms=k_ms,
                path_k_no_lse_ms=bare_ms, path_k_plain_ms=p_ms,
-               path_k_bound_ms=bound, path_k_backward_ms=b_ms)
+               path_k_bound_ms=bound, path_k_backward_ms=b_ms,
+               path_k_library_ms=l_ms, path_k_sdpa_mask_bytes=mask_bytes)
     print(f"  bias tile at path K's shape (q {tuple(q.shape)}): with lse "
           f"{k_ms:.6f} ms, without {bare_ms:.6f} ms, plain (with lse) "
-          f"{p_ms:.6f} ms, bound {bound:.6f} ms ({nbytes} bytes, {ops} "
+          f"{p_ms:.6f} ms, SDPA in f32 with the {mask_bytes}-byte f32 bias "
+          f"mask {l_ms:.6f} ms, bound {bound:.6f} ms ({nbytes} bytes, {ops} "
           f"operations on the bf16 tensor cores); the backward's torch ops "
           f"{b_ms:.6f} ms a layer")
     del captured, q, k, v, fq, fk, bias, do, lse
@@ -5833,8 +5866,9 @@ def main(argv=None) -> int:
     if hgmma == 0:
         raise AssertionError("the flash library's SASS holds no HGMMA: the "
                              "prefill tile does not use the tensor cores")
-    # K8's bias tile keeps 96 f32 output accumulators a lane at D = 384
-    # (its mma.sync fragments) beside S's 32: none may spill
+    # K8's bias tile keeps 96 f32 output accumulators a thread at D = 384
+    # (its wgmma m64n192 slice) beside S's 32: none may spill; and it runs
+    # its products as wgmma (HGMMA), with no warp-level mma.sync (HMMA)
     if "flash" in reports:
         bias_spills = _spills(_entry_report(reports["flash"],
                                             "flash_bias_kernel"))
@@ -5842,6 +5876,14 @@ def main(argv=None) -> int:
             raise AssertionError(f"ptxas spills in flash_bias_kernel: "
                                  f"{bias_spills}")
         print("  flash_bias_kernel (D 64, 384): no spills")
+    bias_sass = _sass_functions(sass, "flash_bias_kernel")
+    n_hg = sum(f.count("HGMMA") for f in bias_sass)
+    n_hm = sum(f.count("HMMA") for f in bias_sass)
+    print(f"  flash_bias_kernel: {len(bias_sass)} functions, {n_hg} HGMMA, "
+          f"{n_hm} HMMA instructions")
+    if len(bias_sass) != 2 or n_hg == 0 or n_hm:
+        raise AssertionError("flash_bias_kernel's SASS must hold HGMMA "
+                             "(wgmma) and no HMMA (mma.sync) at D 64 and 384")
 
     h = _Harness(dev, args.seed, args.queries)
     g, L, nq = h.g, args.n_leaves, args.queries

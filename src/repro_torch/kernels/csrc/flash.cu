@@ -76,16 +76,19 @@
 //    explicit fmaf loops; a 64-row tile, or an 8-row one for Sq * G <= 8.
 //    expf and f32 dots in key and feature order.
 // 4. flash_bias_kernel: bias_qk given (the mLSTM's parallel form), bf16, D
-//    in {64, 384}: the per-query and per-key terms added to each score, S
-//    and P.V on the tensor cores by mma.sync (section 4 below).
+//    in {64, 384}: the per-query and per-key terms added to each score.
+//    Tile 1's pieces (64-key K and V tiles by TMA into an mbarrier ring, S
+//    and P.V by wgmma, P in bf16 hi + lo) with the exponent taken of s - m;
+//    at D = 384 the two warpgroups hold the same 64 rows and split the 384
+//    output columns, each computing S itself, in three 48 KB ring slots
+//    beside Q (section 4 below).
 //
 // Training: tiles 1, 3 and 4 take an optional `lse` pointer (f32, (B, H,
 // Sq)).  Where it is not null, each block's epilogue also writes every row's
 // log-sum-exp m + log(l) of its scaled (tile 4: scaled and biased) scores,
 // from the m and l it holds in registers, for the backward
 // (kernels/flash.py flash_attention_bwd).  Serving passes null: the main
-// loop, the output and the wgmma / mma.sync sequence are the same either
-// way.
+// loop, the output and the wgmma sequence are the same either way.
 //
 // The kernels sum their dot products in other orders than XLA's dot, so
 // they agree with the reference to f32 rounding (within the tolerances
@@ -516,11 +519,33 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+// The same at N = 192 (the bias tile's column slice at D = 384).
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                              const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, "
+      "%71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, "
+      "%85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}"
+      : K8_F32(d), K8_F8(d, 32), K8_F8(d, 40), K8_F8(d, 48), K8_F8(d, 56),
+        K8_F8(d, 64), K8_F8(d, 72), K8_F8(d, 80), K8_F8(d, 88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O (64 x N, N / 2 accumulators a thread) += A B at N = 64, 128 or 192.
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2],
                                          const uint32_t* a, uint64_t db) {
-  if constexpr (D == 64) wgmma_rs_n64(o, a, db);
-  else wgmma_rs_n128(o, a, db);
+  if constexpr (N == 64) wgmma_rs_n64(o, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(o, a, db);
+  else wgmma_rs_n192(o, a, db);
 }
 
 // 2^x by the special function unit (ex2.approx.ftz.f32: relative error
@@ -541,6 +566,90 @@ __device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi,
       __floats2bfloat162_rn(__fsub_rn(x, hf.x), __fsub_rn(y, hf.y));
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The Q rows r0 .. r0 + ROWS - 1 of (b, hkv) (row r: query r / G, head
+// hkv * G + r % G) into sQ [D/64][ROWS][128 B], each 16-byte chunk c of row
+// r at chunk c ^ (r % 8) (the 128-byte swizzle), zero past the last row, by
+// the 256 consumer threads: every load issued before any store.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_q(uint8_t* sQ,
+                                        const __nv_bfloat16* __restrict__ q,
+                                        int tid, int r0, int rows, int b,
+                                        int Sq, int H, int hkv, int G) {
+  constexpr int NCH = D / 8;
+  constexpr int PER = ROWS * NCH / 256;
+  uint4 val[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int idx = tid + u * 256;
+    const int r = idx / NCH, c = idx % NCH, rr = r0 + r;
+    val[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (rr < rows) {
+      const int i = rr / G, g = rr % G;
+      val[u] = *reinterpret_cast<const uint4*>(
+          q + ((static_cast<size_t>(b) * Sq + i) * H + hkv * G + g) * D +
+          c * 8);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int idx = tid + u * 256;
+    const int r = idx / NCH, c = idx % NCH;
+    *reinterpret_cast<uint4*>(sQ + (c / 8) * (ROWS * 128) + r * 128 +
+                              (((c % 8) ^ (r & 7)) << 4)) = val[u];
+  }
+}
+
+// S (64 x 64, f32) = Q K^T, unscaled, by wgmma from shared memory: Q's 64
+// rows at q_addr in a [D/64][ROWS][128 B] tile, K at k_addr in [D/64][64
+// keys][128 B], both swizzled as stage_q stores them.
+template <int D, int ROWS>
+__device__ __forceinline__ void wgmma_qk(float (&sc)[32], uint32_t q_addr,
+                                         uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da = desc_sw128(
+        q_addr + (kk / 4) * (ROWS * 128) + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = desc_sw128(
+        k_addr + (kk / 4) * (64 * 128) + (kk % 4) * 32, 16, 1024);
+    wgmma_ss_n64(sc, da, db, kk > 0);
+  }
+}
+
+// The epilogue of a consumer thread: its rows rA and rB = rA + 8 (absolute
+// rows of (b, hkv)) hold N output columns from c0 in the accumulators o,
+// their m and their partial l (summed over the quad here); out = o /
+// max(l, 1e-30) in bf16, and where lse is not null each row's m + log(l).
+template <int N>
+__device__ __forceinline__ void store_rows(
+    const float (&o)[N / 2], float mA, float mB, float lA, float lB,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int rA, int t4,
+    int c0, int rows, int b, int Sq, int H, int D, int hkv, int G) {
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    lA = __fadd_rn(lA, __shfl_xor_sync(0xffffffffu, lA, o_));
+    lB = __fadd_rn(lB, __shfl_xor_sync(0xffffffffu, lB, o_));
+  }
+  const float dA = fmaxf(lA, 1e-30f), dB = fmaxf(lB, 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int rr = rA + 8 * half;
+    if (rr >= rows) continue;
+    const float den = half ? dB : dA;
+    const int i = rr / G, g = rr % G;
+    __nv_bfloat16* dst =
+        out + ((static_cast<size_t>(b) * Sq + i) * H + hkv * G + g) * D + c0;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(__fdiv_rn(o[4 * j + 2 * half], den),
+                                __fdiv_rn(o[4 * j + 2 * half + 1], den));
+    // the row's log-sum-exp, m and l being the same in its quad
+    if (lse != nullptr && t4 == 0)
+      lse[(static_cast<size_t>(b) * H + hkv * G + g) * Sq + i] =
+          __fadd_rn(half ? mB : mA, logf(half ? lB : lA));
+  }
 }
 
 // ===========================================================================
@@ -623,32 +732,8 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap kmap,
     return;
   }
 
-  // the Q tile (zero past the last row) while the first K/V tiles load:
-  // every load issued before any store
-  {
-    constexpr int NCH = D / 8;
-    constexpr int PER = kTcBR * NCH / (kTcWG * 128);
-    uint4 val[PER];
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int idx = tid + u * kTcWG * 128;
-      const int r = idx / NCH, c = idx % NCH, rr = r0 + r;
-      val[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (rr < rows) {
-        const int i = rr / G, g = rr % G;
-        val[u] = *reinterpret_cast<const uint4*>(
-            q + ((static_cast<size_t>(b) * Sq + i) * H + hkv * G + g) * D +
-            c * 8);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int idx = tid + u * kTcWG * 128;
-      const int r = idx / NCH, c = idx % NCH;
-      *reinterpret_cast<uint4*>(sQ + (c / 8) * (kTcBR * 128) + r * 128 +
-                                (((c % 8) ^ (r & 7)) << 4)) = val[u];
-    }
-  }
+  // the Q tile while the first K/V tiles load
+  stage_q<D, kTcBR>(sQ, q, tid, r0, rows, b, Sq, H, hkv, G);
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   consumers_sync();
 
@@ -673,15 +758,7 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap kmap,
 
   // S(t) = Q K_t^T, unscaled, f32
   auto issue_s = [&](int t) {
-    const uint32_t k_addr = smem_u32(sK + (t % kTcStages) * S::kKV);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint64_t da = desc_sw128(
-          q_addr + (kk / 4) * (kTcBR * 128) + (kk % 4) * 32, 16, 1024);
-      const uint64_t db = desc_sw128(
-          k_addr + (kk / 4) * (kTcBK * 128) + (kk % 4) * 32, 16, 1024);
-      wgmma_ss_n64(sc, da, db, kk > 0);
-    }
+    wgmma_qk<D, kTcBR>(sc, q_addr, smem_u32(sK + (t % kTcStages) * S::kKV));
   };
   // O += P_hi(t) V_t + P_lo(t) V_t
   auto issue_pv = [&](int t) {
@@ -786,30 +863,8 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap kmap,
     fence_regs(o);
   }
 
-#pragma unroll
-  for (int o_ = 1; o_ < 4; o_ <<= 1) {
-    lA = __fadd_rn(lA, __shfl_xor_sync(0xffffffffu, lA, o_));
-    lB = __fadd_rn(lB, __shfl_xor_sync(0xffffffffu, lB, o_));
-  }
-  const float dA = fmaxf(lA, 1e-30f), dB = fmaxf(lB, 1e-30f);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int rr = r0 + (half ? rB : rA);
-    if (rr >= rows) continue;
-    const float den = half ? dB : dA;
-    const int i = rr / G, g = rr % G;
-    __nv_bfloat16* dst =
-        out + ((static_cast<size_t>(b) * Sq + i) * H + hkv * G + g) * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * t4) =
-          __floats2bfloat162_rn(__fdiv_rn(o[4 * j + 2 * half], den),
-                                __fdiv_rn(o[4 * j + 2 * half + 1], den));
-    // the row's log-sum-exp, m and l being the same in its quad
-    if (lse != nullptr && t4 == 0)
-      lse[(static_cast<size_t>(b) * H + hkv * G + g) * Sq + i] =
-          __fadd_rn(half ? mB : mA, logf(half ? lB : lA));
-  }
+  store_rows<D>(o, mA, mB, lA, lB, out, lse, r0 + rA, t4, 0, rows, b, Sq, H,
+                D, hkv, G);
 }
 
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
@@ -1161,248 +1216,314 @@ int launch_split(const void* q, const void* k, const void* v, void* m_part,
 //   s = (scale * (q . k) + fq[b, i, h]) + fk[b, j, h]
 //
 // the two additions in that order, each an f32 rounding, then the mask and
-// the online softmax of the other tiles.  The two bias terms reach +-1e3
+// the online softmax of the other tiles.  The two bias terms reach +-1.4e3
 // at S = 2,048 and cancel, so each score keeps its f32 roundings: the dot
 // product of the bf16 inputs is exact product by product and summed in f32
 // by the tensor cores, scaled after the product (as in tile 1: the
 // reference's f32(q) * scale . k differs from it by f32 rounding only),
-// then the two bias terms added one at a time.  xlstm-125m's head dim is
-// 384 (expand 2 x d_model 768 / 4 heads), the reduced configs' 64.
+// then the two bias terms added one at a time.  Tile 1's folded exponent
+// (its error bound holds for |s| < 50) is not taken: s - m is rounded
+// first, then p = ex2(f32(s - m) * log2(e)), a relative error of p below
+// 6e-6 over the range where p is not 0.  xlstm-125m's head dim is 384
+// (expand 2 x d_model 768 / 4 heads), the reduced configs' 64.
 //
-// What bounds it: 4 D operations a (query, valid key) pair, 0.052 ms at
-// xlstm's prefill shape on the bf16 tensor cores.  The design is
-// FlashAttention-2's on mma.sync (warp-level m16n8k16, bf16 in, f32
-// accumulators): a block of 64 query rows, 16 a warp; K, V (transposed)
-// and the block's Q staged in shared memory as bf16 (rows padded by 8
-// values, so the fragment loads hit 32 distinct banks), a 64-key tile at a
-// time.  S = Q K^T in registers (8 n-tiles of 8 keys, 4 f32 a lane each);
-// the softmax in the accumulators' layout (a row in the 4 lanes of a quad,
-// expf as tile 3); P kept above bf16 for P.V as tile 1 keeps it (P = P_hi
-// + P_lo, each bf16, two MMAs against the same V fragment).  At D = 384 the
-// output (16 rows x 384 f32 a warp) is split between two warps of the
-// same rows, 192 columns each (96 accumulators a lane); each computes the
-// rows' S itself.  A block is then 8 warps and 155,648 + 256 G bytes of
-// shared memory (one block an SM); at D = 64, 4 warps and 27,648 + 256 G.
-constexpr int kBiasBR = 64;                 // query rows a block
-constexpr int kBiasBK = 64;                 // keys a tile
-constexpr int kBiasPad = 8;                 // bf16 values padding a row
+// What bounds it: 4 D operations a (query, valid key) pair on the bf16
+// tensor cores, 0.052 ms at xlstm's prefill shape.  The design is tile 1's
+// (its TMA, mbarrier and wgmma pieces): a block of two consumer warpgroups
+// and a producer warpgroup (one warp loads; setmaxnreg moves its registers
+// to the consumers), row tiles issued heaviest first.
+//   K and V: 64-key tiles by TMA (the 4-d maps of kv_map, zero fill past
+//     Skv, 128-byte swizzle) into a ring of slots that K(t) and V(t) take
+//     in turn (item n = 2 t or 2 t + 1 in slot n % kSlots), each slot
+//     guarded by a full and an empty mbarrier.  With K(t) the producer warp
+//     also stages the tile's fk for the block's G heads by plain loads:
+//     G floats a key are under TMA's 16-byte box-row minimum at G = 1
+//     (xlstm).  Q is staged once by the consumers (plain loads, swizzled
+//     stores, as tile 1).
+//   S = Q K^T by wgmma m64n64k16 from shared memory (D / 16 k-steps); the
+//     scale on the f32 accumulator, then fq and fk added in the
+//     accumulator's quad layout, then the mask.
+//   P.V by register-A wgmma with P = P_hi + P_lo (bf16 each, two MMAs
+//     against the same V tile), V read MN-major through the descriptor's
+//     transpose bit.
+//   A warpgroup runs S(t), the softmax of S(t) and P(t).V(t) in turn,
+//     waiting on each; the two warpgroups run unsynchronised, so one's
+//     softmax overlaps the other's MMAs.  A K slot is released once its fk
+//     is read, a V slot once its P.V is done.
+// At D = 384 a row's output is 384 f32, 192 registers a thread for one
+// warpgroup: the two warpgroups hold the same 64 rows, each its 192 output
+// columns (wgmma m64n192k16, 96 accumulators a thread), and each computes
+// the rows' S itself: 8 D operations a pair, twice the bound (0.104 ms at
+// xlstm's shape), and nothing passes between them.  Shared memory at D =
+// 384: Q 48 KB, a 64-key K or V tile 48 KB, so a two-stage K + V ring (192
+// KB) beside Q does not fit the 232,448 bytes; three slots do (K, V, K in
+// flight: 192 KB in all).  64-key tiles were taken over 32-key tiles in
+// three full stages (also 192 KB): at 32 keys S's wgmma is m64n32k16,
+// which reads 3 KB of shared memory for 16 cycles of MMA, above the SM's
+// 128 bytes a cycle; at 64 keys 4 KB for 32 cycles.  Each load has about
+// one tile's compute to land: K(t + 1) is issued once P(t - 1).V(t - 1)
+// frees its slot, V(t + 1) once S(t)'s fk is read.  At D = 64 each
+// warpgroup owns 64 rows of its own (128 a block, as tile 1) over six
+// slots.
+constexpr int kBiasBK = kTcBK;              // keys a tile (kv_map's box)
+// Two consumer warpgroups and a producer warpgroup, one warp of which
+// loads.  A block of 384 threads gets 168 registers a thread (65,536 over
+// 12 warps in units of 4), and dh 384's consumers need more (96 output
+// accumulators and S's 32): the producer gives them up by setmaxnreg, 40
+// left to it and 232 to each consumer thread, (168 - 40) x 128 = (232 -
+// 168) x 256 registers.
+constexpr int kBiasThreads = (kTcWG + 1) * 128;
+constexpr int kBiasProducerRegs = 40;
+constexpr int kBiasConsumerRegs = 232;
 
 template <int D>
 struct BiasTile {
-  static constexpr int kSlices = D >= 256 ? 2 : 1;   // output column slices
-  static constexpr int kWarps = 4 * kSlices;
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kCols = D / kSlices;          // output columns a warp
-  static constexpr int kQs = D + kBiasPad;           // sQ, sK row stride
-  static constexpr int kVs = kBiasBK + kBiasPad;     // sVt row stride
-  static constexpr int kBf16Bytes =
-      2 * (kBiasBR * kQs + kBiasBK * kQs + D * kVs);
+  static constexpr int kSlices = D > 128 ? 2 : 1;     // warpgroups a row
+  static constexpr int kRows = kTcBM * kTcWG / kSlices;   // rows a block
+  static constexpr int kCols = D / kSlices;   // output columns a warpgroup
+  static constexpr int kSlots = D > 128 ? 3 : 6;      // K / V ring slots
+  static constexpr int kQBytes = kRows * D * 2;
+  static constexpr int kTileBytes = kBiasBK * D * 2;  // one K or V tile
+  // + 1,024 to align the base for the 128-byte swizzle; the ring's full
+  // and empty mbarriers after the tiles, then fk (kSlots x G x kBiasBK f32)
+  static constexpr int kFixedBytes =
+      1024 + kQBytes + kSlots * kTileBytes + 2 * kSlots * 8;
 };
 
-__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
+// Shared memory: sQ [D/64][kRows][128 B] and every ring slot [D/64][kBiasBK
+// keys][128 B] (tile 1's swizzled layout), full[kSlots], empty[kSlots],
+// sFk [kSlots][G][kBiasBK].
 template <int D>
-__global__ void __launch_bounds__(BiasTile<D>::kThreads)
-flash_bias_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kBiasThreads, 1)
+flash_bias_kernel(__grid_constant__ const CUtensorMap kmap,
+                  __grid_constant__ const CUtensorMap vmap,
+                  const __nv_bfloat16* __restrict__ q,
                   const float* __restrict__ fq, const float* __restrict__ fk,
                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                  int Sq, int Skv, int H, int Hkv, int G, int q_offset,
+                  int B, int Sq, int Skv, int H, int Hkv, int G, int q_offset,
                   int kv_valid, float scale) {
   using T = BiasTile<D>;
-  constexpr int kBK = kBiasBK, QS = T::kQs, VS = T::kVs;
-  constexpr int NCH = D / 8;                 // 16-byte chunks a row
-  constexpr int NTO = T::kCols / 8;          // output n-tiles a warp
-  static_assert(D % 64 == 0, "the bias tile takes D a multiple of 64");
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem4);  // [BR][QS]
-  __nv_bfloat16* sK = sQ + kBiasBR * QS;                         // [BK][QS]
-  __nv_bfloat16* sVt = sK + kBK * QS;                            // [D][VS]
-  float* sFk = reinterpret_cast<float*>(sVt + D * VS);           // [G][BK]
+  constexpr int kBK = kBiasBK, kSlots = T::kSlots;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* sQ = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint8_t* sKV = sQ + T::kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sKV + kSlots * T::kTileBytes);
+  uint64_t* empty = full + kSlots;
+  float* sFk = reinterpret_cast<float*>(empty + kSlots);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;   // mma group and lane in it
-  const int hkv = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int groups = Hkv * B;
+  const int ntx = gridDim.x / groups;
+  const int r0 = (ntx - 1 - static_cast<int>(blockIdx.x) / groups) * T::kRows;
+  const int hkv = (blockIdx.x % groups) % Hkv;
+  const int b = (blockIdx.x % groups) / Hkv;
   const int rows = Sq * G;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kBiasBR;
-  const int wr = (warp & 3) * 16;            // the warp's first row
-  const int c0 = (warp >> 2) * T::kCols;     // the warp's first column
-  const size_t kv_row = static_cast<size_t>(Hkv) * D;
 
-  for (int idx = tid; idx < kBiasBR * NCH; idx += T::kThreads) {
-    const int r = idx / NCH, ch = idx % NCH, rr = r0 + r;
-    uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (rr < rows)
-      w = *reinterpret_cast<const uint4*>(
-          q + ((static_cast<size_t>(b) * Sq + rr / G) * H + hkv * G + rr % G) *
-                  D + ch * 8);
-    *reinterpret_cast<uint4*>(sQ + r * QS + ch * 8) = w;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&full[s], 32);              // the producer warp's lanes
+      mbar_init(&empty[s], kTcWG * 4);      // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
 
-  // the thread's two rows (gq and gq + 8 of the warp's 16): query terms
-  int rr2[2], g2[2], qp2[2];
-  float fq2[2], m[2], l[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    rr2[h] = r0 + wr + gq + 8 * h;
-    g2[h] = rr2[h] % G;
-    qp2[h] = q_offset + rr2[h] / G;
-    fq2[h] = rr2[h] < rows
-        ? fq[(static_cast<size_t>(b) * Sq + rr2[h] / G) * H + hkv * G + g2[h]]
-        : 0.0f;
-    m[h] = kFloor;
-    l[h] = 0.0f;
-  }
-  float o[NTO][4];
-#pragma unroll
-  for (int j = 0; j < NTO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
-
-  const int i_last = (min(r0 + kBiasBR, rows) - 1) / G;
+  const int i_last = (min(r0 + T::kRows, rows) - 1) / G;
   const int kend = max(0, min(kv_valid, q_offset + i_last + 1));
   const int ntiles = (kend + kBK - 1) / kBK;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * Skv * kv_row + hkv * D;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Skv * kv_row + hkv * D;
+
+  if (tid >= kTcWG * 128) {
+    // producer warpgroup: its first warp loads, lane 0 issuing the TMA
+    // boxes of item n, lanes 1-31 staging a K item's fk; all 32 arrive on
+    // the slot's full barrier
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;"
+                 :: "n"(kBiasProducerRegs));
+    if (tid >= kTcWG * 128 + 32) return;
+    const int lane = tid % 32;
+    for (int n = 0; n < 2 * ntiles; ++n) {
+      const int s = n % kSlots, t = n / 2;
+      if (n >= kSlots) mbar_wait(&empty[s], ((n / kSlots) + 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], T::kTileBytes);
+        uint8_t* dst = sKV + s * T::kTileBytes;
+#pragma unroll
+        for (int h = 0; h < D / 64; ++h) {
+          if (n % 2 == 0)
+            tma_load_4d(dst + h * kBK * 128, &kmap, &full[s], h * 64, hkv,
+                        t * kBK, b);
+          else
+            tma_load_4d(dst + h * kBK * 128, &vmap, &full[s], h * 64, hkv,
+                        t * kBK, b);
+        }
+      } else {
+        if (n % 2 == 0) {
+          float* dst = sFk + s * G * kBK;
+          for (int idx = lane - 1; idx < G * kBK; idx += 31) {
+            const int j = idx / G, g = idx % G, kp = t * kBK + j;
+            dst[g * kBK + j] =
+                kp < Skv ? fk[(static_cast<size_t>(b) * Skv + kp) * H +
+                              hkv * G + g]
+                         : 0.0f;
+          }
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;"
+               :: "n"(kBiasConsumerRegs));
+  stage_q<D, T::kRows>(sQ, q, tid, r0, rows, b, Sq, H, hkv, G);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  consumers_sync();
+
+  // consumers: warpgroup wg holds rows row0 .. row0 + 63 of the block and
+  // output columns c0 .. c0 + kCols - 1; a thread owns rows rA and rB = rA
+  // + 8, and of every 8 columns of an accumulator the two at 2 * t4
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int row0 = T::kSlices == 2 ? 0 : wg * kTcBM;
+  const int c0 = T::kSlices == 2 ? wg * T::kCols : 0;
+  const int rA = r0 + row0 + warp * 16 + g8, rB = rA + 8;
+  const int gA = rA % G, gB = rB % G;
+  const int posA = q_offset + rA / G, posB = q_offset + rB / G;
+  const int pos_lo = q_offset + (r0 + row0) / G;
+  const float fqA = rA < rows
+      ? fq[(static_cast<size_t>(b) * Sq + rA / G) * H + hkv * G + gA] : 0.0f;
+  const float fqB = rB < rows
+      ? fq[(static_cast<size_t>(b) * Sq + rB / G) * H + hkv * G + gB] : 0.0f;
+  const uint32_t q_addr = smem_u32(sQ) + row0 * 128;
+  const uint32_t kv_addr = smem_u32(sKV);
+
+  float o[T::kCols / 2];
+#pragma unroll
+  for (int i = 0; i < T::kCols / 2; ++i) o[i] = 0.0f;
+  float mA = kFloor, mB = kFloor, lA = 0.0f, lB = 0.0f;
+  uint32_t ph[16], pl[16];     // P of this tile, bf16 hi and lo
+  float sc[32];                // S of this tile, then P
+
+  // S(t) = Q K_t^T, unscaled, f32
+  auto issue_s = [&](int s) {
+    wgmma_qk<D, T::kRows>(sc, q_addr, kv_addr + s * T::kTileBytes);
+  };
+  // O += P_hi(t) V_t + P_lo(t) V_t over the warpgroup's columns
+  auto issue_pv = [&](int s) {
+    const uint32_t v_addr =
+        kv_addr + s * T::kTileBytes + (c0 / 64) * (kBK * 128);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t dv = desc_sw128(v_addr + kk * 16 * 128, kBK * 128,
+                                     1024);
+      wgmma_pv<T::kCols>(o, ph + 4 * kk, dv);
+      wgmma_pv<T::kCols>(o, pl + 4 * kk, dv);
+    }
+  };
+  // the scores of S(t) (scale, fq, fk), its K slot released, the mask and
+  // the online softmax; O rescaled; P(t) into ph, pl
+  auto softmax = [&](int t, int s) {
+    const int k0 = t * kBK;
+    const float* fkA = sFk + (s * G + gA) * kBK + 2 * t4;
+    const float* fkB = sFk + (s * G + gB) * kBK + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = __fadd_rn(
+            __fadd_rn(__fmul_rn(sc[4 * j + e], scale), fqA), fkA[8 * j + e]);
+        sc[4 * j + 2 + e] = __fadd_rn(
+            __fadd_rn(__fmul_rn(sc[4 * j + 2 + e], scale), fqB),
+            fkB[8 * j + e]);
+      }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (k0 + kBK - 1 > pos_lo || k0 + kBK > kv_valid) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + 2 * t4 + e;
+          if (!(key <= posA && key < kv_valid)) sc[4 * j + e] = -INFINITY;
+          if (!(key <= posB && key < kv_valid)) sc[4 * j + 2 + e] = -INFINITY;
+        }
+    }
+    float xA = -INFINITY, xB = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      xA = fmaxf(xA, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      xB = fmaxf(xB, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, o_));
+      xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, o_));
+    }
+    const float nA = fmaxf(fmaxf(mA, xA), kFloor);
+    const float nB = fmaxf(fmaxf(mB, xB), kFloor);
+    const float corrA = ex2(__fmul_rn(__fsub_rn(mA, nA), kLog2e));
+    const float corrB = ex2(__fmul_rn(__fsub_rn(mB, nB), kLog2e));
+    mA = nA;
+    mB = nB;
+    float sumA = 0.0f, sumB = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {        // -inf -> 0
+        sc[4 * j + e] = ex2(__fmul_rn(__fsub_rn(sc[4 * j + e], nA), kLog2e));
+        sc[4 * j + 2 + e] =
+            ex2(__fmul_rn(__fsub_rn(sc[4 * j + 2 + e], nB), kLog2e));
+        sumA = __fadd_rn(sumA, sc[4 * j + e]);
+        sumB = __fadd_rn(sumB, sc[4 * j + 2 + e]);
+      }
+    }
+    lA = __fadd_rn(__fmul_rn(lA, corrA), sumA);
+    lB = __fadd_rn(__fmul_rn(lB, corrB), sumB);
+#pragma unroll
+    for (int j = 0; j < T::kCols / 8; ++j) {
+      o[4 * j] = __fmul_rn(o[4 * j], corrA);
+      o[4 * j + 1] = __fmul_rn(o[4 * j + 1], corrA);
+      o[4 * j + 2] = __fmul_rn(o[4 * j + 2], corrB);
+      o[4 * j + 3] = __fmul_rn(o[4 * j + 3], corrB);
+    }
+    // k-step kk takes S's accumulator pairs 8 kk + 2 i, + 1 (as tile 1)
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      split_bf16x2(sc[2 * i], sc[2 * i + 1], ph[i], pl[i]);
+  };
 
   for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();                 // the previous tile's reads are done
-    for (int idx = tid; idx < kBK * NCH; idx += T::kThreads) {
-      const int j = idx / NCH, ch = idx % NCH;
-      uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + j < Skv)
-        w = *reinterpret_cast<const uint4*>(kb + (k0 + j) * kv_row + ch * 8);
-      *reinterpret_cast<uint4*>(sK + j * QS + ch * 8) = w;
-    }
-    for (int idx = tid; idx < kBK * NCH; idx += T::kThreads) {
-      const int j = idx % kBK, ch = idx / kBK;
-      uint4 w = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + j < Skv)
-        w = *reinterpret_cast<const uint4*>(vb + (k0 + j) * kv_row + ch * 8);
-      const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&w);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sVt[(ch * 8 + e) * VS + j] = e8[e];
-    }
-    for (int idx = tid; idx < G * kBK; idx += T::kThreads) {
-      const int g = idx / kBK, kp = k0 + idx % kBK;
-      sFk[idx] = kp < Skv
-          ? fk[(static_cast<size_t>(b) * Skv + kp) * H + hkv * G + g]
-          : 0.0f;
-    }
-    __syncthreads();
-
-    // S = Q K^T: the warp's 16 rows x 64 keys, 8 n-tiles of 8 keys
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-#pragma unroll 4
-    for (int kk = 0; kk < D; kk += 16) {
-      const __nv_bfloat16* qa = sQ + (wr + gq) * QS + kk + 2 * tq;
-      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * QS), ld32(qa + 8),
-                             ld32(qa + 8 * QS + 8)};
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-        const __nv_bfloat16* kp = sK + (n * 8 + gq) * QS + kk + 2 * tq;
-        mma_bf16_16816(s[n], a, ld32(kp), ld32(kp + 8));
-      }
-    }
-
-    // scale, the bias terms, the mask; the online softmax (a row in a quad)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, key = n * 8 + 2 * tq + (e & 1), kp = k0 + key;
-        float x = __fadd_rn(__fadd_rn(__fmul_rn(s[n][e], scale), fq2[h]),
-                            sFk[g2[h] * kBK + key]);
-        if (!(kp <= qp2[h] && kp < kv_valid)) x = -INFINITY;
-        s[n][e] = x;
-        mx[h] = fmaxf(mx[h], x);
-      }
-    float corr[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int o2 = 1; o2 < 4; o2 <<= 1)
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], o2));
-      const float m_new = fmaxf(fmaxf(m[h], mx[h]), kFloor);
-      corr[h] = expf(__fsub_rn(m[h], m_new));
-      m[h] = m_new;
-    }
-    float ps[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(__fsub_rn(s[n][e], m[e >> 1]));     // -inf -> 0
-        ps[e >> 1] = __fadd_rn(ps[e >> 1], s[n][e]);
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int o2 = 1; o2 < 4; o2 <<= 1)
-        ps[h] = __fadd_rn(ps[h], __shfl_xor_sync(0xffffffffu, ps[h], o2));
-      l[h] = __fadd_rn(__fmul_rn(l[h], corr[h]), ps[h]);
-    }
-#pragma unroll
-    for (int j = 0; j < NTO; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] = __fmul_rn(o[j][e], corr[e >> 1]);
-
-    // O += P V: the A fragment of keys kk..kk+15 is S's n-tiles kk / 8 and
-    // kk / 8 + 1 (rows gq, gq + 8), split into bf16 hi + lo
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      const int n = kk / 8;
-      uint32_t ah[4], al[4];
-      split_bf16x2(s[n][0], s[n][1], ah[0], al[0]);
-      split_bf16x2(s[n][2], s[n][3], ah[1], al[1]);
-      split_bf16x2(s[n + 1][0], s[n + 1][1], ah[2], al[2]);
-      split_bf16x2(s[n + 1][2], s[n + 1][3], ah[3], al[3]);
-#pragma unroll
-      for (int j = 0; j < NTO; ++j) {
-        const __nv_bfloat16* vp = sVt + (c0 + j * 8 + gq) * VS + kk + 2 * tq;
-        const uint32_t b0 = ld32(vp), b1 = ld32(vp + 8);
-        mma_bf16_16816(o[j], ah, b0, b1);
-        mma_bf16_16816(o[j], al, b0, b1);
-      }
-    }
+    const int nk = 2 * t, nv = nk + 1;
+    mbar_wait(&full[nk % kSlots], (nk / kSlots) & 1);
+    wgmma_fence();
+    issue_s(nk % kSlots);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sc);
+    softmax(t, nk % kSlots);
+    mbar_wait(&full[nv % kSlots], (nv / kSlots) & 1);
+    fence_regs(o);
+    wgmma_fence();
+    issue_pv(nv % kSlots);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(&empty[nv % kSlots]);
   }
 
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (rr2[h] >= rows) continue;
-    __nv_bfloat16* dst =
-        out + ((static_cast<size_t>(b) * Sq + rr2[h] / G) * H + hkv * G +
-               g2[h]) * D + c0 + 2 * tq;
-    const float den = fmaxf(l[h], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < NTO; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
-          __floats2bfloat162_rn(__fdiv_rn(o[j][2 * h], den),
-                                __fdiv_rn(o[j][2 * h + 1], den));
-    // the row's log-sum-exp: m and l are the same in its quad and in both
-    // column slices' warps, so the first lane of the first slice writes it
-    if (lse != nullptr && tq == 0 && c0 == 0)
-      lse[(static_cast<size_t>(b) * H + hkv * G + g2[h]) * Sq + rr2[h] / G] =
-          __fadd_rn(m[h], logf(l[h]));
-  }
+  // m and l are the same in both column slices: the first writes lse
+  store_rows<T::kCols>(o, mA, mB, lA, lB, out, c0 == 0 ? lse : nullptr, rA,
+                       t4, c0, rows, b, Sq, H, D, hkv, G);
+}
+
+// The registers a thread of flash_bias_kernel<D> starts with (-1 when the
+// runtime cannot say).
+template <int D>
+int bias_regs() {
+  cudaFuncAttributes fa;
+  return cudaFuncGetAttributes(&fa, flash_bias_kernel<D>) == cudaSuccess
+             ? fa.numRegs : -1;
 }
 
 template <int D>
@@ -1411,19 +1532,27 @@ int launch_bias(const void* q, const void* k, const void* v, const float* fq,
                 int Skv, int H, int Hkv, int q_offset, int kv_valid,
                 float scale, cudaStream_t stream) {
   using T = BiasTile<D>;
+  // setmaxnreg.inc waits for the registers the producer's dec frees: with
+  // fewer at launch than that takes, the consumers would wait forever
+  static const int regs = bias_regs<D>();
+  if ((regs - kBiasProducerRegs) * 128 <
+      (kBiasConsumerRegs - regs) * kTcWG * 128)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap kmap, vmap;
+  int rc = kv_map(&kmap, k, B, Skv, Hkv, D);
+  if (rc == 0) rc = kv_map(&vmap, v, B, Skv, Hkv, D);
+  if (rc != 0) return rc;
   const int G = H / Hkv;
-  const int smem = T::kBf16Bytes +
-                   static_cast<int>(G * kBiasBK * sizeof(float));
+  const int smem = T::kFixedBytes +
+                   T::kSlots * G * kBiasBK * static_cast<int>(sizeof(float));
   auto kern = flash_bias_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
+  const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq * G + kBiasBR - 1) / kBiasBR, Hkv, B);
-  kern<<<grid, T::kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), fq, fk,
-      static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, H, Hkv, G, q_offset,
+  const int ntx = (Sq * G + T::kRows - 1) / T::kRows;
+  kern<<<ntx * Hkv * B, kBiasThreads, smem, stream>>>(
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q), fq, fk,
+      static_cast<__nv_bfloat16*>(out), lse, B, Sq, Skv, H, Hkv, G, q_offset,
       kv_valid, scale);
   return static_cast<int>(cudaGetLastError());
 }

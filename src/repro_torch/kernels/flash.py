@@ -34,8 +34,11 @@ On a CUDA tensor ``flash_attention`` launches one of three tiles of
   ``LAUNCHES["flash_cc"]``;
 * with ``bias_qk = (fq, fk)`` (f32 (B, Sq, H) and (B, Skv, H), the
   mLSTM's F_t and i_s - F_s): the bias tile, bf16 at dh 64 or 384
-  (``bias_tile_of``), each score ``(s + fq[i]) + fk[j]`` before the mask;
-  counted in ``LAUNCHES["flash_bias"]``.
+  (``bias_tile_of``), each score ``(s + fq[i]) + fk[j]`` before the mask,
+  p = exp of ``s - m``; built as the tensor-core tile (``wgmma``, TMA-fed
+  64-key K/V tiles in an mbarrier ring, P in bf16 hi + lo), at dh 384 two
+  warpgroups on the same 64 rows, 192 output columns each; counted in
+  ``LAUNCHES["flash_bias"]``.
 
 ``flash_decode_split_plain`` is the split-KV tile's partials and combine
 in plain torch, for the tests and ``chip_smoke.py``.

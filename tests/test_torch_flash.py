@@ -24,11 +24,19 @@ small sizes.
   split into bf16 hi + lo, P.V in f32) is within one bf16 ulp of the
   magnitude of the dense f64 oracle on seeded inputs; with P rounded once
   to bf16 (SDPA's scheme) it goes beyond on the same inputs.
+* The bias tile's arithmetic emulated in plain torch (the scale after the
+  product, fq then fk added one f32 rounding at a time, exp of s - m, P in
+  bf16 hi + lo, over 32- or 64-key tiles) at dh 384 with biases near
+  +-1.4e3 that cancel is within one bf16 ulp of the magnitude of the dense
+  f64 oracle, its lse within 1e-3.
 * On a card (``gpu`` marker): each tile against its plain version and the
   dense f64 oracle -- the tensor-core tile (bf16, dh 64 and 128, Sq * G >
-  8), the split-KV decode tile (bf16, dh 64 and 128, Sq * G <= 8) and the
-  CUDA-core tile (f32; bf16 at dh 16) -- bf16 within one bf16 ulp of the
-  magnitude, f32 within atol 1e-5, with the launch counters per tile.
+  8), the split-KV decode tile (bf16, dh 64 and 128, Sq * G <= 8), the
+  CUDA-core tile (f32; bf16 at dh 16) and the bias tile (dh 384 and 64,
+  with and without lse) -- bf16 within one bf16 ulp of the magnitude, f32
+  within atol 1e-5, with the launch counters per tile.  The reference is
+  imported only where JAX is installed, so ``pytest -m gpu`` runs this
+  file on the card's machine, which has none.
 """
 from __future__ import annotations
 
@@ -36,10 +44,13 @@ import numpy as np
 import pytest
 import torch
 
-import repro  # noqa: F401  (enables x64 for the reference)
-import jax.numpy as jnp
-from repro.kernels.flash import flash_attention_pallas
-from repro.models import layers as jlayers
+try:    # the reference; the card's machine has no JAX, and runs -m gpu
+    import repro  # noqa: F401  (enables x64 for the reference)
+    import jax.numpy as jnp
+    from repro.kernels.flash import flash_attention_pallas
+    from repro.models import layers as jlayers
+except ImportError:
+    jnp = flash_attention_pallas = jlayers = None
 
 from repro_torch.kernels import flash as tflash
 from repro_torch.models import layers as tlayers
@@ -55,11 +66,12 @@ def _inputs(seed, B, Sq, Skv, H, Hkv, dh, dtype):
     mk = lambda *s: rng.normal(0, 1, s).astype(np.float32)
     q, k, v = mk(B, Sq, H, dh), mk(B, Skv, Hkv, dh), mk(B, Skv, Hkv, dh)
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     # bf16 inputs round once, from the same f32 values, in both packages
     t = [torch.from_numpy(a).to(tdt) for a in (q, k, v)]
-    j = [jnp.asarray(a, jdt) for a in (q, k, v)]
-    return t, j
+    if jnp is None:
+        return t, None
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    return t, [jnp.asarray(a, jdt) for a in (q, k, v)]
 
 
 def bf16_ulp(mag: np.ndarray) -> np.ndarray:
@@ -68,11 +80,11 @@ def bf16_ulp(mag: np.ndarray) -> np.ndarray:
     return np.exp2(np.floor(np.log2(m)) - 7).astype(np.float32)
 
 
-def magnitude(q, k, v, q_offset, kv_valid):
+def magnitude(q, k, v, q_offset, kv_valid, bias=None):
     """The attention of |v| in f32: bounds |out| elementwise."""
     return _np(tflash.flash_attention_plain(
         q.float(), k.float(), v.float().abs(), q_offset=q_offset,
-        kv_valid=kv_valid))
+        kv_valid=kv_valid, bias_qk=bias))
 
 
 @pytest.mark.parametrize("B,Sq,H,dh", [(2, 128, 2, 64), (1, 384, 4, 128),
@@ -129,19 +141,28 @@ def test_plain_matches_layers_flash(case, dtype):
             diff.max()
 
 
-def _dense_f64(q, k, v, q_offset, kv_valid):
-    q, k, v = (a.double().numpy() for a in (q, k, v))
+def _dense_f64(q, k, v, q_offset, kv_valid, bias=None, lse=False):
+    """A dense f64 softmax attention; with ``bias = (fq, fk)`` each score
+    gains fq[b, i, h] + fk[b, j, h]; with ``lse`` also each row's
+    log-sum-exp, (B, H, Sq)."""
+    q, k, v = (a.double().cpu().numpy() for a in (q, k, v))
     G = q.shape[2] // k.shape[2]
     k, v = np.repeat(k, G, axis=2), np.repeat(v, G, axis=2)
     s = np.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(q.shape[-1])
+    if bias is not None:
+        fq, fk = (t.double().cpu().numpy().transpose(0, 2, 1) for t in bias)
+        s = s + fq[..., None] + fk[:, :, None, :]
     qp = q_offset + np.arange(q.shape[1])[:, None]
     kp = np.arange(k.shape[1])[None, :]
     keep = (kp <= qp) & (kp < kv_valid)
     s = np.where(keep, s, -np.inf)
     # a row with no valid key attends to nothing: 0, as the reference gives
-    p = np.exp(s - np.where(keep.any(-1), s.max(-1), 0.0)[..., None])
-    p /= np.maximum(p.sum(-1, keepdims=True), 1e-300)
-    return np.einsum("bhqk,bkhd->bqhd", p, v)
+    mx = np.where(keep.any(-1), s.max(-1), 0.0)
+    p = np.exp(s - mx[..., None])
+    den = p.sum(-1)
+    out = np.einsum("bhqk,bkhd->bqhd", p / np.maximum(den, 1e-300)[..., None],
+                    v)
+    return (out, mx + np.log(den)) if lse else out
 
 
 @pytest.mark.parametrize("case", [(2, 160, 160, 2, 2, 64, 0, 160),
@@ -321,6 +342,86 @@ def test_tc_arithmetic_needs_p_above_bf16(case, split, within):
     assert bool((diff <= tol).all()) == within, (diff / tol).max()
 
 
+K_LSE_ATOL = 1e-3      # lse against f64 (absolute: biases near 1.4e3)
+
+
+def _bias_inputs(seed, B, Sq, Skv, H, Hkv, dh, lead=2048 - 256):
+    """bf16 q, k, v and the mLSTM's bias terms, as ``chip_smoke.py``'s
+    ``J_BIAS_EDGES`` draw them: fq = F_t, fk = i_s - F_s, F the running sum
+    of log_sigmoid(N(0.3, 1)) forget gates, i ~ N(0, 1); the positions
+    taken from ``lead`` steps in, so that F is about -1.2e3 and the two
+    terms near +-1.4e3 cancel as at S = 2,048."""
+    rng = np.random.default_rng(seed)
+    n = max(Sq, Skv)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    q = f(rng.normal(0, 1, (B, Sq, H, dh))).to(torch.bfloat16)
+    k = f(rng.normal(0, 1, (B, Skv, Hkv, dh)) / np.sqrt(dh)).to(
+        torch.bfloat16)
+    v = f(rng.normal(0, 1, (B, Skv, Hkv, dh))).to(torch.bfloat16)
+    gates = rng.normal(0.3, 1, (B, lead + n, H)).astype(np.float32)
+    F = np.cumsum(-np.logaddexp(np.float32(0), -gates), 1,
+                  dtype=np.float32)[:, lead:]
+    ig = rng.normal(0, 1, (B, n, H)).astype(np.float32)
+    return q, k, v, f(F[:, :Sq]), f((ig - F)[:, :Skv])
+
+
+def _bias_emulation(q, k, v, fq, fk, q_offset, kv_valid, key_tile):
+    """The bias tile's arithmetic in plain torch, over ``key_tile``-key
+    tiles: S = f32(q) . f32(k) (the bf16 products exact in f32, as in
+    wgmma), s = (S * scale + fq) + fk one f32 rounding at a time, the mask,
+    m = max(m, rowmax(s)) floored at -1e30, p = exp2((s - m) * log2(e))
+    (the difference rounded first), P.V with P split into bf16 hi + lo,
+    f32 sums; returns (out, lse = m + log(l))."""
+    B, Sq, H, dh = q.shape
+    G = H // k.shape[2]
+    f32 = torch.float32
+    scale = torch.tensor(tflash.softmax_scale(dh), dtype=f32)
+    log2e = torch.tensor(_LOG2E)
+    q_pos = q_offset + torch.arange(Sq)
+    fq_t = fq.transpose(1, 2)[..., None]                 # (B, H, Sq, 1)
+    m = torch.full((B, H, Sq), -1e30)
+    l = torch.zeros((B, H, Sq))
+    acc = torch.zeros((B, H, Sq, dh))
+    for k0 in range(0, max(0, min(kv_valid, q_offset + Sq)), key_tile):
+        kb = k[:, k0:k0 + key_tile].repeat_interleave(G, 2).to(f32)
+        vb = v[:, k0:k0 + key_tile].repeat_interleave(G, 2).to(f32)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), kb)
+        s = (s * scale + fq_t) + fk[:, k0:k0 + key_tile].transpose(1, 2)[
+            :, :, None, :]
+        kp = k0 + torch.arange(kb.shape[1])
+        keep = (kp[None] <= q_pos[:, None]) & (kp < kv_valid)[None]
+        s = torch.where(keep[None, None], s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1)).clamp_min(-1e30)
+        corr = torch.exp2((m - m_new) * log2e)
+        p = torch.exp2((s - m_new[..., None]) * log2e)
+        l = l * corr + p.sum(-1)
+        hi = p.to(torch.bfloat16).to(f32)
+        lo = (p - hi).to(torch.bfloat16).to(f32)
+        acc = (acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", hi, vb)
+               + torch.einsum("bhqk,bkhd->bhqd", lo, vb))
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype), m + torch.log(l)
+
+
+@pytest.mark.parametrize("key_tile", [32, 64])
+def test_bias_tile_arithmetic_within_one_ulp(key_tile):
+    """The bias tile's order (scale after the product, fq then fk added one
+    f32 rounding at a time, exp of s - m, P in bf16 hi + lo) at head dim
+    384 with biases near +-1.4e3 that cancel is within one bf16 ulp of the
+    magnitude of the dense f64 oracle, and its lse within ``K_LSE_ATOL``,
+    at either key-tile width the design could take (it takes 64)."""
+    B, S, H, dh = 1, 256, 2, 384
+    q, k, v, fq, fk = _bias_inputs(28, B, S, S, H, H, dh)
+    assert float(fq.abs().max()) > 1.2e3 and float(fk.abs().max()) > 1.2e3
+    got, lse = _bias_emulation(q, k, v, fq, fk, 0, S, key_tile)
+    want, want_lse = _dense_f64(q, k, v, 0, S, (fq, fk), lse=True)
+    tol = bf16_ulp(magnitude(q, k, v, 0, S, (fq, fk)))
+    diff = np.abs(_np(got) - want)
+    assert (diff <= tol).all(), (diff / tol).max()
+    assert np.abs(_np(lse) - want_lse).max() <= K_LSE_ATOL
+
+
 # (tile, dtype, dh, B, Sq, Skv, H, Hkv, q_offset, kv_valid): each tile's
 # cases, with the tile the dispatch must pick
 _CUDA = [
@@ -391,3 +492,56 @@ def test_cuda_flash_matches_plain():
                 q, k, v, q_offset=qo, kv_valid=kvv, n_split=n_split)
             diff = np.abs(_np(got) - _np(split))
             assert (diff <= bf16_ulp(magnitude(q, k, v, qo, kvv))).all(), n
+
+
+# (dh, B, Sq, Skv, H, Hkv, q_offset, kv_valid): the bias tile's cases -- dh
+# 384 with Sq not a multiple of its 64-row block, dh 384 with kv_valid <
+# Skv, dh 64 with GQA 8 / 4 and a q_offset
+_CUDA_BIAS = [(384, 2, 200, 200, 4, 4, 0, 200),
+              (384, 1, 256, 256, 4, 4, 0, 150),
+              (64, 2, 130, 146, 8, 4, 16, 146)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_cuda_bias_tile_matches_plain(with_lse):
+    """K8's bias tile on the card against its plain version and the dense
+    f64 oracle, within one bf16 ulp of the magnitude, each call one launch
+    of ``LAUNCHES["flash_bias"]``; with ``lse``, the lse within
+    ``K_LSE_ATOL`` of plain's and f64's and the output bit-equal to the
+    call without it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for n, (dh, B, Sq, Skv, H, Hkv, qo, kvv) in enumerate(_CUDA_BIAS):
+        q, k, v, fq, fk = (t.cuda() for t in _bias_inputs(
+            n, B, Sq, Skv, H, Hkv, dh))
+        bias = (fq, fk)
+        before = dict(tflash.LAUNCHES), dict(tflash.LSE_LAUNCHES)
+        if with_lse:
+            got, lse = tflash.flash_attention_lse(q, k, v, q_offset=qo,
+                                                  kv_valid=kvv, bias_qk=bias)
+        else:
+            got = tflash.flash_attention(q, k, v, q_offset=qo, kv_valid=kvv,
+                                         bias_qk=bias)
+        want, want_lse = tflash.flash_attention_plain(
+            q, k, v, q_offset=qo, kv_valid=kvv, return_lse=True,
+            bias_qk=bias)
+        torch.cuda.synchronize()
+        for counts, old, want_n in ((tflash.LAUNCHES, before[0], 1),
+                                    (tflash.LSE_LAUNCHES, before[1],
+                                     int(with_lse))):
+            done = {c: counts[c] - old[c] for c in old}
+            assert done == {**dict.fromkeys(old, 0), "flash_bias": want_n}, \
+                (n, done)
+        oracle, oracle_lse = _dense_f64(q, k, v, qo, kvv, bias, lse=True)
+        tol = bf16_ulp(magnitude(q, k, v, qo, kvv, bias))
+        for what, ref in (("plain", _np(want)), ("f64 oracle", oracle)):
+            diff = np.abs(_np(got) - ref)
+            assert (diff <= tol).all(), (n, what, (diff / tol).max())
+        if with_lse:
+            for what, ref in (("plain", _np(want_lse)), ("f64", oracle_lse)):
+                d = np.abs(_np(lse) - ref)
+                assert d.max() <= K_LSE_ATOL, (n, what, d.max())
+            bare = tflash.flash_attention(q, k, v, q_offset=qo, kv_valid=kvv,
+                                          bias_qk=bias)
+            assert torch.equal(got, bare), n
