@@ -373,6 +373,45 @@ Phases (any failure exits non-zero; nothing is caught):
    ``path_l_shapes`` of the ``flash`` and ``flash_decode`` rows).  Prints
    prefill s, decode tokens/s, step s, tokens/s, peak memory and each
    stage's wall.
+18. Path M, tensor-parallel and sequence-sharded serving, counted:
+   qwen3-4b in its published layout (``get_arch``: tp 16, ``tp_shard``,
+   KV heads replicated over ``model``; 36 layers, 4.41e9 random bf16
+   parameters from ``--seed``, drawn once as the one-card tree, which is
+   the layout's global tree) on ``ModelMesh`` positions that are all this
+   card.  On ``M_MESH`` (1, 1, 16), path D's traffic (4 requests of 2,048
+   + 32 tokens) through ``serve.step.make_prefill(cfg, mesh)`` and
+   ``make_decode_step(cfg, mesh)``: K8's tensor-core tile once a layer a
+   position in prefill, the split-KV tile (and its combine) once a layer a
+   position a step; the prefill logits within ``LM_LOGIT_TOL`` of the
+   one-card form's on the same global weights (else within
+   ``J_CONTROL_FACTOR`` times a control: the one-card form with K8's plain
+   version), the greedy tokens that agree printed; K8 at group 2 (2 query
+   heads over 1 KV slot, dh 128) against plain and f64 (``_k8_check``)
+   and timed in both tiles (``path_m_shape`` of the ``flash`` and
+   ``flash_decode`` rows).  Then a ``M_SEQ_PROMPT``-token prompt
+   prefilled on (1, 1, 16) into ``M_SEQ_MAX``-position caches, laid onto
+   ``M_SEQ_MESH`` (1, 4, 16)'s 4 chunks of the time axis by
+   ``gather_tree`` and ``shard_tree`` (chunks 0-1 full, chunk 2 the owner
+   of the new tokens, chunk 3 empty), the unsharded (1, 1, 16) decode
+   run ``M_STEPS`` greedy steps and the sequence-sharded decode the same
+   steps teacher-forced with its tokens: K8's ``return_partial`` form
+   (``flash_partial``) and the combine across positions
+   (``flash_merge``) once a layer a position a step; each step's logits
+   within ``LM_LOGIT_TOL`` of the unsharded decode's (else 4x a control:
+   its last step with K8's plain version), the first token equal.  On the
+   last step's inputs of the first and last layer, every chunk's
+   ``return_partial`` against its plain version and an f64 partial
+   (``_partial_check``: m, and l and acc at f64's m, within
+   ``M_PART_RTOL`` of their scales), the combine against its plain
+   version and the dense f64 attention over the global keys within one
+   bf16 ulp of the magnitude (``_merge_check``); planted faults (the
+   combine with every m_i = 0, so e^(m_i - M) dropped; a chunk's last
+   64-key tile dropped) must be caught.  Prints prefill s, decode
+   tokens/s and launches a step on both meshes, peak memory, the
+   collectives' bytes a step as if each position were a card
+   (``models.sharding.COLLECTIVES``), and the new forms' rows (kernel,
+   plain, SDPA at group 2 over a chunk, bound).  No time across cards is
+   measured: every position is this card.
 
 Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
@@ -403,7 +442,8 @@ on the bf16 tensor cores it computes on and ``bound_f32_ms`` on the f32
 rate, ``flash_decode`` at the decode shape with its ``n_split`` and
 ``combine_launches``, both with path L's shapes in ``path_l_shapes``;
 ``flash_bias`` at path J's mLSTM shape, with path K's launches and
-``path_k_*`` times), the card's
+``path_k_*`` times; ``flash_partial`` and ``flash_merge`` at path M's
+sequence-sharded decode shape), the card's
 ``name, power.limit`` from nvidia-smi,
 and the result line.  Phase 1 also prints the flash library's ptxas
 report and the number of ``HGMMA`` instructions ``cuobjdump -sass`` finds
@@ -449,6 +489,8 @@ SOURCES = {
     "flash": "src/repro_torch/kernels/csrc/flash.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash.cu",
     "flash_bias": "src/repro_torch/kernels/csrc/flash.cu",
+    "flash_partial": "src/repro_torch/kernels/csrc/flash.cu",
+    "flash_merge": "src/repro_torch/kernels/csrc/flash.cu",
     "sharded_lookup": _LOOKUP_CU,
     "sharded_dynamic_lookup": _LOOKUP_CU,
     "sharded_dynamic_range": _LOOKUP_CU,
@@ -468,6 +510,8 @@ REPLACES = {
     "flash": "src/repro/kernels/flash.py:73",
     "flash_decode": "src/repro/kernels/flash.py:73",
     "flash_bias": "src/repro/kernels/flash.py:73",
+    "flash_partial": "src/repro/kernels/flash.py:73",
+    "flash_merge": "src/repro/kernels/flash.py:73",
     "sharded_lookup": "src/repro/kernels/lookup.py:274",
     "sharded_dynamic_lookup": "src/repro/kernels/lookup.py:393",
     "sharded_dynamic_range": "src/repro/kernels/lookup.py:516",
@@ -630,6 +674,23 @@ L_QWEN_TRAIN_LAYERS = 1
 L_QWEN_TRAIN_BATCH = 4
 L_IMAGE = (100, 32, 48)
 L_LSE_ATOL = 1e-3
+# Path M: qwen3-4b in its published layout (tp 16, tp_shard) on mesh
+# positions that are all the one card: path D's traffic on (1, 1, 16);
+# then a prompt of M_SEQ_PROMPT tokens into caches of M_SEQ_MAX positions
+# (qwen3's native context, the reference's decode_32k length) decoded
+# M_STEPS steps with the cache's time axis over the 4 data positions of
+# (1, 4, 16): chunks 0-1 full, chunk 2 the new tokens' owner (the first
+# step writes its first position), chunk 3 empty.  M_STEPS is cut from
+# path D's 32: a sequence-sharded step is the host's, 4.8 s on an H100
+# (64 positions x 36 layers of about 100 device events each), and 32 of
+# them with the unsharded steps beside them would take about 200 s of the
+# script's time limit.  K8's return_partial form against its plain
+# version and f64: m, and l and acc brought to f64's m, within
+# M_PART_RTOL of their scales (f32 sums over up to 8,192 keys)
+M_ARCH = "qwen3-4b"
+M_MESH, M_SEQ_MESH = (1, 1, 16), (1, 4, 16)
+M_SEQ_MAX, M_SEQ_PROMPT, M_STEPS = 32768, 16384, 8
+M_PART_RTOL = 1e-4
 ANALYZED = ("src/repro_torch", "chip_smoke.py", "time_verbs.py",
             "examples/index_service_torch.py")
 SYNC_WARNING = "called a synchronizing CUDA operation"
@@ -5806,6 +5867,520 @@ def _path_l(args, dev, rows, h) -> None:
             k: v for k, v in shapes.items() if v["tile"] == name}
 
 
+def _partial_f64(q, k, v, q_offset: int):
+    """K8's return_partial form in f64 on a chunk: each row's m (the max of
+    its scaled scores, -1e30 where it sees no key), l = sum e^(s - m) and
+    acc = sum e^(s - m) v, (B, H, Sq) and (B, H, Sq, dh); and mag, the
+    same sum of e^(s - m) |v| (the scale acc's f32 roundings take)."""
+    import torch
+    G = q.shape[2] // k.shape[2]
+    keep = _keep(q, k, q_offset)
+    ms, ls, accs, mags = [], [], [], []
+    for b in range(q.shape[0]):
+        s = _f64_scores(q[b].double(), k[b].double(), None, keep)
+        m = s.amax(-1).clamp_min(-1e30)
+        p = torch.exp(s - m[..., None])
+        vb = v[b].double().repeat_interleave(G, 1)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("hqk,khd->hqd", p, vb))
+        mags.append(torch.einsum("hqk,khd->hqd", p, vb.abs()))
+    return tuple(torch.stack(t) for t in (ms, ls, accs, mags))
+
+
+def _partial_check(h, what, q, k, v, off) -> dict:
+    """K8's return_partial launch (uncounted) against its plain version
+    (the split-KV plain version stopped before its division, at the
+    launch's runs) and the f64 partial: m within ``M_PART_RTOL`` of
+    max(1, |m|), l and acc, brought to the f64 m by e^(m - m64), within
+    ``M_PART_RTOL`` of l64 and of the f64 sum of e^(s - m) |v|.  Raises
+    beyond; returns the largest |kernel - plain| and the ratios to the
+    tolerance."""
+    import functools
+    import torch
+    from repro_torch.kernels import flash as tflash
+    got = h.uncounted(functools.partial(tflash.flash_attention, q, k, v,
+                                        q_offset=off, return_partial=True))
+    n_split = tflash.decode_plan(q, k, q_offset=off, kv_valid=k.shape[1])[0]
+    plain = tflash.flash_decode_split_plain(q, k, v, q_offset=off,
+                                            n_split=n_split,
+                                            return_partial=True)
+    m64, l64, a64, mag = _partial_f64(q, k, v, off)
+    torch.cuda.synchronize()
+    out = {"max_abs_err": max(float((a.double() - b.double()).abs().max())
+                              for a, b in zip(got, plain, strict=True))}
+    for name, (m, l, acc) in (("plain", plain), ("kernel", got)):
+        m, l, acc = m.double(), l.double(), acc.double()
+        tol_m = M_PART_RTOL * m64.abs().clamp_min(1.0)
+        e = torch.exp(m - m64)
+        e = torch.where(m64 <= -1e29, torch.ones_like(e), e)
+        tol_l = M_PART_RTOL * l64.clamp_min(1e-30)
+        tol_a = M_PART_RTOL * mag.clamp_min(1e-30)
+        r = max(float(((m - m64).abs() / tol_m).max()),
+                float(((l * e - l64).abs() / tol_l).max()),
+                float(((acc * e[..., None] - a64).abs() / tol_a).max()))
+        out[name] = r
+        if not r <= 1.0:
+            raise AssertionError(f"K8 return_partial {what}: {name} vs the "
+                                 f"f64 partial {r:.3f} times the tolerance "
+                                 f"{M_PART_RTOL}")
+    return out
+
+
+def _merge_check(h, what, parts, q, kg, vg, L) -> dict:
+    """The combine across positions (uncounted) on the D positions' stacked
+    partials against ``flash_merge_plain`` on the same partials and against
+    the dense f64 attention of the query over the global keys [0, L]
+    (every chunk's keys), each within one bf16 ulp of the magnitude (the
+    attention of |v|); raises beyond.  Returns the largest |kernel -
+    plain| and both readings in ulps."""
+    import functools
+    import torch
+    from repro_torch.kernels import flash as tflash
+    got = h.uncounted(functools.partial(tflash.flash_merge, *parts))
+    plain = tflash.flash_merge_plain(*parts)
+    exact = _dense_f64(q, kg, vg, L, L + 1)
+    mag = tflash.flash_attention_plain(q.float(), kg.float(),
+                                       vg.float().abs(), q_offset=L,
+                                       kv_valid=L + 1)
+    torch.cuda.synchronize()
+    tol = _bf16_ulp(mag)
+    out = {"max_abs_err": float((got.double() - plain.double()).abs().max())}
+    for name, a, b in (("plain", got, plain), ("f64", got, exact),
+                       ("plain vs f64", plain, exact)):
+        d = (a.double() - b.double()).abs()
+        if not bool((d <= tol).all()):
+            raise AssertionError(f"K8 merge {what} vs {name}: "
+                                 f"{int((d > tol).sum())} entries beyond one "
+                                 f"bf16 ulp of the magnitude (max "
+                                 f"{float(d.max())})")
+        out[name] = float((d / tol).max())
+    return out
+
+
+def _path_m(args, dev, rows, h) -> None:
+    """Phase 18, path M: qwen3-4b in its published layout (tp 16,
+    ``tp_shard``, KV heads replicated over ``model``) at full width and
+    depth on ``ModelMesh`` positions that are all this card, counted.
+    (1, 1, 16) at path D's traffic through ``make_prefill(cfg, mesh)`` and
+    ``make_decode_step(cfg, mesh)``, gated against the one-card form on the
+    same global weights; then a ``M_SEQ_PROMPT``-token prompt prefilled on
+    (1, 1, 16) into ``M_SEQ_MAX``-position caches, laid onto (1, 4, 16)'s
+    chunks by ``gather_tree`` / ``shard_tree`` and decoded ``M_STEPS``
+    steps sequence-sharded, teacher-forced with the unsharded (1, 1, 16)
+    decode's tokens and gated against its logits; K8 at group 2 and its
+    two new forms against their plain versions and f64, planted faults,
+    the new forms' rows of the kernels line."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, single_card
+    from repro_torch.kernels import flash as tflash
+    from repro_torch.models import layers as tlayers
+    from repro_torch.models import model as TM
+    from repro_torch.models import sharding as tsh
+    from repro_torch.serve import step as tstep
+
+    t_path = time.perf_counter()
+    cfg, one = get_arch(M_ARCH), single_card(get_arch(M_ARCH))
+    L, T, P, B = cfg.n_layers, LM_NEW_TOKENS, LM_PROMPT_LEN, LM_REQUESTS
+    V = cfg.vocab_size
+    mesh = tsh.ModelMesh(M_MESH, devices=dev)
+    seq = tsh.ModelMesh(M_SEQ_MESH, devices=dev)
+    # the published layout on a 16-wide model axis is exact GQA: its global
+    # tree is the one-card tree, and rank r's KV slot is KV head r // 2
+    if TM.tree_map(lambda l: l.shape, TM.build_tree(cfg, mesh)) != \
+            TM.tree_map(lambda l: l.shape, TM.build_tree(one)):
+        raise AssertionError("qwen3-4b's TP-16 tree is not its one-card tree")
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed)
+    glob = TM.init_params(one, g, dev)
+    params, t_shard = _sync_time(lambda: tstep.shard_tree(
+        glob, tstep.serve_param_specs(cfg), mesh))
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.from_numpy(rng.integers(0, V, (B, P))).to(
+        device=dev, dtype=torch.int32)
+    pos = torch.arange(P, dtype=torch.int32, device=dev)[None].expand(B, P)
+    pre = tstep.make_prefill(cfg, mesh)
+    dec = tstep.make_decode_step(cfg, mesh)
+    sdec = tstep.make_decode_step(cfg, seq, batch_sharded=False,
+                                  seq_shard=True)
+    _, c_spec, t_spec, p_spec = pre.in_specs
+    real = dict(flash=tlayers.flash_attention, logits=tstep.M.lm_logits,
+                merge=tflash.flash_merge)
+    # what the wrappers below keep: the K8 calls' inputs named in
+    # ``wanted`` by (stage, step, layer, position), the first merge of a
+    # layer named there, every lm_logits output
+    st = dict(stage="tp", n=mesh.size, calls=0, wanted=set(), merges=0)
+    captured, kept = {}, []
+
+    def recording(q, k, v, *, q_offset, kv_valid=None, **kw):
+        step, rest = divmod(st["calls"], L * st["n"])
+        key = (st["stage"], step) + divmod(rest, st["n"])
+        st["calls"] += 1
+        if key in st["wanted"]:
+            captured[key] = (q.clone(), k.clone(), v.clone(), int(q_offset),
+                             None if kv_valid is None else int(kv_valid))
+        return real["flash"](q, k, v, q_offset=q_offset, kv_valid=kv_valid,
+                             **kw)
+
+    def merging(m, l, acc):
+        step, rest = divmod(st["calls"] - 1, L * st["n"])
+        key = ("merge", step, rest // st["n"])
+        if key in st["wanted"] and key not in captured:
+            captured[key] = (m.clone(), l.clone(), acc.clone())
+        return real["merge"](m, l, acc)
+
+    def keep_logits(params_, cfg_, x, tp_shard, mesh=None):
+        out = real["logits"](params_, cfg_, x, tp_shard, mesh=mesh)
+        kept.append(out)
+        return out
+
+    def stage(name, n, wanted):
+        st.update(stage=name, n=n, calls=0, wanted=wanted)
+        tlayers.flash_attention, tstep.M.lm_logits = recording, keep_logits
+        tflash.flash_merge = merging
+        kept.clear()
+        h.reset_counters()
+        tsh.reset_collectives()
+
+    def restore():
+        tlayers.flash_attention, tstep.M.lm_logits = real["flash"], \
+            real["logits"]
+        tflash.flash_merge = real["merge"]
+
+    def gathered(per, m_):
+        """(B, V_padded) logits from the positions' vocab shards."""
+        return tstep.gather_tree(m_.all_gather(per, "model", dim=2),
+                                 (None, None, None), m_)[:, 0]
+
+    def decode(fn, m_, params_, caches_, first, steps, start, forced=None):
+        """``steps`` greedy steps of ``fn`` from the ids ``first`` (B,),
+        or fed ``forced[i]`` at step i: the ids of every step (position
+        0's), the caches and the seconds."""
+        t_sp, p_sp = fn.in_specs[2], fn.in_specs[3]
+        z = tstep.shard_tree(torch.zeros((first.shape[0], 1),
+                                         dtype=torch.int32, device=dev),
+                             p_sp, m_)
+        nxt = tstep.shard_tree(first[:, None], t_sp, m_)
+        ids = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            if forced is not None:
+                nxt = tstep.shard_tree(forced[i][:, None], t_sp, m_)
+            out, caches_ = fn(params_, caches_, nxt, z, start + i)
+            nxt = [o[:, None] for o in out]
+            ids.append(out[0])
+        torch.cuda.synchronize()
+        return ids, caches_, time.perf_counter() - t0
+
+    def plain_attention(q, k, v, *, q_offset, kv_valid=None, **kw):
+        return tflash.flash_attention_plain(q, k, v, q_offset=q_offset,
+                                            kv_valid=kv_valid)
+
+    none = {"flash": 0, "flash_decode": 0, "flash_combine": 0, "flash_cc": 0,
+            "flash_bias": 0, "flash_partial": 0, "flash_merge": 0}
+
+    def expect(what, got, **want):
+        want = dict(none, **want)
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"path M {what} launches {got}, want {want}")
+
+    # ---- (1, 1, 16) at path D's traffic ------------------------------------
+    D = mesh.size
+    caches = [TM.init_cache(cfg, B, P + T, device=dev) for _ in range(D)]
+    torch.cuda.reset_peak_memory_stats()
+    stage("tp", D, {("tp", 0, 0, 0), ("tp", T, 0, 0)})
+    try:
+        (logits, caches), t_pre = _sync_time(lambda: pre(
+            params, caches, tstep.shard_tree(prompts, t_spec, mesh),
+            tstep.shard_tree(pos, p_spec, mesh)))
+        l_pre, c_pre = h.counters(), tsh.COLLECTIVES["tp_psum"]["bytes"]
+        lk = tstep.gather_tree(logits, pre.out_specs[0], mesh)
+        tok = lk[:, :V].argmax(-1).to(torch.int32)
+        h.reset_counters()
+        tsh.reset_collectives()
+        ids, caches, t_dec = decode(dec, mesh, params, caches, tok, T, P)
+        l_dec = h.counters()
+        coll = {k: dict(v) for k, v in tsh.COLLECTIVES.items()}
+        peak_a = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        restore()
+    expect("prefill", l_pre, flash=L * D)
+    expect("decode", l_dec, flash_decode=L * D * T, flash_combine=L * D * T)
+    toks = torch.stack([tok] + ids, 1)
+    if not bool(torch.isfinite(lk).all()) or lk.shape != (B, cfg.vocab_padded):
+        raise AssertionError("path M prefill logits not finite or misshapen")
+    print(f"phase 18: path M ({M_ARCH} in its published layout: tp "
+          f"{cfg.tp}, tp_shard, {cfg.n_heads_padded} query / "
+          f"{cfg.n_kv_heads} KV heads, KV replicated over model (2 query "
+          f"heads and 1 KV slot a position); {L} layers, "
+          f"{cfg.param_count()} parameters) on mesh {M_MESH}, every "
+          f"position {dev}: {B} requests x {P} prompt + {T} new tokens; "
+          f"shard_tree {t_shard:.6f} s")
+    print(f"  prefill {t_pre:.6f} s; decode {t_dec:.6f} s for {T} steps "
+          f"({B * T / t_dec:.3f} tokens/s); launches: prefill "
+          f"{ {k: v for k, v in l_pre.items() if v} }, decode a step "
+          f"{ {k: v // T for k, v in l_dec.items() if v} }; peak memory "
+          f"allocated {peak_a:.3f} GiB")
+    print(f"  collectives, bytes as if each position were a card: prefill "
+          f"tp_psum {c_pre}; decode a step " + ", ".join(
+              f"{k} {v['bytes'] // T} ({v['calls'] // T} calls)"
+              for k, v in coll.items() if v["calls"]))
+
+    # the one-card form on the same global weights (uncounted: the gate)
+    one_pre, one_dec = tstep.make_prefill(one), tstep.make_decode_step(one)
+    oc = TM.init_cache(one, B, P + T, device=dev)
+    (lo, oc), t_one = _sync_time(lambda: h.uncounted(
+        lambda: one_pre(glob, oc, prompts, pos)))
+    d_pre = float((lk - lo).abs().max())
+    gate = LM_LOGIT_TOL
+    if d_pre > gate:
+        # the control: the one-card form with K8's plain version
+        tlayers.flash_attention = plain_attention
+        try:
+            lp, _ = one_pre(glob, TM.init_cache(one, B, P + T, device=dev),
+                            prompts, pos)
+        finally:
+            restore()
+        ctrl = float((lo - lp).abs().max())
+        gate = max(LM_LOGIT_TOL, J_CONTROL_FACTOR * ctrl)
+        print(f"  control (the one-card form, kernel vs plain attention): "
+              f"{ctrl:.6e}; gate {gate:.6e}")
+    first_o = lo[:, :V].argmax(-1).to(torch.int32)
+    top2 = torch.topk(lo[:, :V], 2).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    sure = margin > 2 * gate
+    if d_pre > gate or not (first_o == tok).cpu().numpy()[sure].all():
+        raise AssertionError(f"path M TP-16 prefill vs the one-card form: "
+                             f"max |diff| {d_pre} (gate {gate}); first tokens "
+                             f"{tok.tolist()} / {first_o.tolist()}")
+    o_ids, o_tok = [first_o], first_o
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(T):
+        o_tok, oc = h.uncounted(lambda: one_dec(glob, oc, o_tok[:, None],
+                                                None, P + i))
+        o_ids.append(o_tok)
+    torch.cuda.synchronize()
+    t_one_dec = time.perf_counter() - t0
+    agree = (torch.stack(o_ids, 1) == toks).cpu().numpy()
+    lead = [int(np.argmin(np.append(a, False))) for a in agree]
+    print(f"  TP-16 prefill logits vs the one-card form on the same global "
+          f"weights: max |diff| {d_pre:.6e} (gate {gate}; logits max "
+          f"{float(lo.abs().max()):.6f}); top-2 margins "
+          f"{np.round(margin, 6).tolist()}; greedy tokens equal "
+          f"{int(agree.sum())} of {agree.size}, leading run per request "
+          f"{lead}; one-card prefill {t_one:.6f} s, decode "
+          f"{B * T / t_one_dec:.3f} tokens/s")
+    # K8 at group 2 (2 query heads over 1 KV slot, dh 128): both bf16 tiles
+    for key in (("tp", 0, 0, 0), ("tp", T, 0, 0)):
+        q, k, v, qo, kvv = captured.pop(key)
+        name, what = ("flash", "prefill") if key[1] == 0 else \
+            ("flash_decode", "decode")
+        r = _k8_check(h, f"path M {what} (group 2)", q, k, v, qo, kvv)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        r["max_abs_err"])
+        sh = _l_time(h, q, k, v, qo, kvv, False)
+        rows[name]["path_m_shape"] = sh
+        print(f"  K8 {name} at group 2 (q {tuple(q.shape)}, k/v "
+              f"{tuple(k.shape)}): {r['plain']:.6f} ulps of the magnitude "
+              f"from plain, {r['f64']:.6f} from f64; kernel {sh['ms']:.6f} "
+              f"ms, plain {sh['plain_ms']:.6f}, SDPA {sh['sdpa_ms']:.6f}, "
+              f"bound {sh['bound_ms']:.6f} ({sh['bound_by']})")
+    rows["flash"]["launches"] += l_pre["flash"]
+    rows["flash_decode"]["launches"] += l_dec["flash_decode"]
+    del caches, oc, logits, lo, ids, o_ids, o_tok, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- a long prompt, then sequence-sharded decode ------------------------
+    SM, PS, N = M_SEQ_MAX, M_SEQ_PROMPT, M_STEPS
+    S_l = SM // seq.axis_size("data")
+    prompt1 = torch.from_numpy(rng.integers(0, V, (1, PS))).to(
+        device=dev, dtype=torch.int32)
+    pos1 = torch.arange(PS, dtype=torch.int32, device=dev)[None]
+    caches = [TM.init_cache(cfg, 1, SM, device=dev) for _ in range(D)]
+    torch.cuda.reset_peak_memory_stats()
+    h.reset_counters()
+    (logits, caches), t_pre1 = _sync_time(lambda: pre(
+        params, caches, tstep.shard_tree(prompt1, t_spec, mesh),
+        tstep.shard_tree(pos1, p_spec, mesh)))
+    l_pre1 = h.counters()
+    expect("long prefill", l_pre1, flash=L * D)
+    tok0 = tstep.gather_tree(logits, pre.out_specs[0], mesh)[:, :V] \
+        .argmax(-1).to(torch.int32)
+
+    def lay(per):
+        """The (1, 1, 16) caches as the global tree, cut into (1, 4, 16)'s
+        chunks of the time axis (a copy a position)."""
+        whole = tstep.gather_tree(per, c_spec, mesh)
+        return tstep.shard_tree(whole, sdec.in_specs[1], seq, share=False)
+    s_caches, t_lay = _sync_time(lambda: lay(caches))
+    # the data replicas of a model shard hold its tensors, as shard_tree
+    # lays them: the (1, 1, 16) positions' own
+    s_params = [params[seq.axis_index("model", r)] for r in range(seq.size)]
+    D2 = seq.size
+    stage("tp", D, set())
+    try:
+        u_ids, caches, t_udec = decode(dec, mesh, params, caches, tok0, N, PS)
+        l_udec = h.counters()
+        u_logits = [gathered(x_, mesh) for x_ in kept]
+        last = {("seq", N - 1, layer, seq.position(data=c_))
+                for layer in (0, L - 1) for c_ in range(4)}
+        stage("seq", D2, last | {("merge", N - 1, 0), ("merge", N - 1, L - 1)})
+        torch.cuda.reset_peak_memory_stats()
+        s_ids, s_caches, t_sdec = decode(sdec, seq, s_params, s_caches, tok0,
+                                         N, PS, forced=[tok0] + u_ids)
+        l_sdec = h.counters()
+        s_coll = {k: dict(v) for k, v in tsh.COLLECTIVES.items()}
+        peak_b = torch.cuda.max_memory_allocated() / 2**30
+        s_logits = [gathered(x_, seq) for x_ in kept]
+    finally:
+        restore()
+    expect("unsharded decode", l_udec, flash_decode=L * D * N,
+           flash_combine=L * D * N)
+    rows["flash"]["launches"] += l_pre1["flash"]
+    rows["flash_decode"]["launches"] += l_udec["flash_decode"]
+    expect("sequence-sharded decode", l_sdec, flash_partial=L * D2 * N,
+           flash_merge=L * D2 * N)
+    print(f"  long context: prompt {PS} tokens into {SM}-position caches "
+          f"(on {M_SEQ_MESH} chunks of {S_l}: 0 and 1 full, 2 the owner of "
+          f"the new tokens, 3 empty); prefill {t_pre1:.6f} s on {M_MESH}; "
+          f"caches laid onto the chunks (gather_tree, shard_tree) "
+          f"{t_lay:.6f} s")
+    print(f"  unsharded decode on {M_MESH}: {N} steps {t_udec:.6f} s "
+          f"({N / t_udec:.3f} tokens/s), launches a step "
+          f"{ {k: v // N for k, v in l_udec.items() if v} }")
+    print(f"  sequence-sharded decode on {M_SEQ_MESH}: {N} steps "
+          f"{t_sdec:.6f} s ({N / t_sdec:.3f} tokens/s), launches a step "
+          f"{ {k: v // N for k, v in l_sdec.items() if v} }; peak memory "
+          f"allocated {peak_b:.3f} GiB; collectives a step, bytes as if each"
+          f" position were a card: " + ", ".join(
+              f"{k} {v['bytes'] // N} ({v['calls'] // N} calls)"
+              for k, v in s_coll.items() if v["calls"]))
+    diffs = [float((a - b).abs().max())
+             for a, b in zip(s_logits, u_logits, strict=True)]
+    gate_s = LM_LOGIT_TOL
+    if max(diffs) > gate_s:
+        # the control: the unsharded decode's last step again, on copies of
+        # its caches, with K8's plain version
+        copies = [{p_: {k_: t_.clone() for k_, t_ in c_.items()}
+                   for p_, c_ in cr.items()} for cr in caches]
+        tlayers.flash_attention, tstep.M.lm_logits = plain_attention, \
+            keep_logits
+        kept.clear()
+        try:
+            h.uncounted(lambda: decode(dec, mesh, params, copies, tok0, 1,
+                                       PS + N - 1,
+                                       forced=[([tok0] + u_ids)[N - 1]]))
+        finally:
+            restore()
+        ctrl = float((gathered(kept[0], mesh) - u_logits[-1]).abs().max())
+        del copies
+        gate_s = max(LM_LOGIT_TOL, J_CONTROL_FACTOR * ctrl)
+        print(f"  control (the last unsharded step with K8's plain "
+              f"version): {ctrl:.6e}; gate {gate_s:.6e}")
+    if max(diffs) > gate_s or not bool((s_ids[0] == u_ids[0]).all()) or \
+            not all(bool(torch.isfinite(x_).all()) for x_ in s_logits):
+        raise AssertionError(f"path M sequence-sharded decode vs unsharded: "
+                             f"max |diff| a step {diffs} (gate {gate_s}); "
+                             f"first tokens {s_ids[0].tolist()} / "
+                             f"{u_ids[0].tolist()}")
+    s_agree = sum(int(bool((a == b).all()))
+                  for a, b in zip(s_ids, u_ids, strict=True))
+    print(f"  sequence-sharded vs unsharded decode logits, each step: max "
+          f"|diff| {max(diffs):.6e} (gate {gate_s}; first {diffs[0]:.6e}, "
+          f"last {diffs[-1]:.6e}); first token equal; greedy tokens equal "
+          f"{s_agree} of {N}")
+
+    # ---- K8's two new forms against plain and f64 --------------------------
+    part_rows, merge_rows = {}, {}
+    L_last = PS + N - 1
+    for layer in (0, L - 1):
+        parts = [captured[("seq", N - 1, layer, seq.position(data=c_))]
+                 for c_ in range(4)]
+        for c_, (q, k, v, off, _) in enumerate(parts):
+            part_rows[(layer, c_)] = _partial_check(
+                h, f"layer {layer} chunk {c_} (q_offset {off})", q, k, v, off)
+        q = parts[0][0]
+        kg = torch.cat([p_[1] for p_ in parts], 1)[:, :L_last + 1]
+        vg = torch.cat([p_[2] for p_ in parts], 1)[:, :L_last + 1]
+        merged = captured[("merge", N - 1, layer)]
+        merge_rows[layer] = _merge_check(h, f"layer {layer}", merged, q, kg,
+                                         vg, L_last)
+        print(f"  K8 at layer {layer}, the last step's chunks (q_offset "
+              f"{[p_[3] for p_ in parts]}): return_partial vs its plain "
+              f"version and f64 (tolerance {M_PART_RTOL} of each scale), "
+              f"ratios to it " + ", ".join(
+                  f"chunk {c_} {part_rows[(layer, c_)]['plain']:.4f} / "
+                  f"{part_rows[(layer, c_)]['kernel']:.4f}" for c_ in
+                  range(4)) + f"; the combine across the positions vs its "
+              f"plain version {merge_rows[layer]['plain']:.6f} and vs f64 "
+              f"over the {L_last + 1} keys {merge_rows[layer]['f64']:.6f} "
+              f"bf16 ulps of the magnitude (tolerance 1)")
+        if layer:
+            continue
+        # planted: the rescaling e^(m_i - M) dropped (every m_i = 0)
+        m_, l_, a_ = merged
+        bad = h.uncounted(lambda: tflash.flash_merge(torch.zeros_like(m_),
+                                                     l_, a_))
+        exact = _dense_f64(q, kg, vg, L_last, L_last + 1)
+        mag = tflash.flash_attention_plain(q.float(), kg.float(),
+                                           vg.float().abs(), q_offset=L_last,
+                                           kv_valid=L_last + 1)
+        beyond = int(((bad.double() - exact).abs() > _bf16_ulp(mag)).sum())
+        # planted: chunk 0's last 64-key tile dropped from its partial
+        q0, k0, v0, off0, _ = parts[0]
+        bm, bl, _ = h.uncounted(lambda: tflash.flash_attention(
+            q0, k0, v0, q_offset=off0, kv_valid=k0.shape[1] - 64,
+            return_partial=True))
+        m64, l64, _, _ = _partial_f64(q0, k0, v0, off0)
+        rel = float(((bl.double() * torch.exp(bm.double() - m64) - l64)
+                     .abs() / l64).max())
+        if not beyond or not rel > M_PART_RTOL:
+            raise AssertionError(f"path M planted faults pass the checks: the "
+                                 f"combine without e^(m_i - M) {beyond} "
+                                 f"entries beyond; a dropped tile {rel}")
+        print(f"    planted faults caught: the combine without e^(m_i - M)"
+              f": {beyond} of {bad.numel()} entries beyond one bf16 ulp of "
+              f"f64; return_partial without chunk 0's last 64-key tile: l "
+              f"{rel:.3e} from f64 (tolerance {M_PART_RTOL})")
+
+    # ---- their rows of the kernels line, at a full chunk's shape -----------
+    q, k, v, off, _ = captured[("seq", N - 1, 0, seq.position(data=0))]
+    n_split, per = tflash.decode_plan(q, k, q_offset=off, kv_valid=k.shape[1])
+    n_bytes, ops = _flash_work(q, k, off, k.shape[1])
+    out_bytes = (2 * q.numel() // q.shape[-1] + q.numel()) * 4
+    rows["flash_partial"] = _time_row(
+        "flash_partial", lambda: h.uncounted(lambda: tflash.flash_attention(
+            q, k, v, q_offset=off, return_partial=True)),
+        lambda: tflash.flash_decode_split_plain(
+            q, k, v, q_offset=off, n_split=n_split, return_partial=True),
+        _sdpa_call(q, k, v, off, k.shape[1]),
+        [(n_bytes - q.numel() * q.element_size() + out_bytes, ops)],
+        l_sdec["flash_partial"],
+        max(r["max_abs_err"] for r in part_rows.values()), reps=100,
+        plain_reps=20)
+    rows["flash_partial"].update(
+        n_split=n_split, tiles_per_split=per, library="SDPA (enable_gqa, "
+        "group 2) over the chunk, normalised",
+        shape=f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, q_offset {off}")
+    m_, l_, a_ = captured[("merge", N - 1, 0)]
+    mb = sum(t_.numel() * 4 for t_ in (m_, l_, a_)) + a_[:, :, 0].numel() * 2
+    rows["flash_merge"] = _time_row(
+        "flash_merge", lambda: h.uncounted(lambda: tflash.flash_merge(
+            m_, l_, a_)),
+        lambda: tflash.flash_merge_plain(m_, l_, a_), None,
+        [(mb, 4 * a_.numel())], l_sdec["flash_merge"],
+        max(r["max_abs_err"] for r in merge_rows.values()), reps=100,
+        plain_reps=20)
+    rows["flash_merge"]["shape"] = (f"{m_.shape[2]} positions' partials, "
+                                    f"acc {tuple(a_.shape)}")
+    print(f"  path M wall {time.perf_counter() - t_path:.1f} s")
+    del captured, kept, s_caches, caches, s_params, params, glob
+
+
 def main(argv=None) -> int:
     args = _args(argv)
     import numpy as np
@@ -6733,6 +7308,13 @@ def main(argv=None) -> int:
 
     # ---- phase 17: path L (embedding-input and M-RoPE families), counted --
     _path_l(args, dev, rows, h)
+    print(f"  wall {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- phase 18: path M (tensor-parallel, sequence-sharded), counted ----
+    _path_m(args, dev, rows, h)
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
 
     smi = _card()

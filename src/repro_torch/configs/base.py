@@ -194,10 +194,13 @@ def list_archs() -> list[str]:
 def single_card(cfg: ArchConfig) -> ArchConfig:
     """The one-card form of ``cfg``: no tensor parallelism, so every query
     head and every KV head is kept (qwen3-4b: 32 query heads over 8 KV
-    heads, group size 4) and nothing is padded for a TP-16 mesh.  With the
-    defaults ``tp=16, tp_shard=True`` an arch with fewer than 16 KV heads
-    keeps one KV head per TP rank, which on a one-device mesh is a single
-    KV head for every query head."""
+    heads, group size 4) and nothing is padded for a TP-16 mesh.  The
+    published layout (``tp=16, tp_shard=True``) keeps, for an arch with
+    fewer than 16 KV heads, one KV slot a rank: the KV head its block of
+    query heads reads.  On a 16-wide ``model`` axis that is exact GQA
+    where nothing is padded (qwen3-4b: rank r holds query heads 2r and 2r
+    + 1 and KV head r // 2, the one-card form's function); on a
+    one-position mesh it is a single KV head for every query head."""
     return replace(cfg, tp=1, tp_shard=False)
 
 

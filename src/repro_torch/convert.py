@@ -268,25 +268,44 @@ def _lm_leaf(a, dev) -> torch.Tensor:
     return torch.from_numpy(a).to(dev)
 
 
-def lm_params_from_arrays(tree: dict, cfg, *, device=None) -> dict:
+def lm_params_from_arrays(tree: dict, cfg, *, device=None,
+                          mesh=None) -> dict:
     """The port's LM parameter tree (``models.model``, MoE leaves included)
     from the reference's as numpy arrays, bit for bit; every leaf's shape
-    is checked against ``build_tree(cfg)``."""
-    return _lm_tree(tree, cfg, resolve_device(device))
+    is checked against ``build_tree(cfg)``.  With ``mesh`` (a
+    ``ModelMesh``) the reference's GLOBAL tree (padded for tensor
+    parallelism where ``cfg.tp_shard``) is carried to ``device`` (default
+    the mesh's first position's) and cut onto the positions by
+    ``serve.step.shard_tree`` under the serving specs: a list of trees, one
+    a position."""
+    if mesh is None:
+        return _lm_tree(tree, cfg, resolve_device(device))
+    from .serve.step import serve_param_specs, shard_tree
+    dev = mesh.devices[0] if device is None else resolve_device(device)
+    return shard_tree(_lm_tree(tree, cfg, dev, mesh), serve_param_specs(cfg),
+                      mesh)
 
 
-def lm_caches_from_arrays(tree: dict, cfg, *, device=None) -> dict:
+def lm_caches_from_arrays(tree: dict, cfg, *, device=None, mesh=None,
+                          batch_sharded: bool = True,
+                          seq_shard: bool = False) -> dict:
     """The port's decode-state tree (``models.model.init_cache``'s: K/V and
     the recurrent states) from the reference's ``init_cache`` tree as
     numpy arrays, bit for bit; every leaf's shape and dtype is checked
     against ``cache_shapes(cfg, batch, max_seq)``, batch and max_seq read
-    from the tree."""
+    from the tree.  With ``mesh`` the tree is the reference's GLOBAL one
+    (``init_cache(..., local=False)``), checked against ``cache_shapes(...,
+    local=False)`` and cut onto the positions (``shard_tree``, a copy a
+    position) by the serving steps' cache specs for ``batch_sharded`` and
+    ``seq_shard``: a list of trees."""
     from .models import model as M
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None or device is not None \
+        else mesh.devices[0]
     first = next(iter(next(iter(tree.values())).values()))
     batch = np.shape(first)[1]
     kv = [np.shape(v["k"])[2] for v in tree.values() if "k" in v]
-    want = M.cache_shapes(cfg, batch, kv[0] if kv else 1)
+    want = M.cache_shapes(cfg, batch, kv[0] if kv else 1,
+                          local=mesh is None)
     if set(tree) != set(want):
         raise ValueError(f"cache positions {sorted(tree)}, the config "
                          f"wants {sorted(want)}")
@@ -302,7 +321,12 @@ def lm_caches_from_arrays(tree: dict, cfg, *, device=None) -> dict:
                 raise ValueError(f"{pos}/{name}: {tuple(t.shape)} {t.dtype}, "
                                  f"the config wants {shape} {dt}")
             out[pos][name] = t
-    return out
+    if mesh is None:
+        return out
+    from .serve.step import _cache_specs, shard_tree
+    return shard_tree(out, _cache_specs(cfg, mesh, batch_sharded=batch_sharded,
+                                        seq_shard=seq_shard), mesh,
+                      share=False)
 
 
 def adamw_state_from_arrays(tree: dict, cfg, *, device=None):
@@ -319,7 +343,7 @@ def adamw_state_from_arrays(tree: dict, cfg, *, device=None):
                           device=dev))
 
 
-def _lm_tree(tree: dict, cfg, dev) -> dict:
+def _lm_tree(tree: dict, cfg, dev, mesh=None) -> dict:
     from .models import model as M
 
     def carry(desc, node, stacked, path):
@@ -337,7 +361,7 @@ def _lm_tree(tree: dict, cfg, dev) -> dict:
         return type(desc)(*(carry(getattr(desc, f), node.get(f), stacked,
                                   f"{path}/{f}") for f in desc._fields))
 
-    desc = M.build_tree(cfg)
+    desc = M.build_tree(cfg, mesh)
     out = {k: carry(v, tree[k], False, k) for k, v in desc.items()
            if k != "sb"}
     out["sb"] = carry(desc["sb"], tree["sb"], True, "sb")

@@ -61,10 +61,11 @@ SIGNATURES = {
         "repro_flash_cc": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F,
                            P),
         "repro_flash_tc": (P, P, P, P, P, I, I, I, I, I, I, I, I, F, P),
-        "repro_flash_decode": (P, P, P, P, P, I, I, I, I, I, I, I, I, F, I,
-                               I, P),
+        "repro_flash_decode": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                               I, F, I, I, P),
         "repro_flash_bias": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
                              P),
+        "repro_flash_merge": (P, P, P, P, I, I, I, I, I, P),
     },
 }
 

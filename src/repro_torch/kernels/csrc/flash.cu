@@ -1157,14 +1157,24 @@ flash_split_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// out[b, r / G, hkv * G + r % G, d] = sum_i acc_i e^(m_i - M) /
-// max(sum_i l_i e^(m_i - M), 1e-30), M = max_i m_i over the n_split
-// partials of (b, hkv, r): block (hkv, b, r), thread d.
+// The n_split partials of (b, hkv, r) combined: M = max_i m_i, L = sum_i
+// l_i e^(m_i - M), ACC = sum_i acc_i e^(m_i - M).  Block (hkv, b, r),
+// thread d.  Normalised (kPartial false): out[b, r / G, hkv * G + r % G,
+// d] = ACC / max(L, 1e-30), rounded once to bf16.  Unnormalised
+// (kPartial true, K8's return_partial form, repro/models/layers.py:163-164,
+// the partial each position of a sequence-sharded decode combines with
+// the others): no division, M, L at m_out / l_out[(b * H + h) * Sq + i]
+// and ACC at acc_out[((b * H + h) * Sq + i) * D + d] with h = hkv * G +
+// r % G and i = r / G (the reference's (B, H, Sq) and (B, H, Sq, D)
+// layout); a query whose runs see no key keeps M = -1e30, L = 0, ACC = 0.
+template <bool kPartial>
 __global__ void __launch_bounds__(128)
 flash_combine_kernel(const float* __restrict__ m_part,
                      const float* __restrict__ l_part,
                      const float* __restrict__ acc_part,
-                     __nv_bfloat16* __restrict__ out, int Sq, int H, int Hkv,
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ m_out, float* __restrict__ l_out,
+                     float* __restrict__ acc_out, int Sq, int H, int Hkv,
                      int G, int D, int n_split) {
   const int hkv = blockIdx.x, b = blockIdx.y, r = blockIdx.z;
   const int rows = Sq * G;
@@ -1181,8 +1191,18 @@ flash_combine_kernel(const float* __restrict__ m_part,
       L = __fadd_rn(L, __fmul_rn(l_part[p], e));
       A = __fadd_rn(A, __fmul_rn(acc_part[p * D + d], e));
     }
-    out[((static_cast<size_t>(b) * Sq + r / G) * H + hkv * G + r % G) * D +
-        d] = __float2bfloat16_rn(__fdiv_rn(A, fmaxf(L, 1e-30f)));
+    if constexpr (kPartial) {
+      const size_t row =
+          (static_cast<size_t>(b) * H + hkv * G + r % G) * Sq + r / G;
+      acc_out[row * D + d] = A;
+      if (d == 0) {
+        m_out[row] = M;
+        l_out[row] = L;
+      }
+    } else {
+      out[((static_cast<size_t>(b) * Sq + r / G) * H + hkv * G + r % G) *
+              D + d] = __float2bfloat16_rn(__fdiv_rn(A, fmaxf(L, 1e-30f)));
+    }
   }
 }
 
@@ -1607,24 +1627,15 @@ extern "C" int repro_flash_tc(const void* q, const void* k, const void* v,
   }
 }
 
-// The split-KV decode tile and its combine pass, two launches: bf16, D in
-// {64, 128}, Sq * H / Hkv <= 8.  `part` is f32 scratch of B * Hkv *
-// n_split * rows * (D + 2) values: the partials m, l (B, Hkv, n_split,
-// rows) and acc (B, Hkv, n_split, rows, D), block `split` of the first
-// launch covering key tiles split * tiles_per .. + tiles_per - 1.
-extern "C" int repro_flash_decode(const void* q, const void* k,
-                                  const void* v, void* part, void* out,
-                                  int B, int Sq, int Skv, int H, int Hkv,
-                                  int D, int q_offset, int kv_valid,
-                                  float scale, int n_split, int tiles_per,
-                                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+namespace {
+
+// The split-KV tile's first launch (the runs' partials into `part`, laid
+// out as repro_flash_decode says), by head dim and rows.
+int split_runs(const void* q, const void* k, const void* v, float* m_part,
+               float* l_part, float* acc_part, int B, int Sq, int Skv, int H,
+               int Hkv, int D, int q_offset, int kv_valid, float scale,
+               int n_split, int tiles_per, cudaStream_t st) {
   const int rows = Sq * (H / Hkv);
-  if (rows > 8 || n_split < 1 || (D != 64 && D != 128))
-    return static_cast<int>(cudaErrorInvalidValue);
-  float* m_part = static_cast<float*>(part);
-  float* l_part = m_part + static_cast<size_t>(B) * Hkv * n_split * rows;
-  float* acc_part = l_part + static_cast<size_t>(B) * Hkv * n_split * rows;
   int rc;
   if (D == 64) {
     rc = rows <= 4
@@ -1643,10 +1654,71 @@ extern "C" int repro_flash_decode(const void* q, const void* k,
                                H, Hkv, q_offset, kv_valid, scale, n_split,
                                tiles_per, st);
   }
+  return rc;
+}
+
+}  // namespace
+
+// The split-KV decode tile and its combine pass, two launches: bf16, D in
+// {64, 128}, Sq * H / Hkv <= 8.  `part` is f32 scratch of B * Hkv *
+// n_split * rows * (D + 2) values: the partials m, l (B, Hkv, n_split,
+// rows) and acc (B, Hkv, n_split, rows, D), block `split` of the first
+// launch covering key tiles split * tiles_per .. + tiles_per - 1.  With
+// `out` the combine writes the normalised bf16 output (B, Sq, H, D); with
+// `out` null it is the return_partial form (flash-decoding across
+// positions) and writes the run-combined, unnormalised f32 m_out, l_out
+// (B, H, Sq) and acc_out (B, H, Sq, D).
+extern "C" int repro_flash_decode(const void* q, const void* k,
+                                  const void* v, void* part, void* out,
+                                  void* m_out, void* l_out, void* acc_out,
+                                  int B, int Sq, int Skv, int H, int Hkv,
+                                  int D, int q_offset, int kv_valid,
+                                  float scale, int n_split, int tiles_per,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = Sq * (H / Hkv);
+  if (rows > 8 || n_split < 1 || (D != 64 && D != 128) ||
+      (out == nullptr && (m_out == nullptr || l_out == nullptr ||
+                          acc_out == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* m_part = static_cast<float*>(part);
+  float* l_part = m_part + static_cast<size_t>(B) * Hkv * n_split * rows;
+  float* acc_part = l_part + static_cast<size_t>(B) * Hkv * n_split * rows;
+  const int rc = split_runs(q, k, v, m_part, l_part, acc_part, B, Sq, Skv, H,
+                            Hkv, D, q_offset, kv_valid, scale, n_split,
+                            tiles_per, st);
   if (rc != 0) return rc;
-  flash_combine_kernel<<<dim3(Hkv, B, rows), 128, 0, st>>>(
-      m_part, l_part, acc_part, static_cast<__nv_bfloat16*>(out), Sq, H, Hkv,
-      H / Hkv, D, n_split);
+  const dim3 grid(Hkv, B, rows);
+  float* mo = static_cast<float*>(m_out);
+  float* lo = static_cast<float*>(l_out);
+  float* ao = static_cast<float*>(acc_out);
+  if (out != nullptr)
+    flash_combine_kernel<false><<<grid, 128, 0, st>>>(
+        m_part, l_part, acc_part, static_cast<__nv_bfloat16*>(out), mo, lo,
+        ao, Sq, H, Hkv, H / Hkv, D, n_split);
+  else
+    flash_combine_kernel<true><<<grid, 128, 0, st>>>(
+        m_part, l_part, acc_part, nullptr, mo, lo, ao, Sq, H, Hkv, H / Hkv,
+        D, n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The combine across positions: n partials of (B, H, Sq) rows, stacked as
+// m and l (B, H, n, Sq) and acc (B, H, n, Sq, D), f32 and contiguous, into
+// out (B, Sq, H, D) bf16: out = sum_i acc_i e^(m_i - M) / max(sum_i l_i
+// e^(m_i - M), 1e-30), M = max_i m_i, rounded once.  flash_combine_kernel
+// with every head its own group (Hkv = H, G = 1) and the n partials as its
+// runs (the reference's pmax, two psums and division across the data
+// positions, repro/models/layers.py:249-254); a launch's time at decode.
+extern "C" int repro_flash_merge(const void* m, const void* l,
+                                 const void* acc, void* out, int B, int Sq,
+                                 int H, int D, int n, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  flash_combine_kernel<false><<<dim3(H, B, Sq), 128, 0, st>>>(
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(acc), static_cast<__nv_bfloat16*>(out),
+      nullptr, nullptr, nullptr, Sq, H, H, 1, D, n);
   return static_cast<int>(cudaGetLastError());
 }
 

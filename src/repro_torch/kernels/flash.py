@@ -43,6 +43,25 @@ On a CUDA tensor ``flash_attention`` launches one of three tiles of
 ``flash_decode_split_plain`` is the split-KV tile's partials and combine
 in plain torch, for the tests and ``chip_smoke.py``.
 
+Flash-decoding across mesh positions (sequence-sharded decode: each
+position holds a chunk of the KV cache's time axis) takes two more forms:
+
+* ``flash_attention(..., return_partial=True)``: each row's f32
+  unnormalised ``(m, l, acc)``, (B, H, Sq), (B, H, Sq) and (B, H, Sq, dh),
+  the reference's ``return_partial`` (a row that sees no key: m = -1e30,
+  l = 0, acc = 0).  On a card the split-KV tile's runs, then
+  ``flash_combine_kernel`` in its partial mode, which combines the runs
+  without the division (bf16, dh 64 or 128, ``Sq * G <= 8``: the decode
+  shapes),
+  counted in ``LAUNCHES["flash_partial"]``; its plain version is the
+  split-KV plain version stopped before its division
+  (``flash_decode_split_plain(return_partial=True)``).
+* ``flash_merge(m, l, acc)``: D positions' partials, stacked on a third
+  axis, into ``sum_i acc_i e^(m_i - M) / max(sum_i l_i e^(m_i - M),
+  1e-30)``, M = max_i m_i, rounded once to bf16, (B, Sq, H, dh): the
+  decode tile's combine kernel with the positions as its runs, counted in
+  ``LAUNCHES["flash_merge"]``; plain version ``flash_merge_plain``.
+
 Training (``FlashAttention``, which ``flash_attention`` takes whenever
 autograd records): the forward launches the same tensor-core, CUDA-core or
 bias tile with its ``lse`` output, each row's f32 log-sum-exp ``m +
@@ -70,7 +89,8 @@ import torch
 from . import build
 
 LAUNCHES = {"flash": 0, "flash_decode": 0, "flash_combine": 0,
-            "flash_cc": 0, "flash_bias": 0}
+            "flash_cc": 0, "flash_bias": 0, "flash_partial": 0,
+            "flash_merge": 0}
 LSE_LAUNCHES = {"flash": 0, "flash_cc": 0,   # of those, with the lse output
                 "flash_bias": 0}
 
@@ -122,12 +142,15 @@ def _check_bias(q, k, bias_qk) -> tuple:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, q_offset: int, kv_valid: int | None = None,
                           kv_block: int = 1024, return_lse: bool = False,
-                          bias_qk: tuple | None = None):
+                          bias_qk: tuple | None = None,
+                          return_partial: bool = False):
     """Plain version of K8: the reference's blockwise online softmax
     (``repro.models.layers.flash_attention``), (B, Sq, H, dh) in q's
     dtype; with ``return_lse`` also each row's f32 ``m + log(l)`` (B, H,
-    Sq) from the reference's final ``m`` and ``l``
-    (``return_partial=True``).  ``bias_qk = (fq, fk)``, f32 (B, Sq, H) and
+    Sq) from the reference's final ``m`` and ``l``; with
+    ``return_partial`` the final f32 ``(m, l, acc)`` themselves, (B, H,
+    Sq), (B, H, Sq), (B, H, Sq, dh), undivided (the reference's
+    ``return_partial=True``).  ``bias_qk = (fq, fk)``, f32 (B, Sq, H) and
     (B, Skv, H), adds ``fq[b, i, h]`` then ``fk[b, j, h]`` to each score
     before the mask, fk zero-padded to the key blocks, as the reference
     does for the mLSTM."""
@@ -172,6 +195,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
                                                    vb.to(f32))
         m = m_new
+    if return_partial:
+        return m, l, acc
     out = acc / l.clamp_min(1e-30)[..., None]
     out = out.transpose(1, 2).to(q.dtype)
     return (out, m + torch.log(l)) if return_lse else out
@@ -199,14 +224,17 @@ def decode_kend(q_offset: int, kv_valid: int, Sq: int) -> int:
 def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, q_offset: int,
                              kv_valid: int | None = None,
-                             n_split: int) -> torch.Tensor:
+                             n_split: int, return_partial: bool = False):
     """Plain version of the split-KV decode tile's arithmetic: the valid
     keys [0, kend) cut into ``n_split`` runs of ``ceil(tiles / n_split)``
     whole 64-key tiles (trailing runs may be empty); per run the masked
     scores ``(f32(q) * scale) . k``, m = max(rowmax, -1e30), l = sum p,
     acc = p . v with p = exp(s - m); then M = max m_i and out = sum acc_i
     e^(m_i - M) / max(sum l_i e^(m_i - M), 1e-30), rounded once to q's
-    dtype.  An empty run has m = -1e30, l = 0, acc = 0."""
+    dtype.  An empty run has m = -1e30, l = 0, acc = 0.  With
+    ``return_partial``, the return_partial form's plain version: stopped
+    before the division, f32 (M, sum l_i e^(m_i - M), sum acc_i e^(m_i -
+    M)) shaped (B, H, Sq), (B, H, Sq), (B, H, Sq, dh)."""
     _check(q, k, v)
     B, Sq, H, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -236,9 +264,64 @@ def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
     m = torch.stack(ms)
     M = m.amax(0)
     w = torch.exp(m - M)
-    den = (torch.stack(ls) * w).sum(0).clamp_min(1e-30)
-    out = (torch.stack(accs) * w[..., None]).sum(0) / den[..., None]
+    den = (torch.stack(ls) * w).sum(0)
+    num = (torch.stack(accs) * w[..., None]).sum(0)
+    if return_partial:
+        return M, den, num
+    out = num / den.clamp_min(1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
+
+
+def _check_merge(m, l, acc) -> None:
+    if m.dim() != 4 or l.shape != m.shape or acc.dim() != 5 or \
+            acc.shape[:4] != m.shape or any(
+                t.dtype != torch.float32 for t in (m, l, acc)):
+        raise ValueError(f"flash_merge takes f32 m, l (B, H, D, Sq) and acc "
+                         f"(B, H, D, Sq, dh), got {tuple(m.shape)} {m.dtype}"
+                         f", {tuple(l.shape)}, {tuple(acc.shape)}")
+
+
+def flash_merge_plain(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                      dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain version of the combine across positions: the D partials
+    stacked on axis 2 (m, l (B, H, D, Sq), acc (B, H, D, Sq, dh), f32)
+    into ``sum_i acc_i e^(m_i - M) / max(sum_i l_i e^(m_i - M), 1e-30)``
+    with M = max(max_i m_i, -1e30), each sum taken in position order, as
+    (B, Sq, H, dh) rounded once to ``dtype`` (the reference's ``pmax``,
+    two ``psum`` and division, ``repro/models/layers.py:249-254``)."""
+    _check_merge(m, l, acc)
+    M = m.amax(2).clamp_min(-1e30)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(acc[:, :, 0])
+    for i in range(m.shape[2]):
+        e = torch.exp(m[:, :, i] - M)
+        L = L + l[:, :, i] * e
+        A = A + acc[:, :, i] * e[..., None]
+    out = A / L.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(dtype)
+
+
+def flash_merge(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
+                ) -> torch.Tensor:
+    """K8's combine across positions (``flash_merge_plain``'s function,
+    bf16 out): CUDA tensors launch ``flash_combine_kernel`` with every
+    head a group of one and the D positions as its runs; CPU tensors take
+    the plain version."""
+    _check_merge(m, l, acc)
+    if m.device.type != "cuda":
+        return flash_merge_plain(m, l, acc)
+    B, H, D, Sq = m.shape
+    dh = acc.shape[-1]
+    m, l, acc = m.contiguous(), l.contiguous(), acc.contiguous()
+    out = torch.empty((B, Sq, H, dh), dtype=torch.bfloat16, device=m.device)
+    if out.numel() == 0:
+        return out
+    rc = build.library("flash").repro_flash_merge(
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), B, Sq,
+        H, dh, D, torch.cuda.current_stream(m.device).cuda_stream)
+    build.check(rc, "flash (combine across positions)")
+    LAUNCHES["flash_merge"] += 1
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -301,8 +384,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
         part = torch.empty(B * Hkv * n_split * Sq * (H // Hkv) * (dh + 2),
                            dtype=torch.float32, device=q.device)
         rc = lib.repro_flash_decode(*ptrs, part.data_ptr(), out.data_ptr(),
-                                    B, Sq, Skv, H, Hkv, dh, q_offset,
-                                    kv_valid, scale, n_split, per, stream)
+                                    None, None, None, B, Sq, Skv, H, Hkv, dh,
+                                    q_offset, kv_valid, scale, n_split, per,
+                                    stream)
         build.check(rc, "flash (split-KV decode tile and combine)")
         LAUNCHES["flash_combine"] += 1
     elif tile == "flash_bias":
@@ -321,6 +405,39 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
     if lse is not None:
         LSE_LAUNCHES[tile] += 1
     return out
+
+
+def _launch_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_offset: int, kv_valid: int) -> tuple:
+    """The return_partial form on CUDA tensors: the split-KV tile's runs
+    and ``flash_combine_kernel`` in its partial mode, (m, l, acc) f32."""
+    B, Sq, H, dh = q.shape
+    Hkv = k.shape[2]
+    if tile_of(q.dtype, dh, Sq * (H // Hkv)) != "flash_decode":
+        raise ValueError(f"return_partial runs on the split-KV decode tile: "
+                         f"bf16 q, k, v at head dims {TC_DIMS} with Sq * H "
+                         f"/ Hkv <= {DECODE_ROWS}, got {q.dtype}, dh {dh}, "
+                         f"{Sq * (H // Hkv)} rows")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention needs 16-byte aligned tensors")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H, Sq), **f32)
+    l = torch.empty((B, H, Sq), **f32)
+    acc = torch.empty((B, H, Sq, dh), **f32)
+    if acc.numel() == 0:
+        return m, l, acc
+    n_split, per = decode_plan(q, k, q_offset=q_offset, kv_valid=kv_valid)
+    part = torch.empty(B * Hkv * n_split * Sq * (H // Hkv) * (dh + 2),
+                       **f32)
+    rc = build.library("flash").repro_flash_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), part.data_ptr(), None,
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, Sq, k.shape[1], H,
+        Hkv, dh, q_offset, kv_valid, softmax_scale(dh), n_split, per,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "flash (split-KV tile, return_partial)")
+    LAUNCHES["flash_partial"] += 1
+    return m, l, acc
 
 
 def bias_tile_of(dtype: torch.dtype, dh: int) -> str:
@@ -478,7 +595,8 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int, kv_valid: int | None = None,
-                    bias_qk: tuple | None = None) -> torch.Tensor:
+                    bias_qk: tuple | None = None,
+                    return_partial: bool = False):
     """K8 (replaces ``repro.kernels.flash.flash_attention_pallas``, in the
     general form of ``repro.models.layers.flash_attention``): causal GQA
     attention of q (B, Sq, H, dh) over k, v (B, Skv, Hkv, dh) at query
@@ -488,8 +606,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``tile_of``; ``bias_tile_of`` with ``bias_qk``); CPU tensors take the
     plain version.  Where autograd records (grad enabled and an input,
     fq and fk included, requiring it) the call goes through
-    ``FlashAttention``."""
+    ``FlashAttention``.  ``return_partial`` returns the f32 ``(m, l,
+    acc)`` instead (no bias, no gradient; on a card ``_launch_partial``)."""
     q_offset, kv_valid = _args_of(q, k, v, q_offset, kv_valid)
+    if return_partial:
+        if bias_qk is not None:
+            raise ValueError("return_partial takes no bias_qk")
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise ValueError("return_partial has no backward")
+        if q.device.type != "cuda":
+            return flash_attention_plain(q, k, v, q_offset=q_offset,
+                                         kv_valid=kv_valid,
+                                         return_partial=True)
+        return _launch_partial(q, k, v, q_offset, kv_valid)
     bias = () if bias_qk is None else _check_bias(q, k, bias_qk)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (q, k, v, *bias)):

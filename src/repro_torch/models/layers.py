@@ -19,11 +19,18 @@ transpose of ``einsum(bf16, bf16, preferred_element_type=f32)``: each
 operand's gradient is the f32 cotangent times the other operand, an f32
 product, rounded once to the operand's dtype (``_MatmulF32``).
 
-There is no mesh: tensor-parallel layouts (``cfg.tp_shard``), sequence-
-sharded caches and partial softmax results (``return_partial``) raise
-``not_ported`` (ROADMAP queue 1 item 14).  Caches are updated in
-place.  The activations ``softplus``, ``log_sigmoid``, ``sigmoid`` and
-``silu`` are jax.nn's formulas, for the recurrent blocks
+Tensor-parallel layouts (``cfg.tp_shard``) and sequence-sharded caches
+run on a ``models.sharding.ModelMesh``: ``attention_block`` and
+``mlp_block`` take ``mesh=`` and then lists with one tensor a mesh
+position (its local shard) for the parameters, inputs and caches, run a
+position at a time and end in the reference's one ``tp_psum`` over
+``model`` (none with ``reduce=False``); the sequence-sharded branch
+combines the positions' partial softmax results (K8's ``return_partial``
+form, ``kernels.flash.flash_merge``) across ``data``.  Without a mesh a
+tensor-parallel layout raises ``not_ported``, as the MoE block under
+``tp_shard`` does on any mesh (ROADMAP queue 1 item 14d).  Caches are
+updated in place.  The activations ``softplus``, ``log_sigmoid``,
+``sigmoid`` and ``silu`` are jax.nn's formulas, for the recurrent blocks
 (``models/ssm.py``, ``models/xlstm.py``), with JAX's derivatives under a
 gradient (``_Softplus``, ``_Sigmoid``).
 """
@@ -250,12 +257,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Skv, H), adds the per-query and per-key terms to each score (the
     mLSTM's parallel form; under autograd fq and fk get gradients).  K8
     (``kernels.flash.flash_attention``): CUDA tensors launch the kernel,
-    CPU tensors take its plain version."""
-    if return_partial:
-        raise not_ported("flash_attention(return_partial=True) "
-                         "(sequence-sharded decode)", "14")
+    CPU tensors take its plain version.  ``return_partial`` returns each
+    row's unnormalised f32 ``(m, l, acc)``, (B, H, Sq), (B, H, Sq) and (B,
+    H, Sq, dh), for a combine across positions."""
     return _flash.flash_attention(q, k, v, q_offset=q_offset,
-                                  kv_valid=kv_valid, bias_qk=bias_qk)
+                                  kv_valid=kv_valid, bias_qk=bias_qk,
+                                  return_partial=return_partial)
 
 
 # ---------------------------------------------------------------------------
@@ -276,22 +283,25 @@ class AttnParams(NamedTuple):
 
 def _no_tp(tp_shard: bool) -> None:
     if tp_shard:
-        raise not_ported("tensor-parallel layouts (cfg.tp_shard=True; serve "
-                         "configs.single_card(cfg) on one card)", "14")
+        raise not_ported("tensor-parallel layouts (cfg.tp_shard=True) "
+                         "without a mesh (pass mesh=, a ModelMesh, or serve "
+                         "configs.single_card(cfg) on one card)", "14d")
 
 
-def attention_block(p: AttnParams, x: torch.Tensor, cfg, *, pos, cache=None,
-                    layer_slot: int = 0, tp_shard: bool,
-                    reduce: bool = True) -> tuple:
-    """x: (B, S, d).  Returns (out, new_cache).
+def not_under_tp(tp_shard: bool, what: str) -> None:
+    """A block the port runs only outside tensor parallelism."""
+    if tp_shard:
+        raise not_ported(f"{what} under tp_shard", "14d")
 
-    cache: None (attend over this call's own K/V) or a dict with ``k``/``v``
-    (B, S_max, KV, dh) and ``length`` (the filled prefix, an int): the new
-    K/V are written at ``length`` (the start clamped to ``S_max - S``, as
-    ``dynamic_update_slice`` clamps it), in place, and the queries attend
-    over the cache with ``q_offset = length``, ``kv_valid = length + S``.
-    """
-    _no_tp(tp_shard)
+
+def _qkv(p: AttnParams, x: torch.Tensor, cfg, pos, tp_rank=None) -> tuple:
+    """The attention block's q (B, S, Hl, dh) and k, v (B, S, KVl, dh),
+    bf16, of one position's weights: Hl from the local ``wq``.
+    ``tp_rank`` (the position's ``model`` index) takes the replicated-KV
+    slice of a tensor-parallel layout whose KV heads are fewer than its
+    width: every rank computes all KV heads and keeps the one its
+    contiguous block of query heads reads, ``g = (tp_rank * Hl *
+    n_kv_heads) // n_heads_padded``."""
     B, S, _ = x.shape
     dh = cfg.head_dim
     h = rms_norm(x, p.ln, cfg.norm_eps)
@@ -304,6 +314,9 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg, *, pos, cache=None,
     q = q.reshape(B, S, Hl, dh)
     k = k.reshape(B, S, -1, dh)
     v = v.reshape(B, S, -1, dh)
+    if tp_rank is not None:
+        g = (tp_rank * Hl * cfg.n_kv_heads) // cfg.n_heads_padded
+        k, v = k[:, :, g:g + 1], v[:, :, g:g + 1]
     if cfg.qk_norm:
         q = rms_norm(q, p.qn, cfg.norm_eps)
         k = rms_norm(k, p.kn, cfg.norm_eps)
@@ -313,24 +326,107 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg, *, pos, cache=None,
     elif cfg.rope == "mrope":
         q = apply_mrope(q, pos, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, pos, cfg.rope_theta, cfg.mrope_sections)
+    return q, k, v
 
+
+def _write(cache: dict, k: torch.Tensor, v: torch.Tensor, start: int) -> None:
+    """The S new keys and values into the cache at ``start``, clamped to
+    ``S_max - S`` as ``dynamic_update_slice`` clamps it, in place."""
+    S = k.shape[1]
+    start = min(max(start, 0), cache["k"].shape[1] - S)
+    cache["k"][:, start:start + S] = k
+    cache["v"][:, start:start + S] = v
+
+
+def attention_block(p: AttnParams, x: torch.Tensor, cfg, *, pos, cache=None,
+                    layer_slot: int = 0, tp_shard: bool,
+                    reduce: bool = True, mesh=None) -> tuple:
+    """x: (B, S, d).  Returns (out, new_cache).
+
+    cache: None (attend over this call's own K/V) or a dict with ``k``/``v``
+    (B, S_max, KV, dh) and ``length`` (the filled prefix, an int): the new
+    K/V are written at ``length`` (the start clamped to ``S_max - S``, as
+    ``dynamic_update_slice`` clamps it), in place, and the queries attend
+    over the cache with ``q_offset = length``, ``kv_valid = length + S``.
+    With ``mesh`` (a ``ModelMesh``) every argument but ``cfg`` is a list
+    over its positions: ``_attention_mesh``.
+    """
+    if mesh is not None:
+        return _attention_mesh(p, x, cfg, pos=pos, cache=cache,
+                               tp_shard=tp_shard, reduce=reduce, mesh=mesh)
+    _no_tp(tp_shard)
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, pos)
     new_cache = None
     if cache is None:
         o = flash_attention(q, k, v, q_offset=0)
     elif cache.get("seq_sharded", False):
-        raise not_ported("sequence-sharded KV caches (flash-decoding across "
-                         "devices)", "14")
+        raise not_ported("sequence-sharded KV caches without a mesh (pass "
+                         "mesh=, a ModelMesh)", "14d")
     else:
         length = int(cache["length"])
+        _write(cache, k, v, length)
         kc, vc = cache["k"], cache["v"]
-        start = min(max(length, 0), kc.shape[1] - S)
-        kc[:, start:start + S] = k
-        vc[:, start:start + S] = v
         o = flash_attention(q, kc, vc, q_offset=length, kv_valid=length + S)
         new_cache = {"k": kc, "v": vc}
 
-    out = matmul_f32(o.reshape(B, S, Hl * dh), p.wo)
+    out = matmul_f32(o.reshape(B, S, -1), p.wo)
     return (out.to(x.dtype) if reduce else out), new_cache
+
+
+def _attention_mesh(p: list, x: list, cfg, *, pos: list, cache, tp_shard,
+                    reduce: bool, mesh) -> tuple:
+    """The attention block on a mesh (the reference's under ``shard_map``,
+    ``repro/models/layers.py:185-270``), a position at a time: q, k, v of
+    the position's heads (``_qkv``; under ``tp_shard`` with replicated KV
+    heads the KV slice of its ``model`` index), the attention, the output
+    projection of its ``wo`` rows, then one ``tp_psum`` over ``model``
+    (f32; none with ``reduce=False``, which returns the f32 partials).
+
+    ``cache`` (a list of dicts, or None) with ``seq_sharded``: each
+    position holds the chunk ``[base, base + S_l)`` of the time axis,
+    ``base = data index * S_l``.  Only the position whose chunk holds
+    global position ``length`` writes the new K/V, at ``clip(length -
+    base, 0, S_l - 1)``; every position attends over its whole chunk with
+    ``q_offset = length - base`` and no ``kv_valid`` (a chunk past
+    ``length`` sees no key, one before it all of its keys) through K8's
+    ``return_partial`` form, and the positions' partials are brought to
+    every position of the ``data`` group (``gather_stack``) and combined
+    there (``flash_merge``): the reference's ``pmax`` and two ``psum``."""
+    D = mesh.size
+    kv_slice = tp_shard and not cfg.kv_sharded
+    seq = cache is not None and cache[0].get("seq_sharded", False)
+    outs, new_caches, parts = [None] * D, [None] * D, [None] * D
+    for r in range(D):
+        q, k, v = _qkv(p[r], x[r], cfg, pos[r],
+                       mesh.axis_index("model", r) if kv_slice else None)
+        if cache is None:
+            outs[r] = flash_attention(q, k, v, q_offset=0)
+            continue
+        c = cache[r]
+        length = int(c["length"])
+        if seq:
+            S_l = c["k"].shape[1]
+            off = length - mesh.axis_index("data", r) * S_l
+            if 0 <= off < S_l:
+                _write(c, k, v, off)
+            parts[r] = flash_attention(q, c["k"], c["v"], q_offset=off,
+                                       return_partial=True)
+        else:
+            _write(c, k, v, length)
+            outs[r] = flash_attention(q, c["k"], c["v"], q_offset=length,
+                                      kv_valid=length + k.shape[1])
+        new_caches[r] = {"k": c["k"], "v": c["v"]}
+    if seq:
+        merged = mesh.gather_stack(parts, "data", dim=2)
+        outs = [_flash.flash_merge(*merged[r]) for r in range(D)]
+    out = [matmul_f32(o.reshape(*o.shape[:2], -1), p[r].wo)
+           for r, o in enumerate(outs)]
+    if tp_shard and reduce:
+        out = mesh.tp_psum(out)
+    if reduce:
+        out = [o.to(xr.dtype) for o, xr in zip(out, x, strict=True)]
+    return out, (None if cache is None else new_caches)
 
 
 # ---------------------------------------------------------------------------
@@ -344,11 +440,24 @@ class MLPParams(NamedTuple):
 
 
 def mlp_block(p: MLPParams, x: torch.Tensor, cfg, *, tp_shard: bool,
-              reduce: bool = True, pre_normed: torch.Tensor | None = None
-              ) -> torch.Tensor:
+              reduce: bool = True, pre_normed: torch.Tensor | None = None,
+              mesh=None) -> torch.Tensor:
     """SwiGLU: ``silu(g) * u`` of the f32 gate and up projections, rounded
     to bf16, then the down projection (f32, rounded to x's dtype when
-    ``reduce``)."""
+    ``reduce``).  With ``mesh``, ``p``, ``x`` and ``pre_normed`` are lists
+    over its positions: each position's d_ff shard, then one ``tp_psum``
+    of the f32 outputs over ``model`` under ``tp_shard`` (none with
+    ``reduce=False``)."""
+    if mesh is not None:
+        pn = pre_normed or [None] * mesh.size
+        out = [mlp_block(pr, xr, cfg, tp_shard=False, reduce=False,
+                         pre_normed=n)
+               for pr, xr, n in zip(p, x, pn, strict=True)]
+        if tp_shard and reduce:
+            out = mesh.tp_psum(out)
+        if reduce:
+            out = [o.to(xr.dtype) for o, xr in zip(out, x, strict=True)]
+        return out
     _no_tp(tp_shard)
     h = rms_norm(x, p.ln, cfg.norm_eps) if pre_normed is None else pre_normed
     g = matmul_f32(h, p.w_gate)
@@ -480,8 +589,9 @@ def moe_block(p: MoEParams, x: torch.Tensor, cfg, *, tp_shard: bool,
     f32 (XLA:CPU's scatter-add order; no atomics), plus the shared experts
     where the config has them, rounded once to x's dtype.  The routing and
     the combine run under ``torch.profiler`` spans ``moe.dispatch`` and
-    ``moe.combine`` (a trace's time by kind)."""
-    _no_tp(tp_shard)
+    ``moe.combine`` (a trace's time by kind).  Expert parallelism
+    (``tp_shard``) raises ``not_ported``."""
+    not_under_tp(tp_shard, "the MoE block (experts over the model axis)")
     mc = cfg.moe
     B, S, d = x.shape
     T = B * S

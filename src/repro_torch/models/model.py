@@ -23,7 +23,15 @@ sLSTM's loop and K8's bias tile in the backward as it does any layer.
 Embedding-input archs (``cfg.embed_input``: musicgen's frame embeddings)
 have no ``embed`` leaf and take (B, S, d) inputs; M-RoPE archs
 (``cfg.rope == "mrope"``: qwen2-vl) take (3, B, S) (t, h, w) ids.
-Tensor-parallel layouts raise ``not_ported`` (ROADMAP queue 1 item 14).
+
+On a mesh (``forward(..., mesh=)``, a ``models.sharding.ModelMesh``) the
+decoder runs the reference's manual-SPMD program: every tree and input is
+a list with one entry a position (its local shard, ``serve.step.
+shard_tree``), each leaf's ``spec`` (``param_specs``) says how the global
+leaf is cut, and the blocks end in the reference's collectives.  Tensor-
+parallel layouts (``cfg.tp_shard``) run only there, for attention and
+dense-MLP blocks; MoE, Mamba and xLSTM blocks under ``tp_shard`` and
+training on a mesh raise ``not_ported`` (ROADMAP queue 1 items 14d, 14e).
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import not_ported, resolve_device
 from . import layers, ssm, xlstm
+from .sharding import FSDP, TP
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -45,15 +54,38 @@ BF16 = torch.bfloat16
 class Leaf(NamedTuple):
     shape: tuple
     fan_in: int          # init scale (0 -> zeros, -1 -> ones)
+    spec: tuple          # PartitionSpec entries (before stacking)
 
 
 def _supported(cfg) -> None:
-    if cfg.tp_shard:
-        raise not_ported("tensor-parallel layouts (cfg.tp_shard=True; serve "
-                         "configs.single_card(cfg) on one card)", "14")
+    """Block kinds the port runs; under ``tp_shard`` only attention with a
+    dense MLP."""
     for kind in set(cfg.pattern):
         if kind not in KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
+    if cfg.tp_shard:
+        for kind in set(cfg.pattern) - {"attn"}:
+            what = "Mamba" if kind == "mamba" else kind
+            layers.not_under_tp(True, f"the {what} block")
+        if any(cfg.moe_at(i) for i in range(cfg.sb)):
+            layers.not_under_tp(True, "the MoE block")
+
+
+def _layout(cfg, mesh) -> None:
+    """A tensor-parallel layout needs a mesh whose ``model`` axis divides
+    its sharded dimensions."""
+    if not cfg.tp_shard:
+        return
+    if mesh is None:
+        layers._no_tp(True)
+    n = mesh.axis_size(TP)
+    dims = {"n_heads_padded": cfg.n_heads_padded,
+            "vocab_padded": cfg.vocab_padded, "d_ff": cfg.d_ff}
+    if cfg.kv_sharded:
+        dims["n_kv_padded"] = cfg.n_kv_padded
+    bad = {k: v for k, v in dims.items() if v % n}
+    if bad:
+        raise ValueError(f"a model axis of {n} does not divide {bad}")
 
 
 KINDS = ("attn", "mamba", "mlstm", "slstm")
@@ -63,60 +95,64 @@ _STATE = {"mamba": ssm.MambaState, "mlstm": xlstm.MLSTMState,
 
 def _core_leaves(cfg, kind: str):
     d, dh = cfg.d_model, cfg.head_dim
+    tp = TP if cfg.tp_shard else None
+    no = (None,)
     if kind == "attn":
         H, KV = cfg.n_heads_padded, cfg.n_kv_padded
+        kv = TP if cfg.kv_sharded else None
         return layers.AttnParams(
-            ln=Leaf((d,), -1),
-            wq=Leaf((d, H * dh), d),
-            wk=Leaf((d, KV * dh), d),
-            wv=Leaf((d, KV * dh), d),
-            wo=Leaf((H * dh, d), H * dh),
-            bq=Leaf((H * dh,), 0) if cfg.qkv_bias else None,
-            bk=Leaf((KV * dh,), 0) if cfg.qkv_bias else None,
-            bv=Leaf((KV * dh,), 0) if cfg.qkv_bias else None,
-            qn=Leaf((dh,), -1) if cfg.qk_norm else None,
-            kn=Leaf((dh,), -1) if cfg.qk_norm else None,
+            ln=Leaf((d,), -1, no),
+            wq=Leaf((d, H * dh), d, (FSDP, tp)),
+            wk=Leaf((d, KV * dh), d, (FSDP, kv)),
+            wv=Leaf((d, KV * dh), d, (FSDP, kv)),
+            wo=Leaf((H * dh, d), H * dh, (tp, FSDP)),
+            bq=Leaf((H * dh,), 0, (tp,)) if cfg.qkv_bias else None,
+            bk=Leaf((KV * dh,), 0, (kv,)) if cfg.qkv_bias else None,
+            bv=Leaf((KV * dh,), 0, (kv,)) if cfg.qkv_bias else None,
+            qn=Leaf((dh,), -1, no) if cfg.qk_norm else None,
+            kn=Leaf((dh,), -1, no) if cfg.qk_norm else None,
         )
     if kind == "mamba":
         di, ds, dtr, K = cfg.d_inner, cfg.d_state, cfg.dt_rank, cfg.d_conv
         return ssm.MambaParams(
-            ln=Leaf((d,), -1),
-            in_proj=Leaf((d, 2 * di), d),
-            conv_w=Leaf((K, di), K),
-            conv_b=Leaf((di,), 0),
-            x_proj=Leaf((di, dtr + 2 * ds), di),
-            dt_w=Leaf((dtr, di), dtr),
-            dt_b=Leaf((di,), 0),
-            a_log=Leaf((di, ds), -1),
-            d_skip=Leaf((di,), -1),
-            out_proj=Leaf((di, d), di),
+            ln=Leaf((d,), -1, no),
+            in_proj=Leaf((d, 2 * di), d, (FSDP, tp)),
+            conv_w=Leaf((K, di), K, (None, tp)),
+            conv_b=Leaf((di,), 0, (tp,)),
+            x_proj=Leaf((di, dtr + 2 * ds), di, (tp, None)),
+            dt_w=Leaf((dtr, di), dtr, (None, tp)),
+            dt_b=Leaf((di,), 0, (tp,)),
+            a_log=Leaf((di, ds), -1, (tp, None)),
+            d_skip=Leaf((di,), -1, (tp,)),
+            out_proj=Leaf((di, d), di, (tp, FSDP)),
         )
     NH, ef = cfg.xl_heads, cfg.expand * d
     if kind == "mlstm":
         return xlstm.MLSTMParams(
-            ln=Leaf((d,), -1),
-            w_qkv=Leaf((ef, 3 * ef), ef),
-            w_if=Leaf((d, 2 * NH), d),
-            b_if=Leaf((2 * NH,), 0),
-            w_o=Leaf((d, ef), d),
-            w_up=Leaf((d, 2 * ef), d),
-            w_down=Leaf((ef, d), ef),
-            ln_inner=Leaf((ef,), -1),
+            ln=Leaf((d,), -1, no),
+            w_qkv=Leaf((ef, 3 * ef), ef, (FSDP, tp)),
+            w_if=Leaf((d, 2 * NH), d, (FSDP, None)),
+            b_if=Leaf((2 * NH,), 0, no),
+            w_o=Leaf((d, ef), d, (FSDP, tp)),
+            w_up=Leaf((d, 2 * ef), d, (FSDP, tp)),
+            w_down=Leaf((ef, d), ef, (tp, FSDP)),
+            ln_inner=Leaf((ef,), -1, no),
         )
     dh_s = d // NH
     return xlstm.SLSTMParams(
-        ln=Leaf((d,), -1),
-        w_x=Leaf((d, 4 * NH * dh_s), d),
-        r_h=Leaf((NH, dh_s, 4 * dh_s), dh_s),
-        b=Leaf((4 * NH * dh_s,), 0),
-        w_up=Leaf((d, ef), d),
-        w_down=Leaf((ef, d), ef),
-        ln_ff=Leaf((d,), -1),
+        ln=Leaf((d,), -1, no),
+        w_x=Leaf((d, 4 * NH * dh_s), d, (FSDP, tp)),
+        r_h=Leaf((NH, dh_s, 4 * dh_s), dh_s, (None, None, None)),
+        b=Leaf((4 * NH * dh_s,), 0, no),
+        w_up=Leaf((d, ef), d, (FSDP, tp)),
+        w_down=Leaf((ef, d), ef, (tp, FSDP)),
+        ln_ff=Leaf((d,), -1, no),
     )
 
 
 def _block_leaves(cfg, kind: str, pos: int) -> dict:
     d = cfg.d_model
+    tp = TP if cfg.tp_shard else None
     out: dict[str, Any] = {"core": _core_leaves(cfg, kind)}
     # the FFN stage: attention and Mamba layers only (xLSTM blocks carry
     # their own up and down projections)
@@ -127,60 +163,87 @@ def _block_leaves(cfg, kind: str, pos: int) -> dict:
         fe, E = mc.d_expert, cfg.n_experts_padded
         sh = mc.n_shared * mc.d_expert
         out["ffn"] = layers.MoEParams(
-            ln=Leaf((d,), -1),
-            router=Leaf((d, mc.n_experts), d),
-            w_gate=Leaf((E, d, fe), d),
-            w_up=Leaf((E, d, fe), d),
-            w_down=Leaf((E, fe, d), fe),
-            sh_gate=Leaf((d, sh), d) if mc.n_shared else None,
-            sh_up=Leaf((d, sh), d) if mc.n_shared else None,
-            sh_down=Leaf((sh, d), sh) if mc.n_shared else None,
+            ln=Leaf((d,), -1, (None,)),
+            router=Leaf((d, mc.n_experts), d, (FSDP, None)),
+            w_gate=Leaf((E, d, fe), d, (tp, FSDP, None)),
+            w_up=Leaf((E, d, fe), d, (tp, FSDP, None)),
+            w_down=Leaf((E, fe, d), fe, (tp, None, FSDP)),
+            sh_gate=Leaf((d, sh), d, (FSDP, tp)) if mc.n_shared else None,
+            sh_up=Leaf((d, sh), d, (FSDP, tp)) if mc.n_shared else None,
+            sh_down=Leaf((sh, d), sh, (tp, FSDP)) if mc.n_shared else None,
         )
     else:
         out["ffn"] = layers.MLPParams(
-            ln=Leaf((d,), -1),
-            w_gate=Leaf((d, cfg.d_ff), d),
-            w_up=Leaf((d, cfg.d_ff), d),
-            w_down=Leaf((cfg.d_ff, d), cfg.d_ff),
+            ln=Leaf((d,), -1, (None,)),
+            w_gate=Leaf((d, cfg.d_ff), d, (FSDP, tp)),
+            w_up=Leaf((d, cfg.d_ff), d, (FSDP, tp)),
+            w_down=Leaf((cfg.d_ff, d), cfg.d_ff, (tp, FSDP)),
         )
     return out
 
 
-def build_tree(cfg) -> dict:
-    """Leaf-description tree (superblock leaves before stacking); no
-    ``embed`` leaf where ``cfg.embed_input`` (the reference's tree)."""
+def _tree(cfg) -> dict:
     _supported(cfg)
     d = cfg.d_model
+    tp = TP if cfg.tp_shard else None
     tree: dict[str, Any] = {}
     if not cfg.embed_input:
-        tree["embed"] = Leaf((cfg.vocab_padded, d), d)
+        tree["embed"] = Leaf((cfg.vocab_padded, d), d, (tp, FSDP))
     tree["sb"] = {f"pos{i}": _block_leaves(cfg, cfg.pattern[i], i)
                   for i in range(cfg.sb)}
-    tree["final_ln"] = Leaf((d,), -1)
-    tree["lm_head"] = Leaf((d, cfg.vocab_padded), d)
+    tree["final_ln"] = Leaf((d,), -1, (None,))
+    tree["lm_head"] = Leaf((d, cfg.vocab_padded), d, (FSDP, tp))
     return tree
 
 
-def tree_map(fn, tree):
+def build_tree(cfg, mesh=None) -> dict:
+    """Leaf-description tree (superblock leaves before stacking; GLOBAL
+    shapes, each leaf's ``spec`` saying how a mesh cuts it); no ``embed``
+    leaf where ``cfg.embed_input`` (the reference's tree).  A tensor-
+    parallel layout (``cfg.tp_shard``) is built only for the ``mesh`` it
+    runs on, whose ``model`` axis must divide its sharded dimensions."""
+    _layout(cfg, mesh)
+    return _tree(cfg)
+
+
+def param_specs(cfg) -> dict:
+    """The PartitionSpec of every leaf as a tuple of mesh axis names (or
+    None) a dimension, stacked leaves with a leading None: the
+    reference's ``param_specs`` (``repro/models/model.py:165``)."""
+    tree = _tree(cfg)
+    out = {k: tree_map(lambda l: l.spec, v) for k, v in tree.items()
+           if k != "sb"}
+    out["sb"] = tree_map(lambda l: (None,) + l.spec, tree["sb"])
+    return out
+
+
+def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of a tree of dicts and NamedTuples (``None``
-    entries stay ``None``)."""
+    entries stay ``None``), and of trees of the same structure in
+    ``rest`` beside it."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(t[k] for t in rest))
+                for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields") \
             and not isinstance(tree, Leaf):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
-    return fn(tree)
+        return type(tree)(*(tree_map(fn, v, *(t[i] for t in rest))
+                            for i, v in enumerate(tree)))
+    return fn(tree, *rest)
 
 
-def init_params(cfg, generator: torch.Generator, device=None) -> dict:
+def init_params(cfg, generator: torch.Generator, device=None,
+                mesh=None) -> dict:
     """Random bf16 weights on ``device`` (CUDA unless ``device="cpu"``):
     each leaf N(0, 1) / sqrt(fan_in) drawn in f32 from ``generator`` and
     rounded to bf16; zeros for biases, ones for norm scales.  Stacked
-    leaves are drawn one superblock at a time (bounded f32 scratch)."""
+    leaves are drawn one superblock at a time (bounded f32 scratch).  The
+    GLOBAL tree; a tensor-parallel layout names the ``mesh`` it is for
+    (``build_tree``), and ``serve.step.shard_tree`` cuts it onto the
+    mesh's positions."""
     dev = resolve_device(device)
-    tree = build_tree(cfg)
+    tree = build_tree(cfg, mesh)
 
     def make(leaf: Leaf, stacked: bool):
         shape = ((cfg.n_sb,) if stacked else ()) + leaf.shape
@@ -203,26 +266,39 @@ def init_params(cfg, generator: torch.Generator, device=None) -> dict:
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
-def cache_shapes(cfg, batch: int, max_seq: int) -> dict:
+def cache_shapes(cfg, batch: int, max_seq: int, *, seq_shard: int = 1,
+                 local: bool = True) -> dict:
     """``pos{i}`` -> {name: (shape, dtype)} of each layer position's cache,
-    stacked over superblocks (the reference's ``init_cache`` on one
-    device): K/V (n_sb, batch, max_seq, n_kv_heads, head_dim) bf16; Mamba
-    ``conv`` (n_sb, batch, d_conv - 1, d_inner) bf16 and ``h`` (n_sb,
-    batch, d_inner, d_state) f32; mLSTM ``c`` (n_sb, batch, NH, dh, dh),
-    ``n`` (.., NH, dh), ``m`` (.., NH) f32 with dh = expand d / NH; sLSTM
-    ``h``, ``c``, ``n``, ``m`` (n_sb, batch, NH, d / NH) f32."""
+    stacked over superblocks (the reference's ``init_cache``): K/V (n_sb,
+    batch, max_seq / seq_shard, KV, head_dim) bf16; Mamba ``conv`` (n_sb,
+    batch, d_conv - 1, d_inner) bf16 and ``h`` (n_sb, batch, d_inner,
+    d_state) f32; mLSTM ``c`` (n_sb, batch, NH, dh, dh), ``n`` (.., NH,
+    dh), ``m`` (.., NH) f32 with dh = expand d / NH; sLSTM ``h``, ``c``,
+    ``n``, ``m`` (n_sb, batch, NH, d / NH) f32.  KV is ``n_kv_heads``
+    outside tensor parallelism; under ``tp_shard`` a position's (``local``)
+    ``n_kv_padded / tp`` where the KV heads are sharded and 1 where they
+    are replicated (the one slot its query heads read), the global cache
+    ``tp`` times that (``local=False``).  ``seq_shard`` > 1 cuts the time
+    axis into that many chunks (sequence-sharded decode)."""
     _supported(cfg)
     lead = (cfg.n_sb, batch)
+    tp = cfg.tp if (cfg.tp_shard and local) else 1
     out = {}
     for i in range(cfg.sb):
         kind = cfg.pattern[i]
         if kind == "attn":
-            kv = (lead + (max_seq, cfg.n_kv_heads, cfg.head_dim), BF16)
+            if cfg.kv_sharded:
+                kvl = cfg.n_kv_padded // tp
+            elif cfg.tp_shard:
+                kvl = 1 if local else cfg.tp
+            else:
+                kvl = cfg.n_kv_heads
+            kv = (lead + (max_seq // seq_shard, kvl, cfg.head_dim), BF16)
             out[f"pos{i}"] = {"k": kv, "v": kv}
         elif kind == "mamba":
             out[f"pos{i}"] = {
-                "conv": (lead + (cfg.d_conv - 1, cfg.d_inner), BF16),
-                "h": (lead + (cfg.d_inner, cfg.d_state), F32)}
+                "conv": (lead + (cfg.d_conv - 1, cfg.d_inner // tp), BF16),
+                "h": (lead + (cfg.d_inner // tp, cfg.d_state), F32)}
         elif kind == "mlstm":
             NH = cfg.xl_heads
             dh = cfg.expand * cfg.d_model // NH
@@ -235,28 +311,92 @@ def cache_shapes(cfg, batch: int, max_seq: int) -> dict:
     return out
 
 
-def init_cache(cfg, batch: int, max_seq: int, *, device=None) -> dict:
+def init_cache(cfg, batch: int, max_seq: int, *, seq_shard: int = 1,
+               local: bool = True, device=None) -> dict:
     """The decode-state tree (``cache_shapes``) as zeros on ``device``."""
     dev = resolve_device(device)
+    shapes = cache_shapes(cfg, batch, max_seq, seq_shard=seq_shard,
+                          local=local)
     return {pos: {k: torch.zeros(shape, dtype=dt, device=dev)
                   for k, (shape, dt) in leaves.items()}
-            for pos, leaves in cache_shapes(cfg, batch, max_seq).items()}
+            for pos, leaves in shapes.items()}
 
 
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def embed_tokens(params, cfg, tokens: torch.Tensor, tp_shard: bool
-                 ) -> torch.Tensor:
-    """Embedding rows of ``tokens``; an id outside the table gives a zero
-    row, as the reference's masked take does."""
-    layers._no_tp(tp_shard)
-    w = params["embed"]
+def _take(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     V = w.shape[0]
-    ok = (tokens >= 0) & (tokens < V)
-    x = w[tokens.clamp(0, V - 1).long()]
+    ok = (ids >= 0) & (ids < V)
+    x = w[ids.clamp(0, V - 1).long()]
     return torch.where(ok[..., None], x, torch.zeros((), dtype=w.dtype,
                                                      device=w.device))
+
+
+def embed_tokens(params, cfg, tokens: torch.Tensor, tp_shard: bool,
+                 mesh=None) -> torch.Tensor:
+    """Embedding rows of ``tokens``; an id outside the table gives a zero
+    row, as the reference's masked take does.  On a mesh (``params`` and
+    ``tokens`` lists over its positions) with ``tp_shard`` each position
+    takes the rows of its vocab range ``[m V_l, (m + 1) V_l)``, zero
+    outside it, and the positions' rows are summed over ``model`` in f32
+    (``tp_psum``), then rounded to bf16."""
+    if mesh is None:
+        layers._no_tp(tp_shard)
+        return _take(params["embed"], tokens)
+    xs = []
+    for r in range(mesh.size):
+        w = params[r]["embed"]
+        base = mesh.axis_index(TP, r) * w.shape[0] if tp_shard else 0
+        xs.append(_take(w, tokens[r] - base))
+    if tp_shard:
+        xs = [t.to(BF16) for t in mesh.tp_psum([t.to(F32) for t in xs])]
+    return xs
+
+
+def _run_block_mesh(cfg, kind: str, blk: list, x: list, *, pos: list,
+                    cache, mesh) -> tuple:
+    """``_run_block`` on a mesh: ``blk``, ``x``, ``pos`` and ``cache``
+    lists over its positions.  Attention and the dense MLP end in their
+    ``tp_psum`` (the parallel block's two partials share one, as the
+    reference's ``_run_block`` at ``:277-287``); the other blocks (outside
+    tensor parallelism only) run a position at a time."""
+    tp = cfg.tp_shard
+    ffn = blk[0].get("ffn")
+    core = [b["core"] for b in blk]
+    ffns = [b["ffn"] for b in blk]
+    if kind == "attn" and cfg.parallel_block and \
+            isinstance(ffn, layers.MLPParams):
+        o, new_cache = layers.attention_block(
+            core, x, cfg, pos=pos, cache=cache, tp_shard=tp, reduce=False,
+            mesh=mesh)
+        m = layers.mlp_block(ffns, x, cfg, tp_shard=tp, reduce=False,
+                             mesh=mesh)
+        comb = [a + b for a, b in zip(o, m, strict=True)]
+        if tp:
+            comb = mesh.tp_psum(comb)
+        return [xr + c.to(xr.dtype)
+                for xr, c in zip(x, comb, strict=True)], new_cache
+    if kind == "attn":
+        o, new_cache = layers.attention_block(core, x, cfg, pos=pos,
+                                              cache=cache, tp_shard=tp,
+                                              mesh=mesh)
+        x = [xr + orr for xr, orr in zip(x, o, strict=True)]
+    else:
+        done = [_run_block(cfg, 0, kind, {"core": c, "ffn": None}, xr,
+                           pos=pr, cache=None if cache is None else cache[r],
+                           tp_shard=tp)
+                for r, (c, xr, pr) in enumerate(zip(core, x, pos,
+                                                       strict=True))]
+        x = [d[0] for d in done]
+        new_cache = [d[1] for d in done]
+    if isinstance(ffn, layers.MoEParams):
+        x = [xr + layers.moe_block(f, xr, cfg, tp_shard=tp)
+             for f, xr in zip(ffns, x, strict=True)]
+    elif ffn is not None:
+        m = layers.mlp_block(ffns, x, cfg, tp_shard=tp, mesh=mesh)
+        x = [xr + mr for xr, mr in zip(x, m, strict=True)]
+    return x, new_cache
 
 
 def _run_block(cfg, pos_idx: int, kind: str, blk_params, x, *, pos, cache,
@@ -307,7 +447,7 @@ def unstack(sb, n_sb: int) -> list:
 
 def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
             mode: str = "train", remat: bool = True, cache_len=None,
-            seq_sharded: bool = False):
+            seq_sharded: bool = False, mesh=None):
     """inputs: token ids (B, S), or embeddings (B, S, d) where
     ``cfg.embed_input`` (cast to bf16).  pos: (B, S) positions, or (3, B,
     S) (t, h, w) ids for M-RoPE.  Decode takes ``cache_len`` (an int;
@@ -318,12 +458,23 @@ def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
     layer's state replaced by its new one), or None without caches.
     ``mode="train"`` with ``remat`` (and autograd recording) checkpoints
     each superblock (``torch.utils.checkpoint``, non-reentrant): its
-    activations are recomputed in the backward, K8 launched again."""
+    activations are recomputed in the backward, K8 launched again.
+
+    With ``mesh`` (a ``ModelMesh``) ``params``, ``inputs``, ``pos`` and
+    ``caches`` are lists over its positions (``_forward_mesh``), and so is
+    the hidden state returned; ``seq_sharded`` decodes against caches
+    whose time axis is cut over ``data``."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"forward(mode={mode!r}): train, prefill or decode")
+    if mesh is not None:
+        return _forward_mesh(params, cfg, inputs, pos=pos, caches=caches,
+                             mode=mode, cache_len=cache_len,
+                             seq_sharded=seq_sharded, mesh=mesh)
     if seq_sharded:
-        raise not_ported("sequence-sharded KV caches", "14")
+        raise not_ported("sequence-sharded KV caches without a mesh (pass "
+                         "mesh=, a ModelMesh)", "14d")
     _supported(cfg)
+    _layout(cfg, None)
     if cfg.embed_input:
         x = inputs.to(BF16)
     else:
@@ -362,8 +513,65 @@ def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
     return x, caches
 
 
-def lm_logits(params, cfg, x: torch.Tensor, tp_shard: bool) -> torch.Tensor:
-    """(B, S, V_padded) f32 logits."""
+def _forward_mesh(params: list, cfg, inputs: list, *, pos: list, caches,
+                  mode: str, cache_len, seq_sharded: bool, mesh) -> tuple:
+    """``forward`` on a mesh (the reference's under ``shard_map``,
+    ``repro/models/model.py:325-366``): the embedding (``tp_psum`` of the
+    vocab shards' rows), then each layer a position at a time between its
+    collectives.  Serving only: ``mode="train"`` raises."""
+    _supported(cfg)
+    _layout(cfg, mesh)
+    if mode == "train":
+        raise not_ported("training on a mesh", "14e")
+    if seq_sharded and (caches is None or mode != "decode"):
+        raise ValueError("seq_sharded decodes against sequence-sharded "
+                         "caches: mode='decode' with caches")
+    D = mesh.size
+    if cfg.embed_input:
+        x = [t.to(BF16) for t in inputs]
+    else:
+        x = embed_tokens(params, cfg, inputs, cfg.tp_shard, mesh=mesh)
+    if mode == "decode":
+        if cache_len is None:
+            cache_len = int(pos[0].reshape(-1)[0])  # sync: ok(one read)
+        cache_len = int(cache_len)
+        if cfg.rope != "mrope":
+            pos = [torch.full(t.shape[:2], cache_len, dtype=torch.int32,
+                              device=xr.device)
+                   for t, xr in zip(inputs, x, strict=True)]
+    elif caches is not None:           # prefill into fresh caches
+        cache_len = 0
+    per = [unstack(params[r]["sb"], cfg.n_sb) for r in range(D)]
+    for layer in range(cfg.n_sb):
+        for i in range(cfg.sb):
+            kind, c = cfg.pattern[i], None
+            if caches is not None:
+                c = [{k: t[layer] for k, t in caches[r][f"pos{i}"].items()}
+                     for r in range(D)]
+                if kind == "attn":
+                    for cr in c:
+                        cr.update(length=cache_len, seq_sharded=seq_sharded)
+            x, nc = _run_block_mesh(cfg, kind,
+                                    [per[r][layer][f"pos{i}"]
+                                     for r in range(D)], x, pos=pos,
+                                    cache=c, mesh=mesh)
+            if kind != "attn" and c is not None:
+                for cr, ncr in zip(c, nc, strict=True):
+                    for k, t in (ncr or {}).items():   # the new state
+                        cr[k].copy_(t)
+    return x, caches
+
+
+def lm_logits(params, cfg, x: torch.Tensor, tp_shard: bool,
+              mesh=None) -> torch.Tensor:
+    """(B, S, V_padded) f32 logits.  On a mesh (lists over its positions)
+    each position's (B, S, V_padded / model) logits of its vocab shard
+    (``tp_shard``) or all of them."""
+    if mesh is not None:
+        return [layers.matmul_f32(layers.rms_norm(xr, p["final_ln"],
+                                                  cfg.norm_eps),
+                                  p["lm_head"])
+                for p, xr in zip(params, x, strict=True)]
     layers._no_tp(tp_shard)
     h = layers.rms_norm(x, params["final_ln"], cfg.norm_eps)
     return layers.matmul_f32(h, params["lm_head"])
@@ -390,7 +598,8 @@ def lm_loss(params, cfg, x: torch.Tensor, labels: torch.Tensor,
     logits never exist at once; under a gradient each chunk is checkpointed
     (its logits recomputed in the backward), as the reference remats
     ``chunk_loss``.  The chunk totals are added in chunk order."""
-    layers._no_tp(tp_shard)
+    if tp_shard:
+        raise not_ported("lm_loss under tp_shard (training on a mesh)", "14e")
     B, S, d = x.shape
     h = layers.rms_norm(x, params["final_ln"], cfg.norm_eps)
     w = params["lm_head"]

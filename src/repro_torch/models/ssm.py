@@ -110,7 +110,8 @@ def mamba_block(p: MambaParams, x: torch.Tensor, cfg, *,
                 chunk: int = CHUNK) -> tuple:
     """x: (B, S, d) -> (out (B, S, d) in x's dtype, new_state).  The new
     state is returned where a state was passed or S == 1, else None."""
-    layers._no_tp(tp_shard)
+    layers.not_under_tp(tp_shard, "the Mamba block (d_inner over the model "
+                        "axis)")
     B, S, d = x.shape
     h = layers.rms_norm(x, p.ln, cfg.norm_eps)
     xz = layers.matmul_f32(h, p.in_proj)

@@ -84,7 +84,7 @@ def _qkv(p: MLSTMParams, u: torch.Tensor, d: int) -> torch.Tensor:
 def mlstm_block(p: MLSTMParams, x: torch.Tensor, cfg, *,
                 state: MLSTMState | None, tp_shard: bool) -> tuple:
     """x: (B, S, d) -> (out (B, S, d) in x's dtype, new_state or None)."""
-    layers._no_tp(tp_shard)
+    layers.not_under_tp(tp_shard, "the mLSTM block")
     B, S, d = x.shape
     NH = cfg.xl_heads
     layers.no_tf32(x.device)
@@ -277,7 +277,7 @@ def slstm_block(p: SLSTMParams, x: torch.Tensor, cfg, *,
     hs; new_state, returned where a state was passed or S == 1, else None).
     The result replaces x (``_run_block`` adds no residual), as in the
     reference."""
-    layers._no_tp(tp_shard)
+    layers.not_under_tp(tp_shard, "the sLSTM block")
     B, S, d = x.shape
     NH = cfg.xl_heads
     dh = d // NH

@@ -102,7 +102,7 @@ class Checkpointer:
         ``device="cpu"``); the template itself is left as it was."""
         if mesh is not None or specs is not None:
             raise not_ported("Checkpointer.restore(mesh=, specs=) "
-                             "(resharding onto a mesh)", "14")
+                             "(resharding onto a mesh)", "14e")
         dev = resolve_device(device)
         manifest = self._store.read_manifest(step)
         names = manifest["meta"]["leaves"]

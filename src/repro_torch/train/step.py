@@ -56,7 +56,7 @@ def make_train_step(cfg, *, lr: float = 3e-4, remat: bool = True,
     batch axis, 1."""
     if compress_pod:
         raise not_ported("compress_pod (the int8 gradient psum over a pod "
-                         "axis: multi-card training)", "14")
+                         "axis: multi-card training)", "14e")
 
     def loss_and_grads(ps, inputs, labels, pos):
         x, _ = M.forward(ps, cfg, inputs, pos=pos, mode="train", remat=remat)

@@ -184,7 +184,7 @@ def test_plain_and_reference_match_dense_softmax(case):
 
 def test_flash_rules():
     """Shapes, dtypes and kv_valid are checked; the softmax scale rounds
-    as the reference's; options the port has not reached raise."""
+    as the reference's; the bias and return_partial forms are taken."""
     (q, k, v), _ = _inputs(0, 1, 4, 8, 4, 2, 16, "float32")
     with pytest.raises(ValueError):
         tflash.flash_attention(q, k, v, q_offset=0, kv_valid=9)
@@ -204,8 +204,15 @@ def test_flash_rules():
     out = tlayers.flash_attention(q.clone().requires_grad_(), k, v,
                                   q_offset=0, bias_qk=(fq, fk))
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tlayers.flash_attention(q, k, v, q_offset=0, return_partial=True)
+    # return_partial (sequence-sharded decode, test_torch_tp.py): the f32
+    # (m, l, acc) whose division is the output
+    m, l, acc = tlayers.flash_attention(q, k, v, q_offset=0,
+                                        return_partial=True)
+    assert m.shape == l.shape == (1, 4, 4) and acc.shape == (1, 4, 4, 16)
+    torch.testing.assert_close((acc / l[..., None]).transpose(1, 2),
+                               tflash.flash_attention_plain(q, k, v,
+                                                            q_offset=0),
+                               rtol=0, atol=0)
 
 
 # (B, Sq, Skv, H, Hkv, dh, q_offset) decode shapes, Sq * G <= 8; kv_valid

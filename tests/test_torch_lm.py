@@ -613,7 +613,6 @@ def test_cuda_serve_reduced_runs_the_kernels():
     res = tserve.serve("qwen3-4b", reduced=True, requests=4, prompt_len=40,
                        new_tokens=6)
     assert res.tokens.shape == (4, 7)
-    assert tflash.LAUNCHES == {"flash": 0, "flash_decode": 0,
-                               "flash_combine": 0, "flash_cc": 7,
-                               "flash_bias": 0}
+    assert tflash.LAUNCHES == {**dict.fromkeys(tflash.LAUNCHES, 0),
+                               "flash_cc": 7}
     assert tlk.LAUNCHES["lookup"] >= 1

@@ -195,7 +195,7 @@ def test_bias_rules():
     """The bias form: shapes and dtypes checked; under autograd it goes
     through ``FlashAttention`` (its gradients are held in
     ``test_torch_train_recurrent.py``); the card's tile takes bf16 at head
-    dims 64 and 384 only; ``return_partial`` still raises."""
+    dims 64 and 384 only; ``return_partial`` takes no bias."""
     q, k, v, fq, fk = (torch.from_numpy(a) for a in _bias_inputs(
         0, 1, 8, 8, 2, 64))
     with pytest.raises(ValueError, match="bias_qk"):
@@ -206,9 +206,9 @@ def test_bias_rules():
     out = tlayers.flash_attention(q.requires_grad_(), k, v, q_offset=0,
                                   bias_qk=(fq, fk))
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="bias_qk"):
         tlayers.flash_attention(q.detach(), k, v, q_offset=0,
-                                return_partial=True)
+                                bias_qk=(fq, fk), return_partial=True)
     assert tflash.bias_tile_of(torch.bfloat16, 64) == "flash_bias"
     assert tflash.bias_tile_of(torch.bfloat16, 384) == "flash_bias"
     for dt, dh in ((torch.bfloat16, 128), (torch.bfloat16, 192),
