@@ -412,6 +412,39 @@ Phases (any failure exits non-zero; nothing is caught):
    (``models.sharding.COLLECTIVES``), and the new forms' rows (kernel,
    plain, SDPA at group 2 over a chunk, bound).  No time across cards is
    measured: every position is this card.
+19. Path N, MoE and Mamba under tensor parallelism, counted, after path
+   M, on ``ModelMesh`` positions that are all this card.  qwen2-moe-a2.7b
+   in its published layout (tp 16: 60 experts padded to 64, 4 a position;
+   4 shared experts, 352 columns a position; 16 / 16 heads, QKV bias) cut
+   to ``N_MOE_LAYERS`` layers at full width, then jamba-v0.1-52b's first
+   superblock (path J's cut) in its: 7 Mamba layers at 512 channels a
+   position, one attention layer (one KV slot a position), 4 MoE layers of
+   one expert a position.  Each at path D's traffic on (1, 1, 16),
+   ``N_STEPS`` greedy decode steps, through ``make_prefill(cfg, mesh)`` and
+   ``make_decode_step(cfg, mesh)``, gated against the one-card form on the
+   same global weights (padded experts dropped; jamba's Mamba ``in_proj``
+   columns regrouped into the one-card halves): every MoE layer's routes
+   of both forms recorded and the assignments that differ counted; prefill
+   logits within ``LM_LOGIT_TOL`` (else 4x a control: the one-card form
+   with K8's plain version) over the requests whose routes agree in every
+   layer, and over all requests against the one-card form fed the TP
+   form's experts (``layers.top_k`` answering with them).  Then jamba's
+   ``long_500k`` cell: the global weights freed, an ``N_LONG_PROMPT``-token
+   prompt prefilled on (1, 1, 16) into ``N_LONG_MAX``-position caches,
+   the attention positions from the prompt's end to ``N_LONG_MAX -
+   N_STEPS`` drawn from ``--seed`` at each KV slot's channel mean and
+   deviation of the prompt's keys and values, ``N_STEPS`` steps decoded
+   from there unsharded and, teacher-forced with its tokens, on (1, 4,
+   16)'s four chunks of 131,072 (the owner last), its logits gated
+   against the unsharded decode's over the steps whose routes agree, the
+   first token equal.  K8 checked on the prefill tile at group 2, the
+   decode tile over 524,288 keys, ``return_partial`` on each 131,072-key
+   chunk and the combine of the four positions (``_k8_check``,
+   ``_partial_check``, ``_merge_check``); the decode tile and the
+   ``return_partial`` form timed at those lengths (``path_n`` keys of
+   their rows).  Prints launches (as ``expect`` states them), the
+   collectives' bytes by stage and by the block that calls each
+   ``tp_psum``, peak memory and the path's wall.
 
 Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
@@ -443,7 +476,9 @@ rate, ``flash_decode`` at the decode shape with its ``n_split`` and
 ``combine_launches``, both with path L's shapes in ``path_l_shapes``;
 ``flash_bias`` at path J's mLSTM shape, with path K's launches and
 ``path_k_*`` times; ``flash_partial`` and ``flash_merge`` at path M's
-sequence-sharded decode shape), the card's
+sequence-sharded decode shape; path N's decode tile over 524,288 keys in
+``flash_decode``'s ``path_n_shape`` and its ``return_partial`` form over
+a 131,072-key chunk in ``flash_partial``'s ``path_n``), the card's
 ``name, power.limit`` from nvidia-smi,
 and the result line.  Phase 1 also prints the flash library's ptxas
 report and the number of ``HGMMA`` instructions ``cuobjdump -sass`` finds
@@ -691,6 +726,23 @@ M_ARCH = "qwen3-4b"
 M_MESH, M_SEQ_MESH = (1, 1, 16), (1, 4, 16)
 M_SEQ_MAX, M_SEQ_PROMPT, M_STEPS = 32768, 16384, 8
 M_PART_RTOL = 1e-4
+# Path N: MoE and Mamba under tensor parallelism, at path D's traffic with
+# N_STEPS decode steps (cut from 32: a TP step is the host's, 16
+# positions' launches a layer), then jamba's long_500k cell: one
+# 524,288-position context, N_LONG_PROMPT tokens of it prefilled (a
+# prefill of 524,288 through 16 positions' host scan loops would take many
+# minutes), the rest of the attention positions drawn, N_STEPS steps
+# decoded.  qwen2-moe cut to N_MOE_LAYERS layers at full width; jamba to
+# path J's first superblock
+N_MOE_ARCH, N_MOE_LAYERS = "qwen2-moe-a2.7b", 4
+N_JAMBA_ARCH = "jamba-v0.1-52b"
+N_MESH, N_SEQ_MESH = (1, 1, 16), (1, 4, 16)
+N_STEPS = 8
+N_LONG_MAX, N_LONG_PROMPT = 524288, 4096
+N_PSUM_BY = {"embed_tokens": "embedding", "_attention_mesh": "attention",
+             "mlp_block": "MLP", "moe_block": "MoE",
+             "mamba_block": "Mamba (x_proj features, output)",
+             "_run_block_mesh": "parallel block"}
 ANALYZED = ("src/repro_torch", "chip_smoke.py", "time_verbs.py",
             "examples/index_service_torch.py")
 SYNC_WARNING = "called a synchronizing CUDA operation"
@@ -6381,6 +6433,598 @@ def _path_m(args, dev, rows, h) -> None:
     del captured, kept, s_caches, caches, s_params, params, glob
 
 
+class _NHooks:
+    """Path N's wrappers around the port while a stage runs (``with``):
+    K8's calls (``layers.flash_attention``) kept where ``wanted`` names
+    them by (stage, step, attention layer, position), and the first merge
+    of a layer by ("merge", step, layer); position 0's routes of every MoE
+    layer in order (``layers.moe_route``: the experts and whether each
+    assignment is within capacity); every ``lm_logits`` output; each
+    ``tp_psum``'s bytes and calls by the function that calls it; and,
+    where ``stage(force=)`` holds a list of experts a MoE layer,
+    ``layers.top_k`` answering with them (the one-card form fed the TP
+    form's routes)."""
+
+    def __init__(self, n_attn: int):
+        import collections
+        from repro_torch.kernels import flash as tflash
+        from repro_torch.models import layers as tlayers
+        from repro_torch.models import sharding as tsh
+        from repro_torch.serve import step as tstep
+        self.mods = (tlayers, tflash, tsh, tstep)
+        self.real = dict(flash=tlayers.flash_attention,
+                         route=tlayers.moe_route, top_k=tlayers.top_k,
+                         logits=tstep.M.lm_logits, merge=tflash.flash_merge,
+                         psum=tsh.ModelMesh.tp_psum)
+        self.n_attn = n_attn
+        self.captured = {}
+        self.psum = collections.Counter()
+        self.psum_calls = collections.Counter()
+        self.stage(None, 1)
+
+    def stage(self, name, n, wanted=(), force=None):
+        self.name, self.n, self.wanted = name, n, set(wanted)
+        self.calls = self.route_calls = 0
+        self.routes, self.kept = [], []
+        self.force = None if force is None else list(force)
+        self.psum.clear()
+        self.psum_calls.clear()
+
+    def __enter__(self):
+        tlayers, tflash, tsh, tstep = self.mods
+        tlayers.flash_attention, tlayers.moe_route = self._flash, self._route
+        tlayers.top_k, tstep.M.lm_logits = self._top_k, self._logits
+        tflash.flash_merge = self._merge
+        hooks = self
+
+        def psum(mesh, xs):
+            b0 = tsh.COLLECTIVES["tp_psum"]["bytes"]
+            out = hooks.real["psum"](mesh, xs)
+            who = sys._getframe(1).f_code.co_name
+            hooks.psum[who] += tsh.COLLECTIVES["tp_psum"]["bytes"] - b0
+            hooks.psum_calls[who] += 1
+            return out
+        tsh.ModelMesh.tp_psum = psum
+        return self
+
+    def __exit__(self, *exc):
+        tlayers, tflash, tsh, tstep = self.mods
+        tlayers.flash_attention = self.real["flash"]
+        tlayers.moe_route, tlayers.top_k = self.real["route"], \
+            self.real["top_k"]
+        tstep.M.lm_logits = self.real["logits"]
+        tflash.flash_merge = self.real["merge"]
+        tsh.ModelMesh.tp_psum = self.real["psum"]
+
+    def _flash(self, q, k, v, *, q_offset, kv_valid=None, **kw):
+        step, rest = divmod(self.calls, self.n_attn * self.n)
+        key = (self.name, step) + divmod(rest, self.n)
+        self.calls += 1
+        if key in self.wanted:
+            self.captured[key] = (q.clone(), k.clone(), v.clone(),
+                                  int(q_offset),
+                                  None if kv_valid is None else int(kv_valid))
+        return self.real["flash"](q, k, v, q_offset=q_offset,
+                                  kv_valid=kv_valid, **kw)
+
+    def _merge(self, m, l, acc):
+        key = ("merge",) + divmod((self.calls - 1) // self.n, self.n_attn)
+        if key in self.wanted and key not in self.captured:
+            self.captured[key] = (m.clone(), l.clone(), acc.clone())
+        return self.real["merge"](m, l, acc)
+
+    def _route(self, logits, cfg, cf):
+        out = self.real["route"](logits, cfg, cf)
+        if self.route_calls % self.n == 0:
+            _, e, pos, C = out
+            self.routes.append((e.clone(), pos < C))
+        self.route_calls += 1
+        return out
+
+    def _top_k(self, logits, k):
+        if self.force is None:
+            return self.real["top_k"](logits, k)
+        idx = self.force.pop(0).reshape(logits.shape[0], k)
+        return logits.gather(-1, idx), idx
+
+    def _logits(self, params, cfg, x, tp_shard, mesh=None):
+        out = self.real["logits"](params, cfg, x, tp_shard, mesh=mesh)
+        self.kept.append(out)
+        return out
+
+    def by_block(self, per: int = 1) -> str:
+        return ", ".join(
+            f"{N_PSUM_BY.get(k, k)} {v // per} ({self.psum_calls[k] // per} "
+            f"calls)" for k, v in self.psum.items())
+
+
+def _n_routes(a: list, b: list, B: int) -> tuple:
+    """Two forms' recorded routes (a list of (experts, kept) a MoE layer,
+    token-major over B rows): the assignments that differ in expert or
+    capacity in each layer, and a (B,) mask of the rows whose every
+    assignment agrees in every layer."""
+    import torch
+    diff, agree = [], torch.ones(B, dtype=torch.bool, device=a[0][0].device)
+    for (ea, ka), (eb, kb) in zip(a, b, strict=True):
+        d = (ea != eb) | (ka != kb)
+        diff.append(int(d.sum()))
+        agree &= ~d.reshape(B, -1).any(1)
+    return diff, agree
+
+
+def _n_cell(args, dev, rows, h, arch: str, n_layers: int) -> tuple:
+    """One cell of path N on (1, 1, 16): ``arch`` in its published layout
+    cut to ``n_layers`` layers at full width, at path D's traffic, gated
+    against its one-card form on the same global weights.  Returns (cfg,
+    mesh, the positions' weights, the global tree, the one-card tree)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, single_card
+    from repro_torch.kernels import flash as tflash
+    from repro_torch.models import layers as tlayers
+    from repro_torch.models import model as TM
+    from repro_torch.models import sharding as tsh
+    from repro_torch.models import ssm as tssm
+    from repro_torch.serve import step as tstep
+
+    base = get_arch(arch)
+    cfg = dataclasses.replace(base, n_layers=n_layers,
+                              pattern=base.pattern[:n_layers])
+    one = single_card(cfg)
+    mesh = tsh.ModelMesh(N_MESH, devices=dev)
+    D, tp, T, P, B = mesh.size, cfg.tp, N_STEPS, LM_PROMPT_LEN, LM_REQUESTS
+    V, E = cfg.vocab_size, one.n_experts_padded
+    n_attn = cfg.pattern.count("attn")
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed)
+    glob = TM.init_params(cfg, g, dev, mesh=mesh)
+
+    def one_blk(b):
+        core, ffn = b["core"], b["ffn"]
+        if isinstance(core, tssm.MambaParams):
+            core = core._replace(in_proj=tssm.one_card_in_proj(core.in_proj,
+                                                               tp))
+        if isinstance(ffn, tlayers.MoEParams):
+            ffn = ffn._replace(w_gate=ffn.w_gate[:, :E], w_up=ffn.w_up[:, :E],
+                               w_down=ffn.w_down[:, :E])
+        return {"core": core, "ffn": ffn}
+    tree1 = dict(glob, sb={k: one_blk(v) for k, v in glob["sb"].items()})
+    params, t_shard = _sync_time(lambda: tstep.shard_tree(
+        glob, tstep.serve_param_specs(cfg), mesh))
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.from_numpy(rng.integers(0, V, (B, P))).to(
+        device=dev, dtype=torch.int32)
+    pos = torch.arange(P, dtype=torch.int32, device=dev)[None].expand(B, P)
+    pre, dec = tstep.make_prefill(cfg, mesh), tstep.make_decode_step(cfg,
+                                                                     mesh)
+    _, c_spec, t_spec, p_spec = pre.in_specs
+    hooks = _NHooks(n_attn)
+    caches = [TM.init_cache(cfg, B, P + T, device=dev) for _ in range(D)]
+    torch.cuda.reset_peak_memory_stats()
+    h.reset_counters()
+    tsh.reset_collectives()
+    hooks.stage("tp", D, {("tp", 0, 0, 0), ("tp", T, 0, 0)})
+    with hooks:
+        (logits, caches), t_pre = _sync_time(lambda: pre(
+            params, caches, tstep.shard_tree(prompts, t_spec, mesh),
+            tstep.shard_tree(pos, p_spec, mesh)))
+        l_pre, tp_routes, psum_pre = h.counters(), list(hooks.routes), \
+            hooks.by_block()
+        lk = tstep.gather_tree(logits, pre.out_specs[0], mesh)
+        tok = lk[:, :V].argmax(-1).to(torch.int32)
+        h.reset_counters()
+        tsh.reset_collectives()
+        hooks.psum.clear()
+        hooks.psum_calls.clear()
+        nxt, ids = tok, []
+        z = tstep.shard_tree(torch.zeros((B, 1), dtype=torch.int32,
+                                         device=dev), p_spec, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(T):
+            out, caches = dec(params, caches, tstep.shard_tree(
+                nxt[:, None], t_spec, mesh), z, P + i)
+            nxt = out[0]
+            ids.append(nxt)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        l_dec, psum_dec = h.counters(), hooks.by_block(T)
+        coll = {k: dict(v) for k, v in tsh.COLLECTIVES.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    none = {k: 0 for k in ("flash", "flash_decode", "flash_combine",
+                           "flash_cc", "flash_bias", "flash_partial",
+                           "flash_merge")}
+    for what, got, want in (
+            ("prefill", l_pre, dict(none, flash=n_attn * D)),
+            ("decode", l_dec, dict(none, flash_decode=n_attn * D * T,
+                                   flash_combine=n_attn * D * T))):
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"path N {arch} {what} launches {got}, "
+                                 f"want {want}")
+    if not bool(torch.isfinite(lk).all()) or lk.shape != (B, cfg.vocab_padded):
+        raise AssertionError(f"path N {arch} prefill logits not finite or "
+                             f"misshapen")
+    kinds = {k: cfg.pattern.count(k) for k in sorted(set(cfg.pattern))}
+    mc = cfg.moe
+    print(f"phase 19: path N ({arch} in its published layout: tp {tp}, "
+          f"tp_shard; {n_layers} layers {kinds}, "
+          f"{sum(cfg.moe_at(i) for i in range(n_layers))} MoE of "
+          f"{mc.n_experts} experts padded to {cfg.n_experts_padded} "
+          f"({cfg.n_experts_padded // tp} a position), top {mc.top_k}, "
+          f"{mc.n_shared} shared; {cfg.n_heads_padded} query / "
+          f"{cfg.n_kv_heads} KV heads; d_model {cfg.d_model}, "
+          f"{cfg.param_count()} parameters) on mesh {N_MESH}, every "
+          f"position {dev}: {B} requests x {P} prompt + {T} new tokens; "
+          f"shard_tree {t_shard:.6f} s")
+    print(f"  prefill {t_pre:.6f} s; decode {t_dec:.6f} s for {T} steps "
+          f"({B * T / t_dec:.3f} tokens/s); launches: prefill "
+          f"{ {k: v for k, v in l_pre.items() if v} }, decode a step "
+          f"{ {k: v // T for k, v in l_dec.items() if v} }; peak memory "
+          f"allocated {peak:.3f} GiB")
+    print(f"  collectives, bytes as if each position were a card: prefill "
+          f"tp_psum by block {psum_pre}; decode a step " + ", ".join(
+              f"{k} {v['bytes'] // T} ({v['calls'] // T} calls)"
+              for k, v in coll.items() if v["calls"])
+          + f"; tp_psum by block a step {psum_dec}")
+
+    # the one-card form on the same global weights (uncounted: the gate),
+    # on its own routes and on the TP form's
+    one_pre = tstep.make_prefill(one)
+    with hooks:
+        hooks.stage("one", 1)
+        (lo, oc), t_one = _sync_time(lambda: h.uncounted(lambda: one_pre(
+            tree1, TM.init_cache(one, B, P + T, device=dev), prompts, pos)))
+        one_routes = hooks.routes
+        hooks.stage("forced", 1, force=[e for e, _ in tp_routes])
+        lf, _ = h.uncounted(lambda: one_pre(
+            tree1, TM.init_cache(one, B, P + T, device=dev), prompts, pos))
+        left = len(hooks.force)
+    if left:
+        raise AssertionError(f"path N {arch}: {left} forced routes unused")
+    diff, agree = _n_routes(tp_routes, one_routes, B)
+    d_forced = float((lk - lf).abs().max())
+    d_free = float((lk - lo)[agree].abs().max()) if bool(agree.any()) \
+        else None
+    gate = LM_LOGIT_TOL
+    if d_forced > gate or (d_free or 0.0) > gate:
+        def plain_attention(q, k, v, *, q_offset, kv_valid=None, **kw):
+            return tflash.flash_attention_plain(q, k, v, q_offset=q_offset,
+                                                kv_valid=kv_valid)
+        tlayers.flash_attention = plain_attention
+        try:
+            lp, _ = one_pre(tree1, TM.init_cache(one, B, P + T, device=dev),
+                            prompts, pos)
+        finally:
+            tlayers.flash_attention = hooks.real["flash"]
+        ctrl = float((lo - lp).abs().max())
+        gate = max(LM_LOGIT_TOL, J_CONTROL_FACTOR * ctrl)
+        print(f"  control (the one-card form, kernel vs plain attention): "
+              f"{ctrl:.6e}; gate {gate:.6e}")
+    n_ass = B * P * mc.top_k
+    print(f"  MoE routes, TP-16 vs the one-card form: assignments that "
+          f"differ in expert or capacity a MoE layer {diff} of {n_ass}; "
+          f"requests whose routes agree in every layer "
+          f"{int(agree.sum())} of {B} ({B - int(agree.sum())} left out of "
+          f"the gate on its own routes)")
+    top2 = torch.topk(lf[:, :V], 2).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    sure = margin > 2 * gate
+    first_f = lf[:, :V].argmax(-1).to(torch.int32)
+    if d_forced > gate or (d_free is not None and d_free > gate) or \
+            not (first_f == tok).cpu().numpy()[sure].all():
+        raise AssertionError(f"path N {arch} TP-16 prefill vs the one-card "
+                             f"form: max |diff| {d_forced} on the TP routes, "
+                             f"{d_free} on its own over the agreeing rows "
+                             f"(gate {gate}); first tokens {tok.tolist()} / "
+                             f"{first_f.tolist()}")
+    # the one-card form's own greedy decode beside the TP form's
+    one_dec = tstep.make_decode_step(one)
+    o_ids, o_tok = [], lo[:, :V].argmax(-1).to(torch.int32)
+    oc = TM.init_cache(one, B, P + T, device=dev)
+    h.uncounted(lambda: one_pre(tree1, oc, prompts, pos))
+    for i in range(T):
+        o_tok, oc = h.uncounted(lambda: one_dec(tree1, oc, o_tok[:, None],
+                                                None, P + i))
+        o_ids.append(o_tok)
+    agree_ids = (torch.stack(o_ids, 1) == torch.stack(ids, 1)).cpu().numpy()
+    print(f"  TP-16 prefill logits vs the one-card form on the same global "
+          f"weights: max |diff| {d_forced:.6e} fed the TP form's routes, "
+          + (f"{d_free:.6e}" if d_free is not None else "no request")
+          + f" on its own routes over the agreeing requests (gate {gate}; "
+          f"logits max {float(lo.abs().max()):.6f}); top-2 margins "
+          f"{np.round(margin, 6).tolist()}; greedy decode tokens equal "
+          f"{int(agree_ids.sum())} of {agree_ids.size} (each form on its "
+          f"own tokens); one-card prefill {t_one:.6f} s")
+    # where the TP prefill's time goes: the same prefill again, uncounted,
+    # with the Mamba scan loops, each position's MoE work and the attention
+    # block each bracketed by synchronize
+    c2 = [TM.init_cache(cfg, B, P + T, device=dev) for _ in range(D)]
+    with _Stages(tssm, ("_ssm_scan",)) as st1, \
+            _Stages(tlayers, ("_moe_partial", "_attention_mesh")) as st2:
+        _, t_st = _sync_time(lambda: h.uncounted(lambda: pre(
+            params, c2, tstep.shard_tree(prompts, t_spec, mesh),
+            tstep.shard_tree(pos, p_spec, mesh))))
+    secs = {"Mamba scan loops": st1.secs.get("_ssm_scan", 0.0),
+            "MoE a position": st2.secs.get("_moe_partial", 0.0),
+            "attention (its psum included)": st2.secs.get("_attention_mesh",
+                                                         0.0)}
+    secs["the rest"] = t_st - sum(secs.values())
+    print(f"  where the TP-16 prefill's {t_st:.6f} s go (a second prefill, "
+          f"each stage bracketed by synchronize): " + ", ".join(
+              f"{k} {v:.6f} s ({100 * v / t_st:.1f}%)"
+              for k, v in secs.items() if v))
+    del c2
+    for key in (("tp", 0, 0, 0), ("tp", T, 0, 0)):
+        q, k, v, qo, kvv = hooks.captured.pop(key)
+        name = "flash" if key[1] == 0 else "flash_decode"
+        r = _k8_check(h, f"path N {arch} {name}", q, k, v, qo, kvv)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        r["max_abs_err"])
+        print(f"  K8 {name} (q {tuple(q.shape)}, k/v {tuple(k.shape)}, group "
+              f"{q.shape[2] // k.shape[2]}): {r['plain']:.6f} ulps of the "
+              f"magnitude from plain, {r['f64']:.6f} from f64")
+    rows["flash"]["launches"] += l_pre["flash"]
+    rows["flash_decode"]["launches"] += l_dec["flash_decode"]
+    del caches, oc, logits, lo, lf, ids, o_ids, hooks
+    return cfg, mesh, params, glob, tree1
+
+
+def _n_long(args, dev, rows, h, cfg, mesh, params) -> None:
+    """jamba's long_500k cell on path N: a prompt of ``N_LONG_PROMPT``
+    tokens prefilled on (1, 1, 16) into ``N_LONG_MAX``-position caches,
+    the attention positions up to ``N_LONG_MAX - N_STEPS`` drawn, then
+    ``N_STEPS`` steps decoded unsharded and sequence-sharded on (1, 4,
+    16), teacher-forced; K8's decode tile, ``return_partial`` and merge at
+    these lengths against plain and f64, and timed."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash as tflash
+    from repro_torch.models import layers as tlayers
+    from repro_torch.models import model as TM
+    from repro_torch.models import sharding as tsh
+    from repro_torch.serve import step as tstep
+
+    seq = tsh.ModelMesh(N_SEQ_MESH, devices=dev)
+    D, D2, V = mesh.size, seq.size, cfg.vocab_size
+    SM, PS, N = N_LONG_MAX, N_LONG_PROMPT, N_STEPS
+    start, S_l = SM - N, SM // seq.axis_size("data")
+    a_pos = f"pos{cfg.pattern.index('attn')}"
+    pre, dec = tstep.make_prefill(cfg, mesh), tstep.make_decode_step(cfg,
+                                                                     mesh)
+    sdec = tstep.make_decode_step(cfg, seq, batch_sharded=False,
+                                  seq_shard=True)
+    _, c_spec, t_spec, p_spec = pre.in_specs
+    hooks = _NHooks(1)
+    rng = np.random.default_rng(args.seed + 1)
+    prompt = torch.from_numpy(rng.integers(0, V, (1, PS))).to(
+        device=dev, dtype=torch.int32)
+    pos = torch.arange(PS, dtype=torch.int32, device=dev)[None]
+    caches = [TM.init_cache(cfg, 1, SM, device=dev) for _ in range(D)]
+    torch.cuda.reset_peak_memory_stats()
+    h.reset_counters()
+    hooks.stage("long", D)
+    with hooks:
+        (logits, caches), t_pre = _sync_time(lambda: pre(
+            params, caches, tstep.shard_tree(prompt, t_spec, mesh),
+            tstep.shard_tree(pos, p_spec, mesh)))
+    l_pre = h.counters()
+    if l_pre["flash"] != D or l_pre["flash_cc"] or l_pre["flash_decode"]:
+        raise AssertionError(f"path N long prefill launches {l_pre}")
+    tok0 = tstep.gather_tree(logits, pre.out_specs[0], mesh)[:, :V] \
+        .argmax(-1).to(torch.int32)
+
+    # the positions [PS, start) of every KV slot drawn at the slot's
+    # channel mean and deviation over the prompt's keys and values
+    gd = torch.Generator(device=dev)
+    gd.manual_seed(args.seed)
+
+    def draw():
+        for cr in caches:
+            for name in ("k", "v"):
+                t = cr[a_pos][name]                   # (1, 1, SM, 1, dh)
+                real = t[:, :, :PS].float()
+                mu, sd = real.mean(2, keepdim=True), real.std(2, keepdim=True)
+                w = torch.randn((1, 1, start - PS) + t.shape[3:],
+                                generator=gd, device=dev)
+                t[:, :, PS:start] = (w.mul_(sd).add_(mu)).to(t.dtype)
+    _, t_draw = _sync_time(draw)
+
+    def lay(per):
+        whole = tstep.gather_tree(per, c_spec, mesh)
+        return tstep.shard_tree(whole, sdec.in_specs[1], seq, share=False)
+    s_caches, t_lay = _sync_time(lambda: lay(caches))
+    s_params = [params[seq.axis_index("model", r)] for r in range(D2)]
+
+    def decode(fn, m_, params_, caches_, forced=None):
+        t_sp, p_sp = fn.in_specs[2], fn.in_specs[3]
+        z = tstep.shard_tree(torch.zeros((1, 1), dtype=torch.int32,
+                                         device=dev), p_sp, m_)
+        nxt, ids = tok0, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(N):
+            if forced is not None:
+                nxt = forced[i]
+            out, caches_ = fn(params_, caches_, tstep.shard_tree(
+                nxt[:, None], t_sp, m_), z, start + i)
+            nxt = out[0]
+            ids.append(nxt)
+        torch.cuda.synchronize()
+        return ids, caches_, time.perf_counter() - t0
+
+    def gathered(per, m_):
+        return tstep.gather_tree(m_.all_gather(per, "model", dim=2),
+                                 (None, None, None), m_)[:, 0]
+
+    h.reset_counters()
+    tsh.reset_collectives()
+    hooks.stage("long", D, {("long", N - 1, 0, 0)})
+    with hooks:
+        u_ids, caches, t_udec = decode(dec, mesh, params, caches)
+        l_udec, u_routes, u_psum = h.counters(), hooks.routes, \
+            hooks.by_block(N)
+        u_coll = {k: dict(v) for k, v in tsh.COLLECTIVES.items()}
+        u_logits = [gathered(x_, mesh) for x_ in hooks.kept]
+        h.reset_counters()
+        tsh.reset_collectives()
+        hooks.stage("seq", D2, {("seq", N - 1, 0, seq.position(data=c_))
+                                for c_ in range(4)} | {("merge", N - 1, 0)})
+        s_ids, s_caches, t_sdec = decode(sdec, seq, s_params, s_caches,
+                                         forced=[tok0] + u_ids)
+        l_sdec, s_routes, s_psum = h.counters(), hooks.routes, \
+            hooks.by_block(N)
+        s_coll = {k: dict(v) for k, v in tsh.COLLECTIVES.items()}
+        s_logits = [gathered(x_, seq) for x_ in hooks.kept]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    none = {k: 0 for k in ("flash", "flash_decode", "flash_combine",
+                           "flash_cc", "flash_bias", "flash_partial",
+                           "flash_merge")}
+    for what, got, want in (
+            ("unsharded decode", l_udec, dict(none, flash_decode=D * N,
+                                               flash_combine=D * N)),
+            ("sequence-sharded decode", l_sdec,
+             dict(none, flash_partial=D2 * N, flash_merge=D2 * N))):
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"path N long {what} launches {got}, want "
+                                 f"{want}")
+    print(f"  long_500k: a {PS}-token prompt into {SM}-position caches on "
+          f"{N_MESH} (prefill {t_pre:.6f} s); attention positions {PS} .. "
+          f"{start - 1} drawn at each KV slot's channel mean and deviation "
+          f"of the prompt's ({t_draw:.6f} s); caches laid onto {N_SEQ_MESH}'s"
+          f" chunks of {S_l} (gather_tree, shard_tree) {t_lay:.6f} s; "
+          f"decode from cache_len {start}")
+    print(f"  unsharded decode on {N_MESH}: {N} steps {t_udec:.6f} s "
+          f"({N / t_udec:.3f} tokens/s), launches a step "
+          f"{ {k: v // N for k, v in l_udec.items() if v} }; collectives a "
+          f"step " + ", ".join(f"{k} {v['bytes'] // N} ({v['calls'] // N} "
+                              f"calls)" for k, v in u_coll.items()
+                              if v["calls"])
+          + f"; tp_psum by block {u_psum}")
+    print(f"  sequence-sharded decode on {N_SEQ_MESH}: {N} steps "
+          f"{t_sdec:.6f} s ({N / t_sdec:.3f} tokens/s), launches a step "
+          f"{ {k: v // N for k, v in l_sdec.items() if v} }; collectives a "
+          f"step " + ", ".join(f"{k} {v['bytes'] // N} ({v['calls'] // N} "
+                              f"calls)" for k, v in s_coll.items()
+                              if v["calls"])
+          + f"; tp_psum by block {s_psum}; peak memory allocated "
+          f"{peak:.3f} GiB")
+    # the steps before the first whose routes differ are gated
+    n_moe = len(u_routes) // N
+    step_agree = [all(bool((u_routes[i * n_moe + j][0]
+                            == s_routes[i * n_moe + j][0]).all())
+                      for j in range(n_moe)) for i in range(N)]
+    lead = step_agree.index(False) if False in step_agree else N
+    diffs = [float((a - b).abs().max())
+             for a, b in zip(s_logits, u_logits, strict=True)]
+    gate = LM_LOGIT_TOL
+    if lead == 0 or max(diffs[:lead]) > gate or \
+            not bool((s_ids[0] == u_ids[0]).all()) or \
+            not all(bool(torch.isfinite(x_).all()) for x_ in s_logits):
+        raise AssertionError(f"path N sequence-sharded decode vs unsharded: "
+                             f"max |diff| a step {diffs} (gate {gate}, the "
+                             f"first {lead} steps' routes agree); first "
+                             f"tokens {s_ids[0].tolist()} / "
+                             f"{u_ids[0].tolist()}")
+    s_agree = sum(int(bool((a == b).all()))
+                  for a, b in zip(s_ids, u_ids, strict=True))
+    print(f"  sequence-sharded vs unsharded decode logits: max |diff| "
+          f"{max(diffs[:lead]):.6e} over the {lead} of {N} steps whose MoE "
+          f"routes agree (gate {gate}; each step "
+          f"{np.round(diffs, 6).tolist()}); first token equal; greedy tokens "
+          f"equal {s_agree} of {N}")
+
+    # K8 at these lengths against plain and f64, and timed
+    cap = hooks.captured
+    q, k, v, qo, kvv = cap.pop(("long", N - 1, 0, 0))
+    r = _k8_check(h, "path N decode over 524,288 keys", q, k, v, qo, kvv)
+    rows["flash_decode"]["max_abs_err"] = max(
+        rows["flash_decode"]["max_abs_err"], r["max_abs_err"])
+    sh = _l_time(h, q, k, v, qo, kvv, False)
+    sh["n_split"], sh["tiles_per_split"] = tflash.decode_plan(
+        q, k, q_offset=qo, kv_valid=kvv)
+    rows["flash_decode"]["path_n_shape"] = sh
+    print(f"  K8 flash_decode over {kvv} keys (q {tuple(q.shape)}, k/v "
+          f"{tuple(k.shape)}, {sh['n_split']} runs of {sh['tiles_per_split']}"
+          f" tiles): {r['plain']:.6f} ulps of the magnitude from plain, "
+          f"{r['f64']:.6f} from f64; kernel {sh['ms']:.6f} ms, plain "
+          f"{sh['plain_ms']:.6f}, SDPA {sh['sdpa_ms']:.6f}, bound "
+          f"{sh['bound_ms']:.6f} ({sh['bound_by']})")
+    del q, k, v
+    parts = [cap.pop(("seq", N - 1, 0, seq.position(data=c_)))
+             for c_ in range(4)]
+    checks = [_partial_check(h, f"path N chunk {c_} (q_offset {p_[3]})",
+                             *p_[:4]) for c_, p_ in enumerate(parts)]
+    L_last = start + N - 1
+    q = parts[0][0]
+    kg = torch.cat([p_[1] for p_ in parts], 1)[:, :L_last + 1]
+    vg = torch.cat([p_[2] for p_ in parts], 1)[:, :L_last + 1]
+    mr = _merge_check(h, "path N, 4 positions", cap.pop(("merge", N - 1, 0)),
+                      q, kg, vg, L_last)
+    del kg, vg
+    print(f"  K8 at the last step's chunks (q_offset "
+          f"{[p_[3] for p_ in parts]}): return_partial vs its plain version "
+          f"and f64 (tolerance {M_PART_RTOL} of each scale), ratios to it "
+          + ", ".join(f"chunk {c_} {c['plain']:.4f} / {c['kernel']:.4f}"
+                      for c_, c in enumerate(checks))
+          + f"; the combine of the 4 positions vs its plain version "
+          f"{mr['plain']:.6f} and vs f64 over the {L_last + 1} keys "
+          f"{mr['f64']:.6f} bf16 ulps of the magnitude (tolerance 1)")
+    q, k, v, off = parts[0][:4]
+    n_split, per = tflash.decode_plan(q, k, q_offset=off, kv_valid=k.shape[1])
+    n_bytes, ops = _flash_work(q, k, off, k.shape[1])
+    out_bytes = (2 * q.numel() // q.shape[-1] + q.numel()) * 4
+    row = _time_row(
+        "flash_partial", lambda: h.uncounted(lambda: tflash.flash_attention(
+            q, k, v, q_offset=off, return_partial=True)),
+        lambda: tflash.flash_decode_split_plain(
+            q, k, v, q_offset=off, n_split=n_split, return_partial=True),
+        _sdpa_call(q, k, v, off, k.shape[1]),
+        [(n_bytes - q.numel() * q.element_size() + out_bytes, ops)],
+        l_sdec["flash_partial"], max(c["max_abs_err"] for c in checks),
+        reps=100, plain_reps=5)
+    rows["flash_partial"]["path_n"] = dict(
+        {k_: row[k_] for k_ in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")},
+        n_split=n_split, tiles_per_split=per,
+        shape=f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, q_offset {off}")
+    for name, n_, err in (("flash", l_pre["flash"], None),
+                          ("flash_decode", l_udec["flash_decode"], None),
+                          ("flash_partial", l_sdec["flash_partial"],
+                           max(c["max_abs_err"] for c in checks)),
+                          ("flash_merge", l_sdec["flash_merge"],
+                           mr["max_abs_err"])):
+        rows[name]["launches"] += n_
+        if err is not None:
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    del caches, s_caches, s_params, parts, q, k, v, hooks, cap
+
+
+def _path_n(args, dev, rows, h) -> None:
+    """Phase 19, path N: MoE and Mamba under tensor parallelism on
+    ``ModelMesh`` positions that are all this card, counted (module
+    docstring)."""
+    import torch
+    t_path = time.perf_counter()
+    _, _, params, glob, tree1 = _n_cell(args, dev, rows, h, N_MOE_ARCH,
+                                        N_MOE_LAYERS)
+    del params, glob, tree1
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  path N wall so far {time.perf_counter() - t_path:.1f} s")
+    cfg, mesh, params, glob, tree1 = _n_cell(args, dev, rows, h, N_JAMBA_ARCH,
+                                             J_JAMBA_LAYERS)
+    del glob, tree1
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  the global weights freed: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated (the "
+          f"positions' shards); path N wall so far "
+          f"{time.perf_counter() - t_path:.1f} s")
+    _n_long(args, dev, rows, h, cfg, mesh, params)
+    del params
+    print(f"  path N wall {time.perf_counter() - t_path:.1f} s")
+
+
 def main(argv=None) -> int:
     args = _args(argv)
     import numpy as np
@@ -7315,6 +7959,13 @@ def main(argv=None) -> int:
 
     # ---- phase 18: path M (tensor-parallel, sequence-sharded), counted ----
     _path_m(args, dev, rows, h)
+    print(f"  wall {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- phase 19: path N (MoE and Mamba under TP, long_500k), counted ----
+    _path_n(args, dev, rows, h)
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
 
     smi = _card()

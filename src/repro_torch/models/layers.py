@@ -26,9 +26,10 @@ position (its local shard) for the parameters, inputs and caches, run a
 position at a time and end in the reference's one ``tp_psum`` over
 ``model`` (none with ``reduce=False``); the sequence-sharded branch
 combines the positions' partial softmax results (K8's ``return_partial``
-form, ``kernels.flash.flash_merge``) across ``data``.  Without a mesh a
-tensor-parallel layout raises ``not_ported``, as the MoE block under
-``tp_shard`` does on any mesh (ROADMAP queue 1 item 14d).  Caches are
+form, ``kernels.flash.flash_merge``) across ``data``.  ``moe_block``
+takes ``mesh=`` too: its experts over ``model`` (expert parallelism as
+tensor parallelism, one ``tp_psum``).  Without a mesh a tensor-parallel
+layout raises ``not_ported`` (ROADMAP queue 1 item 14d).  Caches are
 updated in place.  The activations ``softplus``, ``log_sigmoid``,
 ``sigmoid`` and ``silu`` are jax.nn's formulas, for the recurrent blocks
 (``models/ssm.py``, ``models/xlstm.py``), with JAX's derivatives under a
@@ -42,6 +43,7 @@ import torch
 
 from .. import not_ported
 from ..kernels import flash as _flash
+from .sharding import TP
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -575,61 +577,102 @@ class _Softmax(torch.autograd.Function):
         return yg - y * yg.sum(-1, keepdim=True)
 
 
-def moe_block(p: MoEParams, x: torch.Tensor, cfg, *, tp_shard: bool,
-              capacity_factor: float = 1.25) -> torch.Tensor:
-    """Top-k MoE FFN with capacity buckets (the reference's ``moe_block``
-    on one device).  Router logits f32; the top k by ``top_k`` (lower index
-    on a tie), a softmax over the k gates.  Each assignment's slot in its
-    expert is the exclusive running count of earlier assignments to it;
-    ``C = max(int(T * top_k * capacity_factor / E), 4)``, and an
-    assignment at slot >= C goes to the trash row ``E * C`` and
-    contributes nothing (its token goes through on the residual).  ``buf``
-    (E, C, d) bf16, the expert GEMMs f32 with ``silu(g) * u`` rounded to
-    bf16, then each token's k weighted contributions added in k order in
-    f32 (XLA:CPU's scatter-add order; no atomics), plus the shared experts
-    where the config has them, rounded once to x's dtype.  The routing and
-    the combine run under ``torch.profiler`` spans ``moe.dispatch`` and
-    ``moe.combine`` (a trace's time by kind).  Expert parallelism
-    (``tp_shard``) raises ``not_ported``."""
-    not_under_tp(tp_shard, "the MoE block (experts over the model axis)")
+def moe_route(logits: torch.Tensor, cfg, capacity_factor: float) -> tuple:
+    """The routing of T tokens from their (T, E) f32 router logits, as
+    every position of a mesh computes it over all of its tokens: (flat_w
+    (T * k,) f32 gates, flat_e (T * k,) experts, pos (T * k,) each
+    assignment's slot in its expert, C).  The top k by ``top_k`` (lower
+    index on a tie), a softmax over the k gates; ``pos`` the exclusive
+    running count of earlier assignments to the same expert (token-major,
+    then k order); ``C = max(int(T * top_k * capacity_factor / E), 4)``
+    with the local T and the unpadded E."""
     mc = cfg.moe
+    E, k = mc.n_experts, mc.top_k
+    C = max(int(logits.shape[0] * k * capacity_factor / E), 4)
+    gates, top_e = top_k(logits, k)
+    gates = _Softmax.apply(gates)
+    flat_e = top_e.reshape(-1)                           # (T * k,)
+    # the exclusive running count of the one-hot, scanned along its inner
+    # axis: torch's scan along an outer axis is one thread a column, 32
+    # threads walking all T * k assignments in turn
+    onehot = torch.nn.functional.one_hot(flat_e, E).T.contiguous()
+    pos = (torch.cumsum(onehot, 1) - onehot).gather(0, flat_e[None])[0]
+    return gates.reshape(-1), flat_e, pos, C
+
+
+def _moe_partial(p: MoEParams, x: torch.Tensor, cfg, *, rank: int,
+                 capacity_factor: float) -> torch.Tensor:
+    """One position's (T, d) f32 MoE output: its ``E_l`` experts (the
+    leading axis of its ``w_gate``) starting at ``base = rank * E_l``,
+    fed the assignments of all T tokens that route to them within
+    capacity, plus its columns of the shared experts; the sum over the
+    positions is the block's output (one card: ``rank`` 0, every
+    expert)."""
     B, S, d = x.shape
     T = B * S
-    E, k = mc.n_experts, mc.top_k
-    C = max(int(T * k * capacity_factor / E), 4)
+    k = cfg.moe.top_k
+    E_l = p.w_gate.shape[0]
+    base = rank * E_l
     dev = x.device
 
     h = rms_norm(x, p.ln, cfg.norm_eps).reshape(T, d)
     logits = matmul_f32(h, p.router)                     # (T, E)
     with torch.profiler.record_function("moe.dispatch"):
-        gates, top_e = top_k(logits, k)
-        gates = _Softmax.apply(gates)
-        flat_e = top_e.reshape(-1)                       # (T * k,)
-        flat_w = gates.reshape(-1)
-        # the exclusive running count of the one-hot, scanned along its
-        # inner axis: torch's scan along an outer axis is one thread a
-        # column, 32 threads walking all T * k assignments in turn
-        onehot = torch.nn.functional.one_hot(flat_e, E).T.contiguous()
-        pos = (torch.cumsum(onehot, 1) - onehot).gather(
-            0, flat_e[None])[0]
+        flat_w, flat_e, pos, C = moe_route(logits, cfg, capacity_factor)
         local = pos < C
-        slot = torch.where(local, flat_e * C + pos, E * C)
+        if E_l < cfg.moe.n_experts:       # experts of the other positions
+            local = local & (flat_e >= base) & (flat_e < base + E_l)
+        slot = torch.where(local, (flat_e - base) * C + pos, E_l * C)
         hx = _RepeatRows.apply(h.to(BF16), k)            # (T * k, d)
-        buf = torch.zeros((E * C + 1, d), dtype=BF16, device=dev) \
+        buf = torch.zeros((E_l * C + 1, d), dtype=BF16, device=dev) \
             .index_put((slot,), hx)
-        buf = buf[:E * C].reshape(E, C, d)
+        buf = buf[:E_l * C].reshape(E_l, C, d)
     g = bmm_f32(buf, p.w_gate)
     u = bmm_f32(buf, p.w_up)
-    y = bmm_f32((g * torch.sigmoid(g) * u).to(BF16), p.w_down)  # (E, C, d)
+    y = bmm_f32((g * torch.sigmoid(g) * u).to(BF16), p.w_down)  # (E_l, C, d)
     with torch.profiler.record_function("moe.combine"):
-        y_flat = torch.cat([y.reshape(E * C, d), y.new_zeros((1, d))])
+        y_flat = torch.cat([y.reshape(E_l * C, d), y.new_zeros((1, d))])
         contrib = _GatherRows.apply(y_flat, slot) * flat_w[:, None]
         contrib = torch.where(local[:, None], contrib, contrib.new_zeros(()))
         out = _SumK.apply(contrib.reshape(T, k, d))
 
-    if mc.n_shared:
+    if cfg.moe.n_shared:
         g2 = matmul_f32(h, p.sh_gate)
         u2 = matmul_f32(h, p.sh_up)
         out = out + matmul_f32((g2 * torch.sigmoid(g2) * u2).to(BF16),
                                p.sh_down)
-    return out.reshape(B, S, d).to(x.dtype)
+    return out
+
+
+def moe_block(p: MoEParams, x: torch.Tensor, cfg, *, tp_shard: bool,
+              capacity_factor: float = 1.25, mesh=None) -> torch.Tensor:
+    """Top-k MoE FFN with capacity buckets (the reference's ``moe_block``).
+    Router logits f32, routed by ``moe_route``; an assignment at slot >= C
+    goes to the trash row ``E_l * C`` and contributes nothing (its token
+    goes through on the residual).  ``buf`` (E_l, C, d) bf16, the expert
+    GEMMs f32 with ``silu(g) * u`` rounded to bf16, then each token's k
+    weighted contributions added in k order in f32 (XLA:CPU's scatter-add
+    order; no atomics), plus the shared experts where the config has them,
+    rounded once to x's dtype.  The routing and the combine run under
+    ``torch.profiler`` spans ``moe.dispatch`` and ``moe.combine`` (a
+    trace's time by kind).
+
+    With ``mesh`` (lists over its positions) under ``tp_shard``: expert
+    parallelism as tensor parallelism.  Each position routes all of its
+    tokens, keeps the assignments to its ``E_l = n_experts_padded / tp``
+    experts from ``model index * E_l`` (padded experts never receive a
+    token), adds its columns of the shared experts, and the positions'
+    f32 partials meet in one ``tp_psum`` over ``model``: no all-to-all.
+    Under a data-sharded batch T is the position's own tokens, so C is
+    too."""
+    if mesh is not None:
+        out = [_moe_partial(pr, xr, cfg, capacity_factor=capacity_factor,
+                            rank=mesh.axis_index(TP, r) if tp_shard else 0)
+               for r, (pr, xr) in enumerate(zip(p, x, strict=True))]
+        if tp_shard:
+            out = mesh.tp_psum(out)
+        return [o.reshape(xr.shape).to(xr.dtype)
+                for o, xr in zip(out, x, strict=True)]
+    _no_tp(tp_shard)
+    out = _moe_partial(p, x, cfg, rank=0, capacity_factor=capacity_factor)
+    return out.reshape(x.shape).to(x.dtype)

@@ -29,8 +29,10 @@ decoder runs the reference's manual-SPMD program: every tree and input is
 a list with one entry a position (its local shard, ``serve.step.
 shard_tree``), each leaf's ``spec`` (``param_specs``) says how the global
 leaf is cut, and the blocks end in the reference's collectives.  Tensor-
-parallel layouts (``cfg.tp_shard``) run only there, for attention and
-dense-MLP blocks; MoE, Mamba and xLSTM blocks under ``tp_shard`` and
+parallel layouts (``cfg.tp_shard``) run only there: attention, the dense
+MLP, the MoE FFN (experts over ``model``) and Mamba (``d_inner`` over
+``model``, its states the position's channels, replicated over ``data``
+in sequence-sharded decode).  The xLSTM blocks under ``tp_shard`` and
 training on a mesh raise ``not_ported`` (ROADMAP queue 1 items 14d, 14e).
 """
 from __future__ import annotations
@@ -58,17 +60,14 @@ class Leaf(NamedTuple):
 
 
 def _supported(cfg) -> None:
-    """Block kinds the port runs; under ``tp_shard`` only attention with a
-    dense MLP."""
+    """Block kinds the port runs; under ``tp_shard`` all but the xLSTM
+    blocks (the reference replicates xlstm: ``tp_shard=False``)."""
     for kind in set(cfg.pattern):
         if kind not in KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
     if cfg.tp_shard:
-        for kind in set(cfg.pattern) - {"attn"}:
-            what = "Mamba" if kind == "mamba" else kind
-            layers.not_under_tp(True, f"the {what} block")
-        if any(cfg.moe_at(i) for i in range(cfg.sb)):
-            layers.not_under_tp(True, "the MoE block")
+        for kind in sorted(set(cfg.pattern) - {"attn", "mamba"}):
+            layers.not_under_tp(True, f"the {kind} block")
 
 
 def _layout(cfg, mesh) -> None:
@@ -83,6 +82,10 @@ def _layout(cfg, mesh) -> None:
             "vocab_padded": cfg.vocab_padded, "d_ff": cfg.d_ff}
     if cfg.kv_sharded:
         dims["n_kv_padded"] = cfg.n_kv_padded
+    if "mamba" in cfg.pattern:
+        dims["d_inner"] = cfg.d_inner
+    if cfg.moe is not None and cfg.moe.n_shared:
+        dims["n_shared * d_expert"] = cfg.moe.n_shared * cfg.moe.d_expert
     bad = {k: v for k, v in dims.items() if v % n}
     if bad:
         raise ValueError(f"a model axis of {n} does not divide {bad}")
@@ -357,10 +360,11 @@ def embed_tokens(params, cfg, tokens: torch.Tensor, tp_shard: bool,
 def _run_block_mesh(cfg, kind: str, blk: list, x: list, *, pos: list,
                     cache, mesh) -> tuple:
     """``_run_block`` on a mesh: ``blk``, ``x``, ``pos`` and ``cache``
-    lists over its positions.  Attention and the dense MLP end in their
-    ``tp_psum`` (the parallel block's two partials share one, as the
-    reference's ``_run_block`` at ``:277-287``); the other blocks (outside
-    tensor parallelism only) run a position at a time."""
+    lists over its positions.  Attention, Mamba, the dense MLP and the MoE
+    FFN each end in their ``tp_psum`` (the parallel block's two partials
+    share one, as the reference's ``_run_block`` at ``:277-287``); the
+    xLSTM blocks (outside tensor parallelism only) run a position at a
+    time."""
     tp = cfg.tp_shard
     ffn = blk[0].get("ffn")
     core = [b["core"] for b in blk]
@@ -382,6 +386,12 @@ def _run_block_mesh(cfg, kind: str, blk: list, x: list, *, pos: list,
                                               cache=cache, tp_shard=tp,
                                               mesh=mesh)
         x = [xr + orr for xr, orr in zip(x, o, strict=True)]
+    elif kind == "mamba":
+        st = None if cache is None else [ssm.MambaState(**c) for c in cache]
+        o, nst = ssm.mamba_block(core, x, cfg, state=st, tp_shard=tp,
+                                 mesh=mesh)
+        x = [xr + orr for xr, orr in zip(x, o, strict=True)]
+        new_cache = [None if s is None else s._asdict() for s in nst]
     else:
         done = [_run_block(cfg, 0, kind, {"core": c, "ffn": None}, xr,
                            pos=pr, cache=None if cache is None else cache[r],
@@ -391,8 +401,8 @@ def _run_block_mesh(cfg, kind: str, blk: list, x: list, *, pos: list,
         x = [d[0] for d in done]
         new_cache = [d[1] for d in done]
     if isinstance(ffn, layers.MoEParams):
-        x = [xr + layers.moe_block(f, xr, cfg, tp_shard=tp)
-             for f, xr in zip(ffns, x, strict=True)]
+        m = layers.moe_block(ffns, x, cfg, tp_shard=tp, mesh=mesh)
+        x = [xr + mr for xr, mr in zip(x, m, strict=True)]
     elif ffn is not None:
         m = layers.mlp_block(ffns, x, cfg, tp_shard=tp, mesh=mesh)
         x = [xr + mr for xr, mr in zip(x, m, strict=True)]

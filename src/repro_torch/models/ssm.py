@@ -25,6 +25,10 @@ Training (autograd recording): each chunk's states are stacked once
 instead, under ``torch.utils.checkpoint`` (non-reentrant), as the
 reference's chunk body is ``jax.checkpoint``ed: the backward keeps a chunk
 boundary's state, not every step's.  ``softplus`` and ``silu`` take JAX's derivatives.
+
+On a ``models.sharding.ModelMesh`` (``mamba_block(..., mesh=)``) the block
+runs a position at a time in two halves around the reference's two
+collectives: the ``x_proj`` features' ``tp_psum`` and the output's.
 """
 from __future__ import annotations
 
@@ -105,13 +109,13 @@ def _ssm_scan(x, dt, b_in, c_in, a, d_skip, h0, chunk: int) -> tuple:
     return torch.cat(ys, 1), h if grad else h.clone()
 
 
-def mamba_block(p: MambaParams, x: torch.Tensor, cfg, *,
-                state: MambaState | None, tp_shard: bool,
-                chunk: int = CHUNK) -> tuple:
-    """x: (B, S, d) -> (out (B, S, d) in x's dtype, new_state).  The new
-    state is returned where a state was passed or S == 1, else None."""
-    layers.not_under_tp(tp_shard, "the Mamba block (d_inner over the model "
-                        "axis)")
+def _mamba_in(p: MambaParams, x: torch.Tensor, cfg,
+              state: MambaState | None) -> tuple:
+    """The block up to ``x_proj``: (xc (B, S, di) f32 after the conv and
+    silu, z (B, S, di) f32, the new conv state or None, feats (B, S,
+    dt_rank + 2 d_state) f32 -- a position's partial sum on a mesh).  xs
+    and z are the two halves of ``in_proj``'s columns as this position
+    holds them."""
     B, S, d = x.shape
     h = layers.rms_norm(x, p.ln, cfg.norm_eps)
     xz = layers.matmul_f32(h, p.in_proj)
@@ -129,8 +133,15 @@ def mamba_block(p: MambaParams, x: torch.Tensor, cfg, *,
     xp = torch.cat([pad, xs], 1)                        # (B, S + K - 1, di)
     xc = sum(xp[:, i:i + S, :] * p.conv_w[i] for i in range(K)) + p.conv_b
     xc = layers.silu(xc)
-
     feats = layers.matmul_f32(xc.to(BF16), p.x_proj)
+    return xc, z, new_conv, feats
+
+
+def _mamba_out(p: MambaParams, xc, z, new_conv, feats, cfg,
+               state: MambaState | None, chunk: int) -> tuple:
+    """The block from the (summed) ``x_proj`` features on: (out (B, S, d)
+    f32 -- a position's partial sum on a mesh, the new state or None)."""
+    B, S, di = xc.shape
     dtr, ds = cfg.dt_rank, cfg.d_state
     dt_in = feats[..., :dtr]
     b_in = feats[..., dtr:dtr + ds]
@@ -139,7 +150,7 @@ def mamba_block(p: MambaParams, x: torch.Tensor, cfg, *,
     a = -torch.exp(p.a_log.to(F32))                     # (di, ds)
 
     h0 = state.h if state is not None else \
-        torch.zeros((B, di, ds), dtype=F32, device=x.device)
+        torch.zeros((B, di, ds), dtype=F32, device=xc.device)
     if S == 1:                                          # decode
         decay = torch.exp(dt[:, 0, :, None] * a)
         hn = decay * h0 + (dt[:, 0] * xc[:, 0].to(F32))[..., None] * \
@@ -158,6 +169,54 @@ def mamba_block(p: MambaParams, x: torch.Tensor, cfg, *,
     new_state = None
     if state is not None or S == 1:
         conv = new_conv if new_conv is not None else \
-            torch.zeros((B, K - 1, di), dtype=xs.dtype, device=x.device)
+            torch.zeros((B, cfg.d_conv - 1, di), dtype=xc.dtype,
+                        device=xc.device)
         new_state = MambaState(conv=conv.to(BF16), h=hn)
+    return out, new_state
+
+
+def one_card_in_proj(w: torch.Tensor, tp: int) -> torch.Tensor:
+    """A TP layout's global ``in_proj`` (.., d, 2 d_inner), whose rank-r
+    columns are ``[xs_r | z_r]``, as the one-card form's ``[xs_0 ..
+    xs_{tp-1} | z_0 .. z_{tp-1}]``: the tree on which the one-card form
+    computes the TP layout's function (the gates that hold one against
+    the other)."""
+    *lead, d, n = w.shape
+    return w.reshape(*lead, d, tp, 2, n // (2 * tp)).transpose(-3, -2) \
+        .reshape(*lead, d, n)
+
+
+def mamba_block(p: MambaParams, x: torch.Tensor, cfg, *,
+                state: MambaState | None, tp_shard: bool,
+                chunk: int = CHUNK, mesh=None) -> tuple:
+    """x: (B, S, d) -> (out (B, S, d) in x's dtype, new_state).  The new
+    state is returned where a state was passed or S == 1, else None.
+
+    With ``mesh`` (a ``ModelMesh``) ``p``, ``x`` and ``state`` are lists
+    over its positions and so are both results.  Under ``tp_shard`` each
+    position works on its ``d_inner / tp`` channels (the reference's
+    layout: its xs and z are the two halves of its own ``in_proj``
+    columns, so rank r's xs and z are not columns r of the one-card
+    form's xs and z halves), its ``x_proj`` partial features summed over
+    ``model`` (``tp_psum``) before the softplus and the scan, its
+    ``out_proj`` partial summed likewise; the conv and scan states are
+    the position's channels."""
+    if mesh is not None:
+        st = state or [None] * mesh.size
+        ins = [_mamba_in(pr, xr, cfg, sr)
+               for pr, xr, sr in zip(p, x, st, strict=True)]
+        feats = [f for *_, f in ins]
+        if tp_shard:
+            feats = mesh.tp_psum(feats)
+        done = [_mamba_out(pr, xc, z, nc, f, cfg, sr, chunk)
+                for pr, (xc, z, nc, _), f, sr in zip(p, ins, feats, st,
+                                                     strict=True)]
+        out = [o for o, _ in done]
+        if tp_shard:
+            out = mesh.tp_psum(out)
+        return [o.to(xr.dtype) for o, xr in zip(out, x, strict=True)], \
+            [s_ for _, s_ in done]
+    layers._no_tp(tp_shard)
+    xc, z, new_conv, feats = _mamba_in(p, x, cfg, state)
+    out, new_state = _mamba_out(p, xc, z, new_conv, feats, cfg, state, chunk)
     return out.to(x.dtype), new_state

@@ -544,12 +544,16 @@ def test_mesh_rules_and_collectives():
         None, None, "data", "model", None)
     with pytest.raises(ValueError, match="batch_sharded=False"):
         tstep.make_decode_step(cfg, mesh, seq_shard=True)
-    # MoE and Mamba under tp_shard are ROADMAP item 14d's next parts
+    # MoE and Mamba build under tp_shard (test_torch_tp_moe_mamba.py runs
+    # them); the xLSTM blocks, which the reference replicates, do not
     for arch in ("jamba-v0.1-52b", "qwen2-moe-a2.7b", "granite-moe-1b-a400m"):
         cfg = dataclasses.replace(reduce_cfg(get_arch(arch), **REDUCE),
                                   tp=2, tp_shard=True)
-        with pytest.raises(NotImplementedError, match="item 14d"):
-            TM.build_tree(cfg, tsh.ModelMesh((1, 1, 2), devices="cpu"))
+        assert TM.build_tree(cfg, tsh.ModelMesh((1, 1, 2), devices="cpu"))
+    cfg = dataclasses.replace(reduce_cfg(get_arch("xlstm-125m"), **REDUCE),
+                              tp=2, tp_shard=True)
+    with pytest.raises(NotImplementedError, match="item 14d"):
+        TM.build_tree(cfg, tsh.ModelMesh((1, 1, 2), devices="cpu"))
     cfg = _cfg("qwen3-kv2")
     with pytest.raises(NotImplementedError, match="14d.*|single_card"):
         TM.build_tree(cfg)
