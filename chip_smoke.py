@@ -445,6 +445,40 @@ Phases (any failure exits non-zero; nothing is caught):
    their rows).  Prints launches (as ``expect`` states them), the
    collectives' bytes by stage and by the block that calls each
    ``tp_psum``, peak memory and the path's wall.
+20. Path O, training on a mesh, counted, after path N, on ``ModelMesh``
+   positions that are all this card.  O1: ``O_ARCH`` (qwen3-4b) in its
+   published layout cut to ``O_LAYERS`` layers at full width on
+   ``O_MESH`` (2, 2, 16), the parameters, AdamW state and int8 residual
+   in FSDP storage (``param_specs``; positions of the card holding one
+   shard share it), path I's batch: ``O_STEPS`` steps of
+   ``make_train_step(cfg, mesh, compress_pod=True)``, the last traced for
+   the device's idle share (``_o_traced``).  Gates against the one-card
+   step on the same global weights and batch, run first and freed, on
+   the first step's gradients as the pods hold them before the pod sum
+   (``_OSpy``: the compressed sum's inputs) summed over pod in f64, which
+   is the sum without compression: the loss, the grad norm at twice the
+   one-card norm (the reference's double-counted pod sum), every gathered
+   gradient within ``O_GRAD_RL2`` relative L2 of twice the one-card
+   gradient (``_o_pod_sum_gate``), each at least
+   ``O_CONTROL_FACTOR`` times a control (the one-card step with K8's plain
+   version); the compressed sum within its bound per element and every
+   residual equal to ``(g + r) - q scale`` (``_o_compression``); K8's
+   launches a step, remat's recompute counted apart
+   (``flash.REMAT_LAUNCHES``), and K8 with ``lse`` on the step's own q,
+   k, v (B 2, S 2,048, 2 query heads over 1 KV slot, dh 128) against
+   plain and f64 and timed (``path_o_*`` keys of the ``flash`` row).  O2:
+   ``O_MOE_ARCH`` (granite-moe-1b-a400m) in its published layout cut to
+   ``O_MOE_LAYERS`` layers on ``O_MOE_MESH`` (1, 2, 16): one step, its
+   MoE routes recorded and fed to the one-card step (a microbatch a data
+   shard, so that C counts the same tokens) through ``layers.top_k``,
+   gated the same way at 1x (no pod) and on AdamW's ``mu``; planted
+   faults (final_ln's gradient not summed over its copies; final_ln
+   updated twice) must fail the gates; then steps 2 and 3, the state
+   saved at step 2 from the mesh and restored onto the same mesh and
+   onto ``O_RESHARD`` (1, 4, 16): every gathered leaf equal to the saved
+   bit for bit, and step 3 from the restore equal to step 3 live.
+   Prints step seconds, tokens/s, idle share, peak memory and the
+   collectives' calls and bytes a step by kind.
 
 Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
@@ -478,7 +512,9 @@ rate, ``flash_decode`` at the decode shape with its ``n_split`` and
 ``path_k_*`` times; ``flash_partial`` and ``flash_merge`` at path M's
 sequence-sharded decode shape; path N's decode tile over 524,288 keys in
 ``flash_decode``'s ``path_n_shape`` and its ``return_partial`` form over
-a 131,072-key chunk in ``flash_partial``'s ``path_n``), the card's
+a 131,072-key chunk in ``flash_partial``'s ``path_n``; path O's launches
+and K8 with ``lse`` at its shape in ``flash``'s ``path_o_*`` keys), the
+card's
 ``name, power.limit`` from nvidia-smi,
 and the result line.  Phase 1 also prints the flash library's ptxas
 report and the number of ``HGMMA`` instructions ``cuobjdump -sass`` finds
@@ -743,6 +779,34 @@ N_PSUM_BY = {"embed_tokens": "embedding", "_attention_mesh": "attention",
              "mlp_block": "MLP", "moe_block": "MoE",
              "mamba_block": "Mamba (x_proj features, output)",
              "_run_block_mesh": "parallel block"}
+# Path O: training on a mesh, on positions that are all this card.  O1:
+# qwen3-4b in its published layout (tp 16, KV heads replicated) cut to
+# O_LAYERS of its 36 layers at full width (1.18e9 parameters, 0.78e9 of
+# them the embedding and the head) on O_MESH (data cut from the
+# production 16 to 2), path I's traffic: O_STEPS steps with
+# compress_pod.  O2:
+# granite-moe-1b-a400m's published layout cut to O_MOE_LAYERS of its 24
+# layers on O_MOE_MESH, one step gated, then the checkpoint gate on its
+# state: saved at step 2, restored onto the same mesh and onto O_RESHARD.
+# O1's state (about 21 GB with the residual) is not checkpointed: the
+# snapshot store writes about 0.3 GB/s (path E), minutes for it.
+O_ARCH, O_LAYERS, O_MESH, O_STEPS = "qwen3-4b", 4, (2, 2, 16), 3
+O_MOE_ARCH, O_MOE_LAYERS, O_MOE_MESH = "granite-moe-1b-a400m", 2, (1, 2, 16)
+O_RESHARD = (1, 4, 16)
+O_LR = 1e-4
+# The gates against the one-card step: the loss (relative), the grad norm
+# (relative, against twice the one-card norm on O1's two pods), every
+# gathered gradient and AdamW mu (relative L2), each at least
+# O_CONTROL_FACTOR times the same reading of the one-card step with K8's
+# plain version; the compression's f32 slack, in ulps of the largest
+# |g + r| of a pod.  The gradients are bf16, and the mesh rounds other
+# values to bf16 than the one-card form does (a block's output is the sum
+# of 16 positions' f32 partials, a replicated leaf's gradient the sum of
+# its copies' bf16 shares): on the CPU rehearsal (d_model 64) every leaf
+# came within 0.0035-0.0153 relative L2
+O_LOSS_RTOL, O_GNORM_RTOL, O_GRAD_RL2 = 1e-3, 1e-2, 5e-2
+O_CONTROL_FACTOR = 4
+O_COMP_SLACK = 4
 ANALYZED = ("src/repro_torch", "chip_smoke.py", "time_verbs.py",
             "examples/index_service_torch.py")
 SYNC_WARNING = "called a synchronizing CUDA operation"
@@ -7025,6 +7089,675 @@ def _path_n(args, dev, rows, h) -> None:
     print(f"  path N wall {time.perf_counter() - t_path:.1f} s")
 
 
+def _o_batch(dev, seed: int, vocab: int):
+    """Path O's batch: ``I_BATCH`` x ``I_SEQ`` token ids and their next
+    tokens, drawn from ``seed`` with numpy, and the positions."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, vocab, (I_BATCH, I_SEQ + 1))) \
+        .to(device=dev, dtype=torch.int32)
+    pos = torch.arange(I_SEQ, dtype=torch.int32, device=dev)[None] \
+        .expand(I_BATCH, I_SEQ).contiguous()
+    return toks[:, :-1].contiguous(), toks[:, 1:].contiguous(), pos
+
+
+def _o_one_grads(one, glob, batch):
+    """The one-card form's loss, gradient norm and gradients (on the host,
+    in ``optimizer.leaves`` order) on the global weights: the port's
+    one-card step up to its update."""
+    import torch
+    from repro_torch.models import model as TM
+    from repro_torch.train import optimizer as topt
+    inputs, labels, pos = batch
+    ps = TM.tree_map(lambda t: t.detach().requires_grad_(), glob)
+    x, _ = TM.forward(ps, one, inputs, pos=pos, mode="train")
+    loss = TM.lm_loss(ps, one, x, labels, False)
+    grads = torch.autograd.grad(loss, topt.leaves(ps))
+    gnorm = topt.global_grad_norm(list(grads))
+    # sync: ok(the gate's reference, read once)
+    return float(loss.detach()), float(gnorm), [g.cpu() for g in grads]
+
+
+def _o_gather(per: list, spec, mesh, dev):
+    """One leaf put together from the positions' shards (``gather_tree``)."""
+    from repro_torch.serve import step as sstep
+    return sstep.gather_tree([{"x": t} for t in per], {"x": spec}, mesh,
+                             device=dev)["x"]
+
+
+def _o_rel_l2(got, want) -> float:
+    """||got - want|| / ||want||, in f64."""
+    d = float((got.double() - want.double()).norm())
+    return d / max(float(want.double().norm()), 1e-30)
+
+
+def _o_grad_gate(by_pos, specs, mesh, want: list, dev):
+    """Each leaf's gathered gradient against the one-card gradient (host
+    tensors in leaf order): the relative L2 a leaf, in leaf order."""
+    out = []
+    for i, spec in enumerate(specs):
+        g = _o_gather([p[i] for p in by_pos], spec, mesh, dev)
+        out.append(_o_rel_l2(g, want[i].to(dev)))
+        del g
+    return out
+
+
+def _o_pod_sum_gate(grads, specs, mesh, want: list, dev) -> tuple:
+    """Each leaf's gradients as the pods hold them (``grads``, a leaves
+    list a position) summed over pod in f64, gathered, against twice the
+    one-card gradient (host tensors in leaf order): (the relative L2 a
+    leaf, in leaf order; the norm of the gathered gradient)."""
+    out, sq = [], 0.0
+    for i, spec in enumerate(specs):
+        per = [None] * mesh.size
+        for grp in mesh.groups("pod"):
+            tot = sum(grads[r][i].double() for r in grp)
+            for r in grp:
+                per[r] = tot
+        g = _o_gather(per, spec, mesh, dev)
+        del per, tot
+        out.append(_o_rel_l2(g, 2.0 * want[i].to(dev)))
+        sq += float((g * g).sum())
+        del g
+    return out, sq ** 0.5
+
+
+def _o_busy(prof, wall: float) -> float:
+    """The idle share of a traced window of ``wall`` seconds: one less the
+    union of its device events' intervals (kernels, copies, sets) over the
+    wall."""
+    import torch
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return 1.0 - busy / 1e9 / wall
+
+
+def _o_traced(fn):
+    """``fn()`` under ``torch.profiler`` (device activity only): (its
+    result, its synchronized wall seconds, the idle share)."""
+    import torch
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out, wall = _sync_time(fn)
+    return out, wall, _o_busy(prof, wall)
+
+
+class _OSpy:
+    """Path O's wrappers around the port while a step runs (``with``): the
+    step's gradients after the pod sum as ``optimizer.update`` receives
+    them (a leaves list a position; the one-card step is the mesh step on
+    one position; ``skip``: the update not run, for a planted fault's
+    gradients), the compressed sum's inputs and outputs
+    (``train.grad_compress.compressed_pod_psum``), K8's first call's
+    inputs (``layers.flash_attention``), position ``keep``'s MoE routes of
+    the forward (``layers.moe_route``) and, where ``force`` holds a list
+    of experts a MoE call, ``layers.top_k`` answering with them."""
+
+    def __init__(self, *, skip=False, routes_of=(), n_pos=1, n_moe=0,
+                 force=None):
+        from repro_torch.models import layers as tlayers
+        from repro_torch.train import grad_compress as tgc
+        from repro_torch.train import optimizer as topt
+        self.mods = (tlayers, tgc, topt)
+        self.real = dict(update=topt.update, comp=tgc.compressed_pod_psum,
+                         flash=tlayers.flash_attention,
+                         route=tlayers.moe_route, top_k=tlayers.top_k)
+        self.skip, self.routes_of, self.n_pos = skip, set(routes_of), n_pos
+        self.n_moe, self.force = n_moe, force
+        self.grads = self.comp = self.qkv = None
+        self.routes, self.route_calls = {}, 0
+
+    def __enter__(self):
+        tlayers, tgc, topt = self.mods
+        spy = self
+
+        def update(params, grads, st, **kw):
+            spy.grads = grads
+            if spy.skip:
+                return params, st
+            return spy.real["update"](params, grads, st, **kw)
+
+        def comp(grads, residual, mesh):
+            out, new_r = spy.real["comp"](grads, residual, mesh)
+            if spy.comp is None:
+                spy.comp = (grads, residual, out, new_r)
+            return out, new_r
+
+        def flash(q, k, v, **kw):
+            if spy.qkv is None:
+                spy.qkv = tuple(t.detach().clone() for t in (q, k, v))
+            return spy.real["flash"](q, k, v, **kw)
+
+        def route(logits, cfg, cf):
+            out = spy.real["route"](logits, cfg, cf)
+            layer, r = divmod(spy.route_calls, spy.n_pos)
+            if layer < spy.n_moe and r in spy.routes_of:
+                spy.routes[(layer, r)] = out[1].clone()
+            spy.route_calls += 1
+            return out
+
+        def top_k(logits, k):
+            if spy.force is None:
+                return spy.real["top_k"](logits, k)
+            idx = spy.force.pop(0).reshape(logits.shape[0], k)
+            return logits.gather(-1, idx), idx
+        topt.update, tgc.compressed_pod_psum = update, comp
+        tlayers.flash_attention, tlayers.moe_route = flash, route
+        tlayers.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        tlayers, tgc, topt = self.mods
+        topt.update = self.real["update"]
+        tgc.compressed_pod_psum = self.real["comp"]
+        tlayers.flash_attention = self.real["flash"]
+        tlayers.moe_route = self.real["route"]
+        tlayers.top_k = self.real["top_k"]
+
+
+def _o_compression(spy, mesh) -> tuple:
+    """The compressed pod sum of one step held per element: ``|out -
+    sum_p (g_p + r_p)| <= sum_p scale / 2`` plus ``O_COMP_SLACK`` f32 ulps
+    of the largest |g_p + r_p| a pod (scale the pod max of max|g + r| /
+    127), and each new residual equal to ``(g + r) - q scale`` with q the
+    pod's int8 levels read back from the sum (the pods' inputs are equal:
+    the gradients are summed over pod before).  Returns (the largest
+    |diff| over its bound, the elements checked)."""
+    import torch
+    from repro_torch.train import optimizer as topt
+    grads, residual, out, new_r = spy.comp
+    res = [topt.leaves(t) for t in residual]
+    nres = [topt.leaves(t) for t in new_r]
+    worst, n = 0.0, 0
+    for i in range(len(grads[0])):
+        for grp in mesh.groups("pod"):
+            xs = [grads[r][i].float() + res[r][i] for r in grp]
+            big = max(float(x.abs().max()) for x in xs)
+            scale = xs[0].new_zeros(())
+            for x in xs:
+                scale = torch.maximum(scale, torch.clamp_min(
+                    x.abs().amax(), 1e-12) / 127.0)
+            exact = sum(x.double() for x in xs)
+            bound = len(xs) * float(scale) / 2 + O_COMP_SLACK * \
+                len(xs) * big * 2.0 ** -23
+            d = (out[grp[0]][i].double() - exact).abs()
+            worst = max(worst, float(d.max()) / bound)
+            lv = torch.round(out[grp[0]][i] / scale) / len(xs)
+            for r, x in zip(grp, xs, strict=True):
+                if not torch.equal(lv, lv.round()) or \
+                        not torch.equal(nres[r][i], x - lv * scale):
+                    raise AssertionError(f"path O compression: leaf {i}'s "
+                                         f"residual at position {r} is not "
+                                         f"(g + r) - q scale")
+            n += d.numel()
+    if worst > 1.0:
+        raise AssertionError(f"path O compression: |compressed - "
+                             f"uncompressed| {worst} times its bound")
+    return worst, n
+
+
+def _o_dense(args, dev, rows, h) -> None:
+    """Path O1: ``O_ARCH`` in its published layout cut to ``O_LAYERS``
+    layers at full width, trained on ``O_MESH`` positions of this card."""
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, single_card
+    from repro_torch.kernels import flash as tflash
+    from repro_torch.models import model as TM
+    from repro_torch.models import sharding as tsh
+    from repro_torch.serve import step as sstep
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+
+    t_path = time.perf_counter()
+    base = get_arch(O_ARCH)
+    cfg = dataclasses.replace(base, n_layers=O_LAYERS,
+                              pattern=base.pattern[:O_LAYERS])
+    one = single_card(cfg)
+    mesh = tsh.ModelMesh(O_MESH, devices=dev)
+    if TM.tree_map(lambda l: l.shape, TM.build_tree(cfg, mesh)) != \
+            TM.tree_map(lambda l: l.shape, TM.build_tree(one)):
+        raise AssertionError("path O: the TP-16 tree is not the one-card tree")
+    L, D, tokens = cfg.n_layers, mesh.size, I_BATCH * I_SEQ
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed)
+    glob = TM.init_params(one, g, dev)
+    batch = _o_batch(dev, args.seed, cfg.vocab_size)
+
+    # ---- the one-card step's loss, norm and gradients (the gate), and a
+    # control: the same with K8's plain version ----------------------------
+    torch.cuda.reset_peak_memory_stats()
+    (l1, n1, g1), t_one = _sync_time(lambda: h.uncounted(
+        lambda: _o_one_grads(one, glob, batch)))
+    peak_one = torch.cuda.max_memory_allocated() / 2**30
+    real_lse = tflash.flash_attention_lse
+    tflash.flash_attention_lse = functools.partial(
+        tflash.flash_attention_plain, return_lse=True)
+    try:
+        lp, np_, gp = _o_one_grads(one, glob, batch)
+    finally:
+        tflash.flash_attention_lse = real_lse
+    c_loss = abs(lp - l1) / abs(l1)
+    c_norm = abs(np_ / n1 - 1)
+    c_grad = max(_o_rel_l2(a, b) for a, b in zip(gp, g1, strict=True))
+    del gp
+    gate_loss = max(O_LOSS_RTOL, O_CONTROL_FACTOR * c_loss)
+    gate_norm = max(O_GNORM_RTOL, O_CONTROL_FACTOR * c_norm)
+    gate_grad = max(O_GRAD_RL2, O_CONTROL_FACTOR * c_grad)
+
+    # ---- the mesh: FSDP storage, the AdamW state and residual --------------
+    specs = TM.param_specs(cfg)
+    sp = topt.leaves(specs)
+    (params, opt, res), t_shard = _sync_time(lambda: _o_state(
+        glob, specs, mesh, residual=True))
+    del glob
+    gc.collect()
+    torch.cuda.empty_cache()
+    fn_c = tstep.make_train_step(cfg, mesh, lr=O_LR, compress_pod=True)
+    args_ = [sstep.shard_tree(t, s_, mesh)
+             for t, s_ in zip(batch, fn_c.in_specs[3:], strict=True)]
+
+    # ---- counted: O_STEPS compressed steps.  The first one's gradients as
+    # each pod holds them before the pod sum (``_OSpy``'s record of the
+    # compressed sum's inputs, the residual zero) summed over pod are the
+    # uncompressed step's: the gates read them ------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    h.reset_counters()
+    losses, norms, secs, idle, coll_c, comp = [], [], [], None, None, None
+    for i in range(O_STEPS):
+        tsh.reset_collectives()
+        if i == 0:
+            with _OSpy() as spy:
+                (params, opt, res, m), t = _sync_time(
+                    lambda: fn_c(params, opt, res, *args_))
+            coll_c = {k: dict(v) for k, v in tsh.COLLECTIVES.items()
+                      if v["calls"]}
+            qkv = spy.qkv
+            rl2, gn_u = _o_pod_sum_gate(spy.comp[0], sp, mesh, g1, dev)
+            loss_u = float(m["loss"])
+            comp = _o_compression(spy, mesh)
+            del spy
+        elif i == O_STEPS - 1:
+            (params, opt, res, m), t, idle = _o_traced(
+                lambda: fn_c(params, opt, res, *args_))
+        else:
+            (params, opt, res, m), t = _sync_time(
+                lambda: fn_c(params, opt, res, *args_))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        secs.append(t)
+    launches = h.counters()
+    lse, remat = dict(tflash.LSE_LAUNCHES), dict(tflash.REMAT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"flash": 2 * L * D * O_STEPS, "flash_decode": 0,
+            "flash_combine": 0, "flash_cc": 0, "flash_bias": 0,
+            "flash_partial": 0, "flash_merge": 0}
+    if {k: launches[k] for k in want} != want or \
+            lse["flash"] != want["flash"] or \
+            remat["flash"] != L * D * O_STEPS:
+        raise AssertionError(f"path O1 launches {launches}, with lse {lse}, "
+                             f"in remat's recompute {remat}; want {want}, "
+                             f"every one with lse, half in the recompute")
+    d_loss = abs(loss_u - l1) / abs(l1)
+    d_norm = abs(gn_u / (2 * n1) - 1)
+    if d_loss > gate_loss or d_norm > gate_norm or max(rl2) > gate_grad or \
+            not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"path O1 against the one-card step: loss "
+                             f"{loss_u} / {l1} ({d_loss}, gate {gate_loss}), "
+                             f"grad norm {gn_u} / 2 x {n1} ({d_norm}, gate "
+                             f"{gate_norm}), gradients' relative L2 up to "
+                             f"{max(rl2)} (gate {gate_grad}); losses "
+                             f"{losses}")
+    warm = statistics.median(secs[1:])
+    print(f"phase 20: path O1 ({O_ARCH} in its published layout: tp "
+          f"{cfg.tp}, tp_shard, {cfg.n_heads_padded} query / "
+          f"{cfg.n_kv_heads} KV heads, KV replicated over model; {L} of "
+          f"{base.n_layers} layers at full width, {cfg.param_count()} "
+          f"parameters) trained on mesh {O_MESH}, every position {dev}: "
+          f"FSDP storage over data, {I_BATCH} x {I_SEQ} tokens a step ("
+          f"{I_BATCH // (mesh.axis_size('pod') * mesh.axis_size('data'))} "
+          f"sequences a (pod, data) position), lr {O_LR}, remat on; "
+          f"shard_tree and the state {t_shard:.6f} s")
+    print(f"  {O_STEPS} steps with compress_pod: seconds "
+          f"{[round(x, 6) for x in secs]}, warm {warm:.6f} s, "
+          f"{tokens / warm:.1f} tokens/s; traced last step's idle share "
+          f"{idle:.6f}; losses {[round(x, 6) for x in losses]}, grad "
+          f"norms {[round(x, 6) for x in norms]}; peak memory allocated "
+          f"{peak:.3f} GiB (the one-card gate's {peak_one:.3f})")
+    print(f"  launches over the {O_STEPS} steps {dict(want)}: with lse "
+          f"{lse['flash']}, in remat's recompute {remat['flash']} (K8 a "
+          f"layer a position in the forward and again in the backward)")
+    print(f"  collectives of a step, bytes as if each position were a "
+          f"card: " + ", ".join(f"{k} {v['bytes']} ({v['calls']} calls)"
+                                for k, v in coll_c.items()))
+    q8 = coll_c.get("pod_psum_int8", {"bytes": 0})["bytes"]
+    print(f"  the pod sum: int8 payload {q8} bytes against {4 * q8} in f32 "
+          f"and {2 * q8} in the gradients' bf16 (the sum without "
+          f"compress_pod)")
+    print(f"  gates against the one-card step on the same global weights "
+          f"and batch ({t_one:.3f} s), on step 1's gradients summed over "
+          f"pod: loss {loss_u:.9f} / {l1:.9f}, relative {d_loss:.3e} (gate "
+          f"{gate_loss:.3e}; control, K8's plain version: {c_loss:.3e}); "
+          f"grad norm {gn_u:.6f} = 2 x {n1:.6f} within {d_norm:.3e} (gate "
+          f"{gate_norm:.3e}; control {c_norm:.3e}); every gathered gradient "
+          f"within relative L2 {max(rl2):.3e} of 2 x the one-card gradient "
+          f"(gate {gate_grad:.3e}; control {c_grad:.3e}; median "
+          f"{statistics.median(rl2):.3e}): the reference's pod double count")
+    print(f"  compression: |compressed - uncompressed| at most "
+          f"{comp[0]:.6f} of its bound (sum over pods of scale / 2 plus "
+          f"{O_COMP_SLACK} f32 ulps) over {comp[1]} elements; every "
+          f"residual equal to (g + r) - q scale")
+    del params, opt, res, args_, batch, g1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- K8 with lse at the path's shape, on its own q, k, v ---------------
+    q, k, v = qkv
+    g8 = torch.Generator(device=dev)
+    g8.manual_seed(args.seed + 20)
+    err = _lse_grad_check(h, g8, "path O1 layer 0 (group 2)", q, k, v,
+                          L_LSE_ATOL, I_GRAD_ULPS)
+    r8 = _k8_check(h, "path O1 (group 2)", q, k, v, 0, I_SEQ)
+    sh = _l_time(h, q, k, v, 0, I_SEQ, True)
+    row = rows["flash"]
+    row["launches"] += launches["flash"]
+    row["max_abs_err"] = max(row["max_abs_err"], err, r8["max_abs_err"])
+    row.update(path_o_launches=launches["flash"],
+               path_o_remat_launches=remat["flash"], path_o_shape=sh)
+    print(f"  K8 with lse at group 2 (q {tuple(q.shape)}, k/v "
+          f"{tuple(k.shape)}): {r8['plain']:.6f} ulps of the magnitude from "
+          f"plain, {r8['f64']:.6f} from f64; kernel {sh['ms']:.6f} ms, plain "
+          f"{sh['plain_ms']:.6f}, SDPA {sh['sdpa_ms']:.6f}, bound "
+          f"{sh['bound_ms']:.6f} ({sh['bound_by']}); its torch-op backward "
+          f"{sh['backward_ms']:.6f} ms")
+    print(f"  path O1 wall {time.perf_counter() - t_path:.1f} s")
+
+
+def _o_state(glob, specs, mesh, *, residual: bool) -> tuple:
+    """A copy of the global weights cut onto the positions (positions of a
+    device holding one shard share it), their AdamW state and, where
+    ``residual``, the compression residual."""
+    import torch
+    from repro_torch.models import model as TM
+    from repro_torch.serve import step as sstep
+    from repro_torch.train import grad_compress as tgc
+    from repro_torch.train import optimizer as topt
+    params = sstep.shard_tree(TM.tree_map(torch.clone, glob), specs, mesh)
+    return params, topt.init(params), \
+        tgc.init_residual(params) if residual else None
+
+
+def _o_moe(args, dev, rows, h) -> None:
+    """Path O2: ``O_MOE_ARCH`` in its published layout cut to
+    ``O_MOE_LAYERS`` layers, one step on ``O_MOE_MESH`` gated against the
+    one-card form fed its routes, the planted faults, then the checkpoint
+    gate on its state."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch, single_card
+    from repro_torch.kernels import flash as tflash
+    from repro_torch.models import model as TM
+    from repro_torch.models import sharding as tsh
+    from repro_torch.serve import step as sstep
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    from repro_torch.train.checkpoint import Checkpointer
+
+    t_path = time.perf_counter()
+    base = get_arch(O_MOE_ARCH)
+    cfg = dataclasses.replace(base, n_layers=O_MOE_LAYERS,
+                              pattern=base.pattern[:O_MOE_LAYERS])
+    mesh = tsh.ModelMesh(O_MOE_MESH, devices=dev)
+    # the one-card form keeps the layout's padded vocabulary in its softmax
+    one = dataclasses.replace(single_card(cfg), vocab_size=cfg.vocab_padded)
+    if TM.tree_map(lambda l: l.shape, TM.build_tree(cfg, mesh)) != \
+            TM.tree_map(lambda l: l.shape, TM.build_tree(one)):
+        raise AssertionError("path O2: the TP-16 tree is not the one-card "
+                             "tree")
+    L, D, tokens = cfg.n_layers, mesh.size, I_BATCH * I_SEQ
+    n_moe = sum(cfg.moe_at(i) for i in range(L))
+    n_data = mesh.axis_size("data")
+    keep = [mesh.position(data=d_) for d_ in range(n_data)]
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 1)
+    glob = TM.init_params(cfg, g, dev, mesh=mesh)
+    batch = _o_batch(dev, args.seed + 1, cfg.vocab_size)
+    specs = TM.param_specs(cfg)
+    sp = topt.leaves(specs)
+    fn = tstep.make_train_step(cfg, mesh, lr=O_LR)
+    args_ = [sstep.shard_tree(t, s_, mesh)
+             for t, s_ in zip(batch, fn.in_specs[3:], strict=True)]
+
+    # ---- counted: one step, its routes recorded -----------------------------
+    params, opt, _ = _o_state(glob, specs, mesh, residual=False)
+    torch.cuda.reset_peak_memory_stats()
+    h.reset_counters()
+    tsh.reset_collectives()
+    with _OSpy(routes_of=keep, n_pos=D, n_moe=n_moe) as spy:
+        (params, opt, _, m1), t1 = _sync_time(lambda: fn(params, opt, None,
+                                                         *args_))
+    l_1 = h.counters()
+    coll = {k: dict(v) for k, v in tsh.COLLECTIVES.items() if v["calls"]}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss_m, gn_m = float(m1["loss"]), float(m1["grad_norm"])
+    grads_m, routes, qkv = spy.grads, spy.routes, spy.qkv
+    del spy
+    if len(routes) != n_moe * n_data:
+        raise AssertionError(f"path O2 recorded {len(routes)} routes")
+
+    # ---- the one-card step fed those routes (uncounted): a microbatch a
+    # data shard (each position routes its own tokens, so C counts them),
+    # remat off so that the routes are asked for once each ----------------
+    force = [routes[(layer, r)] for r in keep for layer in range(n_moe)]
+    fn1 = tstep.make_train_step(one, lr=O_LR, microbatch=n_data, remat=False)
+
+    def one_step():
+        ps = TM.tree_map(torch.clone, glob)
+        with _OSpy(force=list(force)) as ospy:
+            _, st, m_ = fn1(ps, topt.init(ps), *batch)
+        if ospy.force:
+            raise AssertionError(f"path O2: {len(ospy.force)} forced routes "
+                                 f"unused")
+        # sync: ok(the gate's reference, read once)
+        return (float(m_["loss"]), float(m_["grad_norm"]),
+                [t.cpu() for t in ospy.grads[0]],
+                [t.cpu() for t in topt.leaves(st.mu)])
+    (l1, n1, g1, mu1), t_one = _sync_time(lambda: h.uncounted(one_step))
+    real_lse = tflash.flash_attention_lse
+    tflash.flash_attention_lse = functools.partial(
+        tflash.flash_attention_plain, return_lse=True)
+    try:
+        lp, np_, gp, mup = one_step()
+    finally:
+        tflash.flash_attention_lse = real_lse
+    c_loss, c_norm = abs(lp - l1) / abs(l1), abs(np_ / n1 - 1)
+    c_grad = max(_o_rel_l2(a, b) for a, b in zip(gp, g1, strict=True))
+    c_mu = max(_o_rel_l2(a, b) for a, b in zip(mup, mu1, strict=True))
+    del gp, mup
+    gate_loss = max(O_LOSS_RTOL, O_CONTROL_FACTOR * c_loss)
+    gate_norm = max(O_GNORM_RTOL, O_CONTROL_FACTOR * c_norm)
+    gate_grad = max(O_GRAD_RL2, O_CONTROL_FACTOR * c_grad)
+    gate_mu = max(O_GRAD_RL2, O_CONTROL_FACTOR * c_mu)
+
+    def mu_gate(st) -> list:
+        mus = [topt.leaves(s_.mu) for s_ in st]
+        out = []
+        for i, s_ in enumerate(sp):
+            got = _o_gather([m_[i] for m_ in mus], s_, mesh, dev)
+            out.append(_o_rel_l2(got, mu1[i].to(dev)))
+        return out
+    rl2 = _o_grad_gate(grads_m, sp, mesh, g1, dev)
+    rmu = mu_gate(opt)
+    del grads_m
+    d_loss, d_norm = abs(loss_m - l1) / abs(l1), abs(gn_m / n1 - 1)
+    if d_loss > gate_loss or d_norm > gate_norm or max(rl2) > gate_grad or \
+            max(rmu) > gate_mu:
+        raise AssertionError(f"path O2 against the one-card step fed its "
+                             f"routes: loss {loss_m} / {l1} ({d_loss}, gate "
+                             f"{gate_loss}), grad norm {gn_m} / {n1} "
+                             f"({d_norm}, gate {gate_norm}), gradients up "
+                             f"to {max(rl2)} (gate {gate_grad}), mu up to "
+                             f"{max(rmu)} (gate {gate_mu})")
+
+    # ---- planted faults, each on a fresh copy of the state (uncounted) ------
+    real_sync, real_leaf = tsh.ModelMesh.grad_sync, topt._adamw_leaf
+
+    def no_sync(self, gs, axes):          # final_ln's sum over its copies
+        return list(gs) if gs[0].dim() == 1 else real_sync(self, gs, axes)
+    fp, fo, _ = _o_state(glob, specs, mesh, residual=False)
+    tsh.ModelMesh.grad_sync = no_sync
+    try:
+        with _OSpy(skip=True) as fs:
+            h.uncounted(lambda: fn(fp, fo, None, *args_))
+        f_grad = max(_o_rel_l2(_o_gather([p[i] for p in fs.grads], s_, mesh,
+                                         dev), g1[i].to(dev))
+                     for i, s_ in enumerate(sp))
+    finally:
+        tsh.ModelMesh.grad_sync = real_sync
+    del fs, fp, fo
+    hit = []
+
+    def twice(p, *a, **kw):               # final_ln updated twice
+        real_leaf(p, *a, **kw)
+        if p.dim() == 1 and not hit:
+            hit.append(p)
+            real_leaf(p, *a, **kw)
+    fp, fo, _ = _o_state(glob, specs, mesh, residual=False)
+    topt._adamw_leaf = twice
+    try:
+        _, fo, _, _ = h.uncounted(lambda: fn(fp, fo, None, *args_))
+    finally:
+        topt._adamw_leaf = real_leaf
+    f_mu = max(mu_gate(fo))
+    del fp, fo
+    if not (f_grad > gate_grad and f_mu > gate_mu):
+        raise AssertionError(f"path O2 planted faults pass the gates: "
+                             f"final_ln unsynced {f_grad}, updated twice "
+                             f"{f_mu}")
+    print(f"phase 20: path O2 ({O_MOE_ARCH} in its published layout: tp "
+          f"{cfg.tp}, {cfg.n_experts_padded // cfg.tp} of "
+          f"{cfg.n_experts_padded} experts a position, top "
+          f"{cfg.moe.top_k}, {cfg.n_heads_padded} query / {cfg.n_kv_heads} "
+          f"KV heads, KV replicated; {L} of {base.n_layers} layers, "
+          f"{cfg.param_count()} parameters) on mesh {O_MOE_MESH}: step "
+          f"{t1:.6f} s, {tokens / t1:.1f} tokens/s, loss {loss_m:.6f}, grad "
+          f"norm {gn_m:.6f}; peak memory allocated {peak:.3f} GiB; launches "
+          f"{ {k: v for k, v in l_1.items() if v} }")
+    print(f"  collectives, bytes as if each position were a card: " +
+          ", ".join(f"{k} {v['bytes']} ({v['calls']} calls)"
+                    for k, v in coll.items()))
+    print(f"  gates against the one-card step fed the mesh's routes "
+          f"({t_one:.3f} s; a microbatch a data shard): loss relative "
+          f"{d_loss:.3e} (gate {gate_loss:.3e}; control {c_loss:.3e}), grad "
+          f"norm {d_norm:.3e} (gate {gate_norm:.3e}; control "
+          f"{c_norm:.3e}), gradients' relative L2 up to {max(rl2):.3e} "
+          f"(gate {gate_grad:.3e}; control {c_grad:.3e}), AdamW mu up to "
+          f"{max(rmu):.3e} (gate {gate_mu:.3e}; control {c_mu:.3e})")
+    print(f"  planted faults caught: final_ln's gradient not summed over "
+          f"its {D} copies {f_grad:.3e}, final_ln updated twice (mu) "
+          f"{f_mu:.3e}")
+
+    # ---- the checkpoint: save at step 2, restore onto the same mesh and
+    # onto O_RESHARD; step 3 from the restore against step 3 live ----------
+    all_specs = {"params": specs, "opt": topt.state_specs(specs)}
+
+    def per(ps, st):
+        return [{"params": a, "opt": b} for a, b in zip(ps, st, strict=True)]
+    store_dir = ROOT / "build"
+    store_dir.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="path_o_ckpt_", dir=store_dir)
+    h.reset_counters()
+    try:
+        (params, opt, _, m2), t2, idle = _o_traced(
+            lambda: fn(params, opt, None, *args_))
+        saved = sstep.gather_tree(per(params, opt), all_specs, mesh,
+                                  device="cpu")
+        ck = Checkpointer(tmp)
+        _, t_save = _sync_time(lambda: ck.save(2, per(params, opt),
+                                               blocking=True, mesh=mesh,
+                                               specs=all_specs))
+        (params, opt, _, m3), t3 = _sync_time(
+            lambda: fn(params, opt, None, *args_))
+        live = (float(m3["loss"]), sstep.gather_tree(params, specs, mesh,
+                                                     device="cpu"))
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        for shape in (O_MOE_MESH, O_RESHARD):
+            m_ = tsh.ModelMesh(shape, devices=dev)
+            back, t_r = _sync_time(lambda: ck.restore(2, saved, mesh=m_,
+                                                      specs=all_specs))
+            got = sstep.gather_tree(back, all_specs, m_, device="cpu")
+            for a, b in zip(topt.leaves(got), topt.leaves(saved),
+                            strict=True):
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    raise AssertionError(f"path O2: the state restored onto "
+                                         f"{shape} differs from the saved")
+            if shape == O_MOE_MESH:
+                ps = [b["params"] for b in back]
+                st = [b["opt"] for b in back]
+                _, _, _, mb = fn(ps, st, None, *args_)
+                again = (float(mb["loss"]), sstep.gather_tree(
+                    ps, specs, m_, device="cpu"))
+                if again[0] != live[0] or not all(
+                        torch.equal(a, b) for a, b in zip(
+                            topt.leaves(again[1]), topt.leaves(live[1]),
+                            strict=True)):
+                    raise AssertionError(f"path O2: step 3 from the restore "
+                                         f"(loss {again[0]}) differs from "
+                                         f"step 3 live ({live[0]})")
+                del ps, st, mb
+            print(f"  checkpoint of step 2 restored onto {shape} in "
+                  f"{t_r:.3f} s: every gathered leaf equal to the saved bit "
+                  f"for bit" + (", step 3 from it equal to step 3 live "
+                               f"(loss {live[0]:.9f}) bit for bit"
+                               if shape == O_MOE_MESH else ""))
+            del back, got
+        launches_c = h.counters()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = 2 * L * D
+    if l_1["flash"] != want or launches_c["flash"] != 3 * want:
+        raise AssertionError(f"path O2 launches {l_1['flash']}, "
+                             f"{launches_c['flash']}; want {want} a step")
+    print(f"  steps 2 and 3: {t2:.6f} s (traced: idle share {idle:.6f}), "
+          f"{t3:.6f} s; losses {float(m2['loss']):.6f}, {live[0]:.6f}; "
+          f"save {t_save:.3f} s ({sum(t.numel() * t.element_size() for t in topt.leaves(saved))} "
+          f"bytes)")
+    q, k, v = qkv
+    r8 = _k8_check(h, "path O2 (group 1)", q, k, v, 0, I_SEQ)
+    row = rows["flash"]
+    row["launches"] += l_1["flash"] + launches_c["flash"]
+    row["max_abs_err"] = max(row["max_abs_err"], r8["max_abs_err"])
+    print(f"  K8 at group 1 (q {tuple(q.shape)}, k/v {tuple(k.shape)}): "
+          f"{r8['plain']:.6f} ulps of the magnitude from plain, "
+          f"{r8['f64']:.6f} from f64; path O2 wall "
+          f"{time.perf_counter() - t_path:.1f} s")
+
+
+def _path_o(args, dev, rows, h) -> None:
+    """Phase 20, path O: training on a mesh (O1, then O2), counted."""
+    t0 = time.perf_counter()
+    _o_dense(args, dev, rows, h)
+    gc.collect()
+    import torch
+    torch.cuda.empty_cache()
+    _o_moe(args, dev, rows, h)
+    print(f"  path O wall {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     args = _args(argv)
     import numpy as np
@@ -7966,6 +8699,13 @@ def main(argv=None) -> int:
 
     # ---- phase 19: path N (MoE and Mamba under TP, long_500k), counted ----
     _path_n(args, dev, rows, h)
+    print(f"  wall {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- phase 20: path O (training on a mesh), counted --------------------
+    _path_o(args, dev, rows, h)
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
 
     smi = _card()

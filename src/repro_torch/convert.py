@@ -268,22 +268,27 @@ def _lm_leaf(a, dev) -> torch.Tensor:
     return torch.from_numpy(a).to(dev)
 
 
-def lm_params_from_arrays(tree: dict, cfg, *, device=None,
-                          mesh=None) -> dict:
+def lm_params_from_arrays(tree: dict, cfg, *, device=None, mesh=None,
+                          fsdp: bool = False, share: bool = True) -> dict:
     """The port's LM parameter tree (``models.model``, MoE leaves included)
     from the reference's as numpy arrays, bit for bit; every leaf's shape
     is checked against ``build_tree(cfg)``.  With ``mesh`` (a
     ``ModelMesh``) the reference's GLOBAL tree (padded for tensor
     parallelism where ``cfg.tp_shard``) is carried to ``device`` (default
     the mesh's first position's) and cut onto the positions by
-    ``serve.step.shard_tree`` under the serving specs: a list of trees, one
-    a position."""
+    ``serve.step.shard_tree``: a list of trees, one a position, under the
+    serving specs (the weights gathered over ``data``), or with ``fsdp``
+    under ``param_specs`` (training's FSDP storage; ``share`` as
+    ``shard_tree``'s).  Any tree of the parameters' shapes carries across
+    the same way, whatever its dtype: the compression residual (f32)."""
     if mesh is None:
         return _lm_tree(tree, cfg, resolve_device(device))
+    from .models.model import param_specs
     from .serve.step import serve_param_specs, shard_tree
     dev = mesh.devices[0] if device is None else resolve_device(device)
-    return shard_tree(_lm_tree(tree, cfg, dev, mesh), serve_param_specs(cfg),
-                      mesh)
+    specs = param_specs(cfg) if fsdp else serve_param_specs(cfg)
+    return shard_tree(_lm_tree(tree, cfg, dev, mesh), specs, mesh,
+                      share=share)
 
 
 def lm_caches_from_arrays(tree: dict, cfg, *, device=None, mesh=None,
@@ -329,18 +334,29 @@ def lm_caches_from_arrays(tree: dict, cfg, *, device=None, mesh=None,
                       share=False)
 
 
-def adamw_state_from_arrays(tree: dict, cfg, *, device=None):
+def adamw_state_from_arrays(tree: dict, cfg, *, device=None, mesh=None,
+                            share: bool = True):
     """The port's ``train.optimizer.AdamWState`` from the reference's
     ``AdamWState`` as numpy arrays: ``mu``, ``nu`` and ``master`` (f32
     trees shaped as the parameters, checked against ``build_tree(cfg)``)
-    and ``step``, bit for bit."""
+    and ``step``, bit for bit.  With ``mesh``: the GLOBAL state cut onto
+    its positions by ``optimizer.state_specs(param_specs(cfg))``, a list
+    of states, one a position (``share`` as ``shard_tree``'s)."""
     from .train.optimizer import AdamWState
-    dev = resolve_device(device)
-    return AdamWState(
-        mu=_lm_tree(tree["mu"], cfg, dev), nu=_lm_tree(tree["nu"], cfg, dev),
-        master=_lm_tree(tree["master"], cfg, dev),
+    dev = resolve_device(device) if mesh is None or device is not None \
+        else mesh.devices[0]
+    st = AdamWState(
+        mu=_lm_tree(tree["mu"], cfg, dev, mesh),
+        nu=_lm_tree(tree["nu"], cfg, dev, mesh),
+        master=_lm_tree(tree["master"], cfg, dev, mesh),
         step=torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32,
                           device=dev))
+    if mesh is None:
+        return st
+    from .models.model import param_specs
+    from .serve.step import shard_tree
+    from .train.optimizer import state_specs
+    return shard_tree(st, state_specs(param_specs(cfg)), mesh, share=share)
 
 
 def _lm_tree(tree: dict, cfg, dev, mesh=None) -> dict:

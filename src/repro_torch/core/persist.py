@@ -66,6 +66,7 @@ import queue
 import shutil
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -83,6 +84,9 @@ from .updates import DynamicRMI, _psum, _to_host
 
 SCHEMA = 1
 _STEP_FMT = "step_{:08d}"
+# threads that encode and checksum (or read, check and decode) a snapshot's
+# files side by side: md5, crc32 and file I/O release the GIL
+_IO_THREADS = min(8, os.cpu_count() or 1)
 
 
 class SnapshotError(IOError):
@@ -170,6 +174,26 @@ def _npz_key(name: str) -> str:
     # np.savez keywords cannot carry dots reliably; names round-trip via
     # the manifest, so the on-disk key just needs to be collision-free.
     return name.replace(".", "__")
+
+
+def _encode_file(fname: str, arrays: dict) -> tuple:
+    """(the manifest's entry of one snapshot file, its bytes): a ``.npy``
+    of its one array or an npz of them, and the md5 of the bytes."""
+    buf = io.BytesIO()
+    entry = {"arrays": {}}
+    enc = {}
+    for name, arr in arrays.items():
+        store, tag = _encode_array(arr)
+        enc[_npz_key(name)] = store
+        entry["arrays"][name] = {"shape": list(store.shape), "dtype": tag}
+    if fname.endswith(".npy"):
+        (store,) = enc.values()
+        np.save(buf, store)
+    else:
+        np.savez(buf, **enc)
+    data = buf.getvalue()
+    entry["md5"] = hashlib.md5(data).hexdigest()
+    return entry, data
 
 
 def _write_bytes(path: str, data: bytes) -> None:
@@ -273,25 +297,14 @@ class SnapshotStore:
         os.makedirs(d, exist_ok=True)
         manifest = {"schema": SCHEMA, "kind": self.kind, "step": step,
                     "time": time.time(), "meta": meta, "files": {}}
-        for fname, arrays in files.items():
-            buf = io.BytesIO()
-            entry = {"arrays": {}}
-            enc = {}
-            for name, arr in arrays.items():
-                store, tag = _encode_array(arr)
-                enc[_npz_key(name)] = store
-                entry["arrays"][name] = {"shape": list(store.shape),
-                                         "dtype": tag}
-            if fname.endswith(".npy"):
-                (store,) = enc.values()
-                np.save(buf, store)
-            else:
-                np.savez(buf, **enc)
-            data = buf.getvalue()
-            del buf, enc
-            entry["md5"] = hashlib.md5(data).hexdigest()
-            self._retried_write(os.path.join(d, fname), data)
-            manifest["files"][fname] = entry
+        # the files are encoded and hashed in threads, and written one
+        # after another in their order
+        with ThreadPoolExecutor(_IO_THREADS) as ex:
+            encoded = ex.map(lambda kv: _encode_file(*kv), files.items())
+            for fname, (entry, data) in zip(files, encoded, strict=True):
+                self._retried_write(os.path.join(d, fname), data)
+                manifest["files"][fname] = entry
+                del data
         self._retried_write(os.path.join(d, "manifest.json"),
                             json.dumps(manifest).encode())
         final = os.path.join(self.directory, _STEP_FMT.format(step))
@@ -339,6 +352,18 @@ class SnapshotStore:
                 f"step {step}: manifest schema mismatch "
                 f"(got {manifest.get('schema')!r}, want {SCHEMA})")
         return manifest
+
+    def load_files(self, step: int, fnames, manifest: dict | None = None,
+                   *, verify: bool = True) -> dict:
+        """``load_file`` of each of ``fnames``, all at once in threads:
+        {fname: a future of its arrays}, whose ``result()`` raises what
+        that file's load raised (read them in the order the caller would
+        have loaded them, and the same error surfaces first)."""
+        if manifest is None:
+            manifest = self.read_manifest(step)
+        with ThreadPoolExecutor(_IO_THREADS) as ex:
+            return {f: ex.submit(self.load_file, step, f, manifest,
+                                 verify=verify) for f in fnames}
 
     def load_file(self, step: int, fname: str, manifest: dict | None = None,
                   *, verify: bool = True) -> dict:
@@ -838,11 +863,13 @@ def _restore_one(store: SnapshotStore, step: int, mesh, axis: str,
             f"{KIND_SHARDED!r}")
     meta = manifest["meta"]
     n_from = int(meta["n_shards"])
-    glob = store.load_file(step, "index.npz", manifest)
+    names = ["index.npz"] + (["pool.npz"] if "pool" in meta else []) + \
+        [_SHARD_FMT.format(s) for s in range(n_from)]
+    loaded = store.load_files(step, names, manifest)
+    glob = loaded["index.npz"].result()
     pool = None
     if "pool" in meta:
-        pool = _restore_pool(store.load_file(step, "pool.npz", manifest),
-                             meta["pool"], dev)
+        pool = _restore_pool(loaded["pool.npz"].result(), meta["pool"], dev)
     n_to = _n_shards(mesh, axis)
     report = RestoreReport(step=step, n_shards_from=n_from, n_shards=n_to)
     # a snapshot's shard s restores onto the position that would hold it on
@@ -853,8 +880,7 @@ def _restore_one(store: SnapshotStore, step: int, mesh, axis: str,
         spool = None if pool is None else pool.replica(sdev)
         try:
             shards.append(_restore_shard(
-                store.load_file(step, _SHARD_FMT.format(s), manifest),
-                sm, spool, sdev))
+                loaded.pop(_SHARD_FMT.format(s)).result(), sm, spool, sdev))
         except SnapshotCorruption as e:
             if on_corrupt != "quarantine":
                 raise

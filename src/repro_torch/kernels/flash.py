@@ -66,7 +66,9 @@ Training (``FlashAttention``, which ``flash_attention`` takes whenever
 autograd records): the forward launches the same tensor-core, CUDA-core or
 bias tile with its ``lse`` output, each row's f32 log-sum-exp ``m +
 log(l)`` of (B, H, Sq) (of the biased scores in the bias form), counted in
-``LAUNCHES`` as any launch of the tile and in ``LSE_LAUNCHES`` besides; the
+``LAUNCHES`` as any launch of the tile and in ``LSE_LAUNCHES`` besides, and
+in ``REMAT_LAUNCHES`` too where the autograd engine runs it inside a
+backward pass (a checkpoint's recompute: remat); the
 split-KV decode tile writes no ``lse`` and raises.  The backward (``flash_attention_bwd``) is torch ops, not a
 kernel: the reference's TPU kernel is forward only and the reference
 trains by XLA's autodiff of its jnp scan, so the port recomputes the
@@ -93,6 +95,7 @@ LAUNCHES = {"flash": 0, "flash_decode": 0, "flash_combine": 0,
             "flash_merge": 0}
 LSE_LAUNCHES = {"flash": 0, "flash_cc": 0,   # of those, with the lse output
                 "flash_bias": 0}
+REMAT_LAUNCHES = dict(LSE_LAUNCHES)           # of those, inside a backward
 
 DIMS = (16, 32, 64, 128)         # head dims the kernels are instantiated for
 TC_DIMS = (64, 128)               # head dims of the bf16 tiles
@@ -102,8 +105,14 @@ KEY_TILE = 64                     # keys a tile of every kernel
 BWD_Q_BLOCK = 256                 # query rows a block of the backward
 
 
+def in_backward() -> bool:
+    """Whether the autograd engine is running a backward pass on this
+    thread: a forward run now is a checkpoint's recompute."""
+    return torch._C._current_graph_task_id() != -1
+
+
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LSE_LAUNCHES):
+    for counts in (LAUNCHES, LSE_LAUNCHES, REMAT_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -404,6 +413,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
     LAUNCHES[tile] += 1
     if lse is not None:
         LSE_LAUNCHES[tile] += 1
+        if in_backward():
+            REMAT_LAUNCHES[tile] += 1
     return out
 
 

@@ -32,8 +32,18 @@ leaf is cut, and the blocks end in the reference's collectives.  Tensor-
 parallel layouts (``cfg.tp_shard``) run only there: attention, the dense
 MLP, the MoE FFN (experts over ``model``) and Mamba (``d_inner`` over
 ``model``, its states the position's channels, replicated over ``data``
-in sequence-sharded decode).  The xLSTM blocks under ``tp_shard`` and
-training on a mesh raise ``not_ported`` (ROADMAP queue 1 items 14d, 14e).
+in sequence-sharded decode).  The xLSTM blocks under ``tp_shard`` raise
+``not_ported`` (ROADMAP queue 1 item 14d); the reference replicates them.
+
+Training on a mesh (``forward(..., mode="train", mesh=)``, ``lm_loss(...,
+mesh=)``) is the reference's ``shard_map`` step: every leaf cut by its
+whole spec, ``data`` included (FSDP storage, ``param_specs``), each
+superblock's leaves gathered over ``data`` (``ModelMesh.fsdp_gather``)
+inside its checkpoint, so that the backward gathers them again rather
+than keeping them, the embedding and the head gathered where they are
+used, and the loss the vocab-sharded cross-entropy summed over the batch
+axes.  ``param_sync_axes`` names the axes each leaf is replicated on,
+over which ``train.step`` sums its gradients.
 """
 from __future__ import annotations
 
@@ -44,7 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import not_ported, resolve_device
 from . import layers, ssm, xlstm
-from .sharding import FSDP, TP
+from .sharding import FSDP, TP, batch_axes_for
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -218,6 +228,22 @@ def param_specs(cfg) -> dict:
            if k != "sb"}
     out["sb"] = tree_map(lambda l: (None,) + l.spec, tree["sb"])
     return out
+
+
+def param_sync_axes(cfg) -> dict:
+    """Each leaf's mesh axes it is replicated on (those its spec does not
+    name), comma-joined in pod, data, model order: the axes its gradient
+    is summed over (the reference's ``param_sync_axes``, ``repro/models/
+    model.py:194``)."""
+    return tree_map(lambda spec: ",".join(
+        a for a in ("pod", "data", "model") if a not in spec),
+        param_specs(cfg))
+
+
+def fsdp_dim(spec) -> int | None:
+    """The dimension a leaf's spec cuts over ``data`` (the FSDP
+    dimension), or None."""
+    return spec.index(FSDP) if FSDP in spec else None
 
 
 def tree_map(fn, tree, *rest):
@@ -473,13 +499,14 @@ def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
     With ``mesh`` (a ``ModelMesh``) ``params``, ``inputs``, ``pos`` and
     ``caches`` are lists over its positions (``_forward_mesh``), and so is
     the hidden state returned; ``seq_sharded`` decodes against caches
-    whose time axis is cut over ``data``."""
+    whose time axis is cut over ``data``; ``mode="train"`` on a mesh takes
+    the parameters in FSDP storage (``_train_mesh``)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"forward(mode={mode!r}): train, prefill or decode")
     if mesh is not None:
         return _forward_mesh(params, cfg, inputs, pos=pos, caches=caches,
                              mode=mode, cache_len=cache_len,
-                             seq_sharded=seq_sharded, mesh=mesh)
+                             seq_sharded=seq_sharded, mesh=mesh, remat=remat)
     if seq_sharded:
         raise not_ported("sequence-sharded KV caches without a mesh (pass "
                          "mesh=, a ModelMesh)", "14d")
@@ -523,16 +550,31 @@ def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
     return x, caches
 
 
+def gather_fsdp(trees: list, specs, mesh) -> list:
+    """The positions' trees with every leaf gathered over ``data`` along
+    the dimension its spec cuts (``fsdp_dim``; the other leaves as they
+    are): the reference's ``fsdp_gather`` at each use, as one collective a
+    leaf.  ``specs`` is the trees' spec tree."""
+    per = tree_map(lambda spec, *ws: list(ws) if fsdp_dim(spec) is None
+                   else mesh.fsdp_gather(list(ws), fsdp_dim(spec)),
+                   specs, *trees)
+    return [tree_map(lambda ws, _r=r: ws[_r], per) for r in range(len(trees))]
+
+
 def _forward_mesh(params: list, cfg, inputs: list, *, pos: list, caches,
-                  mode: str, cache_len, seq_sharded: bool, mesh) -> tuple:
+                  mode: str, cache_len, seq_sharded: bool, mesh,
+                  remat: bool = True) -> tuple:
     """``forward`` on a mesh (the reference's under ``shard_map``,
     ``repro/models/model.py:325-366``): the embedding (``tp_psum`` of the
     vocab shards' rows), then each layer a position at a time between its
-    collectives.  Serving only: ``mode="train"`` raises."""
+    collectives.  ``mode="train"`` takes FSDP storage (``_train_mesh``)."""
     _supported(cfg)
     _layout(cfg, mesh)
     if mode == "train":
-        raise not_ported("training on a mesh", "14e")
+        if caches is not None or seq_sharded:
+            raise ValueError("mode='train' takes no caches")
+        return _train_mesh(params, cfg, inputs, pos=pos, remat=remat,
+                           mesh=mesh), None
     if seq_sharded and (caches is None or mode != "decode"):
         raise ValueError("seq_sharded decodes against sequence-sharded "
                          "caches: mode='decode' with caches")
@@ -572,6 +614,40 @@ def _forward_mesh(params: list, cfg, inputs: list, *, pos: list, caches,
     return x, caches
 
 
+def _train_mesh(params: list, cfg, inputs: list, *, pos: list, remat: bool,
+                mesh) -> list:
+    """The training forward on a mesh: ``params`` in FSDP storage (cut by
+    ``param_specs``).  The embedding gathered over ``data``, then each
+    superblock: its leaves gathered (``gather_fsdp``) and its layers run
+    as in serving (``_run_block_mesh``), under ``torch.utils.checkpoint``
+    with ``remat`` while autograd records, so that the backward gathers
+    the leaves and runs the layers (K8 included) again.  Returns the
+    hidden states, a list over the positions."""
+    D = mesh.size
+    if cfg.embed_input:
+        x = [t.to(BF16) for t in inputs]
+    else:
+        tables = mesh.fsdp_gather([p["embed"] for p in params], 1)
+        x = embed_tokens([{"embed": w} for w in tables], cfg, inputs,
+                         cfg.tp_shard, mesh=mesh)
+    specs = tree_map(lambda l: l.spec, _tree(cfg)["sb"])
+    per = [unstack(params[r]["sb"], cfg.n_sb) for r in range(D)]
+
+    def superblock(x, layer):
+        blks = gather_fsdp([per[r][layer] for r in range(D)], specs, mesh)
+        for i in range(cfg.sb):
+            x, _ = _run_block_mesh(cfg, cfg.pattern[i],
+                                   [b[f"pos{i}"] for b in blks], x, pos=pos,
+                                   cache=None, mesh=mesh)
+        return x
+
+    ckpt = remat and torch.is_grad_enabled()
+    for layer in range(cfg.n_sb):
+        x = checkpoint(superblock, x, layer, use_reentrant=False) if ckpt \
+            else superblock(x, layer)
+    return x
+
+
 def lm_logits(params, cfg, x: torch.Tensor, tp_shard: bool,
               mesh=None) -> torch.Tensor:
     """(B, S, V_padded) f32 logits.  On a mesh (lists over its positions)
@@ -601,15 +677,21 @@ def _chunk_loss(hc: torch.Tensor, lc: torch.Tensor, w: torch.Tensor) -> tuple:
     return ((lse - true) * valid).sum(), valid.sum()
 
 
-def lm_loss(params, cfg, x: torch.Tensor, labels: torch.Tensor,
-            tp_shard: bool, seq_chunk: int = 512) -> torch.Tensor:
+def lm_loss(params, cfg, x, labels, tp_shard: bool, seq_chunk: int = 512,
+            mesh=None):
     """Mean cross-entropy over the labels >= 0, in chunks of ``seq_chunk``
     positions (label -1 pads the last one), so the full (B, S, V) f32
     logits never exist at once; under a gradient each chunk is checkpointed
     (its logits recomputed in the backward), as the reference remats
-    ``chunk_loss``.  The chunk totals are added in chunk order."""
-    if tp_shard:
-        raise not_ported("lm_loss under tp_shard (training on a mesh)", "14e")
+    ``chunk_loss``.  The chunk totals are added in chunk order.
+
+    With ``mesh`` (``params``, ``x`` and ``labels`` lists over its
+    positions, the parameters in FSDP storage): ``_lm_loss_mesh``, a list
+    of the loss on every position."""
+    if mesh is not None:
+        return _lm_loss_mesh(params, cfg, x, labels, tp_shard, seq_chunk,
+                             mesh)
+    layers._no_tp(tp_shard)
     B, S, d = x.shape
     h = layers.rms_norm(x, params["final_ln"], cfg.norm_eps)
     w = params["lm_head"]
@@ -627,3 +709,74 @@ def lm_loss(params, cfg, x: torch.Tensor, labels: torch.Tensor,
             else _chunk_loss(*args)
         tot, cnt = tot + t, cnt + n
     return tot / cnt.clamp_min(1.0)
+
+
+def _chunk_loss_mesh(hcs: list, lcs: list, ws: list, bases: list, tp_shard,
+                     mesh) -> tuple:
+    """One chunk of ``_lm_loss_mesh``: each position's (sum of the chunk's
+    nll, its valid count).  Under ``tp_shard`` each position holds the
+    logits of its vocab range ``[base, base + V_l)``: the stability offset
+    is their max over ``model`` (``pmax``, outside the gradient), the
+    sum of the exponentials and the true label's logit (zero outside the
+    range) are summed over ``model`` (``tp_psum``)."""
+    logits = [layers.matmul_f32(hc, w) for hc, w in zip(hcs, ws, strict=True)]
+    mx = [lg.amax(-1).detach() for lg in logits]
+    if tp_shard:
+        mx = mesh.pmax(mx)
+    se = [torch.exp(lg - m[..., None]).sum(-1)
+          for lg, m in zip(logits, mx, strict=True)]
+    if tp_shard:
+        se = mesh.tp_psum(se)
+    true = []
+    for lg, lc, base in zip(logits, lcs, bases, strict=True):
+        V = lg.shape[-1]
+        loc = lc - base
+        ok = (loc >= 0) & (loc < V)
+        t = lg.gather(-1, loc.clamp(0, V - 1).long()[..., None])[..., 0]
+        true.append(torch.where(ok, t, t.new_zeros(())))
+    if tp_shard:
+        true = mesh.tp_psum(true)
+    tots, cnts = [], []
+    for s_, m, t, lc in zip(se, mx, true, lcs, strict=True):
+        lse = torch.log(s_) + m
+        valid = (lc >= 0).to(F32)
+        tots.append(((lse - t) * valid).sum())
+        cnts.append(valid.sum())
+    return tots, cnts
+
+
+def _lm_loss_mesh(params: list, cfg, x: list, labels: list, tp_shard: bool,
+                  seq_chunk: int, mesh) -> list:
+    """``lm_loss`` on a mesh (``repro/models/model.py:384-435``): the head
+    gathered over ``data``, each position's chunks (``_chunk_loss_mesh``,
+    checkpointed under a gradient) added in chunk order, then the totals
+    and counts summed over the batch axes (``batch_psum``).  Every
+    position's loss is the same scalar; a step differentiates one of
+    them."""
+    D = mesh.size
+    ws = mesh.fsdp_gather([p["lm_head"] for p in params], 0)
+    bases = [mesh.axis_index(TP, r) * ws[r].shape[1] if tp_shard else 0
+             for r in range(D)]
+    S = x[0].shape[1]
+    ch = min(seq_chunk, S)
+    nch = -(-S // ch)
+    pad = nch * ch - S
+    hp = [torch.nn.functional.pad(layers.rms_norm(xr, p["final_ln"],
+                                                  cfg.norm_eps),
+                                  (0, 0, 0, pad))
+          for p, xr in zip(params, x, strict=True)]
+    lp = [torch.nn.functional.pad(lb, (0, pad), value=-1) for lb in labels]
+    tot = [torch.zeros((), dtype=F32, device=xr.device) for xr in x]
+    cnt = [torch.zeros((), dtype=F32, device=xr.device) for xr in x]
+    grad = torch.is_grad_enabled()
+    for c in range(nch):
+        sl = slice(c * ch, (c + 1) * ch)
+        args = ([h[:, sl] for h in hp], [lb[:, sl] for lb in lp], ws, bases,
+                tp_shard, mesh)
+        t, n = checkpoint(_chunk_loss_mesh, *args, use_reentrant=False) \
+            if grad else _chunk_loss_mesh(*args)
+        tot = [a + b for a, b in zip(tot, t, strict=True)]
+        cnt = [a + b for a, b in zip(cnt, n, strict=True)]
+    if batch_axes_for(mesh):
+        tot, cnt = mesh.batch_psum(tot), mesh.batch_psum(cnt)
+    return [a / b.clamp_min(1.0) for a, b in zip(tot, cnt, strict=True)]

@@ -28,16 +28,29 @@ an all-gather of n shards of b bytes (n - 1) b into each), as
 ``core.distributed.EXCHANGE`` counts the index's exchange; reset it with
 ``reset_collectives`` before a step.
 
+Training adds the collectives of the reference's step (``repro/train/
+step.py``): ``fsdp_gather`` (its ``lax.all_gather(..., "data", tiled=True)``
+of a weight's FSDP shards, whose autograd backward is the reduce-scatter
+over ``data``: ZeRO's gradient reduction), ``pmax`` (the loss's stability
+offset over ``model``, outside the gradient), ``batch_psum`` (the loss's
+``psum_forced`` over pod and data), ``grad_sync`` (the sum of a replicated
+leaf's gradients over the axes it is replicated on, which the reference's
+varying-axes types insert as the transpose of an implicit broadcast) and
+``pod_psum``.  Each is counted in ``COLLECTIVES``; so are the transposes
+the backward runs (``tp_psum``'s all-reduce of the cotangent, under
+``tp_psum``; ``fsdp_gather``'s under ``reduce_scatter``).  Serving holds
+the weights gathered over ``data`` (the reference's
+``replicate_weights=True``) and never calls ``fsdp_gather``.
+
+``psum_dtype`` (a field of the mesh, set by ``train.step.make_train_step``
+from its argument of that name: the reference's ``set_psum_dtype``, which
+is a global there) casts every ``tp_psum``'s operands to that dtype
+before the sum, as the reference does.
+
 The reference's typing helpers (``pvary_all``, ``scan_aligned``,
 ``psum_forced``, ``unvary``, its jax 0.4.x compat shim, ``set_mesh_axes``,
 ``set_batch_axes``) manage JAX's varying-manual-axes types and are numeric
-identities; the port has no such types and keeps none of them.  Nor does
-it keep ``set_psum_dtype``: the TP psum sums in the dtype it is given,
-as the reference's does by default.  Its FSDP
-gather (``fsdp_gather``, ``set_fsdp_gather``) is the identity here too:
-serving holds the weights gathered over ``data`` (the reference's
-``replicate_weights=True``), and FSDP storage is training's, ROADMAP queue
-1 item 14e.
+identities; the port has no such types and keeps none of them.
 """
 from __future__ import annotations
 
@@ -52,7 +65,10 @@ AXES = (POD, FSDP, TP)
 
 # calls and bytes between positions a kind, as if each position were a card
 COLLECTIVES = {k: {"calls": 0, "bytes": 0}
-               for k in ("tp_psum", "all_gather", "gather_stack")}
+               for k in ("tp_psum", "all_gather", "gather_stack",
+                         "fsdp_gather", "reduce_scatter", "pmax",
+                         "batch_psum", "grad_sync", "pod_pmax", "pod_psum",
+                         "pod_psum_int8")}
 
 
 def reset_collectives() -> None:
@@ -67,16 +83,74 @@ def _device(d) -> torch.device:
     return dev
 
 
+def _count(kind: str, nbytes: int) -> None:
+    COLLECTIVES[kind]["calls"] += 1
+    COLLECTIVES[kind]["bytes"] += int(nbytes)
+
+
+class _Tally(torch.autograd.Function):
+    """The identity, whose backward counts one collective of ``kind``: the
+    transpose a collective's backward runs."""
+
+    @staticmethod
+    def forward(ctx, x, kind: str, nbytes: int):
+        ctx.kind, ctx.nbytes = kind, nbytes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count(ctx.kind, ctx.nbytes)
+        return g, None, None
+
+
+def _tallied(x: torch.Tensor, kind: str, nbytes: int) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Tally.apply(x, kind, nbytes)
+    return x
+
+
+class _FsdpGather(torch.autograd.Function):
+    """The shards of one ``data`` group concatenated along ``dim``, one
+    result a device of the group; backward the reduce-scatter: shard j's
+    gradient is slice j of the results' gradients summed in device order,
+    in their dtype, on shard j's device (counted as ``reduce_scatter``)."""
+
+    @staticmethod
+    def forward(ctx, dim: int, devs: tuple, nbytes: int, *shards):
+        ctx.dim, ctx.nbytes = dim, nbytes
+        ctx.homes = [s.device for s in shards]
+        ctx.width = shards[0].shape[dim]
+        # sync: ok(device to device: the shards of a group)
+        return tuple(torch.cat([s.to(d) for s in shards], dim) for d in devs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        _count("reduce_scatter", ctx.nbytes)
+        k, out = ctx.width, []
+        for j, home in enumerate(ctx.homes):
+            acc = None
+            for g in gs:
+                if g is None:
+                    continue
+                # sync: ok(device to device: a slice of the gradient)
+                part = g.narrow(ctx.dim, j * k, k).to(home)
+                acc = part if acc is None else acc + part
+            out.append(acc)
+        return (None, None, None, *out)
+
+
 @dataclass(frozen=True)
 class ModelMesh:
     """A (pod, data, model) grid of positions: ``shape`` the sizes of the
     axes in ``axis_names`` (a subset of pod, data, model in that order;
     an axis left out has size 1), ``devices`` one device a position in
     row-major order (a single device, or None for the entry point's
-    default, puts every position there)."""
+    default, puts every position there); ``psum_dtype`` the dtype every
+    ``tp_psum`` sums in (None: its operands')."""
     shape: tuple
     axis_names: tuple = AXES
     devices: tuple | None = None
+    psum_dtype: torch.dtype | None = None
 
     def __post_init__(self):
         names = tuple(self.axis_names)
@@ -144,23 +218,90 @@ class ModelMesh:
     # -- collectives over per-position lists --------------------------------
     def tp_psum(self, xs: list) -> list:
         """The reference's ``tp_psum``: the sum over ``model`` in position
-        order, on every position."""
-        n = self.axis_size(TP)
+        order (in ``psum_dtype`` where set), on every position.  Under a
+        gradient the backward's all-reduce of the cotangent is counted
+        too."""
+        if self.psum_dtype is not None:
+            xs = [x.to(self.psum_dtype) for x in xs]
+        return self._reduce(xs, TP, "tp_psum", torch.add, tally=True)
+
+    def _reduce(self, xs: list, axes, kind: str, op,
+                itemsize: int | None = None, tally: bool = False) -> list:
+        """``op`` folded over the positions of each group along ``axes``
+        in position order, computed once a group and device, on every
+        position, as plain torch ops (autograd differentiates them).
+        ``itemsize`` counts the bytes at that width (a payload narrower
+        than the dtype the sum is taken in); ``tally`` counts the
+        backward's transpose as one more call of ``kind``."""
         out = [None] * self.size
-        for g in self.groups(TP):
-            COLLECTIVES["tp_psum"]["calls"] += 1
-            b = xs[g[0]].numel() * xs[g[0]].element_size()
-            COLLECTIVES["tp_psum"]["bytes"] += 2 * (n - 1) * b
+        n = 1
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            n *= self.axis_size(a)
+        for g in self.groups(axes):
+            b = xs[g[0]].numel() * (itemsize or xs[g[0]].element_size())
+            _count(kind, 2 * (n - 1) * b)
+            first = _tallied(xs[g[0]], kind, 2 * (n - 1) * b) if tally \
+                else xs[g[0]]
             done = {}
             for r in g:
                 dev = self.devices[r]
                 if dev not in done:
-                    acc = xs[g[0]].to(dev)  # sync: ok(device to device)
+                    acc = first.to(dev)  # sync: ok(device to device)
                     for i in g[1:]:
                         # sync: ok(device to device: a position's share)
-                        acc = acc + xs[i].to(dev)
+                        acc = op(acc, xs[i].to(dev))
                     done[dev] = acc
                 out[r] = done[dev]
+        return out
+
+    def pmax(self, xs: list, axis: str = TP, kind: str = "pmax") -> list:
+        """``lax.pmax`` over ``axis``: the elementwise max of the group's
+        tensors (the loss's stability offset; no gradient flows)."""
+        return self._reduce([x.detach() for x in xs], axis, kind,
+                            torch.maximum)
+
+    def batch_psum(self, xs: list) -> list:
+        """The loss's ``psum_forced(x, batch_axes())``: the sum over pod
+        and data in position order, on every position.  Its transpose is
+        a broadcast of the cotangent: no collective in the backward."""
+        return self._reduce(xs, batch_axes_for(self), "batch_psum",
+                            torch.add)
+
+    def grad_sync(self, gs: list, axes) -> list:
+        """The sum of a replicated leaf's gradients over ``axes`` (those
+        it is replicated on), in position order and in their dtype: what
+        the reference's varying-axes types insert as the transpose of a
+        replicated value's implicit broadcast."""
+        axes = tuple(a for a in axes if self.axis_size(a) > 1)
+        if not axes:
+            return list(gs)
+        return self._reduce(gs, axes, "grad_sync", torch.add)
+
+    def pod_psum(self, xs: list, kind: str = "pod_psum",
+                 itemsize: int | None = None) -> list:
+        """``lax.psum(x, "pod")`` in position order and in x's dtype."""
+        return self._reduce(xs, POD, kind, torch.add, itemsize)
+
+    def fsdp_gather(self, ws: list, dim: int = 0) -> list:
+        """``lax.all_gather(w, "data", axis=dim, tiled=True)``: each
+        position's FSDP shard concatenated with the rest of its ``data``
+        group along ``dim`` (once a group and device).  Its autograd
+        backward is the reduce-scatter: shard j's gradient the sum, in
+        position order, of slice j of the gathered tensors' gradients
+        (``_FsdpGather``).  The identity where ``data`` has one
+        position."""
+        n = self.axis_size(FSDP)
+        if n == 1:
+            return list(ws)
+        out = [None] * self.size
+        for g in self.groups(FSDP):
+            b = ws[g[0]].numel() * ws[g[0]].element_size()
+            _count("fsdp_gather", n * (n - 1) * b)
+            devs = list(dict.fromkeys(self.devices[r] for r in g))
+            made = _FsdpGather.apply(dim, tuple(devs), n * (n - 1) * b,
+                                     *(ws[i] for i in g))
+            for r in g:
+                out[r] = made[devs.index(self.devices[r])]
         return out
 
     def all_gather(self, xs: list, axis: str = TP, dim: int = 0) -> list:
@@ -186,9 +327,8 @@ class ModelMesh:
         n = self.axis_size(axis)
         out = [None] * self.size
         for g in self.groups(axis):
-            COLLECTIVES[kind]["calls"] += 1
-            COLLECTIVES[kind]["bytes"] += n * (n - 1) * \
-                xs[g[0]].numel() * xs[g[0]].element_size()
+            _count(kind, n * (n - 1) * xs[g[0]].numel() *
+                   xs[g[0]].element_size())
             done = {}
             for r in g:
                 dev = self.devices[r]
@@ -197,6 +337,31 @@ class ModelMesh:
                     done[dev] = join([xs[i].to(dev) for i in g])
                 out[r] = done[dev]
         return out
+
+
+def once_per_stored(fn, key=None):
+    """``fn`` memoised on the identity of its positional arguments (or of
+    ``key(*args)``): positions of one device may share a stored tensor
+    (``serve.step.shard_tree(share=True)``), and work on that tensor is
+    done once, its result shared by every position that holds it.  The
+    arguments must outlive the returned function (identities are its
+    keys)."""
+    made = {}
+
+    def call(*args, **kw):
+        k = tuple(map(id, key(*args) if key is not None else args))
+        if k not in made:
+            made[k] = fn(*args, **kw)
+        return made[k]
+    return call
+
+
+def each_stored(fn, *cols) -> list:
+    """``fn`` over the positions' entries of ``cols`` (lists over the
+    positions), once for each distinct tuple of objects
+    (``once_per_stored``)."""
+    f = once_per_stored(fn)
+    return [f(*args) for args in zip(*cols, strict=True)]
 
 
 def batch_axes_for(mesh: ModelMesh) -> tuple:

@@ -24,8 +24,9 @@ Sharding variants, as the reference's:
 
 Weights are held gathered over ``data`` on every step: the reference's
 ``replicate_weights=True`` form, numerically its per-step ``fsdp_gather``.
-FSDP storage is training's (ROADMAP queue 1 item 14e), so the decode step
-takes no ``replicate_weights``.
+FSDP storage is training's (``train.step.make_train_step(cfg, mesh)``
+takes the trees ``shard_tree`` cuts by ``param_specs``), so the decode
+step takes no ``replicate_weights``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Fault-tolerant tree checkpoints on the snapshot store (a port of
-``repro.train.checkpoint`` on one device).
+``repro.train.checkpoint``).
 
 A thin adapter over ``core.persist.SnapshotStore(kind="tree")``, which owns
 the durability mechanics (atomic rename commit, checksummed manifest, an
@@ -15,9 +15,15 @@ The file format is the reference's, so either package restores the
 other's checkpoint.  ``save`` copies every leaf to host memory before it
 returns (the train step then updates the device tensors in place); the
 write itself is async by default, and a failed write re-raises from
-``wait()`` or the next ``save()``.  Restoring onto a mesh (``mesh`` /
-``specs``) raises ``not_ported``: multi-card training is ROADMAP queue 1
-item 14.
+``wait()`` or the next ``save()``.
+
+On a ``models.sharding.ModelMesh`` (``mesh`` and ``specs``): ``save``
+takes the positions' trees and writes the GLOBAL leaves, put together on
+the host (``serve.step.gather_tree``), so the files are the reference's
+whatever mesh wrote them; ``restore`` reads the global leaves to the host
+and cuts them onto any mesh whose axes divide them (``shard_tree``; the
+reference's ``device_put`` with a ``NamedSharding``): the elastic
+restart's resharding.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .. import not_ported, resolve_device
+from .. import resolve_device
 from ..core.persist import SnapshotStore, tree_paths
 
 
@@ -72,9 +78,17 @@ class Checkpointer:
                                     backoff=self.backoff, kind="tree")
 
     # -- write -------------------------------------------------------------
-    def save(self, step: int, tree, *, blocking: bool = False) -> None:
+    def save(self, step: int, tree, *, blocking: bool = False, mesh=None,
+             specs=None) -> None:
         """Copy every leaf to the host now, then hand the copies to the
-        store (async by default; a prior async failure re-raises here)."""
+        store (async by default; a prior async failure re-raises here).
+        With ``mesh`` and ``specs``, ``tree`` is a list of the positions'
+        trees and the global leaves are written."""
+        if (mesh is None) != (specs is None):
+            raise ValueError("save(mesh=, specs=): both or neither")
+        if mesh is not None:
+            from ..serve.step import gather_tree
+            tree = gather_tree(tree, specs, mesh, device="cpu")
         files, leaves = {}, {}
         for path, leaf in tree_paths(tree):
             fname = _leaf_fname(path)
@@ -96,24 +110,35 @@ class Checkpointer:
         return self._store.latest_step()
 
     def restore(self, step: int, template, *, verify: bool = True,
-                mesh=None, specs=None, device=None):
+                mesh=None, specs=None, device=None, share: bool = True):
         """A new tree of ``template``'s structure with every leaf read from
         snapshot ``step`` (checksums verified) onto ``device`` (CUDA unless
-        ``device="cpu"``); the template itself is left as it was."""
-        if mesh is not None or specs is not None:
-            raise not_ported("Checkpointer.restore(mesh=, specs=) "
-                             "(resharding onto a mesh)", "14e")
-        dev = resolve_device(device)
+        ``device="cpu"``); the template itself is left as it was.  With
+        ``mesh`` and ``specs`` (a tree of ``template``'s structure, a
+        PartitionSpec tuple a leaf) the global leaves are read to the host
+        and cut onto the mesh's positions (``shard_tree``, ``share`` as
+        its): a list of trees, one a position."""
+        if (mesh is None) != (specs is None):
+            raise ValueError("restore(mesh=, specs=): both or neither")
+        dev = torch.device("cpu") if mesh is not None \
+            else resolve_device(device)
         manifest = self._store.read_manifest(step)
         names = manifest["meta"]["leaves"]
+        # the template's leaves, read, checked and decoded in threads
+        loaded = self._store.load_files(
+            step, [names[p] for p, _ in tree_paths(template) if p in names],
+            manifest, verify=verify)
 
         def value_of(path):
-            arr = self._store.load_file(step, names[path], manifest,
-                                        verify=verify)[""]
+            arr = loaded[names[path]].result()[""]
             if not isinstance(arr, torch.Tensor):
                 if not (arr.flags.c_contiguous and arr.flags.writeable):
                     arr = np.array(arr, order="C")      # keeps 0-d arrays
                 arr = torch.from_numpy(arr)
             return arr.to(dev)
 
-        return _rebuild(template, value_of)
+        out = _rebuild(template, value_of)
+        if mesh is None:
+            return out
+        from ..serve.step import shard_tree
+        return shard_tree(out, specs, mesh, share=share)

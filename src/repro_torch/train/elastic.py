@@ -1,17 +1,20 @@
 """Elastic scaling + straggler mitigation (simulated; a copy of
 ``repro.train.elastic``, pure Python, kept here so that the port imports
-nothing of the reference).
+nothing of the reference), and ``remesh``, the restore its re-mesh
+action calls for.
 
 The controller implements the policy layer the launcher uses:
   * heartbeat registry with a deadline -- hosts that miss it are `suspect`,
   * straggler mitigation: a step that exceeds `straggler_factor` x the
     trailing-median step time marks the slowest host and (policy) either
     reassigns its data shard or triggers a re-mesh,
-  * re-mesh: on confirmed loss, the survivors are re-meshed and the latest
-    checkpoint restored onto them (on one card the launcher only
-    heartbeats; multi-card training is ROADMAP queue 1 item 14).  For the
-    serving-side index the same plan drives ``core.persist.restore_sharded``
-    onto the survivor count (elastic N->M reshard, no rebuild),
+  * re-mesh: on confirmed loss, pick the (pod, data, model) factorisation
+    of the survivors (``launch.mesh.make_mesh_for``), restore the latest
+    checkpoint resharded onto the new mesh and resume (``remesh``): the
+    parameters and the optimizer state are FSDP-sharded, so any mesh whose
+    axes divide them works.  For the serving-side index the same plan
+    drives ``core.persist.restore_sharded`` onto the survivor count
+    (elastic N->M reshard, no rebuild),
   * rejoin: a host that resumes heartbeating after removal re-registers --
     that is a topology change like a loss, so the next ``plan()`` bumps the
     generation and reports ``action: "remesh"`` upward (never a silent
@@ -95,3 +98,17 @@ class ElasticController:
         if slow:
             return {"action": "reassign_data", "hosts": slow}
         return {"action": "none"}
+
+
+def remesh(ckpt, template, specs, survivors: int, *, model_parallel: int = 16,
+           devices=None):
+    """The re-mesh of a ``plan()`` that says ``remesh``: the mesh of
+    ``survivors`` positions (``launch.mesh.make_mesh_for``) and the latest
+    checkpoint's state restored onto it, cut by ``specs``
+    (``train.checkpoint.Checkpointer.restore(mesh=, specs=)``).  Returns
+    (mesh, the positions' trees)."""
+    from ..launch.mesh import make_mesh_for
+    mesh = make_mesh_for(survivors, model_parallel=model_parallel,
+                         devices=devices)
+    return mesh, ckpt.restore(ckpt.latest_step(), template, mesh=mesh,
+                              specs=specs)

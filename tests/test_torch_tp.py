@@ -559,10 +559,14 @@ def test_mesh_rules_and_collectives():
         TM.build_tree(cfg)
     with pytest.raises(ValueError, match="does not divide"):
         TM.build_tree(cfg, tsh.ModelMesh((1, 1, 3), devices="cpu"))
-    with pytest.raises(NotImplementedError, match="item 14e"):
+    # training runs on a mesh (test_torch_train_mesh.py); without one a
+    # tensor-parallel loss is refused as the layers are
+    with pytest.raises(ValueError, match="no caches"):
         TM.forward([{}], cfg, [torch.zeros(1, 2, dtype=torch.int32)],
                    pos=[torch.zeros(1, 2, dtype=torch.int32)], mode="train",
-                   mesh=tsh.ModelMesh((1, 1, 2), devices="cpu"))
+                   caches=[{}], mesh=tsh.ModelMesh((1, 1, 2), devices="cpu"))
+    with pytest.raises(NotImplementedError, match="single_card"):
+        TM.lm_loss({}, cfg, torch.zeros(1, 2, 64), torch.zeros(1, 2), True)
 
 
 def test_tp16_layout_is_single_card_gqa():

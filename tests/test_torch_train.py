@@ -436,8 +436,12 @@ def test_train_step_matches_reference(ref_steps, arch, microbatch):
 
 def test_step_rules():
     tc = reduce_cfg(get_arch("granite-moe-1b-a400m"))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # the pod compression and the psum dtype act on a mesh's collectives
+    # (test_torch_train_mesh.py)
+    with pytest.raises(ValueError, match="mesh="):
         tstep.make_train_step(tc, compress_pod=True)
+    with pytest.raises(ValueError, match="mesh="):
+        tstep.make_train_step(tc, psum_dtype=torch.bfloat16)
     assert tstep.batch_shapes(tc, 8, 128)["inputs"] == ((8, 128),
                                                         torch.int32)
     from repro.configs.base import SHAPES
@@ -580,8 +584,10 @@ def _checkpoint_round_trip(arch: str) -> None:
         for a, b in zip(jax.tree.leaves(jback), jleaves, strict=True):
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-        with pytest.raises(NotImplementedError, match="item 14"):
-            ck.restore(4, zeros, mesh=object(), specs=object())
+        # a mesh restore needs both the mesh and the specs
+        # (test_torch_train_mesh.py restores onto meshes)
+        with pytest.raises(ValueError, match="both or neither"):
+            ck.restore(4, zeros, mesh=object())
 
 
 def test_checkpoint_failure_and_gc(monkeypatch):
