@@ -479,6 +479,27 @@ Phases (any failure exits non-zero; nothing is caught):
    bit for bit, and step 3 from the restore equal to step 3 live.
    Prints step seconds, tokens/s, idle share, peak memory and the
    collectives' calls and bytes a step by kind.
+21. Path P, the launch cost tools (``_path_p``): first, uncounted, one
+   production cell dry (``P_DRY_CELL``: qwen3-4b ``decode_32k`` on the
+   16 x 16 mesh of meta positions, ``launch.dryrun.run_cell``: its row
+   and wall time printed) and the FSDP prefill below dry on meta under
+   ``launch.op_cost.OpCost``.  Then, counted: qwen3-4b's published layout
+   cut to ``P_LAYERS`` (4) layers on ``P_MESH`` (1, 4, 16) positions of
+   the card, path D's prompts and ``P_STEPS`` (4) greedy decode steps,
+   served once from FSDP-stored weights (``make_prefill(cfg, mesh)``,
+   gathered over ``data`` at use) and once with ``replicate_weights=
+   True``: logits, ids and every cache equal bit for bit, K8's prefill
+   and decode tiles launched once a layer a position a call; each form's
+   collectives a step, stored weight bytes a position and peak memory.
+   Then the FSDP prefill once more under ``OpCost`` on the card: its
+   FLOPs by dtype, bytes, kernels, K8 launches and collective bytes equal
+   the dry run's, position 0's argument bytes equal the dry run's; the
+   roofline's compute and memory seconds beside the measured prefill (CUDA
+   events) and the dry run's temporaries beside the rise of
+   ``max_memory_allocated``.  Last the index service's cell on the card
+   (``dryrun.lower_index_service``: 2^20 keys, 16 shards a position, 2^16
+   queries through the stacked K1), its answers against a
+   ``torch.searchsorted`` truth, 32 stacked K1 launches.
 
 Every answer of paths A and B is held against a ``torch.searchsorted`` truth
 over the live keys on the card.  Times are CUDA-event means after warm-up,
@@ -494,7 +515,7 @@ bf16 tensor-core rate for K8's prefill tile); K1-K4 rows add
 lane-major table rows, the fence's and the keys' probes).  A row's
 ``launches`` add up every path that launches that instantiation (K1
 linear: paths A, D and E; K2 linear: A, C, E and G's page table; K3
-linear: A, C and E; stacked K1: F and H; stacked K2: F, G, G's page table
+linear: A, C and E; stacked K1: F, H and P; stacked K2: F, G, G's page table
 and H; stacked K3: F, G and H; K7 and its table kernel: B, C and E).  K1's, K2's, K3's, K4's, K5's and K7's rows are
 printed beside their previous designs' times from ``PERF.md`` (not
 re-run; not in the
@@ -513,7 +534,9 @@ rate, ``flash_decode`` at the decode shape with its ``n_split`` and
 sequence-sharded decode shape; path N's decode tile over 524,288 keys in
 ``flash_decode``'s ``path_n_shape`` and its ``return_partial`` form over
 a 131,072-key chunk in ``flash_partial``'s ``path_n``; path O's launches
-and K8 with ``lse`` at its shape in ``flash``'s ``path_o_*`` keys), the
+and K8 with ``lse`` at its shape in ``flash``'s ``path_o_*`` keys; path
+P's launches in ``flash``'s, ``flash_decode``'s and ``sharded_lookup``'s
+``path_p_launches``), the
 card's
 ``name, power.limit`` from nvidia-smi,
 and the result line.  Phase 1 also prints the flash library's ptxas
@@ -807,6 +830,14 @@ O_LR = 1e-4
 O_LOSS_RTOL, O_GNORM_RTOL, O_GRAD_RL2 = 1e-3, 1e-2, 5e-2
 O_CONTROL_FACTOR = 4
 O_COMP_SLACK = 4
+# Path P: the launch cost tools on the card.  qwen3-4b's published layout
+# cut to P_LAYERS layers (path O1's cut) on P_MESH positions of this card,
+# path D's prompts (LM_REQUESTS x LM_PROMPT_LEN) then P_STEPS greedy
+# decode steps, served from FSDP-stored weights and from replicated ones;
+# the FSDP prefill counted by OpCost on the card and dry on meta; the
+# index service's cell on the card; one production cell dry (P_DRY_CELL)
+P_LAYERS, P_MESH, P_STEPS = 4, (1, 4, 16), 4
+P_DRY_CELL = ("qwen3-4b", "decode_32k", False)
 ANALYZED = ("src/repro_torch", "chip_smoke.py", "time_verbs.py",
             "examples/index_service_torch.py")
 SYNC_WARNING = "called a synchronizing CUDA operation"
@@ -1696,19 +1727,15 @@ def _k1_k4_edges(tlk, name, kern, plain, vec, empty, n_live, keys, q,
     return err, cases
 
 
-def _flash_work(q, k, q_offset: int, kv_valid: int) -> tuple:
-    """(bytes, operations) of one K8 launch on these inputs: q read and
-    the output written, the K and V rows of the keys the mask keeps (the
-    first min(kv_valid, q_offset + Sq) positions), 4 dh operations a
-    (query, valid key) pair (the QK and PV products)."""
-    import numpy as np
-    B, Sq, H, dh = q.shape
-    keys = max(0, min(kv_valid, q_offset + Sq))
-    el = q.element_size()
-    nbytes = 2 * q.numel() * el + 2 * B * keys * k.shape[2] * dh * el
-    per_row = np.clip(np.minimum(kv_valid, q_offset + np.arange(Sq) + 1), 0,
-                      None)
-    return nbytes, 4 * dh * B * H * int(per_row.sum())
+def _k8_bound(work) -> tuple:
+    """(bound_ms, bound_by) of one K8 call's ``kernels.cost`` work (its
+    ``flash.tile_work``): the operations at the rate of the unit they run
+    on (the bf16 tensor cores for the prefill and bias tiles, f32 for the
+    rest), the bytes at HBM's."""
+    rate = BF16_TC_OPS_PER_S if work.unit == "bf16" else F32_OPS_PER_S
+    t_ops = work.ops / rate * 1e3
+    t_bytes = work.bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def _bf16_ulp(mag):
@@ -2212,24 +2239,21 @@ def _path_d(args, dev, rows, h) -> None:
     for name, key in (("flash", ("prefill", 0)), ("flash_decode",
                                                   ("decode", 0))):
         q, k, v, qo, kvv = captured[key]
-        work = _flash_work(q, k, qo, kvv)
+        work = tflash.tile_work(q, k, qo, kvv, name)
         rows[name] = _time_row(
             name, lambda q=q, k=k, v=v, qo=qo, kvv=kvv: tflash.flash_attention(
                 q, k, v, q_offset=qo, kv_valid=kvv),
             lambda q=q, k=k, v=v, qo=qo, kvv=kvv: tflash.flash_attention_plain(
                 q, k, v, q_offset=qo, kv_valid=kvv),
-            _sdpa_call(q, k, v, qo, kvv), [work], launches[name], errs[name],
+            _sdpa_call(q, k, v, qo, kvv), [work[:2]], launches[name],
+            errs[name],
             reps=20 if name == "flash" else 100,
             plain_reps=5 if name == "flash" else 20)
         if name == "flash":
             # the prefill tile computes on the bf16 tensor cores: its bound
             # is the same operations at their rate, the f32 one kept beside
-            t_ops = work[1] / BF16_TC_OPS_PER_S * 1e3
-            t_bytes = work[0] / HBM_BYTES_PER_S * 1e3
             rows[name]["bound_f32_ms"] = rows[name]["bound_ms"]
-            rows[name]["bound_ms"], rows[name]["bound_by"] = (
-                (t_ops, "operations") if t_ops >= t_bytes
-                else (t_bytes, "bytes"))
+            rows[name]["bound_ms"], rows[name]["bound_by"] = _k8_bound(work)
         else:
             rows[name]["n_split"], rows[name]["tiles_per_split"] = (
                 tflash.decode_plan(q, k, q_offset=qo, kv_valid=kvv))
@@ -4485,9 +4509,8 @@ def _path_i(args, dev, rows, h) -> None:
                               I_GRAD_ULPS)
               for layer, (q, k, v) in sorted(captured.items()))
     q, k, v = captured[0]
-    work = _flash_work(q, k, 0, I_SEQ)
-    t_ops = work[1] / BF16_TC_OPS_PER_S * 1e3
-    t_bytes = work[0] / HBM_BYTES_PER_S * 1e3
+    work = tflash.tile_work(q, k, 0, I_SEQ, "flash", lse=True)
+    i_bound, i_by = _k8_bound(work)
     k_ms = _event_ms(lambda: h.uncounted(lambda: tflash.flash_attention_lse(
         q, k, v, q_offset=0)), 20)
     bare_ms = _event_ms(lambda: h.uncounted(lambda: tflash.flash_attention(
@@ -4505,12 +4528,11 @@ def _path_i(args, dev, rows, h) -> None:
     row["max_abs_err"] = max(row["max_abs_err"], err)
     row.update(path_i_launches=launches["flash"], path_i_lse_ms=k_ms,
                path_i_no_lse_ms=bare_ms, path_i_plain_ms=p_ms,
-               path_i_sdpa_ms=s_ms, path_i_bound_ms=max(t_ops, t_bytes),
+               path_i_sdpa_ms=s_ms, path_i_bound_ms=i_bound,
                path_i_backward_ms=b_ms)
     print(f"  K8 at path I's shape: with lse {k_ms:.6f} ms, without "
           f"{bare_ms:.6f} ms, plain (with lse) {p_ms:.6f} ms, SDPA "
-          f"{s_ms:.6f} ms, bound {max(t_ops, t_bytes):.6f} ms ("
-          f"{'operations' if t_ops >= t_bytes else 'bytes'} on the bf16 "
+          f"{s_ms:.6f} ms, bound {i_bound:.6f} ms ({i_by} on the bf16 "
           f"tensor cores: {work[0]} bytes, {work[1]} operations); the "
           f"backward's torch ops {b_ms:.6f} ms a layer")
     del captured, q, k, v, do, lse
@@ -5020,8 +5042,8 @@ def _j_bias_edges(h, dev, rows, first, launches) -> None:
     # timed at the first mLSTM layer's shape; the library yardstick is SDPA
     # in f32 with the (B, H, Sq, Skv) f32 bias mask (-inf where masked)
     sdpa, mask_bytes = _bias_sdpa(q, k, v, qo, kvv, (fq, fk))
-    nbytes, ops = _flash_work(q, k, qo, kvv)
-    nbytes += (fq.numel() + fk.numel()) * 4
+    work = tflash.tile_work(q, k, qo, kvv, "flash_bias", bias=True)
+    nbytes, ops = work.bytes, work.ops
     err = rows["flash_bias"]["max_abs_err"]
     row = _time_row(
         "flash_bias", lambda: tflash.flash_attention(
@@ -5031,11 +5053,8 @@ def _j_bias_edges(h, dev, rows, first, launches) -> None:
         sdpa, [(nbytes, ops)], launches, err, reps=10, plain_reps=3)
     # bf16 inputs: the least time is the operations on the bf16 tensor
     # cores; the f32 rate the tile computes at kept beside it
-    t_ops = ops / BF16_TC_OPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     row["bound_f32_ms"] = row["bound_ms"]
-    row["bound_ms"], row["bound_by"] = (
-        (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes"))
+    row["bound_ms"], row["bound_by"] = _k8_bound(work)
     row["sdpa_mask_bytes"] = mask_bytes
     rows["flash_bias"] = row
     print(f"    {nbytes} bytes, {ops} operations; bound_ms "
@@ -5218,10 +5237,10 @@ def _path_k(args, dev, rows, h) -> None:
     # (with lse), and the torch-op backward
     q, k, v, fq, fk = captured[0]
     bias = (fq, fk)
-    nbytes, ops = _flash_work(q, k, 0, K_SEQ)
-    nbytes += (fq.numel() + fk.numel()) * 4 + q.shape[0] * q.shape[2] * \
-        K_SEQ * 4
-    bound = max(ops / BF16_TC_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    work = tflash.tile_work(q, k, 0, K_SEQ, "flash_bias", bias=True,
+                            lse=True)
+    nbytes, ops = work.bytes, work.ops
+    bound = _k8_bound(work)[0]
     k_ms = _event_ms(lambda: h.uncounted(lambda: tflash.flash_attention_lse(
         q, k, v, q_offset=0, bias_qk=bias)), 20)
     bare_ms = _event_ms(lambda: h.uncounted(lambda: tflash.flash_attention(
@@ -5525,7 +5544,7 @@ def _mrope_f64(x, pos3, theta: float, sections) -> tuple:
 def _l_time(h, q, k, v, qo: int, kvv: int, lse: bool) -> dict:
     """One K8 shape of path L timed by CUDA events: the kernel (with its
     ``lse`` output where ``lse``) in two turns around the plain version and
-    SDPA (``enable_gqa``); the bound of ``_flash_work``'s bytes and
+    SDPA (``enable_gqa``); the bound of ``kernels.cost``'s bytes and
     operations (on the bf16 tensor cores for the prefill tile, at the f32
     rate for the decode tile, as their rows of the kernels line); where
     ``lse``, also the backward's torch ops."""
@@ -5544,15 +5563,14 @@ def _l_time(h, q, k, v, qo: int, kvv: int, lse: bool) -> dict:
         warmup=1)
     s_ms = _event_ms(_sdpa_call(q, k, v, qo, kvv), reps)
     k2 = _event_ms(kern, reps)
-    nbytes, ops = _flash_work(q, k, qo, kvv)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / (F32_OPS_PER_S if decode else BF16_TC_OPS_PER_S) * 1e3
+    work = tflash.tile_work(q, k, qo, kvv, tile, lse=lse)
+    nbytes, ops = work.bytes, work.ops
+    bound_ms, bound_by = _k8_bound(work)
     out = dict(tile=tile, B=q.shape[0], Sq=q.shape[1], Skv=kvv,
                heads=f"{q.shape[2]}/{k.shape[2]}", dh=q.shape[-1], lse=lse,
                ms=(k1 + k2) / 2, plain_ms=p_ms, sdpa_ms=s_ms,
-               bound_ms=max(t_ops, t_bytes),
-               bound_by="operations" if t_ops >= t_bytes else "bytes",
-               bytes=nbytes, operations=ops)
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               operations=ops)
     if lse:
         _, l_ = h.uncounted(lambda: tflash.flash_attention_lse(
             q, k, v, q_offset=qo, kv_valid=kvv))
@@ -6090,6 +6108,7 @@ def _path_m(args, dev, rows, h) -> None:
     import numpy as np
     import torch
     from repro_torch.configs import get_arch, single_card
+    from repro_torch.kernels import cost as tcost
     from repro_torch.kernels import flash as tflash
     from repro_torch.models import layers as tlayers
     from repro_torch.models import model as TM
@@ -6116,10 +6135,10 @@ def _path_m(args, dev, rows, h) -> None:
     prompts = torch.from_numpy(rng.integers(0, V, (B, P))).to(
         device=dev, dtype=torch.int32)
     pos = torch.arange(P, dtype=torch.int32, device=dev)[None].expand(B, P)
-    pre = tstep.make_prefill(cfg, mesh)
-    dec = tstep.make_decode_step(cfg, mesh)
+    pre = tstep.make_prefill(cfg, mesh, replicate_weights=True)
+    dec = tstep.make_decode_step(cfg, mesh, replicate_weights=True)
     sdec = tstep.make_decode_step(cfg, seq, batch_sharded=False,
-                                  seq_shard=True)
+                                  seq_shard=True, replicate_weights=True)
     _, c_spec, t_spec, p_spec = pre.in_specs
     real = dict(flash=tlayers.flash_attention, logits=tstep.M.lm_logits,
                 merge=tflash.flash_merge)
@@ -6146,8 +6165,8 @@ def _path_m(args, dev, rows, h) -> None:
             captured[key] = (m.clone(), l.clone(), acc.clone())
         return real["merge"](m, l, acc)
 
-    def keep_logits(params_, cfg_, x, tp_shard, mesh=None):
-        out = real["logits"](params_, cfg_, x, tp_shard, mesh=mesh)
+    def keep_logits(params_, cfg_, x, tp_shard, **kw):
+        out = real["logits"](params_, cfg_, x, tp_shard, **kw)
         kept.append(out)
         return out
 
@@ -6466,15 +6485,15 @@ def _path_m(args, dev, rows, h) -> None:
     # ---- their rows of the kernels line, at a full chunk's shape -----------
     q, k, v, off, _ = captured[("seq", N - 1, 0, seq.position(data=0))]
     n_split, per = tflash.decode_plan(q, k, q_offset=off, kv_valid=k.shape[1])
-    n_bytes, ops = _flash_work(q, k, off, k.shape[1])
-    out_bytes = (2 * q.numel() // q.shape[-1] + q.numel()) * 4
+    pw = tflash.tile_work(q, k, off, k.shape[1], "flash_partial",
+                          partial=True)
     rows["flash_partial"] = _time_row(
         "flash_partial", lambda: h.uncounted(lambda: tflash.flash_attention(
             q, k, v, q_offset=off, return_partial=True)),
         lambda: tflash.flash_decode_split_plain(
             q, k, v, q_offset=off, n_split=n_split, return_partial=True),
         _sdpa_call(q, k, v, off, k.shape[1]),
-        [(n_bytes - q.numel() * q.element_size() + out_bytes, ops)],
+        [(pw.bytes, pw.ops)],
         l_sdec["flash_partial"],
         max(r["max_abs_err"] for r in part_rows.values()), reps=100,
         plain_reps=20)
@@ -6483,12 +6502,12 @@ def _path_m(args, dev, rows, h) -> None:
         "group 2) over the chunk, normalised",
         shape=f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, q_offset {off}")
     m_, l_, a_ = captured[("merge", N - 1, 0)]
-    mb = sum(t_.numel() * 4 for t_ in (m_, l_, a_)) + a_[:, :, 0].numel() * 2
+    mw = tcost.merge_work(m_, l_, a_)
     rows["flash_merge"] = _time_row(
         "flash_merge", lambda: h.uncounted(lambda: tflash.flash_merge(
             m_, l_, a_)),
         lambda: tflash.flash_merge_plain(m_, l_, a_), None,
-        [(mb, 4 * a_.numel())], l_sdec["flash_merge"],
+        [(mw.bytes, mw.ops)], l_sdec["flash_merge"],
         max(r["max_abs_err"] for r in merge_rows.values()), reps=100,
         plain_reps=20)
     rows["flash_merge"]["shape"] = (f"{m_.shape[2]} positions' partials, "
@@ -6591,8 +6610,8 @@ class _NHooks:
         idx = self.force.pop(0).reshape(logits.shape[0], k)
         return logits.gather(-1, idx), idx
 
-    def _logits(self, params, cfg, x, tp_shard, mesh=None):
-        out = self.real["logits"](params, cfg, x, tp_shard, mesh=mesh)
+    def _logits(self, params, cfg, x, tp_shard, **kw):
+        out = self.real["logits"](params, cfg, x, tp_shard, **kw)
         self.kept.append(out)
         return out
 
@@ -6659,8 +6678,8 @@ def _n_cell(args, dev, rows, h, arch: str, n_layers: int) -> tuple:
     prompts = torch.from_numpy(rng.integers(0, V, (B, P))).to(
         device=dev, dtype=torch.int32)
     pos = torch.arange(P, dtype=torch.int32, device=dev)[None].expand(B, P)
-    pre, dec = tstep.make_prefill(cfg, mesh), tstep.make_decode_step(cfg,
-                                                                     mesh)
+    pre = tstep.make_prefill(cfg, mesh, replicate_weights=True)
+    dec = tstep.make_decode_step(cfg, mesh, replicate_weights=True)
     _, c_spec, t_spec, p_spec = pre.in_specs
     hooks = _NHooks(n_attn)
     caches = [TM.init_cache(cfg, B, P + T, device=dev) for _ in range(D)]
@@ -6853,10 +6872,10 @@ def _n_long(args, dev, rows, h, cfg, mesh, params) -> None:
     SM, PS, N = N_LONG_MAX, N_LONG_PROMPT, N_STEPS
     start, S_l = SM - N, SM // seq.axis_size("data")
     a_pos = f"pos{cfg.pattern.index('attn')}"
-    pre, dec = tstep.make_prefill(cfg, mesh), tstep.make_decode_step(cfg,
-                                                                     mesh)
+    pre = tstep.make_prefill(cfg, mesh, replicate_weights=True)
+    dec = tstep.make_decode_step(cfg, mesh, replicate_weights=True)
     sdec = tstep.make_decode_step(cfg, seq, batch_sharded=False,
-                                  seq_shard=True)
+                                  seq_shard=True, replicate_weights=True)
     _, c_spec, t_spec, p_spec = pre.in_specs
     hooks = _NHooks(1)
     rng = np.random.default_rng(args.seed + 1)
@@ -7035,15 +7054,15 @@ def _n_long(args, dev, rows, h, cfg, mesh, params) -> None:
           f"{mr['f64']:.6f} bf16 ulps of the magnitude (tolerance 1)")
     q, k, v, off = parts[0][:4]
     n_split, per = tflash.decode_plan(q, k, q_offset=off, kv_valid=k.shape[1])
-    n_bytes, ops = _flash_work(q, k, off, k.shape[1])
-    out_bytes = (2 * q.numel() // q.shape[-1] + q.numel()) * 4
+    pw = tflash.tile_work(q, k, off, k.shape[1], "flash_partial",
+                          partial=True)
     row = _time_row(
         "flash_partial", lambda: h.uncounted(lambda: tflash.flash_attention(
             q, k, v, q_offset=off, return_partial=True)),
         lambda: tflash.flash_decode_split_plain(
             q, k, v, q_offset=off, n_split=n_split, return_partial=True),
         _sdpa_call(q, k, v, off, k.shape[1]),
-        [(n_bytes - q.numel() * q.element_size() + out_bytes, ops)],
+        [(pw.bytes, pw.ops)],
         l_sdec["flash_partial"], max(c["max_abs_err"] for c in checks),
         reps=100, plain_reps=5)
     rows["flash_partial"]["path_n"] = dict(
@@ -7745,6 +7764,253 @@ def _o_moe(args, dev, rows, h) -> None:
           f"{r8['plain']:.6f} ulps of the magnitude from plain, "
           f"{r8['f64']:.6f} from f64; path O2 wall "
           f"{time.perf_counter() - t_path:.1f} s")
+
+
+def _p_serve(cfg, mesh, params, prompts, pos, replicate: bool, dev) -> dict:
+    """Path P's prefill and P_STEPS greedy decode steps from one storage
+    form: logits, ids and caches gathered, each step's collectives and the
+    peak memory."""
+    import torch
+    from repro_torch.models import model as TM
+    from repro_torch.models import sharding as tsh
+    from repro_torch.serve import step as tstep
+    pre = tstep.make_prefill(cfg, mesh, replicate_weights=replicate)
+    dec = tstep.make_decode_step(cfg, mesh, replicate_weights=replicate)
+    _, c_spec, t_spec, p_spec = pre.in_specs
+    B, P = prompts.shape
+    caches = tstep.shard_tree(
+        TM.init_cache(cfg, B, P + P_STEPS, local=False, device=dev), c_spec,
+        mesh, share=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tsh.reset_collectives()
+    (logits, caches), t_pre = _sync_time(lambda: pre(
+        params, caches, tstep.shard_tree(prompts, t_spec, mesh),
+        tstep.shard_tree(pos, p_spec, mesh)))
+    coll = {"prefill": {k: dict(v) for k, v in tsh.COLLECTIVES.items()
+                        if v["calls"]}}
+    lg = tstep.gather_tree(logits, pre.out_specs[0], mesh)
+    nxt = torch.argmax(lg[:, :cfg.vocab_size], -1).to(torch.int32)[:, None]
+    ids, t_dec = [], 0.0
+    for i in range(P_STEPS):
+        tsh.reset_collectives()
+        (nx, caches), t = _sync_time(lambda: dec(
+            params, caches, tstep.shard_tree(nxt, t_spec, mesh),
+            tstep.shard_tree(torch.full_like(nxt, P + i), p_spec, mesh),
+            P + i))
+        t_dec += t
+        nxt = tstep.gather_tree(nx, dec.out_specs[0], mesh)[:, None]
+        ids.append(nxt[:, 0])
+        coll["decode"] = {k: dict(v) for k, v in tsh.COLLECTIVES.items()
+                          if v["calls"]}
+    return dict(logits=lg, ids=torch.stack(ids, 1),
+                caches=tstep.gather_tree(caches, c_spec, mesh), coll=coll,
+                t_pre=t_pre, t_dec=t_dec,
+                peak=torch.cuda.max_memory_allocated() - base)
+
+
+def _p_prefill_args(cfg, mesh, glob, prompts, pos, dev):
+    """The FSDP prefill and its arguments on ``mesh``'s positions (the
+    weights cut from ``glob``, fresh caches)."""
+    from repro_torch.models import model as TM
+    from repro_torch.serve import step as tstep
+    pre = tstep.make_prefill(cfg, mesh)
+    _, c_spec, t_spec, p_spec = pre.in_specs
+    B, P = prompts.shape
+    caches = TM.init_cache(cfg, B, P + P_STEPS, local=False, device=dev)
+    return pre, (tstep.shard_tree(glob, pre.in_specs[0], mesh),
+                 tstep.shard_tree(caches, c_spec, mesh, share=False),
+                 tstep.shard_tree(prompts, t_spec, mesh),
+                 tstep.shard_tree(pos, p_spec, mesh))
+
+
+def _path_p(args, dev, rows, h) -> None:
+    """Phase 21, path P: serving from FSDP-stored weights against the
+    replicated form, OpCost on the card against the dry run on meta, the
+    index service's cell, one production cell dry."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, single_card
+    from repro_torch.kernels import flash as tflash
+    from repro_torch.kernels import lookup as tlk
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models import model as TM
+    from repro_torch.models import sharding as tsh
+    from repro_torch.serve import step as tstep
+
+    t_path = time.perf_counter()
+    base = get_arch(M_ARCH)
+    cfg = dataclasses.replace(base, n_layers=P_LAYERS,
+                              pattern=base.pattern[:P_LAYERS])
+    one = single_card(cfg)
+    mesh = tsh.ModelMesh(P_MESH, devices=dev)
+    B, P, V = LM_REQUESTS, LM_PROMPT_LEN, cfg.vocab_size
+    rng = np.random.default_rng(args.seed + 21)
+    prompts = torch.from_numpy(rng.integers(0, V, (B, P))).to(
+        device=dev, dtype=torch.int32)
+    pos = torch.arange(P, dtype=torch.int32, device=dev)[None].expand(
+        B, P).contiguous()
+
+    # ---- one production cell dry, and the FSDP prefill dry on meta (a meta
+    # call launches nothing; OpCost counts its calls by tile) -------------
+    cell, t_cell = _sync_time(lambda: dryrun.run_cell(*P_DRY_CELL))
+    meta_mesh = tsh.ModelMesh(P_MESH, devices="meta")
+    m_glob = TM.init_params(one, torch.Generator(), device="meta")
+    m_pre, m_args = _p_prefill_args(cfg, meta_mesh, m_glob, prompts.to(
+        "meta"), pos.to("meta"), "meta")
+    with OpCost(1, track_memory=True,
+                owners=dryrun.owners_of(m_args, meta_mesh.size)) as c_meta:
+        m_pre(*m_args)
+    dry = c_meta.summary()
+    dry_temp = c_meta.memory()
+    # the K8 calls the dry run counted, by tile: what the card launches
+    dry_launch = {k: v["calls"] for k, v in dry["kernels"].items()
+                  if k in tflash.LAUNCHES}
+    dry_args = dryrun._tree_bytes([a[0] for a in m_args], set())
+    del m_pre, m_args, m_glob
+
+    # ---- counted: the two storage forms' prefill and decode ---------------
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed)
+    glob = TM.init_params(one, g, dev)
+    specs_f, specs_r = TM.param_specs(cfg), tstep.serve_param_specs(cfg)
+    per_f = tstep.shard_tree(glob, specs_f, mesh)
+    per_r = tstep.shard_tree(glob, specs_r, mesh)
+    stored = {k: dryrun._tree_bytes(t[0], set())
+              for k, t in (("fsdp", per_f), ("replicated", per_r))}
+    stacked = {k: dryrun._tree_bytes(t[0]["sb"], set())
+               for k, t in (("fsdp", per_f), ("replicated", per_r))}
+    h.reset_counters()
+    runs = {"fsdp": _p_serve(cfg, mesh, per_f, prompts, pos, False, dev)}
+    del per_f
+    runs["replicated"] = _p_serve(cfg, mesh, per_r, prompts, pos, True, dev)
+    launches = h.counters()
+    del per_r
+    L, D = cfg.n_layers, mesh.size
+    want = {"flash": 2 * L * D, "flash_decode": 2 * L * D * P_STEPS}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"path P launches {launches}, want {want}")
+    a, b = runs["fsdp"], runs["replicated"]
+    for what in ("logits", "ids"):
+        if not torch.equal(a[what], b[what]):
+            raise AssertionError(f"path P: FSDP-stored serving's {what} "
+                                 f"differ from the replicated form's")
+    for pos_, leaves in a["caches"].items():
+        for k, t in leaves.items():
+            if not torch.equal(t, b["caches"][pos_][k]):
+                raise AssertionError(f"path P: cache {pos_}.{k} differs "
+                                     f"between the storage forms")
+    if not torch.isfinite(a["logits"]).all():
+        raise AssertionError("path P: non-finite logits")
+    for k in want:
+        rows[k]["launches"] += launches[k]
+    rows["flash"]["path_p_launches"] = launches["flash"]
+    rows["flash_decode"]["path_p_launches"] = launches["flash_decode"]
+    print(f"phase 21: path P ({M_ARCH} in its published layout: tp "
+          f"{cfg.tp}, {P_LAYERS} of {base.n_layers} layers at full width) "
+          f"on mesh {P_MESH}, every position {dev}: {B} x {P} prompts and "
+          f"{P_STEPS} greedy steps from FSDP-stored and from replicated "
+          f"weights: logits, ids and every cache equal bit for bit; "
+          f"launches {({k: launches[k] for k in want})} "
+          f"(K8 a layer a position a call, both forms)")
+    for k, r in runs.items():
+        print(f"  {k}: stored weight bytes a position {stored[k]} (the "
+              f"stacked superblock leaves {stacked[k]}); prefill "
+              f"{r['t_pre']:.6f} s, {P_STEPS} decode steps {r['t_dec']:.6f}"
+              f" s; peak memory above the arguments {r['peak'] / 2**30:.3f} "
+              f"GiB; collectives, bytes as if each position were a card: "
+              f"prefill {r['coll']['prefill']}, a decode step "
+              f"{r['coll']['decode']}")
+    print(f"  the FSDP form stores {stacked['fsdp'] / stacked['replicated']:.4f}"
+          f" of the replicated form's stacked leaves a position (data "
+          f"{mesh.axis_size('data')})")
+    del runs, a, b
+
+    # ---- the FSDP prefill counted on the card against the dry run ---------
+    pre, c_args = _p_prefill_args(cfg, mesh, glob, prompts, pos, dev)
+    card_args = dryrun._tree_bytes([x[0] for x in c_args], set())
+    torch.cuda.synchronize()
+    tflash.reset_launches()
+    used = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with OpCost(1) as c_card:
+        pre(*c_args)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - used
+    card = c_card.summary()
+    card_launch = {k: v for k, v in tflash.LAUNCHES.items() if v}
+    for k in ("flops_by_dtype", "bytes", "collective_bytes_by_kind",
+              "kernels", "collectives"):
+        if card[k] != dry[k]:
+            raise AssertionError(f"path P: OpCost's {k} on the card "
+                                 f"{card[k]} differs from the dry run's "
+                                 f"{dry[k]}")
+    if card_launch != dry_launch or card_args != dry_args:
+        raise AssertionError(f"path P: launches {card_launch} / "
+                             f"{dry_launch}, argument bytes {card_args} / "
+                             f"{dry_args}")
+    pre_ms = _event_ms(lambda: pre(*c_args), 3, warmup=1)
+    rt = roofline.times(card, 1)
+    coll_s = card["collective_bytes"] / D / roofline.NIC_BW
+    print(f"  OpCost of the FSDP prefill on the card equals its dry run on "
+          f"meta: FLOPs by dtype {card['flops_by_dtype']}, bytes "
+          f"{card['bytes']}, {card['ops']} ops / {dry['ops']}, K8 launches "
+          f"{card_launch} (the dry run's calls), collective "
+          f"bytes {card['collective_bytes_by_kind']}; argument bytes a "
+          f"position {card_args} (the dry run's {dry_args})")
+    print(f"  roofline of the whole mesh's prefill on this card: compute "
+          f"{rt['compute_s']:.6f} s, memory {rt['memory_s']:.6f} s; "
+          f"collectives as if each position a card {coll_s:.6f} s a card; "
+          f"measured prefill {pre_ms / 1e3:.6f} s (CUDA events, 3 calls): "
+          f"roofline fraction {rt['compute_s'] / (pre_ms / 1e3):.4f}")
+    print(f"  temporaries: the dry run's peak of live meta storage above "
+          f"the arguments {dry_temp['temp_bytes']} bytes (one position's "
+          f"{dry_temp['temp_bytes_position']}); the card's rise of "
+          f"max_memory_allocated {rise} bytes")
+    del pre, c_args, glob
+
+    # ---- the index service's cell on the card -----------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    h.reset_counters()
+    (summary, meta, (idx, q, ranks)), t_idx = _sync_time(
+        lambda: dryrun.lower_index_service(dev))
+    n_idx = h.counters()["sharded_lookup"]
+    want_r = torch.empty_like(ranks)
+    dest = torch.searchsorted(idx.splits, q)
+    for s_ in range(idx.n_shards):
+        part = idx.parts[s_]
+        v_ = int(idx.valid[s_])
+        m_ = dest == s_
+        local = torch.searchsorted(part.keys[0, :v_].contiguous(), q[m_])
+        want_r[m_] = (torch.clamp_max(local, v_) + s_ * idx.cap).to(
+            want_r.dtype)
+    _check_equal("path P index service", ranks, want_r)
+    if n_idx != 2 * dryrun.INDEX_SHARDS or \
+            summary["kernels"]["sharded_lookup"]["calls"] != \
+            dryrun.INDEX_SHARDS:
+        raise AssertionError(f"path P index service launches {n_idx}, "
+                             f"{summary['kernels']}")
+    rows["sharded_lookup"]["launches"] += n_idx
+    rows["sharded_lookup"]["path_p_launches"] = n_idx
+    print(f"  index service cell ({dryrun.INDEX_KEYS} keys, "
+          f"{dryrun.INDEX_SHARDS} shards a position each, "
+          f"{dryrun.INDEX_QUERIES} queries): answers equal torch."
+          f"searchsorted; stacked K1 launches {n_idx} (a call a position, "
+          f"two calls); a chip's {summary['flops']} FLOPs, "
+          f"{summary['bytes']} bytes, all-to-all "
+          f"{summary['collective_bytes_by_kind']}; {t_idx:.3f} s")
+    del idx, q, ranks
+
+    # ---- the production cell -------------------------------------------
+    print(f"  dry cell {P_DRY_CELL[0]} {P_DRY_CELL[1]} single ("
+          f"{cell['chips']} chips): {t_cell:.3f} s wall; a chip's FLOPs "
+          f"{cell['flops_by_dtype']}, bytes {cell['bytes_per_chip']}, "
+          f"collectives {cell['collective']['bytes_by_kind']}, memory "
+          f"{cell['memory']}, roofline {cell['roofline']}")
+    print(f"  path P wall {time.perf_counter() - t_path:.1f} s")
 
 
 def _path_o(args, dev, rows, h) -> None:
@@ -8706,6 +8972,13 @@ def main(argv=None) -> int:
 
     # ---- phase 20: path O (training on a mesh), counted --------------------
     _path_o(args, dev, rows, h)
+    print(f"  wall {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- phase 21: path P (the launch cost tools), counted ----------------
+    _path_p(args, dev, rows, h)
     print(f"  wall {time.perf_counter() - t_start:.1f} s")
 
     smi = _card()

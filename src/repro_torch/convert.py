@@ -276,10 +276,11 @@ def lm_params_from_arrays(tree: dict, cfg, *, device=None, mesh=None,
     ``ModelMesh``) the reference's GLOBAL tree (padded for tensor
     parallelism where ``cfg.tp_shard``) is carried to ``device`` (default
     the mesh's first position's) and cut onto the positions by
-    ``serve.step.shard_tree``: a list of trees, one a position, under the
-    serving specs (the weights gathered over ``data``), or with ``fsdp``
-    under ``param_specs`` (training's FSDP storage; ``share`` as
-    ``shard_tree``'s).  Any tree of the parameters' shapes carries across
+    ``serve.step.shard_tree``: a list of trees, one a position, under
+    ``serve_param_specs`` (the weights gathered over ``data``: the serving
+    steps' ``replicate_weights=True`` form), or with ``fsdp`` under
+    ``param_specs`` (FSDP storage, training's and the serving steps'
+    default; ``share`` as ``shard_tree``'s).  Any tree of the parameters' shapes carries across
     the same way, whatever its dtype: the compression residual (f32)."""
     if mesh is None:
         return _lm_tree(tree, cfg, resolve_device(device))

@@ -80,6 +80,17 @@ gradients, ``dfq = sum_j dS`` and ``dfk = sum_i dS`` per query head, in
 f32.  No library attention: SDPA's backward rounds P to
 bf16.  On the CPU the forward is the plain version (``return_lse``) and
 the backward the same code.
+
+On ``meta`` tensors (a dry run: ``launch.dryrun``) every wrapper stands in
+for its launch: it returns empty outputs of the kernel's shapes and dtypes
+(``lse`` and the partial ``(m, l, acc)`` included) and launches nothing,
+so ``LAUNCHES`` (which counts launches only) stays as it is.  This is a
+device type of its own, not a fallback: CPU tensors take the plain
+version, CUDA tensors launch the kernel, and a failed build or launch
+raises.  On every device the wrapper hands the kernel's work
+(``kernels.cost``) to an active counter (``launch.op_cost.OpCost``, which
+counts the calls by tile) and keeps the ops it issues itself uncounted.
+The torch-op backward runs on meta as the aten ops it is.
 """
 from __future__ import annotations
 
@@ -88,7 +99,7 @@ import functools
 import numpy as np
 import torch
 
-from . import build
+from . import build, cost
 
 LAUNCHES = {"flash": 0, "flash_decode": 0, "flash_combine": 0,
             "flash_cc": 0, "flash_bias": 0, "flash_partial": 0,
@@ -207,7 +218,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if return_partial:
         return m, l, acc
     out = acc / l.clamp_min(1e-30)[..., None]
-    out = out.transpose(1, 2).to(q.dtype)
+    # laid out (B, Sq, H, dh) as the kernels write it
+    out = out.transpose(1, 2).to(q.dtype).contiguous()
     return (out, m + torch.log(l)) if return_lse else out
 
 
@@ -307,7 +319,7 @@ def flash_merge_plain(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
         L = L + l[:, :, i] * e
         A = A + acc[:, :, i] * e[..., None]
     out = A / L.clamp_min(1e-30)[..., None]
-    return out.transpose(1, 2).to(dtype)
+    return out.transpose(1, 2).to(dtype).contiguous()
 
 
 def flash_merge(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
@@ -317,13 +329,20 @@ def flash_merge(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
     head a group of one and the D positions as its runs; CPU tensors take
     the plain version."""
     _check_merge(m, l, acc)
-    if m.device.type != "cuda":
+    return cost.counted(
+        lambda: ("flash_merge", cost.merge_work(m, l, acc)), _merge, m, l,
+        acc)
+
+
+def _merge(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
+           ) -> torch.Tensor:
+    if m.device.type not in ("cuda", "meta"):
         return flash_merge_plain(m, l, acc)
     B, H, D, Sq = m.shape
     dh = acc.shape[-1]
     m, l, acc = m.contiguous(), l.contiguous(), acc.contiguous()
     out = torch.empty((B, Sq, H, dh), dtype=torch.bfloat16, device=m.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or m.device.type == "meta":
         return out
     rc = build.library("flash").repro_flash_merge(
         m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), B, Sq,
@@ -361,10 +380,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
             bias: tuple | None = None) -> torch.Tensor:
     """One launch of the tile ``tile_of`` picks (``bias_tile_of`` where
     ``bias``, the checked (fq, fk) of the bias form, is given), on CUDA
-    tensors; ``lse`` (f32 (B, H, Sq), or None) receives each row's
-    log-sum-exp."""
-    B, Sq, H, dh = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    tensors (on meta tensors its stand-in: the empty output, no launch);
+    ``lse`` (f32 (B, H, Sq), or None) receives each row's log-sum-exp."""
+    _, Sq, H, dh = q.shape
+    Hkv = k.shape[2]
     tile = tile_of(q.dtype, dh, Sq * (H // Hkv)) if bias is None else \
         bias_tile_of(q.dtype, dh)
     if lse is not None and tile == "flash_decode":
@@ -372,11 +391,28 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
     if bias is not None and any(t.device != q.device for t in bias):
         raise ValueError("bias_qk must lie on q's device")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    meta = q.device.type == "meta"
+    if not meta and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention needs 16-byte aligned tensors")
     out = torch.empty_like(q)
-    if out.numel() == 0:
+    if out.numel() == 0 or meta:
         return out
+    _launch_tile(tile, q, k, v, out, q_offset, kv_valid, lse, bias)
+    if tile == "flash_decode":
+        LAUNCHES["flash_combine"] += 1
+    LAUNCHES[tile] += 1
+    if lse is not None:
+        LSE_LAUNCHES[tile] += 1
+        if in_backward():
+            REMAT_LAUNCHES[tile] += 1
+    return out
+
+
+def _launch_tile(tile: str, q, k, v, out, q_offset: int, kv_valid: int,
+                 lse, bias) -> None:
+    """The launch of ``tile`` on contiguous CUDA tensors."""
+    B, Sq, H, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     lib = build.library("flash")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = softmax_scale(dh)
@@ -397,7 +433,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
                                     q_offset, kv_valid, scale, n_split, per,
                                     stream)
         build.check(rc, "flash (split-KV decode tile and combine)")
-        LAUNCHES["flash_combine"] += 1
     elif tile == "flash_bias":
         fq, fk = (t.contiguous() for t in bias)
         rc = lib.repro_flash_bias(*ptrs, fq.data_ptr(), fk.data_ptr(),
@@ -410,18 +445,38 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
             kv_valid, int(q.dtype == torch.bfloat16),
             int(Sq * (H // Hkv) <= DECODE_ROWS), scale, stream)
         build.check(rc, "flash (CUDA-core tile)")
-    LAUNCHES[tile] += 1
-    if lse is not None:
-        LSE_LAUNCHES[tile] += 1
-        if in_backward():
-            REMAT_LAUNCHES[tile] += 1
-    return out
+
+
+def tile_work(q, k, q_offset: int, kv_valid: int, tile: str, *,
+              lse: bool = False, bias: bool = False,
+              partial: bool = False) -> cost.Work:
+    """``cost.flash_work`` of one call of ``tile``: the prefill and bias
+    tiles compute on the bf16 tensor cores, the others at f32."""
+    unit = cost.BF16 if tile in ("flash", "flash_bias") else cost.F32
+    return cost.flash_work(q, k, q_offset, kv_valid, unit=unit, lse=lse,
+                           bias=bias, partial=partial)
+
+
+def _tile_name(q, k, bias) -> str:
+    """The name a call is counted under: the tile a card launches (on a
+    card or meta, inputs no tile takes raise here), or ``flash_plain`` for
+    the CPU's plain version on such inputs."""
+    try:
+        if bias is not None:
+            return bias_tile_of(q.dtype, q.shape[-1])
+        return tile_of(q.dtype, q.shape[-1],
+                       q.shape[1] * (q.shape[2] // k.shape[2]))
+    except ValueError:
+        if q.device.type in ("cuda", "meta"):
+            raise
+        return "flash_plain"
 
 
 def _launch_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: int, kv_valid: int) -> tuple:
     """The return_partial form on CUDA tensors: the split-KV tile's runs
-    and ``flash_combine_kernel`` in its partial mode, (m, l, acc) f32."""
+    and ``flash_combine_kernel`` in its partial mode, (m, l, acc) f32 (on
+    meta tensors the empty outputs, no launch)."""
     B, Sq, H, dh = q.shape
     Hkv = k.shape[2]
     if tile_of(q.dtype, dh, Sq * (H // Hkv)) != "flash_decode":
@@ -430,13 +485,14 @@ def _launch_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"/ Hkv <= {DECODE_ROWS}, got {q.dtype}, dh {dh}, "
                          f"{Sq * (H // Hkv)} rows")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    meta = q.device.type == "meta"
+    if not meta and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention needs 16-byte aligned tensors")
     f32 = dict(dtype=torch.float32, device=q.device)
     m = torch.empty((B, H, Sq), **f32)
     l = torch.empty((B, H, Sq), **f32)
     acc = torch.empty((B, H, Sq, dh), **f32)
-    if acc.numel() == 0:
+    if acc.numel() == 0 or meta:
         return m, l, acc
     n_split, per = decode_plan(q, k, q_offset=q_offset, kv_valid=kv_valid)
     part = torch.empty(B * Hkv * n_split * Sq * (H // Hkv) * (dh + 2),
@@ -481,13 +537,37 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_offset, kv_valid = _args_of(q, k, v, q_offset, kv_valid)
     if bias_qk is not None:
         bias_qk = _check_bias(q, k, bias_qk)
-    if q.device.type != "cuda":
+    return cost.counted(
+        lambda: _work(q, k, q_offset, kv_valid, bias_qk, lse=True),
+        _forward, q, k, v, q_offset, kv_valid, bias_qk, True)
+
+
+def _work(q, k, q_offset: int, kv_valid: int, bias, **kw) -> tuple:
+    """(name, work) of a call of the tile that serves these inputs."""
+    tile = _tile_name(q, k, bias)
+    return tile, tile_work(q, k, q_offset, kv_valid, tile,
+                           bias=bias is not None, **kw)
+
+
+def _forward(q, k, v, q_offset: int, kv_valid: int, bias, lse: bool):
+    """K8's forward on q's device: the plain version on the CPU, else
+    ``_launch`` (on meta its stand-in); ``(out, lse)`` with ``lse``."""
+    if q.device.type not in ("cuda", "meta"):
         return flash_attention_plain(q, k, v, q_offset=q_offset,
-                                     kv_valid=kv_valid, return_lse=True,
-                                     bias_qk=bias_qk)
+                                     kv_valid=kv_valid, return_lse=lse,
+                                     bias_qk=bias)
+    if not lse:
+        return _launch(q, k, v, q_offset, kv_valid, None, bias)
     B, Sq, H, _ = q.shape
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    return _launch(q, k, v, q_offset, kv_valid, lse, bias_qk), lse
+    out_lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, q_offset, kv_valid, out_lse, bias), out_lse
+
+
+def _partial(q, k, v, q_offset: int, kv_valid: int) -> tuple:
+    if q.device.type not in ("cuda", "meta"):
+        return flash_attention_plain(q, k, v, q_offset=q_offset,
+                                     kv_valid=kv_valid, return_partial=True)
+    return _launch_partial(q, k, v, q_offset, kv_valid)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -626,16 +706,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
             raise ValueError("return_partial has no backward")
-        if q.device.type != "cuda":
-            return flash_attention_plain(q, k, v, q_offset=q_offset,
-                                         kv_valid=kv_valid,
-                                         return_partial=True)
-        return _launch_partial(q, k, v, q_offset, kv_valid)
+        return cost.counted(
+            lambda: ("flash_partial", tile_work(
+                q, k, q_offset, kv_valid, "flash_partial", partial=True)),
+            _partial, q, k, v, q_offset, kv_valid)
     bias = () if bias_qk is None else _check_bias(q, k, bias_qk)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (q, k, v, *bias)):
         return FlashAttention.apply(q, k, v, q_offset, kv_valid, *bias)
-    if q.device.type != "cuda":
-        return flash_attention_plain(q, k, v, q_offset=q_offset,
-                                     kv_valid=kv_valid, bias_qk=bias or None)
-    return _launch(q, k, v, q_offset, kv_valid, None, bias or None)
+    bias = bias or None
+    return cost.counted(lambda: _work(q, k, q_offset, kv_valid, bias),
+                        _forward, q, k, v, q_offset, kv_valid, bias, False)

@@ -59,7 +59,7 @@ import numpy as np
 import torch
 
 from ..core.bounds import clamped_depth, window_widths
-from . import build
+from . import build, cost
 
 H = 4              # the paper's hidden width
 ROOT_ROWS = 8      # packed root block rows
@@ -465,12 +465,17 @@ def lookup(queries, root, mat, vec, keys, *, n_leaves: int,
     if fence is not None:
         _check_fence(fence, keys)
     kinds = dict(root_kind=root_kind, leaf_kind=leaf_kind)
-    if not on_cuda:
-        return lookup_plain(queries, root, mat, vec, keys, n_leaves=n_leaves,
-                            route_n=route_n, iters=iters, **kinds)
-    out = torch.empty(queries.shape, dtype=torch.int32, device=queries.device)
-    nq = queries.shape[0]
-    if nq:
+
+    def run(rows=rows, fence=fence):
+        if not on_cuda and queries.device.type != "meta":
+            return lookup_plain(queries, root, mat, vec, keys,
+                                n_leaves=n_leaves, route_n=route_n,
+                                iters=iters, **kinds)
+        out = torch.empty(queries.shape, dtype=torch.int32,
+                          device=queries.device)
+        nq = queries.shape[0]
+        if not nq or not on_cuda:   # on meta, the launch's stand-in
+            return out
         if rows is None:
             rows = leaf_rows(mat, vec, leaf_kind)
         if fence is None:
@@ -484,7 +489,9 @@ def lookup(queries, root, mat, vec, keys, *, n_leaves: int,
                 _stream(queries))
         build.check(rc, "lookup")
         LAUNCHES["lookup"] += 1
-    return out
+        return out
+    return cost.counted(lambda: ("lookup", cost.lookup_work(
+        queries.shape[0], iters, leaf_kind=leaf_kind)), run)
 
 
 def dynamic_lookup(queries, root, mat, vec, keys, delta_keys, *,
@@ -840,13 +847,18 @@ def sharded_lookup(queries, shard, roots, mats, vecs, keys, *,
         shard, queries.shape[0], n_leaves=n_leaves, root_kind=root_kind,
         leaf_kind=leaf_kind)
     kinds = dict(root_kind=root_kind, leaf_kind=leaf_kind)
-    if not on_cuda:
-        return sharded_lookup_plain(queries, shard, roots, mats, vecs, keys,
-                                    n_leaves=n_leaves, route_n=route_n,
-                                    iters=iters, **kinds)
-    out = torch.empty(queries.shape, dtype=torch.int32, device=queries.device)
-    nq = queries.shape[0]
-    if nq:
+
+    def run(rows=rows, fences=fences, tabs=tabs):
+        if not on_cuda and queries.device.type != "meta":
+            return sharded_lookup_plain(queries, shard, roots, mats, vecs,
+                                        keys, n_leaves=n_leaves,
+                                        route_n=route_n, iters=iters,
+                                        **kinds)
+        out = torch.empty(queries.shape, dtype=torch.int32,
+                          device=queries.device)
+        nq = queries.shape[0]
+        if not nq or not on_cuda:   # on meta, the launch's stand-in
+            return out
         if tabs is None:
             if rows is None:
                 rows = stacked_leaf_rows(mats, vecs, leaf_kind)
@@ -862,7 +874,10 @@ def sharded_lookup(queries, shard, roots, mats, vecs, keys, *,
                 int(leaf_kind == "mlp"), out.data_ptr(), _stream(queries))
         build.check(rc, "sharded_lookup")
         LAUNCHES["sharded_lookup"] += 1
-    return out
+        return out
+    return cost.counted(lambda: ("sharded_lookup", cost.lookup_work(
+        queries.shape[0], full_iters(keys.shape[1]) if iters is None
+        else iters, leaf_kind=leaf_kind, stacked=True)), run)
 
 
 def sharded_dynamic_lookup(queries, shard, roots, mats, vecs, keys,

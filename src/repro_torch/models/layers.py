@@ -42,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from .. import not_ported
+from ..kernels import cost as _cost
 from ..kernels import flash as _flash
 from .sharding import TP
 
@@ -51,10 +52,16 @@ BF16 = torch.bfloat16
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """f32 product of 2-d (``mm``) or 3-d (``bmm``) operands: on the card a
-    bf16 GEMM with an f32 result where both are bf16, else an f32 product
-    of the upcast operands."""
+    bf16 GEMM with an f32 result where both are bf16 (and so on meta
+    tensors, a dry run of the card), else an f32 product of the upcast
+    operands.  Counted as the card computes it (``kernels.cost``)."""
+    return _cost.counted(lambda: ("mm_f32", _cost.gemm_work(a, b)),
+                         _mm_f32_on, a, b)
+
+
+def _mm_f32_on(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     mm = torch.mm if a.dim() == 2 else torch.bmm
-    if a.device.type == "cuda" and a.dtype == b.dtype == BF16:
+    if a.device.type in ("cuda", "meta") and a.dtype == b.dtype == BF16:
         return mm(a, b, out_dtype=F32)
     return mm(a.to(F32), b.to(F32))
 

@@ -483,7 +483,7 @@ def unstack(sb, n_sb: int) -> list:
 
 def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
             mode: str = "train", remat: bool = True, cache_len=None,
-            seq_sharded: bool = False, mesh=None):
+            seq_sharded: bool = False, mesh=None, fsdp: bool = False):
     """inputs: token ids (B, S), or embeddings (B, S, d) where
     ``cfg.embed_input`` (cast to bf16).  pos: (B, S) positions, or (3, B,
     S) (t, h, w) ids for M-RoPE.  Decode takes ``cache_len`` (an int;
@@ -500,13 +500,19 @@ def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
     ``caches`` are lists over its positions (``_forward_mesh``), and so is
     the hidden state returned; ``seq_sharded`` decodes against caches
     whose time axis is cut over ``data``; ``mode="train"`` on a mesh takes
-    the parameters in FSDP storage (``_train_mesh``)."""
+    the parameters in FSDP storage, and so do prefill and
+    decode with ``fsdp`` (serving from FSDP storage, the reference's
+    ``set_fsdp_gather(True)``: each superblock's leaves and the embedding
+    gathered over ``data`` at use, ``gather_fsdp``)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"forward(mode={mode!r}): train, prefill or decode")
     if mesh is not None:
         return _forward_mesh(params, cfg, inputs, pos=pos, caches=caches,
                              mode=mode, cache_len=cache_len,
-                             seq_sharded=seq_sharded, mesh=mesh, remat=remat)
+                             seq_sharded=seq_sharded, mesh=mesh, remat=remat,
+                             fsdp=fsdp)
+    if fsdp:
+        raise ValueError("fsdp storage is a mesh's: pass mesh=")
     if seq_sharded:
         raise not_ported("sequence-sharded KV caches without a mesh (pass "
                          "mesh=, a ModelMesh)", "14d")
@@ -563,26 +569,28 @@ def gather_fsdp(trees: list, specs, mesh) -> list:
 
 def _forward_mesh(params: list, cfg, inputs: list, *, pos: list, caches,
                   mode: str, cache_len, seq_sharded: bool, mesh,
-                  remat: bool = True) -> tuple:
+                  remat: bool = True, fsdp: bool = False) -> tuple:
     """``forward`` on a mesh (the reference's under ``shard_map``,
     ``repro/models/model.py:325-366``): the embedding (``tp_psum`` of the
     vocab shards' rows), then each layer a position at a time between its
-    collectives.  ``mode="train"`` takes FSDP storage (``_train_mesh``)."""
+    collectives.  In FSDP storage (``mode="train"`` always, prefill and
+    decode with ``fsdp``) the embedding is gathered over ``data``
+    (``_embed_mesh``), and so are each superblock's leaves
+    (``gather_fsdp``), dropped once the superblock has run.  Training runs
+    each superblock under ``torch.utils.checkpoint`` with ``remat`` while
+    autograd records, so that the backward gathers the leaves and runs the
+    layers (K8 included) again."""
     _supported(cfg)
     _layout(cfg, mesh)
     if mode == "train":
         if caches is not None or seq_sharded:
             raise ValueError("mode='train' takes no caches")
-        return _train_mesh(params, cfg, inputs, pos=pos, remat=remat,
-                           mesh=mesh), None
-    if seq_sharded and (caches is None or mode != "decode"):
+        fsdp = True
+    elif seq_sharded and (caches is None or mode != "decode"):
         raise ValueError("seq_sharded decodes against sequence-sharded "
                          "caches: mode='decode' with caches")
     D = mesh.size
-    if cfg.embed_input:
-        x = [t.to(BF16) for t in inputs]
-    else:
-        x = embed_tokens(params, cfg, inputs, cfg.tp_shard, mesh=mesh)
+    x = _embed_mesh(params, cfg, inputs, mesh, fsdp)
     if mode == "decode":
         if cache_len is None:
             cache_len = int(pos[0].reshape(-1)[0])  # sync: ok(one read)
@@ -594,7 +602,12 @@ def _forward_mesh(params: list, cfg, inputs: list, *, pos: list, caches,
     elif caches is not None:           # prefill into fresh caches
         cache_len = 0
     per = [unstack(params[r]["sb"], cfg.n_sb) for r in range(D)]
-    for layer in range(cfg.n_sb):
+    specs = tree_map(lambda l: l.spec, _tree(cfg)["sb"]) if fsdp else None
+
+    def superblock(x, layer):
+        blks = [per[r][layer] for r in range(D)]
+        if fsdp:
+            blks = gather_fsdp(blks, specs, mesh)
         for i in range(cfg.sb):
             kind, c = cfg.pattern[i], None
             if caches is not None:
@@ -604,60 +617,50 @@ def _forward_mesh(params: list, cfg, inputs: list, *, pos: list, caches,
                     for cr in c:
                         cr.update(length=cache_len, seq_sharded=seq_sharded)
             x, nc = _run_block_mesh(cfg, kind,
-                                    [per[r][layer][f"pos{i}"]
-                                     for r in range(D)], x, pos=pos,
-                                    cache=c, mesh=mesh)
+                                    [b[f"pos{i}"] for b in blks], x,
+                                    pos=pos, cache=c, mesh=mesh)
             if kind != "attn" and c is not None:
                 for cr, ncr in zip(c, nc, strict=True):
                     for k, t in (ncr or {}).items():   # the new state
                         cr[k].copy_(t)
-    return x, caches
-
-
-def _train_mesh(params: list, cfg, inputs: list, *, pos: list, remat: bool,
-                mesh) -> list:
-    """The training forward on a mesh: ``params`` in FSDP storage (cut by
-    ``param_specs``).  The embedding gathered over ``data``, then each
-    superblock: its leaves gathered (``gather_fsdp``) and its layers run
-    as in serving (``_run_block_mesh``), under ``torch.utils.checkpoint``
-    with ``remat`` while autograd records, so that the backward gathers
-    the leaves and runs the layers (K8 included) again.  Returns the
-    hidden states, a list over the positions."""
-    D = mesh.size
-    if cfg.embed_input:
-        x = [t.to(BF16) for t in inputs]
-    else:
-        tables = mesh.fsdp_gather([p["embed"] for p in params], 1)
-        x = embed_tokens([{"embed": w} for w in tables], cfg, inputs,
-                         cfg.tp_shard, mesh=mesh)
-    specs = tree_map(lambda l: l.spec, _tree(cfg)["sb"])
-    per = [unstack(params[r]["sb"], cfg.n_sb) for r in range(D)]
-
-    def superblock(x, layer):
-        blks = gather_fsdp([per[r][layer] for r in range(D)], specs, mesh)
-        for i in range(cfg.sb):
-            x, _ = _run_block_mesh(cfg, cfg.pattern[i],
-                                   [b[f"pos{i}"] for b in blks], x, pos=pos,
-                                   cache=None, mesh=mesh)
         return x
 
-    ckpt = remat and torch.is_grad_enabled()
+    ckpt = mode == "train" and remat and torch.is_grad_enabled()
     for layer in range(cfg.n_sb):
         x = checkpoint(superblock, x, layer, use_reentrant=False) if ckpt \
             else superblock(x, layer)
-    return x
+    return x, caches
+
+
+def _embed_mesh(params: list, cfg, inputs: list, mesh, fsdp: bool) -> list:
+    """Each position's embedded inputs; in FSDP storage the table gathered
+    over ``data`` first."""
+    if cfg.embed_input:
+        return [t.to(BF16) for t in inputs]
+    if fsdp:
+        params = [{"embed": w} for w in
+                  mesh.fsdp_gather([p["embed"] for p in params], 1)]
+    return embed_tokens(params, cfg, inputs, cfg.tp_shard, mesh=mesh)
+
+
+def _heads_mesh(params: list, mesh, fsdp: bool) -> list:
+    """Each position's ``lm_head``; in FSDP storage gathered over ``data``."""
+    heads = [p["lm_head"] for p in params]
+    return mesh.fsdp_gather(heads, 0) if fsdp else heads
 
 
 def lm_logits(params, cfg, x: torch.Tensor, tp_shard: bool,
-              mesh=None) -> torch.Tensor:
+              mesh=None, fsdp: bool = False) -> torch.Tensor:
     """(B, S, V_padded) f32 logits.  On a mesh (lists over its positions)
     each position's (B, S, V_padded / model) logits of its vocab shard
-    (``tp_shard``) or all of them."""
+    (``tp_shard``) or all of them; with ``fsdp`` the head is gathered over
+    ``data`` first (FSDP storage)."""
     if mesh is not None:
         return [layers.matmul_f32(layers.rms_norm(xr, p["final_ln"],
-                                                  cfg.norm_eps),
-                                  p["lm_head"])
-                for p, xr in zip(params, x, strict=True)]
+                                                  cfg.norm_eps), w)
+                for p, xr, w in zip(params, x, _heads_mesh(params, mesh,
+                                                           fsdp),
+                                    strict=True)]
     layers._no_tp(tp_shard)
     h = layers.rms_norm(x, params["final_ln"], cfg.norm_eps)
     return layers.matmul_f32(h, params["lm_head"])
@@ -754,7 +757,7 @@ def _lm_loss_mesh(params: list, cfg, x: list, labels: list, tp_shard: bool,
     position's loss is the same scalar; a step differentiates one of
     them."""
     D = mesh.size
-    ws = mesh.fsdp_gather([p["lm_head"] for p in params], 0)
+    ws = _heads_mesh(params, mesh, True)
     bases = [mesh.axis_index(TP, r) * ws[r].shape[1] if tp_shard else 0
              for r in range(D)]
     S = x[0].shape[1]

@@ -38,9 +38,11 @@ leaf's gradients over the axes it is replicated on, which the reference's
 varying-axes types insert as the transpose of an implicit broadcast) and
 ``pod_psum``.  Each is counted in ``COLLECTIVES``; so are the transposes
 the backward runs (``tp_psum``'s all-reduce of the cotangent, under
-``tp_psum``; ``fsdp_gather``'s under ``reduce_scatter``).  Serving holds
-the weights gathered over ``data`` (the reference's
-``replicate_weights=True``) and never calls ``fsdp_gather``.
+``tp_psum``; ``fsdp_gather``'s under ``reduce_scatter``).  Serving from
+FSDP storage gathers each superblock's leaves, the embedding and the head
+with ``fsdp_gather`` at use, as the reference's serving steps do
+(``serve.step``); with ``replicate_weights=True`` it holds them gathered
+and calls none.
 
 ``psum_dtype`` (a field of the mesh, set by ``train.step.make_train_step``
 from its argument of that name: the reference's ``set_psum_dtype``, which
@@ -71,6 +73,12 @@ COLLECTIVES = {k: {"calls": 0, "bytes": 0}
                          "pod_psum_int8")}
 
 
+# Callables given (kind, bytes, n) of every collective a group of n
+# positions runs (``launch.op_cost.OpCost`` registers itself while it is
+# entered: a chip takes part in one call a group it belongs to).
+WATCHERS: list = []
+
+
 def reset_collectives() -> None:
     for v in COLLECTIVES.values():
         v["calls"] = v["bytes"] = 0
@@ -83,9 +91,11 @@ def _device(d) -> torch.device:
     return dev
 
 
-def _count(kind: str, nbytes: int) -> None:
+def _count(kind: str, nbytes: int, n: int) -> None:
     COLLECTIVES[kind]["calls"] += 1
     COLLECTIVES[kind]["bytes"] += int(nbytes)
+    for w in WATCHERS:
+        w(kind, int(nbytes), n)
 
 
 class _Tally(torch.autograd.Function):
@@ -93,19 +103,20 @@ class _Tally(torch.autograd.Function):
     transpose a collective's backward runs."""
 
     @staticmethod
-    def forward(ctx, x, kind: str, nbytes: int):
-        ctx.kind, ctx.nbytes = kind, nbytes
+    def forward(ctx, x, kind: str, nbytes: int, n: int):
+        ctx.kind, ctx.nbytes, ctx.n = kind, nbytes, n
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        _count(ctx.kind, ctx.nbytes)
-        return g, None, None
+        _count(ctx.kind, ctx.nbytes, ctx.n)
+        return g, None, None, None
 
 
-def _tallied(x: torch.Tensor, kind: str, nbytes: int) -> torch.Tensor:
+def _tallied(x: torch.Tensor, kind: str, nbytes: int, n: int
+             ) -> torch.Tensor:
     if torch.is_grad_enabled() and x.requires_grad:
-        return _Tally.apply(x, kind, nbytes)
+        return _Tally.apply(x, kind, nbytes, n)
     return x
 
 
@@ -125,7 +136,7 @@ class _FsdpGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *gs):
-        _count("reduce_scatter", ctx.nbytes)
+        _count("reduce_scatter", ctx.nbytes, len(ctx.homes))
         k, out = ctx.width, []
         for j, home in enumerate(ctx.homes):
             acc = None
@@ -239,8 +250,8 @@ class ModelMesh:
             n *= self.axis_size(a)
         for g in self.groups(axes):
             b = xs[g[0]].numel() * (itemsize or xs[g[0]].element_size())
-            _count(kind, 2 * (n - 1) * b)
-            first = _tallied(xs[g[0]], kind, 2 * (n - 1) * b) if tally \
+            _count(kind, 2 * (n - 1) * b, n)
+            first = _tallied(xs[g[0]], kind, 2 * (n - 1) * b, n) if tally \
                 else xs[g[0]]
             done = {}
             for r in g:
@@ -296,7 +307,7 @@ class ModelMesh:
         out = [None] * self.size
         for g in self.groups(FSDP):
             b = ws[g[0]].numel() * ws[g[0]].element_size()
-            _count("fsdp_gather", n * (n - 1) * b)
+            _count("fsdp_gather", n * (n - 1) * b, n)
             devs = list(dict.fromkeys(self.devices[r] for r in g))
             made = _FsdpGather.apply(dim, tuple(devs), n * (n - 1) * b,
                                      *(ws[i] for i in g))
@@ -328,7 +339,7 @@ class ModelMesh:
         out = [None] * self.size
         for g in self.groups(axis):
             _count(kind, n * (n - 1) * xs[g[0]].numel() *
-                   xs[g[0]].element_size())
+                   xs[g[0]].element_size(), n)
             done = {}
             for r in g:
                 dev = self.devices[r]

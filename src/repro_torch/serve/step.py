@@ -22,11 +22,15 @@ Sharding variants, as the reference's:
                  data (flash-decoding: K8's ``return_partial`` form and
                  ``flash_merge``).
 
-Weights are held gathered over ``data`` on every step: the reference's
-``replicate_weights=True`` form, numerically its per-step ``fsdp_gather``.
-FSDP storage is training's (``train.step.make_train_step(cfg, mesh)``
-takes the trees ``shard_tree`` cuts by ``param_specs``), so the decode
-step takes no ``replicate_weights``.
+Weights, as the reference's: FSDP storage by default, the trees
+``shard_tree`` cuts by ``param_specs`` (``data`` included), each
+superblock's leaves, the embedding and the head gathered over ``data`` at
+use (``models.model.gather_fsdp``; ``make_prefill`` always gathers in the
+reference, ``make_decode_step`` unless ``replicate_weights``).  With
+``replicate_weights=True`` (both steps here) the weights are held
+gathered: the trees cut by ``serve_param_specs``, no gather a step.  The
+two forms compute the same numbers bit for bit (a gather is a copy), and
+on a mesh whose ``data`` axis has one position they are the same tree.
 """
 from __future__ import annotations
 
@@ -161,7 +165,13 @@ def gather_tree(trees: list, specs, mesh, *, device=None):
     return M.tree_map(leaf, trees[0], *trees[1:], specs)
 
 
-def make_prefill(cfg, mesh=None, *, batch_sharded: bool = True):
+def _weight_specs(cfg, replicate_weights: bool) -> dict:
+    return serve_param_specs(cfg) if replicate_weights else \
+        M.param_specs(cfg)
+
+
+def make_prefill(cfg, mesh=None, *, batch_sharded: bool = True,
+                 replicate_weights: bool = False):
     """fn(params, caches, tokens, pos) -> (logits (B, V_padded) f32,
     caches).  ``tokens``: ids (B, S), or embeddings (B, S, d) where
     ``cfg.embed_input``; ``pos``: (B, S), or (3, B, S) (t, h, w) ids for
@@ -170,7 +180,13 @@ def make_prefill(cfg, mesh=None, *, batch_sharded: bool = True):
 
     With ``mesh``: every argument and result a list over its positions
     (``fn.in_specs``, ``fn.out_specs``); the logits are each position's
-    vocab shard (``tp_shard``), (B_local, V_padded / model)."""
+    vocab shard (``tp_shard``), (B_local, V_padded / model).  The weights
+    in FSDP storage (``param_specs``, gathered at use), as the reference's
+    ``make_prefill`` always takes them; or held gathered with
+    ``replicate_weights`` (``serve_param_specs``), an option the reference
+    lacks: a server that decodes with ``make_decode_step(...,
+    replicate_weights=True)`` holds only the gathered trees, and prefills
+    its requests from them rather than keeping an FSDP copy beside them."""
     if mesh is None:
         def prefill(params, caches, tokens, pos):
             x, caches = M.forward(params, cfg, tokens, pos=pos,
@@ -183,20 +199,23 @@ def make_prefill(cfg, mesh=None, *, batch_sharded: bool = True):
     c_specs = _cache_specs(cfg, mesh, batch_sharded=batch_sharded,
                            seq_shard=False)
 
+    fsdp = not replicate_weights
+
     def prefill_mesh(params, caches, tokens, pos):
         x, caches = M.forward(params, cfg, tokens, pos=pos, caches=caches,
-                              mode="prefill", mesh=mesh)
+                              mode="prefill", mesh=mesh, fsdp=fsdp)
         logits = M.lm_logits(params, cfg, [t[:, -1:, :] for t in x],
-                             cfg.tp_shard, mesh=mesh)
+                             cfg.tp_shard, mesh=mesh, fsdp=fsdp)
         return [lg[:, 0, :] for lg in logits], caches
-    prefill_mesh.in_specs = (serve_param_specs(cfg), c_specs, tok,
-                             pos_spec)
+    prefill_mesh.in_specs = (_weight_specs(cfg, replicate_weights), c_specs,
+                             tok, pos_spec)
     prefill_mesh.out_specs = ((b_ax, TP if cfg.tp_shard else None), c_specs)
     return prefill_mesh
 
 
 def make_decode_step(cfg, mesh=None, *, batch_sharded: bool = True,
-                     seq_shard: bool = False):
+                     seq_shard: bool = False,
+                     replicate_weights: bool = False):
     """fn(params, caches, tokens, pos, cache_len) -> (next ids (B,) int32,
     caches).  ``tokens``: ids (B, 1), or embeddings (B, 1, d) where
     ``cfg.embed_input``.  Positions come from ``cache_len`` (an int), but
@@ -207,7 +226,9 @@ def make_decode_step(cfg, mesh=None, *, batch_sharded: bool = True,
     all-gathered over ``model`` before the argmax over ``[:vocab_size]``,
     as the reference's (``:123-127``); ``seq_shard`` decodes against
     caches whose time axis is cut over ``data``, the batch replicated
-    (with ``batch_sharded=False``: both would cut ``data`` twice)."""
+    (with ``batch_sharded=False``: both would cut ``data`` twice).  The
+    weights in FSDP storage, gathered over ``data`` every step, or held
+    gathered with ``replicate_weights`` (the reference's ``:99-137``)."""
     if mesh is None:
         def decode(params, caches, tokens, pos, cache_len):
             x, caches = M.forward(params, cfg, tokens, pos=pos,
@@ -222,18 +243,20 @@ def make_decode_step(cfg, mesh=None, *, batch_sharded: bool = True,
     c_specs = _cache_specs(cfg, mesh, batch_sharded=batch_sharded,
                            seq_shard=seq_shard)
 
+    fsdp = not replicate_weights
+
     def decode_mesh(params, caches, tokens, pos, cache_len):
         x, caches = M.forward(params, cfg, tokens, pos=pos, caches=caches,
                               mode="decode", cache_len=cache_len,
-                              seq_sharded=seq_shard, mesh=mesh)
-        logits = [lg[:, 0, :] for lg in M.lm_logits(params, cfg, x,
-                                                    cfg.tp_shard, mesh=mesh)]
+                              seq_sharded=seq_shard, mesh=mesh, fsdp=fsdp)
+        logits = [lg[:, 0, :] for lg in M.lm_logits(
+            params, cfg, x, cfg.tp_shard, mesh=mesh, fsdp=fsdp)]
         if cfg.tp_shard:
             logits = mesh.all_gather(logits, TP, dim=1)
         nxt = [torch.argmax(lg[:, :cfg.vocab_size], dim=-1).to(torch.int32)
                for lg in logits]
         return nxt, caches
-    decode_mesh.in_specs = (serve_param_specs(cfg), c_specs, tok,
-                            pos_spec, ())
+    decode_mesh.in_specs = (_weight_specs(cfg, replicate_weights), c_specs,
+                            tok, pos_spec, ())
     decode_mesh.out_specs = ((b_ax,), c_specs)
     return decode_mesh

@@ -352,8 +352,9 @@ def _run_port(name, rec) -> dict:
     mesh = tsh.ModelMesh(c["mesh"], devices="cpu")
     params = convert.lm_params_from_arrays(rec["params"], cfg, device="cpu",
                                            mesh=mesh)
-    pre = tstep.make_prefill(cfg, mesh)
-    dec = tstep.make_decode_step(cfg, mesh)
+    pre = tstep.make_prefill(cfg, mesh, replicate_weights=True)
+    dec = tstep.make_decode_step(cfg, mesh,
+                                 replicate_weights=True)
     _, c_spec, t_spec, p_spec = pre.in_specs
     caches = tstep.shard_tree(
         TM.init_cache(cfg, c["B"], c["S_max"], local=False, device="cpu"),
@@ -589,7 +590,7 @@ def test_tp16_layout_is_single_card_gqa():
     B, S = 2, 10
     toks = torch.randint(0, 256, (B, S), generator=g, dtype=torch.int32)
     pos = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
-    pre = tstep.make_prefill(cfg, mesh)
+    pre = tstep.make_prefill(cfg, mesh, replicate_weights=True)
     caches = tstep.shard_tree(TM.init_cache(cfg, B, 16, local=False,
                                             device="cpu"),
                               pre.in_specs[1], mesh, share=False)
@@ -654,7 +655,7 @@ def test_seq_sharded_decode_matches_reference(port_runs, name):
     cfg = got["cfg"]
     mesh = tsh.ModelMesh(c["seq"], devices="cpu")
     dec = tstep.make_decode_step(cfg, mesh, batch_sharded=False,
-                                 seq_shard=True)
+                                 seq_shard=True, replicate_weights=True)
     params = convert.lm_params_from_arrays(want["params"], cfg, device="cpu",
                                            mesh=mesh)
     _, c_spec, t_spec, p_spec, _ = dec.in_specs

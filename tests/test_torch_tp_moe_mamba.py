@@ -309,8 +309,9 @@ def _run_port(name, rec) -> dict:
     mesh = tsh.ModelMesh(c["mesh"], devices="cpu")
     params = convert.lm_params_from_arrays(rec["params"], cfg, device="cpu",
                                            mesh=mesh)
-    pre = tstep.make_prefill(cfg, mesh)
-    dec = tstep.make_decode_step(cfg, mesh)
+    pre = tstep.make_prefill(cfg, mesh, replicate_weights=True)
+    dec = tstep.make_decode_step(cfg, mesh,
+                                 replicate_weights=True)
     _, c_spec, t_spec, p_spec = pre.in_specs
     caches = tstep.shard_tree(
         TM.init_cache(cfg, c["B"], c["S_max"], local=False, device="cpu"),
@@ -372,7 +373,7 @@ def _one_card_tree(glob: dict, one, tp: int, regroup: bool) -> dict:
 
 
 def _mesh_prefill(cfg, mesh, glob, toks, pos, S_max):
-    pre = tstep.make_prefill(cfg, mesh)
+    pre = tstep.make_prefill(cfg, mesh, replicate_weights=True)
     caches = tstep.shard_tree(TM.init_cache(cfg, toks.shape[0], S_max,
                                             local=False, device="cpu"),
                               pre.in_specs[1], mesh, share=False)
@@ -546,7 +547,7 @@ def test_seq_sharded_decode_matches_reference(port_runs):
     cfg = got["cfg"]
     mesh = tsh.ModelMesh(c["seq"], devices="cpu")
     dec = tstep.make_decode_step(cfg, mesh, batch_sharded=False,
-                                 seq_shard=True)
+                                 seq_shard=True, replicate_weights=True)
     params = convert.lm_params_from_arrays(want["params"], cfg, device="cpu",
                                            mesh=mesh)
     _, c_spec, t_spec, p_spec, _ = dec.in_specs
