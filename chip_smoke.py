@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; nothing is caught):
 1. Build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc, one
    process per source, and print what ``-Xptxas -v`` reports (registers,
    shared memory, spills) per entry point; fail on any spill in the
-   lookup library (K1-K4), K5's or K7's.
+   lookup library (K1-K4), K5's or K7's, and in K8's tiles at every head
+   dim they are built for; every instantiation of K8's tensor-core tile
+   (D 64, 80, 96, 128) must hold HGMMA.
 2. Path A, the single-host dynamic index with linear models, through the
    entry points a user calls, with every launch counter set to 0 just
    before and read just after: a static ``build_rmi`` + ``rmi.lookup``
@@ -129,7 +131,26 @@ Phases (any failure exits non-zero; nothing is caught):
    with the plain attention put in place of K8 by this script, and the
    prefill logits must agree within ``LM_LOGIT_TOL`` and the first greedy
    tokens wherever the margin allows.  Prints prefill seconds, decode
-   tokens/s, peak memory and K8's share of each.
+   tokens/s, peak memory and K8's share of each.  ``serve()`` passes the
+   decode step ``cache_len`` as a device scalar, as the reference's loop
+   does.  On the served weights and prompts the decode step then runs 32
+   steps with an int ``cache_len`` and 32 with a device one under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync; ids equal,
+   or logits within ``LM_LOGIT_TOL`` where they part), and a CUDA graph
+   of the tensor form's step, warmed on a side stream, captured there and
+   replayed with ``cache_len`` advanced on the card, must give the
+   uncaptured steps' ids and caches bit for bit (its ms a step printed
+   beside theirs).  The split-KV tile with tensor positions (its plan
+   fixed by the cache's length) is held against its plain version at that
+   plan on layer 0's decode inputs cut to 1,000 valid keys, where a
+   planted non-empty run past ``kend``, combined, must fail the check.
+   K8's forms the model does not call (``D_FORMS``: ``causal=False`` on
+   each tile, head dims 80, 96 and 256 on the tensor-core and split-KV
+   tiles, dh 256 prefill and dh 40 on the CUDA-core tile) are each held
+   against plain and f64 within one bf16 ulp, a planted fault (a row's
+   last key dropped, on inputs where that key carries the row) must fail,
+   and each is timed beside SDPA and its bound: the ``forms`` of the
+   ``flash`` and ``flash_decode`` rows of the kernels line.
 9. Path E, counted, on fresh keys: the paper's baselines (B+tree at
    ``BTREE_FANOUT`` over every key on the card; PGM at ``PGM_EPS`` and
    RadixSpline at ``RS_EPS``/``RS_RADIX_BITS`` built on the host over
@@ -638,6 +659,31 @@ LM_NEW_TOKENS = 32             # greedy tokens a request
 # attention differences (the plain version's key blocks of 1,024 against
 # 128) move the logits of a 36-layer qwen3 cut to d_model 512 on the CPU.
 LM_LOGIT_TOL = 0.25
+# K8's forms path D's model does not call, checked and timed in phase 8 at
+# public models' shapes (``_d_forms``): (row, what, dtype, B, Sq, Skv, H,
+# Hkv, dh, q_offset, kv_valid, causal)
+D_FORMS = (
+    ("flash", "qwen3-4b prefill, causal=False", "bfloat16", 1, 2048, 2048,
+     32, 8, 128, 0, 2048, False),
+    ("flash", "phi-2 prefill (dh 80)", "bfloat16", 1, 2048, 2048, 32, 32,
+     80, 0, 2048, True),
+    ("flash", "phi-3-mini prefill (dh 96)", "bfloat16", 1, 2048, 2048, 32,
+     32, 96, 0, 2048, True),
+    ("flash", "gemma-7b prefill (dh 256, CUDA-core tile)", "bfloat16", 1,
+     2048, 2048, 16, 16, 256, 0, 2048, True),
+    ("flash", "dh 40 prefill (CUDA-core tile)", "bfloat16", 1, 1024, 1024,
+     8, 8, 40, 0, 1024, True),
+    ("flash", "f32 prefill, causal=False (CUDA-core tile)", "float32", 1,
+     1024, 1024, 8, 8, 64, 0, 1024, False),
+    ("flash_decode", "qwen3-4b decode, causal=False", "bfloat16", 4, 1,
+     2080, 32, 8, 128, 2048, 2049, False),
+    ("flash_decode", "phi-2 decode (dh 80)", "bfloat16", 4, 1, 2080, 32, 32,
+     80, 2048, 2049, True),
+    ("flash_decode", "phi-3-mini decode (dh 96)", "bfloat16", 4, 1, 2080,
+     32, 32, 96, 2048, 2049, True),
+    ("flash_decode", "gemma-7b decode (dh 256)", "bfloat16", 4, 1, 2080, 16,
+     16, 256, 2048, 2049, True),
+)
 # Path E: the reference benchmark's baseline settings
 # (benchmarks/bench_lookup.py), PGM's and RadixSpline's host builds over a
 # sample of this many keys, and the indexed dataset's shards
@@ -1745,13 +1791,14 @@ def _bf16_ulp(mag):
     return torch.exp2(torch.floor(torch.log2(m)) - 7)
 
 
-def _keep(q, k, q_offset: int = 0, kv_valid=None):
-    """The causal mask of K8's call, (Sq, Skv): key j <= q_offset + i and
-    j < kv_valid."""
+def _keep(q, k, q_offset: int = 0, kv_valid=None, causal: bool = True):
+    """The mask of K8's call, (Sq, Skv): key j <= q_offset + i (causal)
+    and j < kv_valid."""
     import torch
     qp = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
     kp = torch.arange(k.shape[1], device=q.device)[None, :]
-    return (kp <= qp) & (kp < (k.shape[1] if kv_valid is None else kv_valid))
+    keep = kp < (k.shape[1] if kv_valid is None else kv_valid)
+    return ((kp <= qp) & keep) if causal else keep.expand(q.shape[1], -1)
 
 
 def _f64_scores(qb, kb, bias_b, keep):
@@ -1769,13 +1816,15 @@ def _f64_scores(qb, kb, bias_b, keep):
     return s.masked_fill(~keep, float("-inf"))
 
 
-def _dense_f64(q, k, v, q_offset: int, kv_valid: int, bias=None):
+def _dense_f64(q, k, v, q_offset: int, kv_valid: int, bias=None,
+               causal: bool = True):
     """Attention by a dense f64 softmax, one batch row at a time: an oracle
     independent of the online softmax; ``bias = (fq, fk)`` adds the
-    per-query and per-key terms (K8's bias form)."""
+    per-query and per-key terms (K8's bias form); ``causal=False`` keeps
+    every key below ``kv_valid``."""
     import torch
     G = q.shape[2] // k.shape[2]
-    keep = _keep(q, k, q_offset, kv_valid)
+    keep = _keep(q, k, q_offset, kv_valid, causal)
     out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
     for b in range(q.shape[0]):
         s = _f64_scores(q[b].double(), k[b].double(),
@@ -1786,19 +1835,20 @@ def _dense_f64(q, k, v, q_offset: int, kv_valid: int, bias=None):
     return out
 
 
-def _sdpa_call(q, k, v, q_offset: int, kv_valid: int):
+def _sdpa_call(q, k, v, q_offset: int, kv_valid: int, causal: bool = True):
     """``scaled_dot_product_attention(enable_gqa=True)`` on K8's inputs,
     set up once and returned as a call giving (B, H, Sq, dh):
     ``is_causal`` over the first ``kv_valid`` keys where the queries are
-    positions 0 .. kv_valid - 1 (prefill), a boolean mask otherwise."""
+    positions 0 .. kv_valid - 1 (prefill), a boolean mask otherwise; without
+    the causal mask no mask over the first ``kv_valid`` keys."""
     import torch
     import torch.nn.functional as F
     Sq = q.shape[1]
-    if q_offset == 0 and kv_valid == Sq:
+    if not causal or (q_offset == 0 and kv_valid == Sq):
         qs, ks, vs = (t.transpose(1, 2).contiguous()
                       for t in (q, k[:, :kv_valid], v[:, :kv_valid]))
         return lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True, enable_gqa=True)
+            qs, ks, vs, is_causal=causal, enable_gqa=True)
     qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     kp = torch.arange(k.shape[1], device=q.device)
     keep = ((kp <= q_offset + torch.arange(Sq, device=q.device)[:, None])
@@ -2045,7 +2095,7 @@ def _path_d(args, dev, rows, h) -> None:
     real_flash = tlayers.flash_attention
     real_make_prefill = tserve.serve_step.make_prefill
     real_page_table = tserve.learned_page_table
-    captured, logits, tables = {}, {}, []
+    captured, logits, tables, kept = {}, {}, [], {}
     calls = [0]
 
     def recording(q, k, v, *, q_offset, kv_valid=None, **kw):
@@ -2069,6 +2119,8 @@ def _path_d(args, dev, rows, h) -> None:
             fn = real_make_prefill(c)
 
             def prefill(*a):
+                if tag == "kernel":     # the weights and prompts, kept for
+                    kept.update(params=a[0], prompts=a[2], pos=a[3])
                 out = fn(*a)
                 logits[tag] = out[0].clone()
                 return out
@@ -2264,6 +2316,7 @@ def _path_d(args, dev, rows, h) -> None:
         print(f"    {work[0]} bytes, {work[1]} operations; bound_ms "
               f"{rows[name]['bound_ms']:.6f} ({rows[name]['bound_by']}); "
               f"{extra}")
+    _d_device_split(h, *captured[("decode", 0)][:3], rows)
     share_p = L * rows["flash"]["ms"] / 1e3 / res.prefill_s
     share_d = L * T * rows["flash_decode"]["ms"] / 1e3 / res.decode_s
     print(f"  K8's share (launches x ms): prefill {share_p:.3%}, decode "
@@ -2336,6 +2389,293 @@ def _path_d(args, dev, rows, h) -> None:
           f"{int(agree.sum())} of {agree.size}, leading run per request "
           f"{lead}; plain prefill {res_p.prefill_s:.6f} s, decode "
           f"{res_p.decode_tok_s:.3f} tokens/s")
+    del res_p, lp
+    _d_device_steps(cfg, kept, toks)
+    del kept
+    _d_forms(h, dev, rows)
+
+
+def _planted_last_key(q, k, qo: int, kvv: int, causal: bool):
+    """A copy of k whose key ``kvv - 1`` is, in every KV head, the query
+    row that sees it last (the first row without the causal mask): that
+    row puts most of its weight there, so that dropping the key (kv_valid
+    - 1) moves its output far beyond one bf16 ulp."""
+    G = q.shape[2] // k.shape[2]
+    i = min(q.shape[1] - 1, kvv - 1 - qo) if causal else 0
+    planted = k.clone()
+    planted[:, kvv - 1] = q[:, i, ::G]
+    return planted
+
+
+def _d_forms(h, dev, rows) -> None:
+    """Phase 8: K8's forms that path D's model does not call, at public
+    models' shapes with seeded inputs: ``causal=False`` on the tensor-core,
+    CUDA-core and split-KV tiles, head dims 80, 96 and 256 on the
+    tensor-core and split-KV tiles (dh 256 prefill on the CUDA-core tile)
+    and 40 on the CUDA-core tile.  Each is held against its plain version
+    and the f64 oracle within one bf16 ulp of the magnitude
+    (``_k8_check``), a planted fault (a row's last key dropped, on inputs
+    where that key carries the row) must fail the check, and each is timed
+    beside SDPA and its bound: the ``forms`` of the ``flash`` and
+    ``flash_decode`` rows."""
+    import functools
+    import torch
+    from repro_torch.kernels import flash as tflash
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    for row, what, dt, B, Sq, Skv, H, Hkv, dh, qo, kvv, causal in D_FORMS:
+        dt = getattr(torch, dt)
+
+        def rn(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+        q, k, v = rn(B, Sq, H, dh), rn(B, Skv, Hkv, dh), rn(B, Skv, Hkv, dh)
+        tile = tflash.tile_of(dt, dh, Sq * (H // Hkv))
+        call = functools.partial(tflash.flash_attention, q, k, v,
+                                 q_offset=qo, kv_valid=kvv, causal=causal)
+        before = dict(tflash.LAUNCHES)
+        got = call()
+        done = {t: tflash.LAUNCHES[t] - before[t] for t in before}
+        if done[tile] != 1 or sum(done.values()) != 1 + (
+                tile == "flash_decode"):
+            raise AssertionError(f"K8 {what}: launches {done}, want one of "
+                                 f"{tile}")
+        chk = _k8_check(h, what, q, k, v, qo, kvv, causal=causal, got=got)
+        tflash.LAUNCHES.update(before)
+        # the planted fault: the key that carries a row, dropped
+        kp = _planted_last_key(q, k, qo, kvv, causal)
+        bad = h.uncounted(functools.partial(
+            tflash.flash_attention, q, kp, v, q_offset=qo, kv_valid=kvv - 1,
+            causal=causal))
+        mag = tflash.flash_attention_plain(q.float(), kp.float(),
+                                           v.float().abs(), q_offset=qo,
+                                           kv_valid=kvv, causal=causal)
+        d = (bad.double() - _dense_f64(q, kp, v, qo, kvv, None, causal)) \
+            .abs() / _bf16_ulp(mag)
+        if not bool((d > 1).any()):
+            raise AssertionError(f"K8 {what}: the planted fault (a row's "
+                                 f"last key dropped) passes the check")
+        reps = 20 if row == "flash" else 100
+        k_ms = _event_ms(lambda: h.uncounted(call), reps)
+        p_ms = _event_ms(functools.partial(
+            tflash.flash_attention_plain, q, k, v, q_offset=qo, kv_valid=kvv,
+            causal=causal), 3, warmup=1)
+        s_ms = _event_ms(_sdpa_call(q, k, v, qo, kvv, causal), reps)
+        work = tflash.tile_work(q, k, qo, kvv, tile, causal=causal)
+        bound, by = _k8_bound(work)
+        form = dict(form=what, tile=tile, dtype=str(dt).split(".")[-1],
+                    shape=[B, Sq, Skv, H, Hkv, dh], q_offset=qo,
+                    kv_valid=kvv, causal=causal, ms=k_ms, plain_ms=p_ms,
+                    sdpa_ms=s_ms, bound_ms=bound, bound_by=by,
+                    max_abs_err=chk["max_abs_err"],
+                    ulps_plain=chk["plain"], ulps_f64=chk["f64"],
+                    fault_ulps=float(d.max()))
+        rows[row].setdefault("forms", []).append(form)
+        print(f"  K8 {what} ({tile}; q {tuple(q.shape)}, k/v "
+              f"{tuple(k.shape)}, q_offset {qo}, kv_valid {kvv}): within one "
+              f"bf16 ulp of the magnitude of plain ({chk['plain']:.6f}) and "
+              f"f64 ({chk['f64']:.6f}); planted fault {float(d.max()):.3f} "
+              f"ulps, caught; kernel {k_ms:.6f} ms, plain {p_ms:.6f} ms, "
+              f"SDPA {s_ms:.6f} ms, bound {bound:.6f} ms ({by})")
+        del q, k, v, kp, got, bad, mag, d
+
+
+def _d_device_split(h, q, k, v, rows) -> None:
+    """Phase 8: the split-KV tile with tensor positions, on path D's layer-0
+    decode inputs with ``kv_valid`` cut to 1,000 of the cache's 2,080 keys,
+    so that the fixed plan (every key of the cache, ``decode_plan``) has
+    runs past the valid keys, which must write the empty partial: against
+    its plain version at that plan and the f64 oracle within one bf16 ulp;
+    a planted run past ``kend`` that writes a non-empty partial (keys past
+    ``kv_valid`` combined through the combine kernel, ``flash_merge``) must
+    fail the check, the empty partial pass it; the fixed plan timed beside
+    the int positions' plan over ``kend``."""
+    import functools
+    import torch
+    from repro_torch.kernels import flash as tflash
+    qo, kvv = 999, 1000
+    dev = q.device
+    pos = dict(q_offset=torch.full((), qo, dtype=torch.int32, device=dev),
+               kv_valid=torch.full((), kvv, dtype=torch.int32, device=dev))
+    n_fixed, per = tflash.decode_plan(q, k, **pos)
+    n_kend, per_k = tflash.decode_plan(q, k, q_offset=qo, kv_valid=kvv)
+    got = h.uncounted(functools.partial(tflash.flash_attention, q, k, v,
+                                        **pos))
+    plain = tflash.flash_decode_split_plain(q, k, v, n_split=n_fixed, **pos)
+    mag = tflash.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                       q_offset=qo, kv_valid=kvv)
+    exact = _dense_f64(q, k, v, qo, kvv)
+    tol = _bf16_ulp(mag)
+    ulps = {}
+    for what, want in (("its plain version at the fixed plan", plain),
+                       ("the f64 oracle", exact)):
+        d = (got.double() - want.double()).abs() / tol
+        if not bool((d <= 1).all()):
+            raise AssertionError(f"K8 split-KV tile, tensor positions, vs "
+                                 f"{what}: max {float(d.max())} ulps")
+        ulps[what] = float(d.max())
+    # the valid keys' partial, then a run past kend: empty, or planted
+    m, l, acc = h.uncounted(functools.partial(
+        tflash.flash_attention, q, k[:, :kvv], v[:, :kvv], q_offset=qo,
+        return_partial=True))
+    pm, pl, pa = h.uncounted(functools.partial(
+        tflash.flash_attention, q, k[:, kvv:kvv + 192], v[:, kvv:kvv + 192],
+        q_offset=0, return_partial=True, causal=False))
+    merged = {}
+    for name, run in (("empty", (torch.full_like(m, -1e30),
+                                 torch.zeros_like(l), torch.zeros_like(acc))),
+                      ("planted", (pm, pl, pa))):
+        out = h.uncounted(functools.partial(
+            tflash.flash_merge, torch.stack((m, run[0]), 2),
+            torch.stack((l, run[1]), 2), torch.stack((acc, run[2]), 2)))
+        merged[name] = float(((out.double() - exact).abs() / tol).max())
+    if merged["empty"] > 1 or merged["planted"] <= 1:
+        raise AssertionError(f"K8 split-KV tile: a run past kend, combined, "
+                             f"in ulps of the magnitude {merged}: the empty "
+                             f"partial must pass, a planted one fail")
+    t_fixed = _event_ms(lambda: h.uncounted(functools.partial(
+        tflash.flash_attention, q, k, v, **pos)), 100)
+    t_kend = _event_ms(lambda: h.uncounted(functools.partial(
+        tflash.flash_attention, q, k, v, q_offset=qo, kv_valid=kvv)), 100)
+    rows["flash_decode"]["device_positions"] = dict(
+        kv_valid=kvv, Skv=k.shape[1], n_split=n_fixed, tiles_per_split=per,
+        kend_n_split=n_kend, kend_tiles_per_split=per_k, ms=t_fixed,
+        kend_ms=t_kend, ulps_plain=ulps[
+            "its plain version at the fixed plan"],
+        ulps_f64=ulps["the f64 oracle"], empty_run_ulps=merged["empty"],
+        planted_run_ulps=merged["planted"])
+    print(f"  K8 split-KV tile with tensor positions (q_offset {qo}, "
+          f"kv_valid {kvv} of {k.shape[1]} keys): the fixed plan {n_fixed} "
+          f"runs of {per} tiles (over kend: {n_kend} of {per_k}); within "
+          f"one bf16 ulp of its plain version at that plan "
+          f"({ulps['its plain version at the fixed plan']:.6f}) and f64 "
+          f"({ulps['the f64 oracle']:.6f}); a run past kend combined: empty "
+          f"{merged['empty']:.6f} ulps, planted non-empty "
+          f"{merged['planted']:.3f} ulps (caught); {t_fixed:.6f} ms at the "
+          f"fixed plan, {t_kend:.6f} ms at kend's")
+
+
+def _d_device_steps(cfg, kept, toks) -> None:
+    """Phase 8: path D's decode step with ``cache_len`` a device scalar, from
+    the served run's weights and prompts: the int form's steps, then the
+    tensor form's under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+    sync), equal greedy ids (or, where they part, logits within
+    ``LM_LOGIT_TOL`` at the first step that differs); then one tensor-form
+    step warmed on a side stream, a step captured there in a
+    ``torch.cuda.CUDAGraph`` and replayed for the remaining steps with
+    ``cache_len`` and the ids advanced on the card: ids and every cache
+    equal the uncaptured tensor form's bit for bit.  Prints the replay's
+    ms a step beside the uncaptured step's (a finding, no claim)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as tM
+    from repro_torch.serve import step as tstep
+    P, T, B = LM_PROMPT_LEN, LM_NEW_TOKENS, LM_REQUESTS
+    dev = kept["prompts"].device
+    params = kept["params"]
+    caches0 = tM.init_cache(cfg, B, P + T, device=dev)
+    lg0, caches0 = tstep.make_prefill(cfg)(params, caches0, kept["prompts"],
+                                           kept["pos"])
+    tok0 = torch.argmax(lg0[:, :cfg.vocab_size], -1).to(torch.int32)
+    if not (tok0.cpu().numpy() == toks[:, 0]).all():
+        raise AssertionError("path D's prefill again: other first tokens")
+    dec = tstep.make_decode_step(cfg)
+    real_logits = tM.lm_logits
+    seen = []
+
+    def logits_kept(*a, **kw):
+        out = real_logits(*a, **kw)
+        seen.append(out[:, 0].clone())
+        return out
+
+    def copy(c):
+        return {p: {n: t.clone() for n, t in v.items()} for p, v in c.items()}
+
+    def steps(form):
+        caches, tok, ids = copy(caches0), tok0, []
+        dpos = torch.empty((B, 1), dtype=torch.int32, device=dev)
+        seen.clear()
+        tM.lm_logits = logits_kept
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(T):
+            dpos.fill_(P + i)
+            if form == "int":
+                tok, caches = dec(params, caches, tok[:, None], dpos, P + i)
+            else:
+                cl = torch.full((), P + i, dtype=torch.int32, device=dev)
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    tok, caches = dec(params, caches, tok[:, None], dpos, cl)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            ids.append(tok)
+        end.record()
+        torch.cuda.synchronize()
+        tM.lm_logits = real_logits
+        return torch.stack(ids, 1), list(seen), caches, \
+            start.elapsed_time(end) / T
+
+    ids_i, lg_i, _, ms_int = steps("int")
+    ids_t, lg_t, caches_t, ms_t = steps("tensor")
+    same = (ids_i == ids_t).all(0)
+    first = int(np.argmin(np.append(same.cpu().numpy(), False)))
+    if first < T:
+        d = float((lg_i[first] - lg_t[first]).abs().max())
+        if d > LM_LOGIT_TOL:
+            raise AssertionError(f"path D decode, tensor cache_len: ids part "
+                                 f"from the int form's at step {first}, "
+                                 f"logits {d} apart (tolerance "
+                                 f"{LM_LOGIT_TOL})")
+        parted = f"part at step {first} (logits {d:.6e} apart there)"
+    else:
+        parted = f"equal over all {T} steps"
+    del lg_i, lg_t
+    # the captured step: static ids, cache_len and positions
+    caches_g = copy(caches0)
+    tok_in = tok0[:, None].clone()
+    cl = torch.full((), P, dtype=torch.int32, device=dev)
+    dpos = cl.expand(B, 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm: step 0, uncaptured
+        out, caches_g = dec(params, caches_g, tok_in, dpos, cl)
+    torch.cuda.current_stream().wait_stream(side)
+    ids_g = [out.clone()]
+    tok_in.copy_(out[:, None])
+    cl.fill_(P + 1)
+    # tracelint: ok[retrace](one capture, replayed for the path's steps)
+    graph = torch.cuda.CUDAGraph()
+    # tracelint: ok[retrace](the capture of that one graph)
+    with torch.cuda.graph(graph, stream=side):
+        out, _ = dec(params, caches_g, tok_in, dpos, cl)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(1, T):
+        graph.replay()
+        ids_g.append(out.clone())
+        tok_in.copy_(out[:, None])
+        cl.add_(1)
+    end.record()
+    torch.cuda.synchronize()
+    ms_g = start.elapsed_time(end) / (T - 1)
+    ids_g = torch.stack(ids_g, 1)
+    if not torch.equal(ids_g, ids_t):
+        raise AssertionError("path D decode: the CUDA graph's ids differ "
+                             "from the uncaptured tensor form's")
+    for p, leaves in caches_t.items():
+        for n, t in leaves.items():
+            _check_equal(f"path D decode: the CUDA graph's cache {p}.{n}",
+                         caches_g[p][n], t)
+    del graph, caches_g, caches_t, caches0
+    print(f"  path D decode with cache_len a device scalar: {T} steps under "
+          f"set_sync_debug_mode('error') (no host sync); greedy ids against "
+          f"the int form's: {parted}; a CUDA graph of the step replayed "
+          f"{T - 1} times: ids and every cache equal the uncaptured steps' "
+          f"bit for bit; {ms_g:.6f} ms a step replayed against "
+          f"{ms_t:.6f} ms uncaptured (tensor form; int form "
+          f"{ms_int:.6f} ms)")
 
 
 def _slice_ranks(pieces, lo, hi, live_of) -> int:
@@ -4692,23 +5032,27 @@ def _j_bias_inputs(g, dev, B, Sq, Skv, H, Hkv, dh, shift):
         .contiguous()
 
 
-def _k8_check(h, what, q, k, v, qo, kvv, bias=None) -> dict:
-    """K8 (uncounted) against its plain version and a dense f64 oracle on
-    these inputs, each within one bf16 ulp of the magnitude (the attention
-    of |v| in f32); raises beyond.  Returns the largest |kernel - plain|
-    and the comparisons in ulps of the magnitude."""
+def _k8_check(h, what, q, k, v, qo, kvv, bias=None, causal=True,
+              got=None) -> dict:
+    """K8 (uncounted; or ``got``, its output already made) against its
+    plain version and a dense f64 oracle on these inputs, each within one
+    bf16 ulp of the magnitude (the attention of |v| in f32); raises
+    beyond.  Returns the largest |kernel - plain| and the comparisons in
+    ulps of the magnitude."""
     import functools
     import torch
     from repro_torch.kernels import flash as tflash
-    got = h.uncounted(functools.partial(
-        tflash.flash_attention, q, k, v, q_offset=qo, kv_valid=kvv,
-        bias_qk=bias))
+    kw = {} if causal else {"causal": False}
+    if got is None:
+        got = h.uncounted(functools.partial(
+            tflash.flash_attention, q, k, v, q_offset=qo, kv_valid=kvv,
+            bias_qk=bias, **kw))
     ref = tflash.flash_attention_plain(q, k, v, q_offset=qo, kv_valid=kvv,
-                                       bias_qk=bias)
+                                       bias_qk=bias, **kw)
     mag = tflash.flash_attention_plain(q.float(), k.float(), v.float().abs(),
                                        q_offset=qo, kv_valid=kvv,
-                                       bias_qk=bias)
-    exact = _dense_f64(q, k, v, qo, kvv, bias)
+                                       bias_qk=bias, **kw)
+    exact = _dense_f64(q, k, v, qo, kvv, bias, causal)
     torch.cuda.synchronize()
     tol = _bf16_ulp(mag)
     out = {"max_abs_err": float((got.double() - ref.double()).abs().max())}
@@ -8102,6 +8446,25 @@ def main(argv=None) -> int:
     if len(bias_sass) != 2 or n_hg == 0 or n_hm:
         raise AssertionError("flash_bias_kernel's SASS must hold HGMMA "
                              "(wgmma) and no HMMA (mma.sync) at D 64 and 384")
+    # K8's other tiles at every head dim they take (the CUDA-core tile at
+    # its padded widths 16-256, the tensor-core tile at D 64, 80, 96 and
+    # 128, the split-KV tile at 64, 128 and 256): no spills, and HGMMA in
+    # every instantiation of the tensor-core tile
+    if "flash" in reports:
+        for kern in ("flash_cc_kernel", "flash_tc_kernel",
+                     "flash_split_kernel"):
+            bad = _spills(_entry_report(reports["flash"], kern))
+            if bad:
+                raise AssertionError(f"ptxas spills in {kern}: {bad}")
+        print("  flash_cc_kernel, flash_tc_kernel, flash_split_kernel (every "
+              "head dim): no spills")
+    tc_sass = _sass_functions(sass, "flash_tc_kernel")
+    tc_hg = [f.count("HGMMA") for f in tc_sass]
+    print(f"  flash_tc_kernel: {len(tc_sass)} functions (D 64, 80, 96, 128), "
+          f"HGMMA {tc_hg}")
+    if len(tc_sass) != 4 or not all(tc_hg):
+        raise AssertionError("every flash_tc_kernel instantiation must run "
+                             "its products as wgmma (HGMMA)")
 
     h = _Harness(dev, args.seed, args.queries)
     g, L, nq = h.g, args.n_leaves, args.queries

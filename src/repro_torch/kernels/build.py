@@ -58,11 +58,12 @@ SIGNATURES = {
         "repro_linfit_sums": (P, P, P, LL, I, P, P, P),
     },
     "flash": {
-        "repro_flash_cc": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F,
+        "repro_flash_cc": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
+                           I, F, P),
+        "repro_flash_tc": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F,
                            P),
-        "repro_flash_tc": (P, P, P, P, P, I, I, I, I, I, I, I, I, F, P),
-        "repro_flash_decode": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                               I, F, I, I, P),
+        "repro_flash_decode": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                               I, I, I, F, I, I, P),
         "repro_flash_bias": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
                              P),
         "repro_flash_merge": (P, P, P, P, I, I, I, I, I, P),

@@ -19,8 +19,11 @@ Formulas:
 * K8, every form (``flash_work``): q read, the output written (bf16 out,
   or f32 ``(m, l, acc)`` in the ``return_partial`` form), the K and V rows
   of the keys the mask keeps (the first ``min(kv_valid, q_offset + Sq)``
-  positions), f32 fq and fk with ``bias``, the f32 ``lse`` with ``lse``;
-  4 dh operations a (query, valid key) pair (the QK and PV products).  The
+  positions; ``kv_valid`` without the causal mask), f32 fq and fk with
+  ``bias``, the f32 ``lse`` with ``lse``; 4 dh operations a (query, valid
+  key) pair (the QK and PV products).  Tensor positions (in device memory)
+  cannot be read without a sync, so such a call counts the keys its
+  launch's grid covers: every key of the cache, for every row.  The
   split-KV tile's partials and its combine pass stay on chip in this
   count: they are the tile's, not the function's.
 * K8's combine across positions (``merge_work``): m, l and acc read, the
@@ -95,13 +98,20 @@ def _keys_seen(Sq: int, q_offset: int, kv_valid: int) -> tuple[int, int]:
     return max(0, min(kv_valid, q_offset + Sq)), int(per_row.sum())
 
 
-def flash_work(q: torch.Tensor, k: torch.Tensor, q_offset: int,
-               kv_valid: int, *, unit: str = BF16, lse: bool = False,
-               bias: bool = False, partial: bool = False) -> Work:
-    """One K8 call on q (B, Sq, H, dh) and k/v (B, Skv, Hkv, dh)."""
+def flash_work(q: torch.Tensor, k: torch.Tensor, q_offset, kv_valid, *,
+               unit: str = BF16, lse: bool = False, bias: bool = False,
+               partial: bool = False, causal: bool = True) -> Work:
+    """One K8 call on q (B, Sq, H, dh) and k/v (B, Skv, Hkv, dh); the
+    positions ints, or tensors (then every key of the cache counts, for
+    every row: read nowhere on the host)."""
     B, Sq, H, dh = q.shape
     el = q.element_size()
-    keys, pairs = _keys_seen(Sq, int(q_offset), int(kv_valid))
+    if isinstance(q_offset, torch.Tensor) or \
+            isinstance(kv_valid, torch.Tensor):
+        keys, pairs = k.shape[1], Sq * k.shape[1]
+    else:   # without the causal mask every row sees kv_valid keys
+        keys, pairs = _keys_seen(Sq, int(q_offset if causal else kv_valid),
+                                 int(kv_valid))
     nbytes = q.numel() * el + 2 * B * keys * k.shape[2] * dh * el
     rows = B * H * Sq
     nbytes += (2 * rows + q.numel()) * 4 if partial else q.numel() * el

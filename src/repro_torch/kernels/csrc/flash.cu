@@ -21,12 +21,33 @@
 // is built with -fmad=false; every fused multiply-add below is an explicit
 // __fmaf_rn.
 //
+// Positions and the mask (tiles 1-3; tile 4 takes by-value ints, causal):
+// q_offset and kv_valid arrive by value, or, where the `pos` pointer is not
+// null, from device memory (int32 pos[0] = q_offset, pos[1] = kv_valid:
+// the reference's traced positions, so that a call reads no host value and
+// a decode step can be captured in a CUDA graph).  Every block reads them
+// at its start (read_positions): kv_valid is clamped into [0, Skv], as the
+// reference's masks bound it, and q_offset may be negative (a
+// sequence-sharded chunk past `length`: no key is seen).  With `causal` 0
+// (the TPU kernel's causal=False) every query sits past every key
+// (q_offset = kUnmasked): the diagonal test and the k_pos <= q_pos test
+// always pass and the keys end at kv_valid.
+//
+// Head dims: tiles 1 and 2 take D in {64, 80, 96, 128} and {64, 80, 96,
+// 128, 256}, tile 3 any D from 1 to 256.  Each is built at a padded width
+// (64 or 128 in tile 1, 64, 128 or 256 in tile 2, 16, 32, 64, 128 or 256 in
+// tile 3) and keeps the columns past D zero in shared memory, so that they
+// add exact zeros; global rows keep their stride D, and only D columns are
+// written.
+//
 // Every tile puts the G = H / Hkv query heads that share a KV head on the
 // rows of one tile: row r is query position r / G, head hkv * G + r % G, so
 // one K/V tile serves G heads.  Four tiles, chosen by the wrapper from the
 // dtype, D, the rows Sq * G and bias_qk (it raises where none applies):
 //
-// 1. flash_tc_kernel: bf16, D in {64, 128}, Sq * G > 8 (prefill).  What
+// 1. flash_tc_kernel: bf16, D in {64, 80, 96, 128}, Sq * G > 8 (prefill).
+//    At D 80 and 96, S takes D / 16 k-steps and P.V runs at N = 128 over V
+//    tiles whose columns past D the TMA fills with zeros.  What
 //    bounds it is the operations (4 D a (query, valid key) pair), so it
 //    runs them on the tensor cores.  A block of two consumer warpgroups
 //    (64 rows each, 128 rows a block) and one producer warp; row tiles are
@@ -58,11 +79,15 @@
 //        (P rounded once to bf16: 2^-8, which is how SDPA misses the
 //        one-ulp check); the cost is 1.5x the MMA work.  The split keeps
 //        the k16 register-A layout that S's accumulator converts into.
-// 2. flash_split_kernel + flash_combine_kernel: bf16, D in {64, 128},
-//    Sq * G <= 8 (decode).  What bounds it is the bytes of the KV cache,
-//    and B * Hkv blocks cannot fill the card, so the valid keys [0, kend)
-//    are cut into n_split runs of whole 64-key tiles (the wrapper picks
-//    n_split so that B * Hkv * n_split >= 2 x the SM count).  A block of 4
+// 2. flash_split_kernel + flash_combine_kernel: bf16, D in {64, 80, 96,
+//    128, 256}, Sq * G <= 8 (decode).  What bounds it is the bytes of the
+//    KV cache, and B * Hkv blocks cannot fill the card, so the keys are cut
+//    into n_split runs of whole 64-key tiles (the wrapper picks n_split so
+//    that B * Hkv * n_split >= 2 x the SM count): runs over the valid keys
+//    [0, kend) for by-value positions; over the cache's Skv keys for
+//    positions in device memory, where the launch's shape must not depend
+//    on them, a run that starts at or past kend writing the empty partial
+//    at once.  A block of 4
 //    warps streams its run through a 2-stage cp.async ring of bf16 tiles
 //    (16-byte vectors, masked keys never read), each warp with its own
 //    online softmax over 16 keys of every tile on the CUDA cores (q * scale
@@ -71,10 +96,12 @@
 //    kernel: M = max m_i, out = sum acc_i e^(m_i - M) / max(sum l_i
 //    e^(m_i - M), 1e-30).  A run whose keys are all masked has m = -1e30,
 //    l = 0, acc = 0 and weighs 0; kv_valid = 0 gives 0.
-// 3. flash_cc_kernel: f32 inputs, and D in {16, 32}: the first design,
+// 3. flash_cc_kernel: f32 inputs, and bf16 at any D the other tiles do not
+//    take (bf16 prefill at D 256 among them: tile 1's 128-row Q tile and
+//    K/V ring would not fit shared memory there): the first design,
 //    on the CUDA cores, an f32 staging of Q, K and V in shared memory and
-//    explicit fmaf loops; a 64-row tile, or an 8-row one for Sq * G <= 8.
-//    expf and f32 dots in key and feature order.
+//    explicit fmaf loops; a 64-row tile (32 rows at width 256), or an 8-row
+//    one for Sq * G <= 8.  expf and f32 dots in key and feature order.
 // 4. flash_bias_kernel: bias_qk given (the mLSTM's parallel form), bf16, D
 //    in {64, 384}: the per-query and per-key terms added to each score.
 //    Tile 1's pieces (64-key K and V tiles by TMA into an mbarrier ring, S
@@ -123,15 +150,70 @@ __device__ __forceinline__ void store_val(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Values ch * VEC .. + VEC - 1 of a row of dh values, zero past dh: one
+// 16-byte load where the row's chunks are whole (dh a multiple of VEC, so
+// that every row starts 16-byte aligned), else a value at a time.
+template <typename T>
+__device__ __forceinline__ void load_padded(const T* row, int ch, int dh,
+                                            float* o) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (dh % VEC == 0 && (ch + 1) * VEC <= dh) {
+    load_chunk(row + ch * VEC, o);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    const int d = ch * VEC + e;
+    o[e] = d < dh ? to_float(row[d]) : 0.0f;
+  }
+}
+
+// A query position past every key (q_offset without the causal mask).
+constexpr int kUnmasked = 1 << 30;
+
+// The positions of a call (see the top of the file): from `pos` where it is
+// not null, kv_valid clamped into [0, Skv], q_offset into [-kUnmasked,
+// kUnmasked] (so that q_offset + a row stays an int), and kUnmasked without
+// the causal mask.
+__device__ __forceinline__ void read_positions(const int* pos, int causal,
+                                               int Skv, int& q_offset,
+                                               int& kv_valid) {
+  if (pos != nullptr) {
+    q_offset = pos[0];
+    kv_valid = pos[1];
+  }
+  kv_valid = min(max(kv_valid, 0), Skv);
+  q_offset = causal ? min(max(q_offset, -kUnmasked), kUnmasked) : kUnmasked;
+}
+
+// The bit of the current device in `done` where it is not set yet, else 0:
+// a launcher sets its kernel's shared memory attribute on the first call
+// on each device only, so that later calls, a stream capture's among them,
+// make no attribute call.
+unsigned unset_device_bit(unsigned done) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1u;
+  const unsigned bit = 1u << (dev % 32);
+  return (done & bit) ? 0u : bit;
+}
+
 // ===========================================================================
-// 3. The CUDA-core tile (f32, D in {16, 32})
+// 3. The CUDA-core tile (f32 at any D; bf16 where tiles 1 and 2 do not take
+//    D)
 // ===========================================================================
 // One block of 128 threads (8 row groups x 16 lanes) per (row tile, KV
 // head, batch): the Q tile (q * scale, f32) staged once, transposed; each
 // 64-key tile of K (transposed) and V staged in f32; S = Q K^T in
 // registers, a thread owning RPT rows x 4 keys; the online softmax per row,
 // reduced over the row's 16 lanes by shuffles; acc += P V, a thread owning
-// RPT rows x D/16 columns, P moving between lanes by shuffles.
+// RPT rows x D/16 columns, P moving between lanes by shuffles.  D is the
+// padded width (16, 32, 64, 128 or 256) and dh <= D the head dim: rows are
+// dh values apart in global memory, the columns past dh are staged as 0.
 constexpr int kCcThreads = 128;
 constexpr int kCcBK = 64;
 
@@ -148,8 +230,9 @@ template <typename T, int D, int RPT>
 __global__ void __launch_bounds__(kCcThreads)
 flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, T* __restrict__ out,
-                float* __restrict__ lse, int Sq, int Skv, int H, int Hkv,
-                int G, int q_offset, int kv_valid, float scale) {
+                float* __restrict__ lse, const int* __restrict__ pos,
+                int Sq, int Skv, int H, int Hkv, int G, int dh, int q_offset,
+                int kv_valid, int causal, float scale) {
   constexpr int kBK = kCcBK;
   constexpr int kThreads = kCcThreads;
   constexpr int BR = 8 * RPT;              // rows a block
@@ -166,14 +249,15 @@ flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hkv = blockIdx.y, b = blockIdx.z;
   const int rows = Sq * G;
   const int r0 = (gridDim.x - 1 - blockIdx.x) * BR;
+  read_positions(pos, causal, Skv, q_offset, kv_valid);
 
   for (int idx = tid; idx < BR * NCH; idx += kThreads) {
     const int r = idx % BR, ch = idx / BR, rr = r0 + r;
     float f[VEC];
     if (rr < rows) {
       const int i = rr / G, g = rr % G;
-      load_chunk(q + ((static_cast<size_t>(b) * Sq + i) * H + hkv * G + g) *
-                         D + ch * VEC, f);
+      load_padded(q + ((static_cast<size_t>(b) * Sq + i) * H + hkv * G + g) *
+                          dh, ch, dh, f);
     } else {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) f[e] = 0.0f;
@@ -195,9 +279,9 @@ flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int i_last = (min(r0 + BR, rows) - 1) / G;
   const int kend = max(0, min(kv_valid, q_offset + i_last + 1));
   const int ntiles = (kend + kBK - 1) / kBK;
-  const size_t kv_row = static_cast<size_t>(Hkv) * D;
-  const T* kb = k + static_cast<size_t>(b) * Skv * kv_row + hkv * D;
-  const T* vb = v + static_cast<size_t>(b) * Skv * kv_row + hkv * D;
+  const size_t kv_row = static_cast<size_t>(Hkv) * dh;
+  const T* kb = k + static_cast<size_t>(b) * Skv * kv_row + hkv * dh;
+  const T* vb = v + static_cast<size_t>(b) * Skv * kv_row + hkv * dh;
 
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * kBK;
@@ -206,7 +290,7 @@ flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = idx % kBK, ch = idx / kBK;
       float f[VEC];
       if (k0 + j < Skv) {
-        load_chunk(kb + (k0 + j) * kv_row + ch * VEC, f);
+        load_padded(kb + (k0 + j) * kv_row, ch, dh, f);
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) f[e] = 0.0f;
@@ -218,7 +302,7 @@ flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = idx / NCH, ch = idx % NCH;
       float f[VEC];
       if (k0 + j < Skv) {
-        load_chunk(vb + (k0 + j) * kv_row + ch * VEC, f);
+        load_padded(vb + (k0 + j) * kv_row, ch, dh, f);
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) f[e] = 0.0f;
@@ -331,11 +415,12 @@ flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int rr = r0 + ty * RPT + r;
     if (rr >= rows) continue;
     const int i = rr / G, g = rr % G;
-    T* dst = out + ((static_cast<size_t>(b) * Sq + i) * H + hkv * G + g) * D;
+    T* dst = out + ((static_cast<size_t>(b) * Sq + i) * H + hkv * G + g) * dh;
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int cc = 0; cc < COLS; ++cc)
-      store_val(dst + col_of<D>(tx, cc), __fdiv_rn(acc[r][cc], den));
+      if (col_of<D>(tx, cc) < dh)
+        store_val(dst + col_of<D>(tx, cc), __fdiv_rn(acc[r][cc], den));
     // the row's log-sum-exp, m and l being the same in its 16 lanes
     if (lse != nullptr && tx == 0)
       lse[(static_cast<size_t>(b) * H + hkv * G + g) * Sq + i] =
@@ -343,49 +428,53 @@ flash_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The arguments every tile-3 launch passes on.
+struct CcArgs {
+  const void *q, *k, *v;
+  void* out;
+  float* lse;
+  const int* pos;
+  int B, Sq, Skv, H, Hkv, dh, q_offset, kv_valid, causal;
+  float scale;
+  cudaStream_t stream;
+};
+
 template <typename T, int D, int RPT>
-int launch_cc(const void* q, const void* k, const void* v, void* out,
-              float* lse, int B, int Sq, int Skv, int H, int Hkv,
-              int q_offset, int kv_valid, float scale, cudaStream_t stream) {
+int launch_cc(const CcArgs& a) {
   constexpr int BR = 8 * RPT;
-  const int smem = static_cast<int>((D * BR + 2 * D * kCcBK) * sizeof(float));
+  constexpr int smem = (D * BR + 2 * D * kCcBK) * sizeof(float);
   auto kern = flash_cc_kernel<T, D, RPT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int G = H / Hkv;
-  const dim3 grid((Sq * G + BR - 1) / BR, Hkv, B);
-  kern<<<grid, kCcThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Skv, H, Hkv,
-      G, q_offset, kv_valid, scale);
+  static unsigned set = 0;
+  if (const unsigned bit = unset_device_bit(set)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set |= bit;
+  }
+  const int G = a.H / a.Hkv;
+  const dim3 grid((a.Sq * G + BR - 1) / BR, a.Hkv, a.B);
+  kern<<<grid, kCcThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.lse, a.pos, a.Sq,
+      a.Skv, a.H, a.Hkv, G, a.dh, a.q_offset, a.kv_valid, a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// D in {16, 32, 64, 128} for f32, {16, 32} for bf16 (the bf16 tiles take
-// 64 and 128).
-template <typename T, int RPT>
-int cc_by_dim(int D, const void* q, const void* k, const void* v, void* out,
-              float* lse, int B, int Sq, int Skv, int H, int Hkv,
-              int q_offset, int kv_valid, float scale, cudaStream_t st) {
-  switch (D) {
-    case 16: return launch_cc<T, 16, RPT>(q, k, v, out, lse, B, Sq, Skv, H, Hkv,
-                                          q_offset, kv_valid, scale, st);
-    case 32: return launch_cc<T, 32, RPT>(q, k, v, out, lse, B, Sq, Skv, H, Hkv,
-                                          q_offset, kv_valid, scale, st);
-    default: break;
-  }
-  if constexpr (sizeof(T) == 4) {
-    switch (D) {
-      case 64: return launch_cc<T, 64, RPT>(q, k, v, out, lse, B, Sq, Skv, H, Hkv,
-                                            q_offset, kv_valid, scale, st);
-      case 128: return launch_cc<T, 128, RPT>(q, k, v, out, lse, B, Sq, Skv, H,
-                                              Hkv, q_offset, kv_valid, scale,
-                                              st);
-      default: break;
-    }
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+// Head dim 1 to 256 at the padded width 16, 32, 64, 128 or 256; the
+// prefill tile's 64 rows (32 at width 256, which keeps its 64 accumulators
+// a thread), or the decode tile's 8 (RPT 1).
+template <typename T>
+int cc_by_dim(const CcArgs& a, int decode) {
+  if (a.dh < 1 || a.dh > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.dh <= 16) return decode ? launch_cc<T, 16, 1>(a)
+                                : launch_cc<T, 16, 8>(a);
+  if (a.dh <= 32) return decode ? launch_cc<T, 32, 1>(a)
+                                : launch_cc<T, 32, 8>(a);
+  if (a.dh <= 64) return decode ? launch_cc<T, 64, 1>(a)
+                                : launch_cc<T, 64, 8>(a);
+  if (a.dh <= 128) return decode ? launch_cc<T, 128, 1>(a)
+                                 : launch_cc<T, 128, 8>(a);
+  return decode ? launch_cc<T, 256, 1>(a) : launch_cc<T, 256, 4>(a);
 }
 
 // ===========================================================================
@@ -570,13 +659,15 @@ __device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi,
 
 // The Q rows r0 .. r0 + ROWS - 1 of (b, hkv) (row r: query r / G, head
 // hkv * G + r % G) into sQ [D/64][ROWS][128 B], each 16-byte chunk c of row
-// r at chunk c ^ (r % 8) (the 128-byte swizzle), zero past the last row, by
-// the 256 consumer threads: every load issued before any store.
+// r at chunk c ^ (r % 8) (the 128-byte swizzle), zero past the last row and
+// past the head dim dh <= D (a multiple of 8, the rows' stride in q), by the
+// 256 consumer threads: every load issued before any store.
 template <int D, int ROWS>
 __device__ __forceinline__ void stage_q(uint8_t* sQ,
                                         const __nv_bfloat16* __restrict__ q,
                                         int tid, int r0, int rows, int b,
-                                        int Sq, int H, int hkv, int G) {
+                                        int Sq, int H, int hkv, int G,
+                                        int dh) {
   constexpr int NCH = D / 8;
   constexpr int PER = ROWS * NCH / 256;
   uint4 val[PER];
@@ -585,10 +676,10 @@ __device__ __forceinline__ void stage_q(uint8_t* sQ,
     const int idx = tid + u * 256;
     const int r = idx / NCH, c = idx % NCH, rr = r0 + r;
     val[u] = make_uint4(0u, 0u, 0u, 0u);
-    if (rr < rows) {
+    if (rr < rows && c * 8 < dh) {
       const int i = rr / G, g = rr % G;
       val[u] = *reinterpret_cast<const uint4*>(
-          q + ((static_cast<size_t>(b) * Sq + i) * H + hkv * G + g) * D +
+          q + ((static_cast<size_t>(b) * Sq + i) * H + hkv * G + g) * dh +
           c * 8);
     }
   }
@@ -601,9 +692,10 @@ __device__ __forceinline__ void stage_q(uint8_t* sQ,
   }
 }
 
-// S (64 x 64, f32) = Q K^T, unscaled, by wgmma from shared memory: Q's 64
-// rows at q_addr in a [D/64][ROWS][128 B] tile, K at k_addr in [D/64][64
-// keys][128 B], both swizzled as stage_q stores them.
+// S (64 x 64, f32) = Q K^T over the first D columns (D / 16 k-steps),
+// unscaled, by wgmma from shared memory: Q's 64 rows at q_addr in a
+// [D/64][ROWS][128 B] tile, K at k_addr in [D/64][64 keys][128 B] (D/64
+// rounded up), both swizzled as stage_q stores them.
 template <int D, int ROWS>
 __device__ __forceinline__ void wgmma_qk(float (&sc)[32], uint32_t q_addr,
                                          uint32_t k_addr) {
@@ -620,7 +712,8 @@ __device__ __forceinline__ void wgmma_qk(float (&sc)[32], uint32_t q_addr,
 // The epilogue of a consumer thread: its rows rA and rB = rA + 8 (absolute
 // rows of (b, hkv)) hold N output columns from c0 in the accumulators o,
 // their m and their partial l (summed over the quad here); out = o /
-// max(l, 1e-30) in bf16, and where lse is not null each row's m + log(l).
+// max(l, 1e-30) in bf16 (the columns below D, the rows' stride in out), and
+// where lse is not null each row's m + log(l).
 template <int N>
 __device__ __forceinline__ void store_rows(
     const float (&o)[N / 2], float mA, float mB, float lA, float lB,
@@ -642,9 +735,10 @@ __device__ __forceinline__ void store_rows(
         out + ((static_cast<size_t>(b) * Sq + i) * H + hkv * G + g) * D + c0;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * t4) =
-          __floats2bfloat162_rn(__fdiv_rn(o[4 * j + 2 * half], den),
-                                __fdiv_rn(o[4 * j + 2 * half + 1], den));
+      if (c0 + 8 * j < D)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * t4) =
+            __floats2bfloat162_rn(__fdiv_rn(o[4 * j + 2 * half], den),
+                                  __fdiv_rn(o[4 * j + 2 * half + 1], den));
     // the row's log-sum-exp, m and l being the same in its quad
     if (lse != nullptr && t4 == 0)
       lse[(static_cast<size_t>(b) * H + hkv * G + g) * Sq + i] =
@@ -653,7 +747,7 @@ __device__ __forceinline__ void store_rows(
 }
 
 // ===========================================================================
-// 1. The tensor-core prefill tile (bf16, D in {64, 128}, Sq * G > 8)
+// 1. The tensor-core prefill tile (bf16, D in {64, 80, 96, 128}, Sq * G > 8)
 // ===========================================================================
 constexpr int kTcBM = 64;                 // rows a consumer warpgroup
 constexpr int kTcWG = 2;                  // consumer warpgroups a block
@@ -675,14 +769,19 @@ struct TcSmem {
 // 64 bf16 (128 bytes a row), row-major in a block, each 16-byte chunk c of
 // row r at chunk c ^ (r % 8) (TMA's and wgmma's 128-byte swizzle):
 //   sQ [D/64][kTcBR rows][128 B], sK and sV [stage][D/64][kTcBK keys][128 B].
-template <int D>
+// The head dim DH is D, or at D = 128 also 80 or 96: the columns past DH
+// are zero (stage_q; the TMA's fill past the map's DH features), S takes
+// DH / 16 k-steps and P.V all D columns, of which DH are stored.
+template <int DH>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_tc_kernel(__grid_constant__ const CUtensorMap kmap,
                 __grid_constant__ const CUtensorMap vmap,
                 const __nv_bfloat16* __restrict__ q,
                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                int B, int Sq, int H, int Hkv, int G, int q_offset,
-                int kv_valid, float scale) {
+                const int* __restrict__ pos, int B, int Sq, int Skv, int H,
+                int Hkv, int G, int q_offset, int kv_valid, int causal,
+                float scale) {
+  constexpr int D = (DH + 63) / 64 * 64;
   using S = TcSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[kTcStages], empty[kTcStages];
@@ -709,6 +808,7 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap kmap,
   }
   __syncthreads();
 
+  read_positions(pos, causal, Skv, q_offset, kv_valid);
   const int i_last = (min(r0 + kTcBR, rows) - 1) / G;
   const int kend = max(0, min(kv_valid, q_offset + i_last + 1));
   const int ntiles = (kend + kTcBK - 1) / kTcBK;
@@ -733,7 +833,7 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap kmap,
   }
 
   // the Q tile while the first K/V tiles load
-  stage_q<D, kTcBR>(sQ, q, tid, r0, rows, b, Sq, H, hkv, G);
+  stage_q<D, kTcBR>(sQ, q, tid, r0, rows, b, Sq, H, hkv, G, DH);
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   consumers_sync();
 
@@ -758,7 +858,7 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap kmap,
 
   // S(t) = Q K_t^T, unscaled, f32
   auto issue_s = [&](int t) {
-    wgmma_qk<D, kTcBR>(sc, q_addr, smem_u32(sK + (t % kTcStages) * S::kKV));
+    wgmma_qk<DH, kTcBR>(sc, q_addr, smem_u32(sK + (t % kTcStages) * S::kKV));
   };
   // O += P_hi(t) V_t + P_lo(t) V_t
   auto issue_pv = [&](int t) {
@@ -864,7 +964,7 @@ flash_tc_kernel(__grid_constant__ const CUtensorMap kmap,
   }
 
   store_rows<D>(o, mA, mB, lA, lB, out, lse, r0 + rA, t4, 0, rows, b, Sq, H,
-                D, hkv, G);
+                DH, hkv, G);
 }
 
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
@@ -910,29 +1010,37 @@ int kv_map(CUtensorMap* map, const void* base, int B, int Skv, int Hkv,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D>
+// The map's features are the head dim DH (a box past it is zero-filled).
+template <int DH>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
-              float* lse, int B, int Sq, int Skv, int H, int Hkv,
-              int q_offset, int kv_valid, float scale, cudaStream_t stream) {
+              float* lse, const int* pos, int B, int Sq, int Skv, int H,
+              int Hkv, int q_offset, int kv_valid, int causal, float scale,
+              cudaStream_t stream) {
+  constexpr int kBytes = TcSmem<(DH + 63) / 64 * 64>::kBytes;
   CUtensorMap kmap, vmap;
-  int rc = kv_map(&kmap, k, B, Skv, Hkv, D);
-  if (rc == 0) rc = kv_map(&vmap, v, B, Skv, Hkv, D);
+  int rc = kv_map(&kmap, k, B, Skv, Hkv, DH);
+  if (rc == 0) rc = kv_map(&vmap, v, B, Skv, Hkv, DH);
   if (rc != 0) return rc;
-  auto kern = flash_tc_kernel<D>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TcSmem<D>::kBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kern = flash_tc_kernel<DH>;
+  static unsigned set = 0;
+  if (const unsigned bit = unset_device_bit(set)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set |= bit;
+  }
   const int G = H / Hkv;
   const int ntx = (Sq * G + kTcBR - 1) / kTcBR;
-  kern<<<ntx * Hkv * B, kTcThreads, TcSmem<D>::kBytes, stream>>>(
+  kern<<<ntx * Hkv * B, kTcThreads, kBytes, stream>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q),
-      static_cast<__nv_bfloat16*>(out), lse, B, Sq, H, Hkv, G, q_offset,
-      kv_valid, scale);
+      static_cast<__nv_bfloat16*>(out), lse, pos, B, Sq, Skv, H, Hkv, G,
+      q_offset, kv_valid, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ===========================================================================
-// 2. The split-KV decode tile (bf16, D in {64, 128}, Sq * G <= 8)
+// 2. The split-KV decode tile (bf16, D in {64, 80, 96, 128, 256},
+//    Sq * G <= 8)
 // ===========================================================================
 constexpr int kSkThreads = 128;           // 4 warps
 constexpr int kSkBK = 64;                 // keys a tile, 16 a warp
@@ -960,15 +1068,21 @@ struct SkSmem {
 
 // Block (split, hkv, b) covers the 64-key tiles split * tiles_per .. +
 // tiles_per - 1 of [0, kend) and writes the partial of rows 0 .. rows - 1
-// at ((b * Hkv + hkv) * n_split + split) * rows + r.  R >= rows (4 or 8).
+// at ((b * Hkv + hkv) * n_split + split) * rows + r (acc's rows dh values
+// apart); a block whose first tile lies at or past kend writes the empty
+// partial (m = -1e30, l = 0, acc = 0) and returns.  R >= rows (4 or 8).
+// D is the padded width (64, 128 or 256) and dh <= D the head dim, a
+// multiple of 8: rows are dh values apart in global memory, and the
+// columns past dh are staged as 0.
 template <int D, int R>
 __global__ void __launch_bounds__(kSkThreads)
 flash_split_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    float* __restrict__ m_part, float* __restrict__ l_part,
-                   float* __restrict__ acc_part, int Sq, int Skv, int H,
-                   int Hkv, int G, int q_offset, int kv_valid, float scale,
+                   float* __restrict__ acc_part, const int* __restrict__ pos,
+                   int Sq, int Skv, int H, int Hkv, int G, int dh,
+                   int q_offset, int kv_valid, int causal, float scale,
                    int tiles_per) {
   constexpr int NCH = D / 8;          // 16-byte chunks a row
   constexpr int HC = NCH / 2;         // chunks a half row
@@ -983,32 +1097,46 @@ flash_split_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_split = gridDim.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rows = Sq * G;
+  read_positions(pos, causal, Skv, q_offset, kv_valid);
   const int kend = max(0, min(kv_valid, q_offset + Sq));
   const int t0 = split * tiles_per;
   const int t1 = min(t0 + tiles_per, (kend + kSkBK - 1) / kSkBK);
+  const size_t pbase =
+      ((static_cast<size_t>(b) * Hkv + hkv) * n_split + split) * rows;
+  if (t0 >= t1) {
+    for (int idx = tid; idx < rows * dh; idx += kSkThreads) {
+      acc_part[pbase * dh + idx] = 0.0f;
+      if (idx % dh == 0) {
+        m_part[pbase + idx / dh] = kFloor;
+        l_part[pbase + idx / dh] = 0.0f;
+      }
+    }
+    return;
+  }
 
   for (int idx = tid; idx < R * D; idx += kSkThreads) {
     const int r = idx / D, d = idx % D;
     float x = 0.0f;
-    if (r < rows)
+    if (r < rows && d < dh)
       x = __fmul_rn(__bfloat162float(
                         q[((static_cast<size_t>(b) * Sq + r / G) * H +
-                           hkv * G + r % G) * D + d]),
+                           hkv * G + r % G) * dh + d]),
                     scale);
     sq[idx] = x;
   }
 
-  const size_t kv_row = static_cast<size_t>(Hkv) * D;
+  const size_t kv_row = static_cast<size_t>(Hkv) * dh;
   const __nv_bfloat16* kb = k + static_cast<size_t>(b) * Skv * kv_row +
-                            hkv * D;
+                            hkv * dh;
   const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Skv * kv_row +
-                            hkv * D;
+                            hkv * dh;
   // K rows keep chunk cg at cg ^ (key % 8): the S loop's 8 lanes of a
-  // quarter-warp read 8 keys' same chunk from 8 distinct bank groups
+  // quarter-warp read 8 keys' same chunk from 8 distinct bank groups;
+  // chunks past dh and keys past kend are filled with zeros, not read
   auto load = [&](int t, int st) {
     for (int idx = tid; idx < kSkBK * NCH; idx += kSkThreads) {
       const int j = idx / NCH, cg = idx % NCH, key = t * kSkBK + j;
-      const bool ok = key < kend;
+      const bool ok = key < kend && cg * 8 < dh;
       const size_t off = ok ? key * kv_row + cg * 8 : 0;
       cp_async16(sK + (st * kSkBK + j) * D + ((cg ^ (j & 7)) * 8), kb + off,
                  ok);
@@ -1096,7 +1224,15 @@ flash_split_kernel(const __nv_bfloat16* __restrict__ q,
         const __nv_bfloat16* vrow =
             sV + (st * kSkBK + warp * 16 + 4 * j4 + e) * D + lane * COLS;
         float vv[COLS];
-        if constexpr (COLS == 4) {
+        if constexpr (COLS == 8) {
+          const uint4 w = *reinterpret_cast<const uint4*>(vrow);
+          const unsigned ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            vv[2 * c] = __uint_as_float(ws[c] << 16);
+            vv[2 * c + 1] = __uint_as_float(ws[c] & 0xffff0000u);
+          }
+        } else if constexpr (COLS == 4) {
           const uint2 w = *reinterpret_cast<const uint2*>(vrow);
           vv[0] = __uint_as_float(w.x << 16);
           vv[1] = __uint_as_float(w.x & 0xffff0000u);
@@ -1135,10 +1271,8 @@ flash_split_kernel(const __nv_bfloat16* __restrict__ q,
       aw[(warp * R + r) * D + lane * COLS + c] = acc[r][c];
   }
   __syncthreads();
-  const size_t pbase =
-      ((static_cast<size_t>(b) * Hkv + hkv) * n_split + split) * rows;
-  for (int idx = tid; idx < rows * D; idx += kSkThreads) {
-    const int r = idx / D, d = idx % D;
+  for (int idx = tid; idx < rows * dh; idx += kSkThreads) {
+    const int r = idx / dh, d = idx % dh;
     float M = mw[r];
 #pragma unroll
     for (int w = 1; w < 4; ++w) M = fmaxf(M, mw[w * R + r]);
@@ -1149,7 +1283,7 @@ flash_split_kernel(const __nv_bfloat16* __restrict__ q,
       L = __fadd_rn(L, __fmul_rn(lw[w * R + r], e));
       A = __fadd_rn(A, __fmul_rn(aw[(w * R + r) * D + d], e));
     }
-    acc_part[(pbase + r) * D + d] = A;
+    acc_part[(pbase + r) * dh + d] = A;
     if (d == 0) {
       m_part[pbase + r] = M;
       l_part[pbase + r] = L;
@@ -1206,23 +1340,35 @@ flash_combine_kernel(const float* __restrict__ m_part,
   }
 }
 
+// The arguments every split-KV launch passes on.
+struct SplitArgs {
+  const void *q, *k, *v;
+  float *m_part, *l_part, *acc_part;
+  const int* pos;
+  int B, Sq, Skv, H, Hkv, dh, q_offset, kv_valid, causal;
+  float scale;
+  int n_split, tiles_per;
+  cudaStream_t stream;
+};
+
 template <int D, int R>
-int launch_split(const void* q, const void* k, const void* v, void* m_part,
-                 void* l_part, void* acc_part, int B, int Sq, int Skv, int H,
-                 int Hkv, int q_offset, int kv_valid, float scale,
-                 int n_split, int tiles_per, cudaStream_t stream) {
+int launch_split(const SplitArgs& a) {
   constexpr int smem = SkSmem<D, R>::kBytes;
   auto kern = flash_split_kernel<D, R>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n_split, Hkv, B);
-  kern<<<grid, kSkThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<float*>(m_part),
-      static_cast<float*>(l_part), static_cast<float*>(acc_part), Sq, Skv, H,
-      Hkv, H / Hkv, q_offset, kv_valid, scale, tiles_per);
+  static unsigned set = 0;
+  if (const unsigned bit = unset_device_bit(set)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set |= bit;
+  }
+  const dim3 grid(a.n_split, a.Hkv, a.B);
+  kern<<<grid, kSkThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), a.m_part, a.l_part, a.acc_part,
+      a.pos, a.Sq, a.Skv, a.H, a.Hkv, a.H / a.Hkv, a.dh, a.q_offset,
+      a.kv_valid, a.causal, a.scale, a.tiles_per);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1396,7 +1542,7 @@ flash_bias_kernel(__grid_constant__ const CUtensorMap kmap,
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;"
                :: "n"(kBiasConsumerRegs));
-  stage_q<D, T::kRows>(sQ, q, tid, r0, rows, b, Sq, H, hkv, G);
+  stage_q<D, T::kRows>(sQ, q, tid, r0, rows, b, Sq, H, hkv, G, D);
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   consumers_sync();
 
@@ -1587,106 +1733,92 @@ int launch_bias(const void* q, const void* k, const void* v, const float* fq,
 // scaled scores, m + log(l), for the backward (training passes it; serving
 // passes null and the tiles write nothing more).
 
-// The CUDA-core tile: all f32 (bf16 = 0) with D in {16, 32, 64, 128}, or all
-// bf16 (bf16 = 1) with D in {16, 32}; `decode` picks the 8-row tile (Sq * H
-// / Hkv <= 8).
+// `pos`, where not null, is int32 (q_offset, kv_valid) in device memory,
+// read in place of the by-value q_offset and kv_valid; `causal` 0 drops the
+// causal mask (the top of the file).
+
+// The CUDA-core tile: all f32 (bf16 = 0) or all bf16 (bf16 = 1), D from 1
+// to 256; `decode` picks the 8-row tile (Sq * H / Hkv <= 8).
 extern "C" int repro_flash_cc(const void* q, const void* k, const void* v,
-                              void* out, void* lse, int B, int Sq, int Skv,
-                              int H, int Hkv, int D, int q_offset,
-                              int kv_valid, int bf16, int decode, float scale,
+                              void* out, void* lse, const void* pos, int B,
+                              int Sq, int Skv, int H, int Hkv, int D,
+                              int q_offset, int kv_valid, int causal,
+                              int bf16, int decode, float scale,
                               void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* ls = static_cast<float*>(lse);
-  if (bf16) {
-    return decode ? cc_by_dim<__nv_bfloat16, 1>(D, q, k, v, out, ls, B, Sq,
-                                                Skv, H, Hkv, q_offset,
-                                                kv_valid, scale, st)
-                  : cc_by_dim<__nv_bfloat16, 8>(D, q, k, v, out, ls, B, Sq,
-                                                Skv, H, Hkv, q_offset,
-                                                kv_valid, scale, st);
-  }
-  return decode ? cc_by_dim<float, 1>(D, q, k, v, out, ls, B, Sq, Skv, H,
-                                      Hkv, q_offset, kv_valid, scale, st)
-                : cc_by_dim<float, 8>(D, q, k, v, out, ls, B, Sq, Skv, H,
-                                      Hkv, q_offset, kv_valid, scale, st);
+  const CcArgs a{q, k, v, out, static_cast<float*>(lse),
+                 static_cast<const int*>(pos), B, Sq, Skv, H, Hkv, D,
+                 q_offset, kv_valid, causal, scale,
+                 static_cast<cudaStream_t>(stream)};
+  return bf16 ? cc_by_dim<__nv_bfloat16>(a, decode)
+              : cc_by_dim<float>(a, decode);
 }
 
-// The tensor-core prefill tile: bf16, D in {64, 128}.
+// The tensor-core prefill tile: bf16, D in {64, 80, 96, 128}.
 extern "C" int repro_flash_tc(const void* q, const void* k, const void* v,
-                              void* out, void* lse, int B, int Sq, int Skv,
-                              int H, int Hkv, int D, int q_offset,
-                              int kv_valid, float scale, void* stream) {
+                              void* out, void* lse, const void* pos, int B,
+                              int Sq, int Skv, int H, int Hkv, int D,
+                              int q_offset, int kv_valid, int causal,
+                              float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
+  const int* ps = static_cast<const int*>(pos);
   switch (D) {
-    case 64: return launch_tc<64>(q, k, v, out, ls, B, Sq, Skv, H, Hkv,
-                                  q_offset, kv_valid, scale, st);
-    case 128: return launch_tc<128>(q, k, v, out, ls, B, Sq, Skv, H, Hkv,
-                                    q_offset, kv_valid, scale, st);
+    case 64: return launch_tc<64>(q, k, v, out, ls, ps, B, Sq, Skv, H, Hkv,
+                                  q_offset, kv_valid, causal, scale, st);
+    case 80: return launch_tc<80>(q, k, v, out, ls, ps, B, Sq, Skv, H, Hkv,
+                                  q_offset, kv_valid, causal, scale, st);
+    case 96: return launch_tc<96>(q, k, v, out, ls, ps, B, Sq, Skv, H, Hkv,
+                                  q_offset, kv_valid, causal, scale, st);
+    case 128: return launch_tc<128>(q, k, v, out, ls, ps, B, Sq, Skv, H, Hkv,
+                                    q_offset, kv_valid, causal, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 namespace {
 
-// The split-KV tile's first launch (the runs' partials into `part`, laid
-// out as repro_flash_decode says), by head dim and rows.
-int split_runs(const void* q, const void* k, const void* v, float* m_part,
-               float* l_part, float* acc_part, int B, int Sq, int Skv, int H,
-               int Hkv, int D, int q_offset, int kv_valid, float scale,
-               int n_split, int tiles_per, cudaStream_t st) {
-  const int rows = Sq * (H / Hkv);
-  int rc;
-  if (D == 64) {
-    rc = rows <= 4
-        ? launch_split<64, 4>(q, k, v, m_part, l_part, acc_part, B, Sq, Skv,
-                              H, Hkv, q_offset, kv_valid, scale, n_split,
-                              tiles_per, st)
-        : launch_split<64, 8>(q, k, v, m_part, l_part, acc_part, B, Sq, Skv,
-                              H, Hkv, q_offset, kv_valid, scale, n_split,
-                              tiles_per, st);
-  } else {
-    rc = rows <= 4
-        ? launch_split<128, 4>(q, k, v, m_part, l_part, acc_part, B, Sq, Skv,
-                               H, Hkv, q_offset, kv_valid, scale, n_split,
-                               tiles_per, st)
-        : launch_split<128, 8>(q, k, v, m_part, l_part, acc_part, B, Sq, Skv,
-                               H, Hkv, q_offset, kv_valid, scale, n_split,
-                               tiles_per, st);
-  }
-  return rc;
+// The split-KV tile's first launch (the runs' partials, laid out as
+// repro_flash_decode says), by padded width and rows.
+int split_runs(const SplitArgs& a) {
+  const bool r4 = a.Sq * (a.H / a.Hkv) <= 4;
+  if (a.dh <= 64) return r4 ? launch_split<64, 4>(a) : launch_split<64, 8>(a);
+  if (a.dh <= 128)
+    return r4 ? launch_split<128, 4>(a) : launch_split<128, 8>(a);
+  return r4 ? launch_split<256, 4>(a) : launch_split<256, 8>(a);
 }
 
 }  // namespace
 
 // The split-KV decode tile and its combine pass, two launches: bf16, D in
-// {64, 128}, Sq * H / Hkv <= 8.  `part` is f32 scratch of B * Hkv *
-// n_split * rows * (D + 2) values: the partials m, l (B, Hkv, n_split,
-// rows) and acc (B, Hkv, n_split, rows, D), block `split` of the first
-// launch covering key tiles split * tiles_per .. + tiles_per - 1.  With
-// `out` the combine writes the normalised bf16 output (B, Sq, H, D); with
-// `out` null it is the return_partial form (flash-decoding across
+// {64, 80, 96, 128, 256}, Sq * H / Hkv <= 8.  `part` is f32 scratch of B *
+// Hkv * n_split * rows * (D + 2) values: the partials m, l (B, Hkv,
+// n_split, rows) and acc (B, Hkv, n_split, rows, D), block `split` of the
+// first launch covering key tiles split * tiles_per .. + tiles_per - 1.
+// With `out` the combine writes the normalised bf16 output (B, Sq, H, D);
+// with `out` null it is the return_partial form (flash-decoding across
 // positions) and writes the run-combined, unnormalised f32 m_out, l_out
 // (B, H, Sq) and acc_out (B, H, Sq, D).
 extern "C" int repro_flash_decode(const void* q, const void* k,
                                   const void* v, void* part, void* out,
                                   void* m_out, void* l_out, void* acc_out,
-                                  int B, int Sq, int Skv, int H, int Hkv,
-                                  int D, int q_offset, int kv_valid,
-                                  float scale, int n_split, int tiles_per,
-                                  void* stream) {
+                                  const void* pos, int B, int Sq, int Skv,
+                                  int H, int Hkv, int D, int q_offset,
+                                  int kv_valid, int causal, float scale,
+                                  int n_split, int tiles_per, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = Sq * (H / Hkv);
-  if (rows > 8 || n_split < 1 || (D != 64 && D != 128) ||
+  if (rows > 8 || n_split < 1 ||
+      (D != 64 && D != 80 && D != 96 && D != 128 && D != 256) ||
       (out == nullptr && (m_out == nullptr || l_out == nullptr ||
                           acc_out == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   float* m_part = static_cast<float*>(part);
   float* l_part = m_part + static_cast<size_t>(B) * Hkv * n_split * rows;
   float* acc_part = l_part + static_cast<size_t>(B) * Hkv * n_split * rows;
-  const int rc = split_runs(q, k, v, m_part, l_part, acc_part, B, Sq, Skv, H,
-                            Hkv, D, q_offset, kv_valid, scale, n_split,
-                            tiles_per, st);
+  const int rc = split_runs(SplitArgs{
+      q, k, v, m_part, l_part, acc_part, static_cast<const int*>(pos), B, Sq,
+      Skv, H, Hkv, D, q_offset, kv_valid, causal, scale, n_split, tiles_per,
+      st});
   if (rc != 0) return rc;
   const dim3 grid(Hkv, B, rows);
   float* mo = static_cast<float*>(m_out);

@@ -108,7 +108,11 @@ def serve(arch: str, *, reduced: bool, requests: int, prompt_len: int,
             tok_in = bf16_draws(rng.normal(0, 1, (B, 1, cfg.d_model)), dev)
         else:
             tok_in = tok[:, None]
-        tok, caches = decode(params, caches, tok_in, dpos, prompt_len + i)
+        # the filled prefix as a device scalar, as the reference's loop
+        # passes it (filled on the card: nothing crosses from the host)
+        cache_len = torch.full((), prompt_len + i, dtype=torch.int32,
+                               device=dev)
+        tok, caches = decode(params, caches, tok_in, dpos, cache_len)
         out.append(tok)
     _sync(dev)
     dt = time.perf_counter() - t0

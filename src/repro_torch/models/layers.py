@@ -338,13 +338,48 @@ def _qkv(p: AttnParams, x: torch.Tensor, cfg, pos, tp_rank=None) -> tuple:
     return q, k, v
 
 
-def _write(cache: dict, k: torch.Tensor, v: torch.Tensor, start: int) -> None:
+def _write(cache: dict, k: torch.Tensor, v: torch.Tensor, start) -> None:
     """The S new keys and values into the cache at ``start``, clamped to
-    ``S_max - S`` as ``dynamic_update_slice`` clamps it, in place."""
+    ``S_max - S`` as ``dynamic_update_slice`` clamps it, in place.  A
+    tensor ``start`` (0-d, on the cache's device) is read nowhere on the
+    host: the rows go in by ``index_copy_``."""
     S = k.shape[1]
-    start = min(max(start, 0), cache["k"].shape[1] - S)
+    hi = cache["k"].shape[1] - S
+    if isinstance(start, torch.Tensor):
+        idx = start.clamp(0, hi) + torch.arange(S, device=start.device)
+        cache["k"].index_copy_(1, idx, k)
+        cache["v"].index_copy_(1, idx, v)
+        return
+    start = min(max(start, 0), hi)
     cache["k"][:, start:start + S] = k
     cache["v"][:, start:start + S] = v
+
+
+def _write_chunk(cache: dict, k: torch.Tensor, v: torch.Tensor, off) -> None:
+    """A sequence-sharded chunk's write (``repro/models/layers.py:239-
+    246``): the new keys and values at ``off`` (global position less the
+    chunk's base) where ``0 <= off < S_l``, else nothing.  An int ``off``
+    takes that branch on the host; a tensor ``off`` the reference's form,
+    read nowhere on the host: a write at ``clip(off, 0, S_l - S)`` on
+    every position, of the new rows where the chunk holds ``off`` and of
+    the rows it already held elsewhere."""
+    S_l = cache["k"].shape[1]
+    if not isinstance(off, torch.Tensor):
+        if 0 <= off < S_l:
+            _write(cache, k, v, off)
+        return
+    mine = (off >= 0) & (off < S_l)
+    idx = off.clamp(0, S_l - k.shape[1]) + torch.arange(k.shape[1],
+                                                        device=off.device)
+    for name, new in (("k", k), ("v", v)):
+        old = cache[name].index_select(1, idx)
+        cache[name].index_copy_(1, idx, torch.where(mine, new, old))
+
+
+def _length(cache: dict):
+    """A cache's filled prefix: a tensor as it is, anything else an int."""
+    length = cache["length"]
+    return length if isinstance(length, torch.Tensor) else int(length)
 
 
 def attention_block(p: AttnParams, x: torch.Tensor, cfg, *, pos, cache=None,
@@ -353,10 +388,12 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg, *, pos, cache=None,
     """x: (B, S, d).  Returns (out, new_cache).
 
     cache: None (attend over this call's own K/V) or a dict with ``k``/``v``
-    (B, S_max, KV, dh) and ``length`` (the filled prefix, an int): the new
-    K/V are written at ``length`` (the start clamped to ``S_max - S``, as
-    ``dynamic_update_slice`` clamps it), in place, and the queries attend
-    over the cache with ``q_offset = length``, ``kv_valid = length + S``.
+    (B, S_max, KV, dh) and ``length`` (the filled prefix: an int, or a 0-d
+    int32 tensor on the cache's device, the reference's traced value, read
+    nowhere on the host): the new K/V are written at ``length`` (the start
+    clamped to ``S_max - S``, as ``dynamic_update_slice`` clamps it), in
+    place, and the queries attend over the cache with ``q_offset =
+    length``, ``kv_valid = length + S``.
     With ``mesh`` (a ``ModelMesh``) every argument but ``cfg`` is a list
     over its positions: ``_attention_mesh``.
     """
@@ -373,7 +410,7 @@ def attention_block(p: AttnParams, x: torch.Tensor, cfg, *, pos, cache=None,
         raise not_ported("sequence-sharded KV caches without a mesh (pass "
                          "mesh=, a ModelMesh)", "14d")
     else:
-        length = int(cache["length"])
+        length = _length(cache)
         _write(cache, k, v, length)
         kc, vc = cache["k"], cache["v"]
         o = flash_attention(q, kc, vc, q_offset=length, kv_valid=length + S)
@@ -396,7 +433,9 @@ def _attention_mesh(p: list, x: list, cfg, *, pos: list, cache, tp_shard,
     position holds the chunk ``[base, base + S_l)`` of the time axis,
     ``base = data index * S_l``.  Only the position whose chunk holds
     global position ``length`` writes the new K/V, at ``clip(length -
-    base, 0, S_l - 1)``; every position attends over its whole chunk with
+    base, 0, S_l - 1)`` (``_write_chunk``; ``length`` an int or a 0-d
+    tensor, as in ``attention_block``); every position attends over its
+    whole chunk with
     ``q_offset = length - base`` and no ``kv_valid`` (a chunk past
     ``length`` sees no key, one before it all of its keys) through K8's
     ``return_partial`` form, and the positions' partials are brought to
@@ -413,12 +452,10 @@ def _attention_mesh(p: list, x: list, cfg, *, pos: list, cache, tp_shard,
             outs[r] = flash_attention(q, k, v, q_offset=0)
             continue
         c = cache[r]
-        length = int(c["length"])
+        length = _length(c)
         if seq:
-            S_l = c["k"].shape[1]
-            off = length - mesh.axis_index("data", r) * S_l
-            if 0 <= off < S_l:
-                _write(c, k, v, off)
+            off = length - mesh.axis_index("data", r) * c["k"].shape[1]
+            _write_chunk(c, k, v, off)
             parts[r] = flash_attention(q, c["k"], c["v"], q_offset=off,
                                        return_partial=True)
         else:

@@ -481,17 +481,39 @@ def unstack(sb, n_sb: int) -> list:
             for layer in range(n_sb)]
 
 
+def _cache_len(cache_len, pos):
+    """Decode's filled prefix: an int as an int; a tensor (or, where none
+    is given, the first entry of ``pos``) as a 0-d int32 tensor, on the
+    device it lies on, read nowhere on the host."""
+    if cache_len is None:
+        cache_len = pos.reshape(-1)[0]
+    if isinstance(cache_len, torch.Tensor):
+        return cache_len.reshape(()).to(torch.int32)
+    return int(cache_len)
+
+
+def _decode_pos(cache_len, shape, device) -> torch.Tensor:
+    """Every query's position in a decode step: ``cache_len`` over
+    ``shape`` (B, S), int32 (a tensor expanded, an int filled)."""
+    if isinstance(cache_len, torch.Tensor):
+        return cache_len.expand(shape)
+    return torch.full(shape, cache_len, dtype=torch.int32, device=device)
+
+
 def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
             mode: str = "train", remat: bool = True, cache_len=None,
             seq_sharded: bool = False, mesh=None, fsdp: bool = False):
     """inputs: token ids (B, S), or embeddings (B, S, d) where
     ``cfg.embed_input`` (cast to bf16).  pos: (B, S) positions, or (3, B,
-    S) (t, h, w) ids for M-RoPE.  Decode takes ``cache_len`` (an int;
-    default the first entry of ``pos``) as the caches' filled prefix and,
-    but for M-RoPE, as every query's position; M-RoPE keeps the caller's
-    ids, as the reference does.  Returns (hidden (B, S, d), caches) -- the
-    caches written in place (K/V at the filled prefix, each recurrent
-    layer's state replaced by its new one), or None without caches.
+    S) (t, h, w) ids for M-RoPE.  Decode takes ``cache_len`` (an int, or a
+    0-d int32 tensor on the model's device, the reference's traced
+    ``cache_len``, which stays a tensor and is read nowhere on the host;
+    default the first entry of ``pos``, as a tensor) as the caches' filled
+    prefix and, but for M-RoPE, as every query's position; M-RoPE keeps
+    the caller's ids, as the reference does.  Returns (hidden (B, S, d),
+    caches) -- the caches written in place (K/V at the filled prefix, each
+    recurrent layer's state replaced by its new one), or None without
+    caches.
     ``mode="train"`` with ``remat`` (and autograd recording) checkpoints
     each superblock (``torch.utils.checkpoint``, non-reentrant): its
     activations are recomputed in the backward, K8 launched again.
@@ -523,12 +545,9 @@ def forward(params, cfg, inputs: torch.Tensor, *, pos, caches=None,
     else:
         x = embed_tokens(params, cfg, inputs, cfg.tp_shard)
     if mode == "decode":
-        if cache_len is None:
-            cache_len = int(pos.reshape(-1)[0])
-        cache_len = int(cache_len)
+        cache_len = _cache_len(cache_len, pos)
         if cfg.rope != "mrope":
-            pos = torch.full(inputs.shape[:2], cache_len, dtype=torch.int32,
-                             device=x.device)
+            pos = _decode_pos(cache_len, inputs.shape[:2], x.device)
     elif caches is not None:           # prefill into fresh caches
         cache_len = 0
 
@@ -591,16 +610,14 @@ def _forward_mesh(params: list, cfg, inputs: list, *, pos: list, caches,
                          "caches: mode='decode' with caches")
     D = mesh.size
     x = _embed_mesh(params, cfg, inputs, mesh, fsdp)
+    lens = [0] * D                     # each position's cache_len
     if mode == "decode":
-        if cache_len is None:
-            cache_len = int(pos[0].reshape(-1)[0])  # sync: ok(one read)
-        cache_len = int(cache_len)
+        cache_len = _cache_len(cache_len, pos[0])
+        lens = [cache_len.to(xr.device) if isinstance(cache_len, torch.Tensor)
+                else cache_len for xr in x]
         if cfg.rope != "mrope":
-            pos = [torch.full(t.shape[:2], cache_len, dtype=torch.int32,
-                              device=xr.device)
-                   for t, xr in zip(inputs, x, strict=True)]
-    elif caches is not None:           # prefill into fresh caches
-        cache_len = 0
+            pos = [_decode_pos(n, t.shape[:2], xr.device)
+                   for n, t, xr in zip(lens, inputs, x, strict=True)]
     per = [unstack(params[r]["sb"], cfg.n_sb) for r in range(D)]
     specs = tree_map(lambda l: l.spec, _tree(cfg)["sb"]) if fsdp else None
 
@@ -614,8 +631,8 @@ def _forward_mesh(params: list, cfg, inputs: list, *, pos: list, caches,
                 c = [{k: t[layer] for k, t in caches[r][f"pos{i}"].items()}
                      for r in range(D)]
                 if kind == "attn":
-                    for cr in c:
-                        cr.update(length=cache_len, seq_sharded=seq_sharded)
+                    for cr, n in zip(c, lens, strict=True):
+                        cr.update(length=n, seq_sharded=seq_sharded)
             x, nc = _run_block_mesh(cfg, kind,
                                     [b[f"pos{i}"] for b in blks], x,
                                     pos=pos, cache=c, mesh=mesh)

@@ -218,8 +218,15 @@ def make_decode_step(cfg, mesh=None, *, batch_sharded: bool = True,
                      replicate_weights: bool = False):
     """fn(params, caches, tokens, pos, cache_len) -> (next ids (B,) int32,
     caches).  ``tokens``: ids (B, 1), or embeddings (B, 1, d) where
-    ``cfg.embed_input``.  Positions come from ``cache_len`` (an int), but
-    for M-RoPE, whose (3, B, 1) ids in ``pos`` are kept.
+    ``cfg.embed_input``.  Positions come from ``cache_len``, but for
+    M-RoPE, whose (3, B, 1) ids in ``pos`` are kept: an int, or a 0-d int32
+    tensor on the model's device, as the reference's step takes it (a
+    traced int32 scalar, ``repro/serve/step.py:109-115``).  A tensor is
+    read nowhere on the host: K8 reads the positions from device memory
+    and the caches are written by ``index_copy_``, so a dense model's step
+    makes no host sync and launches the same kernels whatever the value,
+    and can be captured in a CUDA graph (MoE archs read their routing
+    counts on the host, ``layers.moe_route``).
 
     With ``mesh``: lists over its positions (``fn.in_specs``,
     ``fn.out_specs``); under ``tp_shard`` the vocab shards' logits are

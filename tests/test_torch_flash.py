@@ -276,10 +276,11 @@ def test_split_plan():
 def test_tile_dispatch(dtype, dh, rows, tile):
     """bf16 at dh 64/128 takes the tensor-core tile above 8 rows and the
     split-KV tile at 8 or fewer; f32 and dh 16/32 take the CUDA-core tile;
-    another head dim raises."""
+    a head dim above 256 raises (``test_torch_k8_forms.py`` holds the
+    others)."""
     assert tflash.tile_of(dtype, dh, rows) == tile
     with pytest.raises(ValueError):
-        tflash.tile_of(dtype, 256, rows)
+        tflash.tile_of(dtype, 257, rows)
 
 
 _LOG2E = np.float32(1.4426950408889634)

@@ -449,8 +449,8 @@ def test_meta_branches_stand_in_for_the_launches():
     assert c.summary()["ops"] == 0          # nothing but the kernels
     # a head dim no tile takes raises on meta, as on a card
     with pytest.raises(ValueError):
-        tflash.flash_attention(_meta(1, 4, 2, 96), _meta(1, 4, 2, 96),
-                               _meta(1, 4, 2, 96), q_offset=0)
+        tflash.flash_attention(_meta(1, 4, 2, 384), _meta(1, 4, 2, 384),
+                               _meta(1, 4, 2, 384), q_offset=0)
     tflash.reset_launches()
     tlk.reset_launches()
     qs = torch.empty(4096, dtype=torch.float32, device="meta")

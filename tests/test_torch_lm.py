@@ -267,13 +267,17 @@ def _shapes(tree, prefix=""):
                                   "qwen2-vl-72b", "musicgen-large"])
 def test_params_and_caches_match_reference_shapes(arch):
     """``init_params`` and ``init_cache`` give the reference's shapes and
-    dtypes, reduced and (without allocating) at published widths."""
+    dtypes, reduced and (without allocating) at published widths.  The
+    reference's ``init_params`` is traced for its shapes and dtypes
+    (``jax.eval_shape``), not run: its random draws cost seconds and the
+    test reads only the shapes."""
     jc = jreduce(jget_arch(arch), n_layers=2)
     tc = reduce_cfg(get_arch(arch), n_layers=2)
     g = torch.Generator()
     g.manual_seed(0)
     got = _shapes(TM.init_params(tc, g, "cpu"))
-    assert got == _shapes(JM.init_params(jc, jax.random.PRNGKey(0)))
+    assert got == _shapes(jax.eval_shape(lambda k: JM.init_params(jc, k),
+                                         jax.random.PRNGKey(0)))
     got = _shapes(TM.init_cache(tc, 3, 40, device="cpu"))
     assert got == _shapes(JM.init_cache(jc, 3, 40))
     jc = dataclasses.replace(jget_arch(arch), tp=1, tp_shard=False)
